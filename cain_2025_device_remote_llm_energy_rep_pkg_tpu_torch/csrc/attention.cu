@@ -46,164 +46,19 @@
 //    splits T as flash-decoding does: block (split, b·Hkv) streams its slice
 //    of positions — the G query heads of the group share each K/V row — and
 //    writes unnormalised (acc, m, l) partials; a second small kernel merges
-//    the splits. Splits wholly past lengths[b] read nothing.
+//    the splits. Splits wholly past lengths[b] read nothing. The split body
+//    (decode_partial_kernel) lives in decode_common.cuh, shared with the
+//    paged kernels of paged_attention.cu.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int kDtypeF32 = 0;
-constexpr int kDtypeBF16 = 1;
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float to_f<int8_t>(int8_t x) { return static_cast<float>(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
+using namespace port_attn;
 
 // ---------------------------------------------------------------------------
-// Decode: split-T partials, then a merge.
-
-constexpr int kDecWarps = 4;
-constexpr int kGroupMax = 8;  // query heads per kv head held in registers
-
-// part_acc [B·Hkv, n_split, G, D], part_ml [B·Hkv, n_split, G, 2] (m, l).
-template <typename T, typename KV, int D, bool kQuant>
-__global__ void __launch_bounds__(kDecWarps * 32)
-    decode_partial_kernel(const T* __restrict__ q, const KV* __restrict__ k,
-                          const KV* __restrict__ v, const float* __restrict__ k_scale,
-                          const float* __restrict__ v_scale,
-                          const int* __restrict__ lengths, float* __restrict__ part_acc,
-                          float* __restrict__ part_ml, int hkv, int group, int t_cap,
-                          int split_len, float scale) {
-  constexpr int V = D / 32;  // elements of a row per lane
-  const int split = blockIdx.x;
-  const int n_split = gridDim.x;
-  const int bh = blockIdx.y;
-  const int b = bh / hkv;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int len = min(lengths[b], t_cap);
-  const int t_begin = split * split_len;
-  const int t_end = min(t_begin + split_len, len);
-
-  // q[b, h·G + g, :] for the group's heads: rows bh·G .. bh·G + G - 1.
-  const T* qg = q + static_cast<size_t>(bh) * group * D;
-  float qr[kGroupMax][V];
-  float m[kGroupMax], l[kGroupMax], acc[kGroupMax][V];
-#pragma unroll
-  for (int g = 0; g < kGroupMax; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      qr[g][i] = g < group ? to_f(qg[g * D + lane * V + i]) : 0.f;
-      acc[g][i] = 0.f;
-    }
-  }
-
-  const size_t head_row = static_cast<size_t>(bh) * t_cap;
-  for (int t = t_begin + warp; t < t_end; t += kDecWarps) {
-    const KV* kr = k + (head_row + t) * D + lane * V;
-    const KV* vr = v + (head_row + t) * D + lane * V;
-    float kv[V], vv[V];
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      kv[i] = to_f(kr[i]);
-      vv[i] = to_f(vr[i]);
-    }
-    const float ks = kQuant ? k_scale[head_row + t] : 1.f;
-    const float vs = kQuant ? v_scale[head_row + t] : 1.f;
-#pragma unroll
-    for (int g = 0; g < kGroupMax; ++g) {
-      if (g < group) {
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < V; ++i) s += qr[g][i] * kv[i];
-        s = warp_sum(s) * scale;
-        if (kQuant) s *= ks;
-        const float m_new = fmaxf(m[g], s);
-        const float alpha = expf(m[g] - m_new);  // 0 on the first key
-        const float p = expf(s - m_new);
-        l[g] = l[g] * alpha + p;
-        m[g] = m_new;
-        const float pv = p * vs;  // the int8 V scale folds into p
-#pragma unroll
-        for (int i = 0; i < V; ++i) acc[g][i] = acc[g][i] * alpha + pv * vv[i];
-      }
-    }
-  }
-
-  // Merge the block's warps, then write this split's partials.
-  __shared__ float sm_m[kDecWarps][kGroupMax];
-  __shared__ float sm_l[kDecWarps][kGroupMax];
-  __shared__ float sm_acc[kDecWarps][kGroupMax][D];
-#pragma unroll
-  for (int g = 0; g < kGroupMax; ++g) {
-    if (g < group) {
-      if (lane == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
-      }
-#pragma unroll
-      for (int i = 0; i < V; ++i) sm_acc[warp][g][lane * V + i] = acc[g][i];
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < group * D; idx += blockDim.x) {
-    const int g = idx / D;
-    const int d = idx % D;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float lsum = 0.f, a = 0.f;
-    if (mx != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < kDecWarps; ++w) {
-        if (sm_m[w][g] != -INFINITY) {
-          const float c = expf(sm_m[w][g] - mx);
-          lsum += sm_l[w][g] * c;
-          a += sm_acc[w][g][d] * c;
-        }
-      }
-    }
-    const size_t p = (static_cast<size_t>(bh) * n_split + split) * group + g;
-    part_acc[p * D + d] = a;
-    if (d == 0) {
-      part_ml[2 * p] = mx;
-      part_ml[2 * p + 1] = lsum;
-    }
-  }
-}
+// Decode: split-T partials (decode_partial_kernel, decode_common.cuh), then
+// a merge that normalises.
 
 // grid (B·Hkv, G), block D threads: out[b, h·G + g, d].
 template <typename T>
@@ -238,9 +93,11 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const flo
                           int n_split, int split_len, float scale, cudaStream_t stream) {
   const int group = hq / hkv;
   dim3 grid(n_split, batch * hkv);
-  decode_partial_kernel<T, KV, D, kQuant><<<grid, kDecWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v), k_scale,
-      v_scale, lengths, part_acc, part_ml, hkv, group, t_cap, split_len, scale);
+  decode_partial_kernel<T, KV, D, kQuant, ContiguousRows>
+      <<<grid, kDecWarps * 32, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
+          k_scale, v_scale, lengths, part_acc, part_ml, ContiguousRows{t_cap}, hkv, group,
+          split_len, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_merge_kernel<T><<<dim3(batch * hkv, group), D, 0, stream>>>(
@@ -474,8 +331,6 @@ cudaError_t dispatch_prefill(int d_head, const void* q, const void* k, const voi
       return cudaErrorInvalidValue;
   }
 }
-
-float softmax_scale(int d_head) { return static_cast<float>(1.0 / sqrt(static_cast<double>(d_head))); }
 
 }  // namespace
 

@@ -7,21 +7,34 @@ cache to int8 once, then decodes one token per step in a Python loop over
 fenced with ``torch.cuda.synchronize()`` (the JAX engine's
 ``block_until_ready``), so ``prefill_s`` and ``decode_s`` time device work.
 
-On a CUDA device attention always runs the hand-written kernels of
-``ops/cuda_attention.py``; their wrappers take the plain versions only for
-tensors on the CPU, which is where the tests run. The JAX engine's kernel
-policy was measured on a TPU and does not carry over.
+``generate_batch`` (``paged_kv=True``) serves several requests in one
+decode loop over a paged pool: grouped prefill per prompt bucket, the
+prompts' K/V scattered into the pool in whole pages, then a Python loop of
+batched decode steps whose attention merges the paged parts kernel's
+prompt term with small side caches of the generated tokens
+(``models/transformer.py``'s stacked-hybrid leaf). Each row's tokens equal
+the JAX paged engine's.
 
-Not ported yet: paged KV, batching and continuous sessions, speculation,
-prefix caches, HF checkpoints, the on-disk weight cache, int4 weights,
-``generate_stream``'s incremental path (the contract's single-chunk default
-stands in), CUDA graphs and ``extras["energy_model"]``.
+On a CUDA device attention always runs the hand-written kernels of
+``ops/cuda_attention.py`` and ``ops/cuda_paged_attention.py``; their
+wrappers take the plain versions only for tensors on the CPU, which is
+where the tests run. The JAX engine's kernel policies (and its routing
+between the Pallas parts kernel and an XLA gather) were measured on a TPU
+and do not carry over.
+
+Not ported yet: contiguous batched decode (``generate_batch`` with
+``paged_kv=False``), continuous sessions, speculation, prefix caches, HF
+checkpoints, the on-disk weight cache, int4 weights, ``generate_stream``'s
+incremental path (the contract's single-chunk default stands in), CUDA
+graphs and ``extras["energy_model"]``.
 """
 
 from __future__ import annotations
 
+import itertools
+import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -36,8 +49,13 @@ from ..ops.cuda_attention import (
     cuda_decode_attention_int8,
     cuda_prefill_attention,
 )
-from ..ops.sampling import sample_token
+from ..ops.cuda_paged_attention import (
+    cuda_paged_decode_attention_parts,
+    cuda_paged_decode_attention_parts_int8,
+)
+from ..ops.sampling import sample_token, sample_token_per_row
 from .backend import GenerationBackend, GenerationRequest, GenerationResult
+from .paged_kv import PagePool, _paginate, group_chunks, quantize_chunks, scatter_pages
 
 PROMPT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 GEN_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
@@ -47,6 +65,19 @@ PREFILL_CHUNK = PROMPT_BUCKETS[-1]
 # A stop-string request checks its text every this many decode steps —
 # the JAX engine's streamed chunk, so both exit within one chunk of a hit.
 DEFAULT_STREAM_CHUNK = 32
+# generate_batch rows pad up to these buckets.
+BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+# Budget for one sub-batch's K+V bytes: generate_batch picks the widest
+# bucket whose estimated cache fits it. The value is the JAX package's
+# default (sized there for a TPU's program budget); it was not sized for
+# the H100.
+BATCH_KV_BUDGET_BYTES = int(os.environ.get("BATCH_KV_BUDGET_BYTES", 2_500_000_000))
+# Never split below this width whatever the estimate says (the JAX
+# package's rule).
+BATCH_MIN_SPLIT_ROWS = 32
+# Stamped into every batch result's extras["decode_window"], so a consumer
+# counts distinct decode windows (tokens/s = tokens over their summed time).
+_DECODE_WINDOW_IDS = itertools.count()
 
 _PREFILL_H = _OBS.histogram(
     "llm_engine_prefill_seconds",
@@ -124,6 +155,13 @@ def _apply_stop(tokens: "list[int]", text: str, tok, stop) -> "tuple[list[int], 
     return tokens[:lo], kept
 
 
+def _pow2_at_least(n: int, floor: int = 1) -> int:
+    m = floor
+    while m < n:
+        m *= 2
+    return m
+
+
 def _resolve_device(device) -> torch.device:
     """``None`` means the card; without one that is an error, never a
     silent move to the CPU."""
@@ -143,12 +181,28 @@ def _int8_cache_attention(q, k_cache, v_cache, lengths):
     )
 
 
+def _paged_parts(q, k_leaf, v_leaf, lengths):
+    """The prompt-pages term of a stacked-hybrid paged step: unnormalised
+    (acc, m, l) from the parts kernel of the pool's kind."""
+    if isinstance(k_leaf["pool"], dict):
+        return cuda_paged_decode_attention_parts_int8(
+            q, k_leaf["pool"]["q"], k_leaf["pool"]["s"],
+            v_leaf["pool"]["q"], v_leaf["pool"]["s"], k_leaf["table"], lengths,
+        )
+    return cuda_paged_decode_attention_parts(
+        q, k_leaf["pool"], v_leaf["pool"], k_leaf["table"], lengths
+    )
+
+
 class TorchEngine(GenerationBackend):
     """In-process generation over the model registry on one device.
 
     ``registry`` maps model name → ModelConfig (pass tiny() configs for
     tests). ``quantize`` is None or "int8" (weights; one mode for every
-    model); ``kv_quantize`` is None or "int8" (the decode loop's cache).
+    model); ``kv_quantize`` is None or "int8" (the decode loop's cache,
+    and the page pool's under ``paged_kv``). ``paged_kv=True`` makes
+    ``generate_batch`` decode over a page pool of ``page_size`` tokens a
+    page; ``generate`` stays the solo contiguous path.
     """
 
     def __init__(
@@ -161,6 +215,7 @@ class TorchEngine(GenerationBackend):
         device=None,
         *,
         paged_kv: bool = False,
+        page_size: int = 128,
         speculative=None,
         prefix_cache_size: int = 0,
         prefix_share: bool = False,
@@ -168,7 +223,6 @@ class TorchEngine(GenerationBackend):
         weight_cache_dir=None,
     ) -> None:
         for option, value in (
-            ("paged_kv", paged_kv),
             ("speculative", speculative),
             ("prefix_cache_size", prefix_cache_size),
             ("prefix_share", prefix_share),
@@ -183,6 +237,14 @@ class TorchEngine(GenerationBackend):
             raise ValueError(f"unsupported quantize mode: {quantize!r}")
         if kv_quantize not in (None, "int8"):
             raise ValueError(f"unsupported kv_quantize mode: {kv_quantize!r}")
+        # The JAX package's rule (its TPU kernels tile pages on 128 lanes),
+        # kept so that admission arithmetic and page counts match it.
+        if page_size < 1 or page_size % 128:
+            raise ValueError(
+                f"page_size must be a positive multiple of 128, got {page_size}"
+            )
+        self.paged_kv = bool(paged_kv)
+        self.page_size = page_size
         self.device = _resolve_device(device)
         if self.device.type == "cuda":
             # Full-precision float32 products in the plain code around the
@@ -275,13 +337,21 @@ class TorchEngine(GenerationBackend):
         logits = logits_for(tf.params, tf.cfg, hidden[:, real - 1])
         return logits, k_cache, v_cache
 
-    def _start(self, request: GenerationRequest) -> Dict[str, Any]:
-        """Tokenize, bucket, prefill and sample the first token."""
+    def _start(
+        self,
+        request: GenerationRequest,
+        cache_len: Optional[int] = None,
+        prompt_ids: "Optional[list[int]]" = None,
+    ) -> Dict[str, Any]:
+        """Tokenize, bucket, prefill and sample the first token.
+        ``cache_len`` overrides the cache size (the batch path sizes it to
+        the prompt); ``prompt_ids`` skips re-tokenizing."""
         self.load_model(request.model)
         tf = self._models[request.model]
         cfg = tf.cfg
         tok = self._tokenizer_for(request.model)
-        prompt_ids = tok.encode(request.prompt)
+        if prompt_ids is None:
+            prompt_ids = tok.encode(request.prompt)
         if not prompt_ids:
             raise ValueError(
                 f"{request.model}: prompt encodes to zero tokens (empty "
@@ -290,7 +360,8 @@ class TorchEngine(GenerationBackend):
         s_real = len(prompt_ids)
         s_bucket = _prompt_alloc(s_real)
         g_bucket = _bucket(request.max_new_tokens, GEN_BUCKETS)
-        cache_len = s_bucket + g_bucket
+        if cache_len is None:
+            cache_len = s_bucket + g_bucket
         if cache_len > cfg.max_seq_len:
             raise ValueError(
                 f"{request.model}: prompt bucket {s_bucket} + generation "
@@ -401,20 +472,532 @@ class TorchEngine(GenerationBackend):
             decode_s=t2 - st["t1"],
             total_s=t2 - st["t0"],
         )
-        self._observe_decode_window(st["t1"], t2, result.generated_tokens)
+        n = result.generated_tokens
+        self._observe_decode_window(st["t1"], t2, n, n)
         return result
 
-    # -- telemetry --------------------------------------------------------------
-    def _obs_labels(self) -> Dict[str, str]:
-        return {"path": "contiguous", "kv": "int8" if self.kv_quantize else "bf16"}
+    # -- batched generation over the paged pool ---------------------------------
+    def _batch_states(
+        self,
+        requests: "list[GenerationRequest]",
+        all_prompt_ids: "list[list[int]]",
+    ) -> "list[Dict[str, Any]]":
+        """Per-row prefill states with GROUPED prefill, each cache sized to
+        its prompt (``_prompt_alloc``: the pages take the K/V afterwards).
 
-    def _observe_decode_window(self, t1: float, t2: float, tokens: int) -> None:
+        Rows whose prompts are single-chunk and share a prompt bucket
+        prefill together as one padded ``[G, bucket]`` forward
+        (G rounded up to a batch bucket; pad rows repeat the first row),
+        then sample their first tokens with :func:`sample_token_per_row`,
+        each from a fresh generator seeded like a solo request's, so each
+        row's stream is a solo :meth:`generate`'s. Such a row's state holds
+        the group's shared arrays (``st["group"]``: caches [L, Gb, Hkv, T,
+        D], first tokens, generators) and its index ``st["gi"]``; rows
+        share the group's prefill wall clock as ``prefill_s``. Multi-chunk
+        prompts and groups of one take the solo :meth:`_start`."""
+        model = requests[0].model
+        self.load_model(model)
+        tf = self._models[model]
+        cfg = tf.cfg
+        tok = self._tokenizer_for(model)
+
+        states: "list[Optional[Dict[str, Any]]]" = [None] * len(requests)
+        groups: "Dict[int, list[int]]" = {}  # prompt bucket -> rows
+        for i, ids in enumerate(all_prompt_ids):
+            chunks = _prompt_chunks(len(ids))
+            if ids and len(chunks) == 1:
+                groups.setdefault(chunks[0][1], []).append(i)
+            else:  # multi-chunk; an empty prompt fails there as a solo one does
+                states[i] = self._start(
+                    requests[i], cache_len=_prompt_alloc(len(ids)), prompt_ids=ids
+                )
+
+        for bucket, idxs in groups.items():
+            if len(idxs) == 1:  # no grouping win; identical solo semantics
+                i = idxs[0]
+                states[i] = self._start(
+                    requests[i], cache_len=bucket, prompt_ids=all_prompt_ids[i]
+                )
+                continue
+            t0 = time.monotonic()
+            g = len(idxs)
+            gb = _bucket(g, BATCH_BUCKETS)
+            row_ids = [all_prompt_ids[i] for i in idxs]
+            row_ids += [row_ids[0]] * (gb - g)
+            row_reqs = [requests[i] for i in idxs]
+            tokens = torch.tensor(
+                [ids + [tok.pad_id] * (bucket - len(ids)) for ids in row_ids],
+                dtype=torch.long, device=self.device,
+            )
+            last_index = torch.tensor([len(ids) - 1 for ids in row_ids], device=self.device)
+            k_cache, v_cache = tf.init_cache(gb, bucket, dtype=self.dtype)
+            hidden, k_cache, v_cache = forward(
+                tf.params, cfg, tokens, 0, k_cache, v_cache,
+                None, cuda_prefill_attention, layers=tf.layers,
+            )
+            logits = logits_for(
+                tf.params, cfg, hidden[torch.arange(gb, device=self.device), last_index]
+            )
+            # Pad rows are greedy and hold no generator, so they never
+            # advance a real row's stream.
+            gens = [torch.Generator(device=self.device).manual_seed(r.seed) for r in row_reqs]
+            gens += [None] * (gb - g)
+            knobs = self._row_knobs(row_reqs, gb)
+            presence = None
+            if any(r.repeat_penalty != 1.0 for r in row_reqs):
+                presence = torch.zeros((gb, cfg.vocab_size), dtype=torch.bool, device=self.device)
+                for gi, (r, ids) in enumerate(zip(row_reqs, row_ids)):
+                    if r.repeat_penalty != 1.0:
+                        presence[gi, torch.tensor(ids, device=self.device)] = True
+            firsts = sample_token_per_row(
+                logits, gens, knobs["temperature"], row_reqs[0].top_k,
+                knobs["top_p"], presence, knobs["repeat_penalty"],
+            )
+            self._sync()
+            t1 = time.monotonic()
+            if _obs_enabled():
+                _PREFILL_H.observe(t1 - t0)
+                _TRACER.add_span(
+                    "prefill", t0, t1, attrs={"model": model, "rows": g, "bucket": bucket}
+                )
+            shared = {"k": k_cache, "v": v_cache, "first": firsts, "gen": gens}
+            for gi, i in enumerate(idxs):
+                states[i] = {
+                    "s_real": len(all_prompt_ids[i]), "t0": t0, "t1": t1,
+                    "group": shared, "gi": gi,
+                }
+        return states  # type: ignore[return-value]
+
+    @staticmethod
+    def _row_knobs(requests: "list[GenerationRequest]", width: int) -> Dict[str, list]:
+        """Per-row sampling knobs as host lists, padded to ``width`` with
+        greedy, unfiltered, unpenalised rows."""
+        pad = width - len(requests)
+        return {
+            "temperature": [r.temperature for r in requests] + [0.0] * pad,
+            "top_p": [r.top_p for r in requests] + [1.0] * pad,
+            "repeat_penalty": [r.repeat_penalty for r in requests] + [1.0] * pad,
+        }
+
+    @staticmethod
+    def _row_field_specs(
+        states: "list[Dict[str, Any]]",
+    ) -> "list[Tuple[str, Callable[[list], Any]]]":
+        """The fields :meth:`_assemble_rows` gathers (first tokens and
+        generators), each with its builder for solo-prefilled rows. The
+        decode loop's presence mask is rebuilt from the prompts and first
+        tokens instead (:meth:`_generate_batch_paged`)."""
+        return [
+            ("first", lambda rows: torch.cat([states[r]["first"] for r in rows])),
+            ("gen", lambda rows: [states[r]["gen"] for r in rows]),
+        ]
+
+    def _assemble_rows(
+        self,
+        states: "list[Dict[str, Any]]",
+        b_bucket: int,
+        fields: "list[Tuple[str, Callable[[list], Any]]]",
+    ) -> Dict[str, Any]:
+        """Per-row batch fields from the grouped-prefill states: one gather
+        per group per field and one permutation, instead of one slice per
+        row. Group fields are tensors (gathered along dim 0) or lists of
+        generators; rows without a group come from the field's builder.
+        Pad rows (``b_bucket`` − len(states)) repeat row 0. Also returns
+        ``_groups`` {id: (shared, member rows)} for the page chunks."""
+        n = len(states)
+        groups: "Dict[int, Tuple[Dict[str, Any], list[int]]]" = {}
+        for r, st in enumerate(states):
+            if "group" in st:
+                groups.setdefault(id(st["group"]), (st["group"], []))[1].append(r)
+        solo_rows = [r for r, st in enumerate(states) if "group" not in st]
+        perm = [0] * b_bucket
+        pos = 0
+        for _, members in groups.values():
+            for j, r in enumerate(members):
+                perm[r] = pos + j
+            pos += len(members)
+        for j, r in enumerate(solo_rows):
+            perm[r] = pos + j
+        perm[n:] = [perm[0]] * (b_bucket - n)
+
+        def take(x, idx):
+            if isinstance(x, list):
+                return [x[i] for i in idx]
+            if idx == list(range(x.shape[0])):
+                return x  # identity gather: no copy
+            return x.index_select(0, torch.tensor(idx, device=x.device))
+
+        out: Dict[str, Any] = {"_groups": groups}
+        for name, solo_builder in fields:
+            parts = [
+                take(shared[name], [states[r]["gi"] for r in members])
+                for shared, members in groups.values()
+            ]
+            if solo_rows:
+                parts.append(solo_builder(solo_rows))
+            if isinstance(parts[0], list):
+                cat = [x for part in parts for x in part]
+            else:
+                cat = parts[0] if len(parts) == 1 else torch.cat(parts)
+            out[name] = take(cat, perm)
+        return out
+
+    def _generate_batch_paged(
+        self,
+        requests: "list[GenerationRequest]",
+        all_prompt_ids: "list[list[int]]",
+    ) -> "list[GenerationResult]":
+        """Grouped prefill at each row's own bucket; the prompts' K/V
+        scattered into a page pool in whole pages (one indexed copy per
+        pool tensor; int8 pools quantize the chunks first); then one decode
+        loop over the read-only pool and side caches for the generated
+        tokens. Pages cover the prompts only: the pool is never written
+        during decode."""
+        model = requests[0].model
+        top_k = requests[0].top_k
+        tf = self._models[model]
+        cfg = tf.cfg
+        tok = self._tokenizer_for(model)
+        page = self.page_size
+        n_real = max(r.max_new_tokens for r in requests) - 1
+        # each row's decode steps after its first token (the done condition)
+        row_budgets = [r.max_new_tokens - 1 for r in requests]
+        states = self._batch_states(requests, all_prompt_ids)
+        rows_pages = [-(-st["s_real"] // page) for st in states]
+
+        n = len(states)
+        b_bucket = _bucket(n, BATCH_BUCKETS)
+        pad_rows = b_bucket - n
+        fused_rows = [r for r, st in enumerate(states) if "group" in st]
+        # Pad rows enter decode done and read one private page; grouped
+        # rows send their bucket-tail chunks past the prompt to one shared
+        # garbage page (never a real row's page).
+        total_pages = sum(rows_pages) + (1 if pad_rows else 0) + (1 if fused_rows else 0)
+        n_pages = _pow2_at_least(total_pages, 4)
+        jmax = _pow2_at_least(max(rows_pages or [1]))
+        quantized = bool(self.kv_quantize)
+        pool = PagePool.create(
+            n_layers=cfg.n_layers, n_pages=n_pages, n_kv_heads=cfg.n_kv_heads,
+            d_head=cfg.d_head, page_size=page, dtype=self.dtype,
+            quantized=quantized, device=self.device,
+        )
+        # Entries past a row's need stay 0 and are never read (the kernels
+        # stop at the row's length).
+        table_rows = [[0] * jmax for _ in range(b_bucket)]
+        row_pages: "list[list[int]]" = []
+        for r, need in enumerate(rows_pages):
+            pages = pool.alloc(need)
+            row_pages.append(pages)
+            table_rows[r][:need] = pages
+        garbage = pool.alloc(1)[0] if fused_rows else None
+        if pad_rows:
+            private = pool.alloc(1)[0]
+            for r in range(n, b_bucket):
+                table_rows[r] = [private] * jmax
+
+        asm = self._assemble_rows(states, b_bucket, self._row_field_specs(states))
+        chunk_dest: "list[int]" = []
+        chunks_k, chunks_v = [], []
+        for shared, members in asm["_groups"].values():
+            ck, cv = group_chunks(
+                shared["k"], shared["v"], [states[r]["gi"] for r in members], page
+            )
+            chunks_k.append(ck)
+            chunks_v.append(cv)
+            tp = -(-shared["k"].shape[3] // page)
+            for r in members:
+                n_prompt_pages = rows_pages[r]
+                chunk_dest.extend(
+                    row_pages[r][j] if j < n_prompt_pages else garbage for j in range(tp)
+                )
+        for r, st in enumerate(states):
+            if "group" in st:
+                continue
+            chunk_dest.extend(row_pages[r])
+            chunks_k.append(_paginate(st["k_cache"][:, 0], st["s_real"], page))
+            chunks_v.append(_paginate(st["v_cache"][:, 0], st["s_real"], page))
+        all_k = chunks_k[0] if len(chunks_k) == 1 else torch.cat(chunks_k)
+        all_v = chunks_v[0] if len(chunks_v) == 1 else torch.cat(chunks_v)
+        if quantized:
+            all_k, all_v = quantize_chunks(all_k, all_v)
+        scatter_pages(pool.k, pool.v, chunk_dest, all_k, all_v)
+        table = torch.tensor(table_rows, dtype=torch.int32, device=self.device)
+
+        first_tokens = asm["first"]
+        first_host = first_tokens.tolist()
+        gens = asm["gen"][:n] + [None] * pad_rows  # pad rows hold no stream
+        # The repeat-penalty mask covers prompt + generated tokens, as a
+        # solo request's does.
+        presence = None
+        if any(r.repeat_penalty != 1.0 for r in requests):
+            presence = torch.zeros((b_bucket, cfg.vocab_size), dtype=torch.bool, device=self.device)
+            for r, (request, ids) in enumerate(zip(requests, all_prompt_ids)):
+                if request.repeat_penalty != 1.0:
+                    presence[r, torch.tensor(ids + [first_host[r]], device=self.device)] = True
+        # Free the prefill caches (group and solo) before the side caches
+        # are allocated.
+        for st in states:
+            for key in ("group", "k_cache", "v_cache"):
+                st.pop(key, None)
+        del asm, all_k, all_v, chunks_k, chunks_v
+
+        knobs = self._row_knobs(requests, b_bucket)
+        prompt_lens = torch.tensor(
+            [st["s_real"] for st in states] + [states[0]["s_real"]] * pad_rows,
+            dtype=torch.int32, device=self.device,
+        )
+        budgets = torch.tensor(row_budgets + [0] * pad_rows, device=self.device)
+        done = torch.tensor([False] * n + [True] * pad_rows, device=self.device)
+        g_bucket = _bucket(max(r.max_new_tokens for r in requests), GEN_BUCKETS)
+
+        self._sync()  # the pool's assembly stays out of the decode window
+        t1 = time.monotonic()
+        out, n_row = self._paged_decode_loop(
+            tf, first_tokens, prompt_lens, pool, table, gens, knobs, top_k,
+            presence, budgets, done, n_real, g_bucket, tok.eos_id,
+        )
+        out_host = out.tolist()
+        n_row = n_row.tolist()
+        self._sync()
+        t2 = time.monotonic()
+        window_id = next(_DECODE_WINDOW_IDS)
+
+        results = []
+        for r, (request, st) in enumerate(zip(requests, states)):
+            take = min(n_row[r], request.max_new_tokens - 1)
+            generated = [int(first_host[r])] + out_host[r][:take]
+            if request.stop_at_eos and tok.eos_id in generated:
+                generated = generated[: generated.index(tok.eos_id)]
+            text = tok.decode(generated)
+            if request.stop:
+                generated, text = _apply_stop(generated, text, tok, request.stop)
+            prefill_s = st["t1"] - st["t0"]
+            results.append(GenerationResult(
+                request=request, tokens=generated, text=text,
+                prompt_tokens=st["s_real"], generated_tokens=len(generated),
+                prefill_s=prefill_s, decode_s=t2 - t1, total_s=prefill_s + (t2 - t1),
+                extras={"decode_window": window_id},
+            ))
+        self._observe_batch_window(results, t1, t2)
+        return results
+
+    def _paged_decode_loop(
+        self, tf, first_tokens, prompt_lens, pool, table, gens, knobs, top_k,
+        presence, budgets, done, n_real, g_bucket, eos,
+    ) -> "Tuple[torch.Tensor, torch.Tensor]":
+        """The batched decode loop over the paged pool, one step per
+        iteration: each row writes its step's K/V into the side caches at
+        its own ``write_pos``, and attention merges the parts kernel's
+        prompt term with the side term. A row is done at EOS or when its
+        own budget is spent; a done row emits EOS and rewrites one frozen
+        side column. The loop stops at ``n_real`` steps or when every row
+        is done, as the JAX engine's ``while_loop`` condition does.
+        Returns (out [B, g_bucket] tokens, n_row [B] steps each row ran)."""
+        cfg = tf.cfg
+        b = first_tokens.shape[0]
+        side_shape = (cfg.n_layers, b, cfg.n_kv_heads, g_bucket, cfg.d_head)
+
+        def side():
+            if pool.quantized:
+                return {
+                    "q": torch.zeros(side_shape, dtype=torch.int8, device=self.device),
+                    "s": torch.zeros(side_shape[:-1], dtype=torch.float32, device=self.device),
+                }
+            return torch.zeros(side_shape, dtype=self.dtype, device=self.device)
+
+        side_k, side_v = side(), side()
+        out = torch.full((b, g_bucket), eos, dtype=torch.long, device=self.device)
+        n_row = torch.zeros((b,), dtype=torch.long, device=self.device)
+        rows = torch.arange(b, device=self.device)
+        offsets = prompt_lens.to(torch.long)  # static through the loop
+        offs = offsets
+        token = first_tokens
+        i = 0
+        while i < n_real and not bool(done.all()):
+            write_pos = offs - offsets
+            kc = {"pool": pool.k, "table": table, "side": side_k,
+                  "write_pos": write_pos, "prompt_lens": prompt_lens}
+            vc = {"pool": pool.v, "table": table, "side": side_v,
+                  "write_pos": write_pos, "prompt_lens": prompt_lens}
+            hidden, _, _ = forward(
+                tf.params, cfg, token[:, None], offs, kc, vc, _paged_parts, layers=tf.layers
+            )
+            logits = logits_for(tf.params, cfg, hidden[:, 0])
+            nxt = sample_token_per_row(
+                logits, gens, knobs["temperature"], top_k, knobs["top_p"],
+                presence, knobs["repeat_penalty"],
+            )
+            prev_done = done
+            nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
+            done = done | (nxt == eos) | (i + 1 >= budgets)
+            if presence is not None:
+                presence[rows, nxt] = True
+            out[:, i] = nxt
+            n_row = torch.where(prev_done, n_row, torch.full_like(n_row, i + 1))
+            offs = torch.where(done, offs, offs + 1)
+            token = nxt
+            i += 1
+        return out, n_row
+
+    def _contiguous_row_bytes(self, cfg: ModelConfig, s_bucket: int, g_bucket: int) -> int:
+        """K+V bytes one row pins in a contiguous batch cache (every row at
+        the widest prompt + generation bucket); int8: D codes + a 4-byte
+        scale per (position, head) vector."""
+        per_col = cfg.d_head + 4 if self.kv_quantize else cfg.d_head * self._itemsize()
+        return 2 * cfg.n_layers * cfg.n_kv_heads * (s_bucket + g_bucket) * per_col
+
+    def _itemsize(self) -> int:
+        return torch.empty((), dtype=self.dtype).element_size()
+
+    def _paged_chunk_bytes(
+        self, cfg: ModelConfig, chunk_pages: "list[int]", b_bucket: int, g_bucket: int
+    ) -> int:
+        """K+V bytes one paged sub-batch allocates: the pow2-rounded pool
+        (each row billed its own pages, plus the garbage and pad pages) and
+        the side caches, exactly as :meth:`_generate_batch_paged` allocates.
+
+        The port's pool keeps the native head dim, while the JAX engine
+        pads stacked pools to 128 lanes (a TPU tiling rule), and the port
+        has only the stacked-hybrid mode. So at D 128 (qwen2) this bill
+        equals the JAX package's, and at D 96 (phi3) it is smaller."""
+        total = sum(chunk_pages) + 2  # + the shared garbage/pad pages
+        n_pages = _pow2_at_least(total, 4)
+        col = cfg.d_head + 4 if self.kv_quantize else cfg.d_head * self._itemsize()
+        pool_bytes = 2 * cfg.n_layers * n_pages * cfg.n_kv_heads * self.page_size * col
+        side_bytes = 2 * cfg.n_layers * b_bucket * cfg.n_kv_heads * g_bucket * col
+        return pool_bytes + side_bytes
+
+    def _paged_rows_cap(self, cfg: ModelConfig, rows_pages: "list[int]", g_bucket: int) -> int:
+        """Widest batch bucket whose every sequential chunk's pool + side
+        bytes fit BATCH_KV_BUDGET_BYTES (floor BATCH_MIN_SPLIT_ROWS)."""
+        max_rows = BATCH_MIN_SPLIT_ROWS
+        for b in BATCH_BUCKETS:
+            if b <= max_rows:
+                continue
+            chunks = [rows_pages[i : i + b] for i in range(0, len(rows_pages), b)]
+            if all(
+                self._paged_chunk_bytes(cfg, c, _bucket(len(c), BATCH_BUCKETS), g_bucket)
+                <= BATCH_KV_BUDGET_BYTES
+                for c in chunks
+            ):
+                max_rows = b
+        return max_rows
+
+    def _max_batch_rows(
+        self,
+        cfg: ModelConfig,
+        requests: "list[GenerationRequest]",
+        all_prompt_ids: "list[list[int]]",
+    ) -> int:
+        """Widest batch bucket whose estimated K+V footprint fits
+        BATCH_KV_BUDGET_BYTES (floor BATCH_MIN_SPLIT_ROWS). Paged batches
+        bill each row its own prompt pages; contiguous batches bill every
+        row at the widest shape."""
+        g_bucket = _bucket(max(r.max_new_tokens for r in requests), GEN_BUCKETS)
+        if self.paged_kv:
+            rows_pages = [-(-max(len(ids), 1) // self.page_size) for ids in all_prompt_ids]
+            return self._paged_rows_cap(cfg, rows_pages, g_bucket)
+        max_rows = BATCH_MIN_SPLIT_ROWS
+        s_bucket = max(_prompt_alloc(len(ids)) for ids in all_prompt_ids)
+        bytes_per_row = self._contiguous_row_bytes(cfg, s_bucket, g_bucket)
+        for b in BATCH_BUCKETS:
+            if b > max_rows and b * bytes_per_row <= BATCH_KV_BUDGET_BYTES:
+                max_rows = b
+        return max_rows
+
+    def max_admission_rows(self, request: GenerationRequest) -> int:
+        """Admission cap for a batch window anchored by ``request``: the
+        widest batch bucket whose estimated K+V footprint, at this
+        request's buckets under this engine's cache layout, fits
+        BATCH_KV_BUDGET_BYTES. An estimate only: nothing loads or
+        allocates."""
+        model = request.model
+        cfg = self.registry[model] if model in self.registry else get_model_config(model)
+        ids = self._tokenizer_for(model).encode(request.prompt)
+        width = max(BATCH_BUCKETS)
+        return self._max_batch_rows(cfg, [request] * width, [ids] * width)
+
+    def generate_batch(self, requests: "list[GenerationRequest]") -> "list[GenerationResult]":
+        """Generate for several requests in one batched decode over the
+        paged pool (``paged_kv=True``).
+
+        Prefill runs grouped by prompt bucket (:meth:`_batch_states`);
+        decode runs all rows together, reading the weights once per step
+        for the whole batch. Fleets wider than :meth:`_max_batch_rows` run
+        as sequential sub-batches. All requests must name one model and
+        share ``top_k``. Each result's ``decode_s`` is its sub-batch's
+        decode wall time and ``extras["decode_window"]`` names that window;
+        grouped rows share their group's ``prefill_s``."""
+        if not self.paged_kv:
+            raise NotImplementedError(
+                "TorchEngine: generate_batch without paged_kv (contiguous "
+                "batched decode) is not ported yet"
+            )
+        if not requests:
+            return []
+        models = {r.model for r in requests}
+        if len(models) > 1:
+            raise ValueError(f"one model per batch, got {sorted(models)}")
+        top_ks = {r.top_k for r in requests}
+        if len(top_ks) > 1:
+            raise ValueError(f"one top_k per batch, got {sorted(top_ks)}")
+        model = requests[0].model
+        self.load_model(model)
+        cfg = self._models[model].cfg
+        tok = self._tokenizer_for(model)
+        all_prompt_ids = [tok.encode(r.prompt) for r in requests]
+        max_rows = self._max_batch_rows(cfg, requests, all_prompt_ids)
+        results: "list[GenerationResult]" = []
+        for i in range(0, len(requests), max_rows):
+            results.extend(self._generate_batch_chunk(
+                requests[i : i + max_rows], all_prompt_ids[i : i + max_rows]
+            ))
+        return results
+
+    def _generate_batch_chunk(
+        self, requests: "list[GenerationRequest]", all_prompt_ids: "list[list[int]]"
+    ) -> "list[GenerationResult]":
+        """One memory-bounded sub-batch of :meth:`generate_batch`."""
+        model = requests[0].model
+        cfg = self._models[model].cfg
+        for r, ids in zip(requests, all_prompt_ids):
+            if len(ids) + r.max_new_tokens > cfg.max_seq_len:
+                raise ValueError(
+                    f"{model}: prompt {len(ids)} + generation {r.max_new_tokens} "
+                    f"exceeds max_seq_len {cfg.max_seq_len}"
+                )
+        return self._generate_batch_paged(requests, all_prompt_ids)
+
+    # -- telemetry --------------------------------------------------------------
+    def _obs_labels(self, path: str) -> Dict[str, str]:
+        """The labels of a step: the attention path it ran (``generate`` is
+        contiguous, ``generate_batch`` paged) and the KV representation."""
+        return {"path": path, "kv": "int8" if self.kv_quantize else "bf16"}
+
+    def _observe_decode_window(
+        self, t1: float, t2: float, tokens: int, steps: int, rows: int = 1,
+        path: str = "contiguous",
+    ) -> None:
         if not _obs_enabled():
             return
-        labels = self._obs_labels()
+        labels = self._obs_labels(path)
         _DECODE_H.observe(t2 - t1)
         _TOKENS_C.labels(**labels).inc(tokens)
-        _STEPS_C.labels(**labels).inc(tokens)
+        _STEPS_C.labels(**labels).inc(steps)
         if t2 > t1 and tokens:
             _TOKS_PER_S_G.labels(**labels).set(tokens / (t2 - t1))
-        _TRACER.add_span("decode", t1, t2, attrs={"tokens": tokens, "rows": 1, **labels})
+        _TRACER.add_span("decode", t1, t2, attrs={"tokens": tokens, "rows": rows, **labels})
+
+    def _observe_batch_window(
+        self, results: "list[GenerationResult]", t1: float, t2: float
+    ) -> None:
+        """One shared paged decode window: every row's tokens, and the
+        window's steps (the longest row's)."""
+        if not results:
+            return
+        self._observe_decode_window(
+            t1, t2,
+            sum(r.generated_tokens for r in results),
+            max(r.generated_tokens for r in results),
+            rows=len(results), path="paged",
+        )

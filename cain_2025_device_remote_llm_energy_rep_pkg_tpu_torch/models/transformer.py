@@ -7,9 +7,12 @@ prefill (S tokens at a scalar offset) and decode (S=1): the step's K/V are
 written into the fixed-size cache — in place, unlike the JAX version, which
 returns new caches — and attention masks by absolute position.
 
-Caches are ``[L, B, Hkv, T, D]`` tensors, or int8 ``{"q": [L,B,Hkv,T,D],
-"s": [L,B,Hkv,T]}`` dicts. The paged, carry-resident, side and scratch
-cache modes and the mixture-of-experts MLP are not ported yet.
+Caches are ``[L, B, Hkv, T, D]`` tensors, int8 ``{"q": [L,B,Hkv,T,D],
+"s": [L,B,Hkv,T]}`` dicts, or the stacked-hybrid paged leaf of the batch
+path (:func:`is_paged_cache`): a read-only page pool holding the prompts,
+plus side caches that take the tokens generated in this call. The
+legacy write-through paged mode, the carry-resident and scratch modes, the
+multi-token verify block and the mixture-of-experts MLP are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +48,31 @@ NON_LAYER_LEAVES = ("embed", "final_norm", "lm_head")
 DecodeAttentionFn = Callable[..., torch.Tensor]
 # (q[B,S,Hq,D], k_cache[B,Hkv,T,D], v_cache[B,Hkv,T,D], offset: int) -> [B,S,Hq,D]
 PrefillAttentionFn = Callable[..., torch.Tensor]
+
+STACKED_PAGED_KEYS = frozenset(
+    {"pool", "table", "layer", "side", "side_layer", "write_pos", "prompt_lens"}
+)
+
+
+def is_paged_cache(leaf: Any) -> bool:
+    """A paged KV-cache leaf: ``{"pool": [P,Hkv,page,D], "table": [B,Jmax]}``,
+    pages of a shared pool addressed through a per-request block table.
+    The STACKED-HYBRID variant (the batch path's) also carries a side
+    cache ``side`` [B,Hkv,Tgen,D] (or int8 ``{"q","s"}``) for the tokens
+    generated in this call, and ``write_pos``/``prompt_lens`` [B] row
+    vectors; its pool holds only the prompts and is read-only during
+    decode. At the engine boundary pool and side carry a leading [L] axis,
+    and :func:`run_blocks` hands each layer its views. The key set is the
+    JAX package's; the port runs only the stacked-hybrid variant without
+    ``layer``/``side_layer``."""
+    if not isinstance(leaf, dict):
+        return False
+    keys = set(leaf)
+    return (
+        keys == {"pool", "table"}
+        or keys == {"pool", "table", "scratch"}
+        or ({"pool", "table", "side"} <= keys <= STACKED_PAGED_KEYS)
+    )
 
 
 def init_params(
@@ -114,9 +142,86 @@ def split_layers(params: Params) -> List[Params]:
 
 
 def _cache_layer(cache, i: int):
+    """Layer ``i``'s view of a stacked cache (no copy): of both tensors of
+    an int8 dict, and of the pool and side of a paged leaf."""
+    if is_paged_cache(cache):
+        if "side" not in cache or {"layer", "side_layer"} & set(cache):
+            raise NotImplementedError(
+                "only the stacked-hybrid paged leaf (pool, table, side, "
+                "write_pos, prompt_lens) is ported"
+            )
+        return {
+            **cache,
+            "pool": _cache_layer(cache["pool"], i),
+            "side": _cache_layer(cache["side"], i),
+        }
     if isinstance(cache, dict):
         return {"q": cache["q"][i], "s": cache["s"][i]}
     return cache[i]
+
+
+def _side_write(side, rows: torch.Tensor, pos: torch.Tensor, vec: torch.Tensor) -> None:
+    """Write each row's vector ``vec [B,Hkv,D]`` at ``side[row, :, pos[row]]``
+    in place; an int8 side quantizes it with the decode-step scale math."""
+    if isinstance(side, dict):
+        codes, scales = quantize_kv_vector(vec)
+        side["q"][rows, :, pos] = codes
+        side["s"][rows, :, pos] = scales
+    else:
+        side[rows, :, pos] = vec.to(side.dtype)
+
+
+def _side_view(side) -> torch.Tensor:
+    """A layer's side cache as f32 [B,Hkv,Tgen,D] (int8: dequantized)."""
+    if isinstance(side, dict):
+        return side["q"].to(torch.float32) * side["s"].to(torch.float32)[..., None]
+    return side.to(torch.float32)
+
+
+def _paged_attention(
+    cfg: ModelConfig,
+    q: torch.Tensor,  # [B,1,Hq,Dh]
+    k: torch.Tensor,  # [B,1,Hkv,Dh]
+    v: torch.Tensor,
+    k_cache: Dict[str, Any],  # one layer's stacked-hybrid leaf
+    v_cache: Dict[str, Any],
+    decode_attention: Optional[DecodeAttentionFn],
+) -> torch.Tensor:
+    """One decode step over the stacked-hybrid paged leaf: this step's K/V
+    land in the side caches at each row's ``write_pos``; the prompt pages
+    give unnormalised parts (``decode_attention``, the paged parts kernel);
+    the side term and the exact online-softmax merge of the two are plain
+    torch, as the JAX package does them in XLA outside its kernel."""
+    b, s, hq, dh = q.shape
+    if s != 1:
+        raise NotImplementedError("the paged multi-token verify block is not ported yet")
+    if decode_attention is None:
+        raise ValueError("a paged cache needs the paged parts attention callable")
+    hkv = cfg.n_kv_heads
+    group = hq // hkv
+    wp = k_cache["write_pos"]  # [B] int64
+    rows = torch.arange(b, device=q.device)
+    _side_write(k_cache["side"], rows, wp, k[:, 0])
+    _side_write(v_cache["side"], rows, wp, v[:, 0])
+
+    qd = q[:, 0].contiguous()
+    acc1, m1, l1 = decode_attention(qd, k_cache, v_cache, k_cache["prompt_lens"])
+    ks = _side_view(k_cache["side"])
+    vs = _side_view(v_cache["side"])
+    qg = qd.reshape(b, hkv, group, dh).to(torch.float32)
+    s2 = torch.einsum("bkgd,bktd->bkgt", qg, ks) * (1.0 / math.sqrt(dh))
+    tpos = torch.arange(ks.shape[2], device=q.device)
+    visible = (tpos[None, :] <= wp[:, None])[:, None, None, :]
+    s2 = torch.where(visible, s2, float("-inf"))
+    m2 = torch.amax(s2, dim=-1)  # finite: the current token is column wp
+    p2 = torch.exp(s2 - m2[..., None])
+    l2 = torch.sum(p2, dim=-1)
+    acc2 = torch.einsum("bkgt,bktd->bkgd", p2, vs)
+    m_t = torch.maximum(m1, m2)
+    w1 = torch.exp(m1 - m_t)  # 0 for an empty prompt (m1 = -inf)
+    w2 = torch.exp(m2 - m_t)
+    out = (acc1 * w1[..., None] + acc2 * w2[..., None]) / (l1 * w1 + l2 * w2)[..., None]
+    return out.reshape(b, 1, hq, dh)
 
 
 def _activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -129,9 +234,9 @@ def _attention_block(
     cfg: ModelConfig,
     x: torch.Tensor,  # [B,S,D]
     layer: Params,
-    k_cache,  # [B,Hkv,T,Dh] or int8 {"q","s"}, written in place
+    k_cache,  # [B,Hkv,T,Dh], int8 {"q","s"} or a paged leaf; written in place
     v_cache,
-    offset: int,  # cache position of token 0
+    offset,  # cache position of token 0: int, or [B] for a paged leaf
     cos: torch.Tensor,  # [B,S,half]
     sin: torch.Tensor,
     decode_attention: Optional[DecodeAttentionFn],
@@ -151,6 +256,11 @@ def _attention_block(
     q = apply_rope(q.reshape(b, s, hq, dh), cos, sin)
     k = apply_rope(k.reshape(b, s, hkv, dh), cos, sin)
     v = v.reshape(b, s, hkv, dh)
+
+    if is_paged_cache(k_cache):
+        out = _paged_attention(cfg, q, k, v, k_cache, v_cache, decode_attention)
+        out = out.to(x.dtype).reshape(b, s, hq * dh)
+        return dense_dot(out, layer["wo"])
 
     span = slice(offset, offset + s)
     if is_quantized_cache(k_cache):
@@ -180,18 +290,20 @@ def run_blocks(
     layers: List[Params],
     cfg: ModelConfig,
     x: torch.Tensor,  # [B,S,D] embedded inputs
-    offset: int,
-    k_cache,  # [L,B,Hkv,T,Dh] or int8 {"q","s"}
+    offset,  # int, or [B] per-row positions (paged leaf)
+    k_cache,  # [L,B,Hkv,T,Dh], int8 {"q","s"} or a stacked paged leaf
     v_cache,
     cos: torch.Tensor,
     sin: torch.Tensor,
     decode_attention: Optional[DecodeAttentionFn] = None,
     prefill_attention: Optional[PrefillAttentionFn] = None,
 ) -> torch.Tensor:
-    """Run the transformer blocks over ``x``, one layer at a time."""
+    """Run the transformer blocks over ``x``, one layer at a time; layer
+    ``i`` gets its views of the caches (for a paged leaf, ``pool[i]`` and
+    ``side[i]``, no copy)."""
     b, s, _ = x.shape
     lengths = None
-    if s == 1 and decode_attention is not None:
+    if s == 1 and decode_attention is not None and not is_paged_cache(k_cache):
         lengths = torch.full((b,), offset + 1, dtype=torch.int32, device=x.device)
     for i, layer in enumerate(layers):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps, gemma_style=cfg.gemma_norm)
@@ -209,8 +321,8 @@ def forward(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [B,S] int
-    offset: int,
-    k_cache,  # [L,B,Hkv,T,Dh] or int8 {"q","s"}; updated in place
+    offset,  # int; or [B] int tensor, one position per row (paged leaf)
+    k_cache,  # [L,B,Hkv,T,Dh], int8 {"q","s"} or a paged leaf; updated in place
     v_cache,
     decode_attention: Optional[DecodeAttentionFn] = None,
     prefill_attention: Optional[PrefillAttentionFn] = None,
@@ -229,8 +341,12 @@ def forward(
     x = embed_lookup(params["embed"], tokens, params["final_norm"].dtype)
     if cfg.gemma_norm:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
-    positions = offset + torch.arange(s, dtype=torch.int32, device=x.device)
-    cos, sin = rope_angles(positions.expand(b, s), cfg.d_head, cfg.rope_theta)
+    steps = torch.arange(s, dtype=torch.int32, device=x.device)
+    if isinstance(offset, torch.Tensor):  # per-row positions [B]
+        positions = offset.to(torch.int32)[:, None] + steps[None, :]
+    else:
+        positions = (offset + steps).expand(b, s)
+    cos, sin = rope_angles(positions, cfg.d_head, cfg.rope_theta)
     if layers is None:
         layers = split_layers(params)
     x = run_blocks(

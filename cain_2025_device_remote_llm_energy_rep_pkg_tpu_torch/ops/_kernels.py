@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) through ctypes.
 
-The sources compile with ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C interface, at first use, under ``_build/`` beside the package
-(git-ignored). The library's name carries a digest of its source, so an
-edited kernel never loads a stale build. Nothing here runs at import: the
-CPU tests import every module on a machine without ``nvcc``.
+Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library of
+its own with a plain C interface, at first use, under ``_build/`` beside the
+package (git-ignored). :func:`build` starts one ``nvcc`` per source at once
+and waits for all of them. A library's name carries a digest of its source
+and of every shared header (``csrc/*.cuh``), so an edited kernel never
+loads a stale build. Nothing here runs at import: the CPU tests import
+every module on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -17,14 +19,41 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Dict, Optional, Sequence
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "attention.cu"
+CSRC = _PKG_DIR / "csrc"
+SOURCES = {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# The C entry points of each library: name -> (argtypes, restype).
+_SIGNATURES = {
+    "attention": {
+        "attn_error_string": ([_i], ctypes.c_char_p),
+        "attn_prefill_rows": ([], _i),
+        "attn_decode_group_max": ([], _i),
+        "attn_prefill": ([_i, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p], _i),
+        "attn_decode": (
+            [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p], _i,
+        ),
+    },
+    "paged_attention": {
+        "paged_error_string": ([_i], ctypes.c_char_p),
+        "paged_group_max": ([], _i),
+        "paged_parts": (
+            [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
+             _i, _i, _i, _i, _i, _i, _i, _i, _i, _p],
+            _i,
+        ),
+    },
+}
+# The entry point that names a cudaError_t, per library.
+_ERROR_STRING = {"attention": "attn_error_string", "paged_attention": "paged_error_string"}
 
 
 def _nvcc() -> str:
@@ -45,58 +74,70 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libattention_{digest}.so"
+def library_path(name: str = "attention") -> Path:
+    """The library of source ``csrc/<name>.cu``; its digest covers the
+    source and every shared header."""
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> str:
-    """Compile the kernels unless this source's library exists; returns
-    nvcc's output (``-Xptxas=-v``: registers, shared memory, spills), or
-    an empty string when the library was already built."""
-    target = library_path()
-    if target.exists():
+def build(names: Optional[Sequence[str]] = None) -> str:
+    """Compile the sources whose library does not exist yet, one ``nvcc``
+    each, all started together; returns their output (``-Xptxas=-v``:
+    registers, shared memory, spills), empty where nothing was built.
+    Raises if any compilation fails."""
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    jobs: Dict[str, "tuple[subprocess.Popen, str]"] = {}
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}"
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
-        os.replace(tmp, target)  # atomic: a reader never sees half a file
+            jobs[name] = (proc, tmp)
+        logs, failures = [], []
+        for name, (proc, tmp) in jobs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed ({proc.returncode}) on {SOURCES[name]}:\n{err}")
+                continue
+            os.replace(tmp, library_path(name))  # atomic: a reader never sees half a file
+            logs.append(out + err)
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        return "".join(logs)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return proc.stdout + proc.stderr
+        for proc, tmp in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    build()
-    lib = ctypes.CDLL(str(library_path()))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.attn_error_string.argtypes = [i]
-    lib.attn_error_string.restype = ctypes.c_char_p
-    lib.attn_prefill_rows.argtypes = []
-    lib.attn_prefill_rows.restype = i
-    lib.attn_decode_group_max.argtypes = []
-    lib.attn_decode_group_max.restype = i
-    lib.attn_prefill.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, p]
-    lib.attn_prefill.restype = i
-    lib.attn_decode.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
-    lib.attn_decode.restype = i
+def library(name: str = "attention") -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    build([name])
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     return lib
 
 
-def check(err: int, name: str) -> None:
+def check(err: int, name: str, lib: str = "attention") -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch."""
     if err != 0:
-        msg = library().attn_error_string(err).decode()
+        msg = getattr(library(lib), _ERROR_STRING[lib])(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} ({msg})")

@@ -1,14 +1,17 @@
 """Plain PyTorch attention: the versions the CUDA kernels are held against.
 
-Counterpart of the JAX package's ``ops/attention.py``. Each function here
-states in full what one kernel of ``csrc/attention.cu`` computes; the CPU
-tests hold these against the JAX references and Pallas kernels, and
+Counterpart of the JAX package's ``ops/attention.py``, and of the
+references in its ``ops/pallas_paged_attention.py``. Each function here
+states in full what one kernel of ``csrc/*.cu`` computes; the CPU tests
+hold these against the JAX references and Pallas kernels, and
 ``chip_smoke.py`` holds the kernels against these on the card.
 
 Layouts (the JAX package's, so the bridge is a plain copy):
   q (prefill): [B, S, Hq, D]     q (decode): [B, Hq, D]
   k/v cache:   [B, Hkv, T, D]    lengths:    [B] int32 (valid cache prefix)
   int8 cache:  codes [B, Hkv, T, D] int8, scales [B, Hkv, T] f32
+  page pool:   [P, Hkv, page, D] (int8: codes, scales [P, Hkv, page] f32),
+               read through page_table [B, Jmax] int32
 """
 
 from __future__ import annotations
@@ -126,3 +129,98 @@ def decode_attention_int8_reference(
     probs = _masked_softmax(scores, valid) * v_s.to(torch.float32)[:, :, None, :]
     out = torch.einsum("bkgt,bktd->bkgd", probs, v_q.to(torch.float32))
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+# -- paged pools ----------------------------------------------------------------
+# pool [P, Hkv, page, D] (int8: codes plus f32 scales [P, Hkv, page]),
+# page_table [B, Jmax] int32, lengths [B] int32 (cached tokens per row).
+
+
+def _gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """Pages named by the table, as a contiguous [B, Hkv, Jmax·page, ...]
+    cache (the materialised gather the kernels avoid). Table entries are
+    clipped to the pool, as the kernels clip them."""
+    n_pool, hkv, page = pool.shape[:3]
+    b, jmax = page_table.shape
+    table = torch.clamp(page_table.to(torch.int64), 0, n_pool - 1)
+    g = pool[table]  # [B, Jmax, Hkv, page, ...]
+    return g.transpose(1, 2).reshape(b, hkv, jmax * page, *pool.shape[3:])
+
+
+def _dense_parts(q, kf, vf, lengths, k_scale=None, v_scale=None):
+    """Unnormalised softmax parts of ``q [B,Hq,D]`` against dense f32
+    ``kf/vf [B,Hkv,T,D]`` masked by ``lengths``: ``(acc [B,Hkv,G,D],
+    m [B,Hkv,G], l [B,Hkv,G])`` with ``acc = Σ e^{s-m}·v`` and
+    ``l = Σ e^{s-m}``. Optional int8 scales [B,Hkv,T] multiply the score
+    column (K) and fold into the probabilities after ``l`` is taken (V).
+    A row with ``lengths == 0`` gives exactly ``(0, -inf, 0)``."""
+    b, hq, d = q.shape
+    _, hkv, t, _ = kf.shape
+    qg = _group_heads(q, hkv).to(torch.float32)  # [B,Hkv,G,D]
+    scores = torch.einsum("bkgd,bktd->bkgt", qg, kf) * (1.0 / math.sqrt(d))
+    if k_scale is not None:
+        scores = scores * k_scale[:, :, None, :]
+    valid = torch.arange(t, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    scores = torch.where(valid[:, None, None, :], scores, float("-inf"))
+    m = torch.amax(scores, dim=-1)  # -inf for a row with no cached token
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(scores - m_safe[..., None])  # exp(-inf) = 0 masks columns
+    l = torch.sum(p, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, :]
+    acc = torch.einsum("bkgt,bktd->bkgd", p, vf)
+    return acc, m, l
+
+
+def paged_decode_attention_parts_reference(
+    q: torch.Tensor,  # [B,Hq,D]
+    k_pool: torch.Tensor,  # [P,Hkv,page,D]
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # [B,Jmax] int32
+    lengths: torch.Tensor,  # [B] int32
+):
+    """Unnormalised flash parts over each row's cached pages, read through
+    the table: the math of the JAX package's
+    ``xla_paged_decode_attention_parts``. Plain version of
+    ``cuda_paged_decode_attention_parts``."""
+    kf = _gather_pages(k_pool, page_table).to(torch.float32)
+    vf = _gather_pages(v_pool, page_table).to(torch.float32)
+    return _dense_parts(q, kf, vf, lengths)
+
+
+def paged_decode_attention_parts_int8_reference(
+    q: torch.Tensor,  # [B,Hq,D]
+    k_q: torch.Tensor,  # [P,Hkv,page,D] int8
+    k_s: torch.Tensor,  # [P,Hkv,page] f32
+    v_q: torch.Tensor,
+    v_s: torch.Tensor,
+    page_table: torch.Tensor,  # [B,Jmax] int32
+    lengths: torch.Tensor,  # [B] int32
+):
+    """The parts over an int8 pool: the JAX gather variant's contract, with
+    the scales folded as its Pallas kernel folds them (K's scale on the
+    score column, V's into the probabilities), so no dequantized page
+    exists. Plain version of ``cuda_paged_decode_attention_parts_int8``."""
+    return _dense_parts(
+        q,
+        _gather_pages(k_q, page_table).to(torch.float32),
+        _gather_pages(v_q, page_table).to(torch.float32),
+        lengths,
+        _gather_pages(k_s, page_table).to(torch.float32),
+        _gather_pages(v_s, page_table).to(torch.float32),
+    )
+
+
+def paged_decode_attention_reference(
+    q: torch.Tensor,  # [B,Hq,D]
+    k_pool: torch.Tensor,  # [P,Hkv,page,D]
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # [B,Jmax] int32
+    lengths: torch.Tensor,  # [B] int32
+) -> torch.Tensor:
+    """Normalised paged decode: gather the pages into a contiguous cache,
+    then plain masked attention (the JAX package's
+    ``paged_decode_attention_reference``)."""
+    k = _gather_pages(k_pool, page_table)
+    v = _gather_pages(v_pool, page_table)
+    return decode_attention_reference(q, k, v, lengths)

@@ -5,19 +5,23 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``csrc/``, holds each kernel against
-its plain PyTorch version on the card and times both (with the library
-yardstick and the card's bound beside them), then drives the port's main
-path — ``TorchEngine.generate`` on full-width qwen2:1.5b with int8 weights,
-first with a bf16 KV cache and then with an int8 one — and checks from the
-kernels' launch counts that the path ran through every kernel. Each phase
-prints one JSON line; the last line is the result the caller reads. Any
-failure raises, prints no result line and exits non-zero. Without a CUDA
-device, or without the port's package beside it, it exits 2 at once.
+It builds the port's CUDA kernels from ``csrc/`` (one ``nvcc`` per source,
+all started together), holds each kernel against its plain PyTorch version
+on the card and times both (with the library yardstick and the card's bound
+beside them), then drives the port's paths on full-width qwen2:1.5b with
+int8 weights: ``TorchEngine.generate`` (the study's solo path) with a bf16
+and then an int8 KV cache, and ``TorchEngine.generate_batch`` over the
+paged pool (17 requests) with a bf16 and then an int8 pool. Every launch
+count is set to 0 just before each path and read just after, to check that
+the path ran through its kernels and no other. Each phase prints one JSON
+line; the last line is the result the caller reads. Any failure raises,
+prints no result line and exits non-zero. Without a CUDA device, or
+without the port's package beside it, it exits 2 at once.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -26,12 +30,16 @@ import time
 from pathlib import Path
 
 PKG = "cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch"
-SOURCE = f"{PKG}/csrc/attention.cu"
-# The pallas_call of each TPU kernel the CUDA kernels replace.
-REPLACES = {
-    "cuda_prefill_attention": "cain_2025_device_remote_llm_energy_rep_pkg_tpu/ops/pallas_attention.py:451",
-    "cuda_decode_attention": "cain_2025_device_remote_llm_energy_rep_pkg_tpu/ops/pallas_attention.py:144",
-    "cuda_decode_attention_int8": "cain_2025_device_remote_llm_energy_rep_pkg_tpu/ops/pallas_attention.py:286",
+JAX_PKG = "cain_2025_device_remote_llm_energy_rep_pkg_tpu"
+# Each kernel wrapper: (its CUDA source, the pallas_call it replaces).
+KERNEL_INFO = {
+    "cuda_prefill_attention": (f"{PKG}/csrc/attention.cu", f"{JAX_PKG}/ops/pallas_attention.py:451"),
+    "cuda_decode_attention": (f"{PKG}/csrc/attention.cu", f"{JAX_PKG}/ops/pallas_attention.py:144"),
+    "cuda_decode_attention_int8": (f"{PKG}/csrc/attention.cu", f"{JAX_PKG}/ops/pallas_attention.py:286"),
+    "cuda_paged_decode_attention_parts": (
+        f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:826"),
+    "cuda_paged_decode_attention_parts_int8": (
+        f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:953"),
 }
 MODEL = "qwen2:1.5b"
 # H100 SXM data-sheet peaks: HBM3 bytes/s and dense bf16 tensor-core FLOP/s.
@@ -47,6 +55,13 @@ F32_ATOL = 1e-4
 LOGIT_ATOL = 0.25
 STUDY_WORDS = (100, 500)  # the study's response lengths, words
 TOKENS_PER_WORD = 4 / 3
+STUDY_PROMPT = "In {words} words, please give me information about photosynthesis"
+PAGE = 128
+# The paged batch: the study prompt and contexts of about 300, 700 and
+# 1,100 tokens, four of each, plus one 2,112-token prompt that prefills in
+# two chunks; 17 rows pad to a bucket of 32.
+BATCH_CONTEXTS = (292, 300, 308, 316, 690, 700, 710, 720, 1086, 1094, 1100, 1108)
+LONG_PROMPT_TOKENS = 2112
 
 
 def emit(obj) -> None:
@@ -125,19 +140,21 @@ def kernel_phase(torch, ca, plain, timer):
         ("phi3:3.8b", 32, 32, 96, 1000, 1024, None),
         ("gemma:2b", 8, 1, 256, 1000, 1024, None),
     ]
+    # (label, batch, hq, hkv, d, S, capacity T, offset)
     prefill_shapes = [
-        ("qwen2:1.5b", 12, 2, 128, 64, 320, 0),
-        ("qwen2:1.5b", 12, 2, 128, 2048, 3104, 0),
-        ("qwen2:1.5b", 12, 2, 128, 32, 3104, 2048),  # chunked-prefill tail
-        ("phi3:3.8b", 32, 32, 96, 128, 1024, 0),
-        ("gemma:2b", 8, 1, 256, 128, 1024, 0),
+        ("qwen2:1.5b", 1, 12, 2, 128, 64, 320, 0),
+        ("qwen2:1.5b", 1, 12, 2, 128, 2048, 3104, 0),
+        ("qwen2:1.5b", 1, 12, 2, 128, 32, 3104, 2048),  # chunked-prefill tail
+        ("phi3:3.8b", 1, 32, 32, 96, 128, 1024, 0),
+        ("gemma:2b", 1, 8, 1, 256, 128, 1024, 0),
+        ("qwen2:1.5b", 16, 12, 2, 128, 512, 512, 0),  # a grouped batch prefill
     ]
-    for label, hq, hkv, d, s, t, offset in prefill_shapes:
+    for label, b, hq, hkv, d, s, t, offset in prefill_shapes:
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
-            q = rnd(1, s, hq, d, dtype=dtype)
-            k = rnd(1, hkv, t, d, dtype=dtype)
-            v = rnd(1, hkv, t, d, dtype=dtype)
+            q = rnd(b, s, hq, d, dtype=dtype)
+            k = rnd(b, hkv, t, d, dtype=dtype)
+            v = rnd(b, hkv, t, d, dtype=dtype)
             out = ca.cuda_prefill_attention(q, k, v, offset)
             ref = plain.prefill_attention_cached(q, k, v, offset)
             torch.cuda.synchronize()
@@ -157,10 +174,10 @@ def kernel_phase(torch, ca, plain, timer):
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, k[:, :, :kv_len], v[:, :, :kv_len], attn_mask=mask, enable_gqa=True)
         library_ms = timer.ms(lib)
-        pairs = sum(offset + i + 1 for i in range(s))
-        b_ms, b_by = bound(2 * s * hq * d * 2 + 2 * hkv * kv_len * d * 2, 4 * hq * d * pairs)
+        pairs = b * sum(offset + i + 1 for i in range(s))
+        b_ms, b_by = bound(b * (2 * s * hq * d * 2 + 2 * hkv * kv_len * d * 2), 4 * hq * d * pairs)
         record({
-            "name": "cuda_prefill_attention", "shape": label, "S": s, "T": t, "offset": offset,
+            "name": "cuda_prefill_attention", "shape": label, "B": b, "S": s, "T": t, "offset": offset,
             "max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by,
@@ -207,13 +224,148 @@ def kernel_phase(torch, ca, plain, timer):
     return summary
 
 
+def batch_prompt_lengths():
+    """Token counts of the paged engine phase's 17 prompts (the byte
+    tokenizer gives one token per character plus a BOS)."""
+    study = len(STUDY_PROMPT.format(words=STUDY_WORDS[0])) + 1
+    return [study] * 4 + list(BATCH_CONTEXTS) + [LONG_PROMPT_TOKENS]
+
+
+def paged_inputs(torch, gen, b, hq, hkv, d, lengths, dtype):
+    """q, a pool whose pages are a shuffled permutation (plus three pages
+    no row names) and its table; rows past ``lengths`` are pad rows that
+    point every entry at one private page, as the engine's do."""
+    need = [-(-n // PAGE) for n in lengths]
+    jmax = 1
+    while jmax < max(need + [1]):
+        jmax *= 2
+    n_pool = sum(need) + 4
+    perm = torch.randperm(n_pool, generator=gen, device="cuda").tolist()
+    table = torch.zeros((b, jmax), dtype=torch.int32)
+    pos = 0
+    for r, k in enumerate(need):
+        table[r, :k] = torch.tensor(perm[pos : pos + k])
+        pos += k
+    table[len(lengths):] = perm[-1]
+    lens = list(lengths) + [lengths[0]] * (b - len(lengths))
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+    q = rnd(b, hq, d)
+    k = rnd(n_pool, hkv, PAGE, d)
+    v = rnd(n_pool, hkv, PAGE, d)
+    return q, k, v, table.cuda(), torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+def parts_errors(torch, got, want, tol):
+    """Largest differences of (acc/l, m, l) over rows with cached tokens,
+    whether each is within atol = rtol = ``tol``, and whether every row
+    with no cached token came out exactly (0, -inf, 0)."""
+    acc, m, l = (x.float() for x in got)
+    acc_r, m_r, l_r = (x.float() for x in want)
+    live = l_r > 0
+    empty_exact = bool(
+        torch.equal(l == 0, ~live)
+        and torch.all(torch.isneginf(m[~live]))
+        and torch.all(acc[~live] == 0)
+    )
+    pairs = {
+        "out": ((acc / l[..., None])[live], (acc_r / l_r[..., None])[live]),
+        "m": (m[live], m_r[live]),
+        "l": (l[live], l_r[live]),
+    }
+    errs, ok = {}, empty_exact
+    for key, (a, b) in pairs.items():
+        diff = (a - b).abs()
+        errs[key] = diff.max().item()
+        ok = ok and bool(torch.all(diff <= tol + tol * b.abs()))
+    return errs, ok, empty_exact
+
+
+def paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector):
+    """The paged parts kernels against their plain versions: at the paged
+    engine phase's own batch (17 rows of the 62–2,112-token prompts, pad
+    rows to 32), at qwen2:1.5b widths for B 1, 16 (with a row that has no
+    cached token) and 64 with lengths of 62–1,100 tokens, and at the
+    phi3/gemma head dims; float32 to 1e-4, bfloat16 to 2e-2 on acc/l, m
+    and l (atol = rtol), the empty row exactly (0, -inf, 0). Returns the
+    engine-batch row of each kernel for the summary."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def mixed(n, empty=False):
+        lens = torch.randint(62, 1101, (n,), generator=gen, device="cuda").tolist()
+        if empty:
+            lens[3] = 0
+        return lens
+
+    # (label, batch, hq, hkv, d, lengths of the real rows)
+    shapes = [
+        ("qwen2:1.5b engine batch", 32, 12, 2, 128, batch_prompt_lengths()),
+        ("qwen2:1.5b", 1, 12, 2, 128, mixed(1)),
+        ("qwen2:1.5b", 16, 12, 2, 128, mixed(16, empty=True)),
+        ("qwen2:1.5b", 64, 12, 2, 128, mixed(64)),
+        ("phi3:3.8b", 8, 32, 32, 96, mixed(8)),
+        ("gemma:2b", 8, 8, 1, 256, mixed(8)),
+    ]
+    summary = {}
+    for label, b, hq, hkv, d, lengths in shapes:
+        for name in ("cuda_paged_decode_attention_parts", "cuda_paged_decode_attention_parts_int8"):
+            errs, empties = {}, True
+            for dtype, tol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
+                q, k, v, table, lens = paged_inputs(torch, gen, b, hq, hkv, d, lengths, dtype)
+                if name == "cuda_paged_decode_attention_parts":
+                    args = (q, k, v, table, lens)
+                    fn, ref_fn = cpa.cuda_paged_decode_attention_parts, plain.paged_decode_attention_parts_reference
+                    kv_bytes_per_token = 2 * hkv * d * 2
+                else:
+                    kq, ks = quantize_kv_vector(k)
+                    vq, vs = quantize_kv_vector(v)
+                    args = (q, kq, ks, vq, vs, table, lens)
+                    fn = cpa.cuda_paged_decode_attention_parts_int8
+                    ref_fn = plain.paged_decode_attention_parts_int8_reference
+                    kv_bytes_per_token = 2 * hkv * (d + 4)
+                got = fn(*args)
+                want = ref_fn(*args)
+                torch.cuda.synchronize()
+                errs[dtype], ok, empty_exact = parts_errors(torch, got, want, tol)
+                empties = empties and empty_exact
+                assert ok, (label, name, str(dtype), errs[dtype], empty_exact)
+            ms = timer.ms(lambda: fn(*args))
+            plain_ms = timer.ms(lambda: ref_fn(*args), max_iters=20)
+            cached = int(lens.sum().item())
+            group = hq // hkv
+            bytes_moved = (
+                b * hq * d * 2  # q
+                + cached * kv_bytes_per_token  # each cached K/V row once
+                + table.numel() * 4 + b * 4  # table, lengths
+                + b * hkv * group * (d + 2) * 4  # acc, m, l
+            )
+            b_ms, b_by = bound(bytes_moved, 4 * hq * d * cached)
+            row = {
+                "name": name, "shape": label, "B": b, "rows": len(lengths),
+                "jmax": table.shape[1], "cached_tokens": cached,
+                "has_empty_row": 0 in lengths, "empty_row_exact": empties,
+                "max_abs_err": errs[torch.bfloat16]["out"],
+                "max_abs_err_m_l_bf16": [errs[torch.bfloat16]["m"], errs[torch.bfloat16]["l"]],
+                "max_abs_err_f32": errs[torch.float32],
+                "ms": ms, "plain_ms": plain_ms,
+                # no single PyTorch call returns the unnormalised (acc, m, l)
+                "library_ms": None,
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit({"phase": "kernel", **row})
+            summary.setdefault(name, row)
+    return summary
+
+
 def study_requests(GenerationRequest):
     """The study's prompt at its 100- and 500-word lengths, plus one long
     prompt whose prefill runs in two chunks (offset 2048 for the second)."""
     reqs = [
         GenerationRequest(
             MODEL,
-            f"In {words} words, please give me information about photosynthesis",
+            STUDY_PROMPT.format(words=words),
             math.ceil(words * TOKENS_PER_WORD),
             stop_at_eos=False,
         )
@@ -224,23 +376,54 @@ def study_requests(GenerationRequest):
     return reqs
 
 
-def engine_phase(torch, phase, engine, requests, ca, n_layers, chunks_of):
-    """Drive ``generate`` (warm first), with every launch count set to 0
-    just before the measured requests and read just after."""
-    engine.warmup(requests[0])
-    for fn in ca.KERNELS:
-        fn.launches = 0
-    results = [engine.generate(r) for r in requests]
-    counts = {fn.__name__: fn.launches for fn in ca.KERNELS}
-    steps = 0
-    chunks = 0
+def context_prompt(n_tokens: int) -> str:
+    """A prompt of ``n_tokens`` byte-tokenizer tokens (BOS included)."""
+    text = "Context: " + "the light reactions split water and store energy. " * 60
+    return (text[: n_tokens - 12] + " Summarise.")[: n_tokens - 1]
+
+
+def batch_requests(GenerationRequest):
+    """The paged batch: four study prompts, four contexts each of about
+    300, 700 and 1,100 tokens, and one 2,112-token prompt (two prefill
+    chunks). Every other row asks for 134 new tokens (the study's 100
+    words) and the rest for 32; row 1 samples (temperature 0.7, seed 1)."""
+    prompts = [STUDY_PROMPT.format(words=STUDY_WORDS[0])] * 4
+    prompts += [context_prompt(n) for n in BATCH_CONTEXTS + (LONG_PROMPT_TOKENS,)]
+    reqs = []
+    for i, prompt in enumerate(prompts):
+        kw = dict(temperature=0.7, seed=1) if i == 1 else {}
+        reqs.append(GenerationRequest(MODEL, prompt, 134 if i % 2 == 0 else 32, stop_at_eos=False, **kw))
+    return reqs
+
+
+def check_results(engine, requests, results):
+    """Finite, in-vocabulary tokens of the asked length (or ending at EOS)."""
+    vocab = engine._models[MODEL].cfg.vocab_size
+    eos = engine._tokenizer_for(MODEL).eos_id
     for r, res in zip(requests, results):
-        vocab = engine._models[MODEL].cfg.vocab_size
         assert res.generated_tokens == len(res.tokens) >= 1
         assert all(0 <= t < vocab for t in res.tokens)
         # stop_at_eos=False: tokens end at max_new_tokens or at an EOS
-        assert len(res.tokens) == r.max_new_tokens or res.tokens[-1] == engine._tokenizer_for(MODEL).eos_id
+        assert len(res.tokens) == r.max_new_tokens or res.tokens[-1] == eos
         assert res.prefill_s > 0 and res.decode_s > 0
+
+
+def count_launches(kernels, run):
+    """Set every count to 0, run the path, read the counts just after."""
+    for fn in kernels:
+        fn.launches = 0
+    out = run()
+    return out, {fn.__name__: fn.launches for fn in kernels}
+
+
+def engine_phase(phase, engine, requests, kernels, n_layers, chunks_of):
+    """Drive ``generate`` (warm first) and check its launch counts."""
+    engine.warmup(requests[0])
+    results, counts = count_launches(kernels, lambda: [engine.generate(r) for r in requests])
+    check_results(engine, requests, results)
+    steps = 0
+    chunks = 0
+    for res in results:
         steps += len(res.tokens) - 1
         chunks += chunks_of(res.prompt_tokens)
         emit({
@@ -249,14 +432,68 @@ def engine_phase(torch, phase, engine, requests, ca, n_layers, chunks_of):
             "decode_s": res.decode_s, "tokens_per_s": res.tokens_per_s,
         })
     decode_name = "cuda_decode_attention_int8" if engine.kv_quantize else "cuda_decode_attention"
-    other = "cuda_decode_attention" if engine.kv_quantize else "cuda_decode_attention_int8"
-    expected = {
-        "cuda_prefill_attention": n_layers * chunks,
-        decode_name: n_layers * steps,
-        other: 0,
-    }
+    expected = {fn.__name__: 0 for fn in kernels}
+    expected["cuda_prefill_attention"] = n_layers * chunks
+    expected[decode_name] = n_layers * steps
     emit({"phase": phase + "_launches", "counts": counts, "expected": expected})
     assert counts == expected, (counts, expected)
+    return counts
+
+
+def prefill_forwards(eng_mod, prompt_lengths):
+    """Prefill forwards of one paged batch: each single-chunk prompt bucket
+    is one (grouped or solo) forward, and each multi-chunk prompt one per
+    chunk."""
+    buckets, chunked = set(), 0
+    for n in prompt_lengths:
+        chunks = eng_mod._prompt_chunks(n)
+        if len(chunks) == 1:
+            buckets.add(chunks[0][1])
+        else:
+            chunked += len(chunks)
+    return len(buckets) + chunked
+
+
+def paged_engine_phase(phase, engine, requests, kernels, n_layers, eng_mod):
+    """Drive one ``generate_batch`` of the 17 requests over the paged pool
+    (warm first, on four of them with 4 new tokens each) and check its launch counts: the parts
+    kernel of the pool's kind ran a whole number of steps of n_layers
+    launches, at least the longest row's decode steps and at most 133;
+    the other parts kernel and the contiguous decode kernels never ran;
+    the prefill kernel ran n_layers times per prefill forward."""
+    engine.generate_batch([dataclasses.replace(r, max_new_tokens=4) for r in requests[:2] + requests[-2:]])
+    results, counts = count_launches(kernels, lambda: engine.generate_batch(requests))
+    check_results(engine, requests, results)
+    windows = {}
+    for res in results:
+        windows[res.extras["decode_window"]] = res.decode_s
+        emit({
+            "phase": phase, "prompt_tokens": res.prompt_tokens,
+            "generated_tokens": res.generated_tokens, "prefill_s": res.prefill_s,
+            "decode_s": res.decode_s, "sampled": res.request.temperature > 0,
+        })
+    tokens = sum(r.generated_tokens for r in results)
+    window_s = sum(windows.values())
+    parts = (
+        "cuda_paged_decode_attention_parts_int8" if engine.kv_quantize
+        else "cuda_paged_decode_attention_parts"
+    )
+    longest = max(r.generated_tokens for r in results)
+    n_parts = counts[parts]
+    expected_zero = {fn.__name__: 0 for fn in kernels}
+    for name in (parts, "cuda_prefill_attention"):
+        expected_zero.pop(name)
+    forwards = prefill_forwards(eng_mod, [r.prompt_tokens for r in results])
+    emit({
+        "phase": phase + "_summary", "rows": len(results), "decode_windows": len(windows),
+        "generated_tokens": tokens, "decode_window_s": window_s,
+        "decode_tokens_per_s": tokens / window_s, "prefill_forwards": forwards,
+        "counts": counts,
+    })
+    assert n_parts % n_layers == 0, counts
+    assert n_layers * (longest - 1) <= n_parts <= n_layers * (max(r.max_new_tokens for r in requests) - 1), counts
+    assert {k: counts[k] for k in expected_zero} == expected_zero, counts
+    assert counts["cuda_prefill_attention"] == n_layers * forwards, (counts, forwards)
     return counts
 
 
@@ -289,6 +526,13 @@ def integration_phase(torch, engine, ca, plain, forward, logits_for):
                 *caches[name], dec, layers=tf.layers,
             )
             logits[name].append(logits_for(tf.params, tf.cfg, h[:, 0]))
+    compare_logits(torch, "integration", logits, forced)
+
+
+def compare_logits(torch, phase, logits, forced):
+    """Per-step logits of the kernel path against the plain path: within
+    LOGIT_ATOL, and greedy tokens equal except at near-ties of the plain
+    path narrower than twice the observed difference."""
     torch.cuda.synchronize()
     max_diff = 0.0
     mismatches = []
@@ -296,19 +540,78 @@ def integration_phase(torch, engine, ca, plain, forward, logits_for):
         assert torch.isfinite(a).all() and torch.isfinite(b).all()
         diff = (a - b).abs().max().item()
         max_diff = max(max_diff, diff)
-        ta, tb = int(torch.argmax(a[0])), int(torch.argmax(b[0]))
-        if ta != tb:
-            top2 = torch.topk(b[0], 2).values
-            margin = (top2[0] - top2[1]).item()
-            mismatches.append({"step": i, "kernels": ta, "plain": tb, "plain_top2_margin": margin})
-            assert margin <= 2 * diff, ("greedy tokens differ beyond a near-tie", i, margin, diff)
+        for row in range(a.shape[0]):
+            ta, tb = int(torch.argmax(a[row])), int(torch.argmax(b[row]))
+            if ta != tb:
+                top2 = torch.topk(b[row], 2).values
+                margin = (top2[0] - top2[1]).item()
+                mismatches.append({"step": i, "row": row, "kernels": ta, "plain": tb,
+                                   "plain_top2_margin": margin})
+                assert margin <= 2 * diff, ("greedy tokens differ beyond a near-tie", i, margin, diff)
     scale = max(x.abs().max().item() for x in logits["plain"])
     emit({
-        "phase": "integration", "steps": len(logits["plain"]), "max_abs_logit_diff": max_diff,
+        "phase": phase, "steps": len(logits["plain"]), "max_abs_logit_diff": max_diff,
         "max_abs_logit": scale, "tolerance": LOGIT_ATOL, "greedy_mismatches": mismatches,
         "forced_tokens": forced,
     })
     assert max_diff <= LOGIT_ATOL, max_diff
+
+
+def paged_integration_phase(torch, engine, pk, plain, tfm, eng_mod):
+    """Four rows prefilled (contiguous, with the prefill kernel) and
+    paginated into one bf16 pool, then 8 teacher-forced decode steps
+    through the stacked-hybrid paged path, once with the parts kernel
+    (the engine's callable) and once with the plain parts: each path has
+    its own side caches over the shared read-only pool."""
+    tf = engine._models[MODEL]
+    cfg = tf.cfg
+    tok = engine._tokenizer_for(MODEL)
+    prompts = [STUDY_PROMPT.format(words=100), context_prompt(300), context_prompt(700),
+               context_prompt(130)]
+    ids = [tok.encode(p) for p in prompts]
+    lens = [len(x) for x in ids]
+    need = [-(-n // PAGE) for n in lens]
+    pool = pk.PagePool.create(cfg.n_layers, sum(need), cfg.n_kv_heads, cfg.d_head, PAGE,
+                              dtype=engine.dtype, device="cuda")
+    jmax = max(need)
+    table = torch.zeros((len(ids), jmax), dtype=torch.int32)
+    first = []
+    for r, row in enumerate(ids):
+        bucket = eng_mod._prompt_alloc(len(row))
+        kc, vc = tf.init_cache(1, bucket, dtype=engine.dtype)
+        tokens = torch.tensor([row + [tok.pad_id] * (bucket - len(row))], device="cuda")
+        h, kc, vc = tfm.forward(tf.params, cfg, tokens, 0, kc, vc, None,
+                                eng_mod.cuda_prefill_attention, layers=tf.layers)
+        first.append(tfm.logits_for(tf.params, cfg, h[:, len(row) - 1]))
+        pages = pool.alloc(need[r])
+        table[r, : need[r]] = torch.tensor(pages)
+        pk.scatter_pages(pool.k, pool.v, pages, pk._paginate(kc[:, 0], len(row), PAGE),
+                         pk._paginate(vc[:, 0], len(row), PAGE))
+    table = table.cuda()
+    prompt_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+    def plain_parts(q, k_leaf, v_leaf, lengths):
+        return plain.paged_decode_attention_parts_reference(
+            q, k_leaf["pool"], v_leaf["pool"], k_leaf["table"], lengths)
+
+    paths = {"kernels": eng_mod._paged_parts, "plain": plain_parts}
+    side_shape = (cfg.n_layers, len(ids), cfg.n_kv_heads, 16, cfg.d_head)
+    sides = {name: [torch.zeros(side_shape, dtype=engine.dtype, device="cuda") for _ in range(2)]
+             for name in paths}
+    logits = {name: [torch.cat(first)] for name in paths}
+    forced = []
+    for step in range(8):
+        nxt = torch.argmax(logits["kernels"][-1], dim=-1)
+        forced.append(nxt.tolist())
+        offs = prompt_lens.long() + step
+        for name, parts_fn in paths.items():
+            leaf = {"table": table, "write_pos": torch.full_like(offs, step), "prompt_lens": prompt_lens}
+            kc = {**leaf, "pool": pool.k, "side": sides[name][0]}
+            vc = {**leaf, "pool": pool.v, "side": sides[name][1]}
+            h, _, _ = tfm.forward(tf.params, cfg, nxt[:, None], offs, kc, vc, parts_fn,
+                                  layers=tf.layers)
+            logits[name].append(tfm.logits_for(tf.params, cfg, h[:, 0]))
+    compare_logits(torch, "paged_integration", logits, forced)
 
 
 def main() -> int:
@@ -318,7 +621,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if not (root / PKG / "csrc" / "attention.cu").is_file():
+    if not all((root / PKG / "csrc" / f).is_file() for f in ("attention.cu", "paged_attention.cu")):
         print(f"chip_smoke: the {PKG} package is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
@@ -328,10 +631,14 @@ def main() -> int:
 
     kernels = import_module(f"{PKG}.ops._kernels")
     ca = import_module(f"{PKG}.ops.cuda_attention")
+    cpa = import_module(f"{PKG}.ops.cuda_paged_attention")
     plain = import_module(f"{PKG}.ops.attention")
     eng_mod = import_module(f"{PKG}.engine.torch_engine")
     backend = import_module(f"{PKG}.engine.backend")
     tfm = import_module(f"{PKG}.models.transformer")
+    pk = import_module(f"{PKG}.engine.paged_kv")
+    quantize_kv_vector = import_module(f"{PKG}.models.quantize").quantize_kv_vector
+    all_kernels = ca.KERNELS + cpa.KERNELS
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -343,37 +650,56 @@ def main() -> int:
     })
 
     t0 = time.perf_counter()
-    log = kernels.build()
-    kernels.library()
+    log = kernels.build()  # one nvcc per source, all at once
+    for name in kernels.SOURCES:
+        kernels.library(name)
     emit({
-        "phase": "build", "seconds": time.perf_counter() - t0,
+        "phase": "build", "seconds": time.perf_counter() - t0, "sources": sorted(kernels.SOURCES),
         "ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln],
     })
 
-    summary = kernel_phase(torch, ca, plain, Timer(torch))
+    timer = Timer(torch)
+    summary = kernel_phase(torch, ca, plain, timer)
+    summary.update(paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector))
+    del timer
+    torch.cuda.empty_cache()
 
+    launches = {fn.__name__: 0 for fn in all_kernels}
     requests = study_requests(backend.GenerationRequest)
     chunks_of = lambda n: len(eng_mod._prompt_chunks(n))  # noqa: E731
-    launches = {fn.__name__: 0 for fn in ca.KERNELS}
     for phase, kv in (("engine_bf16_kv", None), ("engine_int8_kv", "int8")):
         engine = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv)
         engine.load_model(MODEL)
         n_layers = engine._models[MODEL].cfg.n_layers
-        counts = engine_phase(torch, phase, engine, requests, ca, n_layers, chunks_of)
+        counts = engine_phase(phase, engine, requests, all_kernels, n_layers, chunks_of)
         for name, n in counts.items():
             launches[name] += n
         if kv is None:
             integration_phase(torch, engine, ca, plain, tfm.forward, tfm.logits_for)
         del engine
         torch.cuda.empty_cache()
+
+    batch = batch_requests(backend.GenerationRequest)
+    for phase, kv in (("engine_paged_bf16_kv", None), ("engine_paged_int8_kv", "int8")):
+        engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, kv_quantize=kv)
+        engine.load_model(MODEL)
+        n_layers = engine._models[MODEL].cfg.n_layers
+        counts = paged_engine_phase(phase, engine, batch, all_kernels, n_layers, eng_mod)
+        for name, n in counts.items():
+            launches[name] += n
+        if kv is None:
+            paged_integration_phase(torch, engine, pk, plain, tfm, eng_mod)
+        del engine
+        torch.cuda.empty_cache()
     assert all(launches.values()), launches
 
     rows = []
-    for fn in ca.KERNELS:
+    for fn in all_kernels:
         r = summary[fn.__name__]
+        source, replaces = KERNEL_INFO[fn.__name__]
         rows.append({
-            "name": fn.__name__, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[fn.__name__], "launches": launches[fn.__name__],
+            "name": fn.__name__, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[fn.__name__],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })

@@ -1,17 +1,23 @@
 """Where a decode step of the PyTorch port spends its time, on one CUDA card.
 
-    python3 scripts/torch_decode_profile.py [--new-tokens 33] [--trace-dir DIR]
+    python3 scripts/torch_decode_profile.py [--new-tokens 33] [--batch] [--trace-dir DIR]
 
 Drives ``TorchEngine.generate`` (the study's entry point) on full-width
 qwen2:1.5b with int8 weights, once with a bf16 KV cache and once with an
-int8 one. For each: one warm request, one timed request without the
-profiler (wall time per decode step), then one request under
+int8 one. With ``--batch`` it drives ``TorchEngine.generate_batch`` over the
+paged pool instead (``paged_kv=True``, bf16 and int8 pools), on the 17
+requests of ``chip_smoke.py``'s paged phases, each asking for
+``--new-tokens``. For each: one warm run, one timed run without the
+profiler (wall time per decode step), then one run under
 ``torch.profiler`` whose Chrome trace gives the device kernels. Prints one
 JSON line per KV mode:
 
 - ``wall_ms_per_step``: host clock, unprofiled, ``decode_s / steps``;
 - ``device_ms_per_step``: summed kernel durations over the profiled
-  request (prefill included, a few percent of it), per decode step;
+  request (prefill included, a few percent of it), per decode step; with
+  ``--batch``, the difference between the profiled batch and the same
+  batch with 9 new tokens, over the difference in decode steps, so the
+  grouped prefill drops out;
 - ``idle_share``: ``1 - device_ms_per_step / wall_ms_per_step``;
 - ``kernels_per_step`` and ``launch_api_ms_per_step`` (host time in
   ``cudaLaunchKernel`` and its kin, profiled);
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import subprocess
@@ -37,7 +44,8 @@ MODEL = "qwen2:1.5b"
 PROMPT = "In 100 words, please give me information about photosynthesis"
 # Substrings of kernel names, first match wins.
 CATEGORIES = (
-    ("attention (port kernels)", ("decode_partial_kernel", "decode_merge_kernel", "prefill_kernel")),
+    ("attention (port kernels)", (
+        "decode_partial_kernel", "decode_merge_kernel", "parts_merge_kernel", "prefill_kernel")),
     ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -52,30 +60,49 @@ def category(name: str) -> str:
     return "other"
 
 
-def trace_summary(path: str, steps: int) -> dict:
+def trace_totals(path: str) -> dict:
+    """Kernel and launch-call totals of a Chrome trace, in microseconds."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    launches = [
-        e for e in events
-        if e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", "")
-    ]
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    by_cat = collections.defaultdict(float)
-    for e in kernels:
-        by_name[e["name"]][0] += e["dur"]
-        by_name[e["name"]][1] += 1
-        by_cat[category(e["name"])] += e["dur"]
-    busy_us = sum(e["dur"] for e in kernels)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    totals = {"busy_us": 0.0, "kernels": 0, "launch_us": 0.0,
+              "by_cat": collections.Counter(), "by_name": collections.Counter(),
+              "count_by_name": collections.Counter()}
+    for e in events:
+        if e.get("cat") == "kernel":
+            totals["busy_us"] += e["dur"]
+            totals["kernels"] += 1
+            totals["by_cat"][category(e["name"])] += e["dur"]
+            totals["by_name"][e["name"]] += e["dur"]
+            totals["count_by_name"][e["name"]] += 1
+        elif e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", ""):
+            totals["launch_us"] += e["dur"]
+    return totals
+
+
+def trace_summary(totals: dict, steps: int, minus: "dict | None" = None) -> dict:
+    """Per-step figures from ``totals``; with ``minus`` (a shorter run of
+    the same requests), from the difference of the two, so that work both
+    runs share (the prefill) drops out and ``steps`` is the difference of
+    their decode steps."""
+    def diff(key):
+        if minus is None:
+            return totals[key]
+        if isinstance(totals[key], collections.Counter):
+            out = collections.Counter(totals[key])
+            out.subtract(minus[key])
+            return out
+        return totals[key] - minus[key]
+
+    by_name, counts = diff("by_name"), diff("count_by_name")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "device_ms_per_step": busy_us / 1e3 / steps,
-        "kernels_per_step": len(kernels) / steps,
-        "launch_api_ms_per_step": sum(e["dur"] for e in launches) / 1e3 / steps,
-        "by_category_ms_per_step": {k: v / 1e3 / steps for k, v in sorted(by_cat.items())},
+        "device_ms_per_step": diff("busy_us") / 1e3 / steps,
+        "kernels_per_step": diff("kernels") / steps,
+        "launch_api_ms_per_step": diff("launch_us") / 1e3 / steps,
+        "by_category_ms_per_step": {k: v / 1e3 / steps for k, v in sorted(diff("by_cat").items())},
         "top_kernels": [
-            {"name": n[:120], "ms_per_step": t / 1e3 / steps, "per_step": c / steps}
-            for n, (t, c) in top
+            {"name": n[:120], "ms_per_step": t / 1e3 / steps, "per_step": counts[n] / steps}
+            for n, t in top
         ],
     }
 
@@ -83,6 +110,8 @@ def trace_summary(path: str, steps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--new-tokens", type=int, default=33)
+    ap.add_argument("--batch", action="store_true",
+                    help="profile generate_batch over the paged pool (17 requests)")
     ap.add_argument("--trace-dir", default=None,
                     help="keep the Chrome traces here (default: a temporary directory)")
     args = ap.parse_args()
@@ -106,30 +135,61 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(smi, flush=True)
-    request = GenerationRequest(MODEL, PROMPT, args.new_tokens, stop_at_eos=False)
+    if args.batch:
+        from chip_smoke import batch_requests
+
+        requests = [
+            dataclasses.replace(r, max_new_tokens=args.new_tokens)
+            for r in batch_requests(GenerationRequest)
+        ]
+        run = lambda engine: engine.generate_batch(requests)  # noqa: E731
+    else:
+        requests = [GenerationRequest(MODEL, PROMPT, args.new_tokens, stop_at_eos=False)]
+        run = lambda engine: [engine.generate(requests[0])]  # noqa: E731
+    mode = "paged_batch" if args.batch else "solo"
+
+    def profiled_run(engine, fn, path):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn(engine)
+        prof.export_chrome_trace(path)
+        return out, trace_totals(path)
+
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir = args.trace_dir or tmp
         os.makedirs(trace_dir, exist_ok=True)
         for kv in (None, "int8"):
-            engine = TorchEngine(quantize="int8", kv_quantize=kv)
-            engine.warmup(request)
-            res = engine.generate(request)
-            steps = res.generated_tokens - 1
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                profiled = engine.generate(request)
-            path = os.path.join(trace_dir, f"decode_{kv or 'bf16'}_kv.json")
+            engine = TorchEngine(quantize="int8", kv_quantize=kv, paged_kv=args.batch)
+            run(engine)  # warm
+            res = run(engine)
+            # decode steps: the longest row's tokens after its first
+            steps = max(r.generated_tokens for r in res) - 1
             t0 = time.perf_counter()
-            prof.export_chrome_trace(path)
-            summary = trace_summary(path, profiled.generated_tokens - 1)
-            wall = res.decode_s / steps * 1e3
+            profiled, totals = profiled_run(engine, run, os.path.join(
+                trace_dir, f"{mode}_{kv or 'bf16'}_kv.json"))
+            profiled_steps = max(r.generated_tokens for r in profiled) - 1
+            minus = None
+            if args.batch:
+                # the same batch with 9 new tokens: its difference from the
+                # long run is decode only
+                short = [dataclasses.replace(r, max_new_tokens=9) for r in requests]
+                short_res, minus = profiled_run(
+                    engine, lambda e: e.generate_batch(short),
+                    os.path.join(trace_dir, f"{mode}_{kv or 'bf16'}_kv_short.json"),
+                )
+                profiled_steps -= max(r.generated_tokens for r in short_res) - 1
+            summary = trace_summary(totals, profiled_steps, minus)
+            wall = res[0].decode_s / steps * 1e3
             print(json.dumps({
+                "mode": mode, "rows": len(requests),
                 "kv": kv or "bf16", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
-                "generated_tokens": res.generated_tokens, "decode_steps": steps,
+                "generated_tokens": sum(r.generated_tokens for r in res), "decode_steps": steps,
+                "decode_tokens_per_s": sum(r.generated_tokens for r in res) / res[0].decode_s,
                 "wall_ms_per_step": wall,
-                "profiled_wall_ms_per_step": profiled.decode_s / steps * 1e3,
+                "profiled_wall_ms_per_step": (
+                    profiled[0].decode_s / (max(r.generated_tokens for r in profiled) - 1) * 1e3),
                 "idle_share": 1.0 - summary["device_ms_per_step"] / wall,
                 **summary,
-                "trace_parse_s": time.perf_counter() - t0,
+                "profile_s": time.perf_counter() - t0,
             }), flush=True)
             del engine
             torch.cuda.empty_cache()

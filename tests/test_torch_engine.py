@@ -124,7 +124,6 @@ def test_engine_without_device_needs_cuda(monkeypatch):
 @pytest.mark.parametrize(
     "option",
     [
-        dict(paged_kv=True),
         dict(speculative={"tiny": ("ngram", 3)}),
         dict(prefix_cache_size=2),
         dict(prefix_share=True),
@@ -139,6 +138,14 @@ def test_unported_options_raise(option):
     name = next(iter(option))
     with pytest.raises(NotImplementedError, match=name):
         TorchEngine(device="cpu", **option)
+
+
+def test_contiguous_generate_batch_raises():
+    """Batched decode runs over the paged pool only: contiguous batched
+    decode is not ported yet."""
+    engine = TorchEngine(device="cpu")
+    with pytest.raises(NotImplementedError, match="paged_kv"):
+        engine.generate_batch([GenerationRequest("tiny", "a", 2)])
 
 
 def test_request_contract_is_the_jax_packages():

@@ -58,3 +58,58 @@ def test_kernels_match_plain_versions_on_the_card(dtype, tol, hq, hkv, d):
     torch.testing.assert_close(out.float(), ref.float(), **tol)
     torch.cuda.synchronize()
 
+
+def _paged_inputs(rng, dtype, b, hq, hkv, d, page, lengths, dev):
+    """A shuffled pool holding each row's pages, its table (entries past a
+    row's need are 0) and q, all on ``dev``."""
+    need = [-(-n // page) for n in lengths]
+    jmax = max(max(need), 1)
+    n_pool = sum(need) + 3
+    perm = rng.permutation(n_pool)
+    table = np.zeros((b, jmax), dtype=np.int32)
+    pos = 0
+    for r, k in enumerate(need):
+        table[r, :k] = perm[pos : pos + k]
+        pos += k
+    q = _to_torch(_normal(rng, (b, hq, d)), dtype).to(dev)
+    k = _to_torch(_normal(rng, (n_pool, hkv, page, d)), dtype).to(dev)
+    v = _to_torch(_normal(rng, (n_pool, hkv, page, d)), dtype).to(dev)
+    return (q, k, v, torch.from_numpy(table).to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def _assert_parts_close(got, want, tol):
+    acc, m, l = got
+    acc_r, m_r, l_r = want
+    empty = l_r == 0
+    # a zero-length row is exactly (0, -inf, 0)
+    assert torch.equal(empty, l == 0)
+    assert torch.all(torch.isneginf(m[empty])) and torch.all(acc[empty] == 0)
+    live = ~empty
+    torch.testing.assert_close(m[live], m_r[live], **tol)
+    torch.testing.assert_close(l[live], l_r[live], **tol)
+    torch.testing.assert_close(
+        (acc / l[..., None])[live], (acc_r / l_r[..., None])[live], **tol
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64)])
+def test_paged_parts_kernels_match_plain_versions_on_the_card(dtype, tol, hq, hkv, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+
+    rng = np.random.default_rng(9)
+    lengths = [0, 1, 129, 300, 1100]  # an empty row, page edges, several pages
+    q, k, v, table, lens = _paged_inputs(rng, dtype, len(lengths), hq, hkv, d, 128, lengths, "cuda")
+    got = cpa.cuda_paged_decode_attention_parts(q, k, v, table, lens)
+    want = port_attn.paged_decode_attention_parts_reference(q, k, v, table, lens)
+    _assert_parts_close(got, want, tol)
+    kq, ks = quantize_kv_vector(k)
+    vq, vs = quantize_kv_vector(v)
+    got = cpa.cuda_paged_decode_attention_parts_int8(q, kq, ks, vq, vs, table, lens)
+    want = port_attn.paged_decode_attention_parts_int8_reference(q, kq, ks, vq, vs, table, lens)
+    _assert_parts_close(got, want, tol)
+    torch.cuda.synchronize()

@@ -170,3 +170,62 @@ def test_sampled_sample_token_matches_jax_in_distribution(knobs):
     chi2, tv = _chi2_tv(np.bincount(j, minlength=16), np.bincount(t, minlength=16))
     assert chi2 < CHI2_CRIT_DF15, f"chi2={chi2:.2f} tv={tv:.4f}"
     assert tv < TV_BOUND, f"chi2={chi2:.2f} tv={tv:.4f}"
+
+
+@pytest.mark.parametrize("knobs", [{}, {"top_k": 5}, {"top_p": 0.8}, {"top_k": 6, "top_p": 0.9}])
+def test_modified_probs_match_jax(knobs):
+    rng = _rng(8)
+    logits = (rng.standard_normal((4, 40)) * 2).astype(np.float32)
+    temps = np.array([0.5, 0.8, 1.0, 1.7], dtype=np.float32)
+    top_p = knobs.get("top_p")
+    j = jsampling.modified_probs(
+        jnp.asarray(logits), jnp.asarray(temps)[:, None], knobs.get("top_k", 0),
+        None if top_p is None else jnp.float32(top_p),
+    )
+    t = tsampling.modified_probs(
+        torch.from_numpy(logits), torch.from_numpy(temps)[:, None], knobs.get("top_k", 0), top_p
+    )
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), **OPS_TOL)
+    # a scalar temperature (sample_token's form) gives the same row
+    t1 = tsampling.modified_probs(torch.from_numpy(logits[1:2]), 0.8, knobs.get("top_k", 0), top_p)
+    np.testing.assert_allclose(t1.numpy(), t[1:2].numpy(), **OPS_TOL)
+
+
+def test_sample_token_per_row_greedy_rows_equal_jax():
+    rng = _rng(9)
+    logits = rng.standard_normal((5, 40)).astype(np.float32)
+    presence = rng.random((5, 40)) < 0.3
+    rps = np.array([1.0, 1.3, 1.0, 0.7, 1.0], dtype=np.float32)
+    keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(5))
+    j = jsampling.sample_token_per_row(
+        jnp.asarray(logits), keys, jnp.zeros(5), 0, None, jnp.asarray(presence), jnp.asarray(rps)
+    )
+    t = tsampling.sample_token_per_row(
+        torch.from_numpy(logits), [None] * 5, [0.0] * 5, 0, None,
+        torch.from_numpy(presence), rps.tolist(),
+    )
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+def test_sample_token_per_row_draws_each_row_as_its_solo_call():
+    """Row b consumes its own generator exactly as a solo ``sample_token``
+    on ``logits[b:b+1]`` with that row's knobs: the drawn tokens and the
+    generators' states after the draw are the solo calls'."""
+    rng = _rng(10)
+    logits = torch.from_numpy((rng.standard_normal((4, 40)) * 2).astype(np.float32))
+    presence = torch.from_numpy(rng.random((4, 40)) < 0.3)
+    temps = [0.7, 0.0, 1.1, 0.0]
+    top_ps = [0.9, 1.0, 1.0, 1.0]
+    rps = [1.0, 1.0, 1.2, 1.3]
+    gens = [torch.Generator().manual_seed(s) for s in (1, 2, 3, 4)]
+    got = tsampling.sample_token_per_row(logits, gens, temps, 5, top_ps, presence, rps)
+    for b in range(4):
+        solo_gen = torch.Generator().manual_seed(b + 1)
+        want = tsampling.sample_token(
+            logits[b : b + 1], solo_gen, temps[b], 5,
+            top_ps[b] if top_ps[b] < 1.0 else None,
+            presence[b : b + 1] if rps[b] != 1.0 else None,
+            rps[b] if rps[b] != 1.0 else None,
+        )
+        assert int(got[b]) == int(want[0])
+        assert torch.equal(gens[b].get_state(), solo_gen.get_state())

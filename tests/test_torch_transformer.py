@@ -120,3 +120,108 @@ def test_prefill_and_decode_match_jax(model, variant):
             np.testing.assert_allclose(
                 ttf.logits_for(tp, tcfg, out[:, 0]).numpy(), jl, **TOL
             )
+
+
+def _jax_paged_parts(q, kc, vc, lengths):
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu.ops import pallas_paged_attention as jpa
+
+    if isinstance(kc["pool"], dict):
+        return jpa.xla_paged_decode_attention_parts_int8(
+            q, kc["pool"]["q"], kc["pool"]["s"], vc["pool"]["q"], vc["pool"]["s"],
+            kc["table"], lengths,
+        )
+    return jpa.xla_paged_decode_attention_parts(q, kc["pool"], vc["pool"], kc["table"], lengths)
+
+
+@pytest.mark.parametrize("kv", ["plain", "int8"])
+@pytest.mark.parametrize("model", ["qwen2:1.5b", "phi3:3.8b"])
+def test_stacked_paged_decode_matches_jax(model, kv):
+    """Four batched decode steps over the stacked-hybrid paged leaf: a
+    read-only prompt pool (shuffled pages of 8 tokens; one row with no
+    prompt), side caches taking the generated tokens at each row's
+    ``write_pos``, per-row RoPE positions. Hidden states, logits and the
+    side caches agree with the JAX forward of the same leaf."""
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.engine.torch_engine import (
+        _paged_parts,
+    )
+
+    cfg = get_model_config(model).tiny()
+    tcfg = port_config(model).tiny()
+    jp = jtf.init_params(cfg, jax.random.PRNGKey(5), jnp.float32)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    rng = np.random.default_rng(6)
+    b, page, n_pool, t_gen, steps = 3, 8, 10, 8, 4
+    plens = np.array([20, 0, 9], dtype=np.int32)
+    table = rng.permutation(n_pool)[: b * 3].reshape(b, 3).astype(np.int32)
+    shape = (cfg.n_layers, n_pool, cfg.n_kv_heads, page, cfg.d_head)
+    pools = [rng.standard_normal(shape).astype(np.float32) for _ in range(2)]
+    side_shape = (cfg.n_layers, b, cfg.n_kv_heads, t_gen, cfg.d_head)
+
+    def leaves(pool, side, j):
+        if j:
+            return {"pool": pool, "table": jnp.asarray(table), "side": side,
+                    "prompt_lens": jnp.asarray(plens)}
+        return {"pool": pool, "table": torch.from_numpy(table), "side": side,
+                "prompt_lens": torch.from_numpy(plens)}
+
+    if kv == "int8":
+        jpools = [dict(zip("qs", jquant.quantize_kv_vector(jnp.asarray(p)))) for p in pools]
+        tpools = [{k: torch.from_numpy(np.array(v)) for k, v in p.items()} for p in jpools]
+        jsides = [{"q": jnp.zeros(side_shape, jnp.int8), "s": jnp.zeros(side_shape[:-1])}] * 2
+        tsides = [{"q": torch.zeros(side_shape, dtype=torch.int8),
+                   "s": torch.zeros(side_shape[:-1])} for _ in range(2)]
+    else:
+        jpools = [jnp.asarray(p) for p in pools]
+        tpools = [torch.from_numpy(p) for p in pools]
+        jsides = [jnp.zeros(side_shape)] * 2
+        tsides = [torch.zeros(side_shape) for _ in range(2)]
+    jk, jv = (leaves(p, s, True) for p, s in zip(jpools, jsides))
+    tk, tv = (leaves(p, s, False) for p, s in zip(tpools, tsides))
+    tokens = rng.integers(3, cfg.vocab_size, size=(b, steps)).astype(np.int32)
+    for i in range(steps):
+        offs = plens + i
+        for leaf, j in ((jk, True), (jv, True), (tk, False), (tv, False)):
+            leaf["write_pos"] = jnp.full((b,), i, jnp.int32) if j else torch.full((b,), i)
+        jh, jk, jv = jtf.forward(
+            jp, cfg, jnp.asarray(tokens[:, i : i + 1]), jnp.asarray(offs), jk, jv, _jax_paged_parts
+        )
+        th, _, _ = ttf.forward(
+            tp, tcfg, torch.from_numpy(tokens[:, i : i + 1]).long(),
+            torch.from_numpy(offs).long(), tk, tv, _paged_parts,
+        )
+        np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+        np.testing.assert_allclose(
+            ttf.logits_for(tp, tcfg, th[:, 0]).numpy(),
+            np.asarray(jtf.logits_for(jp, cfg, jh[:, 0])),
+            **TOL,
+        )
+    # the port wrote its side caches in place; the JAX forward returned them
+    for tleaf, jleaf in ((tk, jk), (tv, jv)):
+        if kv == "int8":
+            np.testing.assert_array_equal(tleaf["side"]["q"].numpy(), np.asarray(jleaf["side"]["q"]))
+        else:
+            np.testing.assert_allclose(tleaf["side"].numpy(), np.asarray(jleaf["side"]), **TOL)
+
+
+@pytest.mark.parametrize(
+    "leaf,s",
+    [
+        (dict(), 1),  # the write-through leaf: pool + table only
+        (dict(side=True, layer=0), 1),  # the stacked-pool kernel form
+        (dict(side=True), 2),  # the multi-token verify block
+    ],
+    ids=["write-through", "layer", "verify"],
+)
+def test_unported_paged_modes_raise(leaf, s):
+    tcfg = port_config("qwen2:1.5b").tiny()
+    tp = ttf.init_params(tcfg, torch.Generator().manual_seed(0), torch.float32)
+    shape = (tcfg.n_layers, 4, tcfg.n_kv_heads, 8, tcfg.d_head)
+    cache = {"pool": torch.zeros(shape), "table": torch.zeros((1, 1), dtype=torch.int32)}
+    if leaf.pop("side", False):
+        cache.update(side=torch.zeros((tcfg.n_layers, 1, tcfg.n_kv_heads, 4, tcfg.d_head)),
+                     write_pos=torch.zeros(1, dtype=torch.long),
+                     prompt_lens=torch.ones(1, dtype=torch.int32))
+    cache.update(leaf)
+    with pytest.raises(NotImplementedError):
+        ttf.forward(tp, tcfg, torch.zeros((1, s), dtype=torch.long), torch.ones(1, dtype=torch.long),
+                    cache, dict(cache), lambda *a: None)
