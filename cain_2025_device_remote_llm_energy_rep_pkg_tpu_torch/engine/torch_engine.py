@@ -17,14 +17,20 @@ the JAX paged engine's.
 
 On a CUDA device attention always runs the hand-written kernels of
 ``ops/cuda_attention.py`` and ``ops/cuda_paged_attention.py``; their
-wrappers take the plain versions only for tensors on the CPU, which is
+wrappers, like the int4 matmul wrappers of ``ops/cuda_quant.py``, take
+the plain versions only for tensors on the CPU, which is
 where the tests run. The JAX engine's kernel policies (and its routing
 between the Pallas parts kernel and an XLA gather) were measured on a TPU
 and do not carry over.
 
+Weights load at the engine's quantize mode for each model (None, int8,
+int4 or int4-i32); at int4 every decode-shaped matmul (at most 8 rows)
+runs an int4 kernel, and prefill and batches of more than 8 rows
+dequantize and call ``torch.matmul``, as the JAX package does.
+
 Not ported yet: contiguous batched decode (``generate_batch`` with
 ``paged_kv=False``), continuous sessions, speculation, prefix caches, HF
-checkpoints, the on-disk weight cache, int4 weights, ``generate_stream``'s
+checkpoints, the on-disk weight cache, ``generate_stream``'s
 incremental path (the contract's single-chunk default stands in), CUDA
 graphs and ``extras["energy_model"]``.
 """
@@ -39,7 +45,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..models.config import MODEL_REGISTRY, ModelConfig, get_model_config
-from ..models.quantize import quantize_kv_cache, quantize_leaf, quantize_params
+from ..models.quantize import QUANT_MODES, quantize_kv_cache, quantize_leaf, quantize_params
 from ..models.tokenizer import load_tokenizer
 from ..models.transformer import Transformer, forward, init_params, logits_for
 from ..obs.metrics import REGISTRY as _OBS, enabled as _obs_enabled
@@ -198,8 +204,10 @@ class TorchEngine(GenerationBackend):
     """In-process generation over the model registry on one device.
 
     ``registry`` maps model name → ModelConfig (pass tiny() configs for
-    tests). ``quantize`` is None or "int8" (weights; one mode for every
-    model); ``kv_quantize`` is None or "int8" (the decode loop's cache,
+    tests). ``quantize`` is the weights' mode: None, "int8", "int4" or
+    "int4-i32" for every model, or a per-model dict ``{model: mode}`` with
+    an optional ``"default"`` key (small models at int8, large ones at
+    int4, from one engine); ``kv_quantize`` is None or "int8" (the decode loop's cache,
     and the page pool's under ``paged_kv``). ``paged_kv=True`` makes
     ``generate_batch`` decode over a page pool of ``page_size`` tokens a
     page; ``generate`` stays the solo contiguous path.
@@ -210,7 +218,7 @@ class TorchEngine(GenerationBackend):
         registry: Optional[Dict[str, ModelConfig]] = None,
         dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
-        quantize: Optional[str] = None,
+        quantize: "str | Dict[str, Optional[str]] | None" = None,
         kv_quantize: Optional[str] = None,
         device=None,
         *,
@@ -231,9 +239,12 @@ class TorchEngine(GenerationBackend):
         ):
             if value:
                 raise NotImplementedError(f"TorchEngine: {option} is not ported yet")
-        if quantize in ("int4", "int4-i32"):
-            raise NotImplementedError(f"TorchEngine: quantize={quantize!r} is not ported yet")
-        if quantize not in (None, "int8"):
+        valid_modes = (None, *QUANT_MODES)
+        if isinstance(quantize, dict):
+            for name, mode in quantize.items():
+                if mode not in valid_modes:
+                    raise ValueError(f"unsupported quantize mode for {name!r}: {mode!r}")
+        elif quantize not in valid_modes:
             raise ValueError(f"unsupported quantize mode: {quantize!r}")
         if kv_quantize not in (None, "int8"):
             raise ValueError(f"unsupported kv_quantize mode: {kv_quantize!r}")
@@ -261,14 +272,20 @@ class TorchEngine(GenerationBackend):
         self._warmed: set = set()
 
     # -- model management -----------------------------------------------------
+    def _quant_mode(self, model: str) -> Optional[str]:
+        """The weight-quantization mode for ``model`` (see the class)."""
+        if isinstance(self.quantize, dict):
+            return self.quantize.get(model, self.quantize.get("default"))
+        return self.quantize
+
     def load_model(self, model: str) -> None:
         if model in self._models:
             return
         cfg = self.registry[model] if model in self.registry else get_model_config(model)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         post = None
-        if self.quantize is not None:
-            mode = self.quantize
+        mode = self._quant_mode(model)
+        if mode is not None:
             post = lambda name, leaf: quantize_leaf(name, leaf, mode)  # noqa: E731
         params = init_params(cfg, gen, self.dtype, post=post)
         self._sync()
@@ -281,8 +298,9 @@ class TorchEngine(GenerationBackend):
         self._models.pop(model, None)
         self._tokenizers.pop(model, None)
         self._warmed = {k for k in self._warmed if k[0] != model}
-        if self.quantize is not None:
-            params = quantize_params(params, mode=self.quantize)
+        mode = self._quant_mode(model)
+        if mode is not None:
+            params = quantize_params(params, mode=mode)
         self.registry[model] = cfg
         self._models[model] = Transformer(cfg=cfg, params=params)
 

@@ -29,6 +29,7 @@ from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_angles
 from .config import ModelConfig
 from .quantize import (
+    codes,
     dense_dot,
     dequant_cache,
     embed_lookup,
@@ -131,11 +132,11 @@ def split_layers(params: Params) -> List[Params]:
     """Per-layer views of the stacked leaves (no copies)."""
     stacked = {k: v for k, v in params.items() if k not in NON_LAYER_LEAVES}
     first = next(iter(stacked.values()))
-    n_layers = (first["q"] if is_quantized(first) else first).shape[0]
+    n_layers = (codes(first) if is_quantized(first) else first).shape[0]
 
     def at(leaf, i):
-        if is_quantized(leaf):
-            return {"q": leaf["q"][i], "s": leaf["s"][i]}
+        if is_quantized(leaf):  # int8, int4 or int4-i32: codes and scales
+            return {k: t[i] for k, t in leaf.items()}
         return leaf[i]
 
     return [{k: at(v, i) for k, v in stacked.items()} for i in range(n_layers)]

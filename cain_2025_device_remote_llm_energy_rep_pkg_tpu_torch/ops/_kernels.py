@@ -51,9 +51,19 @@ _SIGNATURES = {
             _i,
         ),
     },
+    "int4_matmul": {
+        "int4_error_string": ([_i], ctypes.c_char_p),
+        "int4_matmul": (
+            [_i, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i,
+        ),
+    },
 }
 # The entry point that names a cudaError_t, per library.
-_ERROR_STRING = {"attention": "attn_error_string", "paged_attention": "paged_error_string"}
+_ERROR_STRING = {
+    "attention": "attn_error_string",
+    "paged_attention": "paged_error_string",
+    "int4_matmul": "int4_error_string",
+}
 
 
 def _nvcc() -> str:

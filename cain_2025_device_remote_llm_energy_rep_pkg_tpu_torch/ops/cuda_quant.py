@@ -1,0 +1,113 @@
+"""Wrappers of the Hopper int4 weight matmul kernels (``csrc/int4_matmul.cu``).
+
+Counterparts of the JAX package's ``int4_matmul`` (halves layout, ``q4
+[IN/2, OUT] int8``) and ``int4_matmul_i32`` (``q32 [IN/8, OUT] int32``),
+with their signatures: ``x [M, IN]`` bf16 or f32 with 1 <= M <= 8, scale
+``[1, OUT]`` f32, result ``[M, OUT]`` in ``x.dtype``. The contract is
+stated in ``ops/quant.py``.
+
+A tensor on the CPU goes to the plain version in ``ops/quant.py``; a CUDA
+tensor launches the kernel or raises. Each wrapper counts its launches in
+an integer ``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _kernels
+from .cuda_attention import _DTYPE_CODES, _require, _stream
+from .quant import MAX_KERNEL_ROWS, int4_matmul_i32_reference, int4_matmul_reference
+
+_LIB = "int4_matmul"
+_LAYOUT_HALVES, _LAYOUT_I32 = 0, 1
+_TILE_COLS = 128  # output columns per block (32 threads × 4)
+# Enough blocks for about four per SM of the card's 132, with at least this
+# many packed rows per split (16 weight rows), so that thin projections
+# (qwen2's wk/wv, OUT 256: two column tiles) still spread over the card.
+_TARGET_BLOCKS = 528
+_MIN_SPLIT_ROWS = {_LAYOUT_HALVES: 8, _LAYOUT_I32: 2}
+# The kernel's per-split limit (512 weight rows of x staged in shared
+# memory); it refuses more.
+_MAX_SPLIT_ROWS = {_LAYOUT_HALVES: 256, _LAYOUT_I32: 64}
+
+
+def _split(k_rows: int, out_dim: int, layout: int) -> "tuple[int, int]":
+    """(n_split, split_rows): the packed rows cut into equal splits (the
+    last may be shorter) within the kernel's per-split limit."""
+    tiles = -(-out_dim // _TILE_COLS)
+    want = -(-_TARGET_BLOCKS // tiles)
+    rows = max(-(-k_rows // want), _MIN_SPLIT_ROWS[layout])
+    rows = min(rows, _MAX_SPLIT_ROWS[layout])
+    return -(-k_rows // rows), rows
+
+
+def _check(name: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+           per_row: int, code_dtype: torch.dtype) -> None:
+    """The shape contract, on every device."""
+    _require(x.dim() == 2 and packed.dim() == 2, f"{name}: x must be [M, IN] and the codes 2-D")
+    m, in_dim = x.shape
+    k_rows, out_dim = packed.shape
+    _require(1 <= m <= MAX_KERNEL_ROWS, f"{name}: x has {m} rows, the kernel takes 1 to {MAX_KERNEL_ROWS}")
+    _require(in_dim == per_row * k_rows, f"{name}: x in-dim {in_dim} != {per_row} * packed rows {k_rows}")
+    _require(packed.dtype == code_dtype, f"{name}: codes must be {code_dtype}, got {packed.dtype}")
+    _require(scale.numel() == out_dim, f"{name}: scale must hold one value per output column")
+
+
+def _launch(name: str, layout: int, x: torch.Tensor, packed: torch.Tensor,
+            scale: torch.Tensor) -> torch.Tensor:
+    _require(x.device.type == "cuda", f"{name}: tensors must be on the CPU or a CUDA device, got {x.device}")
+    _require(x.dtype in _DTYPE_CODES, f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+    _require(scale.dtype == torch.float32, f"{name}: scale must be float32, got {scale.dtype}")
+    for t in (x, packed, scale):
+        _require(t.device == x.device, f"{name}: all tensors must be on {x.device}")
+        _require(t.is_contiguous(), f"{name}: tensors must be contiguous")
+    m, in_dim = x.shape
+    k_rows, out_dim = packed.shape
+    n_split, split_rows = _split(k_rows, out_dim, layout)
+    out = torch.empty((m, out_dim), dtype=x.dtype, device=x.device)
+    partial = torch.empty((n_split, m, out_dim), dtype=torch.float32, device=x.device)
+    err = _kernels.library(_LIB).int4_matmul(
+        _DTYPE_CODES[x.dtype], layout, x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+        partial.data_ptr(), out.data_ptr(),
+        m, in_dim, k_rows, out_dim, n_split, split_rows, _stream(x),
+    )
+    _kernels.check(err, name, _LIB)
+    return out
+
+
+def cuda_int4_matmul(
+    x: torch.Tensor,  # [M, IN] bf16/f32, M <= 8
+    packed: torch.Tensor,  # [IN/2, OUT] int8, halves layout
+    scale: torch.Tensor,  # [1, OUT] f32
+) -> torch.Tensor:
+    """``x @ (unpack(packed) · scale)`` with the nibbles unpacked in registers."""
+    name = "cuda_int4_matmul"
+    _check(name, x, packed, scale, 2, torch.int8)
+    if x.device.type == "cpu":
+        return int4_matmul_reference(x, packed, scale)
+    out = _launch(name, _LAYOUT_HALVES, x, packed, scale)
+    cuda_int4_matmul.launches += 1
+    return out
+
+
+def cuda_int4_matmul_i32(
+    x: torch.Tensor,  # [M, IN] bf16/f32, M <= 8
+    packed32: torch.Tensor,  # [IN/8, OUT] int32, 8 nibbles per lane
+    scale: torch.Tensor,  # [1, OUT] f32
+) -> torch.Tensor:
+    """The same product over int32 lanes of 8 k-consecutive nibbles."""
+    name = "cuda_int4_matmul_i32"
+    _check(name, x, packed32, scale, 8, torch.int32)
+    if x.device.type == "cpu":
+        return int4_matmul_i32_reference(x, packed32, scale)
+    out = _launch(name, _LAYOUT_I32, x, packed32, scale)
+    cuda_int4_matmul_i32.launches += 1
+    return out
+
+
+cuda_int4_matmul.launches = 0
+cuda_int4_matmul_i32.launches = 0
+
+# Every kernel wrapper of this module, for code that resets or reads counts.
+KERNELS = (cuda_int4_matmul, cuda_int4_matmul_i32)

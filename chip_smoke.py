@@ -8,13 +8,15 @@ Run from the repository root on a machine with one CUDA card:
 It builds the port's CUDA kernels from ``csrc/`` (one ``nvcc`` per source,
 all started together), holds each kernel against its plain PyTorch version
 on the card and times both (with the library yardstick and the card's bound
-beside them), then drives the port's paths on full-width qwen2:1.5b with
-int8 weights: ``TorchEngine.generate`` (the study's solo path) with a bf16
-and then an int8 KV cache, and ``TorchEngine.generate_batch`` over the
-paged pool (17 requests) with a bf16 and then an int8 pool. Every launch
-count is set to 0 just before each path and read just after, to check that
-the path ran through its kernels and no other. Each phase prints one JSON
-line; the last line is the result the caller reads. Any failure raises,
+beside them), then drives the port's paths on full-width qwen2:1.5b:
+``TorchEngine.generate`` (the study's solo path) at int8 weights with a
+bf16 and then an int8 KV cache, ``TorchEngine.generate_batch`` over the
+paged pool (17 requests) with a bf16 and then an int8 pool, ``generate``
+at int4 and at int4-i32 weights, one engine with per-model modes (qwen2 at
+int8, full-width llama3.1:8b at int4), and an int4 paged batch of 8 rows.
+Every launch count is set to 0 just before each path and read just after,
+to check that the path ran through its kernels and no other. Each phase
+prints one JSON line; the last line is the result the caller reads. Any failure raises,
 prints no result line and exits non-zero. Without a CUDA device, or
 without the port's package beside it, it exits 2 at once.
 """
@@ -40,8 +42,28 @@ KERNEL_INFO = {
         f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:826"),
     "cuda_paged_decode_attention_parts_int8": (
         f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:953"),
+    "cuda_int4_matmul": (f"{PKG}/csrc/int4_matmul.cu", f"{JAX_PKG}/ops/pallas_quant.py:266"),
+    "cuda_int4_matmul_i32": (f"{PKG}/csrc/int4_matmul.cu", f"{JAX_PKG}/ops/pallas_quant.py:199"),
 }
 MODEL = "qwen2:1.5b"
+LARGE_MODEL = "llama3.1:8b"  # the widest dense model of the study
+# Dense matmuls of a layer (wq, wk, wv, wo, w_gate, w_up, w_down): each is
+# one int4 kernel launch per decode forward of at most 8 rows.
+MATMULS_PER_LAYER = 7
+# (label, IN, OUT) of the int4 kernel rows, at M 1 and 8: the seven decode
+# matmuls (four shapes each) of qwen2:1.5b and of llama3.1:8b; then one odd
+# shape.
+INT4_SHAPES = (
+    ("qwen2:1.5b w_gate/w_up", 1536, 8960),
+    ("qwen2:1.5b wq/wo", 1536, 1536),
+    ("qwen2:1.5b wk/wv", 1536, 256),
+    ("qwen2:1.5b w_down", 8960, 1536),
+    ("llama3.1:8b w_gate/w_up", 4096, 14336),
+    ("llama3.1:8b w_down", 14336, 4096),
+    ("llama3.1:8b wq/wo", 4096, 4096),
+    ("llama3.1:8b wk/wv", 4096, 1024),
+)
+INT4_ODD_SHAPE = ("odd", 3, 96, 200)  # (label, M, IN, OUT)
 # H100 SXM data-sheet peaks: HBM3 bytes/s and dense bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -61,6 +83,9 @@ PAGE = 128
 # 1,100 tokens, four of each, plus one 2,112-token prompt that prefills in
 # two chunks; 17 rows pad to a bucket of 32.
 BATCH_CONTEXTS = (292, 300, 308, 316, 690, 700, 710, 720, 1086, 1094, 1100, 1108)
+# The int4 paged batch: two each of the study prompt and the 300-, 700- and
+# 1,100-token contexts; 8 rows, so decode takes the int4 kernel route.
+INT4_BATCH_CONTEXTS = (300, 300, 700, 700, 1100, 1100)
 LONG_PROMPT_TOKENS = 2112
 
 
@@ -79,11 +104,23 @@ def nvidia_smi_line() -> str:
 class Timer:
     """Per-launch CUDA-event timing with the L2 flushed before each launch
     (on the engine path every attention call follows ~50 MB of one layer's
-    weights, so its K/V arrive cold)."""
+    weights, and every int4 matmul reads weights no earlier call left in
+    L2). Before each launch the card spins (``torch.cuda._sleep``) for
+    twice the host's time to enqueue one call, so the events time the
+    device's work and not the host's wrapper and launch calls."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        cycles = 10_000_000
+        torch.cuda._sleep(cycles)  # warm
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        self.cycles_per_ms = cycles / start.elapsed_time(end)
 
     def ms(self, fn, min_iters=5, max_iters=100, budget_s=0.3) -> float:
         torch = self.torch
@@ -92,11 +129,14 @@ class Timer:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
+        host = time.perf_counter() - t0  # enqueue only
         torch.cuda.synchronize()
         one = max(time.perf_counter() - t0, 1e-6)
         iters = int(min(max_iters, max(min_iters, budget_s / one)))
+        lead = int(self.cycles_per_ms * (2 * host * 1e3 + 0.05))
         pairs = []
         for _ in range(iters):
+            torch.cuda._sleep(lead)
             self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -221,6 +261,65 @@ def kernel_phase(torch, ca, plain, timer):
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": b_ms, "bound_by": b_by,
             })
+    return summary
+
+
+def int4_kernel_phase(torch, cq, qplain, qmod, timer):
+    """B9 and B10 against their plain versions at the main path's shapes
+    (weights at the model's 1/sqrt(IN) scale, so outputs are O(1)), f32 to
+    F32_ATOL and bf16 to BF16_ATOL, timed in bf16 beside torch.matmul on
+    the dequantized bf16 weight (made once, outside the timing); and a CUDA
+    x of 9 rows must raise. Returns the first row of each kernel (qwen2's
+    w_gate at M 1) for the summary."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    kernels = {
+        "cuda_int4_matmul": (cq.cuda_int4_matmul, qplain.int4_matmul_reference,
+                             qmod.quantize_tensor_int4, "q4"),
+        "cuda_int4_matmul_i32": (cq.cuda_int4_matmul_i32, qplain.int4_matmul_i32_reference,
+                                 qmod.quantize_tensor_int4_i32, "q32"),
+    }
+    cases = [(label, m, i, o) for label, i, o in INT4_SHAPES for m in (1, 8)] + [INT4_ODD_SHAPE]
+    summary = {}
+    for label, m, in_dim, out_dim in cases:
+        w = torch.randn((in_dim, out_dim), generator=gen, device="cuda") / math.sqrt(in_dim)
+        for name, (fn, ref_fn, quantize, key) in kernels.items():
+            leaf = quantize(w)
+            codes, scale = leaf[key], leaf["s"]
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((m, in_dim), generator=gen, device="cuda").to(dtype)
+                out = fn(x, codes, scale)
+                ref = ref_fn(x, codes, scale)
+                torch.cuda.synchronize()
+                errs[dtype] = (out.float() - ref.float()).abs().max().item()
+            assert errs[torch.float32] <= F32_ATOL, (label, name, "f32", errs)
+            assert errs[torch.bfloat16] <= BF16_ATOL, (label, name, "bf16", errs)
+            w_bf16 = qmod.maybe_dequant(leaf, torch.bfloat16)
+            ms = timer.ms(lambda: fn(x, codes, scale))
+            plain_ms = timer.ms(lambda: ref_fn(x, codes, scale), max_iters=20)
+            library_ms = timer.ms(lambda: torch.matmul(x, w_bf16))
+            bytes_moved = codes.numel() * codes.element_size() + out_dim * 4 + m * (in_dim + out_dim) * 2
+            b_ms, b_by = bound(bytes_moved, 2 * m * in_dim * out_dim)
+            row = {
+                "name": name, "shape": label, "M": m, "IN": in_dim, "OUT": out_dim,
+                "splits": cq._split(codes.shape[0], out_dim, int(key == "q32"))[0],
+                "max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
+                "ms": ms, "plain_ms": plain_ms,
+                # torch.matmul on the dequantized bf16 weight: 4x the bytes
+                "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit({"phase": "kernel", **row})
+            summary.setdefault(name, row)
+        del w, w_bf16
+    too_many = qplain.MAX_KERNEL_ROWS + 1
+    for name, (fn, _, quantize, key) in kernels.items():
+        leaf = quantize(torch.randn((64, 128), generator=gen, device="cuda"))
+        try:
+            fn(torch.zeros((too_many, 64), device="cuda"), leaf[key], leaf["s"])
+        except ValueError as err:
+            emit({"phase": "kernel", "name": name, "M": too_many, "raised": str(err)})
+        else:
+            raise AssertionError(f"{name} took a CUDA x of {too_many} rows")
     return summary
 
 
@@ -382,6 +481,18 @@ def context_prompt(n_tokens: int) -> str:
     return (text[: n_tokens - 12] + " Summarise.")[: n_tokens - 1]
 
 
+def int4_batch_requests(GenerationRequest):
+    """The int4 paged batch: two study prompts and two contexts each of 300,
+    700 and 1,100 tokens; every other row asks for 134 new tokens, the rest
+    for 32, all greedy."""
+    prompts = [STUDY_PROMPT.format(words=STUDY_WORDS[0])] * 2
+    prompts += [context_prompt(n) for n in INT4_BATCH_CONTEXTS]
+    return [
+        GenerationRequest(MODEL, p, 134 if i % 2 == 0 else 32, stop_at_eos=False)
+        for i, p in enumerate(prompts)
+    ]
+
+
 def batch_requests(GenerationRequest):
     """The paged batch: four study prompts, four contexts each of about
     300, 700 and 1,100 tokens, and one 2,112-token prompt (two prefill
@@ -398,9 +509,9 @@ def batch_requests(GenerationRequest):
 
 def check_results(engine, requests, results):
     """Finite, in-vocabulary tokens of the asked length (or ending at EOS)."""
-    vocab = engine._models[MODEL].cfg.vocab_size
-    eos = engine._tokenizer_for(MODEL).eos_id
     for r, res in zip(requests, results):
+        vocab = engine._models[r.model].cfg.vocab_size
+        eos = engine._tokenizer_for(r.model).eos_id
         assert res.generated_tokens == len(res.tokens) >= 1
         assert all(0 <= t < vocab for t in res.tokens)
         # stop_at_eos=False: tokens end at max_new_tokens or at an EOS
@@ -416,8 +527,10 @@ def count_launches(kernels, run):
     return out, {fn.__name__: fn.launches for fn in kernels}
 
 
-def engine_phase(phase, engine, requests, kernels, n_layers, chunks_of):
-    """Drive ``generate`` (warm first) and check its launch counts."""
+def engine_phase(phase, engine, requests, kernels, n_layers, chunks_of, matmul=None):
+    """Drive ``generate`` (warm first) and check its launch counts; with
+    ``matmul`` (an int4 kernel's name), that kernel ran once per dense
+    matmul of every decode forward and nowhere else."""
     engine.warmup(requests[0])
     results, counts = count_launches(kernels, lambda: [engine.generate(r) for r in requests])
     check_results(engine, requests, results)
@@ -435,6 +548,8 @@ def engine_phase(phase, engine, requests, kernels, n_layers, chunks_of):
     expected = {fn.__name__: 0 for fn in kernels}
     expected["cuda_prefill_attention"] = n_layers * chunks
     expected[decode_name] = n_layers * steps
+    if matmul:
+        expected[matmul] = MATMULS_PER_LAYER * n_layers * steps
     emit({"phase": phase + "_launches", "counts": counts, "expected": expected})
     assert counts == expected, (counts, expected)
     return counts
@@ -454,13 +569,15 @@ def prefill_forwards(eng_mod, prompt_lengths):
     return len(buckets) + chunked
 
 
-def paged_engine_phase(phase, engine, requests, kernels, n_layers, eng_mod):
-    """Drive one ``generate_batch`` of the 17 requests over the paged pool
+def paged_engine_phase(phase, engine, requests, kernels, n_layers, eng_mod, matmul=None):
+    """Drive one ``generate_batch`` of the requests over the paged pool
     (warm first, on four of them with 4 new tokens each) and check its launch counts: the parts
     kernel of the pool's kind ran a whole number of steps of n_layers
     launches, at least the longest row's decode steps and at most 133;
     the other parts kernel and the contiguous decode kernels never ran;
-    the prefill kernel ran n_layers times per prefill forward."""
+    the prefill kernel ran n_layers times per prefill forward; with
+    ``matmul`` (an int4 kernel's name), that kernel ran once per dense
+    matmul of every decode forward (MATMULS_PER_LAYER per parts launch)."""
     engine.generate_batch([dataclasses.replace(r, max_new_tokens=4) for r in requests[:2] + requests[-2:]])
     results, counts = count_launches(kernels, lambda: engine.generate_batch(requests))
     check_results(engine, requests, results)
@@ -481,8 +598,8 @@ def paged_engine_phase(phase, engine, requests, kernels, n_layers, eng_mod):
     longest = max(r.generated_tokens for r in results)
     n_parts = counts[parts]
     expected_zero = {fn.__name__: 0 for fn in kernels}
-    for name in (parts, "cuda_prefill_attention"):
-        expected_zero.pop(name)
+    for name in (parts, "cuda_prefill_attention", matmul):
+        expected_zero.pop(name, None)
     forwards = prefill_forwards(eng_mod, [r.prompt_tokens for r in results])
     emit({
         "phase": phase + "_summary", "rows": len(results), "decode_windows": len(windows),
@@ -494,39 +611,47 @@ def paged_engine_phase(phase, engine, requests, kernels, n_layers, eng_mod):
     assert n_layers * (longest - 1) <= n_parts <= n_layers * (max(r.max_new_tokens for r in requests) - 1), counts
     assert {k: counts[k] for k in expected_zero} == expected_zero, counts
     assert counts["cuda_prefill_attention"] == n_layers * forwards, (counts, forwards)
+    if matmul:
+        assert counts[matmul] == MATMULS_PER_LAYER * n_parts, counts
     return counts
 
 
-def integration_phase(torch, engine, ca, plain, forward, logits_for):
+def integration_phase(torch, engine, phase, paths, forward, logits_for, qmod):
     """Prefill + 8 decode steps of the full-width model with the kernels
     injected, and again with the plain versions: logits per step agree to
     LOGIT_ATOL, and greedy tokens agree except at near-ties narrower than
-    the observed difference."""
+    the observed difference. ``paths`` maps "kernels" and "plain" to
+    (prefill attention, decode attention, int4 matmul of ``dense_dot``)."""
     tf = engine._models[MODEL]
     tok = engine._tokenizer_for(MODEL)
     ids = tok.encode("In 100 words, please give me information about the water cycle")
     s_bucket = 64
-    paths = {
-        "kernels": (ca.cuda_prefill_attention, ca.cuda_decode_attention),
-        "plain": (plain.prefill_attention_cached, plain.decode_attention_reference),
-    }
     logits = {name: [] for name in paths}
     caches = {name: tf.init_cache(1, s_bucket + 16, dtype=engine.dtype) for name in paths}
     tokens = torch.tensor([ids + [tok.pad_id] * (s_bucket - len(ids))], device="cuda")
-    for name, (pf, _) in paths.items():
-        h, _, _ = forward(tf.params, tf.cfg, tokens, 0, *caches[name], None, pf, layers=tf.layers)
+    installed = qmod.cuda_int4_matmul
+
+    def run(name, toks, offset, prefill):
+        pf, dec, matmul = paths[name]
+        qmod.cuda_int4_matmul = matmul
+        try:
+            if prefill:
+                return forward(tf.params, tf.cfg, toks, offset, *caches[name], None, pf, layers=tf.layers)[0]
+            return forward(tf.params, tf.cfg, toks, offset, *caches[name], dec, layers=tf.layers)[0]
+        finally:
+            qmod.cuda_int4_matmul = installed
+
+    for name in paths:
+        h = run(name, tokens, 0, True)
         logits[name].append(logits_for(tf.params, tf.cfg, h[:, len(ids) - 1]))
     forced = []  # teacher-forced from the kernel path's greedy tokens
     for step in range(8):
         nxt = int(torch.argmax(logits["kernels"][-1][0]))
         forced.append(nxt)
-        for name, (_, dec) in paths.items():
-            h, _, _ = forward(
-                tf.params, tf.cfg, torch.tensor([[nxt]], device="cuda"), len(ids) + step,
-                *caches[name], dec, layers=tf.layers,
-            )
+        for name in paths:
+            h = run(name, torch.tensor([[nxt]], device="cuda"), len(ids) + step, False)
             logits[name].append(logits_for(tf.params, tf.cfg, h[:, 0]))
-    compare_logits(torch, "integration", logits, forced)
+    compare_logits(torch, phase, logits, forced)
 
 
 def compare_logits(torch, phase, logits, forced):
@@ -614,6 +739,42 @@ def paged_integration_phase(torch, engine, pk, plain, tfm, eng_mod):
     compare_logits(torch, "paged_integration", logits, forced)
 
 
+def mixed_quant_phase(engine, GenerationRequest, kernels, chunks_of, params_nbytes):
+    """One engine with per-model modes (qwen2:1.5b at int8, by default
+    int4): each model generates the study's 134-token request; the int4
+    kernel runs in the int4 model's decode forwards only."""
+    all_counts = {}
+    for model in (MODEL, LARGE_MODEL):
+        engine.load_model(model)
+        cfg = engine._models[model].cfg
+        req = GenerationRequest(model, STUDY_PROMPT.format(words=STUDY_WORDS[0]),
+                                math.ceil(STUDY_WORDS[0] * TOKENS_PER_WORD), stop_at_eos=False)
+        engine.warmup(dataclasses.replace(req, max_new_tokens=4))
+        results, counts = count_launches(kernels, lambda: [engine.generate(req)])
+        check_results(engine, [req], results)
+        res = results[0]
+        steps = len(res.tokens) - 1
+        mode = engine._quant_mode(model)
+        expected = {fn.__name__: 0 for fn in kernels}
+        expected["cuda_prefill_attention"] = cfg.n_layers * chunks_of(res.prompt_tokens)
+        expected["cuda_decode_attention"] = cfg.n_layers * steps
+        if mode == "int4":
+            expected["cuda_int4_matmul"] = MATMULS_PER_LAYER * cfg.n_layers * steps
+        nbytes = params_nbytes(engine._models[model].params)
+        emit({
+            "phase": "engine_mixed_quant", "model": model, "weights": mode,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "weight_bytes": nbytes,
+            "prompt_tokens": res.prompt_tokens, "generated_tokens": res.generated_tokens,
+            "prefill_s": res.prefill_s, "decode_s": res.decode_s, "tokens_per_s": res.tokens_per_s,
+            "counts": counts, "expected": expected,
+        })
+        assert counts == expected, (model, counts, expected)
+        for name, n in counts.items():
+            all_counts[name] = all_counts.get(name, 0) + n
+    return all_counts
+
+
 def main() -> int:
     import torch
 
@@ -621,7 +782,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if not all((root / PKG / "csrc" / f).is_file() for f in ("attention.cu", "paged_attention.cu")):
+    sources = ("attention.cu", "paged_attention.cu", "int4_matmul.cu")
+    if not all((root / PKG / "csrc" / f).is_file() for f in sources):
         print(f"chip_smoke: the {PKG} package is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
@@ -637,8 +799,10 @@ def main() -> int:
     backend = import_module(f"{PKG}.engine.backend")
     tfm = import_module(f"{PKG}.models.transformer")
     pk = import_module(f"{PKG}.engine.paged_kv")
-    quantize_kv_vector = import_module(f"{PKG}.models.quantize").quantize_kv_vector
-    all_kernels = ca.KERNELS + cpa.KERNELS
+    cq = import_module(f"{PKG}.ops.cuda_quant")
+    qplain = import_module(f"{PKG}.ops.quant")
+    qmod = import_module(f"{PKG}.models.quantize")
+    all_kernels = ca.KERNELS + cpa.KERNELS + cq.KERNELS
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -660,34 +824,64 @@ def main() -> int:
 
     timer = Timer(torch)
     summary = kernel_phase(torch, ca, plain, timer)
-    summary.update(paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector))
+    summary.update(paged_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector))
+    summary.update(int4_kernel_phase(torch, cq, qplain, qmod, timer))
     del timer
     torch.cuda.empty_cache()
 
     launches = {fn.__name__: 0 for fn in all_kernels}
-    requests = study_requests(backend.GenerationRequest)
-    chunks_of = lambda n: len(eng_mod._prompt_chunks(n))  # noqa: E731
-    for phase, kv in (("engine_bf16_kv", None), ("engine_int8_kv", "int8")):
-        engine = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv)
-        engine.load_model(MODEL)
-        n_layers = engine._models[MODEL].cfg.n_layers
-        counts = engine_phase(phase, engine, requests, all_kernels, n_layers, chunks_of)
+
+    def add(counts):
         for name, n in counts.items():
             launches[name] += n
-        if kv is None:
-            integration_phase(torch, engine, ca, plain, tfm.forward, tfm.logits_for)
+
+    requests = study_requests(backend.GenerationRequest)
+    chunks_of = lambda n: len(eng_mod._prompt_chunks(n))  # noqa: E731
+    attention = (ca.cuda_prefill_attention, ca.cuda_decode_attention)
+    # (phase, weights, kv, int4 kernel, its plain version)
+    solo_phases = (
+        ("engine_bf16_kv", "int8", None, None, None),
+        ("engine_int8_kv", "int8", "int8", None, None),
+        ("engine_int4", "int4", None, cq.cuda_int4_matmul, qplain.int4_matmul_reference),
+        ("engine_int4_i32", "int4-i32", None, cq.cuda_int4_matmul_i32, None),
+    )
+    for phase, weights, kv, matmul, matmul_plain in solo_phases:
+        engine = eng_mod.TorchEngine(quantize=weights, kv_quantize=kv)
+        engine.load_model(MODEL)
+        n_layers = engine._models[MODEL].cfg.n_layers
+        add(engine_phase(phase, engine, requests, all_kernels, n_layers, chunks_of,
+                         matmul.__name__ if matmul else None))
+        if phase == "engine_bf16_kv":
+            integration_phase(torch, engine, "integration", {
+                "kernels": (*attention, cq.cuda_int4_matmul),
+                "plain": (plain.prefill_attention_cached, plain.decode_attention_reference,
+                          cq.cuda_int4_matmul),
+            }, tfm.forward, tfm.logits_for, qmod)
+        if matmul_plain is not None:
+            integration_phase(torch, engine, "int4_integration", {
+                "kernels": (*attention, matmul), "plain": (*attention, matmul_plain),
+            }, tfm.forward, tfm.logits_for, qmod)
         del engine
         torch.cuda.empty_cache()
 
-    batch = batch_requests(backend.GenerationRequest)
-    for phase, kv in (("engine_paged_bf16_kv", None), ("engine_paged_int8_kv", "int8")):
-        engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, kv_quantize=kv)
+    engine = eng_mod.TorchEngine(quantize={MODEL: "int8", "default": "int4"})
+    add(mixed_quant_phase(engine, backend.GenerationRequest, all_kernels, chunks_of, qmod.params_nbytes))
+    del engine
+    torch.cuda.empty_cache()
+
+    # (phase, weights, kv, requests, int4 kernel's name)
+    paged_phases = (
+        ("engine_paged_bf16_kv", "int8", None, batch_requests, None),
+        ("engine_paged_int8_kv", "int8", "int8", batch_requests, None),
+        ("engine_paged_int4", "int4", None, int4_batch_requests, "cuda_int4_matmul"),
+    )
+    for phase, weights, kv, make_requests, matmul in paged_phases:
+        engine = eng_mod.TorchEngine(quantize=weights, paged_kv=True, kv_quantize=kv)
         engine.load_model(MODEL)
         n_layers = engine._models[MODEL].cfg.n_layers
-        counts = paged_engine_phase(phase, engine, batch, all_kernels, n_layers, eng_mod)
-        for name, n in counts.items():
-            launches[name] += n
-        if kv is None:
+        add(paged_engine_phase(phase, engine, make_requests(backend.GenerationRequest),
+                               all_kernels, n_layers, eng_mod, matmul))
+        if phase == "engine_paged_bf16_kv":
             paged_integration_phase(torch, engine, pk, plain, tfm, eng_mod)
         del engine
         torch.cuda.empty_cache()

@@ -1,10 +1,11 @@
 """Where a decode step of the PyTorch port spends its time, on one CUDA card.
 
-    python3 scripts/torch_decode_profile.py [--new-tokens 33] [--batch] [--trace-dir DIR]
+    python3 scripts/torch_decode_profile.py [--new-tokens 33] [--batch]
+        [--quantize {int8,int4,int4-i32}] [--trace-dir DIR]
 
 Drives ``TorchEngine.generate`` (the study's entry point) on full-width
-qwen2:1.5b with int8 weights, once with a bf16 KV cache and once with an
-int8 one. With ``--batch`` it drives ``TorchEngine.generate_batch`` over the
+qwen2:1.5b with ``--quantize`` weights (default int8), once with a bf16 KV
+cache and once with an int8 one. With ``--batch`` it drives ``TorchEngine.generate_batch`` over the
 paged pool instead (``paged_kv=True``, bf16 and int8 pools), on the 17
 requests of ``chip_smoke.py``'s paged phases, each asking for
 ``--new-tokens``. For each: one warm run, one timed run without the
@@ -46,6 +47,7 @@ PROMPT = "In 100 words, please give me information about photosynthesis"
 CATEGORIES = (
     ("attention (port kernels)", (
         "decode_partial_kernel", "decode_merge_kernel", "parts_merge_kernel", "prefill_kernel")),
+    ("int4 matmul (port kernels)", ("int4_partial_kernel", "int4_merge_kernel")),
     ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -112,6 +114,8 @@ def main() -> int:
     ap.add_argument("--new-tokens", type=int, default=33)
     ap.add_argument("--batch", action="store_true",
                     help="profile generate_batch over the paged pool (17 requests)")
+    ap.add_argument("--quantize", choices=("int8", "int4", "int4-i32"), default="int8",
+                    help="the weights' mode")
     ap.add_argument("--trace-dir", default=None,
                     help="keep the Chrome traces here (default: a temporary directory)")
     args = ap.parse_args()
@@ -158,14 +162,14 @@ def main() -> int:
         trace_dir = args.trace_dir or tmp
         os.makedirs(trace_dir, exist_ok=True)
         for kv in (None, "int8"):
-            engine = TorchEngine(quantize="int8", kv_quantize=kv, paged_kv=args.batch)
+            engine = TorchEngine(quantize=args.quantize, kv_quantize=kv, paged_kv=args.batch)
             run(engine)  # warm
             res = run(engine)
             # decode steps: the longest row's tokens after its first
             steps = max(r.generated_tokens for r in res) - 1
             t0 = time.perf_counter()
             profiled, totals = profiled_run(engine, run, os.path.join(
-                trace_dir, f"{mode}_{kv or 'bf16'}_kv.json"))
+                trace_dir, f"{mode}_{args.quantize}_{kv or 'bf16'}_kv.json"))
             profiled_steps = max(r.generated_tokens for r in profiled) - 1
             minus = None
             if args.batch:
@@ -174,13 +178,13 @@ def main() -> int:
                 short = [dataclasses.replace(r, max_new_tokens=9) for r in requests]
                 short_res, minus = profiled_run(
                     engine, lambda e: e.generate_batch(short),
-                    os.path.join(trace_dir, f"{mode}_{kv or 'bf16'}_kv_short.json"),
+                    os.path.join(trace_dir, f"{mode}_{args.quantize}_{kv or 'bf16'}_kv_short.json"),
                 )
                 profiled_steps -= max(r.generated_tokens for r in short_res) - 1
             summary = trace_summary(totals, profiled_steps, minus)
             wall = res[0].decode_s / steps * 1e3
             print(json.dumps({
-                "mode": mode, "rows": len(requests),
+                "mode": mode, "rows": len(requests), "weights": args.quantize,
                 "kv": kv or "bf16", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
                 "generated_tokens": sum(r.generated_tokens for r in res), "decode_steps": steps,
                 "decode_tokens_per_s": sum(r.generated_tokens for r in res) / res[0].decode_s,

@@ -13,6 +13,12 @@ eight. Greedy rows' tokens and text must be identical, with a bf16-style
 and MHA (phi3) models. The sampled row must equal the port's own solo
 ``generate`` of the same request (the two frameworks' random streams
 differ, so it is not compared with the JAX engine's).
+
+At int4 and int4-i32 weights the six rows pad to a batch bucket of 8, so
+decode takes the int4 kernel route in both engines (the JAX engine's
+Pallas int4 kernels in interpret mode); a batch of more than 8 rows
+dequantizes and multiplies in both, and its greedy rows must be identical
+too.
 """
 
 import jax
@@ -36,6 +42,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.engine.backend import 
     GenerationRequest,
 )
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.engine.torch_engine import TorchEngine
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models import quantize as tquant
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.bridge import params_from_numpy
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.config import (
     get_model_config as port_config,
@@ -55,6 +62,8 @@ ROWS = [
 CONFIGS = {
     "bf16-pool": {},
     "int8-pool": dict(quantize="int8", kv_quantize="int8"),
+    "int4": dict(quantize="int4"),
+    "int4-i32": dict(quantize="int4-i32"),
 }
 MODELS = {"qwen2": "qwen2:1.5b", "phi3": "phi3:3.8b"}  # GQA, MHA
 
@@ -111,6 +120,26 @@ def test_paged_batch_tokens_equal_jax_paged_engine(model, config, monkeypatch):
     # one shared decode window for the sub-batch
     assert len({r.extras["decode_window"] for r in got}) == 1
     assert all(r.decode_s == got[0].decode_s > 0 for r in got)
+
+
+@pytest.mark.parametrize("mode", ["int4", "int4-i32"])
+def test_int4_batch_of_more_than_eight_rows_equals_jax(model, mode, monkeypatch):
+    """Ten greedy rows (bucket 16): every decode matmul has more than 8 rows
+    and dequantizes, in both engines; a two-row batch of the same engine
+    takes the kernel route (its plain version on the CPU)."""
+    monkeypatch.setattr(jax_engine, "PAGED_XLA_PARTS_MIN_ROWS", 10**9)
+    name = "cuda_int4_matmul" if mode == "int4" else "cuda_int4_matmul_i32"
+    calls = []
+    real = getattr(tquant, name)
+    monkeypatch.setattr(tquant, name, lambda *a: calls.append(a[0].shape[0]) or real(*a))
+    jeng, teng = _engines(model, mode)
+    prompts = [(p, n) for p, n, kw in ROWS[:3] if not kw] + [(f"row {i} " * (i + 1), 6) for i in range(7)]
+    want = jeng.generate_batch([JaxRequest("tiny", p, n, stop_at_eos=False) for p, n in prompts])
+    got = teng.generate_batch([GenerationRequest("tiny", p, n, stop_at_eos=False) for p, n in prompts])
+    assert [g.tokens for g in got] == [w.tokens for w in want]
+    assert calls == []
+    teng.generate_batch([GenerationRequest("tiny", p, 4, stop_at_eos=False) for p, _ in prompts[:2]])
+    assert calls and set(calls) == {2}
 
 
 def test_batch_rows_stop_at_eos_and_stop_strings_like_solo(model, monkeypatch):

@@ -1,10 +1,12 @@
 """TorchEngine against JaxEngine on the same (bridged) tiny qwen2 weights.
 
 Greedy tokens must be identical for prompts over several buckets and a
-chunked prompt, in three configurations of the JAX engine: its default
-jnp path, its Pallas kernels (interpret mode on the CPU), and int8 weights
-with an int8 KV cache. The port runs on the CPU, where its kernel wrappers
-take their plain versions.
+chunked prompt, in five configurations of the JAX engine: its default
+jnp path, its Pallas kernels (interpret mode on the CPU), int8 weights
+with an int8 KV cache, and the two int4 weight layouts (the JAX engine's
+decode matmuls through its Pallas int4 kernels in interpret mode; phi3 as
+well as qwen2). The port runs on the CPU, where its kernel wrappers take
+their plain versions.
 """
 
 import dataclasses
@@ -53,6 +55,8 @@ CONFIGS = {
         dict(),
     ),
     "int8": (dict(quantize="int8", kv_quantize="int8"), dict(quantize="int8", kv_quantize="int8")),
+    "int4": (dict(quantize="int4"), dict(quantize="int4")),
+    "int4-i32": (dict(quantize="int4-i32"), dict(quantize="int4-i32")),
 }
 
 
@@ -129,15 +133,64 @@ def test_engine_without_device_needs_cuda(monkeypatch):
         dict(prefix_share=True),
         dict(hf_checkpoints={"tiny": "/nonexistent"}),
         dict(weight_cache_dir="weights"),
-        dict(quantize="int4"),
-        dict(quantize="int4-i32"),
     ],
-    ids=lambda o: next(iter(o)) + ("=" + o["quantize"] if "quantize" in o else ""),
+    ids=lambda o: next(iter(o)),
 )
 def test_unported_options_raise(option):
     name = next(iter(option))
     with pytest.raises(NotImplementedError, match=name):
         TorchEngine(device="cpu", **option)
+
+
+@pytest.mark.parametrize("mode", ["int4", "int4-i32"])
+def test_int4_greedy_tokens_equal_jax_engine_on_phi3(mode):
+    """MHA with an untied head (int8 in every mode): solo ``generate``."""
+    jcfg = get_model_config("phi3:3.8b").tiny(vocab_size=259)
+    np_params = jax.tree.map(np.asarray, init_params(jcfg, jax.random.PRNGKey(6), jnp.float32))
+    jeng = JaxEngine(registry={}, dtype=jnp.float32, quantize=mode)
+    jeng.install_model("tiny", jcfg, jax.tree.map(jnp.asarray, np_params))
+    teng = TorchEngine(registry={}, dtype=torch.float32, device="cpu", quantize=mode)
+    teng.install_model(
+        "tiny", port_config("phi3:3.8b").tiny(vocab_size=259),
+        params_from_numpy(np_params, "cpu", torch.float32),
+    )
+    assert set(teng._models["tiny"].params["lm_head"]) == {"q", "s"}
+    for prompt, n in PROMPTS[:3]:
+        j, t = _pair(jeng, teng, prompt, n, stop_at_eos=False)
+        assert t.tokens == j.tokens, (mode, prompt)
+
+
+@pytest.mark.parametrize(
+    "quantize",
+    [None, "int4", {"qwen2:1.5b": "int8", "default": "int4"}, {"phi3:3.8b": "int4-i32"},
+     {"qwen2:1.5b": None, "default": "int8"}],
+    ids=["none", "int4", "dict-default", "dict-no-default", "dict-none"],
+)
+def test_quant_mode_resolves_per_model_like_jax(quantize):
+    jeng = JaxEngine(registry={}, dtype=jnp.float32, quantize=quantize)
+    teng = TorchEngine(registry={}, dtype=torch.float32, device="cpu", quantize=quantize)
+    for model in ("qwen2:1.5b", "phi3:3.8b", "llama3.1:8b"):
+        assert teng._quant_mode(model) == jeng._quant_mode(model)
+
+
+def test_per_model_modes_quantize_each_model_and_bad_modes_raise():
+    tiny = port_config("qwen2:1.5b").tiny()
+    teng = TorchEngine(
+        registry={"a": tiny, "b": tiny, "c": tiny}, dtype=torch.float32, device="cpu",
+        quantize={"a": "int8", "b": None, "default": "int4-i32"},
+    )
+    kinds = {}
+    for model in ("a", "b", "c"):
+        teng.load_model(model)
+        wq = teng._models[model].params["wq"]
+        kinds[model] = sorted(wq) if isinstance(wq, dict) else "plain"
+        assert set(teng._models[model].params["embed"]) == {"q", "s"} or model == "b"
+    assert kinds == {"a": ["q", "s"], "b": "plain", "c": ["q32", "s"]}
+    for bad in ("int2", {"a": "fp8"}):
+        with pytest.raises(ValueError, match="unsupported quantize mode"):
+            TorchEngine(device="cpu", quantize=bad)
+        with pytest.raises(ValueError, match="unsupported quantize mode"):
+            JaxEngine(registry={}, quantize=bad)
 
 
 def test_contiguous_generate_batch_raises():

@@ -15,9 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.quantize import quantize_kv_vector
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.quantize import (
+    quantize_kv_vector,
+    quantize_tensor_int4,
+    quantize_tensor_int4_i32,
+)
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import attention as port_attn
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_attention
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import quant as port_quant
 
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -112,4 +117,35 @@ def test_paged_parts_kernels_match_plain_versions_on_the_card(dtype, tol, hq, hk
     got = cpa.cuda_paged_decode_attention_parts_int8(q, kq, ks, vq, vs, table, lens)
     want = port_attn.paged_decode_attention_parts_int8_reference(q, kq, ks, vq, vs, table, lens)
     _assert_parts_close(got, want, tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize(
+    "m,in_dim,out_dim",
+    [(1, 1536, 256), (8, 1536, 8960), (5, 8960, 1536), (1, 4096, 1024), (8, 4096, 4096),
+     (8, 96, 200), (3, 64, 7), (2, 16, 128)],
+)
+def test_int4_kernels_match_plain_versions_on_the_card(dtype, tol, m, in_dim, out_dim):
+    """B9 and B10 against their plain versions; weights at the model's
+    1/sqrt(IN) scale so that outputs are O(1); OUT 200 and 7 exercise the
+    column edge and the byte-wise loads, IN 16 a single K split."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_quant
+
+    rng = np.random.default_rng(10)
+    w = _to_torch(_normal(rng, (in_dim, out_dim)) / np.sqrt(in_dim), torch.float32).cuda()
+    x = _to_torch(_normal(rng, (m, in_dim)), dtype).cuda()
+    leaf = quantize_tensor_int4(w)
+    out = cuda_quant.cuda_int4_matmul(x, leaf["q4"], leaf["s"])
+    ref = port_quant.int4_matmul_reference(x, leaf["q4"], leaf["s"])
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    leaf = quantize_tensor_int4_i32(w)
+    out = cuda_quant.cuda_int4_matmul_i32(x, leaf["q32"], leaf["s"])
+    ref = port_quant.int4_matmul_i32_reference(x, leaf["q32"], leaf["s"])
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    with pytest.raises(ValueError, match="rows"):
+        cuda_quant.cuda_int4_matmul_i32(torch.zeros((9, in_dim), device="cuda"), leaf["q32"], leaf["s"])
     torch.cuda.synchronize()
