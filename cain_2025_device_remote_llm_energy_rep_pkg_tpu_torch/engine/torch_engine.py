@@ -15,6 +15,15 @@ prompt term with small side caches of the generated tokens
 (``models/transformer.py``'s stacked-hybrid leaf). Each row's tokens equal
 the JAX paged engine's.
 
+``decode_open`` (``paged_kv=True``) opens a stepped decode session over
+the same pool (``engine/stepped.py``); with ``speculative=`` configured
+for the model, its slices are draft-verify rounds whose verify forward
+reads the prompt pages through the multi-query paged kernels
+(``engine/speculative.py``). ``generate_speculative`` serves one request
+that way (a greedy model draft through the solo loop, anything else
+through a one-row session), and ``generate`` routes eligible requests
+there.
+
 On a CUDA device attention always runs the hand-written kernels of
 ``ops/cuda_attention.py`` and ``ops/cuda_paged_attention.py``; their
 wrappers, like the int4 matmul wrappers of ``ops/cuda_quant.py``, take
@@ -29,8 +38,9 @@ runs an int4 kernel, and prefill and batches of more than 8 rows
 dequantize and call ``torch.matmul``, as the JAX package does.
 
 Not ported yet: contiguous batched decode (``generate_batch`` with
-``paged_kv=False``), continuous sessions, speculation, prefix caches, HF
-checkpoints, the on-disk weight cache, ``generate_stream``'s
+``paged_kv=False``) and the contiguous session, joins, cancellation,
+preemption and the adaptive speculation policy of sessions, prefix
+caches, HF checkpoints, the on-disk weight cache, ``generate_stream``'s
 incremental path (the contract's single-chunk default stands in), CUDA
 graphs and ``extras["energy_model"]``.
 """
@@ -56,12 +66,15 @@ from ..ops.cuda_attention import (
     cuda_prefill_attention,
 )
 from ..ops.cuda_paged_attention import (
+    cuda_paged_decode_attention_mq_parts,
+    cuda_paged_decode_attention_mq_parts_int8,
     cuda_paged_decode_attention_parts,
     cuda_paged_decode_attention_parts_int8,
 )
 from ..ops.sampling import sample_token, sample_token_per_row
 from .backend import GenerationBackend, GenerationRequest, GenerationResult
 from .paged_kv import PagePool, _paginate, group_chunks, quantize_chunks, scatter_pages
+from .speculative import DraftSpec, build_spec_fn, build_spec_step_fn
 
 PROMPT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 GEN_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
@@ -84,6 +97,8 @@ BATCH_MIN_SPLIT_ROWS = 32
 # Stamped into every batch result's extras["decode_window"], so a consumer
 # counts distinct decode windows (tokens/s = tokens over their summed time).
 _DECODE_WINDOW_IDS = itertools.count()
+# Decode steps (speculative sessions: draft-verify rounds) per session slice.
+DECODE_SLICE_STEPS = int(os.environ.get("DECODE_SLICE_STEPS", 16))
 
 _PREFILL_H = _OBS.histogram(
     "llm_engine_prefill_seconds",
@@ -161,11 +176,32 @@ def _apply_stop(tokens: "list[int]", text: str, tok, stop) -> "tuple[list[int], 
     return tokens[:lo], kept
 
 
+def _spec_margin(k: int) -> int:
+    """Extra cache slots a speculative request needs beyond its buckets
+    (rounds overshoot by up to k; the draft seats one extra entry),
+    rounded to 128 as the JAX package rounds it, so that its fit checks
+    and cache sizes match."""
+    return -(-(2 * k + 2) // 128) * 128
+
+
 def _pow2_at_least(n: int, floor: int = 1) -> int:
     m = floor
     while m < n:
         m *= 2
     return m
+
+
+def _norm_spec(value) -> DraftSpec:
+    """A ``speculative=`` value as a DraftSpec: ``("ngram", k)``,
+    ``("cross:<model>", k)`` or ``(<draft model>, k)``."""
+    if isinstance(value, DraftSpec):
+        return value
+    draft, k = value
+    if draft == "ngram":
+        return DraftSpec("ngram", None, int(k))
+    if isinstance(draft, str) and draft.startswith("cross:"):
+        return DraftSpec("cross", draft.split(":", 1)[1], int(k))
+    return DraftSpec("model", draft, int(k))
 
 
 def _resolve_device(device) -> torch.device:
@@ -189,7 +225,20 @@ def _int8_cache_attention(q, k_cache, v_cache, lengths):
 
 def _paged_parts(q, k_leaf, v_leaf, lengths):
     """The prompt-pages term of a stacked-hybrid paged step: unnormalised
-    (acc, m, l) from the parts kernel of the pool's kind."""
+    (acc, m, l) from the parts kernel of the pool's kind. A speculative
+    verify block ``q [B, k+1, Hq, D]`` goes to the multi-query kernel,
+    with query 0 at ``write_pos + prompt_lens`` (every candidate sits past
+    the prompt, so its causal cut hides no cached token)."""
+    if q.dim() == 4:
+        offsets = (k_leaf["write_pos"] + k_leaf["prompt_lens"]).to(torch.int32)
+        if isinstance(k_leaf["pool"], dict):
+            return cuda_paged_decode_attention_mq_parts_int8(
+                q, k_leaf["pool"]["q"], k_leaf["pool"]["s"],
+                v_leaf["pool"]["q"], v_leaf["pool"]["s"], k_leaf["table"], lengths, offsets,
+            )
+        return cuda_paged_decode_attention_mq_parts(
+            q, k_leaf["pool"], v_leaf["pool"], k_leaf["table"], lengths, offsets
+        )
     if isinstance(k_leaf["pool"], dict):
         return cuda_paged_decode_attention_parts_int8(
             q, k_leaf["pool"]["q"], k_leaf["pool"]["s"],
@@ -211,6 +260,14 @@ class TorchEngine(GenerationBackend):
     and the page pool's under ``paged_kv``). ``paged_kv=True`` makes
     ``generate_batch`` decode over a page pool of ``page_size`` tokens a
     page; ``generate`` stays the solo contiguous path.
+
+    ``speculative`` maps a target model (or ``"default"``) to its draft:
+    ``(draft_model, k)``, ``("ngram", k)`` or ``("cross:<model>", k)``,
+    as the JAX engine takes it. ``spec_temperature_max`` caps the
+    temperature of requests that speculate, ``spec_draft_temperature``
+    sets the proposal temperature of sampled rows' model drafts, and
+    ``spec_accept_floor`` must stay 0.0: the adaptive fallback it drives
+    is not ported.
     """
 
     def __init__(
@@ -225,13 +282,16 @@ class TorchEngine(GenerationBackend):
         paged_kv: bool = False,
         page_size: int = 128,
         speculative=None,
+        spec_accept_floor: float = 0.0,
+        spec_temperature_max: float = 2.0,
+        spec_draft_temperature: Optional[float] = None,
         prefix_cache_size: int = 0,
         prefix_share: bool = False,
         hf_checkpoints=None,
         weight_cache_dir=None,
     ) -> None:
         for option, value in (
-            ("speculative", speculative),
+            ("spec_accept_floor (the adaptive speculative fallback)", spec_accept_floor),
             ("prefix_cache_size", prefix_cache_size),
             ("prefix_share", prefix_share),
             ("hf_checkpoints", hf_checkpoints),
@@ -254,6 +314,18 @@ class TorchEngine(GenerationBackend):
             raise ValueError(
                 f"page_size must be a positive multiple of 128, got {page_size}"
             )
+        if float(spec_temperature_max) < 0.0:
+            raise ValueError(f"spec_temperature_max must be >= 0, got {spec_temperature_max}")
+        if spec_draft_temperature is not None and not float(spec_draft_temperature) > 0.0:
+            raise ValueError(
+                f"spec_draft_temperature must be > 0 when set, got {spec_draft_temperature}"
+            )
+        self.speculative = {name: _norm_spec(v) for name, v in (speculative or {}).items()}
+        self.spec_accept_floor = 0.0
+        self.spec_temperature_max = float(spec_temperature_max)
+        self.spec_draft_temperature = (
+            None if spec_draft_temperature is None else float(spec_draft_temperature)
+        )
         self.paged_kv = bool(paged_kv)
         self.page_size = page_size
         self.device = _resolve_device(device)
@@ -270,6 +342,9 @@ class TorchEngine(GenerationBackend):
         self._models: Dict[str, Transformer] = {}
         self._tokenizers: Dict[str, Any] = {}
         self._warmed: set = set()
+        # speculative step functions, by (model, draft, k, slice, source,
+        # top_k, use_top_p)
+        self._decode_cache: Dict[tuple, Callable] = {}
 
     # -- model management -----------------------------------------------------
     def _quant_mode(self, model: str) -> Optional[str]:
@@ -303,11 +378,13 @@ class TorchEngine(GenerationBackend):
             params = quantize_params(params, mode=mode)
         self.registry[model] = cfg
         self._models[model] = Transformer(cfg=cfg, params=params)
+        self._decode_cache.clear()
 
     def loaded_models(self) -> List[str]:
         return sorted(self._models)
 
     def unload_all(self) -> None:
+        self._decode_cache.clear()
         self._models.clear()
         self._tokenizers.clear()
         self._warmed.clear()
@@ -420,7 +497,31 @@ class TorchEngine(GenerationBackend):
         }
 
     def generate(self, request: GenerationRequest) -> GenerationResult:
-        st = self._start(request)
+        """One request. With a speculative config for its model, an
+        eligible request without stop strings goes to
+        :meth:`generate_speculative` (greedy rows give plain decode's
+        tokens, sampled rows its distribution), unless the speculative
+        cache margin would pass ``max_seq_len``; then, and otherwise, the
+        plain contiguous decode loop serves it."""
+        spec = None if request.stop else self._resolve_spec(request.model)
+        if spec is not None and self._spec_eligible(request):
+            self.load_model(request.model)
+            cfg = self._models[request.model].cfg
+            ids = self._tokenizer_for(request.model).encode(request.prompt)
+            s_b = _prompt_alloc(len(ids))
+            g_b = _bucket(request.max_new_tokens, GEN_BUCKETS)
+            if s_b + g_b + _spec_margin(spec.k) <= cfg.max_seq_len:
+                return self.generate_speculative(
+                    request, spec.draft, spec.k, prompt_ids=ids, source=spec.source
+                )
+            return self._generate_plain(request, prompt_ids=ids)
+        return self._generate_plain(request)
+
+    def _generate_plain(
+        self, request: GenerationRequest, prompt_ids: "Optional[list[int]]" = None
+    ) -> GenerationResult:
+        """The plain decode loop over the contiguous cache."""
+        st = self._start(request, prompt_ids=prompt_ids)
         tf, tok = st["tf"], st["tok"]
         eos = tok.eos_id
         if self.kv_quantize:
@@ -493,6 +594,164 @@ class TorchEngine(GenerationBackend):
         n = result.generated_tokens
         self._observe_decode_window(st["t1"], t2, n, n)
         return result
+
+    # -- speculative decoding ---------------------------------------------------
+    def _resolve_spec(self, model: str) -> Optional[DraftSpec]:
+        """The DraftSpec for ``model``: its own entry, else ``"default"``
+        (which never makes a model draft for itself)."""
+        spec = self.speculative.get(model)
+        if spec is None:
+            spec = self.speculative.get("default")
+            if spec is not None and spec.draft == model:
+                return None
+        return spec
+
+    def _spec_eligible(self, request: GenerationRequest) -> bool:
+        """Greedy rows and sampled rows up to ``spec_temperature_max``
+        speculate; a repeat penalty never does (it changes the modified
+        distribution per emitted token, which a k-wide proposal cannot
+        follow)."""
+        return request.repeat_penalty == 1.0 and (
+            request.temperature == 0.0 or request.temperature <= self.spec_temperature_max
+        )
+
+    def generate_speculative(
+        self,
+        request: GenerationRequest,
+        draft_model: Optional[str] = None,
+        k: int = 4,
+        prompt_ids: "Optional[list[int]]" = None,
+        source: str = "model",
+    ) -> GenerationResult:
+        """Draft-and-verify decoding of one request (``engine/speculative.py``).
+        A greedy request with a model or cross draft runs the solo loop
+        over contiguous caches that carry a ``2k+2``-slot margin (the
+        draft must share the target's vocabulary); a sampled or n-gram
+        request drains a one-row stepped session, which needs
+        ``paged_kv=True`` (the contiguous session is not ported).
+        ``extras`` report rounds and accepted drafts."""
+        if request.repeat_penalty != 1.0:
+            raise ValueError(
+                "speculative decoding requires repeat_penalty=1 (the presence "
+                "penalty changes the modified distribution per emitted token, "
+                "which a k-wide proposal step cannot follow)"
+            )
+        if request.temperature != 0.0 or source == "ngram":
+            override = DraftSpec(source, None if source == "ngram" else draft_model, k)
+            session = self.decode_open([request], spec_override=override)
+            try:
+                results: "list[GenerationResult]" = []
+                while session.active:
+                    results.extend(session.step())
+            finally:
+                session.close()
+            result = results[0]
+            spec_x = result.extras.get("spec")
+            if spec_x is not None:
+                # the flat keys of the solo greedy path's extras
+                result.extras.update(
+                    spec_rounds=spec_x["rounds"], spec_accepted=spec_x["accepted"],
+                    draft_model=spec_x["draft_model"], k=spec_x["k"],
+                )
+            return result
+        model = request.model
+        self.load_model(model)
+        self.load_model(draft_model)
+        tcfg = self._models[model].cfg
+        dcfg = self._models[draft_model].cfg
+        if tcfg.vocab_size != dcfg.vocab_size:
+            raise ValueError(
+                f"draft {draft_model} vocab {dcfg.vocab_size} != target "
+                f"{model} vocab {tcfg.vocab_size}"
+            )
+        if prompt_ids is None:
+            prompt_ids = self._tokenizer_for(model).encode(request.prompt)
+        s_real = len(prompt_ids)
+        cache_len = (
+            _prompt_alloc(s_real) + _bucket(request.max_new_tokens, GEN_BUCKETS) + _spec_margin(k)
+        )
+        st = self._start(request, cache_len=cache_len, prompt_ids=prompt_ids)
+        if self.kv_quantize:
+            # the target verifies over the int8 cache; the draft's stays
+            # in the engine dtype
+            st["k_cache"], st["v_cache"] = quantize_kv_cache(st["k_cache"], st["v_cache"])
+        _, dkc, dvc = self._run_prefill(draft_model, prompt_ids, cache_len)
+        key = ("spec", model, draft_model, k)
+        if key not in self._decode_cache:
+            self._decode_cache[key] = build_spec_fn(
+                tcfg, dcfg, k, st["tok"].eos_id, cuda_decode_attention
+            )
+        out, n_em, rounds, accepted = self._decode_cache[key](
+            self._models[model], self._models[draft_model], st["first"], s_real,
+            st["k_cache"], st["v_cache"], dkc, dvc, request.max_new_tokens - 1,
+        )
+        self._sync()
+        t2 = time.monotonic()
+        take = min(n_em, request.max_new_tokens - 1)
+        result = self._finish(request, [st["first_id"]] + out[:take], st, t2)
+        result.extras = {
+            **(result.extras or {}),
+            "spec_rounds": rounds,
+            "spec_accepted": accepted,
+            "draft_model": draft_model,
+            "k": k,
+            "spec": {
+                "rounds": rounds, "accepted": accepted, "drafted": rounds * k, "k": k,
+                "draft_model": draft_model, "source": source,
+            },
+        }
+        return result
+
+    def _spec_batch_decode_step_fn(
+        self,
+        model: str,
+        draft_model: Optional[str],
+        k: int,
+        n_steps: int,
+        source: str,
+        top_k: int,
+        use_top_p: bool,
+    ) -> Callable:
+        """The speculative slice step of a paged session
+        (:func:`build_spec_step_fn`), one per key: the draft's steps run
+        the decode kernel on its batch cache, the verify reads the prompt
+        pages through :func:`_paged_parts` (the multi-query kernels)."""
+        key = (
+            "spec-step", model, draft_model, k, n_steps, source, top_k, use_top_p,
+            self.spec_draft_temperature,
+        )
+        if key not in self._decode_cache:
+            self._decode_cache[key] = build_spec_step_fn(
+                self._models[model].cfg,
+                self._models[draft_model].cfg if draft_model is not None else None,
+                k, n_steps, self._tokenizer_for(model).eos_id,
+                draft_decode_attention=cuda_decode_attention,
+                decode_attention=_paged_parts,
+                source=source, top_k=top_k, use_top_p=use_top_p,
+                draft_temperature=self.spec_draft_temperature,
+            )
+        return self._decode_cache[key]
+
+    def decode_open(
+        self,
+        requests: "list[GenerationRequest]",
+        reserve_rows: Optional[int] = None,
+        slice_steps: Optional[int] = None,
+        spec_accept_floor: Optional[float] = None,
+        spec_override: Optional[DraftSpec] = None,
+    ):
+        """Open a stepped decode session over ``requests`` (``paged_kv``
+        only): every row prefills now, then each ``session.step()`` runs
+        one slice and returns the rows that retired in it. With a
+        speculative config for the model (or ``spec_override``) and every
+        row eligible, the slices are draft-verify rounds
+        (``engine/stepped.py``)."""
+        from .stepped import SteppedDecodeSession
+
+        return SteppedDecodeSession.open(
+            self, requests, reserve_rows=reserve_rows, slice_steps=slice_steps,
+            spec_accept_floor=spec_accept_floor, spec_override=spec_override,
+        )
 
     # -- batched generation over the paged pool ---------------------------------
     def _batch_states(
@@ -678,8 +937,6 @@ class TorchEngine(GenerationBackend):
         tok = self._tokenizer_for(model)
         page = self.page_size
         n_real = max(r.max_new_tokens for r in requests) - 1
-        # each row's decode steps after its first token (the done condition)
-        row_budgets = [r.max_new_tokens - 1 for r in requests]
         states = self._batch_states(requests, all_prompt_ids)
         rows_pages = [-(-st["s_real"] // page) for st in states]
 
@@ -693,11 +950,10 @@ class TorchEngine(GenerationBackend):
         total_pages = sum(rows_pages) + (1 if pad_rows else 0) + (1 if fused_rows else 0)
         n_pages = _pow2_at_least(total_pages, 4)
         jmax = _pow2_at_least(max(rows_pages or [1]))
-        quantized = bool(self.kv_quantize)
         pool = PagePool.create(
             n_layers=cfg.n_layers, n_pages=n_pages, n_kv_heads=cfg.n_kv_heads,
             d_head=cfg.d_head, page_size=page, dtype=self.dtype,
-            quantized=quantized, device=self.device,
+            quantized=bool(self.kv_quantize), device=self.device,
         )
         # Entries past a row's need stay 0 and are never read (the kernels
         # stop at the row's length).
@@ -714,9 +970,63 @@ class TorchEngine(GenerationBackend):
                 table_rows[r] = [private] * jmax
 
         asm = self._assemble_rows(states, b_bucket, self._row_field_specs(states))
+        self._scatter_prompts(pool, states, asm["_groups"], row_pages, garbage)
+        del asm["_groups"]
+        st = self._paged_state(requests, all_prompt_ids, states, asm, b_bucket)
+        del asm
+        st.update(
+            pool=pool, table=torch.tensor(table_rows, dtype=torch.int32, device=self.device),
+        )
+        st["side_k"], st["side_v"] = self._side_caches(
+            cfg, b_bucket, _bucket(max(r.max_new_tokens for r in requests), GEN_BUCKETS)
+        )
+        first_host = st["tokens"].tolist()
+
+        self._sync()  # the pool's assembly stays out of the decode window
+        t1 = time.monotonic()
+        out, n_row = self._paged_decode_steps(tf, st, n_real, top_k, tok.eos_id)
+        out_host = out.tolist()
+        n_row = n_row.tolist()
+        self._sync()
+        t2 = time.monotonic()
+        window_id = next(_DECODE_WINDOW_IDS)
+
+        results = []
+        for r, (request, state) in enumerate(zip(requests, states)):
+            take = min(n_row[r], request.max_new_tokens - 1)
+            generated = [int(first_host[r])] + out_host[r][:take]
+            if request.stop_at_eos and tok.eos_id in generated:
+                generated = generated[: generated.index(tok.eos_id)]
+            text = tok.decode(generated)
+            if request.stop:
+                generated, text = _apply_stop(generated, text, tok, request.stop)
+            prefill_s = state["t1"] - state["t0"]
+            results.append(GenerationResult(
+                request=request, tokens=generated, text=text,
+                prompt_tokens=state["s_real"], generated_tokens=len(generated),
+                prefill_s=prefill_s, decode_s=t2 - t1, total_s=prefill_s + (t2 - t1),
+                extras={"decode_window": window_id},
+            ))
+        self._observe_batch_window(results, t1, t2)
+        return results
+
+    def _scatter_prompts(
+        self,
+        pool: PagePool,
+        states: "list[Dict[str, Any]]",
+        groups: "Dict[int, Tuple[Dict[str, Any], list[int]]]",
+        row_pages: "list[list[int]]",
+        spare: Optional[int],
+    ) -> None:
+        """Scatter every row's prompt K/V into its pages with one indexed
+        copy per pool tensor (an int8 pool quantizes the chunks first).
+        Grouped rows are paginated a group at a time; their bucket-tail
+        chunks past the prompt go to page ``spare``, which no row reads.
+        Frees the prefill caches (group and solo) from ``states``."""
+        page = self.page_size
         chunk_dest: "list[int]" = []
         chunks_k, chunks_v = [], []
-        for shared, members in asm["_groups"].values():
+        for shared, members in groups.values():
             ck, cv = group_chunks(
                 shared["k"], shared["v"], [states[r]["gi"] for r in members], page
             )
@@ -724,9 +1034,8 @@ class TorchEngine(GenerationBackend):
             chunks_v.append(cv)
             tp = -(-shared["k"].shape[3] // page)
             for r in members:
-                n_prompt_pages = rows_pages[r]
                 chunk_dest.extend(
-                    row_pages[r][j] if j < n_prompt_pages else garbage for j in range(tp)
+                    row_pages[r][j] if j < len(row_pages[r]) else spare for j in range(tp)
                 )
         for r, st in enumerate(states):
             if "group" in st:
@@ -736,113 +1045,100 @@ class TorchEngine(GenerationBackend):
             chunks_v.append(_paginate(st["v_cache"][:, 0], st["s_real"], page))
         all_k = chunks_k[0] if len(chunks_k) == 1 else torch.cat(chunks_k)
         all_v = chunks_v[0] if len(chunks_v) == 1 else torch.cat(chunks_v)
-        if quantized:
+        if pool.quantized:
             all_k, all_v = quantize_chunks(all_k, all_v)
         scatter_pages(pool.k, pool.v, chunk_dest, all_k, all_v)
-        table = torch.tensor(table_rows, dtype=torch.int32, device=self.device)
-
-        first_tokens = asm["first"]
-        first_host = first_tokens.tolist()
-        gens = asm["gen"][:n] + [None] * pad_rows  # pad rows hold no stream
-        # The repeat-penalty mask covers prompt + generated tokens, as a
-        # solo request's does.
-        presence = None
-        if any(r.repeat_penalty != 1.0 for r in requests):
-            presence = torch.zeros((b_bucket, cfg.vocab_size), dtype=torch.bool, device=self.device)
-            for r, (request, ids) in enumerate(zip(requests, all_prompt_ids)):
-                if request.repeat_penalty != 1.0:
-                    presence[r, torch.tensor(ids + [first_host[r]], device=self.device)] = True
-        # Free the prefill caches (group and solo) before the side caches
-        # are allocated.
         for st in states:
             for key in ("group", "k_cache", "v_cache"):
                 st.pop(key, None)
-        del asm, all_k, all_v, chunks_k, chunks_v
 
-        knobs = self._row_knobs(requests, b_bucket)
-        prompt_lens = torch.tensor(
-            [st["s_real"] for st in states] + [states[0]["s_real"]] * pad_rows,
-            dtype=torch.int32, device=self.device,
-        )
-        budgets = torch.tensor(row_budgets + [0] * pad_rows, device=self.device)
-        done = torch.tensor([False] * n + [True] * pad_rows, device=self.device)
-        g_bucket = _bucket(max(r.max_new_tokens for r in requests), GEN_BUCKETS)
+    def _paged_state(
+        self,
+        requests: "list[GenerationRequest]",
+        all_prompt_ids: "list[list[int]]",
+        states: "list[Dict[str, Any]]",
+        asm: Dict[str, Any],
+        b_bucket: int,
+    ) -> Dict[str, Any]:
+        """The per-row decode state over the paged pool (pad rows up to
+        ``b_bucket`` enter done with a budget of 0): first tokens,
+        generators, host sampling knobs, prompt lengths and offsets, step
+        budgets, the done-mask and, with any repeat penalty, the presence
+        mask of the prompts and first tokens (a solo request's)."""
+        n = len(states)
+        pad_rows = b_bucket - n
+        first_tokens = asm["first"]
+        presence = None
+        if any(r.repeat_penalty != 1.0 for r in requests):
+            first_host = first_tokens.tolist()
+            vocab = self._models[requests[0].model].cfg.vocab_size
+            presence = torch.zeros((b_bucket, vocab), dtype=torch.bool, device=self.device)
+            for r, (request, ids) in enumerate(zip(requests, all_prompt_ids)):
+                if request.repeat_penalty != 1.0:
+                    presence[r, torch.tensor(ids + [first_host[r]], device=self.device)] = True
+        prompt_lens = [st["s_real"] for st in states] + [states[0]["s_real"]] * pad_rows
+        return {
+            "tokens": first_tokens,
+            "gens": asm["gen"][:n] + [None] * pad_rows,  # pad rows hold no stream
+            "knobs": self._row_knobs(requests, b_bucket),
+            "presence": presence,
+            "prompt_lens": torch.tensor(prompt_lens, dtype=torch.int32, device=self.device),
+            "offsets": torch.tensor(prompt_lens, dtype=torch.long, device=self.device),
+            "remaining": torch.tensor(
+                [r.max_new_tokens - 1 for r in requests] + [0] * pad_rows, device=self.device
+            ),
+            "done": torch.tensor(
+                [r.max_new_tokens <= 1 for r in requests] + [True] * pad_rows, device=self.device
+            ),
+        }
 
-        self._sync()  # the pool's assembly stays out of the decode window
-        t1 = time.monotonic()
-        out, n_row = self._paged_decode_loop(
-            tf, first_tokens, prompt_lens, pool, table, gens, knobs, top_k,
-            presence, budgets, done, n_real, g_bucket, tok.eos_id,
-        )
-        out_host = out.tolist()
-        n_row = n_row.tolist()
-        self._sync()
-        t2 = time.monotonic()
-        window_id = next(_DECODE_WINDOW_IDS)
-
-        results = []
-        for r, (request, st) in enumerate(zip(requests, states)):
-            take = min(n_row[r], request.max_new_tokens - 1)
-            generated = [int(first_host[r])] + out_host[r][:take]
-            if request.stop_at_eos and tok.eos_id in generated:
-                generated = generated[: generated.index(tok.eos_id)]
-            text = tok.decode(generated)
-            if request.stop:
-                generated, text = _apply_stop(generated, text, tok, request.stop)
-            prefill_s = st["t1"] - st["t0"]
-            results.append(GenerationResult(
-                request=request, tokens=generated, text=text,
-                prompt_tokens=st["s_real"], generated_tokens=len(generated),
-                prefill_s=prefill_s, decode_s=t2 - t1, total_s=prefill_s + (t2 - t1),
-                extras={"decode_window": window_id},
-            ))
-        self._observe_batch_window(results, t1, t2)
-        return results
-
-    def _paged_decode_loop(
-        self, tf, first_tokens, prompt_lens, pool, table, gens, knobs, top_k,
-        presence, budgets, done, n_real, g_bucket, eos,
-    ) -> "Tuple[torch.Tensor, torch.Tensor]":
-        """The batched decode loop over the paged pool, one step per
-        iteration: each row writes its step's K/V into the side caches at
-        its own ``write_pos``, and attention merges the parts kernel's
-        prompt term with the side term. A row is done at EOS or when its
-        own budget is spent; a done row emits EOS and rewrites one frozen
-        side column. The loop stops at ``n_real`` steps or when every row
-        is done, as the JAX engine's ``while_loop`` condition does.
-        Returns (out [B, g_bucket] tokens, n_row [B] steps each row ran)."""
-        cfg = tf.cfg
-        b = first_tokens.shape[0]
-        side_shape = (cfg.n_layers, b, cfg.n_kv_heads, g_bucket, cfg.d_head)
+    def _side_caches(self, cfg: ModelConfig, b: int, cols: int):
+        """Zeroed K and V side caches [L, B, Hkv, cols, D] of the engine's
+        KV representation (int8: codes and f32 scales)."""
+        shape = (cfg.n_layers, b, cfg.n_kv_heads, cols, cfg.d_head)
 
         def side():
-            if pool.quantized:
+            if self.kv_quantize:
                 return {
-                    "q": torch.zeros(side_shape, dtype=torch.int8, device=self.device),
-                    "s": torch.zeros(side_shape[:-1], dtype=torch.float32, device=self.device),
+                    "q": torch.zeros(shape, dtype=torch.int8, device=self.device),
+                    "s": torch.zeros(shape[:-1], dtype=torch.float32, device=self.device),
                 }
-            return torch.zeros(side_shape, dtype=self.dtype, device=self.device)
+            return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
-        side_k, side_v = side(), side()
-        out = torch.full((b, g_bucket), eos, dtype=torch.long, device=self.device)
+        return side(), side()
+
+    def _paged_decode_steps(
+        self, tf, st: Dict[str, Any], n_real: int, top_k: int, eos: int,
+    ) -> "Tuple[torch.Tensor, torch.Tensor]":
+        """Up to ``n_real`` batched decode steps over the paged pool: each
+        row writes its step's K/V into the side caches at its own
+        ``write_pos = offset - prompt_len``, and attention merges the
+        parts kernel's prompt term with the side term. A row is done at
+        EOS or when its ``remaining`` budget is spent; a done row emits EOS
+        and rewrites one frozen side column. Stops early when every row is
+        done, as the JAX engine's ``while_loop`` condition does. Updates
+        ``st`` (tokens, offsets, done, remaining; presence and side caches
+        in place) so that a later call continues the rows. Returns (out
+        [B, n_real] tokens, n_row [B] steps each row ran)."""
+        cfg = tf.cfg
+        token, offs, done = st["tokens"], st["offsets"], st["done"]
+        budgets, plens = st["remaining"], st["prompt_lens"]
+        presence, knobs = st["presence"], st["knobs"]
+        b = token.shape[0]
+        out = torch.full((b, n_real), eos, dtype=torch.long, device=self.device)
         n_row = torch.zeros((b,), dtype=torch.long, device=self.device)
         rows = torch.arange(b, device=self.device)
-        offsets = prompt_lens.to(torch.long)  # static through the loop
-        offs = offsets
-        token = first_tokens
         i = 0
         while i < n_real and not bool(done.all()):
-            write_pos = offs - offsets
-            kc = {"pool": pool.k, "table": table, "side": side_k,
-                  "write_pos": write_pos, "prompt_lens": prompt_lens}
-            vc = {"pool": pool.v, "table": table, "side": side_v,
-                  "write_pos": write_pos, "prompt_lens": prompt_lens}
+            leaf = {"table": st["table"], "write_pos": offs - plens, "prompt_lens": plens}
+            kc = {**leaf, "pool": st["pool"].k, "side": st["side_k"]}
+            vc = {**leaf, "pool": st["pool"].v, "side": st["side_v"]}
             hidden, _, _ = forward(
                 tf.params, cfg, token[:, None], offs, kc, vc, _paged_parts, layers=tf.layers
             )
             logits = logits_for(tf.params, cfg, hidden[:, 0])
             nxt = sample_token_per_row(
-                logits, gens, knobs["temperature"], top_k, knobs["top_p"],
+                logits, st["gens"], knobs["temperature"], top_k, knobs["top_p"],
                 presence, knobs["repeat_penalty"],
             )
             prev_done = done
@@ -855,6 +1151,7 @@ class TorchEngine(GenerationBackend):
             offs = torch.where(done, offs, offs + 1)
             token = nxt
             i += 1
+        st.update(tokens=token, offsets=offs, done=done, remaining=budgets - n_row)
         return out, n_row
 
     def _contiguous_row_bytes(self, cfg: ModelConfig, s_bucket: int, g_bucket: int) -> int:

@@ -10,9 +10,12 @@ returns new caches — and attention masks by absolute position.
 Caches are ``[L, B, Hkv, T, D]`` tensors, int8 ``{"q": [L,B,Hkv,T,D],
 "s": [L,B,Hkv,T]}`` dicts, or the stacked-hybrid paged leaf of the batch
 path (:func:`is_paged_cache`): a read-only page pool holding the prompts,
-plus side caches that take the tokens generated in this call. The
-legacy write-through paged mode, the carry-resident and scratch modes, the
-multi-token verify block and the mixture-of-experts MLP are not ported yet.
+plus side caches that take the tokens generated in this call. A
+contiguous batch cache also decodes one token per row at per-row offsets
+``[B]`` (a speculative draft model's cache), and the stacked-hybrid leaf
+takes the speculative verify block of S = k+1 candidates per row. The
+legacy write-through paged mode, the scratch verify mode and the
+mixture-of-experts MLP are not ported yet.
 """
 
 from __future__ import annotations
@@ -161,15 +164,18 @@ def _cache_layer(cache, i: int):
     return cache[i]
 
 
-def _side_write(side, rows: torch.Tensor, pos: torch.Tensor, vec: torch.Tensor) -> None:
-    """Write each row's vector ``vec [B,Hkv,D]`` at ``side[row, :, pos[row]]``
-    in place; an int8 side quantizes it with the decode-step scale math."""
-    if isinstance(side, dict):
+def _write_rows(cache, rows: torch.Tensor, pos: torch.Tensor, vec: torch.Tensor) -> None:
+    """Write each row's vector ``vec [B,Hkv,D]`` at ``cache[row, :,
+    pos[row]]`` of a [B,Hkv,T,D] cache (a side cache or a batch cache) in
+    place, or, with ``rows [B,1]`` and ``pos [B,S]``, the block ``vec
+    [B,S,Hkv,D]`` at ``cache[row, :, pos[row, j]]``; an int8 cache
+    quantizes it with the decode-step scale math."""
+    if isinstance(cache, dict):
         codes, scales = quantize_kv_vector(vec)
-        side["q"][rows, :, pos] = codes
-        side["s"][rows, :, pos] = scales
+        cache["q"][rows, :, pos] = codes
+        cache["s"][rows, :, pos] = scales
     else:
-        side[rows, :, pos] = vec.to(side.dtype)
+        cache[rows, :, pos] = vec.to(cache.dtype)
 
 
 def _side_view(side) -> torch.Tensor:
@@ -181,48 +187,66 @@ def _side_view(side) -> torch.Tensor:
 
 def _paged_attention(
     cfg: ModelConfig,
-    q: torch.Tensor,  # [B,1,Hq,Dh]
-    k: torch.Tensor,  # [B,1,Hkv,Dh]
+    q: torch.Tensor,  # [B,S,Hq,Dh]
+    k: torch.Tensor,  # [B,S,Hkv,Dh]
     v: torch.Tensor,
     k_cache: Dict[str, Any],  # one layer's stacked-hybrid leaf
     v_cache: Dict[str, Any],
     decode_attention: Optional[DecodeAttentionFn],
 ) -> torch.Tensor:
-    """One decode step over the stacked-hybrid paged leaf: this step's K/V
-    land in the side caches at each row's ``write_pos``; the prompt pages
-    give unnormalised parts (``decode_attention``, the paged parts kernel);
-    the side term and the exact online-softmax merge of the two are plain
-    torch, as the JAX package does them in XLA outside its kernel."""
+    """A decode step (S = 1) or a speculative verify block (S = k+1) over
+    the stacked-hybrid paged leaf: the block's K/V land in the side caches
+    at each row's ``write_pos + j``; the prompt pages give unnormalised
+    parts (``decode_attention``, the paged parts kernel, which takes the
+    [B,S,Hq,D] block to its multi-query twin); the side term, under the
+    per-query cut ``tpos <= write_pos + j``, and the exact online-softmax
+    merge of the two are plain torch, as the JAX package does them in XLA
+    outside its kernel. Returns [B,S,Hq,Dh] in f32."""
     b, s, hq, dh = q.shape
-    if s != 1:
-        raise NotImplementedError("the paged multi-token verify block is not ported yet")
     if decode_attention is None:
         raise ValueError("a paged cache needs the paged parts attention callable")
     hkv = cfg.n_kv_heads
     group = hq // hkv
     wp = k_cache["write_pos"]  # [B] int64
     rows = torch.arange(b, device=q.device)
-    _side_write(k_cache["side"], rows, wp, k[:, 0])
-    _side_write(v_cache["side"], rows, wp, v[:, 0])
-
-    qd = q[:, 0].contiguous()
-    acc1, m1, l1 = decode_attention(qd, k_cache, v_cache, k_cache["prompt_lens"])
-    ks = _side_view(k_cache["side"])
-    vs = _side_view(v_cache["side"])
-    qg = qd.reshape(b, hkv, group, dh).to(torch.float32)
-    s2 = torch.einsum("bkgd,bktd->bkgt", qg, ks) * (1.0 / math.sqrt(dh))
-    tpos = torch.arange(ks.shape[2], device=q.device)
-    visible = (tpos[None, :] <= wp[:, None])[:, None, None, :]
+    scale = 1.0 / math.sqrt(dh)
+    if s == 1:
+        _write_rows(k_cache["side"], rows, wp, k[:, 0])
+        _write_rows(v_cache["side"], rows, wp, v[:, 0])
+        ks, vs = _side_view(k_cache["side"]), _side_view(v_cache["side"])
+        qd = q[:, 0].contiguous()
+        acc1, m1, l1 = decode_attention(qd, k_cache, v_cache, k_cache["prompt_lens"])
+        qg = qd.reshape(b, hkv, group, dh).to(torch.float32)
+        s2 = torch.einsum("bkgd,bktd->bkgt", qg, ks) * scale
+        tpos = torch.arange(ks.shape[2], device=q.device)
+        visible = (tpos[None, :] <= wp[:, None])[:, None, None, :]
+        spec = "bkgt,bktd->bkgd"
+    else:
+        pos = wp[:, None] + torch.arange(s, device=q.device)  # [B,S]
+        _write_rows(k_cache["side"], rows[:, None], pos, k)
+        _write_rows(v_cache["side"], rows[:, None], pos, v)
+        ks, vs = _side_view(k_cache["side"]), _side_view(v_cache["side"])
+        acc1, m1, l1 = decode_attention(q.contiguous(), k_cache, v_cache, k_cache["prompt_lens"])
+        acc1 = acc1.permute(0, 2, 3, 1, 4)  # [B,S,Hkv,G,D] -> [B,Hkv,G,S,D]
+        m1 = m1.permute(0, 2, 3, 1)  # [B,Hkv,G,S]
+        l1 = l1.permute(0, 2, 3, 1)
+        qg = q.reshape(b, s, hkv, group, dh).to(torch.float32)
+        s2 = torch.einsum("bskgd,bktd->bkgst", qg, ks) * scale
+        tpos = torch.arange(ks.shape[2], device=q.device)
+        visible = (tpos[None, None, :] <= pos[:, :, None])[:, None, None]  # [B,1,1,S,T]
+        spec = "bkgst,bktd->bkgsd"
     s2 = torch.where(visible, s2, float("-inf"))
-    m2 = torch.amax(s2, dim=-1)  # finite: the current token is column wp
+    m2 = torch.amax(s2, dim=-1)  # finite: the query's own token is column wp + j
     p2 = torch.exp(s2 - m2[..., None])
     l2 = torch.sum(p2, dim=-1)
-    acc2 = torch.einsum("bkgt,bktd->bkgd", p2, vs)
+    acc2 = torch.einsum(spec, p2, vs)
     m_t = torch.maximum(m1, m2)
     w1 = torch.exp(m1 - m_t)  # 0 for an empty prompt (m1 = -inf)
     w2 = torch.exp(m2 - m_t)
     out = (acc1 * w1[..., None] + acc2 * w2[..., None]) / (l1 * w1 + l2 * w2)[..., None]
-    return out.reshape(b, 1, hq, dh)
+    if s == 1:
+        return out.reshape(b, 1, hq, dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, dh)  # [B,Hkv,G,S,D] -> [B,S,Hq,D]
 
 
 def _activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -237,12 +261,12 @@ def _attention_block(
     layer: Params,
     k_cache,  # [B,Hkv,T,Dh], int8 {"q","s"} or a paged leaf; written in place
     v_cache,
-    offset,  # cache position of token 0: int, or [B] for a paged leaf
+    offset,  # cache position of token 0: int, or [B] per-row positions
     cos: torch.Tensor,  # [B,S,half]
     sin: torch.Tensor,
     decode_attention: Optional[DecodeAttentionFn],
     prefill_attention: Optional[PrefillAttentionFn],
-    lengths: Optional[torch.Tensor],  # [B] int32 = offset + 1 (decode only)
+    lengths: Optional[torch.Tensor],  # [B] int32 = offset + 1 (contiguous decode only)
 ) -> torch.Tensor:
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -262,6 +286,20 @@ def _attention_block(
         out = _paged_attention(cfg, q, k, v, k_cache, v_cache, decode_attention)
         out = out.to(x.dtype).reshape(b, s, hq * dh)
         return dense_dot(out, layer["wo"])
+
+    if isinstance(offset, torch.Tensor):
+        # One token per row at its own position [B] (a speculative draft's
+        # batch cache; the JAX package's carry-resident branch).
+        if s != 1 or decode_attention is None:
+            raise NotImplementedError(
+                "per-row offsets on a contiguous cache take one token per row "
+                "and the decode attention callable"
+            )
+        rows = torch.arange(b, device=x.device)
+        _write_rows(k_cache, rows, offset, k[:, 0])
+        _write_rows(v_cache, rows, offset, v[:, 0])
+        out = decode_attention(q[:, 0], k_cache, v_cache, lengths)[:, None]
+        return dense_dot(out.to(x.dtype).reshape(b, s, hq * dh), layer["wo"])
 
     span = slice(offset, offset + s)
     if is_quantized_cache(k_cache):
@@ -291,7 +329,7 @@ def run_blocks(
     layers: List[Params],
     cfg: ModelConfig,
     x: torch.Tensor,  # [B,S,D] embedded inputs
-    offset,  # int, or [B] per-row positions (paged leaf)
+    offset,  # int, or [B] per-row positions
     k_cache,  # [L,B,Hkv,T,Dh], int8 {"q","s"} or a stacked paged leaf
     v_cache,
     cos: torch.Tensor,
@@ -305,7 +343,10 @@ def run_blocks(
     b, s, _ = x.shape
     lengths = None
     if s == 1 and decode_attention is not None and not is_paged_cache(k_cache):
-        lengths = torch.full((b,), offset + 1, dtype=torch.int32, device=x.device)
+        if isinstance(offset, torch.Tensor):  # per-row positions
+            lengths = (offset + 1).to(torch.int32)
+        else:
+            lengths = torch.full((b,), offset + 1, dtype=torch.int32, device=x.device)
     for i, layer in enumerate(layers):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps, gemma_style=cfg.gemma_norm)
         x = x + _attention_block(
@@ -322,7 +363,7 @@ def forward(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [B,S] int
-    offset,  # int; or [B] int tensor, one position per row (paged leaf)
+    offset,  # int; or [B] int tensor, one position per row
     k_cache,  # [L,B,Hkv,T,Dh], int8 {"q","s"} or a paged leaf; updated in place
     v_cache,
     decode_attention: Optional[DecodeAttentionFn] = None,

@@ -50,6 +50,12 @@ _SIGNATURES = {
              _i, _i, _i, _i, _i, _i, _i, _i, _i, _p],
             _i,
         ),
+        "paged_mq_query_max": ([], _i),
+        "paged_mq_parts": (
+            [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
+             _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _p],
+            _i,
+        ),
     },
     "int4_matmul": {
         "int4_error_string": ([_i], ctypes.c_char_p),

@@ -147,29 +147,45 @@ def _gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     return g.transpose(1, 2).reshape(b, hkv, jmax * page, *pool.shape[3:])
 
 
-def _dense_parts(q, kf, vf, lengths, k_scale=None, v_scale=None):
-    """Unnormalised softmax parts of ``q [B,Hq,D]`` against dense f32
-    ``kf/vf [B,Hkv,T,D]`` masked by ``lengths``: ``(acc [B,Hkv,G,D],
-    m [B,Hkv,G], l [B,Hkv,G])`` with ``acc = Σ e^{s-m}·v`` and
-    ``l = Σ e^{s-m}``. Optional int8 scales [B,Hkv,T] multiply the score
-    column (K) and fold into the probabilities after ``l`` is taken (V).
-    A row with ``lengths == 0`` gives exactly ``(0, -inf, 0)``."""
-    b, hq, d = q.shape
+def _dense_parts(q, kf, vf, limits, k_scale=None, v_scale=None):
+    """Unnormalised softmax parts of Q query positions ``q [B,Q,Hq,D]``
+    against dense f32 ``kf/vf [B,Hkv,T,D]``, query j of row b seeing
+    positions ``t < limits[b, j]``: ``(acc [B,Q,Hkv,G,D], m [B,Q,Hkv,G],
+    l [B,Q,Hkv,G])`` with ``acc = Σ e^{s-m}·v`` and ``l = Σ e^{s-m}``.
+    Optional int8 scales [B,Hkv,T] multiply the score column (K) and fold
+    into the probabilities after ``l`` is taken (V). A query with no
+    visible position gives exactly ``(0, -inf, 0)``."""
+    d = q.shape[-1]
     _, hkv, t, _ = kf.shape
-    qg = _group_heads(q, hkv).to(torch.float32)  # [B,Hkv,G,D]
-    scores = torch.einsum("bkgd,bktd->bkgt", qg, kf) * (1.0 / math.sqrt(d))
+    qg = _group_heads(q, hkv).to(torch.float32)  # [B,Q,Hkv,G,D]
+    scores = torch.einsum("bskgd,bktd->bskgt", qg, kf) * (1.0 / math.sqrt(d))
     if k_scale is not None:
-        scores = scores * k_scale[:, :, None, :]
-    valid = torch.arange(t, device=q.device)[None, :] < lengths.to(q.device)[:, None]
-    scores = torch.where(valid[:, None, None, :], scores, float("-inf"))
-    m = torch.amax(scores, dim=-1)  # -inf for a row with no cached token
+        scores = scores * k_scale[:, None, :, None, :]
+    valid = torch.arange(t, device=q.device) < limits.to(q.device)[..., None]  # [B,Q,T]
+    scores = torch.where(valid[:, :, None, None, :], scores, float("-inf"))
+    m = torch.amax(scores, dim=-1)  # -inf for a query with no visible token
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(scores - m_safe[..., None])  # exp(-inf) = 0 masks columns
     l = torch.sum(p, dim=-1)
     if v_scale is not None:
-        p = p * v_scale[:, :, None, :]
-    acc = torch.einsum("bkgt,bktd->bkgd", p, vf)
+        p = p * v_scale[:, None, :, None, :]
+    acc = torch.einsum("bskgt,bktd->bskgd", p, vf)
     return acc, m, l
+
+
+def _single_query(parts):
+    """The Q = 1 parts of :func:`_dense_parts` without their Q axis."""
+    return tuple(x[:, 0] for x in parts)
+
+
+def _mq_limits(lengths: torch.Tensor, offsets: torch.Tensor, q_len: int) -> torch.Tensor:
+    """[B, Q] visible-token limits of a multi-query block: query j of row
+    b sees cached tokens ``kpos < min(lengths[b], offsets[b] + j + 1)``
+    (the JAX package's ``_mq_limit``)."""
+    j = torch.arange(q_len, device=lengths.device)
+    return torch.minimum(
+        lengths.to(torch.int64)[:, None], offsets.to(lengths.device, torch.int64)[:, None] + j + 1
+    )
 
 
 def paged_decode_attention_parts_reference(
@@ -185,7 +201,7 @@ def paged_decode_attention_parts_reference(
     ``cuda_paged_decode_attention_parts``."""
     kf = _gather_pages(k_pool, page_table).to(torch.float32)
     vf = _gather_pages(v_pool, page_table).to(torch.float32)
-    return _dense_parts(q, kf, vf, lengths)
+    return _single_query(_dense_parts(q[:, None], kf, vf, lengths[:, None]))
 
 
 def paged_decode_attention_parts_int8_reference(
@@ -201,13 +217,54 @@ def paged_decode_attention_parts_int8_reference(
     the scales folded as its Pallas kernel folds them (K's scale on the
     score column, V's into the probabilities), so no dequantized page
     exists. Plain version of ``cuda_paged_decode_attention_parts_int8``."""
+    return _single_query(_int8_pages_parts(q[:, None], k_q, k_s, v_q, v_s, page_table, lengths[:, None]))
+
+
+def _int8_pages_parts(q, k_q, k_s, v_q, v_s, page_table, limits):
     return _dense_parts(
         q,
         _gather_pages(k_q, page_table).to(torch.float32),
         _gather_pages(v_q, page_table).to(torch.float32),
-        lengths,
+        limits,
         _gather_pages(k_s, page_table).to(torch.float32),
         _gather_pages(v_s, page_table).to(torch.float32),
+    )
+
+
+def paged_mq_attention_reference(
+    q: torch.Tensor,  # [B,Q,Hq,D]: Q candidate positions per row
+    k_pool: torch.Tensor,  # [P,Hkv,page,D]
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # [B,Jmax] int32
+    lengths: torch.Tensor,  # [B] int32: cached tokens (candidates excluded)
+    offsets: torch.Tensor,  # [B] int32: absolute position of query 0
+):
+    """Multi-query unnormalised parts over each row's cached pages:
+    ``(acc [B,Q,Hkv,G,D], m [B,Q,Hkv,G], l [B,Q,Hkv,G])``, query j masked
+    by the causal cut ``kpos < min(lengths[b], offsets[b] + j + 1)`` (the
+    JAX package's ``paged_mq_attention_reference``). At Q = 1 with every
+    cached token visible it is :func:`paged_decode_attention_parts_reference`.
+    Plain version of ``cuda_paged_decode_attention_mq_parts``."""
+    kf = _gather_pages(k_pool, page_table).to(torch.float32)
+    vf = _gather_pages(v_pool, page_table).to(torch.float32)
+    return _dense_parts(q, kf, vf, _mq_limits(lengths, offsets, q.shape[1]))
+
+
+def paged_mq_attention_int8_reference(
+    q: torch.Tensor,  # [B,Q,Hq,D]
+    k_q: torch.Tensor,  # [P,Hkv,page,D] int8
+    k_s: torch.Tensor,  # [P,Hkv,page] f32
+    v_q: torch.Tensor,
+    v_s: torch.Tensor,
+    page_table: torch.Tensor,  # [B,Jmax] int32
+    lengths: torch.Tensor,  # [B] int32
+    offsets: torch.Tensor,  # [B] int32
+):
+    """:func:`paged_mq_attention_reference` over an int8 pool, the scales
+    folded as :func:`paged_decode_attention_parts_int8_reference` folds
+    them. Plain version of ``cuda_paged_decode_attention_mq_parts_int8``."""
+    return _int8_pages_parts(
+        q, k_q, k_s, v_q, v_s, page_table, _mq_limits(lengths, offsets, q.shape[1])
     )
 
 

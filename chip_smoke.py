@@ -13,7 +13,11 @@ beside them), then drives the port's paths on full-width qwen2:1.5b:
 bf16 and then an int8 KV cache, ``TorchEngine.generate_batch`` over the
 paged pool (17 requests) with a bf16 and then an int8 pool, ``generate``
 at int4 and at int4-i32 weights, one engine with per-model modes (qwen2 at
-int8, full-width llama3.1:8b at int4), and an int4 paged batch of 8 rows.
+int8, full-width llama3.1:8b at int4), an int4 paged batch of 8 rows,
+and speculative sessions over the paged pool (``decode_open`` and
+``step``): an n-gram draft over 8 rows with a bf16 and an int8 pool, whose
+verify runs the multi-query kernels B7/B8, ``generate_speculative`` and
+``generate``'s routing, and a self-draft whose draft steps run B2.
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -42,6 +46,10 @@ KERNEL_INFO = {
         f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:826"),
     "cuda_paged_decode_attention_parts_int8": (
         f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:953"),
+    "cuda_paged_decode_attention_mq_parts": (
+        f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:531"),
+    "cuda_paged_decode_attention_mq_parts_int8": (
+        f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:531"),
     "cuda_int4_matmul": (f"{PKG}/csrc/int4_matmul.cu", f"{JAX_PKG}/ops/pallas_quant.py:266"),
     "cuda_int4_matmul_i32": (f"{PKG}/csrc/int4_matmul.cu", f"{JAX_PKG}/ops/pallas_quant.py:199"),
 }
@@ -87,6 +95,13 @@ BATCH_CONTEXTS = (292, 300, 308, 316, 690, 700, 710, 720, 1086, 1094, 1100, 1108
 # 1,100-token contexts; 8 rows, so decode takes the int4 kernel route.
 INT4_BATCH_CONTEXTS = (300, 300, 700, 700, 1100, 1100)
 LONG_PROMPT_TOKENS = 2112
+# Speculative sessions: draft tokens per round (the verify block is k + 1
+# query positions), the n-gram session's new tokens per row, and the
+# self-draft session's rows and new tokens.
+SPEC_K = 4
+SPEC_NEW_TOKENS = 134
+SELFDRAFT_ROWS = 4
+SELFDRAFT_NEW_TOKENS = 64
 
 
 def emit(obj) -> None:
@@ -330,13 +345,15 @@ def batch_prompt_lengths():
     return [study] * 4 + list(BATCH_CONTEXTS) + [LONG_PROMPT_TOKENS]
 
 
-def paged_inputs(torch, gen, b, hq, hkv, d, lengths, dtype):
+def paged_inputs(torch, gen, b, hq, hkv, d, lengths, dtype, session=False):
     """q, a pool whose pages are a shuffled permutation (plus three pages
     no row names) and its table; rows past ``lengths`` are pad rows that
-    point every entry at one private page, as the engine's do."""
+    point every entry at one private page, as the engine's do. The table
+    is as wide as the batch path's (pow2 of the most pages a row needs),
+    or with ``session`` as a stepped session's (pow2 of twice that)."""
     need = [-(-n // PAGE) for n in lengths]
     jmax = 1
-    while jmax < max(need + [1]):
+    while jmax < max(need + [1]) * (2 if session else 1):
         jmax *= 2
     n_pool = sum(need) + 4
     perm = torch.randperm(n_pool, generator=gen, device="cuda").tolist()
@@ -458,6 +475,119 @@ def paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector):
     return summary
 
 
+def spec_prompt_lengths():
+    """Token counts of the speculative sessions' 8 prompts (those of the
+    int4 paged batch)."""
+    study = len(STUDY_PROMPT.format(words=STUDY_WORDS[0])) + 1
+    return [study] * 2 + list(INT4_BATCH_CONTEXTS)
+
+
+def mq_bound(b, q_len, hq, hkv, d, lengths, offsets, kv_bytes_per_token, q_bytes, jmax):
+    """Least time of one multi-query parts call: each row's cached K/V read
+    once up to its last query's limit, q, table, lengths and offsets read,
+    (acc, m, l) written; 4·D flops per (head, query, visible token)."""
+    frontier = sum(max(0, min(n, off + q_len)) for n, off in zip(lengths, offsets))
+    visible = sum(max(0, min(n, off + j + 1)) for n, off in zip(lengths, offsets) for j in range(q_len))
+    bytes_moved = (
+        b * q_len * hq * d * q_bytes + frontier * kv_bytes_per_token
+        + b * jmax * 4 + 2 * b * 4 + b * q_len * hq * (d + 2) * 4
+    )
+    return bound(bytes_moved, 4 * hq * d * visible), frontier, visible
+
+
+def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector):
+    """B7/B8 against their plain versions: at the speculative sessions' own
+    batch (8 rows of 62–1,100 tokens, qwen2:1.5b widths, a session's table
+    width) at Q 5 (k = 4) and Q 1, with offsets that cut inside the cached
+    range on half the rows (the engine's offsets never cut: its candidates
+    sit past the prompt); at the one-row session of
+    ``generate_speculative``; at B 4 with an empty row and a row whose
+    first query sees nothing; and at the phi3/gemma head dims. f32 to 1e-4, bf16 to 2e-2 (acc/l, m, l),
+    queries with no visible token exactly (0, -inf, 0); at Q 1 each equals
+    B4/B5 on lengths cut to the causal limit, bit for bit; Q 10 raises.
+    Returns the engine-batch Q 5 row of each kernel for the summary."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    eng = spec_prompt_lengths()
+    eng_cut = [n - 40 if i % 2 else n + 7 for i, n in enumerate(eng)]
+    # (label, batch, hq, hkv, d, lengths, offsets, Q)
+    shapes = [
+        ("qwen2:1.5b engine batch", 8, 12, 2, 128, eng, eng_cut, SPEC_K + 1),
+        ("qwen2:1.5b engine batch", 8, 12, 2, 128, eng, eng_cut, 1),
+        ("qwen2:1.5b one-row session", 1, 12, 2, 128, eng[:1], [eng[0] + 20], SPEC_K + 1),
+        ("qwen2:1.5b", 4, 12, 2, 128, [0, 1, 300, 1100], [0, -1, 297, 1100], SPEC_K + 1),
+        ("phi3:3.8b", 4, 32, 32, 96, [62, 300, 700, 1100], [62, 290, 700, 1000], SPEC_K + 1),
+        ("gemma:2b", 4, 8, 1, 256, [62, 300, 700, 1100], [62, 290, 700, 1000], SPEC_K + 1),
+    ]
+    mq = {
+        "cuda_paged_decode_attention_mq_parts": (
+            cpa.cuda_paged_decode_attention_mq_parts, plain.paged_mq_attention_reference,
+            cpa.cuda_paged_decode_attention_parts),
+        "cuda_paged_decode_attention_mq_parts_int8": (
+            cpa.cuda_paged_decode_attention_mq_parts_int8, plain.paged_mq_attention_int8_reference,
+            cpa.cuda_paged_decode_attention_parts_int8),
+    }
+    summary = {}
+    for label, b, hq, hkv, d, lengths, offs, q_len in shapes:
+        for name, (fn, ref_fn, single) in mq.items():
+            errs, empties, q1_equal = {}, True, None
+            for dtype, tol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
+                _, k, v, table, lens = paged_inputs(torch, gen, b, hq, hkv, d, lengths, dtype,
+                                                    session=True)
+                q = torch.randn((b, q_len, hq, d), generator=gen, device="cuda").to(dtype)
+                offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
+                if name.endswith("int8"):
+                    kq, ks = quantize_kv_vector(k)
+                    vq, vs = quantize_kv_vector(v)
+                    pool = (kq, ks, vq, vs)
+                    kv_bytes_per_token = 2 * hkv * (d + 4)
+                else:
+                    pool = (k, v)
+                    kv_bytes_per_token = 2 * hkv * d * q.element_size()
+                args = (q, *pool, table, lens, offsets)
+                got = fn(*args)
+                want = ref_fn(*args)
+                torch.cuda.synchronize()
+                errs[dtype], ok, empty_exact = parts_errors(torch, got, want, tol)
+                empties = empties and empty_exact
+                assert ok, (label, name, q_len, str(dtype), errs[dtype], empty_exact)
+                if q_len == 1:
+                    cut = torch.clamp(torch.minimum(lens, offsets + 1), min=0)
+                    one = single(q[:, 0].contiguous(), *pool, table, cut)
+                    q1_equal = all(torch.equal(a[:, 0], c) for a, c in zip(got, one))
+                    assert q1_equal, (label, name, "Q 1 differs from the single-query kernel")
+            ms = timer.ms(lambda: fn(*args))
+            plain_ms = timer.ms(lambda: ref_fn(*args), max_iters=20)
+            (b_ms, b_by), frontier, visible = mq_bound(
+                b, q_len, hq, hkv, d, lengths + [lengths[0]] * (b - len(lengths)), offs,
+                kv_bytes_per_token, q.element_size(), table.shape[1])
+            row = {
+                "name": name, "shape": label, "B": b, "Q": q_len, "lengths": lengths,
+                "offsets": offs, "frontier_tokens": frontier, "visible_pairs": visible,
+                "empty_queries_exact": empties, "q1_equals_single_query_kernel": q1_equal,
+                "max_abs_err": errs[torch.bfloat16]["out"],
+                "max_abs_err_m_l_bf16": [errs[torch.bfloat16]["m"], errs[torch.bfloat16]["l"]],
+                "max_abs_err_f32": errs[torch.float32],
+                "ms": ms, "plain_ms": plain_ms,
+                # no single PyTorch call returns per-query unnormalised parts
+                "library_ms": None,
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit({"phase": "kernel", **row})
+            summary.setdefault(name, row)
+    for name, (fn, _, _) in mq.items():
+        _, k, v, table, lens = paged_inputs(torch, gen, 2, 12, 2, 128, [62, 300], torch.bfloat16)
+        pool = (k, v) if name == "cuda_paged_decode_attention_mq_parts" else (
+            *quantize_kv_vector(k), *quantize_kv_vector(v))
+        q = torch.zeros((2, 10, 12, 128), dtype=torch.bfloat16, device="cuda")
+        try:
+            fn(q, *pool, table, lens, lens)
+        except ValueError as err:
+            emit({"phase": "kernel", "name": name, "Q": 10, "raised": str(err)})
+        else:
+            raise AssertionError(f"{name} took 10 query positions")
+    return summary
+
+
 def study_requests(GenerationRequest):
     """The study's prompt at its 100- and 500-word lengths, plus one long
     prompt whose prefill runs in two chunks (offset 2048 for the second)."""
@@ -491,6 +621,24 @@ def int4_batch_requests(GenerationRequest):
         GenerationRequest(MODEL, p, 134 if i % 2 == 0 else 32, stop_at_eos=False)
         for i, p in enumerate(prompts)
     ]
+
+
+def spec_requests(GenerationRequest):
+    """The n-gram session's rows: the int4 batch's 8 prompts, each at
+    SPEC_NEW_TOKENS new tokens; row 1 samples (temperature 0.7, seed 1)."""
+    return [
+        dataclasses.replace(r, max_new_tokens=SPEC_NEW_TOKENS,
+                            **(dict(temperature=0.7, seed=1) if i == 1 else {}))
+        for i, r in enumerate(int4_batch_requests(GenerationRequest))
+    ]
+
+
+def selfdraft_requests(GenerationRequest):
+    """The self-draft session's greedy rows: the study prompt and the 300-,
+    700- and 1,100-token contexts, at SELFDRAFT_NEW_TOKENS new tokens."""
+    prompts = [STUDY_PROMPT.format(words=STUDY_WORDS[0])] + [context_prompt(n) for n in (300, 700, 1100)]
+    return [GenerationRequest(MODEL, p, SELFDRAFT_NEW_TOKENS, stop_at_eos=False)
+            for p in prompts[:SELFDRAFT_ROWS]]
 
 
 def batch_requests(GenerationRequest):
@@ -682,12 +830,12 @@ def compare_logits(torch, phase, logits, forced):
     assert max_diff <= LOGIT_ATOL, max_diff
 
 
-def paged_integration_phase(torch, engine, pk, plain, tfm, eng_mod):
+def prefill_pool(torch, engine, pk, tfm, eng_mod):
     """Four rows prefilled (contiguous, with the prefill kernel) and
-    paginated into one bf16 pool, then 8 teacher-forced decode steps
-    through the stacked-hybrid paged path, once with the parts kernel
-    (the engine's callable) and once with the plain parts: each path has
-    its own side caches over the shared read-only pool."""
+    paginated into one pool of the engine's KV kind (int8 codes under
+    ``kv_quantize``). Returns the pool, its table, the prompt lengths and
+    each row's last-position logits."""
+    quantized = bool(engine.kv_quantize)
     tf = engine._models[MODEL]
     cfg = tf.cfg
     tok = engine._tokenizer_for(MODEL)
@@ -697,9 +845,8 @@ def paged_integration_phase(torch, engine, pk, plain, tfm, eng_mod):
     lens = [len(x) for x in ids]
     need = [-(-n // PAGE) for n in lens]
     pool = pk.PagePool.create(cfg.n_layers, sum(need), cfg.n_kv_heads, cfg.d_head, PAGE,
-                              dtype=engine.dtype, device="cuda")
-    jmax = max(need)
-    table = torch.zeros((len(ids), jmax), dtype=torch.int32)
+                              dtype=engine.dtype, quantized=quantized, device="cuda")
+    table = torch.zeros((len(ids), max(need)), dtype=torch.int32)
     first = []
     for r, row in enumerate(ids):
         bucket = eng_mod._prompt_alloc(len(row))
@@ -710,20 +857,29 @@ def paged_integration_phase(torch, engine, pk, plain, tfm, eng_mod):
         first.append(tfm.logits_for(tf.params, cfg, h[:, len(row) - 1]))
         pages = pool.alloc(need[r])
         table[r, : need[r]] = torch.tensor(pages)
-        pk.scatter_pages(pool.k, pool.v, pages, pk._paginate(kc[:, 0], len(row), PAGE),
-                         pk._paginate(vc[:, 0], len(row), PAGE))
-    table = table.cuda()
-    prompt_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        chunks = (pk._paginate(kc[:, 0], len(row), PAGE), pk._paginate(vc[:, 0], len(row), PAGE))
+        if quantized:
+            chunks = pk.quantize_chunks(*chunks)
+        pk.scatter_pages(pool.k, pool.v, pages, *chunks)
+    return pool, table.cuda(), torch.tensor(lens, dtype=torch.int32, device="cuda"), torch.cat(first)
+
+
+def paged_integration_phase(torch, engine, pk, plain, tfm, eng_mod):
+    """Four rows in one bf16 pool, then 8 teacher-forced decode steps
+    through the stacked-hybrid paged path, once with the parts kernel (the
+    engine's callable) and once with the plain parts: each path has its
+    own side caches over the shared read-only pool."""
+    tf = engine._models[MODEL]
+    cfg = tf.cfg
+    pool, table, prompt_lens, first = prefill_pool(torch, engine, pk, tfm, eng_mod)
 
     def plain_parts(q, k_leaf, v_leaf, lengths):
         return plain.paged_decode_attention_parts_reference(
             q, k_leaf["pool"], v_leaf["pool"], k_leaf["table"], lengths)
 
     paths = {"kernels": eng_mod._paged_parts, "plain": plain_parts}
-    side_shape = (cfg.n_layers, len(ids), cfg.n_kv_heads, 16, cfg.d_head)
-    sides = {name: [torch.zeros(side_shape, dtype=engine.dtype, device="cuda") for _ in range(2)]
-             for name in paths}
-    logits = {name: [torch.cat(first)] for name in paths}
+    sides = {name: engine._side_caches(cfg, len(prompt_lens), 16) for name in paths}
+    logits = {name: [first] for name in paths}
     forced = []
     for step in range(8):
         nxt = torch.argmax(logits["kernels"][-1], dim=-1)
@@ -737,6 +893,154 @@ def paged_integration_phase(torch, engine, pk, plain, tfm, eng_mod):
                                   layers=tf.layers)
             logits[name].append(tfm.logits_for(tf.params, cfg, h[:, 0]))
     compare_logits(torch, "paged_integration", logits, forced)
+
+
+def spec_integration_phase(torch, engine, pk, plain, tfm, eng_mod):
+    """The full-width verify forward of a fixed block of SPEC_K + 1
+    candidates per row (each row's greedy first token, then four fixed
+    tokens) over four prompts in one pool of the engine's KV kind, once
+    through B7/B8 (the engine's paged callable) and once with their plain
+    versions: the logits of every query position agree to LOGIT_ATOL."""
+    quantized = bool(engine.kv_quantize)
+    tf = engine._models[MODEL]
+    cfg = tf.cfg
+    tok = engine._tokenizer_for(MODEL)
+    pool, table, prompt_lens, first = prefill_pool(torch, engine, pk, tfm, eng_mod)
+    rows = len(prompt_lens)
+    fixed = tok.encode(" the light", add_bos=False)[:SPEC_K]
+    block = torch.cat([torch.argmax(first, dim=-1)[:, None],
+                       torch.tensor([fixed] * rows, device="cuda")], dim=1)
+
+    def plain_parts(q, k_leaf, v_leaf, lengths):
+        offsets = (k_leaf["write_pos"] + k_leaf["prompt_lens"]).to(torch.int32)
+        if quantized:
+            kp, vp = k_leaf["pool"], v_leaf["pool"]
+            return plain.paged_mq_attention_int8_reference(
+                q, kp["q"], kp["s"], vp["q"], vp["s"], k_leaf["table"], lengths, offsets)
+        return plain.paged_mq_attention_reference(
+            q, k_leaf["pool"], v_leaf["pool"], k_leaf["table"], lengths, offsets)
+
+    paths = {"kernels": eng_mod._paged_parts, "plain": plain_parts}
+    logits = {}
+    for name, parts_fn in paths.items():
+        side_k, side_v = engine._side_caches(cfg, rows, 16)
+        leaf = {"table": table, "write_pos": torch.zeros_like(prompt_lens, dtype=torch.long),
+                "prompt_lens": prompt_lens}
+        kc = {**leaf, "pool": pool.k, "side": side_k}
+        vc = {**leaf, "pool": pool.v, "side": side_v}
+        h, _, _ = tfm.forward(tf.params, cfg, block, prompt_lens.long(), kc, vc, parts_fn,
+                              layers=tf.layers)
+        lg = tfm.logits_for(tf.params, cfg, h)  # [rows, k + 1, V]
+        logits[name] = [lg[:, j] for j in range(SPEC_K + 1)]
+    compare_logits(torch, "spec_integration_int8_pool" if quantized else "spec_integration",
+                   logits, block.tolist())
+
+
+def drain(session):
+    results = []
+    while session.active:
+        results.extend(session.step())
+    return results
+
+
+def spec_engine_phase(phase, engine, requests, kernels, n_layers, eng_mod, verify, draft_layers=0):
+    """Open a speculative session over ``requests`` (warm first, on four
+    of them with 8 new tokens) and step it until every row retires. The
+    verify kernel ``verify`` (B7 or B8) ran once per layer per verify
+    round; the prefill kernel once per layer per prefill forward (the
+    target's grouped forwards, and with a model draft of ``draft_layers``
+    layers, each row's draft prefill chunks); a model draft's steps ran
+    B2 k + 1 times per layer per round; no other kernel ran. Returns the
+    counts and the results in request order."""
+    warm = engine.decode_open([dataclasses.replace(r, max_new_tokens=8) for r in requests[:2] + requests[-2:]])
+    drain(warm)
+    warm.close()
+    times = {}
+
+    def run():
+        t0 = time.perf_counter()
+        session = engine.decode_open(requests)
+        assert session.spec is not None, "the session did not speculate"
+        engine._sync()
+        t1 = time.perf_counter()
+        out = drain(session)
+        engine._sync()
+        times.update(open_s=t1 - t0, decode_window_s=time.perf_counter() - t1)
+        session.close()
+        return out
+
+    results, counts = count_launches(kernels, run)
+    order = {id(r): i for i, r in enumerate(requests)}
+    results.sort(key=lambda res: order[id(res.request)])
+    check_results(engine, requests, results)
+    spec = [r.extras["spec"] for r in results]
+    rounds = max(x["rounds"] for x in spec)  # the last row to retire rode every round
+    accepted = sum(x["accepted"] for x in spec)
+    drafted = sum(x["drafted"] for x in spec)
+    tokens = sum(r.generated_tokens for r in results)
+    prompts = [r.prompt_tokens for r in results]
+    forwards = prefill_forwards(eng_mod, prompts)
+    draft_chunks = sum(len(eng_mod._prompt_chunks(n)) for n in prompts) if draft_layers else 0
+    expected = {fn.__name__: 0 for fn in kernels}
+    expected[verify] = n_layers * rounds
+    expected["cuda_prefill_attention"] = n_layers * forwards + draft_layers * draft_chunks
+    if draft_layers:
+        expected["cuda_decode_attention"] = draft_layers * (SPEC_K + 1) * rounds
+    for res, x in zip(results, spec):
+        emit({
+            "phase": phase, "prompt_tokens": res.prompt_tokens,
+            "generated_tokens": res.generated_tokens, "sampled": res.request.temperature > 0,
+            "rounds": x["rounds"], "accepted": x["accepted"], "drafted": x["drafted"],
+            "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+        })
+    emit({
+        "phase": phase + "_summary", "rows": len(results), "verify_rounds": rounds,
+        "accepted": accepted, "drafted": drafted, "acceptance": accepted / drafted,
+        "decode_tokens_per_round_all_rows": (tokens - len(results)) / rounds,
+        "generated_tokens": tokens, **times,
+        "decode_tokens_per_s": tokens / times["decode_window_s"],
+        "prefill_forwards": forwards, "draft_prefill_chunks": draft_chunks,
+        "counts": counts, "expected": expected,
+    })
+    assert counts == expected, (counts, expected)
+    return counts, results
+
+
+def greedy_share(phase, engine, requests, spec_results):
+    """The share of the spec session's greedy tokens that equal, position
+    by position, the same rows through the plain paged ``generate_batch``
+    (a figure, not a gate: bf16 near-ties may resolve differently when the
+    verify scores k + 1 positions at once)."""
+    plain = engine.generate_batch(requests)
+    same = total = 0
+    for req, s, p in zip(requests, spec_results, plain):
+        if req.temperature > 0:
+            continue
+        total += len(s.tokens)
+        same += sum(a == b for a, b in zip(s.tokens, p.tokens))
+    emit({"phase": phase, "greedy_tokens": total, "equal_to_plain_batch": same,
+          "share": same / total})
+
+
+def spec_entry_points_phase(engine, GenerationRequest, kernels):
+    """``generate_speculative`` with one n-gram request (a one-row
+    session), then ``generate``, which routes the same request there: both
+    report their rounds, and the verify ran on B7 and on no other paged
+    kernel."""
+    req = GenerationRequest(MODEL, STUDY_PROMPT.format(words=STUDY_WORDS[0]), 64, stop_at_eos=False)
+    (spec, routed), counts = count_launches(kernels, lambda: (
+        engine.generate_speculative(req, k=SPEC_K, source="ngram"), engine.generate(req)))
+    for name, res in (("generate_speculative", spec), ("generate", routed)):
+        x = res.extras["spec"]
+        assert x["source"] == "ngram" and x["rounds"] >= 1, res.extras
+        emit({"phase": "spec_entry_points", "entry": name, "generated_tokens": res.generated_tokens,
+              "rounds": x["rounds"], "accepted": x["accepted"], "decode_s": res.decode_s,
+              "tokens_per_s": res.tokens_per_s})
+    assert spec.tokens == routed.tokens
+    assert counts["cuda_paged_decode_attention_mq_parts"] > 0, counts
+    assert counts["cuda_paged_decode_attention_parts"] == counts["cuda_decode_attention"] == 0, counts
+    emit({"phase": "spec_entry_points_launches", "counts": counts})
+    return counts
 
 
 def mixed_quant_phase(engine, GenerationRequest, kernels, chunks_of, params_nbytes):
@@ -825,6 +1129,7 @@ def main() -> int:
     timer = Timer(torch)
     summary = kernel_phase(torch, ca, plain, timer)
     summary.update(paged_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector))
+    summary.update(paged_mq_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector))
     summary.update(int4_kernel_phase(torch, cq, qplain, qmod, timer))
     del timer
     torch.cuda.empty_cache()
@@ -885,6 +1190,35 @@ def main() -> int:
             paged_integration_phase(torch, engine, pk, plain, tfm, eng_mod)
         del engine
         torch.cuda.empty_cache()
+
+    # Speculative sessions over the paged pool at int8 weights: the n-gram
+    # draft (bf16 and int8 pools), then a self-draft (the model drafts for
+    # itself: every candidate position of the verify carries real work).
+    mq_names = ("cuda_paged_decode_attention_mq_parts", "cuda_paged_decode_attention_mq_parts_int8")
+    for phase, kv, verify in (("engine_spec_ngram_bf16_kv", None, mq_names[0]),
+                              ("engine_spec_ngram_int8_kv", "int8", mq_names[1])):
+        engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, kv_quantize=kv,
+                                     speculative={MODEL: ("ngram", SPEC_K)})
+        engine.load_model(MODEL)
+        n_layers = engine._models[MODEL].cfg.n_layers
+        reqs = spec_requests(backend.GenerationRequest)
+        counts, results = spec_engine_phase(phase, engine, reqs, all_kernels, n_layers, eng_mod, verify)
+        add(counts)
+        if kv is None:
+            add(spec_entry_points_phase(engine, backend.GenerationRequest, all_kernels))
+            greedy_share("spec_greedy_share", engine, reqs, results)
+        spec_integration_phase(torch, engine, pk, plain, tfm, eng_mod)
+        del engine, results
+        torch.cuda.empty_cache()
+    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, speculative={MODEL: (MODEL, SPEC_K)})
+    engine.load_model(MODEL)
+    n_layers = engine._models[MODEL].cfg.n_layers
+    counts, _ = spec_engine_phase("engine_spec_selfdraft", engine, selfdraft_requests(backend.GenerationRequest),
+                                  all_kernels, n_layers, eng_mod, mq_names[0], draft_layers=n_layers)
+    assert counts["cuda_decode_attention"] > 0 and counts[mq_names[0]] > 0, counts
+    add(counts)
+    del engine
+    torch.cuda.empty_cache()
     assert all(launches.values()), launches
 
     rows = []

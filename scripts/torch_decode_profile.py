@@ -1,6 +1,6 @@
 """Where a decode step of the PyTorch port spends its time, on one CUDA card.
 
-    python3 scripts/torch_decode_profile.py [--new-tokens 33] [--batch]
+    python3 scripts/torch_decode_profile.py [--new-tokens 33] [--batch | --spec]
         [--quantize {int8,int4,int4-i32}] [--trace-dir DIR]
 
 Drives ``TorchEngine.generate`` (the study's entry point) on full-width
@@ -46,7 +46,8 @@ PROMPT = "In 100 words, please give me information about photosynthesis"
 # Substrings of kernel names, first match wins.
 CATEGORIES = (
     ("attention (port kernels)", (
-        "decode_partial_kernel", "decode_merge_kernel", "parts_merge_kernel", "prefill_kernel")),
+        "decode_partial_kernel", "decode_merge_kernel", "parts_merge_kernel", "prefill_kernel",
+        "mq_partial_kernel")),
     ("int4 matmul (port kernels)", ("int4_partial_kernel", "int4_merge_kernel")),
     ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
     ("reduction", ("reduce",)),
@@ -114,6 +115,8 @@ def main() -> int:
     ap.add_argument("--new-tokens", type=int, default=33)
     ap.add_argument("--batch", action="store_true",
                     help="profile generate_batch over the paged pool (17 requests)")
+    ap.add_argument("--spec", action="store_true",
+                    help="profile verify rounds of the n-gram speculative session")
     ap.add_argument("--quantize", choices=("int8", "int4", "int4-i32"), default="int8",
                     help="the weights' mode")
     ap.add_argument("--trace-dir", default=None,
@@ -139,6 +142,9 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(smi, flush=True)
+    if args.spec:
+        return profile_spec_rounds(args, torch, profile, ProfilerActivity, TorchEngine,
+                                   GenerationRequest, smi)
     if args.batch:
         from chip_smoke import batch_requests
 
@@ -196,6 +202,57 @@ def main() -> int:
                 "profile_s": time.perf_counter() - t0,
             }), flush=True)
             del engine
+            torch.cuda.empty_cache()
+    return 0
+
+
+def profile_spec_rounds(args, torch, profile, activity, TorchEngine, GenerationRequest, smi) -> int:
+    """Per-round figures of the n-gram speculative session (see the module
+    docstring), one JSON line per pool kind."""
+    from chip_smoke import SPEC_K, spec_requests
+
+    requests = spec_requests(GenerationRequest)
+    warm_rounds, rounds = 2, 8
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = args.trace_dir or tmp
+        os.makedirs(trace_dir, exist_ok=True)
+        for kv in (None, "int8"):
+            engine = TorchEngine(quantize=args.quantize, kv_quantize=kv, paged_kv=True,
+                                 speculative={MODEL: ("ngram", SPEC_K)})
+            session = engine.decode_open(requests)
+            assert session.spec is not None
+
+            def emitted():
+                return sum(len(r.generated) for r in session.rows if r is not None)
+
+            for _ in range(warm_rounds):
+                session.step(1)
+            torch.cuda.synchronize()
+            before = emitted()
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                session.step(1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / rounds * 1e3
+            tokens = (emitted() - before) / rounds
+            assert session.active == len(requests), "a row retired inside the timed rounds"
+            path = os.path.join(trace_dir, f"spec_round_{args.quantize}_{kv or 'bf16'}_kv.json")
+            with profile(activities=[activity.CPU, activity.CUDA]) as prof:
+                for _ in range(rounds):
+                    session.step(1)
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(path)
+            summary = trace_summary(trace_totals(path), rounds)
+            session.close()
+            print(json.dumps({
+                "mode": "spec_round", "rows": len(requests), "k": SPEC_K, "weights": args.quantize,
+                "kv": kv or "bf16", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+                "wall_ms_per_step": wall, "tokens_per_round": tokens,
+                "decode_tokens_per_s": tokens / wall * 1e3,
+                "idle_share": 1.0 - summary["device_ms_per_step"] / wall,
+                **summary,
+            }), flush=True)
+            del engine, session
             torch.cuda.empty_cache()
     return 0
 

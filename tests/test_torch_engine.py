@@ -128,7 +128,8 @@ def test_engine_without_device_needs_cuda(monkeypatch):
 @pytest.mark.parametrize(
     "option",
     [
-        dict(speculative={"tiny": ("ngram", 3)}),
+        # speculation is ported; its adaptive fallback (a positive floor) is not
+        dict(speculative={"tiny": ("ngram", 3)}, spec_accept_floor=0.5),
         dict(prefix_cache_size=2),
         dict(prefix_share=True),
         dict(hf_checkpoints={"tiny": "/nonexistent"}),

@@ -22,6 +22,11 @@ REPO = PORT_DIR.parent
 SCANNED = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "scripts" / "torch_decode_profile.py"]
 
 
+@pytest.mark.parametrize("name", ["engine.speculative", "engine.stepped", "engine.torch_engine"])
+def test_the_speculation_modules_are_imported_with_jax_blocked(name):
+    assert f"cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.{name}" in MODULES
+
+
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import sys\n"

@@ -149,3 +149,45 @@ def test_int4_kernels_match_plain_versions_on_the_card(dtype, tol, m, in_dim, ou
     with pytest.raises(ValueError, match="rows"):
         cuda_quant.cuda_int4_matmul_i32(torch.zeros((9, in_dim), device="cuda"), leaf["q32"], leaf["s"])
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize(
+    "q_len,hq,hkv,d", [(5, 12, 2, 128), (3, 32, 32, 96), (5, 8, 1, 256), (9, 4, 1, 64), (9, 8, 1, 256)]
+)
+def test_paged_mq_parts_kernels_match_plain_versions_on_the_card(dtype, tol, q_len, hq, hkv, d):
+    """B7 and B8 against their plain versions, with offsets that cut inside
+    the cached range (row 2's queries see 101–105 of its 129 tokens), a
+    first query that sees nothing (row 1, offset -1) and an empty row; at
+    Q = 1 each equals B4/B5 on lengths cut to the causal limit, bit for
+    bit; Q over the kernel's limit raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+
+    rng = np.random.default_rng(11)
+    lengths = [0, 1, 129, 300, 1100]
+    offsets = torch.tensor([0, -1, 100, 290, 1100], dtype=torch.int32, device="cuda")
+    _, k, v, table, lens = _paged_inputs(rng, dtype, len(lengths), hq, hkv, d, 128, lengths, "cuda")
+    q = _to_torch(_normal(rng, (len(lengths), q_len, hq, d)), dtype).cuda()
+    kq, ks = quantize_kv_vector(k)
+    vq, vs = quantize_kv_vector(v)
+    pools = {
+        "bf16": (cpa.cuda_paged_decode_attention_mq_parts, port_attn.paged_mq_attention_reference,
+                 cpa.cuda_paged_decode_attention_parts, (k, v)),
+        "int8": (cpa.cuda_paged_decode_attention_mq_parts_int8, port_attn.paged_mq_attention_int8_reference,
+                 cpa.cuda_paged_decode_attention_parts_int8, (kq, ks, vq, vs)),
+    }
+    for fn, ref_fn, single, pool in pools.values():
+        got = fn(q, *pool, table, lens, offsets)
+        assert got[0].shape == (len(lengths), q_len, hkv, hq // hkv, d)
+        _assert_parts_close(got, ref_fn(q, *pool, table, lens, offsets), tol)
+        one = fn(q[:, :1].contiguous(), *pool, table, lens, offsets)
+        cut = torch.clamp(torch.minimum(lens, offsets + 1), min=0)
+        for a, b in zip(one, single(q[:, 0].contiguous(), *pool, table, cut)):
+            assert torch.equal(a[:, 0], b)
+        too_many = torch.zeros((len(lengths), 10, hq, d), dtype=dtype, device="cuda")
+        with pytest.raises(ValueError, match="query positions"):
+            fn(too_many, *pool, table, lens, offsets)
+    torch.cuda.synchronize()

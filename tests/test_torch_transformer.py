@@ -208,7 +208,7 @@ def test_stacked_paged_decode_matches_jax(model, kv):
     [
         (dict(), 1),  # the write-through leaf: pool + table only
         (dict(side=True, layer=0), 1),  # the stacked-pool kernel form
-        (dict(side=True), 2),  # the multi-token verify block
+        (dict(scratch=True), 2),  # the scratch (kernel-less) verify block
     ],
     ids=["write-through", "layer", "verify"],
 )
@@ -221,6 +221,8 @@ def test_unported_paged_modes_raise(leaf, s):
         cache.update(side=torch.zeros((tcfg.n_layers, 1, tcfg.n_kv_heads, 4, tcfg.d_head)),
                      write_pos=torch.zeros(1, dtype=torch.long),
                      prompt_lens=torch.ones(1, dtype=torch.int32))
+    if leaf.pop("scratch", False):
+        cache["scratch"] = torch.zeros((tcfg.n_layers, 1, tcfg.n_kv_heads, 2, tcfg.d_head))
     cache.update(leaf)
     with pytest.raises(NotImplementedError):
         ttf.forward(tp, tcfg, torch.zeros((1, s), dtype=torch.long), torch.ones(1, dtype=torch.long),
