@@ -57,34 +57,8 @@ namespace {
 using namespace port_attn;
 
 // ---------------------------------------------------------------------------
-// Decode: split-T partials (decode_partial_kernel, decode_common.cuh), then
-// a merge that normalises.
-
-// grid (B·Hkv, G), block D threads: out[b, h·G + g, d].
-template <typename T>
-__global__ void decode_merge_kernel(const float* __restrict__ part_acc,
-                                    const float* __restrict__ part_ml, T* __restrict__ out,
-                                    int group, int d_head, int n_split) {
-  const int bh = blockIdx.x;
-  const int g = blockIdx.y;
-  const int d = threadIdx.x;
-  float mx = -INFINITY;
-  for (int s = 0; s < n_split; ++s) {
-    const size_t p = (static_cast<size_t>(bh) * n_split + s) * group + g;
-    mx = fmaxf(mx, part_ml[2 * p]);
-  }
-  float lsum = 0.f, a = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const size_t p = (static_cast<size_t>(bh) * n_split + s) * group + g;
-    const float ms = part_ml[2 * p];
-    if (ms != -INFINITY) {
-      const float c = expf(ms - mx);
-      lsum += part_ml[2 * p + 1] * c;
-      a += part_acc[p * d_head + d] * c;
-    }
-  }
-  out[(static_cast<size_t>(bh) * group + g) * d_head + d] = from_f<T>(a / lsum);
-}
+// Decode: split-T partials, then a merge that normalises (decode_partial_kernel
+// and decode_merge_kernel, decode_common.cuh).
 
 template <typename T, typename KV, int D, bool kQuant>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const float* k_scale,

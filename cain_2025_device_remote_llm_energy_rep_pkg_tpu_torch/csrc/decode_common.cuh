@@ -7,7 +7,9 @@
 // split's unnormalised partials (acc, m, l). Where position t of a row
 // lives is the `Rows` policy's business: ContiguousRows for [B,Hkv,T,D]
 // caches, PagedRows for [P,Hkv,page,D] pools read through a [B,Jmax] page
-// table. The merge kernels that combine the splits live with each caller.
+// table. decode_merge_kernel combines the splits into the normalised
+// output (B2, B3 and B6); the paged parts kernels keep their own merge,
+// which does not normalise.
 //
 // Every load is widened to f32; scores, softmax and accumulators are f32.
 // A split with no position to read writes (m -inf, l 0) and returns at
@@ -210,6 +212,34 @@ __global__ void __launch_bounds__(kDecWarps * 32)
       part_ml[2 * p + 1] = lsum;
     }
   }
+}
+
+// grid (B·Hkv, G), block D threads: out[b, h·G + g, d] = acc / l over the
+// splits of part_acc/part_ml. A row with no position gives 0/0 (NaN), as
+// the plain versions and the JAX kernels do; no decode path makes one.
+template <typename T>
+__global__ void decode_merge_kernel(const float* __restrict__ part_acc,
+                                    const float* __restrict__ part_ml, T* __restrict__ out,
+                                    int group, int d_head, int n_split) {
+  const int bh = blockIdx.x;
+  const int g = blockIdx.y;
+  const int d = threadIdx.x;
+  float mx = -INFINITY;
+  for (int s = 0; s < n_split; ++s) {
+    const size_t p = (static_cast<size_t>(bh) * n_split + s) * group + g;
+    mx = fmaxf(mx, part_ml[2 * p]);
+  }
+  float lsum = 0.f, a = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const size_t p = (static_cast<size_t>(bh) * n_split + s) * group + g;
+    const float ms = part_ml[2 * p];
+    if (ms != -INFINITY) {
+      const float c = expf(ms - mx);
+      lsum += part_ml[2 * p + 1] * c;
+      a += part_acc[p * d_head + d] * c;
+    }
+  }
+  out[(static_cast<size_t>(bh) * group + g) * d_head + d] = from_f<T>(a / lsum);
 }
 
 }  // namespace port_attn

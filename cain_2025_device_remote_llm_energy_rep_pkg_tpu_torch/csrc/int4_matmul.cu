@@ -3,8 +3,9 @@
 // nvcc at first use; ops/cuda_quant.py holds the wrappers and their launch
 // counts).
 //
-// The entry point replaces two Pallas kernels of
-// cain_2025_device_remote_llm_energy_rep_pkg_tpu/ops/pallas_quant.py:
+// int4_matmul replaces two Pallas kernels of
+// cain_2025_device_remote_llm_energy_rep_pkg_tpu/ops/pallas_quant.py, and
+// w4a8_matmul the one of scripts/w4a8_probe.py (11, at the end of the file):
 //
 // 9.  layout 0 (halves) — int4_matmul (_int4_matmul_kernel). packed
 //     [K = IN/2, OUT] int8: packed row i holds weight row i in its low
@@ -261,6 +262,168 @@ cudaError_t dispatch_layout(int layout, bool vec, int m, const void* x, const vo
                                              out_dim, n_split, split_rows, stream);
 }
 
+// ---- 11. w4a8_matmul ---------------------------------------------------------
+// Replaces w4a8_matmul (_w4a8_kernel) of scripts/w4a8_probe.py. Contract:
+// out[M, OUT] f32 = float(acc) * scale[OUT] * sx[M], in that order, where
+// acc[m, o] = Σ_i xq[m, i]·lo(packed[i, o]) + xq[m, K + i]·hi(packed[i, o])
+// in int32 over the K = IN/2 packed rows: xq [M, IN] int8 activation codes
+// (the wrapper quantizes x per row with plain torch ops before the launch,
+// as the probe does outside its kernel), the halves layout of B9, sx [M]
+// f32. The sum is exact, so the result equals the plain version bit for bit.
+//
+// Bound on an H100 SXM: bytes, as for B9 (the packed weights cross device
+// memory once; at M 8 a packed byte meets 16 multiply-adds).
+//
+// Design. B9's grid: a block owns 128 output columns (4 per thread, one
+// 32-bit load per packed row) and one split of the packed rows, staged
+// activation codes in shared memory; its 8 warps take groups of 4 packed
+// rows. A thread's 4 words (4 rows × 4 columns) are transposed with
+// __byte_perm into one word per column holding that column's 4 packed
+// bytes. (w << 4) & 0xF0F0F0F0 leaves in each byte its low nibble times 16
+// as a signed int8, w & 0xF0F0F0F0 its high nibble times 16: no shifts per
+// nibble, and one __dp4a against 4 activation codes adds four products.
+// The sums carry the factor 16 exactly (|16·acc| <= 16·IN·8·127 < 2^31 for
+// IN <= 131072) and the merge divides it out. Warp sums, then split
+// partials, are int32 and exact, so the order of every addition is free.
+constexpr int kW4a8MaxSplitRows = 512;  // packed rows per split, a multiple of 4
+constexpr int kW4a8MaxIn = 131072;
+
+// Grid (ceil(OUT / 128), n_split), kThreads threads; partial [n_split, M, OUT]
+// int32 holds 16·acc of each split.
+template <int M, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    w4a8_partial_kernel(const int8_t* __restrict__ xq, const uint8_t* __restrict__ packed,
+                        int* __restrict__ partial, int in_dim, int k_rows, int out_dim,
+                        int split_rows) {
+  __shared__ int xs[2][M][kW4a8MaxSplitRows / 4];  // codes of x, 4 to a word: low, high half
+  __shared__ int red[kWarps][M][kTileCols];
+  const int split = blockIdx.y;
+  const int r0 = split * split_rows;
+  const int groups = min(split_rows, k_rows - r0) / 4;
+  for (int idx = threadIdx.x; idx < 2 * M * groups; idx += kThreads) {
+    const int half = idx / (M * groups);
+    const int m = (idx / groups) % M;
+    const int g = idx % groups;
+    const int col = (half ? k_rows : 0) + r0 + 4 * g;
+    xs[half][m][g] = *reinterpret_cast<const int*>(xq + static_cast<size_t>(m) * in_dim + col);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int col0 = blockIdx.x * kTileCols + lane * kCols;
+  int acc[M][kCols];
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[m][c] = 0;
+
+  if (col0 < out_dim) {
+    for (int g = warp; g < groups; g += kWarps) {
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint8_t* row = packed + static_cast<size_t>(r0 + 4 * g + i) * out_dim + col0;
+        if constexpr (kVec) {
+          w[i] = __ldg(reinterpret_cast<const uint32_t*>(row));
+        } else {
+          w[i] = 0;
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+            if (col0 + c < out_dim) w[i] |= static_cast<uint32_t>(__ldg(row + c)) << (8 * c);
+        }
+      }
+      // col[c] = byte c of w[0..3]: column col0 + c at packed rows 4g .. 4g + 3
+      const uint32_t t01 = __byte_perm(w[0], w[1], 0x5140);  // w0.b0 w1.b0 w0.b1 w1.b1
+      const uint32_t t23 = __byte_perm(w[2], w[3], 0x5140);
+      const uint32_t u01 = __byte_perm(w[0], w[1], 0x7362);  // w0.b2 w1.b2 w0.b3 w1.b3
+      const uint32_t u23 = __byte_perm(w[2], w[3], 0x7362);
+      const uint32_t col[kCols] = {__byte_perm(t01, t23, 0x5410), __byte_perm(t01, t23, 0x7632),
+                                   __byte_perm(u01, u23, 0x5410), __byte_perm(u01, u23, 0x7632)};
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int lo16 = static_cast<int>((col[c] << 4) & 0xF0F0F0F0u);
+        const int hi16 = static_cast<int>(col[c] & 0xF0F0F0F0u);
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          acc[m][c] = __dp4a(lo16, xs[0][m][g], acc[m][c]);
+          acc[m][c] = __dp4a(hi16, xs[1][m][g], acc[m][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) red[warp][m][lane * kCols + c] = acc[m][c];
+  __syncthreads();
+  for (int o = threadIdx.x; o < M * kTileCols; o += kThreads) {
+    const int m = o / kTileCols;
+    const int cl = o - m * kTileCols;
+    const int col_out = blockIdx.x * kTileCols + cl;
+    if (col_out >= out_dim) continue;
+    int s = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w][m][cl];
+    partial[(static_cast<size_t>(split) * M + m) * out_dim + col_out] = s;
+  }
+}
+
+// One thread per output: the splits' int32 partials added, the factor 16
+// divided out (exactly), then the two scales in the plain version's order.
+__global__ void w4a8_merge_kernel(const int* __restrict__ partial,
+                                  const float* __restrict__ scale, const float* __restrict__ sx,
+                                  float* __restrict__ out, int m_rows, int out_dim,
+                                  int n_split) {
+  const size_t total = static_cast<size_t>(m_rows) * out_dim;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  int s = 0;
+  for (int sp = 0; sp < n_split; ++sp) s += partial[sp * total + idx];
+  const float acc = static_cast<float>(s / 16);
+  out[idx] = __fmul_rn(__fmul_rn(acc, scale[idx % out_dim]), sx[idx / out_dim]);
+}
+
+template <int M, bool kVec>
+cudaError_t launch_w4a8(const void* xq, const void* packed, const float* scale, const float* sx,
+                        int* partial, float* out, int in_dim, int k_rows, int out_dim,
+                        int n_split, int split_rows, cudaStream_t stream) {
+  const dim3 grid((out_dim + kTileCols - 1) / kTileCols, n_split);
+  w4a8_partial_kernel<M, kVec><<<grid, kThreads, 0, stream>>>(
+      static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(packed), partial, in_dim,
+      k_rows, out_dim, split_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t total = static_cast<size_t>(M) * out_dim;
+  w4a8_merge_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+      partial, scale, sx, out, M, out_dim, n_split);
+  return cudaGetLastError();
+}
+
+template <bool kVec>
+cudaError_t dispatch_w4a8(int m, const void* xq, const void* packed, const float* scale,
+                          const float* sx, int* partial, float* out, int in_dim, int k_rows,
+                          int out_dim, int n_split, int split_rows, cudaStream_t stream) {
+#define W4A8_ROWS_CASE(MM)                                                                 \
+  case MM:                                                                                 \
+    return launch_w4a8<MM, kVec>(xq, packed, scale, sx, partial, out, in_dim, k_rows,      \
+                                 out_dim, n_split, split_rows, stream);
+  switch (m) {
+    W4A8_ROWS_CASE(1)
+    W4A8_ROWS_CASE(2)
+    W4A8_ROWS_CASE(3)
+    W4A8_ROWS_CASE(4)
+    W4A8_ROWS_CASE(5)
+    W4A8_ROWS_CASE(6)
+    W4A8_ROWS_CASE(7)
+    W4A8_ROWS_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef W4A8_ROWS_CASE
+}
+
 }  // namespace
 
 extern "C" {
@@ -295,6 +458,30 @@ int int4_matmul(int dtype, int layout, const void* x, const void* packed, const 
     return dispatch_layout<float>(layout, vec, m, x, packed, scale, partial, out, in_dim,
                                   k_rows, out_dim, n_split, split_rows, s);
   return cudaErrorInvalidValue;
+}
+
+int w4a8_max_split_rows() { return kW4a8MaxSplitRows; }
+
+// xq [m, in_dim] int8 (4-byte aligned rows), packed [in_dim/2, out_dim] int8
+// halves layout, scale [out_dim] f32, sx [m] f32; partial [n_split, m,
+// out_dim] int32 scratch; out [m, out_dim] f32. Splits of split_rows packed
+// rows, a multiple of 4 (so is in_dim / 2); every split holds at least one row.
+int w4a8_matmul(const void* xq, const void* packed, const float* scale, const float* sx,
+                int* partial, float* out, int m, int in_dim, int k_rows, int out_dim,
+                int n_split, int split_rows, void* stream) {
+  if (m < 1 || m > kMaxRows || k_rows < 4 || k_rows % 4 != 0 || in_dim != 2 * k_rows ||
+      in_dim > kW4a8MaxIn || out_dim < 1 || split_rows < 4 || split_rows % 4 != 0 ||
+      split_rows > kW4a8MaxSplitRows || n_split < 1 ||
+      static_cast<long long>(n_split - 1) * split_rows >= k_rows ||
+      static_cast<long long>(n_split) * split_rows < k_rows ||
+      reinterpret_cast<uintptr_t>(xq) % 4 != 0 || partial == nullptr)
+    return cudaErrorInvalidValue;
+  const bool vec = out_dim % kCols == 0 && reinterpret_cast<uintptr_t>(packed) % 4 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? dispatch_w4a8<true>(m, xq, packed, scale, sx, partial, out, in_dim, k_rows,
+                                   out_dim, n_split, split_rows, s)
+             : dispatch_w4a8<false>(m, xq, packed, scale, sx, partial, out, in_dim, k_rows,
+                                    out_dim, n_split, split_rows, s);
 }
 
 }  // extern "C"

@@ -3,7 +3,7 @@
 // first use; ops/cuda_paged_attention.py holds the wrappers and their launch
 // counts).
 //
-// Both entry points replace a Pallas kernel of
+// The entry points replace the Pallas kernels of
 // cain_2025_device_remote_llm_energy_rep_pkg_tpu/ops/pallas_paged_attention.py:
 //
 // 4. paged_parts (bf16/f32 pool) — pallas_paged_decode_attention_parts
@@ -12,6 +12,8 @@
 //    (_paged_decode_parts_int8_kernel, body _accumulate_page_int8). The K
 //    scale multiplies the score of its position and the V scale folds into
 //    p; no dequantized page exists.
+// 6. paged_decode (bf16/f32 pool) — pallas_paged_decode_attention
+//    (_paged_decode_kernel, _last_valid_page): the write-through decode.
 // 7. paged_mq_parts (bf16/f32 pool) — pallas_paged_decode_attention_mq_parts
 //    (_paged_decode_mq_parts_kernel via _mq_parts_call, _mq_limit).
 // 8. paged_mq_parts (int8 pool) — pallas_paged_decode_attention_mq_parts_int8
@@ -37,6 +39,18 @@
 // without normalising. Splits past a row's length read nothing, so pages
 // past the frontier are never touched. D ∈ {64, 96, 128, 256} natively (no
 // padding to 128 lanes), scales [P,Hkv,page] with no trailing lane.
+//
+// Normalised contract (6): the same reads, but the output is attention
+// itself, out [B,Hq,D] in q's dtype = acc / l, as the contiguous decode
+// kernel (B2) gives it. The JAX kernel pads D to 128 lanes (a Mosaic
+// need); here D is native. A row with lengths[b] == 0 gives 0/0 = NaN,
+// as the JAX kernel and the plain version do; the write-through decode
+// never makes one (lengths = offset + 1). The step's own K/V must be in
+// the pool before the launch (lengths counts it): the transformer writes
+// it on the same stream just before. Design: B4's split body and
+// PagedRows, then B2's normalising decode_merge_kernel (both in
+// decode_common.cuh) in place of parts_merge_kernel: one code path with
+// B4 up to the merge. Bound: bytes, as B4, plus the output.
 //
 // Multi-query contract (7, 8): Q <= kMqQueryMax query positions per row,
 // q [B,Q,Hq,D] with offsets [B] (the absolute position of query 0); query
@@ -105,11 +119,13 @@ __global__ void parts_merge_kernel(const float* __restrict__ part_acc,
   }
 }
 
+// With `out` (B6), the splits merge into normalised attention out [B,Hq,D]
+// of type T; without it (B4/B5), into the unnormalised (acc, m, l).
 template <typename T, typename KV, int D, bool kQuant>
 cudaError_t launch_parts(const void* q, const void* k, const void* v, const float* k_scale,
                          const float* v_scale, const int* table, const int* lengths,
                          float* part_acc, float* part_ml, float* acc, float* m, float* l,
-                         int batch, int hq, int hkv, int n_pool, int page, int jmax,
+                         void* out, int batch, int hq, int hkv, int n_pool, int page, int jmax,
                          int n_split, int split_len, cudaStream_t stream) {
   const int group = hq / hkv;
   const PagedRows rows{table, jmax, page, hkv, n_pool};
@@ -120,8 +136,12 @@ cudaError_t launch_parts(const void* q, const void* k, const void* v, const floa
           softmax_scale(D));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  parts_merge_kernel<<<dim3(batch * hkv, group), D, 0, stream>>>(part_acc, part_ml, acc, m, l,
-                                                                group, 1, hkv, D, n_split);
+  if (out != nullptr)
+    decode_merge_kernel<T><<<dim3(batch * hkv, group), D, 0, stream>>>(
+        part_acc, part_ml, static_cast<T*>(out), group, D, n_split);
+  else
+    parts_merge_kernel<<<dim3(batch * hkv, group), D, 0, stream>>>(part_acc, part_ml, acc, m, l,
+                                                                  group, 1, hkv, D, n_split);
   return cudaGetLastError();
 }
 
@@ -129,14 +149,15 @@ template <typename T, typename KV, bool kQuant>
 cudaError_t dispatch_parts(int d_head, const void* q, const void* k, const void* v,
                            const float* k_scale, const float* v_scale, const int* table,
                            const int* lengths, float* part_acc, float* part_ml, float* acc,
-                           float* m, float* l, int batch, int hq, int hkv, int n_pool,
-                           int page, int jmax, int n_split, int split_len,
+                           float* m, float* l, void* out, int batch, int hq, int hkv,
+                           int n_pool, int page, int jmax, int n_split, int split_len,
                            cudaStream_t stream) {
 #define PAGED_PARTS_CASE(DH)                                                               \
   case DH:                                                                                 \
     return launch_parts<T, KV, DH, kQuant>(q, k, v, k_scale, v_scale, table, lengths,      \
-                                           part_acc, part_ml, acc, m, l, batch, hq, hkv,   \
-                                           n_pool, page, jmax, n_split, split_len, stream);
+                                           part_acc, part_ml, acc, m, l, out, batch, hq,   \
+                                           hkv, n_pool, page, jmax, n_split, split_len,    \
+                                           stream);
   switch (d_head) {
     PAGED_PARTS_CASE(64)
     PAGED_PARTS_CASE(96)
@@ -403,22 +424,45 @@ int paged_parts(int dtype, const void* q, const void* k, const void* v, const fl
     if (quant)
       return dispatch_parts<__nv_bfloat16, int8_t, true>(
           d_head, q, k, v, k_scale, v_scale, table, lengths, part_acc, part_ml, acc, m, l,
-          batch, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
+          nullptr, batch, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
     return dispatch_parts<__nv_bfloat16, __nv_bfloat16, false>(
-        d_head, q, k, v, nullptr, nullptr, table, lengths, part_acc, part_ml, acc, m, l, batch,
-        hq, hkv, n_pool, page, jmax, n_split, split_len, s);
+        d_head, q, k, v, nullptr, nullptr, table, lengths, part_acc, part_ml, acc, m, l,
+        nullptr, batch, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
   }
   if (dtype == kDtypeF32) {
     if (quant)
       return dispatch_parts<float, int8_t, true>(d_head, q, k, v, k_scale, v_scale, table,
-                                                 lengths, part_acc, part_ml, acc, m, l, batch,
-                                                 hq, hkv, n_pool, page, jmax, n_split,
+                                                 lengths, part_acc, part_ml, acc, m, l, nullptr,
+                                                 batch, hq, hkv, n_pool, page, jmax, n_split,
                                                  split_len, s);
     return dispatch_parts<float, float, false>(d_head, q, k, v, nullptr, nullptr, table,
-                                               lengths, part_acc, part_ml, acc, m, l, batch,
-                                               hq, hkv, n_pool, page, jmax, n_split, split_len,
-                                               s);
+                                               lengths, part_acc, part_ml, acc, m, l, nullptr,
+                                               batch, hq, hkv, n_pool, page, jmax, n_split,
+                                               split_len, s);
   }
+  return cudaErrorInvalidValue;
+}
+
+// B6: normalised attention out [B,Hq,D] of `dtype` over a bf16/f32 pool (the
+// JAX package has no int8 twin of this kernel). part_acc/part_ml: the
+// split scratch, as for paged_parts.
+int paged_decode(int dtype, const void* q, const void* k, const void* v, const int* table,
+                 const int* lengths, float* part_acc, float* part_ml, void* out, int batch,
+                 int hq, int hkv, int n_pool, int page, int jmax, int d_head, int n_split,
+                 int split_len, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kGroupMax || n_pool <= 0 || page <= 0 ||
+      out == nullptr)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kDtypeBF16)
+    return dispatch_parts<__nv_bfloat16, __nv_bfloat16, false>(
+        d_head, q, k, v, nullptr, nullptr, table, lengths, part_acc, part_ml, nullptr, nullptr,
+        nullptr, out, batch, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
+  if (dtype == kDtypeF32)
+    return dispatch_parts<float, float, false>(d_head, q, k, v, nullptr, nullptr, table,
+                                               lengths, part_acc, part_ml, nullptr, nullptr,
+                                               nullptr, out, batch, hq, hkv, n_pool, page,
+                                               jmax, n_split, split_len, s);
   return cudaErrorInvalidValue;
 }
 

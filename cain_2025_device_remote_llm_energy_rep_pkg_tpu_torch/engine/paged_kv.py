@@ -1,23 +1,24 @@
 """Paged KV-cache pool: block-table indirection for mixed-length batches.
 
-Counterpart of the JAX package's ``engine/paged_kv.py``, for the batch
-path over the pool:
+Counterpart of the JAX package's ``engine/paged_kv.py``:
 
 - one pool of fixed-size pages per layer, ``k/v: [L, P, Hkv, page, D]``
   (or int8 ``{"q": codes, "s": f32 scales [L, P, Hkv, page]}``);
 - a request owns ``ceil(len / page)`` page indices from a host-side
-  free-list allocator (allocation is a scheduler decision, not a device op);
-- the paged parts kernels (``ops/cuda_paged_attention.py``) read K/V
-  through the page table; nothing gathers the pages into a contiguous cache.
+  refcounted free-list allocator (allocation is a scheduler decision, not
+  a device op); pages may be shared, and swapped out to host memory and
+  back;
+- the paged kernels (``ops/cuda_paged_attention.py``) read K/V through
+  the page table; nothing gathers the pages into a contiguous cache;
+- :func:`write_token` and :func:`write_prefill` write through the table
+  (the write-through mode, whose decode reads the pool with B6).
 
-Unlike the JAX arrays, the pool tensors are updated in place:
-:func:`scatter_pages` writes the pages into the tensors it is given.
-The pool keeps the model's native head dim (the JAX engine pads stacked
-pools to 128 lanes for its TPU kernels; the CUDA kernels need no padding).
+Unlike the JAX arrays, the pool tensors are updated in place: the writers
+write into the tensors they are given and return them. The pool keeps the
+model's native head dim (the JAX engine pads stacked pools to 128 lanes
+for its TPU kernels; the CUDA kernels need no padding).
 
-Not ported yet (they arrive with the stepped-session slice): ``share``,
-``swap_out``/``swap_in``, ``write_token``, ``write_prefill`` and
-``dp_shards``.
+Not ported yet: ``dp_shards`` (row sharding over a multi-device mesh).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 
 from ..models.quantize import quantize_kv_vector
-from ..obs.metrics import REGISTRY, enabled as _obs_enabled
+from ..obs.metrics import REGISTRY, enabled as _obs_enabled, observe_swap
 
 DEFAULT_PAGE_SIZE = 128
 
@@ -55,6 +56,12 @@ _POOL_EXHAUSTED = REGISTRY.counter(
     "llm_paged_pool_exhausted_total",
     "Allocations refused because the pool had too few free pages",
 )
+# The JAX package declares this gauge with its prefix store.
+_POOL_SHARED = REGISTRY.gauge(
+    "llm_prefix_shared_pages",
+    "Pages of the most recent page pool currently held by MORE than one "
+    "reader (prefix-store reference + sharer rows)",
+)
 
 
 def _fragmentation(free: List[int]) -> float:
@@ -71,13 +78,14 @@ def _fragmentation(free: List[int]) -> float:
     return 1.0 - longest / len(free)
 
 
-def _publish_pool_gauges(free: List[int], total: int) -> None:
+def _publish_pool_gauges(free: List[int], total: int, shared: int = 0) -> None:
     if not _obs_enabled():
         return
     _POOL_PAGES.set(total)
     _POOL_FREE.set(len(free))
     _POOL_OCCUPANCY.set(1.0 - len(free) / total if total else 0.0)
     _POOL_FRAGMENTATION.set(_fragmentation(free))
+    _POOL_SHARED.set(shared)
 
 
 def _codes(leaf: PoolLeaf) -> torch.Tensor:
@@ -86,20 +94,42 @@ def _codes(leaf: PoolLeaf) -> torch.Tensor:
     return leaf["q"] if isinstance(leaf, dict) else leaf
 
 
+def _nbytes(leaf: PoolLeaf) -> int:
+    parts = leaf.values() if isinstance(leaf, dict) else (leaf,)
+    return sum(t.numel() * t.element_size() for t in parts)
+
+
 class PagePoolExhausted(RuntimeError):
     """No free pages left: the scheduler must evict or defer admission."""
+
+
+@dataclasses.dataclass
+class PageSwapBlob:
+    """Host-resident payload of swapped-out pages: page chunks in
+    :func:`scatter_pages` layout, ``[N, L, Hkv, page, D]`` (``{"q","s"}``
+    for int8 pools), so :meth:`PagePool.swap_in` is one allocation plus
+    one scatter. The chunks are CPU tensors where the JAX package keeps
+    numpy arrays (numpy has no bfloat16). ``nbytes`` is the host
+    footprint the swap counter accounts."""
+
+    k_chunks: PoolLeaf
+    v_chunks: PoolLeaf
+    n_pages: int
+    page_size: int
+    quantized: bool
+    nbytes: int
 
 
 @dataclasses.dataclass
 class PagePool:
     """Device pool + host-side free-list allocator.
 
-    ``alloc`` hands out pages from the head of the free list at one
-    reference; ``free`` drops one reference and returns a page to the
-    tail of the list when its last reader lets go (sharing arrives with
-    the stepped-session slice, so today every count is 1). ``quantized``
-    pools hold int8 codes with one f32 scale per (layer, page, head,
-    position) vector, the scheme of the contiguous int8 cache."""
+    Allocation is refcounted: ``alloc`` hands out pages from the head of
+    the free list at one reference, :meth:`share` adds a reader, and
+    :meth:`free` drops one reference and returns a page to the tail of
+    the list when its last reader lets go. ``quantized`` pools hold int8
+    codes with one f32 scale per (layer, page, head, position) vector,
+    the scheme of the contiguous int8 cache."""
 
     k: PoolLeaf  # [L, P, Hkv, page, D], or {"q","s"}
     v: PoolLeaf
@@ -151,17 +181,16 @@ class PagePool:
         """Pages held by more than one reader."""
         return sum(1 for c in self._refs.values() if c >= 2)
 
+    def refcount(self, page: int) -> int:
+        return self._refs.get(page, 0)
+
     def pages_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
 
     def payload_nbytes(self) -> int:
         """Bytes of the pool's K+V payload (int8 pools count codes and
         scales)."""
-        total = 0
-        for leaf in (self.k, self.v):
-            parts = leaf.values() if isinstance(leaf, dict) else (leaf,)
-            total += sum(t.numel() * t.element_size() for t in parts)
-        return total
+        return _nbytes(self.k) + _nbytes(self.v)
 
     def debug_state(self) -> dict:
         """JSON-able pool snapshot (the gauges' definitions)."""
@@ -187,7 +216,7 @@ class PagePool:
         pages, self._free = self._free[:n_pages], self._free[n_pages:]
         for p in pages:
             self._refs[p] = 1
-        _publish_pool_gauges(self._free, self.n_pages)
+        _publish_pool_gauges(self._free, self.n_pages, self.shared_pages)
         return pages
 
     def try_alloc(self, n_pages: int) -> Optional[List[int]]:
@@ -196,6 +225,15 @@ class PagePool:
         if n_pages > len(self._free):
             return None
         return self.alloc(n_pages)
+
+    def share(self, pages: List[int]) -> None:
+        """Add one reader to each page: it recycles only after every
+        holder called :meth:`free` once. Sharing a free page raises."""
+        for p in pages:
+            if p not in self._refs:
+                raise ValueError(f"page {p} is not allocated — cannot share a free page")
+            self._refs[p] += 1
+        _publish_pool_gauges(self._free, self.n_pages, self.shared_pages)
 
     def free(self, pages: List[int]) -> None:
         """Drop one reference per page; a page whose last reader left
@@ -209,7 +247,63 @@ class PagePool:
             else:
                 del self._refs[p]
                 self._free.append(p)
-        _publish_pool_gauges(self._free, self.n_pages)
+        _publish_pool_gauges(self._free, self.n_pages, self.shared_pages)
+
+    def swap_out(self, pages: List[int]) -> PageSwapBlob:
+        """Copy ``pages``' payload to host memory and free them. Only
+        pages this reader holds alone may be swapped: a shared page has
+        other readers whose content must stay on the device, so passing
+        one (or a free page) raises before anything moves."""
+        for p in pages:
+            refs = self._refs.get(p)
+            if refs is None:
+                raise ValueError(f"page {p} is free — cannot swap it out")
+            if refs > 1:
+                raise ValueError(
+                    f"page {p} is shared (refcount {refs}) — shared CoW "
+                    "prefix pages are released, never swapped"
+                )
+        idx = torch.as_tensor(pages, dtype=torch.int64, device=_codes(self.k).device)
+
+        def gather(pool):  # [L, N, ...] -> scatter_pages' [N, L, ...] chunks
+            if isinstance(pool, dict):
+                return {k: t[:, idx].transpose(0, 1).cpu() for k, t in pool.items()}
+            return pool[:, idx].transpose(0, 1).cpu()
+
+        k_chunks, v_chunks = gather(self.k), gather(self.v)
+        nbytes = _nbytes(k_chunks) + _nbytes(v_chunks)
+        self.free(pages)
+        observe_swap("out", nbytes)
+        return PageSwapBlob(
+            k_chunks=k_chunks, v_chunks=v_chunks, n_pages=len(pages),
+            page_size=self.page_size, quantized=self.quantized, nbytes=nbytes,
+        )
+
+    def swap_in(self, blob: PageSwapBlob, pages: Optional[List[int]] = None) -> List[int]:
+        """Write a swapped blob back into the pool, bit for bit (int8 blobs
+        carry codes and scales, so nothing is quantized again): into
+        ``blob.n_pages`` freshly allocated pages, or into ``pages`` the
+        caller reserved. Returns the pages in blob chunk order."""
+        if blob.quantized != self.quantized or blob.page_size != self.page_size:
+            raise ValueError(
+                "swap blob does not match this pool's layout "
+                f"(page_size {blob.page_size} vs {self.page_size}, "
+                f"quantized {blob.quantized} vs {self.quantized})"
+            )
+        if pages is None:
+            pages = self.alloc(blob.n_pages)
+        elif len(pages) != blob.n_pages:
+            raise ValueError(f"resume reserved {len(pages)} pages for a {blob.n_pages}-page blob")
+        device = _codes(self.k).device
+
+        def to_device(chunks):
+            if isinstance(chunks, dict):
+                return {k: t.to(device) for k, t in chunks.items()}
+            return chunks.to(device)
+
+        scatter_pages(self.k, self.v, pages, to_device(blob.k_chunks), to_device(blob.v_chunks))
+        observe_swap("in", blob.nbytes)
+        return list(pages)
 
 
 def page_slot(
@@ -224,6 +318,32 @@ def page_slot(
     table = table.expand(*idx.shape[:-1], table.shape[-1])
     pages = torch.gather(table, -1, idx)[..., 0]
     return pages, lengths % page_size
+
+
+def write_token(
+    pool_k: PoolLeaf,  # [L, P, Hkv, page, D], or {"q","s"}
+    pool_v: PoolLeaf,
+    page_table_row: torch.Tensor,  # [Jmax] int: one request's pages
+    length,  # tokens already written: the slot this token takes
+    k_vec: torch.Tensor,  # [L, Hkv, D]: this token's K across layers
+    v_vec: torch.Tensor,
+) -> Tuple[PoolLeaf, PoolLeaf]:
+    """Append one token's K/V for one request at ``page_slot``'s address,
+    in place; returns the pools. An int8 pool quantizes each vector with
+    the decode step's scale math (``quantize_kv_vector``)."""
+    page, slot = page_slot(page_table_row, length, _codes(pool_k).shape[3])
+    page, slot = int(page), int(slot)
+
+    def write(pool, vec):
+        if isinstance(pool, dict):
+            q, s = quantize_kv_vector(vec)  # [L,Hkv,D] int8, [L,Hkv] f32
+            pool["q"][:, page, :, slot] = q
+            pool["s"][:, page, :, slot] = s
+        else:
+            pool[:, page, :, slot] = vec.to(pool.dtype)
+        return pool
+
+    return write(pool_k, k_vec), write(pool_v, v_vec)
 
 
 def _paginate(seq: torch.Tensor, s_real: int, page_size: int) -> torch.Tensor:
@@ -300,3 +420,24 @@ def scatter_pages(
         return pool
 
     return scatter(pool_k, k_chunks), scatter(pool_v, v_chunks)
+
+
+def write_prefill(
+    pool_k: PoolLeaf,
+    pool_v: PoolLeaf,
+    page_table_row: torch.Tensor,  # [Jmax] int
+    k_seq: torch.Tensor,  # [L, Hkv, S, D]: one prefilled contiguous slab
+    v_seq: torch.Tensor,
+    s_real: int,
+) -> Tuple[PoolLeaf, PoolLeaf]:
+    """Scatter one request's prefilled K/V (its first ``s_real``
+    positions) into the first ``ceil(s_real / page)`` pages of its table
+    row with one indexed copy per pool tensor, in place; an int8 pool
+    quantizes the chunks on the way in. Returns the pools."""
+    page_size = _codes(pool_k).shape[3]
+    n_pages = -(-s_real // page_size)
+    k_chunks = _paginate(k_seq, s_real, page_size)
+    v_chunks = _paginate(v_seq, s_real, page_size)
+    if isinstance(pool_k, dict):
+        k_chunks, v_chunks = quantize_chunks(k_chunks, v_chunks)
+    return scatter_pages(pool_k, pool_v, page_table_row[:n_pages], k_chunks, v_chunks)

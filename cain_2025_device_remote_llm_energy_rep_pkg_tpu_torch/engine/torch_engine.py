@@ -24,6 +24,12 @@ that way (a greedy model draft through the solo loop, anything else
 through a one-row session), and ``generate`` routes eligible requests
 there.
 
+The engine's paged dispatch (:func:`_paged_parts`) also serves the
+write-through leaf ``{"pool", "table"}`` with the normalised paged kernel
+(B6). As in the JAX package, that path is driven at the model level
+(``write_prefill`` into a pool, then ``forward`` with the dispatch); the
+engine has no entry point for it.
+
 On a CUDA device attention always runs the hand-written kernels of
 ``ops/cuda_attention.py`` and ``ops/cuda_paged_attention.py``; their
 wrappers, like the int4 matmul wrappers of ``ops/cuda_quant.py``, take
@@ -66,6 +72,7 @@ from ..ops.cuda_attention import (
     cuda_prefill_attention,
 )
 from ..ops.cuda_paged_attention import (
+    cuda_paged_decode_attention,
     cuda_paged_decode_attention_mq_parts,
     cuda_paged_decode_attention_mq_parts_int8,
     cuda_paged_decode_attention_parts,
@@ -224,11 +231,24 @@ def _int8_cache_attention(q, k_cache, v_cache, lengths):
 
 
 def _paged_parts(q, k_leaf, v_leaf, lengths):
-    """The prompt-pages term of a stacked-hybrid paged step: unnormalised
-    (acc, m, l) from the parts kernel of the pool's kind. A speculative
-    verify block ``q [B, k+1, Hq, D]`` goes to the multi-query kernel,
-    with query 0 at ``write_pos + prompt_lens`` (every candidate sits past
-    the prompt, so its causal cut hides no cached token)."""
+    """The engine's paged attention callable (the JAX engine's
+    ``_paged_decode_attention`` dispatch). On a stacked-hybrid leaf: the
+    prompt-pages term, unnormalised (acc, m, l) from the parts kernel of
+    the pool's kind; a speculative verify block ``q [B, k+1, Hq, D]`` goes
+    to the multi-query kernel, with query 0 at ``write_pos + prompt_lens``
+    (every candidate sits past the prompt, so its causal cut hides no
+    cached token). On a write-through leaf ``{"pool", "table"}``: the
+    normalised attention of B6, over a bf16/f32 pool only."""
+    if "side" not in k_leaf:
+        if isinstance(k_leaf["pool"], dict):
+            raise NotImplementedError(
+                "an int8 write-through pool has no paged decode kernel (the JAX "
+                "package has no int8 twin of pallas_paged_decode_attention); "
+                "decode it with decode_attention=None, the gather path"
+            )
+        return cuda_paged_decode_attention(
+            q, k_leaf["pool"], v_leaf["pool"], k_leaf["table"], lengths
+        )
     if q.dim() == 4:
         offsets = (k_leaf["write_pos"] + k_leaf["prompt_lens"]).to(torch.int32)
         if isinstance(k_leaf["pool"], dict):

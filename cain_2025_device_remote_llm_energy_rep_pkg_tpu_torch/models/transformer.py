@@ -8,13 +8,15 @@ written into the fixed-size cache — in place, unlike the JAX version, which
 returns new caches — and attention masks by absolute position.
 
 Caches are ``[L, B, Hkv, T, D]`` tensors, int8 ``{"q": [L,B,Hkv,T,D],
-"s": [L,B,Hkv,T]}`` dicts, or the stacked-hybrid paged leaf of the batch
-path (:func:`is_paged_cache`): a read-only page pool holding the prompts,
-plus side caches that take the tokens generated in this call. A
-contiguous batch cache also decodes one token per row at per-row offsets
-``[B]`` (a speculative draft model's cache), and the stacked-hybrid leaf
-takes the speculative verify block of S = k+1 candidates per row. The
-legacy write-through paged mode, the scratch verify mode and the
+"s": [L,B,Hkv,T]}`` dicts, or a paged leaf (:func:`is_paged_cache`): the
+stacked-hybrid leaf of the batch path (a read-only page pool holding the
+prompts, plus side caches that take the tokens generated in this call),
+or the write-through leaf ``{"pool", "table"}``, whose decode step
+writes its K/V into the pool through the table and reads it back with
+the normalised paged kernel (B6). A contiguous batch cache also decodes
+one token per row at per-row offsets ``[B]`` (a speculative draft model's
+cache), and the stacked-hybrid leaf takes the speculative verify block of
+S = k+1 candidates per row. The scratch verify mode and the
 mixture-of-experts MLP are not ported yet.
 """
 
@@ -27,7 +29,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import prefill_attention_cached
+from ..engine.paged_kv import page_slot
+from ..ops.attention import (
+    _gather_pages,
+    decode_attention_reference,
+    prefill_attention_cached,
+)
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_angles
 from .config import ModelConfig
@@ -145,14 +152,22 @@ def split_layers(params: Params) -> List[Params]:
     return [{k: at(v, i) for k, v in stacked.items()} for i in range(n_layers)]
 
 
+def _is_write_through(leaf) -> bool:
+    return isinstance(leaf, dict) and set(leaf) == {"pool", "table"}
+
+
 def _cache_layer(cache, i: int):
     """Layer ``i``'s view of a stacked cache (no copy): of both tensors of
-    an int8 dict, and of the pool and side of a paged leaf."""
+    an int8 dict, of the pool and side of a stacked-hybrid paged leaf,
+    and of the pool of a write-through leaf (its [B,Jmax] table is
+    shared by every layer)."""
+    if _is_write_through(cache):
+        return {"pool": _cache_layer(cache["pool"], i), "table": cache["table"]}
     if is_paged_cache(cache):
         if "side" not in cache or {"layer", "side_layer"} & set(cache):
             raise NotImplementedError(
-                "only the stacked-hybrid paged leaf (pool, table, side, "
-                "write_pos, prompt_lens) is ported"
+                "the scratch paged leaf and the layer= forms of the "
+                "stacked-hybrid leaf are not ported"
             )
         return {
             **cache,
@@ -176,6 +191,41 @@ def _write_rows(cache, rows: torch.Tensor, pos: torch.Tensor, vec: torch.Tensor)
         cache["s"][rows, :, pos] = scales
     else:
         cache[rows, :, pos] = vec.to(cache.dtype)
+
+
+def _gather_paged(leaf) -> torch.Tensor:
+    """A write-through layer's pool pages as a contiguous f32 [B,Hkv,
+    Jmax·page,D] cache (int8: dequantized), read through the table: the
+    gather path, taken without the paged decode callable."""
+    pool, table = leaf["pool"], leaf["table"]
+    if isinstance(pool, dict):
+        codes = _gather_pages(pool["q"], table).to(torch.float32)
+        return codes * _gather_pages(pool["s"], table).to(torch.float32)[..., None]
+    return _gather_pages(pool, table).to(torch.float32)
+
+
+def _write_through(
+    k_cache: Dict[str, Any],  # one layer's {"pool", "table"}
+    v_cache: Dict[str, Any],
+    k: torch.Tensor,  # [B,Hkv,D]: this step's K
+    v: torch.Tensor,
+    offset: torch.Tensor,  # [B] positions the step writes
+) -> None:
+    """Write each row's step K/V into its pool page at ``page_slot``'s
+    address, in place (int8 pools quantize with the decode step's scale
+    math). Rows own disjoint pages, so the one indexed copy is exact."""
+    pool = k_cache["pool"]
+    page_size = (pool["q"] if isinstance(pool, dict) else pool).shape[-2]
+    pages, slots = page_slot(k_cache["table"], offset, page_size)
+    pages, slots = pages.long(), slots.long()
+    for cache, vec in ((k_cache, k), (v_cache, v)):
+        pool = cache["pool"]
+        if isinstance(pool, dict):
+            q, s = quantize_kv_vector(vec)
+            pool["q"][pages, :, slots] = q
+            pool["s"][pages, :, slots] = s
+        else:
+            pool[pages, :, slots] = vec.to(pool.dtype)
 
 
 def _side_view(side) -> torch.Tensor:
@@ -266,7 +316,7 @@ def _attention_block(
     sin: torch.Tensor,
     decode_attention: Optional[DecodeAttentionFn],
     prefill_attention: Optional[PrefillAttentionFn],
-    lengths: Optional[torch.Tensor],  # [B] int32 = offset + 1 (contiguous decode only)
+    lengths: Optional[torch.Tensor],  # [B] int32 = offset + 1 (decode, but not stacked-hybrid)
 ) -> torch.Tensor:
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -281,6 +331,25 @@ def _attention_block(
     q = apply_rope(q.reshape(b, s, hq, dh), cos, sin)
     k = apply_rope(k.reshape(b, s, hkv, dh), cos, sin)
     v = v.reshape(b, s, hkv, dh)
+
+    if _is_write_through(k_cache):
+        # Write-through decode: one token per row at a shared or per-row
+        # offset; prefill runs contiguous and is scattered into the pool.
+        if s != 1:
+            raise ValueError(
+                "write-through paged caches take single-token decode steps only "
+                "(prefill runs contiguous and is scattered into the pool; the "
+                "speculative verify rides the stacked-hybrid leaf)"
+            )
+        off = torch.as_tensor(offset, device=x.device).expand(b)
+        _write_through(k_cache, v_cache, k[:, 0], v[:, 0], off)  # before the read
+        if decode_attention is not None:
+            out = decode_attention(q[:, 0], k_cache, v_cache, lengths)
+        else:
+            out = decode_attention_reference(
+                q[:, 0], _gather_paged(k_cache), _gather_paged(v_cache), (off + 1).to(torch.int32)
+            )
+        return dense_dot(out.to(x.dtype).reshape(b, s, hq * dh), layer["wo"])
 
     if is_paged_cache(k_cache):
         out = _paged_attention(cfg, q, k, v, k_cache, v_cache, decode_attention)
@@ -342,7 +411,8 @@ def run_blocks(
     ``side[i]``, no copy)."""
     b, s, _ = x.shape
     lengths = None
-    if s == 1 and decode_attention is not None and not is_paged_cache(k_cache):
+    stacked_hybrid = is_paged_cache(k_cache) and not _is_write_through(k_cache)
+    if s == 1 and decode_attention is not None and not stacked_hybrid:
         if isinstance(offset, torch.Tensor):  # per-row positions
             lengths = (offset + 1).to(torch.int32)
         else:

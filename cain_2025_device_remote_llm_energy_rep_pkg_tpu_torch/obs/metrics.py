@@ -308,3 +308,23 @@ class MetricsRegistry:
 
 # THE process-wide registry every instrumented module shares.
 REGISTRY = MetricsRegistry()
+
+
+# -- page swap -------------------------------------------------------------------
+# PagePool.swap_out / swap_in account their transfers here, under the JAX
+# package's family name, so one scrape compares across the two packages.
+SWAP_BYTES_C = REGISTRY.counter(
+    "llm_swap_bytes_total",
+    "KV payload bytes moved between device and host by mid-flight "
+    "preemption, by direction (out: device->host at preempt; in: "
+    "host->device at resume)",
+    labels=("direction",),
+)
+
+
+def observe_swap(direction: str, nbytes: float) -> None:
+    """Account one swap transfer (``direction`` = ``out`` at preempt,
+    ``in`` at resume). Counter only."""
+    if not _enabled or nbytes <= 0:
+        return
+    SWAP_BYTES_C.labels(direction=direction).inc(nbytes)

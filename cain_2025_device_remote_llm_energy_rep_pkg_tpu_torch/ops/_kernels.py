@@ -50,6 +50,9 @@ _SIGNATURES = {
              _i, _i, _i, _i, _i, _i, _i, _i, _i, _p],
             _i,
         ),
+        "paged_decode": (
+            [_i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _p], _i,
+        ),
         "paged_mq_query_max": ([], _i),
         "paged_mq_parts": (
             [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
@@ -62,6 +65,8 @@ _SIGNATURES = {
         "int4_matmul": (
             [_i, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i,
         ),
+        "w4a8_max_split_rows": ([], _i),
+        "w4a8_matmul": ([_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i),
     },
 }
 # The entry point that names a cudaError_t, per library.

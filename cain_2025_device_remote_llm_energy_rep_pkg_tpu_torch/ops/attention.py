@@ -275,9 +275,11 @@ def paged_decode_attention_reference(
     page_table: torch.Tensor,  # [B,Jmax] int32
     lengths: torch.Tensor,  # [B] int32
 ) -> torch.Tensor:
-    """Normalised paged decode: gather the pages into a contiguous cache,
-    then plain masked attention (the JAX package's
-    ``paged_decode_attention_reference``)."""
+    """Normalised paged decode: gather the pages through the clipped table
+    into a contiguous cache, then plain masked attention in f32 (the JAX
+    package's ``paged_decode_attention_reference``), ``[B,Hq,D]`` in q's
+    dtype; a row with no token gives NaN (0/0), as the JAX kernel does.
+    Plain version of ``cuda_paged_decode_attention`` (B6)."""
     k = _gather_pages(k_pool, page_table)
     v = _gather_pages(v_pool, page_table)
     return decode_attention_reference(q, k, v, lengths)

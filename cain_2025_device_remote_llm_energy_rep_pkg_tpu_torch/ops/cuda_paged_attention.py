@@ -1,7 +1,9 @@
 """Wrappers of the Hopper paged-attention kernels (``csrc/paged_attention.cu``).
 
-Counterparts of the JAX package's
-``pallas_paged_decode_attention_parts{,_int8}``, in their per-layer form:
+Counterparts of the JAX package's ``pallas_paged_decode_attention`` (the
+write-through decode: normalised ``[B,Hq,D]`` in q's dtype, over a
+bf16/f32 pool), and of ``pallas_paged_decode_attention_parts{,_int8}``,
+in their per-layer form:
 pool ``[P,Hkv,page,D]``, ``page_table [B,Jmax] int32``, ``lengths [B]
 int32`` (cached tokens), returning the unnormalised ``(acc [B,Hkv,G,D] f32,
 m [B,Hkv,G] f32, l [B,Hkv,G] f32)``; and of their multi-query twins
@@ -24,6 +26,7 @@ import torch
 from . import _kernels
 from .attention import (
     paged_decode_attention_parts_int8_reference,
+    paged_decode_attention_reference,
     paged_decode_attention_parts_reference,
     paged_mq_attention_int8_reference,
     paged_mq_attention_reference,
@@ -55,8 +58,9 @@ def _refuse_stacked(name: str, layer) -> None:
         )
 
 
-def _launch_parts(name, q, k, v, k_scale, v_scale, page_table, lengths) -> Parts:
-    scales = [x for x in (k_scale, v_scale) if x is not None]
+def _check_single_query(name, q, k, v, scales, page_table, lengths) -> int:
+    """The checks of a single-query launch over per-layer pools; returns
+    the dtype code."""
     code = _check_inputs(name, q, k, v, page_table, lengths, *scales)
     b, hq, d = q.shape
     n_pool, hkv, page, _ = k.shape
@@ -69,6 +73,14 @@ def _launch_parts(name, q, k, v, k_scale, v_scale, page_table, lengths) -> Parts
         f"{name}: page_table must be int32 [B,Jmax]",
     )
     _require(lengths.shape == (b,) and lengths.dtype == torch.int32, f"{name}: lengths must be int32 [B]")
+    return code
+
+
+def _launch_parts(name, q, k, v, k_scale, v_scale, page_table, lengths) -> Parts:
+    scales = [x for x in (k_scale, v_scale) if x is not None]
+    code = _check_single_query(name, q, k, v, scales, page_table, lengths)
+    b, hq, d = q.shape
+    n_pool, hkv, page, _ = k.shape
     jmax = page_table.shape[1]
     group = hq // hkv
     n_split, split_len = _paged_split(b, hkv, jmax, page)
@@ -88,6 +100,39 @@ def _launch_parts(name, q, k, v, k_scale, v_scale, page_table, lengths) -> Parts
     )
     _kernels.check(err, name, _LIB)
     return acc, m, l
+
+
+def cuda_paged_decode_attention(
+    q: torch.Tensor,  # [B,Hq,D]
+    k_pool: torch.Tensor,  # [P,Hkv,page,D]
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # [B,Jmax] int32
+    lengths: torch.Tensor,  # [B] int32: tokens to attend (the current one included)
+) -> torch.Tensor:
+    """Normalised flash-decode attention over each row's first
+    ``lengths[b]`` tokens, read through the table: ``[B,Hq,D]`` in q's
+    dtype. Table entries are clipped to the pool; entries past a row's
+    frontier are never read."""
+    name = "cuda_paged_decode_attention"
+    if q.device.type == "cpu":
+        return paged_decode_attention_reference(q, k_pool, v_pool, page_table, lengths)
+    _require(k_pool.dtype == v_pool.dtype == q.dtype, f"{name}: pools must be in q's dtype")
+    code = _check_single_query(name, q, k_pool, v_pool, (), page_table, lengths)
+    b, hq, d = q.shape
+    n_pool, hkv, page, _ = k_pool.shape
+    jmax = page_table.shape[1]
+    n_split, split_len = _paged_split(b, hkv, jmax, page)
+    part_acc = torch.empty((b * hkv, n_split, hq // hkv, d), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b * hkv, n_split, hq // hkv, 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    err = _kernels.library(_LIB).paged_decode(
+        code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+        lengths.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+        b, hq, hkv, n_pool, page, jmax, d, n_split, split_len, _stream(q),
+    )
+    _kernels.check(err, name, _LIB)
+    cuda_paged_decode_attention.launches += 1
+    return out
 
 
 def cuda_paged_decode_attention_parts(
@@ -241,6 +286,7 @@ def cuda_paged_decode_attention_mq_parts_int8(
     return out
 
 
+cuda_paged_decode_attention.launches = 0
 cuda_paged_decode_attention_parts.launches = 0
 cuda_paged_decode_attention_parts_int8.launches = 0
 cuda_paged_decode_attention_mq_parts.launches = 0
@@ -248,6 +294,7 @@ cuda_paged_decode_attention_mq_parts_int8.launches = 0
 
 # Every kernel wrapper of this module, for code that resets or reads counts.
 KERNELS = (
+    cuda_paged_decode_attention,
     cuda_paged_decode_attention_parts,
     cuda_paged_decode_attention_parts_int8,
     cuda_paged_decode_attention_mq_parts,

@@ -3,8 +3,9 @@
 Counterparts of the JAX package's ``int4_matmul`` (halves layout, ``q4
 [IN/2, OUT] int8``) and ``int4_matmul_i32`` (``q32 [IN/8, OUT] int32``),
 with their signatures: ``x [M, IN]`` bf16 or f32 with 1 <= M <= 8, scale
-``[1, OUT]`` f32, result ``[M, OUT]`` in ``x.dtype``. The contract is
-stated in ``ops/quant.py``.
+``[1, OUT]`` f32, result ``[M, OUT]`` in ``x.dtype``; and of the w4a8
+probe's ``w4a8_matmul`` (same weights, int8 activation codes, int32 sums,
+f32 result). The contracts are stated in ``ops/quant.py``.
 
 A tensor on the CPU goes to the plain version in ``ops/quant.py``; a CUDA
 tensor launches the kernel or raises. Each wrapper counts its launches in
@@ -17,7 +18,13 @@ import torch
 
 from . import _kernels
 from .cuda_attention import _DTYPE_CODES, _require, _stream
-from .quant import MAX_KERNEL_ROWS, int4_matmul_i32_reference, int4_matmul_reference
+from .quant import (
+    MAX_KERNEL_ROWS,
+    int4_matmul_i32_reference,
+    int4_matmul_reference,
+    quantize_activations_rowwise,
+    w4a8_matmul_reference,
+)
 
 _LIB = "int4_matmul"
 _LAYOUT_HALVES, _LAYOUT_I32 = 0, 1
@@ -54,14 +61,19 @@ def _check(name: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
     _require(scale.numel() == out_dim, f"{name}: scale must hold one value per output column")
 
 
-def _launch(name: str, layout: int, x: torch.Tensor, packed: torch.Tensor,
-            scale: torch.Tensor) -> torch.Tensor:
+def _check_cuda(name: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> None:
+    """Device, dtype and layout checks before a launch."""
     _require(x.device.type == "cuda", f"{name}: tensors must be on the CPU or a CUDA device, got {x.device}")
     _require(x.dtype in _DTYPE_CODES, f"{name}: x must be float32 or bfloat16, got {x.dtype}")
     _require(scale.dtype == torch.float32, f"{name}: scale must be float32, got {scale.dtype}")
     for t in (x, packed, scale):
         _require(t.device == x.device, f"{name}: all tensors must be on {x.device}")
         _require(t.is_contiguous(), f"{name}: tensors must be contiguous")
+
+
+def _launch(name: str, layout: int, x: torch.Tensor, packed: torch.Tensor,
+            scale: torch.Tensor) -> torch.Tensor:
+    _check_cuda(name, x, packed, scale)
     m, in_dim = x.shape
     k_rows, out_dim = packed.shape
     n_split, split_rows = _split(k_rows, out_dim, layout)
@@ -106,8 +118,58 @@ def cuda_int4_matmul_i32(
     return out
 
 
+# The w4a8 probe's packed-row blocks: IN/2 must be a multiple of this, as
+# its JAX wrapper demands.
+W4A8_BLOCK_ROWS = 128
+_W4A8_MIN_SPLIT_ROWS = 32
+
+
+def _w4a8_split(k_rows: int, out_dim: int, max_rows: int) -> "tuple[int, int]":
+    """(n_split, split_rows) for B11: B9's rule, in multiples of 4 rows."""
+    tiles = -(-out_dim // _TILE_COLS)
+    want = -(-_TARGET_BLOCKS // tiles)
+    rows = max(-(-k_rows // want), _W4A8_MIN_SPLIT_ROWS)
+    rows = min(-(-rows // 4) * 4, max_rows)
+    return -(-k_rows // rows), rows
+
+
+def cuda_w4a8_matmul(
+    x: torch.Tensor,  # [M, IN] bf16/f32, M <= 8
+    packed: torch.Tensor,  # [IN/2, OUT] int8, halves layout
+    scale: torch.Tensor,  # [1, OUT] f32
+) -> torch.Tensor:
+    """The w4a8 product, f32 ``[M, OUT]``: x quantized per row (plain torch
+    ops, before the launch), then int8 codes times int4 nibbles summed in
+    int32 by the kernel, and both scales applied in its epilogue."""
+    name = "cuda_w4a8_matmul"
+    _check(name, x, packed, scale, 2, torch.int8)
+    _require(
+        packed.shape[0] % W4A8_BLOCK_ROWS == 0,
+        f"{name}: IN/2 = {packed.shape[0]} is not a multiple of {W4A8_BLOCK_ROWS}",
+    )
+    if x.device.type == "cpu":
+        return w4a8_matmul_reference(x, packed, scale)
+    _check_cuda(name, x, packed, scale)
+    xq, sx = quantize_activations_rowwise(x)
+    m, in_dim = x.shape
+    k_rows, out_dim = packed.shape
+    lib = _kernels.library(_LIB)
+    n_split, split_rows = _w4a8_split(k_rows, out_dim, lib.w4a8_max_split_rows())
+    out = torch.empty((m, out_dim), dtype=torch.float32, device=x.device)
+    partial = torch.empty((n_split, m, out_dim), dtype=torch.int32, device=x.device)
+    err = lib.w4a8_matmul(
+        xq.data_ptr(), packed.data_ptr(), scale.data_ptr(), sx.data_ptr(),
+        partial.data_ptr(), out.data_ptr(),
+        m, in_dim, k_rows, out_dim, n_split, split_rows, _stream(x),
+    )
+    _kernels.check(err, name, _LIB)
+    cuda_w4a8_matmul.launches += 1
+    return out
+
+
 cuda_int4_matmul.launches = 0
 cuda_int4_matmul_i32.launches = 0
+cuda_w4a8_matmul.launches = 0
 
 # Every kernel wrapper of this module, for code that resets or reads counts.
-KERNELS = (cuda_int4_matmul, cuda_int4_matmul_i32)
+KERNELS = (cuda_int4_matmul, cuda_int4_matmul_i32, cuda_w4a8_matmul)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the int4 weight matmuls (kernels B9 and B10).
+"""Plain PyTorch versions of the int4 weight matmuls (kernels B9, B10, B11).
 
 Counterparts of the JAX package's ``ops/pallas_quant.py`` contract, which
 the Hopper kernels of ``csrc/int4_matmul.cu`` keep too:
@@ -15,6 +15,11 @@ Two packings of the input-feature axis (``models/quantize.py``):
   low nibble and row i + IN/2 in its high nibble;
 - int32 lanes, ``q32 [IN/8, OUT] int32``: nibble p of lane k is weight
   row 8k + p.
+
+B11, the w4a8 product of the JAX package's ``scripts/w4a8_probe.py``, has
+a contract of its own (:func:`w4a8_matmul_reference`): ``x`` is quantized
+per row to int8 codes, the products of codes and nibbles are summed in
+int32 (exactly), and both scales are applied at the end.
 
 These run on any device; the wrappers in ``ops/cuda_quant.py`` call them
 for CPU tensors only, and ``chip_smoke.py`` holds the kernels against them
@@ -77,3 +82,31 @@ def int4_matmul_i32_reference(
 ) -> torch.Tensor:
     """The same product over int32 lanes of 8 k-consecutive nibbles."""
     return _matmul(x, unpack_int4_i32(packed32), scale)
+
+
+def quantize_activations_rowwise(x: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
+    """``x [M, IN]`` → ``(xq int8 [M, IN], sx f32 [M, 1])``, the w4a8
+    probe's math: ``sx = max|x| / 127`` per row (the max taken in x's
+    dtype, then widened), ``xq = clip(round(x / sx), -127, 127)`` with
+    ``x / sx`` in f32 and ties rounded to even. Both divisions are by a
+    tensor: a CUDA tensor divided by a Python scalar is multiplied by the
+    scalar's reciprocal, which the probe's eager call does not do."""
+    amax = torch.amax(torch.abs(x), dim=1, keepdim=True).to(torch.float32)
+    sx = amax / torch.full_like(amax, 127.0)
+    xq = torch.clamp(torch.round(x / sx), -127, 127).to(torch.int8)
+    return xq, sx
+
+
+def w4a8_matmul_reference(
+    x: torch.Tensor,  # [M, IN] bf16 or f32
+    packed: torch.Tensor,  # [IN/2, OUT] int8, halves layout
+    scale: torch.Tensor,  # [1, OUT] f32
+) -> torch.Tensor:
+    """The w4a8 product, f32 ``[M, OUT]``: codes of x (low nibbles times
+    ``xq[:, :IN/2]``, high nibbles times ``xq[:, IN/2:]``) summed in int32,
+    then ``acc * scale * sx`` in that order. The integer sum runs as a
+    float64 matmul, which is exact for these magnitudes and, unlike an
+    int32 matmul, runs on CUDA too."""
+    xq, sx = quantize_activations_rowwise(x)
+    acc = torch.matmul(xq.to(torch.float64), unpack_int4(packed).to(torch.float64))
+    return acc.to(torch.int32).to(torch.float32) * scale.to(torch.float32) * sx

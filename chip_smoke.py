@@ -14,10 +14,14 @@ bf16 and then an int8 KV cache, ``TorchEngine.generate_batch`` over the
 paged pool (17 requests) with a bf16 and then an int8 pool, ``generate``
 at int4 and at int4-i32 weights, one engine with per-model modes (qwen2 at
 int8, full-width llama3.1:8b at int4), an int4 paged batch of 8 rows,
-and speculative sessions over the paged pool (``decode_open`` and
-``step``): an n-gram draft over 8 rows with a bf16 and an int8 pool, whose
-verify runs the multi-query kernels B7/B8, ``generate_speculative`` and
-``generate``'s routing, and a self-draft whose draft steps run B2.
+the write-through paged decode (8 rows prefilled, written into a pool
+with ``write_prefill`` and decoded through ``forward`` with the engine's
+paged dispatch, whose attention is B6), and speculative sessions over the
+paged pool (``decode_open`` and ``step``): an n-gram draft over 8 rows
+with a bf16 and an int8 pool, whose verify runs the multi-query kernels
+B7/B8, ``generate_speculative`` and ``generate``'s routing, and a
+self-draft whose draft steps run B2. The w4a8 probe
+(``scripts/torch_w4a8_probe.py``) drives B11 and B9.
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -42,6 +46,8 @@ KERNEL_INFO = {
     "cuda_prefill_attention": (f"{PKG}/csrc/attention.cu", f"{JAX_PKG}/ops/pallas_attention.py:451"),
     "cuda_decode_attention": (f"{PKG}/csrc/attention.cu", f"{JAX_PKG}/ops/pallas_attention.py:144"),
     "cuda_decode_attention_int8": (f"{PKG}/csrc/attention.cu", f"{JAX_PKG}/ops/pallas_attention.py:286"),
+    "cuda_paged_decode_attention": (
+        f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:705"),
     "cuda_paged_decode_attention_parts": (
         f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:826"),
     "cuda_paged_decode_attention_parts_int8": (
@@ -52,6 +58,7 @@ KERNEL_INFO = {
         f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:531"),
     "cuda_int4_matmul": (f"{PKG}/csrc/int4_matmul.cu", f"{JAX_PKG}/ops/pallas_quant.py:266"),
     "cuda_int4_matmul_i32": (f"{PKG}/csrc/int4_matmul.cu", f"{JAX_PKG}/ops/pallas_quant.py:199"),
+    "cuda_w4a8_matmul": (f"{PKG}/csrc/int4_matmul.cu", "scripts/w4a8_probe.py:103"),
 }
 MODEL = "qwen2:1.5b"
 LARGE_MODEL = "llama3.1:8b"  # the widest dense model of the study
@@ -72,9 +79,16 @@ INT4_SHAPES = (
     ("llama3.1:8b wk/wv", 4096, 1024),
 )
 INT4_ODD_SHAPE = ("odd", 3, 96, 200)  # (label, M, IN, OUT)
-# H100 SXM data-sheet peaks: HBM3 bytes/s and dense bf16 tensor-core FLOP/s.
+# (label, IN, OUT) of the w4a8 kernel rows, at the probe's M 8.
+W4A8_SHAPES = (
+    ("w4a8 probe (qwen2:1.5b w_gate)", 1536, 8960),
+    ("llama3.1:8b w_gate/w_up", 4096, 14336),
+)
+# H100 SXM data-sheet peaks: HBM3 bytes/s, dense bf16 tensor-core FLOP/s
+# and dense int8 tensor-core OP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 # Kernel vs plain version on the same inputs. bf16 outputs: both round one
 # f32 result to bf16 once, so they differ by at most ~1 bf16 ulp of |out|
 # <= 4 (0.0156) from f32 sums taken in another order. f32 runs: 1e-4.
@@ -102,6 +116,9 @@ SPEC_K = 4
 SPEC_NEW_TOKENS = 134
 SELFDRAFT_ROWS = 4
 SELFDRAFT_NEW_TOKENS = 64
+# The write-through phase's greedy decode steps (B6 launches n_layers ×
+# this many times).
+WRITE_THROUGH_STEPS = 64
 
 
 def emit(obj) -> None:
@@ -163,9 +180,9 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, peak: float = BF16_FLOPS):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -588,6 +605,169 @@ def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector):
     return summary
 
 
+def with_junk(torch, gen, table, lengths, n_pool):
+    """The table with every entry past each row's pages replaced by junk,
+    inside and outside [0, P): a write-through table's entries past the
+    frontier are never read, and the kernel clips what it would read."""
+    need = torch.tensor([-(-n // PAGE) for n in lengths] + [0] * (table.shape[0] - len(lengths)),
+                        device="cuda")
+    junk = torch.randint(-n_pool - 5, 2 * n_pool + 5, table.shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+    cols = torch.arange(table.shape[1], device="cuda")
+    return torch.where(cols[None, :] < need[:, None], table, junk)
+
+
+def write_through_lengths():
+    """Token counts of the write-through phase's 8 rows midway through its
+    decode: the int4 batch's prompts plus half the steps."""
+    return [n + WRITE_THROUGH_STEPS // 2 for n in spec_prompt_lengths()]
+
+
+def paged_decode_kernel_phase(torch, cpa, plain, timer):
+    """B6 against its plain version: at the write-through phase's 8 rows,
+    at qwen2:1.5b widths for B 1, 16 and 64 (62–1,100 tokens), and at the
+    phi3/gemma head dims; every table with junk entries past the rows'
+    pages. f32 to 1e-4 and bf16 to 2e-2 (max abs error of the normalised
+    output), timed in bf16 beside SDPA on the rows gathered into a
+    contiguous cache (the gather untimed). Returns the first row."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def mixed(n):
+        return torch.randint(62, 1101, (n,), generator=gen, device="cuda").tolist()
+
+    # (label, batch, hq, hkv, d, lengths)
+    shapes = [
+        ("qwen2:1.5b write-through rows", 8, 12, 2, 128, write_through_lengths()),
+        ("qwen2:1.5b", 1, 12, 2, 128, mixed(1)),
+        ("qwen2:1.5b", 16, 12, 2, 128, mixed(16)),
+        ("qwen2:1.5b", 64, 12, 2, 128, mixed(64)),
+        ("phi3:3.8b", 8, 32, 32, 96, mixed(8)),
+        ("gemma:2b", 8, 8, 1, 256, mixed(8)),
+    ]
+    name = "cuda_paged_decode_attention"
+    fn, ref_fn = cpa.cuda_paged_decode_attention, plain.paged_decode_attention_reference
+    summary = {}
+    for label, b, hq, hkv, d, lengths in shapes:
+        errs = {}
+        for dtype, tol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
+            q, k, v, table, lens = paged_inputs(torch, gen, b, hq, hkv, d, lengths, dtype)
+            table = with_junk(torch, gen, table, lengths, k.shape[0])
+            args = (q, k, v, table, lens)
+            out = fn(*args)
+            ref = ref_fn(*args)
+            torch.cuda.synchronize()
+            errs[dtype] = (out.float() - ref.float()).abs().max().item()
+            assert errs[dtype] <= tol, (label, name, str(dtype), errs)
+        ms = timer.ms(lambda: fn(*args))
+        plain_ms = timer.ms(lambda: ref_fn(*args), max_iters=20)
+        b4_ms = timer.ms(lambda: cpa.cuda_paged_decode_attention_parts(*args))
+        kg = plain._gather_pages(k, table)
+        vg = plain._gather_pages(v, table)
+        mask = (torch.arange(kg.shape[2], device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True))
+        del kg, vg
+        cached = int(lens.sum().item())
+        bytes_moved = (
+            2 * b * hq * d * 2  # q in, out
+            + cached * 2 * hkv * d * 2  # each attended K/V row once
+            + table.numel() * 4 + b * 4  # table, lengths
+        )
+        b_ms, b_by = bound(bytes_moved, 4 * hq * d * cached)
+        row = {
+            "name": name, "shape": label, "B": b, "lengths": lengths if b <= 8 else None,
+            "jmax": table.shape[1], "attended_tokens": cached, "junk_table_entries": True,
+            "max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
+            "ms": ms, "plain_ms": plain_ms, "b4_ms_same_rows": b4_ms,
+            # SDPA with a length mask on the rows gathered into [B,Hkv,Jmax·page,D]
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+        }
+        emit({"phase": "kernel", **row})
+        summary.setdefault(name, row)
+    return summary
+
+
+# torch._int_mm refuses fewer than this many rows of its first operand on CUDA.
+INT_MM_MIN_ROWS = 17
+
+
+def int_mm_ms(torch, timer, xq, w8):
+    """Time of ``torch._int_mm`` (int8 × int8 → int32) on the activation
+    codes, padded with zero rows to INT_MM_MIN_ROWS, and the unpacked int8
+    weight codes: B11's sum without its scales."""
+    a = torch.zeros((INT_MM_MIN_ROWS, xq.shape[1]), dtype=torch.int8, device="cuda")
+    a[: xq.shape[0]] = xq
+    return timer.ms(lambda: torch._int_mm(a, w8))
+
+
+def w4a8_kernel_phase(torch, cq, qplain, qmod, timer):
+    """B11 against its plain version, bit for bit, at the probe's shape and
+    at llama3.1:8b's w_gate (M 8, weights at the model's 1/sqrt(IN)
+    scale), with bf16 and f32 activations; timed with bf16 activations
+    beside B9 on the same weights and torch._int_mm on the unpacked
+    codes. Returns the first row."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    m = qplain.MAX_KERNEL_ROWS
+    name = "cuda_w4a8_matmul"
+    summary = {}
+    for label, in_dim, out_dim in W4A8_SHAPES:
+        w = torch.randn((in_dim, out_dim), generator=gen, device="cuda") / math.sqrt(in_dim)
+        leaf = qmod.quantize_tensor_int4(w)
+        codes, scale = leaf["q4"], leaf["s"]
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((m, in_dim), generator=gen, device="cuda").to(dtype)
+            out = cq.cuda_w4a8_matmul(x, codes, scale)
+            ref = qplain.w4a8_matmul_reference(x, codes, scale)
+            torch.cuda.synchronize()
+            errs[dtype] = (out - ref).abs().max().item()
+            assert torch.equal(out, ref), (label, name, str(dtype), errs)
+        ms = timer.ms(lambda: cq.cuda_w4a8_matmul(x, codes, scale))
+        plain_ms = timer.ms(lambda: qplain.w4a8_matmul_reference(x, codes, scale), max_iters=20)
+        b9_ms = timer.ms(lambda: cq.cuda_int4_matmul(x, codes, scale))
+        # the wrapper's torch ops ahead of the launch, alone
+        quantize_ms = timer.ms(lambda: qplain.quantize_activations_rowwise(x))
+        xq, _ = qplain.quantize_activations_rowwise(x)
+        library_ms = int_mm_ms(torch, timer, xq, qplain.unpack_int4(codes))
+        bytes_moved = codes.numel() + out_dim * 4 + m * in_dim * 2 + m * out_dim * 4
+        b_ms, b_by = bound(bytes_moved, 2 * m * in_dim * out_dim, INT8_OPS)
+        row = {
+            "name": name, "shape": label, "M": m, "IN": in_dim, "OUT": out_dim,
+            "splits": cq._w4a8_split(codes.shape[0], out_dim,
+                                     cq._kernels.library("int4_matmul").w4a8_max_split_rows())[0],
+            "bit_equal": True, "max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
+            "ms": ms, "activation_quantize_ms": quantize_ms, "plain_ms": plain_ms,
+            "b9_ms_same_weights": b9_ms,
+            # torch._int_mm on the unpacked int8 codes, x's codes padded to 17 rows
+            "library_ms": library_ms, "library_rows": INT_MM_MIN_ROWS,
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        emit({"phase": "kernel", **row})
+        summary.setdefault(name, row)
+        del w, leaf
+    return summary
+
+
+def w4a8_probe_phase(torch, root, kernels):
+    """B11's path: the port's w4a8 probe (``scripts/torch_w4a8_probe.py``),
+    its lines re-emitted; B11 and B9 each ran and no other kernel did."""
+    from importlib.util import module_from_spec, spec_from_file_location
+
+    spec = spec_from_file_location("torch_w4a8_probe", root / "scripts" / "torch_w4a8_probe.py")
+    probe = module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    lines, counts = count_launches(kernels, lambda: probe.probe(torch))
+    for line in lines:
+        emit({"phase": "w4a8_probe", **line})
+    emit({"phase": "w4a8_probe_launches", "counts": counts})
+    assert counts["cuda_w4a8_matmul"] > 0 and counts["cuda_int4_matmul"] > 0, counts
+    others = {k: n for k, n in counts.items() if k not in ("cuda_w4a8_matmul", "cuda_int4_matmul")}
+    assert not any(others.values()), counts
+    assert 0 < lines[0]["w4a8_rel_err"] < 0.05, lines[0]
+    return counts
+
+
 def study_requests(GenerationRequest):
     """The study's prompt at its 100- and 500-word lengths, plus one long
     prompt whose prefill runs in two chunks (offset 2048 for the second)."""
@@ -895,6 +1075,128 @@ def paged_integration_phase(torch, engine, pk, plain, tfm, eng_mod):
     compare_logits(torch, "paged_integration", logits, forced)
 
 
+def write_through_requests(GenerationRequest):
+    """The write-through phase's rows: the int4 batch's 8 prompts (the
+    study prompt and the 300-, 700- and 1,100-token contexts, two each),
+    greedy, WRITE_THROUGH_STEPS + 1 new tokens."""
+    return [dataclasses.replace(r, max_new_tokens=WRITE_THROUGH_STEPS + 1)
+            for r in int4_batch_requests(GenerationRequest)]
+
+
+def write_through_pool(torch, engine, pk, eng_mod, requests):
+    """Each row prefilled through the engine's prefill (B1) and written into
+    one pool of the engine's dtype with ``write_prefill``; a row owns
+    ceil((prompt + budget + 1) / page) pages, the JAX package's legacy
+    write-through bill. Returns the pool, its table, the prompt lengths
+    and each row's last-position logits."""
+    tf = engine._models[MODEL]
+    cfg = tf.cfg
+    tok = engine._tokenizer_for(MODEL)
+    ids = [tok.encode(r.prompt) for r in requests]
+    need = [-(-(len(x) + r.max_new_tokens) // PAGE) for x, r in zip(ids, requests)]
+    pool = pk.PagePool.create(cfg.n_layers, sum(need), cfg.n_kv_heads, cfg.d_head, PAGE,
+                              dtype=engine.dtype, device="cuda")
+    table = torch.zeros((len(ids), max(need)), dtype=torch.int32, device="cuda")
+    first = []
+    for r, row in enumerate(ids):
+        table[r, : need[r]] = torch.tensor(pool.alloc(need[r]), dtype=torch.int32)
+        logits, kc, vc = engine._run_prefill(MODEL, row, eng_mod._prompt_alloc(len(row)))
+        first.append(logits)
+        pk.write_prefill(pool.k, pool.v, table[r], kc[:, 0], vc[:, 0], len(row))
+    lens = torch.tensor([len(x) for x in ids], dtype=torch.int32, device="cuda")
+    return pool, table, lens, torch.cat(first)
+
+
+def write_through_phase(torch, engine, pk, tfm, eng_mod, kernels, n_layers, GenerationRequest):
+    """The write-through paged decode at the model level, as the JAX package
+    drives it: 8 rows prefilled (B1) and written into one bf16 pool, then
+    WRITE_THROUGH_STEPS greedy steps through ``forward`` over the leaf
+    ``{"pool", "table"}`` with the engine's paged dispatch: each step
+    writes its K/V through the table and attends with B6. B1 ran n_layers
+    times per row, B6 n_layers times per step, nothing else. Prints the
+    wall per step and the share of greedy tokens equal, position by
+    position up to a row's first EOS, to the same rows through the
+    stacked ``generate_batch`` (B4; a figure: bf16 near-ties may part)."""
+    requests = write_through_requests(GenerationRequest)
+    tf = engine._models[MODEL]
+    cfg = tf.cfg
+    times = {}
+
+    def run():
+        t0 = time.perf_counter()
+        pool, table, lens, first = write_through_pool(torch, engine, pk, eng_mod, requests)
+        engine._sync()
+        t1 = time.perf_counter()
+        token = torch.argmax(first, dim=-1)
+        offs = lens.long()
+        out = [token]
+        for _ in range(WRITE_THROUGH_STEPS):
+            kc, vc = {"pool": pool.k, "table": table}, {"pool": pool.v, "table": table}
+            h, _, _ = tfm.forward(tf.params, cfg, token[:, None], offs, kc, vc, eng_mod._paged_parts,
+                                  layers=tf.layers)
+            token = torch.argmax(tfm.logits_for(tf.params, cfg, h[:, 0]), dim=-1)
+            out.append(token)
+            offs = offs + 1
+        tokens = torch.stack(out, dim=1).tolist()
+        engine._sync()
+        times.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1,
+                     pool_pages=pool.n_pages, jmax=table.shape[1])
+        return tokens
+
+    tokens, counts = count_launches(kernels, run)
+    expected = {fn.__name__: 0 for fn in kernels}
+    expected["cuda_prefill_attention"] = n_layers * len(requests)
+    expected["cuda_paged_decode_attention"] = n_layers * WRITE_THROUGH_STEPS
+    batch = engine.generate_batch(requests)
+    batch_steps = max(r.generated_tokens for r in batch) - 1
+    eos = engine._tokenizer_for(MODEL).eos_id
+    same = total = 0
+    for row, res in zip(tokens, batch):
+        upto = row.index(eos) + 1 if eos in row else len(row)
+        total += min(upto, len(res.tokens))
+        same += sum(a == b for a, b in zip(row[:upto], res.tokens))
+    emit({
+        "phase": "engine_write_through", "rows": len(requests), "steps": WRITE_THROUGH_STEPS,
+        "prompt_tokens": [len(engine._tokenizer_for(MODEL).encode(r.prompt)) for r in requests],
+        **times, "wall_ms_per_step": times["decode_s"] / WRITE_THROUGH_STEPS * 1e3,
+        "stacked_batch_wall_ms_per_step": batch[0].decode_s / batch_steps * 1e3,
+        "greedy_tokens_compared": total, "equal_to_stacked_batch": same, "share": same / total,
+        "counts": counts, "expected": expected,
+    })
+    assert all(0 <= t < cfg.vocab_size for row in tokens for t in row)
+    assert counts == expected, (counts, expected)
+    return counts
+
+
+def write_through_integration_phase(torch, engine, pk, plain, tfm, eng_mod, GenerationRequest):
+    """8 teacher-forced write-through steps of the same 8 rows, once with
+    B6 (the engine's dispatch) and once with its plain version, each path
+    over its own pool (the steps write into it): logits agree to
+    LOGIT_ATOL."""
+    requests = write_through_requests(GenerationRequest)
+    tf = engine._models[MODEL]
+    cfg = tf.cfg
+
+    def plain_b6(q, k_leaf, v_leaf, lengths):
+        return plain.paged_decode_attention_reference(
+            q, k_leaf["pool"], v_leaf["pool"], k_leaf["table"], lengths)
+
+    paths = {"kernels": eng_mod._paged_parts, "plain": plain_b6}
+    pools = {name: write_through_pool(torch, engine, pk, eng_mod, requests) for name in paths}
+    logits = {name: [pools[name][3]] for name in paths}
+    forced = []
+    for step in range(8):
+        nxt = torch.argmax(logits["kernels"][-1], dim=-1)
+        forced.append(nxt.tolist())
+        for name, fn in paths.items():
+            pool, table, lens, _ = pools[name]
+            kc, vc = {"pool": pool.k, "table": table}, {"pool": pool.v, "table": table}
+            h, _, _ = tfm.forward(tf.params, cfg, nxt[:, None], lens.long() + step, kc, vc, fn,
+                                  layers=tf.layers)
+            logits[name].append(tfm.logits_for(tf.params, cfg, h[:, 0]))
+    compare_logits(torch, "write_through_integration", logits, forced)
+
+
 def spec_integration_phase(torch, engine, pk, plain, tfm, eng_mod):
     """The full-width verify forward of a fixed block of SPEC_K + 1
     candidates per row (each row's greedy first token, then four fixed
@@ -1131,6 +1433,8 @@ def main() -> int:
     summary.update(paged_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector))
     summary.update(paged_mq_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector))
     summary.update(int4_kernel_phase(torch, cq, qplain, qmod, timer))
+    summary.update(paged_decode_kernel_phase(torch, cpa, plain, timer))
+    summary.update(w4a8_kernel_phase(torch, cq, qplain, qmod, timer))
     del timer
     torch.cuda.empty_cache()
 
@@ -1139,6 +1443,9 @@ def main() -> int:
     def add(counts):
         for name, n in counts.items():
             launches[name] += n
+
+    add(w4a8_probe_phase(torch, root, all_kernels))
+    torch.cuda.empty_cache()
 
     requests = study_requests(backend.GenerationRequest)
     chunks_of = lambda n: len(eng_mod._prompt_chunks(n))  # noqa: E731
@@ -1188,6 +1495,10 @@ def main() -> int:
                                all_kernels, n_layers, eng_mod, matmul))
         if phase == "engine_paged_bf16_kv":
             paged_integration_phase(torch, engine, pk, plain, tfm, eng_mod)
+            add(write_through_phase(torch, engine, pk, tfm, eng_mod, all_kernels, n_layers,
+                                    backend.GenerationRequest))
+            write_through_integration_phase(torch, engine, pk, plain, tfm, eng_mod,
+                                            backend.GenerationRequest)
         del engine
         torch.cuda.empty_cache()
 

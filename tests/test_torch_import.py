@@ -19,12 +19,40 @@ MODULES = sorted(
 FORBIDDEN = ("jax", "jaxlib", "cain_2025_device_remote_llm_energy_rep_pkg_tpu")
 REPO = PORT_DIR.parent
 # The port's sources, and the scripts that drive it on the card.
-SCANNED = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "scripts" / "torch_decode_profile.py"]
+SCRIPTS = [REPO / "scripts" / "torch_decode_profile.py", REPO / "scripts" / "torch_w4a8_probe.py"]
+SCANNED = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 
 
 @pytest.mark.parametrize("name", ["engine.speculative", "engine.stepped", "engine.torch_engine"])
 def test_the_speculation_modules_are_imported_with_jax_blocked(name):
     assert f"cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.{name}" in MODULES
+
+
+@pytest.mark.parametrize(
+    "name", ["engine.paged_kv", "models.transformer", "ops.cuda_paged_attention", "ops.cuda_quant", "ops.quant"]
+)
+def test_the_write_through_and_w4a8_modules_are_imported_with_jax_blocked(name):
+    assert f"cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.{name}" in MODULES
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=lambda p: p.name)
+def test_the_port_scripts_import_with_jax_blocked(path):
+    """Each script imports (its ``main`` does not run) with jax blocked."""
+    code = (
+        "import sys, importlib.util\n"
+        "for name in ('jax', 'jaxlib', 'cain_2025_device_remote_llm_energy_rep_pkg_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"spec = importlib.util.spec_from_file_location('probe', {str(path)!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "assert callable(mod.main)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=str(REPO)
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
 
 
 def test_every_module_imports_with_jax_blocked():

@@ -8,7 +8,8 @@ conftest.py imports jax, so on such a machine run it as
 
 Tolerances: float32 1e-4 (f32 math summed in another order over up to a
 few hundred keys); bfloat16 2e-2 (both round one f32 result to bf16, so
-they differ by about one bf16 ulp of |out| <= 4).
+they differ by about one bf16 ulp of |out| <= 4); the w4a8 kernel none
+(its sums are integers, so it equals its plain version bit for bit).
 """
 
 import numpy as np
@@ -190,4 +191,57 @@ def test_paged_mq_parts_kernels_match_plain_versions_on_the_card(dtype, tol, q_l
         too_many = torch.zeros((len(lengths), 10, hq, d), dtype=dtype, device="cuda")
         with pytest.raises(ValueError, match="query positions"):
             fn(too_many, *pool, table, lens, offsets)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64)])
+def test_paged_decode_kernel_matches_plain_version_on_the_card(dtype, tol, hq, hkv, d):
+    """B6 against its plain version, rows at, before and after a page edge
+    and over several pages, with junk table entries (outside the pool)
+    past every frontier; and, since B6 is B4's split body with B2's
+    normalising merge, equal bit for bit to B4's acc / l."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+
+    rng = np.random.default_rng(12)
+    lengths = [1, 127, 128, 129, 1100]
+    q, k, v, table, lens = _paged_inputs(rng, dtype, len(lengths), hq, hkv, d, 128, lengths, "cuda")
+    need = torch.tensor([-(-n // 128) for n in lengths], device="cuda")
+    n_pool = k.shape[0]
+    junk = torch.randint(-n_pool - 5, 2 * n_pool + 5, table.shape, device="cuda", dtype=torch.int32)
+    table = torch.where(torch.arange(table.shape[1], device="cuda") < need[:, None], table, junk)
+    out = cpa.cuda_paged_decode_attention(q, k, v, table, lens)
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = port_attn.paged_decode_attention_reference(q, k, v, table, lens)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    acc, _, l = cpa.cuda_paged_decode_attention_parts(q, k, v, table, lens)
+    assert torch.equal(out, (acc / l[..., None]).reshape(q.shape).to(dtype))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "m,in_dim,out_dim", [(8, 1536, 8960), (8, 4096, 14336), (8, 256, 640), (3, 512, 130), (1, 256, 7)]
+)
+def test_w4a8_kernel_equals_plain_version_on_the_card(dtype, m, in_dim, out_dim):
+    """B11 against its plain version bit for bit (integer sums are exact,
+    and both apply the two scales in one order): the probe's shape,
+    llama3.1:8b's w_gate, one OUT past the 512-column block, and OUT 130
+    and 7 through the byte-wise loads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_quant
+
+    rng = np.random.default_rng(13)
+    w = _to_torch(_normal(rng, (in_dim, out_dim)) / np.sqrt(in_dim), torch.float32).cuda()
+    x = _to_torch(_normal(rng, (m, in_dim)), dtype).cuda()
+    leaf = quantize_tensor_int4(w)
+    out = cuda_quant.cuda_w4a8_matmul(x, leaf["q4"], leaf["s"])
+    ref = port_quant.w4a8_matmul_reference(x, leaf["q4"], leaf["s"])
+    assert out.dtype == torch.float32 and out.shape == (m, out_dim)
+    assert torch.equal(out, ref), (out - ref).abs().max().item()
     torch.cuda.synchronize()

@@ -206,17 +206,28 @@ def test_stacked_paged_decode_matches_jax(model, kv):
 @pytest.mark.parametrize(
     "leaf,s",
     [
-        (dict(), 1),  # the write-through leaf: pool + table only
+        # the write-through leaf (pool + table only) is ported; what is not
+        # is a paged decode kernel for an int8 write-through pool (the JAX
+        # package has no int8 twin of B6), so the engine's dispatch raises
+        (dict(int8=True), 1),
         (dict(side=True, layer=0), 1),  # the stacked-pool kernel form
         (dict(scratch=True), 2),  # the scratch (kernel-less) verify block
     ],
     ids=["write-through", "layer", "verify"],
 )
 def test_unported_paged_modes_raise(leaf, s):
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.engine.torch_engine import (
+        _paged_parts,
+    )
+
     tcfg = port_config("qwen2:1.5b").tiny()
     tp = ttf.init_params(tcfg, torch.Generator().manual_seed(0), torch.float32)
     shape = (tcfg.n_layers, 4, tcfg.n_kv_heads, 8, tcfg.d_head)
     cache = {"pool": torch.zeros(shape), "table": torch.zeros((1, 1), dtype=torch.int32)}
+    dispatch = lambda *a: None  # noqa: E731
+    if leaf.pop("int8", False):
+        cache["pool"] = {"q": torch.zeros(shape, dtype=torch.int8), "s": torch.ones(shape[:-1])}
+        dispatch = _paged_parts
     if leaf.pop("side", False):
         cache.update(side=torch.zeros((tcfg.n_layers, 1, tcfg.n_kv_heads, 4, tcfg.d_head)),
                      write_pos=torch.zeros(1, dtype=torch.long),
@@ -226,4 +237,4 @@ def test_unported_paged_modes_raise(leaf, s):
     cache.update(leaf)
     with pytest.raises(NotImplementedError):
         ttf.forward(tp, tcfg, torch.zeros((1, s), dtype=torch.long), torch.ones(1, dtype=torch.long),
-                    cache, dict(cache), lambda *a: None)
+                    cache, dict(cache), dispatch)
