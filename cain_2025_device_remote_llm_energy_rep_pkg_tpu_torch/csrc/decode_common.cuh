@@ -1,15 +1,16 @@
-// Shared pieces of the port's decode kernels (attention.cu: contiguous
-// caches; paged_attention.cu: page pools read through a table).
+// Shared pieces of the port's decode kernels: the element types, the
+// warp reductions and the group cap of attention.cu (contiguous caches)
+// and paged_attention.cu (page pools read through a table), and the paged
+// kernels' split body.
 //
 // decode_partial_kernel is the split body of flash decoding: block
 // (split, b·Hkv + h) streams cache positions [split·split_len,
 // min((split+1)·split_len, lengths[b])) of row b, head h, and writes the
 // split's unnormalised partials (acc, m, l). Where position t of a row
-// lives is the `Rows` policy's business: ContiguousRows for [B,Hkv,T,D]
-// caches, PagedRows for [P,Hkv,page,D] pools read through a [B,Jmax] page
-// table. decode_merge_kernel combines the splits into the normalised
-// output (B2, B3 and B6); the paged parts kernels keep their own merge,
-// which does not normalise.
+// lives is the `Rows` policy's business: PagedRows for [P,Hkv,page,D]
+// pools read through a [B,Jmax] page table. decode_merge_kernel combines
+// the splits into the normalised output (B6); the paged parts kernels
+// keep their own merge, which does not normalise.
 //
 // Every load is widened to f32; scores, softmax and accumulators are f32.
 // A split with no position to read writes (m -inf, l 0) and returns at
@@ -69,14 +70,6 @@ constexpr int kGroupMax = 8;  // query heads per kv head held in registers
 
 // Row index (into [..., positions, D] element rows and [..., positions]
 // scales) of position t of batch row b, kv head h; bh = b·Hkv + h.
-struct ContiguousRows {
-  int t_cap;  // T
-  __device__ __forceinline__ int capacity() const { return t_cap; }
-  __device__ __forceinline__ size_t row(int bh, int /*b*/, int /*h*/, int t) const {
-    return static_cast<size_t>(bh) * t_cap + t;
-  }
-};
-
 struct PagedRows {
   const int* table;  // [B, Jmax]
   int jmax;

@@ -32,8 +32,8 @@
 // CUDA blocks run in no order and carry nothing between them. At the batch
 // path's widths (qwen2:1.5b, Hkv 2, 16–32 rows) the (row, kv head) pairs
 // alone would leave most of the 132 SMs idle, so each row's positions are
-// split flash-decoding style: the split body of the contiguous decode
-// kernel (decode_partial_kernel, decode_common.cuh) runs with a PagedRows
+// split flash-decoding style: the split body decode_partial_kernel
+// (decode_common.cuh) runs with a PagedRows
 // address policy that looks the page up in the table, and writes per-split
 // partials; parts_merge_kernel combines the splits into one (acc, m, l)
 // without normalising. Splits past a row's length read nothing, so pages
@@ -48,7 +48,7 @@
 // never makes one (lengths = offset + 1). The step's own K/V must be in
 // the pool before the launch (lengths counts it): the transformer writes
 // it on the same stream just before. Design: B4's split body and
-// PagedRows, then B2's normalising decode_merge_kernel (both in
+// PagedRows, then the normalising decode_merge_kernel (both in
 // decode_common.cuh) in place of parts_merge_kernel: one code path with
 // B4 up to the merge. Bound: bytes, as B4, plus the output.
 //

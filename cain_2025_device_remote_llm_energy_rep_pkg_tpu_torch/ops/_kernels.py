@@ -37,9 +37,11 @@ _SIGNATURES = {
         "attn_error_string": ([_i], ctypes.c_char_p),
         "attn_prefill_rows": ([], _i),
         "attn_decode_group_max": ([], _i),
-        "attn_prefill": ([_i, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p], _i),
+        "attn_prefill_splits": ([_i, _i, _i, _i, _i, _i, _i], _i),
+        "attn_decode_grid": ([_i, _i, _i], _i),
+        "attn_prefill": ([_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p], _i),
         "attn_decode": (
-            [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p], _i,
+            [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i,
         ),
     },
     "paged_attention": {

@@ -4,8 +4,10 @@ Counterpart of the JAX package's ``ops/pallas_attention.py``, with its
 signatures and layouts. A tensor on the CPU goes to the plain version in
 ``ops/attention.py`` (that is how the CPU tests run); a CUDA tensor
 launches the kernel or raises — there is no fallback. Each wrapper counts
-its launches in an integer ``launches`` attribute, so a run can show that
-its main path went through the kernels.
+its launches in an integer ``launches`` attribute (one per kernel launch),
+so a run can show that its main path went through the kernels. A kernel's
+cap on the query heads per kv head never reaches a caller: the wrappers
+cut a larger group into sub-groups (:func:`tile_groups`).
 """
 
 from __future__ import annotations
@@ -21,10 +23,14 @@ from .attention import (
 
 HEAD_DIMS = (64, 96, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Decode splits T so that B·Hkv·n_split blocks cover the card's 132 SMs
-# about twice, with at least this many cache positions per split.
+# The paged kernels split each row so that B·Hkv·n_split blocks cover the
+# card's 132 SMs about twice.
 _TARGET_BLOCKS = 264
-_MIN_SPLIT_LEN = 64
+# Per-device int32 tickets of the decode kernel, zero between launches: the
+# last split of a (row, kv head) to finish takes the pair's ticket, merges
+# the splits and resets it. One buffer serves every launch of the current
+# stream (launches on one stream never overlap).
+_TICKETS: "dict[torch.device, torch.Tensor]" = {}
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -48,6 +54,43 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _require_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels of ``attention.cu`` copy K/V rows (and prefill's q rows)
+    16 bytes at a time: the data must start on a 16-byte boundary."""
+    for t in tensors:
+        _require(t.data_ptr() % 16 == 0, f"{name}: q, k and v must start on a 16-byte boundary")
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    buf = _TICKETS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = buf
+    return buf
+
+
+def tile_groups(run, q: torch.Tensor, hkv: int, group_max: int):
+    """Run ``run`` on sub-groups of at most ``group_max`` of the G = Hq / Hkv
+    query heads of each kv head, against the same cache or pool, and
+    stitch the results along G. ``q [..., Hq, D]``; ``run(q_sub)`` takes
+    ``q_sub [..., Hkv·c, D]`` and returns either attention in q_sub's
+    shape or parts ``(acc [..., Hkv, c, D], m [..., Hkv, c], l [..., Hkv,
+    c])``. Every head's softmax is its own, so the result is the one-launch
+    result."""
+    *lead, hq, d = q.shape
+    group = hq // hkv
+    if group <= group_max:
+        return run(q)
+    qg = q.reshape(*lead, hkv, group, d)
+    outs = [
+        run(qg[..., g0 : g0 + group_max, :].reshape(*lead, -1, d).contiguous())
+        for g0 in range(0, group, group_max)
+    ]
+    if isinstance(outs[0], tuple):  # (acc, m, l): G is acc's axis -2, m's and l's -1
+        return tuple(torch.cat(xs, dim=-2 if i == 0 else -1) for i, xs in enumerate(zip(*outs)))
+    return torch.cat([o.reshape(*lead, hkv, -1, d) for o in outs], dim=-2).reshape(q.shape)
+
+
 def cuda_prefill_attention(
     q: torch.Tensor,  # [B,S,Hq,D]
     k_cache: torch.Tensor,  # [B,Hkv,T,D]
@@ -59,60 +102,70 @@ def cuda_prefill_attention(
     offset = int(offset)
     if q.device.type == "cpu":
         return prefill_attention_cached(q, k_cache, v_cache, offset)
-    code = _check_inputs("cuda_prefill_attention", q, k_cache, v_cache)
+    name = "cuda_prefill_attention"
+    code = _check_inputs(name, q, k_cache, v_cache)
     b, s, hq, d = q.shape
     _, hkv, t, _ = k_cache.shape
     _require(
         k_cache.shape == v_cache.shape == (b, hkv, t, d) and k_cache.dtype == v_cache.dtype == q.dtype,
-        "cuda_prefill_attention: caches must be [B,Hkv,T,D] in q's dtype",
+        f"{name}: caches must be [B,Hkv,T,D] in q's dtype",
     )
-    _require(hq % hkv == 0, "cuda_prefill_attention: Hq must be a multiple of Hkv")
-    _require(
-        hq // hkv <= _kernels.library().attn_prefill_rows(),
-        "cuda_prefill_attention: group too large for one query tile",
-    )
-    _require(0 <= offset and offset + s <= t, "cuda_prefill_attention: offset + S exceeds the cache")
-    out = torch.empty_like(q)
-    err = _kernels.library().attn_prefill(
-        code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        b, s, hq, hkv, t, d, offset, _stream(q),
-    )
-    _kernels.check(err, "cuda_prefill_attention")
-    cuda_prefill_attention.launches += 1
-    return out
+    _require(hq % hkv == 0, f"{name}: Hq must be a multiple of Hkv")
+    _require(0 <= offset and offset + s <= t, f"{name}: offset + S exceeds the cache")
+    _require_aligned(name, q, k_cache, v_cache)
+    lib = _kernels.library()
+
+    def launch(qs: torch.Tensor) -> torch.Tensor:
+        hq_s = qs.shape[2]
+        n_split = lib.attn_prefill_splits(code, b, s, hq_s, hkv, d, offset)
+        part_o = part_ml = None
+        if n_split > 1:  # the key range split over blocks, then a merge launch
+            rows = lib.attn_prefill_rows()
+            n_tiles = -(-s // (rows // (hq_s // hkv))) * b * hkv
+            part_o = torch.empty((n_tiles, n_split, rows, d), dtype=torch.float32, device=q.device)
+            part_ml = torch.empty((n_tiles, n_split, rows, 2), dtype=torch.float32, device=q.device)
+        out = torch.empty_like(qs)
+        err = lib.attn_prefill(
+            code, qs.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+            *(None if x is None else x.data_ptr() for x in (part_o, part_ml)),
+            b, s, hq_s, hkv, t, d, offset, n_split, _stream(q),
+        )
+        _kernels.check(err, name)
+        cuda_prefill_attention.launches += 1
+        return out
+
+    return tile_groups(launch, q, hkv, lib.attn_prefill_rows())
 
 
-def _decode_split(b: int, hkv: int, t: int) -> "tuple[int, int]":
-    """(n_split, split_len) for a cache of capacity ``t``."""
-    n = min(max(1, -(-_TARGET_BLOCKS // (b * hkv))), max(1, -(-t // _MIN_SPLIT_LEN)))
-    split_len = -(-t // n)
-    return -(-t // split_len), split_len
-
-
-def _launch_decode(name, q, k, v, k_scale, v_scale, lengths) -> torch.Tensor:
+def _launch_decode(name, wrapper, q, k, v, k_scale, v_scale, lengths) -> torch.Tensor:
     code = _check_inputs(name, q, k, v, lengths, *(x for x in (k_scale, v_scale) if x is not None))
     b, hq, d = q.shape
     _, hkv, t, _ = k.shape
     _require(k.shape == v.shape == (b, hkv, t, d), f"{name}: caches must be [B,Hkv,T,D]")
     _require(hq % hkv == 0, f"{name}: Hq must be a multiple of Hkv")
-    _require(
-        hq // hkv <= _kernels.library().attn_decode_group_max(),
-        f"{name}: more than {_kernels.library().attn_decode_group_max()} query heads per kv head",
-    )
     _require(lengths.shape == (b,) and lengths.dtype == torch.int32, f"{name}: lengths must be int32 [B]")
-    n_split, split_len = _decode_split(b, hkv, t)
-    part_acc = torch.empty((b * hkv, n_split, hq // hkv, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b * hkv, n_split, hq // hkv, 2), dtype=torch.float32, device=q.device)
-    out = torch.empty_like(q)
-    err = _kernels.library().attn_decode(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if k_scale is None else k_scale.data_ptr(),
-        None if v_scale is None else v_scale.data_ptr(),
-        lengths.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-        b, hq, hkv, t, d, n_split, split_len, _stream(q),
-    )
-    _kernels.check(err, name)
-    return out
+    _require_aligned(name, k, v)
+    lib = _kernels.library()
+    n_grid = lib.attn_decode_grid(b, hkv, t)
+    tickets = _tickets(q.device, b * hkv)
+
+    def launch(qs: torch.Tensor) -> torch.Tensor:
+        group = qs.shape[1] // hkv
+        part_acc = torch.empty((b * hkv, n_grid, group, d), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((b * hkv, n_grid, group, 2), dtype=torch.float32, device=q.device)
+        out = torch.empty_like(qs)
+        err = lib.attn_decode(
+            code, qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if k_scale is None else k_scale.data_ptr(),
+            None if v_scale is None else v_scale.data_ptr(),
+            lengths.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
+            out.data_ptr(), b, qs.shape[1], hkv, t, d, n_grid, _stream(q),
+        )
+        _kernels.check(err, name)
+        wrapper.launches += 1
+        return out
+
+    return tile_groups(launch, q, hkv, lib.attn_decode_group_max())
 
 
 def cuda_decode_attention(
@@ -126,9 +179,7 @@ def cuda_decode_attention(
         return decode_attention_reference(q, k_cache, v_cache, lengths)
     name = "cuda_decode_attention"
     _require(k_cache.dtype == v_cache.dtype == q.dtype, f"{name}: caches must be in q's dtype")
-    out = _launch_decode(name, q, k_cache, v_cache, None, None, lengths)
-    cuda_decode_attention.launches += 1
-    return out
+    return _launch_decode(name, cuda_decode_attention, q, k_cache, v_cache, None, None, lengths)
 
 
 def cuda_decode_attention_int8(
@@ -149,9 +200,7 @@ def cuda_decode_attention_int8(
         k_s.dtype == v_s.dtype == torch.float32 and k_s.shape == v_s.shape == k_q.shape[:3],
         f"{name}: scales must be float32 [B,Hkv,T]",
     )
-    out = _launch_decode(name, q, k_q, v_q, k_s, v_s, lengths)
-    cuda_decode_attention_int8.launches += 1
-    return out
+    return _launch_decode(name, cuda_decode_attention_int8, q, k_q, v_q, k_s, v_s, lengths)
 
 
 cuda_prefill_attention.launches = 0

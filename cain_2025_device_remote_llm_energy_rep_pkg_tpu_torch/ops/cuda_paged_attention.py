@@ -2,24 +2,29 @@
 
 Counterparts of the JAX package's ``pallas_paged_decode_attention`` (the
 write-through decode: normalised ``[B,Hq,D]`` in q's dtype, over a
-bf16/f32 pool), and of ``pallas_paged_decode_attention_parts{,_int8}``,
-in their per-layer form:
+bf16/f32 pool), and of ``pallas_paged_decode_attention_parts{,_int8}``:
 pool ``[P,Hkv,page,D]``, ``page_table [B,Jmax] int32``, ``lengths [B]
-int32`` (cached tokens), returning the unnormalised ``(acc [B,Hkv,G,D] f32,
-m [B,Hkv,G] f32, l [B,Hkv,G] f32)``; and of their multi-query twins
+int32`` (cached tokens), returning the unnormalised ``(acc [B,Hkv,G,D]
+f32, m [B,Hkv,G] f32, l [B,Hkv,G] f32)``; and of their multi-query twins
 ``pallas_paged_decode_attention_mq_parts{,_int8}`` (the speculative
 verify): ``q [B,Q,Hq,D]`` with ``offsets [B] int32``, parts per query
-position. The stacked ``layer=`` form serves paths that are not ported
-yet and is refused.
+position. The four parts wrappers also take the stacked ``layer=`` form:
+a whole ``[L,P,Hkv,page,D]`` pool (scales ``[L,P,Hkv,page]``) and a layer
+index, read through a zero-copy view of that layer.
 
 A tensor on the CPU goes to the plain version in ``ops/attention.py``; a
 CUDA tensor launches the kernel or raises. Each wrapper counts its
-launches in an integer ``launches`` attribute.
+launches (one per kernel launch) in an integer ``launches`` attribute.
+No kernel's cap reaches a caller: a group of more query heads per kv head
+than a kernel holds is cut into sub-groups (``tile_groups``), and a
+verify block of more query positions than the multi-query kernel holds
+into chunks (:func:`chunk_queries`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import operator
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -31,9 +36,10 @@ from .attention import (
     paged_mq_attention_int8_reference,
     paged_mq_attention_reference,
 )
-from .cuda_attention import _TARGET_BLOCKS, _check_inputs, _require, _stream
+from .cuda_attention import _TARGET_BLOCKS, _check_inputs, _require, _stream, tile_groups
 
 Parts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+Layer = Optional[Union[int, torch.Tensor]]
 _LIB = "paged_attention"
 # Positions per split: at least this many (8 per warp of the block).
 _MIN_SPLIT_POSITIONS = 32
@@ -50,12 +56,39 @@ def _paged_split(b: int, hkv: int, jmax: int, page: int) -> "tuple[int, int]":
     return -(-t // split_len), split_len
 
 
-def _refuse_stacked(name: str, layer) -> None:
-    if layer is not None:
-        raise ValueError(
-            f"{name}: the stacked layer= form is not ported; pass the "
-            "per-layer pool [P,Hkv,page,D]"
+def _select_layer(name: str, layer: Layer, *pools: torch.Tensor) -> "tuple[torch.Tensor, ...]":
+    """The stacked ``layer=`` form: each of ``pools`` (codes ``[L,P,Hkv,
+    page,D]``, scales ``[L,P,Hkv,page]``) viewed at ``layer``, a Python int
+    or a 0-d integer tensor. On a contiguous stacked pool the view is
+    contiguous and copies nothing. Without a layer the pools are the
+    per-layer ones and pass through."""
+    if layer is None:
+        return pools
+    if isinstance(layer, torch.Tensor):
+        _require(
+            layer.dim() == 0 and not layer.is_floating_point() and not layer.is_complex(),
+            f"{name}: layer must be an int or a 0-d integer tensor",
         )
+        layer = int(layer.item())
+    layer = operator.index(layer)
+    _require(pools[0].dim() == 5, f"{name}: with layer= the pools must be stacked [L,P,Hkv,page,D]")
+    n_layers = pools[0].shape[0]
+    _require(0 <= layer < n_layers, f"{name}: layer {layer} outside [0, {n_layers})")
+    return tuple(p.select(0, layer) for p in pools)
+
+
+def chunk_queries(run, q: torch.Tensor, offsets: torch.Tensor, q_max: int) -> Parts:
+    """The multi-query parts of ``q [B,Q,Hq,D]`` from ``run(q_chunk,
+    offsets_chunk)`` on chunks of at most ``q_max`` query positions: chunk
+    ``j0`` gets ``q[:, j0:j0+c]`` and ``offsets + j0`` (lengths unchanged),
+    and the chunks' ``(acc, m, l)`` are concatenated along Q. Query j's
+    parts depend only on its own limit ``min(lengths, offsets + j + 1)``,
+    so the result is the one-launch result."""
+    q_len = q.shape[1]
+    if q_len <= q_max:
+        return run(q, offsets)
+    parts = [run(q[:, j0 : j0 + q_max], offsets + j0) for j0 in range(0, q_len, q_max)]
+    return tuple(torch.cat(xs, dim=1) for xs in zip(*parts))
 
 
 def _check_single_query(name, q, k, v, scales, page_table, lengths) -> int:
@@ -66,8 +99,6 @@ def _check_single_query(name, q, k, v, scales, page_table, lengths) -> int:
     n_pool, hkv, page, _ = k.shape
     _require(k.shape == v.shape == (n_pool, hkv, page, d), f"{name}: pools must be [P,Hkv,page,D]")
     _require(hq % hkv == 0, f"{name}: Hq must be a multiple of Hkv")
-    group_max = _kernels.library(_LIB).paged_group_max()
-    _require(hq // hkv <= group_max, f"{name}: more than {group_max} query heads per kv head")
     _require(
         page_table.dim() == 2 and page_table.shape[0] == b and page_table.dtype == torch.int32,
         f"{name}: page_table must be int32 [B,Jmax]",
@@ -76,30 +107,37 @@ def _check_single_query(name, q, k, v, scales, page_table, lengths) -> int:
     return code
 
 
-def _launch_parts(name, q, k, v, k_scale, v_scale, page_table, lengths) -> Parts:
+def _launch_parts(name, wrapper, q, k, v, k_scale, v_scale, page_table, lengths) -> Parts:
     scales = [x for x in (k_scale, v_scale) if x is not None]
     code = _check_single_query(name, q, k, v, scales, page_table, lengths)
-    b, hq, d = q.shape
+    b, _, d = q.shape
     n_pool, hkv, page, _ = k.shape
     jmax = page_table.shape[1]
-    group = hq // hkv
     n_split, split_len = _paged_split(b, hkv, jmax, page)
     dev = q.device
-    part_acc = torch.empty((b * hkv, n_split, group, d), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((b * hkv, n_split, group, 2), dtype=torch.float32, device=dev)
-    acc = torch.empty((b, hkv, group, d), dtype=torch.float32, device=dev)
-    m = torch.empty((b, hkv, group), dtype=torch.float32, device=dev)
-    l = torch.empty((b, hkv, group), dtype=torch.float32, device=dev)
-    err = _kernels.library(_LIB).paged_parts(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if k_scale is None else k_scale.data_ptr(),
-        None if v_scale is None else v_scale.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, hq, hkv, n_pool, page, jmax, d, n_split, split_len, _stream(q),
-    )
-    _kernels.check(err, name, _LIB)
-    return acc, m, l
+    lib = _kernels.library(_LIB)
+
+    def launch(qs: torch.Tensor) -> Parts:
+        hq = qs.shape[1]
+        group = hq // hkv
+        part_acc = torch.empty((b * hkv, n_split, group, d), dtype=torch.float32, device=dev)
+        part_ml = torch.empty((b * hkv, n_split, group, 2), dtype=torch.float32, device=dev)
+        acc = torch.empty((b, hkv, group, d), dtype=torch.float32, device=dev)
+        m = torch.empty((b, hkv, group), dtype=torch.float32, device=dev)
+        l = torch.empty((b, hkv, group), dtype=torch.float32, device=dev)
+        err = lib.paged_parts(
+            code, qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if k_scale is None else k_scale.data_ptr(),
+            None if v_scale is None else v_scale.data_ptr(),
+            page_table.data_ptr(), lengths.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            b, hq, hkv, n_pool, page, jmax, d, n_split, split_len, _stream(qs),
+        )
+        _kernels.check(err, name, _LIB)
+        wrapper.launches += 1
+        return acc, m, l
+
+    return tile_groups(launch, q, hkv, lib.paged_group_max())
 
 
 def cuda_paged_decode_attention(
@@ -118,172 +156,187 @@ def cuda_paged_decode_attention(
         return paged_decode_attention_reference(q, k_pool, v_pool, page_table, lengths)
     _require(k_pool.dtype == v_pool.dtype == q.dtype, f"{name}: pools must be in q's dtype")
     code = _check_single_query(name, q, k_pool, v_pool, (), page_table, lengths)
-    b, hq, d = q.shape
+    b, _, d = q.shape
     n_pool, hkv, page, _ = k_pool.shape
     jmax = page_table.shape[1]
     n_split, split_len = _paged_split(b, hkv, jmax, page)
-    part_acc = torch.empty((b * hkv, n_split, hq // hkv, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b * hkv, n_split, hq // hkv, 2), dtype=torch.float32, device=q.device)
-    out = torch.empty_like(q)
-    err = _kernels.library(_LIB).paged_decode(
-        code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-        b, hq, hkv, n_pool, page, jmax, d, n_split, split_len, _stream(q),
-    )
-    _kernels.check(err, name, _LIB)
-    cuda_paged_decode_attention.launches += 1
-    return out
+    lib = _kernels.library(_LIB)
+
+    def launch(qs: torch.Tensor) -> torch.Tensor:
+        hq = qs.shape[1]
+        part_acc = torch.empty((b * hkv, n_split, hq // hkv, d), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((b * hkv, n_split, hq // hkv, 2), dtype=torch.float32, device=q.device)
+        out = torch.empty_like(qs)
+        err = lib.paged_decode(
+            code, qs.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+            lengths.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+            b, hq, hkv, n_pool, page, jmax, d, n_split, split_len, _stream(qs),
+        )
+        _kernels.check(err, name, _LIB)
+        cuda_paged_decode_attention.launches += 1
+        return out
+
+    return tile_groups(launch, q, hkv, lib.paged_group_max())
 
 
 def cuda_paged_decode_attention_parts(
     q: torch.Tensor,  # [B,Hq,D]
-    k_pool: torch.Tensor,  # [P,Hkv,page,D]
+    k_pool: torch.Tensor,  # [P,Hkv,page,D] — or [L,P,Hkv,page,D] with layer
     v_pool: torch.Tensor,
     page_table: torch.Tensor,  # [B,Jmax] int32
     lengths: torch.Tensor,  # [B] int32: cached tokens (the current one excluded)
     *,
-    layer: Optional[int] = None,
+    layer: Layer = None,  # an int or 0-d integer tensor: stacked pools
 ) -> Parts:
     """Unnormalised flash-decode parts over each row's cached pages."""
     name = "cuda_paged_decode_attention_parts"
-    _refuse_stacked(name, layer)
+    k_pool, v_pool = _select_layer(name, layer, k_pool, v_pool)
     if q.device.type == "cpu":
         return paged_decode_attention_parts_reference(q, k_pool, v_pool, page_table, lengths)
     _require(k_pool.dtype == v_pool.dtype == q.dtype, f"{name}: pools must be in q's dtype")
-    out = _launch_parts(name, q, k_pool, v_pool, None, None, page_table, lengths)
-    cuda_paged_decode_attention_parts.launches += 1
-    return out
+    return _launch_parts(name, cuda_paged_decode_attention_parts, q, k_pool, v_pool, None, None,
+                         page_table, lengths)
 
 
-def cuda_paged_decode_attention_parts_int8(
-    q: torch.Tensor,  # [B,Hq,D]
-    k_pool: torch.Tensor,  # [P,Hkv,page,D] int8 codes
-    k_scale: torch.Tensor,  # [P,Hkv,page] f32
-    v_pool: torch.Tensor,
-    v_scale: torch.Tensor,
-    page_table: torch.Tensor,  # [B,Jmax] int32
-    lengths: torch.Tensor,  # [B] int32
-    *,
-    layer: Optional[int] = None,
-) -> Parts:
-    """The parts over an int8 pool: scales fold into the scores (K) and
-    the probabilities (V); no dequantized page is built."""
-    name = "cuda_paged_decode_attention_parts_int8"
-    _refuse_stacked(name, layer)
-    if q.device.type == "cpu":
-        return paged_decode_attention_parts_int8_reference(
-            q, k_pool, k_scale, v_pool, v_scale, page_table, lengths
-        )
+def _check_int8_pool(name, k_pool, k_scale, v_pool, v_scale) -> None:
     _require(k_pool.dtype == v_pool.dtype == torch.int8, f"{name}: codes must be int8")
     _require(
         k_scale.dtype == v_scale.dtype == torch.float32
         and k_scale.shape == v_scale.shape == k_pool.shape[:3],
         f"{name}: scales must be float32 [P,Hkv,page]",
     )
-    out = _launch_parts(name, q, k_pool, v_pool, k_scale, v_scale, page_table, lengths)
-    cuda_paged_decode_attention_parts_int8.launches += 1
-    return out
 
 
-def _launch_mq_parts(name, q, k, v, k_scale, v_scale, page_table, lengths, offsets) -> Parts:
-    """The multi-query launch. Q = 1 runs B4/B5's launch with each row's
-    lengths cut to its causal limit, so the two kernels never differ in
-    summation order; Q over the kernel's limit raises."""
+def cuda_paged_decode_attention_parts_int8(
+    q: torch.Tensor,  # [B,Hq,D]
+    k_pool: torch.Tensor,  # [P,Hkv,page,D] int8 codes — or [L,P,...] with layer
+    k_scale: torch.Tensor,  # [P,Hkv,page] f32 — or [L,P,Hkv,page]
+    v_pool: torch.Tensor,
+    v_scale: torch.Tensor,
+    page_table: torch.Tensor,  # [B,Jmax] int32
+    lengths: torch.Tensor,  # [B] int32
+    *,
+    layer: Layer = None,
+) -> Parts:
+    """The parts over an int8 pool: scales fold into the scores (K) and
+    the probabilities (V); no dequantized page is built."""
+    name = "cuda_paged_decode_attention_parts_int8"
+    k_pool, k_scale, v_pool, v_scale = _select_layer(name, layer, k_pool, k_scale, v_pool, v_scale)
+    if q.device.type == "cpu":
+        return paged_decode_attention_parts_int8_reference(
+            q, k_pool, k_scale, v_pool, v_scale, page_table, lengths
+        )
+    _check_int8_pool(name, k_pool, k_scale, v_pool, v_scale)
+    return _launch_parts(name, cuda_paged_decode_attention_parts_int8, q, k_pool, v_pool,
+                         k_scale, v_scale, page_table, lengths)
+
+
+def _launch_mq_chunk(name, wrapper, q, k, v, k_scale, v_scale, page_table, lengths, offsets) -> Parts:
+    """One multi-query launch of at most ``paged_mq_query_max()`` query
+    positions. Q = 1 runs B4/B5's launch with each row's lengths cut to
+    its causal limit, so the two kernels never differ in summation order."""
     b, q_len, hq, d = q.shape
-    q_max = _kernels.library(_LIB).paged_mq_query_max()
-    _require(1 <= q_len <= q_max, f"{name}: {q_len} query positions per row, at most {q_max}")
-    _require(offsets.shape == (b,) and offsets.dtype == torch.int32, f"{name}: offsets must be int32 [B]")
     if q_len == 1:
-        _require(lengths.shape == (b,) and lengths.dtype == torch.int32, f"{name}: lengths must be int32 [B]")
         limit = torch.clamp(torch.minimum(lengths, offsets + 1), min=0)
-        acc, m, l = _launch_parts(name, q[:, 0], k, v, k_scale, v_scale, page_table, limit)
+        acc, m, l = _launch_parts(name, wrapper, q[:, 0], k, v, k_scale, v_scale, page_table, limit)
         return acc[:, None], m[:, None], l[:, None]
     scales = [x for x in (k_scale, v_scale) if x is not None]
     code = _check_inputs(name, q, k, v, page_table, lengths, offsets, *scales)
     n_pool, hkv, page, _ = k.shape
     _require(k.shape == v.shape == (n_pool, hkv, page, d), f"{name}: pools must be [P,Hkv,page,D]")
     _require(hq % hkv == 0, f"{name}: Hq must be a multiple of Hkv")
-    group_max = _kernels.library(_LIB).paged_group_max()
-    _require(hq // hkv <= group_max, f"{name}: more than {group_max} query heads per kv head")
     _require(
         page_table.dim() == 2 and page_table.shape[0] == b and page_table.dtype == torch.int32,
         f"{name}: page_table must be int32 [B,Jmax]",
     )
-    _require(lengths.shape == (b,) and lengths.dtype == torch.int32, f"{name}: lengths must be int32 [B]")
     jmax = page_table.shape[1]
-    group = hq // hkv
-    rows = q_len * group
     n_split, split_len = _paged_split(b, hkv, jmax, page)
     dev = q.device
-    part_acc = torch.empty((b * hkv, n_split, rows, d), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((b * hkv, n_split, rows, 2), dtype=torch.float32, device=dev)
-    acc = torch.empty((b, q_len, hkv, group, d), dtype=torch.float32, device=dev)
-    m = torch.empty((b, q_len, hkv, group), dtype=torch.float32, device=dev)
-    l = torch.empty((b, q_len, hkv, group), dtype=torch.float32, device=dev)
-    err = _kernels.library(_LIB).paged_mq_parts(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if k_scale is None else k_scale.data_ptr(),
-        None if v_scale is None else v_scale.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), offsets.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, q_len, hq, hkv, n_pool, page, jmax, d, n_split, split_len, _stream(q),
+    lib = _kernels.library(_LIB)
+
+    def launch(qs: torch.Tensor) -> Parts:
+        hq_s = qs.shape[2]
+        group = hq_s // hkv
+        rows = q_len * group
+        part_acc = torch.empty((b * hkv, n_split, rows, d), dtype=torch.float32, device=dev)
+        part_ml = torch.empty((b * hkv, n_split, rows, 2), dtype=torch.float32, device=dev)
+        acc = torch.empty((b, q_len, hkv, group, d), dtype=torch.float32, device=dev)
+        m = torch.empty((b, q_len, hkv, group), dtype=torch.float32, device=dev)
+        l = torch.empty((b, q_len, hkv, group), dtype=torch.float32, device=dev)
+        err = lib.paged_mq_parts(
+            code, qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if k_scale is None else k_scale.data_ptr(),
+            None if v_scale is None else v_scale.data_ptr(),
+            page_table.data_ptr(), lengths.data_ptr(), offsets.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            b, q_len, hq_s, hkv, n_pool, page, jmax, d, n_split, split_len, _stream(qs),
+        )
+        _kernels.check(err, name, _LIB)
+        wrapper.launches += 1
+        return acc, m, l
+
+    return tile_groups(launch, q, hkv, lib.paged_group_max())
+
+
+def _launch_mq_parts(name, wrapper, q, k, v, k_scale, v_scale, page_table, lengths, offsets) -> Parts:
+    """The multi-query launches: a block of more query positions than the
+    kernel holds goes in chunks (:func:`chunk_queries`)."""
+    b, q_len, _, _ = q.shape
+    _require(q_len >= 1, f"{name}: no query position")
+    _require(offsets.shape == (b,) and offsets.dtype == torch.int32, f"{name}: offsets must be int32 [B]")
+    _require(lengths.shape == (b,) and lengths.dtype == torch.int32, f"{name}: lengths must be int32 [B]")
+    return chunk_queries(
+        lambda qc, oc: _launch_mq_chunk(name, wrapper, qc.contiguous(), k, v, k_scale, v_scale,
+                                        page_table, lengths, oc),
+        q, offsets, _kernels.library(_LIB).paged_mq_query_max(),
     )
-    _kernels.check(err, name, _LIB)
-    return acc, m, l
 
 
 def cuda_paged_decode_attention_mq_parts(
     q: torch.Tensor,  # [B,Q,Hq,D]: Q candidate positions per row
-    k_pool: torch.Tensor,  # [P,Hkv,page,D]
+    k_pool: torch.Tensor,  # [P,Hkv,page,D] — or [L,P,Hkv,page,D] with layer
     v_pool: torch.Tensor,
     page_table: torch.Tensor,  # [B,Jmax] int32
     lengths: torch.Tensor,  # [B] int32: cached tokens (candidates excluded)
     offsets: torch.Tensor,  # [B] int32: absolute position of query 0
     *,
-    layer: Optional[int] = None,
+    layer: Layer = None,
 ) -> Parts:
     """Multi-query unnormalised parts over each row's cached pages, query
     j cut at ``kpos < min(lengths[b], offsets[b] + j + 1)``: ``(acc
     [B,Q,Hkv,G,D], m [B,Q,Hkv,G], l [B,Q,Hkv,G])``."""
     name = "cuda_paged_decode_attention_mq_parts"
-    _refuse_stacked(name, layer)
+    k_pool, v_pool = _select_layer(name, layer, k_pool, v_pool)
     if q.device.type == "cpu":
         return paged_mq_attention_reference(q, k_pool, v_pool, page_table, lengths, offsets)
     _require(k_pool.dtype == v_pool.dtype == q.dtype, f"{name}: pools must be in q's dtype")
-    out = _launch_mq_parts(name, q, k_pool, v_pool, None, None, page_table, lengths, offsets)
-    cuda_paged_decode_attention_mq_parts.launches += 1
-    return out
+    return _launch_mq_parts(name, cuda_paged_decode_attention_mq_parts, q, k_pool, v_pool, None,
+                            None, page_table, lengths, offsets)
 
 
 def cuda_paged_decode_attention_mq_parts_int8(
     q: torch.Tensor,  # [B,Q,Hq,D]
-    k_pool: torch.Tensor,  # [P,Hkv,page,D] int8 codes
-    k_scale: torch.Tensor,  # [P,Hkv,page] f32
+    k_pool: torch.Tensor,  # [P,Hkv,page,D] int8 codes — or [L,P,...] with layer
+    k_scale: torch.Tensor,  # [P,Hkv,page] f32 — or [L,P,Hkv,page]
     v_pool: torch.Tensor,
     v_scale: torch.Tensor,
     page_table: torch.Tensor,  # [B,Jmax] int32
     lengths: torch.Tensor,  # [B] int32
     offsets: torch.Tensor,  # [B] int32
     *,
-    layer: Optional[int] = None,
+    layer: Layer = None,
 ) -> Parts:
     """The multi-query parts over an int8 pool, scales folded as in
     :func:`cuda_paged_decode_attention_parts_int8`."""
     name = "cuda_paged_decode_attention_mq_parts_int8"
-    _refuse_stacked(name, layer)
+    k_pool, k_scale, v_pool, v_scale = _select_layer(name, layer, k_pool, k_scale, v_pool, v_scale)
     if q.device.type == "cpu":
         return paged_mq_attention_int8_reference(
             q, k_pool, k_scale, v_pool, v_scale, page_table, lengths, offsets
         )
-    _require(k_pool.dtype == v_pool.dtype == torch.int8, f"{name}: codes must be int8")
-    _require(
-        k_scale.dtype == v_scale.dtype == torch.float32
-        and k_scale.shape == v_scale.shape == k_pool.shape[:3],
-        f"{name}: scales must be float32 [P,Hkv,page]",
-    )
-    out = _launch_mq_parts(name, q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, offsets)
-    cuda_paged_decode_attention_mq_parts_int8.launches += 1
-    return out
+    _check_int8_pool(name, k_pool, k_scale, v_pool, v_scale)
+    return _launch_mq_parts(name, cuda_paged_decode_attention_mq_parts_int8, q, k_pool, v_pool,
+                            k_scale, v_scale, page_table, lengths, offsets)
 
 
 cuda_paged_decode_attention.launches = 0

@@ -19,8 +19,11 @@ with ``write_prefill`` and decoded through ``forward`` with the engine's
 paged dispatch, whose attention is B6), and speculative sessions over the
 paged pool (``decode_open`` and ``step``): an n-gram draft over 8 rows
 with a bf16 and an int8 pool, whose verify runs the multi-query kernels
-B7/B8, ``generate_speculative`` and ``generate``'s routing, and a
-self-draft whose draft steps run B2. The w4a8 probe
+B7/B8, ``generate_speculative`` and ``generate``'s routing, an n-gram
+session at k 12 (its 13-position verify block runs B7 in two launches a
+layer), and a self-draft whose draft steps run B2. The kernel rows also
+hold the stacked ``layer=`` form of B4/B5/B7/B8 bit for bit against the
+per-layer call. The w4a8 probe
 (``scripts/torch_w4a8_probe.py``) drives B11 and B9.
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
@@ -116,6 +119,16 @@ SPEC_K = 4
 SPEC_NEW_TOKENS = 134
 SELFDRAFT_ROWS = 4
 SELFDRAFT_NEW_TOKENS = 64
+# The self-draft's draft cache midway through its session (B2's batch):
+# the study prompt and the 300-, 700- and 1,100-token contexts plus 32
+# generated tokens.
+SELFDRAFT_LENGTHS = [94, 332, 732, 1132]
+# The long-k n-gram session: k = 12 makes a verify block of 13 query
+# positions, which the multi-query kernel (9 at most) takes in two
+# launches; a few greedy rows at a few rounds.
+LONG_SPEC_K = 12
+LONG_SPEC_ROWS = 4
+LONG_SPEC_NEW_TOKENS = 40
 # The write-through phase's greedy decode steps (B6 launches n_layers ×
 # this many times).
 WRITE_THROUGH_STEPS = 64
@@ -205,12 +218,13 @@ def kernel_phase(torch, ca, plain, timer):
         emit({"phase": "kernel", **row})
         summary.setdefault(row["name"], row)
 
-    # (label, hq, hkv, d, length or S, capacity T, offset)
+    # (label, hq, hkv, d, the rows' lengths, capacity T)
     decode_shapes = [
-        ("qwen2:1.5b", 12, 2, 128, 200, 320, None),
-        ("qwen2:1.5b", 12, 2, 128, 2100, 3104, None),
-        ("phi3:3.8b", 32, 32, 96, 1000, 1024, None),
-        ("gemma:2b", 8, 1, 256, 1000, 1024, None),
+        ("qwen2:1.5b", 12, 2, 128, [200], 320),
+        ("qwen2:1.5b", 12, 2, 128, [2100], 3104),
+        ("qwen2:1.5b self-draft batch", 12, 2, 128, SELFDRAFT_LENGTHS, 1280),
+        ("phi3:3.8b", 32, 32, 96, [1000], 1024),
+        ("gemma:2b", 8, 1, 256, [1000], 1024),
     ]
     # (label, batch, hq, hkv, d, S, capacity T, offset)
     prefill_shapes = [
@@ -255,14 +269,15 @@ def kernel_phase(torch, ca, plain, timer):
             "bound_ms": b_ms, "bound_by": b_by,
         })
 
-    for label, hq, hkv, d, length, t, _ in decode_shapes:
-        lengths = torch.tensor([length], dtype=torch.int32, device="cuda")
+    for label, hq, hkv, d, lens, t in decode_shapes:
+        b = len(lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         for name in ("cuda_decode_attention", "cuda_decode_attention_int8"):
             errs = {}
             for dtype in (torch.float32, torch.bfloat16):
-                q = rnd(1, hq, d, dtype=dtype)
-                k = rnd(1, hkv, t, d, dtype=dtype)
-                v = rnd(1, hkv, t, d, dtype=dtype)
+                q = rnd(b, hq, d, dtype=dtype)
+                k = rnd(b, hkv, t, d, dtype=dtype)
+                v = rnd(b, hkv, t, d, dtype=dtype)
                 if name == "cuda_decode_attention":
                     args = (q, k, v, lengths)
                     fn, ref_fn = ca.cuda_decode_attention, plain.decode_attention_reference
@@ -271,24 +286,34 @@ def kernel_phase(torch, ca, plain, timer):
                     vq, vs = quantize_kv_vector(v)
                     args = (q, kq, ks, vq, vs, lengths)
                     fn, ref_fn = ca.cuda_decode_attention_int8, plain.decode_attention_int8_reference
+                fn.launches = 0
                 out = fn(*args)
+                per_call = fn.launches
                 ref = ref_fn(*args)
                 torch.cuda.synchronize()
                 errs[dtype] = (out.float() - ref.float()).abs().max().item()
             assert errs[torch.float32] <= F32_ATOL, (label, name, "f32", errs)
             assert errs[torch.bfloat16] <= BF16_ATOL, (label, name, "bf16", errs)
+            assert per_call == 1, (label, name, per_call, "launches a call")
             ms = timer.ms(lambda: fn(*args))
             plain_ms = timer.ms(lambda: ref_fn(*args), max_iters=20)
             if name == "cuda_decode_attention":
-                library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-                    q[:, :, None], k[:, :, :length], v[:, :, :length], enable_gqa=True))
-                kv_bytes = 2 * hkv * length * d * 2
+                if b == 1:
+                    length = lens[0]
+                    library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                        q[:, :, None], k[:, :, :length], v[:, :, :length], enable_gqa=True))
+                else:
+                    mask = (torch.arange(t, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+                    library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
+                kv_bytes = 2 * hkv * sum(lens) * d * 2
             else:
                 library_ms = None  # no single PyTorch call reads int8 codes + scales
-                kv_bytes = 2 * hkv * length * (d + 4)
-            b_ms, b_by = bound(2 * hq * d * 2 + kv_bytes + 4, 4 * hq * d * length)
+                kv_bytes = 2 * hkv * sum(lens) * (d + 4)
+            b_ms, b_by = bound(2 * b * hq * d * 2 + kv_bytes + 4 * b, 4 * hq * d * sum(lens))
             record({
-                "name": name, "shape": label, "length": length, "T": t,
+                "name": name, "shape": label, "B": b, "length": lens[0] if b == 1 else lens, "T": t,
+                "launches_per_call": per_call,
                 "max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": b_ms, "bound_by": b_by,
@@ -512,7 +537,7 @@ def mq_bound(b, q_len, hq, hkv, d, lengths, offsets, kv_bytes_per_token, q_bytes
     return bound(bytes_moved, 4 * hq * d * visible), frontier, visible
 
 
-def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector):
+def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, kernels):
     """B7/B8 against their plain versions: at the speculative sessions' own
     batch (8 rows of 62–1,100 tokens, qwen2:1.5b widths, a session's table
     width) at Q 5 (k = 4) and Q 1, with offsets that cut inside the cached
@@ -521,15 +546,20 @@ def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector):
     ``generate_speculative``; at B 4 with an empty row and a row whose
     first query sees nothing; and at the phi3/gemma head dims. f32 to 1e-4, bf16 to 2e-2 (acc/l, m, l),
     queries with no visible token exactly (0, -inf, 0); at Q 1 each equals
-    B4/B5 on lengths cut to the causal limit, bit for bit; Q 10 raises.
+    B4/B5 on lengths cut to the causal limit, bit for bit; Q 10, 13 and
+    17 (past the kernel's 9) run in chunks, one counted launch each.
     Returns the engine-batch Q 5 row of each kernel for the summary."""
     gen = torch.Generator(device="cuda").manual_seed(3)
+    q_max = kernels.library("paged_attention").paged_mq_query_max()
     eng = spec_prompt_lengths()
     eng_cut = [n - 40 if i % 2 else n + 7 for i, n in enumerate(eng)]
     # (label, batch, hq, hkv, d, lengths, offsets, Q)
     shapes = [
         ("qwen2:1.5b engine batch", 8, 12, 2, 128, eng, eng_cut, SPEC_K + 1),
         ("qwen2:1.5b engine batch", 8, 12, 2, 128, eng, eng_cut, 1),
+        ("qwen2:1.5b engine batch", 8, 12, 2, 128, eng, eng_cut, 10),  # two launches
+        ("qwen2:1.5b engine batch", 8, 12, 2, 128, eng, eng_cut, LONG_SPEC_K + 1),
+        ("qwen2:1.5b engine batch", 8, 12, 2, 128, eng, eng_cut, 17),
         ("qwen2:1.5b one-row session", 1, 12, 2, 128, eng[:1], [eng[0] + 20], SPEC_K + 1),
         ("qwen2:1.5b", 4, 12, 2, 128, [0, 1, 300, 1100], [0, -1, 297, 1100], SPEC_K + 1),
         ("phi3:3.8b", 4, 32, 32, 96, [62, 300, 700, 1100], [62, 290, 700, 1000], SPEC_K + 1),
@@ -561,7 +591,10 @@ def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector):
                     pool = (k, v)
                     kv_bytes_per_token = 2 * hkv * d * q.element_size()
                 args = (q, *pool, table, lens, offsets)
+                fn.launches = 0
                 got = fn(*args)
+                chunks = fn.launches
+                assert chunks == -(-q_len // q_max), (label, name, q_len, chunks)
                 want = ref_fn(*args)
                 torch.cuda.synchronize()
                 errs[dtype], ok, empty_exact = parts_errors(torch, got, want, tol)
@@ -581,6 +614,7 @@ def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector):
                 "name": name, "shape": label, "B": b, "Q": q_len, "lengths": lengths,
                 "offsets": offs, "frontier_tokens": frontier, "visible_pairs": visible,
                 "empty_queries_exact": empties, "q1_equals_single_query_kernel": q1_equal,
+                "launches_per_call": chunks,
                 "max_abs_err": errs[torch.bfloat16]["out"],
                 "max_abs_err_m_l_bf16": [errs[torch.bfloat16]["m"], errs[torch.bfloat16]["l"]],
                 "max_abs_err_f32": errs[torch.float32],
@@ -591,18 +625,52 @@ def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector):
             }
             emit({"phase": "kernel", **row})
             summary.setdefault(name, row)
-    for name, (fn, _, _) in mq.items():
-        _, k, v, table, lens = paged_inputs(torch, gen, 2, 12, 2, 128, [62, 300], torch.bfloat16)
-        pool = (k, v) if name == "cuda_paged_decode_attention_mq_parts" else (
-            *quantize_kv_vector(k), *quantize_kv_vector(v))
-        q = torch.zeros((2, 10, 12, 128), dtype=torch.bfloat16, device="cuda")
-        try:
-            fn(q, *pool, table, lens, lens)
-        except ValueError as err:
-            emit({"phase": "kernel", "name": name, "Q": 10, "raised": str(err)})
-        else:
-            raise AssertionError(f"{name} took 10 query positions")
     return summary
+
+
+def stacked_layer_kernel_phase(torch, cpa, timer, quantize_kv_vector):
+    """The stacked ``layer=`` form of B4/B5/B7/B8: a [L,P,Hkv,page,D] pool of
+    the speculative session's rows (qwen2:1.5b widths, L 4), read at layer
+    2 (an int and a 0-d tensor) and held bit for bit against the call on
+    that layer's own pool; both timed."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n_layers, layer = 4, 2
+    eng = spec_prompt_lengths()
+    q, k, v, table, lens = paged_inputs(torch, gen, 8, 12, 2, 128, eng, torch.bfloat16, session=True)
+    k = torch.stack([torch.randn(k.shape, generator=gen, device="cuda").to(k.dtype)
+                     for _ in range(n_layers)])
+    v = torch.stack([torch.randn(v.shape, generator=gen, device="cuda").to(v.dtype)
+                     for _ in range(n_layers)])
+    kq, ks = quantize_kv_vector(k)
+    vq, vs = quantize_kv_vector(v)
+    qm = torch.randn((8, SPEC_K + 1, 12, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    offsets = torch.tensor(eng, dtype=torch.int32, device="cuda")
+    cases = {
+        "cuda_paged_decode_attention_parts": (
+            cpa.cuda_paged_decode_attention_parts, (q,), (k, v), (table, lens)),
+        "cuda_paged_decode_attention_parts_int8": (
+            cpa.cuda_paged_decode_attention_parts_int8, (q,), (kq, ks, vq, vs), (table, lens)),
+        "cuda_paged_decode_attention_mq_parts": (
+            cpa.cuda_paged_decode_attention_mq_parts, (qm,), (k, v), (table, lens, offsets)),
+        "cuda_paged_decode_attention_mq_parts_int8": (
+            cpa.cuda_paged_decode_attention_mq_parts_int8, (qm,), (kq, ks, vq, vs),
+            (table, lens, offsets)),
+    }
+    for name, (fn, head, pool, tail) in cases.items():
+        per_layer = tuple(p[layer] for p in pool)
+        want = fn(*head, *per_layer, *tail)
+        equal = True
+        for form in (layer, torch.tensor(layer, device="cuda")):
+            got = fn(*head, *pool, *tail, layer=form)
+            equal = equal and all(torch.equal(a, b) for a, b in zip(got, want))
+        torch.cuda.synchronize()
+        assert equal, (name, "layer= differs from the per-layer call")
+        emit({
+            "phase": "kernel", "name": name, "form": "layer=", "L": n_layers, "layer": layer,
+            "B": 8, "Q": qm.shape[1] if "mq" in name else 1, "bit_equal_to_per_layer_call": equal,
+            "ms": timer.ms(lambda: fn(*head, *pool, *tail, layer=layer)),
+            "per_layer_ms": timer.ms(lambda: fn(*head, *per_layer, *tail)),
+        })
 
 
 def with_junk(torch, gen, table, lengths, n_pool):
@@ -819,6 +887,13 @@ def selfdraft_requests(GenerationRequest):
     prompts = [STUDY_PROMPT.format(words=STUDY_WORDS[0])] + [context_prompt(n) for n in (300, 700, 1100)]
     return [GenerationRequest(MODEL, p, SELFDRAFT_NEW_TOKENS, stop_at_eos=False)
             for p in prompts[:SELFDRAFT_ROWS]]
+
+
+def long_spec_requests(GenerationRequest):
+    """The long-k session's greedy rows: the self-draft's prompts at
+    LONG_SPEC_NEW_TOKENS new tokens."""
+    return [dataclasses.replace(r, max_new_tokens=LONG_SPEC_NEW_TOKENS)
+            for r in selfdraft_requests(GenerationRequest)[:LONG_SPEC_ROWS]]
 
 
 def batch_requests(GenerationRequest):
@@ -1245,11 +1320,12 @@ def drain(session):
     return results
 
 
-def spec_engine_phase(phase, engine, requests, kernels, n_layers, eng_mod, verify, draft_layers=0):
+def spec_engine_phase(phase, engine, requests, kernels, n_layers, eng_mod, verify, draft_layers=0,
+                      k=SPEC_K, verify_launches=1):
     """Open a speculative session over ``requests`` (warm first, on four
     of them with 8 new tokens) and step it until every row retires. The
-    verify kernel ``verify`` (B7 or B8) ran once per layer per verify
-    round; the prefill kernel once per layer per prefill forward (the
+    verify kernel ``verify`` (B7 or B8) ran ``verify_launches`` times (the
+    chunks of a k + 1 block) per layer per verify round; the prefill kernel once per layer per prefill forward (the
     target's grouped forwards, and with a model draft of ``draft_layers``
     layers, each row's draft prefill chunks); a model draft's steps ran
     B2 k + 1 times per layer per round; no other kernel ran. Returns the
@@ -1284,10 +1360,10 @@ def spec_engine_phase(phase, engine, requests, kernels, n_layers, eng_mod, verif
     forwards = prefill_forwards(eng_mod, prompts)
     draft_chunks = sum(len(eng_mod._prompt_chunks(n)) for n in prompts) if draft_layers else 0
     expected = {fn.__name__: 0 for fn in kernels}
-    expected[verify] = n_layers * rounds
+    expected[verify] = n_layers * rounds * verify_launches
     expected["cuda_prefill_attention"] = n_layers * forwards + draft_layers * draft_chunks
     if draft_layers:
-        expected["cuda_decode_attention"] = draft_layers * (SPEC_K + 1) * rounds
+        expected["cuda_decode_attention"] = draft_layers * (k + 1) * rounds
     for res, x in zip(results, spec):
         emit({
             "phase": phase, "prompt_tokens": res.prompt_tokens,
@@ -1296,7 +1372,8 @@ def spec_engine_phase(phase, engine, requests, kernels, n_layers, eng_mod, verif
             "prefill_s": res.prefill_s, "decode_s": res.decode_s,
         })
     emit({
-        "phase": phase + "_summary", "rows": len(results), "verify_rounds": rounds,
+        "phase": phase + "_summary", "rows": len(results), "k": k,
+        "verify_launches_per_layer_round": verify_launches, "verify_rounds": rounds,
         "accepted": accepted, "drafted": drafted, "acceptance": accepted / drafted,
         "decode_tokens_per_round_all_rows": (tokens - len(results)) / rounds,
         "generated_tokens": tokens, **times,
@@ -1431,7 +1508,8 @@ def main() -> int:
     timer = Timer(torch)
     summary = kernel_phase(torch, ca, plain, timer)
     summary.update(paged_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector))
-    summary.update(paged_mq_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector))
+    summary.update(paged_mq_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector, kernels))
+    stacked_layer_kernel_phase(torch, cpa, timer, qmod.quantize_kv_vector)
     summary.update(int4_kernel_phase(torch, cq, qplain, qmod, timer))
     summary.update(paged_decode_kernel_phase(torch, cpa, plain, timer))
     summary.update(w4a8_kernel_phase(torch, cq, qplain, qmod, timer))
@@ -1521,6 +1599,19 @@ def main() -> int:
         spec_integration_phase(torch, engine, pk, plain, tfm, eng_mod)
         del engine, results
         torch.cuda.empty_cache()
+    # k = 12: the verify block of 13 positions runs B7 in two launches a layer.
+    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True,
+                                 speculative={MODEL: ("ngram", LONG_SPEC_K)})
+    engine.load_model(MODEL)
+    n_layers = engine._models[MODEL].cfg.n_layers
+    q_max = kernels.library("paged_attention").paged_mq_query_max()
+    counts, _ = spec_engine_phase("engine_spec_ngram_k12", engine,
+                                  long_spec_requests(backend.GenerationRequest), all_kernels, n_layers,
+                                  eng_mod, mq_names[0], k=LONG_SPEC_K,
+                                  verify_launches=-(-(LONG_SPEC_K + 1) // q_max))
+    add(counts)
+    del engine
+    torch.cuda.empty_cache()
     engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, speculative={MODEL: (MODEL, SPEC_K)})
     engine.load_model(MODEL)
     n_layers = engine._models[MODEL].cfg.n_layers

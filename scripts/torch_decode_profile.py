@@ -47,7 +47,7 @@ PROMPT = "In 100 words, please give me information about photosynthesis"
 CATEGORIES = (
     ("attention (port kernels)", (
         "decode_partial_kernel", "decode_merge_kernel", "parts_merge_kernel", "prefill_kernel",
-        "mq_partial_kernel")),
+        "mq_partial_kernel", "decode_tile_kernel", "prefill_mma_kernel", "prefill_merge_kernel")),
     ("int4 matmul (port kernels)", ("int4_partial_kernel", "int4_merge_kernel")),
     ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
     ("reduction", ("reduce",)),

@@ -162,7 +162,8 @@ def test_paged_mq_parts_kernels_match_plain_versions_on_the_card(dtype, tol, q_l
     the cached range (row 2's queries see 101–105 of its 129 tokens), a
     first query that sees nothing (row 1, offset -1) and an empty row; at
     Q = 1 each equals B4/B5 on lengths cut to the causal limit, bit for
-    bit; Q over the kernel's limit raises."""
+    bit; Q 10 and 17, past the kernel's limit of 9, go in chunks and
+    match the plain version too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
@@ -188,9 +189,11 @@ def test_paged_mq_parts_kernels_match_plain_versions_on_the_card(dtype, tol, q_l
         cut = torch.clamp(torch.minimum(lens, offsets + 1), min=0)
         for a, b in zip(one, single(q[:, 0].contiguous(), *pool, table, cut)):
             assert torch.equal(a[:, 0], b)
-        too_many = torch.zeros((len(lengths), 10, hq, d), dtype=dtype, device="cuda")
-        with pytest.raises(ValueError, match="query positions"):
-            fn(too_many, *pool, table, lens, offsets)
+        for long_q in (10, 17):  # past the kernel's 9: the wrapper launches chunks
+            ql = _to_torch(_normal(rng, (len(lengths), long_q, hq, d)), dtype).cuda()
+            got = fn(ql, *pool, table, lens, offsets)
+            assert got[0].shape == (len(lengths), long_q, hkv, hq // hkv, d)
+            _assert_parts_close(got, ref_fn(ql, *pool, table, lens, offsets), tol)
     torch.cuda.synchronize()
 
 
@@ -245,3 +248,186 @@ def test_w4a8_kernel_equals_plain_version_on_the_card(dtype, m, in_dim, out_dim)
     assert out.dtype == torch.float32 and out.shape == (m, out_dim)
     assert torch.equal(out, ref), (out - ref).abs().max().item()
     torch.cuda.synchronize()
+
+
+PREFILL_CASES = [  # (S, offset, B)
+    (s, off, b) for s in (1, 7, 63, 65, 130) for off in (0, 100, 2048) for b in (1, 3)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("group", [1, 6, 8])
+def test_prefill_kernel_matches_plain_version_on_the_card(dtype, tol, d, group):
+    """B1 (bf16: the tensor-core kernel, with its key splits where the
+    blocks are few; f32: the CUDA-core kernel) against its plain version at
+    S 1, 7, 63, 65 and 130, offsets 0, 100 and 2048, B 1 and 3, over a
+    cache with 37 positions of slack past the chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    rng = np.random.default_rng(14)
+    hkv = 2
+    for s, offset, b in PREFILL_CASES:
+        t = offset + s + 37
+        q = _to_torch(_normal(rng, (b, s, hkv * group, d)), dtype).cuda()
+        k = _to_torch(_normal(rng, (b, hkv, t, d)), dtype).cuda()
+        v = _to_torch(_normal(rng, (b, hkv, t, d)), dtype).cuda()
+        out = cuda_attention.cuda_prefill_attention(q, k, v, offset)
+        ref = port_attn.prefill_attention_cached(q, k, v, offset)
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), ref.float(), **tol, msg=f"S {s} offset {offset} B {b}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64)])
+def test_decode_kernels_at_split_edges_match_plain_versions_on_the_card(dtype, tol, hq, hkv, d):
+    """B2 and B3 against their plain versions at lengths 1, 63, 64, 65, 2100
+    and the capacity T (one row each, so the kernel sizes one, one, one,
+    two and many splits from the row), then a B 4 batch with a row of
+    length 1 beside long rows; the kernel's tickets stay zero after every
+    call (the last split of each row resets its own)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    rng = np.random.default_rng(15)
+    t = 2200
+    cases = [[n] for n in (1, 63, 64, 65, 2100, t)] + [[1, 300, 2100, t]]
+    for lengths in cases:
+        b = len(lengths)
+        q = _to_torch(_normal(rng, (b, hq, d)), dtype).cuda()
+        k = _to_torch(_normal(rng, (b, hkv, t, d)), dtype).cuda()
+        v = _to_torch(_normal(rng, (b, hkv, t, d)), dtype).cuda()
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        out = cuda_attention.cuda_decode_attention(q, k, v, lens)
+        ref = port_attn.decode_attention_reference(q, k, v, lens)
+        torch.testing.assert_close(out.float(), ref.float(), **tol, msg=f"lengths {lengths}")
+        kq, ks = quantize_kv_vector(k)
+        vq, vs = quantize_kv_vector(v)
+        out = cuda_attention.cuda_decode_attention_int8(q, kq, ks, vq, vs, lens)
+        ref = port_attn.decode_attention_int8_reference(q, kq, ks, vq, vs, lens)
+        torch.testing.assert_close(out.float(), ref.float(), **tol, msg=f"int8 lengths {lengths}")
+    torch.cuda.synchronize()
+    assert not torch.any(cuda_attention._TICKETS[q.device]).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+def test_group_above_a_kernel_cap_runs_in_sub_groups_on_the_card(dtype, tol):
+    """G 16 (past the decode kernels' 8) through B2/B3, B4/B5, B6 and
+    B7/B8, and G 128 (past the prefill block's 64 rows) through B1: each
+    wrapper launches sub-groups against the same cache or pool and matches
+    the plain version, which has no cap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+
+    rng = np.random.default_rng(16)
+    hq, hkv, d, t = 32, 2, 128, 700
+    q = _to_torch(_normal(rng, (2, hq, d)), dtype).cuda()
+    k = _to_torch(_normal(rng, (2, hkv, t, d)), dtype).cuda()
+    v = _to_torch(_normal(rng, (2, hkv, t, d)), dtype).cuda()
+    lens = torch.tensor([5, 700], dtype=torch.int32, device="cuda")
+    before = cuda_attention.cuda_decode_attention.launches
+    out = cuda_attention.cuda_decode_attention(q, k, v, lens)
+    assert cuda_attention.cuda_decode_attention.launches == before + 2
+    torch.testing.assert_close(out.float(), port_attn.decode_attention_reference(q, k, v, lens).float(), **tol)
+    kq, ks = quantize_kv_vector(k)
+    vq, vs = quantize_kv_vector(v)
+    out = cuda_attention.cuda_decode_attention_int8(q, kq, ks, vq, vs, lens)
+    ref = port_attn.decode_attention_int8_reference(q, kq, ks, vq, vs, lens)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    qp = _to_torch(_normal(rng, (1, 3, 128, 64)), dtype).cuda()
+    kp = _to_torch(_normal(rng, (1, 1, 40, 64)), dtype).cuda()
+    vp = _to_torch(_normal(rng, (1, 1, 40, 64)), dtype).cuda()
+    out = cuda_attention.cuda_prefill_attention(qp, kp, vp, 30)
+    torch.testing.assert_close(out.float(), port_attn.prefill_attention_cached(qp, kp, vp, 30).float(), **tol)
+
+    lengths = [0, 129, 1100]
+    offsets = torch.tensor([0, 100, 1100], dtype=torch.int32, device="cuda")
+    q1, kpool, vpool, table, plens = _paged_inputs(rng, dtype, 3, hq, hkv, d, 128, lengths, "cuda")
+    _assert_parts_close(cpa.cuda_paged_decode_attention_parts(q1, kpool, vpool, table, plens),
+                        port_attn.paged_decode_attention_parts_reference(q1, kpool, vpool, table, plens), tol)
+    kq, ks = quantize_kv_vector(kpool)
+    vq, vs = quantize_kv_vector(vpool)
+    _assert_parts_close(
+        cpa.cuda_paged_decode_attention_parts_int8(q1, kq, ks, vq, vs, table, plens),
+        port_attn.paged_decode_attention_parts_int8_reference(q1, kq, ks, vq, vs, table, plens), tol)
+    full = plens + 1
+    out = cpa.cuda_paged_decode_attention(q1, kpool, vpool, table, full)
+    ref = port_attn.paged_decode_attention_reference(q1, kpool, vpool, table, full)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    qm = _to_torch(_normal(rng, (3, 5, hq, d)), dtype).cuda()
+    _assert_parts_close(
+        cpa.cuda_paged_decode_attention_mq_parts(qm, kpool, vpool, table, plens, offsets),
+        port_attn.paged_mq_attention_reference(qm, kpool, vpool, table, plens, offsets), tol)
+    _assert_parts_close(
+        cpa.cuda_paged_decode_attention_mq_parts_int8(qm, kq, ks, vq, vs, table, plens, offsets),
+        port_attn.paged_mq_attention_int8_reference(qm, kq, ks, vq, vs, table, plens, offsets), tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stacked_layer_form_equals_the_per_layer_call_on_the_card(dtype):
+    """The four parts wrappers on a stacked [L,P,Hkv,page,D] pool with
+    ``layer=`` (an int and a 0-d tensor) equal the call on that layer's
+    pool bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+
+    rng = np.random.default_rng(17)
+    hq, hkv, d, n_layers = 12, 2, 128, 3
+    lengths = [1, 300, 1100]
+    offsets = torch.tensor([1, 290, 1100], dtype=torch.int32, device="cuda")
+    q, k, v, table, lens = _paged_inputs(rng, dtype, 3, hq, hkv, d, 128, lengths, "cuda")
+    ks_ = torch.stack([k] + [torch.randn_like(k) for _ in range(n_layers - 1)])
+    vs_ = torch.stack([v] + [torch.randn_like(v) for _ in range(n_layers - 1)])
+    kq, ksc = quantize_kv_vector(ks_)
+    vq, vsc = quantize_kv_vector(vs_)
+    qm = _to_torch(_normal(rng, (3, 5, hq, d)), dtype).cuda()
+    for layer in range(n_layers):
+        for form in (layer, torch.tensor(layer, device="cuda")):
+            pairs = [
+                (cpa.cuda_paged_decode_attention_parts(q, ks_, vs_, table, lens, layer=form),
+                 cpa.cuda_paged_decode_attention_parts(q, ks_[layer], vs_[layer], table, lens)),
+                (cpa.cuda_paged_decode_attention_parts_int8(q, kq, ksc, vq, vsc, table, lens, layer=form),
+                 cpa.cuda_paged_decode_attention_parts_int8(q, kq[layer], ksc[layer], vq[layer],
+                                                            vsc[layer], table, lens)),
+                (cpa.cuda_paged_decode_attention_mq_parts(qm, ks_, vs_, table, lens, offsets, layer=form),
+                 cpa.cuda_paged_decode_attention_mq_parts(qm, ks_[layer], vs_[layer], table, lens, offsets)),
+                (cpa.cuda_paged_decode_attention_mq_parts_int8(qm, kq, ksc, vq, vsc, table, lens, offsets,
+                                                               layer=form),
+                 cpa.cuda_paged_decode_attention_mq_parts_int8(qm, kq[layer], ksc[layer], vq[layer],
+                                                               vsc[layer], table, lens, offsets)),
+            ]
+            for got, want in pairs:
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_prefill_kernel_runs_on_the_tensor_cores():
+    """The built attention library's SASS: the bf16 prefill kernel issues
+    HMMA (mma.sync) instructions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import subprocess
+    from pathlib import Path
+
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import _kernels
+
+    _kernels.library("attention")
+    cuobjdump = Path(_kernels._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_kernels.library_path("attention"))],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    functions = sass.split("Function : ")[1:]
+    prefill = [f for f in functions if "prefill_mma_kernel" in f.splitlines()[0]]
+    assert len(prefill) == 4, [f.splitlines()[0] for f in functions]  # D 64, 96, 128, 256
+    for body in prefill:
+        assert "HMMA" in body, body.splitlines()[0]

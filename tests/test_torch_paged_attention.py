@@ -142,12 +142,3 @@ def test_table_entries_are_clipped_to_the_pool():
     b = tpa.paged_decode_attention_parts_reference(tq, tk, tv, *_t(clipped), tl)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-
-
-@pytest.mark.parametrize(
-    "fn", [cpa.cuda_paged_decode_attention_parts, cpa.cuda_paged_decode_attention_parts_int8]
-)
-def test_stacked_layer_form_is_refused(fn):
-    n_args = 5 if fn is cpa.cuda_paged_decode_attention_parts else 7
-    with pytest.raises(ValueError, match="layer="):
-        fn(*[torch.zeros(1)] * n_args, layer=0)

@@ -168,15 +168,6 @@ def test_q1_equals_the_single_query_parts(hq, hkv, d):
         assert torch.equal(a[:, 0], b)
 
 
-@pytest.mark.parametrize(
-    "fn", [cpa.cuda_paged_decode_attention_mq_parts, cpa.cuda_paged_decode_attention_mq_parts_int8]
-)
-def test_mq_stacked_layer_form_is_refused(fn):
-    n_args = 6 if fn is cpa.cuda_paged_decode_attention_mq_parts else 8
-    with pytest.raises(ValueError, match="layer="):
-        fn(*[torch.zeros(1)] * n_args, layer=0)
-
-
 def test_mq_kernels_join_the_launch_counts():
     assert cpa.cuda_paged_decode_attention_mq_parts in cpa.KERNELS
     assert cpa.cuda_paged_decode_attention_mq_parts_int8 in cpa.KERNELS

@@ -48,6 +48,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.bridge import p
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.config import (
     get_model_config as port_config,
 )
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
 
 MODELS = {"qwen2": "qwen2:1.5b", "phi3": "phi3:3.8b"}  # GQA, MHA
 SOURCES = {"ngram": ("ngram", 3), "model": ("tiny-d", 3)}
@@ -82,6 +83,15 @@ def model(request):
     the target cut to its first layer, so it agrees with the target on
     some proposals and not on others."""
     name = MODELS[request.param]
+    params = jax.tree.map(np.asarray, init_params(_cfgs(name)[0], jax.random.PRNGKey(4), jnp.float32))
+    draft = {k: v if k in ("embed", "final_norm", "lm_head") else v[:1] for k, v in params.items()}
+    return name, params, draft
+
+
+@pytest.fixture(scope="module")
+def qwen2_model():
+    """The ``model`` fixture's GQA case alone."""
+    name = MODELS["qwen2"]
     params = jax.tree.map(np.asarray, init_params(_cfgs(name)[0], jax.random.PRNGKey(4), jnp.float32))
     draft = {k: v if k in ("embed", "final_norm", "lm_head") else v[:1] for k, v in params.items()}
     return name, params, draft
@@ -163,6 +173,47 @@ def test_spec_session_equals_jax_stacked_session(model, source, kv, monkeypatch)
         assert 0 <= spec_x["accepted"] <= spec_x["drafted"] == 3 * spec_x["rounds"]
     row0 = got[id(treqs[0])]
     assert row0.extras["retire_reason"] == "eos" and len(row0.tokens) == at + 1
+    ts.close()
+
+
+@pytest.mark.parametrize("kv", list(KV))
+def test_spec_session_at_k12_equals_jax_stacked_session(qwen2_model, kv, monkeypatch):
+    """k = 12: the verify block holds 13 query positions, more than the
+    multi-query kernel takes in one launch (9), so the CUDA wrappers cut it
+    into chunks (``chunk_queries``). On the CPU the wrappers' plain
+    versions have no cap; here they run through the same helper with a cap
+    of 3 (five chunks a verify). The n-gram session's greedy tokens and
+    spec counts equal the JAX stacked session's, and the plain batch's."""
+    monkeypatch.setattr(jax_engine, "PAGED_XLA_PARTS_MIN_ROWS", 10**9)
+    chunks = []
+    for name in ("paged_mq_attention_reference", "paged_mq_attention_int8_reference"):
+        plain = getattr(cpa, name)
+
+        def chunked(q, *rest, plain=plain):
+            def run(qc, oc):
+                chunks.append(qc.shape[1])
+                return plain(qc, *rest[:-1], oc)
+
+            return cpa.chunk_queries(run, q, rest[-1], 3)
+
+        monkeypatch.setattr(cpa, name, chunked)
+    spec = {"tiny": ("ngram", 12)}
+    teng = _port_engine(qwen2_model, kv_quantize=KV[kv], speculative=spec)
+    jeng = _jax_engine(qwen2_model, kv_quantize=KV[kv], speculative=spec)
+    treqs = [GenerationRequest("tiny", p, n, stop_at_eos=False) for p, n in ROWS]
+    jreqs = [JaxRequest("tiny", p, n, stop_at_eos=False) for p, n in ROWS]
+    ts = teng.decode_open(treqs)
+    js = jeng.decode_open(jreqs)
+    assert js.stacked and js.spec is not None and ts.spec is not None
+    got = {id(r.request): r for r in _drain(ts)}
+    want = {r.request.prompt: r for r in _drain(js)}
+    assert chunks and set(chunks) == {3, 1} and len(chunks) % 5 == 0
+    plain = teng.generate_batch(treqs)
+    for req, p in zip(treqs, plain):
+        g, w = got[id(req)], want[req.prompt]
+        assert g.tokens == w.tokens == p.tokens, (kv, req.prompt)
+        assert g.extras["spec"] == w.extras["spec"]
+        assert g.extras["spec"]["drafted"] == 12 * g.extras["spec"]["rounds"]
     ts.close()
 
 
