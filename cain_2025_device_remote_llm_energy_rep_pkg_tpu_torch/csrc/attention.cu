@@ -59,8 +59,10 @@
 //    Decode is bound by bytes: the valid K/V prefix (int8: codes plus one
 //    f32 scale per position) must stream from HBM once per step (bound =
 //    bytes / 3.35 TB/s); at the study's lengths it is far below a
-//    launch's latency, so the design cuts latency. decode_tile_kernel:
-//    the grid is (splits, B·Hkv), sized from B·Hkv and T alone; each block
+//    launch's latency, so the design cuts latency. decode_tile_kernel
+//    (decode_common.cuh, with the ContiguousRows policy; B6 runs the same
+//    body through the page table): the grid is (splits, B·Hkv), sized by
+//    the wrapper from B·Hkv and T alone; each block
 //    reads lengths[b] and sizes the row's splits from it (at least
 //    kDcMinSplit positions each), so blocks past the row exit at once and
 //    a short row still spreads over several SMs. A split streams tiles of
@@ -70,8 +72,7 @@
 //    tile, by the warp that scored it. P·V: warp w takes positions
 //    w, w+4, ..., lane the D/32 columns. The last split of a (b, kv head)
 //    to finish (an atomic ticket) merges the partials and writes the
-//    normalised output: one launch per call. The split body of the paged
-//    kernels (decode_partial_kernel, decode_common.cuh) is not used here.
+//    normalised output: one launch per call.
 
 #include "decode_common.cuh"
 
@@ -79,24 +80,7 @@ namespace {
 
 using namespace port_attn;
 
-__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// ---- asynchronous copies and tensor-core fragments -------------------------
-
-// 16 bytes global → shared; with !pred nothing is read and the bytes are 0.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// ---- tensor-core fragments from shared memory ----------------------------
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -109,396 +93,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
-}
-
-// c[16×8] += a[16×16] · b[16×8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&x);
-}
-
-// The last of `n` blocks to call this on `ticket` gets true, after every
-// block's global writes made before the call are visible to it; it resets
-// the ticket for the next launch.
-__device__ __forceinline__ bool last_to_arrive(int* ticket, int n) {
-  __shared__ int last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    last = atomicAdd(ticket, 1) == n - 1;
-    if (last) *ticket = 0;
-  }
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
-}
-
-// ---------------------------------------------------------------------------
-// Decode (B2, B3): one launch, splits sized from each row's length.
-
-constexpr int kDcWarps = 4;
-constexpr int kDcThreads = kDcWarps * 32;
-constexpr int kDcTile = 32;          // positions per staged tile (one per lane)
-constexpr int kDcMinSplit = 64;      // positions per split, at least
-constexpr int kDcMaxSplits = 128;    // splits per (row, kv head), at most
-constexpr int kDcTargetBlocks = 264; // about two blocks per SM of the card
-
-// A 16-byte chunk of a K row widened to f32.
-template <typename KV>
-struct Widen;
-template <>
-struct Widen<__nv_bfloat16> {
-  static constexpr int E = 8;
-  __device__ static void run(const uint4& r, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(h[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
-    }
-  }
-};
-template <>
-struct Widen<int8_t> {
-  static constexpr int E = 16;
-  __device__ static void run(const uint4& r, float* f) {
-    const int8_t* c = reinterpret_cast<const int8_t*>(&r);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(c[i]);
-  }
-};
-template <>
-struct Widen<float> {
-  static constexpr int E = 4;
-  __device__ static void run(const uint4& r, float* f) {
-    const float* x = reinterpret_cast<const float*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) f[i] = x[i];
-  }
-};
-
-// Dynamic shared memory of decode_tile_kernel: a 2-stage ring of K rows
-// (padded by 16 bytes: lanes read different rows) and V rows, which after
-// the loop holds the warps' accumulators [warps][kGroupMax][D] and then
-// the merge's (m, l) per split and head; then q [kGroupMax][D] f32, p [kDcTile][kGroupMax]
-// (V scale folded in), per-head alpha, m and l, and the staged scales.
-template <typename KV, int D>
-struct DcSmem {
-  static constexpr int kRow = D * static_cast<int>(sizeof(KV));
-  static constexpr int kKStride = kRow + 16;
-  static constexpr int kStage = kDcTile * (kKStride + kRow);
-  static constexpr int kRing = 2 * kStage;
-  static constexpr int kRed = static_cast<int>(sizeof(float)) * kDcWarps * kGroupMax * D;
-  static constexpr int kUnion = kRing > kRed ? kRing : kRed;
-  static constexpr int kBytes =
-      kUnion + static_cast<int>(sizeof(float)) *
-                   (kGroupMax * D + kDcTile * kGroupMax + 3 * kGroupMax + 4 * kDcTile);
-  static_assert(kUnion >= static_cast<int>(sizeof(float)) * 2 * kGroupMax * kDcMaxSplits,
-                "the merge's (m, l) must fit the ring");
-};
-
-// grid (n_grid, B·Hkv), block kDcThreads. part_acc [B·Hkv, n_grid, G, D]
-// and part_ml [B·Hkv, n_grid, G, 2] hold the splits' partials; tickets
-// [B·Hkv]. out [B, Hq, D] = softmax(q·Kᵀ·scale)·V over t < lengths[b]; a
-// row with no position gives 0/0 (NaN), as the plain version does.
-template <typename T, typename KV, int D, bool kQuant>
-__global__ void __launch_bounds__(kDcThreads)
-    decode_tile_kernel(const T* __restrict__ q, const KV* __restrict__ k,
-                       const KV* __restrict__ v, const float* __restrict__ k_scale,
-                       const float* __restrict__ v_scale, const int* __restrict__ lengths,
-                       float* __restrict__ part_acc, float* __restrict__ part_ml,
-                       int* __restrict__ tickets, T* __restrict__ out, int hkv, int group,
-                       int t_cap, float scale) {
-  using L = DcSmem<KV, D>;
-  constexpr int V = D / 32;                   // P·V columns per lane
-  constexpr int E = Widen<KV>::E;             // K elements per 16-byte chunk
-  constexpr int C = L::kRow / 16;             // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char dc_smem[];
-  unsigned char* ring = dc_smem;
-  float* red = reinterpret_cast<float*>(dc_smem);
-  float* qs = reinterpret_cast<float*>(dc_smem + L::kUnion);
-  float* pt = qs + kGroupMax * D;
-  float* alpha_s = pt + kDcTile * kGroupMax;
-  float* m_fin = alpha_s + kGroupMax;
-  float* l_fin = m_fin + kGroupMax;
-  float* scales = l_fin + kGroupMax;  // [stage][K, V][kDcTile]
-
-  const int n_grid = gridDim.x;
-  const int split = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / hkv;
-  const int len = max(0, min(lengths[b], t_cap));
-  int n_used = max(1, min(n_grid, ceil_div(len, kDcMinSplit)));
-  const int split_len = ceil_div(ceil_div(max(len, 1), n_used), kDcTile) * kDcTile;
-  n_used = max(1, ceil_div(len, split_len));
-  if (split >= n_used) return;  // past the row: no read, no ticket
-  const int t_begin = split * split_len;
-  const int t_end = min(t_begin + split_len, len);
-  const int n_tiles = ceil_div(t_end - t_begin, kDcTile);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const unsigned char* kh =
-      reinterpret_cast<const unsigned char*>(k + static_cast<size_t>(bh) * t_cap * D);
-  const unsigned char* vh =
-      reinterpret_cast<const unsigned char*>(v + static_cast<size_t>(bh) * t_cap * D);
-
-  auto load = [&](int t0, int stage) {
-    unsigned char* kd = ring + stage * L::kStage;
-    unsigned char* vd = kd + kDcTile * L::kKStride;
-    for (int i = tid; i < kDcTile * C; i += kDcThreads) {
-      const int p = i / C;
-      const int c = i % C;
-      const int t = t0 + p;
-      const bool ok = t < t_end;
-      const size_t src = static_cast<size_t>(ok ? t : t_begin) * L::kRow + c * 16;
-      cp_async16(kd + p * L::kKStride + c * 16, kh + src, ok);
-      cp_async16(vd + p * L::kRow + c * 16, vh + src, ok);
-    }
-    if (kQuant && tid < kDcTile) {
-      const int t = t0 + tid;
-      const size_t r = static_cast<size_t>(bh) * t_cap + t;
-      scales[(stage * 2) * kDcTile + tid] = t < t_end ? k_scale[r] : 0.f;
-      scales[(stage * 2 + 1) * kDcTile + tid] = t < t_end ? v_scale[r] : 0.f;
-    }
-  };
-
-  float m_run[2] = {-INFINITY, -INFINITY};  // heads warp and warp + 4
-  float l_run[2] = {0.f, 0.f};
-  float acc[kGroupMax][V];
-#pragma unroll
-  for (int g = 0; g < kGroupMax; ++g)
-#pragma unroll
-    for (int i = 0; i < V; ++i) acc[g][i] = 0.f;
-
-  load(t_begin, 0);
-  cp_async_commit();
-  // q while the first tile is in flight (the first barrier orders it)
-  const T* qg = q + static_cast<size_t>(bh) * group * D;
-#pragma unroll 4
-  for (int i = tid; i < group * D; i += kDcThreads) qs[i] = to_f(qg[i]);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    const int t0 = t_begin + it * kDcTile;
-    if (it + 1 < n_tiles) load(t0 + kDcTile, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const unsigned char* kd = ring + stage * L::kStage;
-    const unsigned char* vd = kd + kDcTile * L::kKStride;
-    const int n_valid = min(kDcTile, t_end - t0);
-
-    // Scores of the tile: lane = position, this warp's two heads.
-    float s[2] = {0.f, 0.f};
-    const unsigned char* krow = kd + lane * L::kKStride;
-#pragma unroll 4
-    for (int c = 0; c < C; ++c) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(krow + c * 16);
-      float kf[E];
-      Widen<KV>::run(raw, kf);
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int g = warp + kDcWarps * hh;
-        if (g < group) {
-          const float* qr = qs + g * D + c * E;
-#pragma unroll
-          for (int e = 0; e < E; ++e) s[hh] += qr[e] * kf[e];
-        }
-      }
-    }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int g = warp + kDcWarps * hh;
-      if (g < group) {  // warp-uniform
-        float x = s[hh] * scale;
-        if (kQuant) x *= scales[(stage * 2) * kDcTile + lane];
-        if (lane >= n_valid) x = -INFINITY;
-        const float m_new = fmaxf(m_run[hh], warp_max(x));  // finite: position 0 is valid
-        const float alpha = expf(m_run[hh] - m_new);        // 0 on the first tile
-        const float p = expf(x - m_new);
-        l_run[hh] = l_run[hh] * alpha + warp_sum(p);
-        m_run[hh] = m_new;
-        const float pv = kQuant ? p * scales[(stage * 2 + 1) * kDcTile + lane] : p;
-        pt[lane * kGroupMax + g] = pv;  // the int8 V scale folds into p
-        if (lane == 0) alpha_s[g] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // P·V: warp w takes positions w, w + 4, ...; lane the D/32 columns.
-#pragma unroll
-    for (int g = 0; g < kGroupMax; ++g) {
-      if (g < group) {
-        const float a = alpha_s[g];
-#pragma unroll
-        for (int i = 0; i < V; ++i) acc[g][i] *= a;
-      }
-    }
-    for (int p = warp; p < n_valid; p += kDcWarps) {
-      const KV* vrow = reinterpret_cast<const KV*>(vd + p * L::kRow) + lane * V;
-      float vv[V];
-#pragma unroll
-      for (int i = 0; i < V; ++i) vv[i] = to_f(vrow[i]);
-      const float4 p0 = *reinterpret_cast<const float4*>(pt + p * kGroupMax);
-      const float4 p1 = *reinterpret_cast<const float4*>(pt + p * kGroupMax + 4);
-      const float pp[kGroupMax] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-#pragma unroll
-      for (int g = 0; g < kGroupMax; ++g) {
-        if (g < group) {
-#pragma unroll
-          for (int i = 0; i < V; ++i) acc[g][i] += pp[g] * vv[i];
-        }
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // The warps share m and l per head; their accumulators simply add.
-#pragma unroll
-  for (int g = 0; g < kGroupMax; ++g) {
-    if (g < group) {
-#pragma unroll
-      for (int i = 0; i < V; ++i) red[(warp * kGroupMax + g) * D + lane * V + i] = acc[g][i];
-    }
-  }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int g = warp + kDcWarps * hh;
-    if (g < group && lane == 0) {
-      m_fin[g] = m_run[hh];
-      l_fin[g] = l_run[hh];
-    }
-  }
-  __syncthreads();
-  T* og = out + static_cast<size_t>(bh) * group * D;
-  if (n_used == 1) {
-    for (int i = tid; i < group * D; i += kDcThreads) {
-      const int g = i / D;
-      const int d = i % D;
-      float a = 0.f;
-#pragma unroll
-      for (int w = 0; w < kDcWarps; ++w) a += red[(w * kGroupMax + g) * D + d];
-      og[i] = from_f<T>(a / l_fin[g]);
-    }
-    return;
-  }
-  const size_t base = (static_cast<size_t>(bh) * n_grid + split) * group;
-  for (int i = tid; i < group * D; i += kDcThreads) {
-    const int g = i / D;
-    const int d = i % D;
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDcWarps; ++w) a += red[(w * kGroupMax + g) * D + d];
-    part_acc[base * D + i] = a;
-  }
-  if (tid < group) {
-    part_ml[2 * (base + tid)] = m_fin[tid];
-    part_ml[2 * (base + tid) + 1] = l_fin[tid];
-  }
-  if (!last_to_arrive(tickets + bh, n_used)) return;
-
-  // The last split merges. Every split's (m, l) is staged in the ring by
-  // all threads at once (no chain of dependent loads), then each head's
-  // weights e^{m_s - m} replace the m's in place; each thread then sums
-  // 4 columns of one head over the splits, several loads in flight.
-  float* ml = red;  // [n_used][group][2]
-  const size_t row0 = static_cast<size_t>(bh) * n_grid;
-  for (int i = tid; i < 2 * n_used * group; i += kDcThreads) ml[i] = __ldcg(part_ml + 2 * row0 * group + i);
-  __syncthreads();
-  if (tid < group) {
-    float mx = -INFINITY;
-    for (int s = 0; s < n_used; ++s) mx = fmaxf(mx, ml[2 * (s * group + tid)]);
-    float lsum = 0.f;
-    for (int s = 0; s < n_used; ++s) {
-      const float ms = ml[2 * (s * group + tid)];
-      const float c = ms == -INFINITY ? 0.f : expf(ms - mx);
-      ml[2 * (s * group + tid)] = c;
-      lsum += c * ml[2 * (s * group + tid) + 1];
-    }
-    l_fin[tid] = lsum;
-  }
-  __syncthreads();
-  for (int i = tid; i < group * (D / 4); i += kDcThreads) {
-    const int g = i / (D / 4);
-    const int d = 4 * (i % (D / 4));
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-    for (int s = 0; s < n_used; ++s) {
-      const float c = ml[2 * (s * group + g)];
-      const float4 x = __ldcg(reinterpret_cast<const float4*>(part_acc + ((row0 + s) * group + g) * D + d));
-      a.x += c * x.x;
-      a.y += c * x.y;
-      a.z += c * x.z;
-      a.w += c * x.w;
-    }
-    const float inv = 1.f / l_fin[g];
-    og[g * D + d] = from_f<T>(a.x * inv);
-    og[g * D + d + 1] = from_f<T>(a.y * inv);
-    og[g * D + d + 2] = from_f<T>(a.z * inv);
-    og[g * D + d + 3] = from_f<T>(a.w * inv);
-  }
-}
-
-// Splits per (row, kv head) the decode grid holds: enough that B·Hkv·n
-// blocks cover the card about twice, none starting past the capacity.
-int decode_grid(int batch, int hkv, int t_cap) {
-  const int pairs = max(1, batch * hkv);
-  const int n = min(kDcMaxSplits, ceil_div(kDcTargetBlocks, pairs));
-  return max(1, min(n, ceil_div(max(t_cap, 1), kDcMinSplit)));
-}
-
-template <typename T, typename KV, int D, bool kQuant>
-cudaError_t launch_decode(const void* q, const void* k, const void* v, const float* k_scale,
-                          const float* v_scale, const int* lengths, float* part_acc,
-                          float* part_ml, int* tickets, void* out, int batch, int hq, int hkv,
-                          int t_cap, int n_grid, float scale, cudaStream_t stream) {
-  constexpr int smem = DcSmem<KV, D>::kBytes;
-  auto kernel = decode_tile_kernel<T, KV, D, kQuant>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<dim3(n_grid, batch * hkv), kDcThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v), k_scale,
-      v_scale, lengths, part_acc, part_ml, tickets, static_cast<T*>(out), hkv, hq / hkv, t_cap,
-      scale);
-  return cudaGetLastError();
-}
-
-template <typename T, typename KV, bool kQuant>
-cudaError_t dispatch_decode(int d_head, const void* q, const void* k, const void* v,
-                            const float* k_scale, const float* v_scale, const int* lengths,
-                            float* part_acc, float* part_ml, int* tickets, void* out, int batch,
-                            int hq, int hkv, int t_cap, int n_grid, float scale,
-                            cudaStream_t stream) {
-#define ATTN_DECODE_CASE(DH)                                                                \
-  case DH:                                                                                  \
-    return launch_decode<T, KV, DH, kQuant>(q, k, v, k_scale, v_scale, lengths, part_acc,   \
-                                            part_ml, tickets, out, batch, hq, hkv, t_cap,   \
-                                            n_grid, scale, stream);
-  switch (d_head) {
-    ATTN_DECODE_CASE(64)
-    ATTN_DECODE_CASE(96)
-    ATTN_DECODE_CASE(128)
-    ATTN_DECODE_CASE(256)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef ATTN_DECODE_CASE
 }
 
 // ---------------------------------------------------------------------------
@@ -1054,8 +648,6 @@ int attn_prefill_splits(int dtype, int batch, int seq, int hq, int hkv, int d_he
   return dtype == kDtypeBF16 ? prefill_splits(batch, seq, hq, hkv, d_head, offset) : 1;
 }
 
-int attn_decode_grid(int batch, int hkv, int t_cap) { return decode_grid(batch, hkv, t_cap); }
-
 // part_o [B·Hkv·q-tiles, n_split, rows, D] f32 and part_ml [..., rows, 2]:
 // the split scratch where attn_prefill_splits() > 1 (null otherwise).
 int attn_prefill(int dtype, const void* q, const void* k, const void* v, void* out,
@@ -1070,35 +662,34 @@ int attn_prefill(int dtype, const void* q, const void* k, const void* v, void* o
 }
 
 // k_scale/v_scale null: k/v hold `dtype` elements; else int8 codes.
-// n_grid = attn_decode_grid(batch, hkv, t_cap); part_acc [B·Hkv, n_grid,
-// G, D], part_ml [B·Hkv, n_grid, G, 2], tickets [B·Hkv] zero.
+// n_grid blocks per (row, kv head), 1..128 (the wrapper's decode_grid);
+// part_acc [B·Hkv, n_grid, G, D], part_ml [B·Hkv, n_grid, G, 2], tickets
+// [B·Hkv] zero.
 int attn_decode(int dtype, const void* q, const void* k, const void* v, const float* k_scale,
                 const float* v_scale, const int* lengths, float* part_acc, float* part_ml,
                 int* tickets, void* out, int batch, int hq, int hkv, int t_cap, int d_head,
                 int n_grid, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kGroupMax || n_grid < 1 ||
-      n_grid > kDcMaxSplits)
-    return cudaErrorInvalidValue;
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kGroupMax) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float scale = softmax_scale(d_head);
+  const ContiguousRows rows{t_cap};
   const bool quant = k_scale != nullptr;
   if (dtype == kDtypeBF16) {
     if (quant)
-      return dispatch_decode<__nv_bfloat16, int8_t, true>(
+      return dispatch_decode_tile<__nv_bfloat16, int8_t, true>(
           d_head, q, k, v, k_scale, v_scale, lengths, part_acc, part_ml, tickets, out, batch,
-          hq, hkv, t_cap, n_grid, scale, s);
-    return dispatch_decode<__nv_bfloat16, __nv_bfloat16, false>(
+          hq, hkv, rows, n_grid, s);
+    return dispatch_decode_tile<__nv_bfloat16, __nv_bfloat16, false>(
         d_head, q, k, v, nullptr, nullptr, lengths, part_acc, part_ml, tickets, out, batch, hq,
-        hkv, t_cap, n_grid, scale, s);
+        hkv, rows, n_grid, s);
   }
   if (dtype == kDtypeF32) {
     if (quant)
-      return dispatch_decode<float, int8_t, true>(d_head, q, k, v, k_scale, v_scale, lengths,
-                                                  part_acc, part_ml, tickets, out, batch, hq,
-                                                  hkv, t_cap, n_grid, scale, s);
-    return dispatch_decode<float, float, false>(d_head, q, k, v, nullptr, nullptr, lengths,
-                                                part_acc, part_ml, tickets, out, batch, hq, hkv,
-                                                t_cap, n_grid, scale, s);
+      return dispatch_decode_tile<float, int8_t, true>(d_head, q, k, v, k_scale, v_scale,
+                                                       lengths, part_acc, part_ml, tickets, out,
+                                                       batch, hq, hkv, rows, n_grid, s);
+    return dispatch_decode_tile<float, float, false>(d_head, q, k, v, nullptr, nullptr, lengths,
+                                                     part_acc, part_ml, tickets, out, batch, hq,
+                                                     hkv, rows, n_grid, s);
   }
   return cudaErrorInvalidValue;
 }

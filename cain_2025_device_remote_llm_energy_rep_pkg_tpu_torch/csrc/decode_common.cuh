@@ -1,16 +1,25 @@
-// Shared pieces of the port's decode kernels: the element types, the
-// warp reductions and the group cap of attention.cu (contiguous caches)
-// and paged_attention.cu (page pools read through a table), and the paged
-// kernels' split body.
+// Shared pieces of the port's kernels: the element types, the warp
+// reductions, asynchronous copies, the bf16 tensor-core product and the
+// arrival ticket of attention.cu (contiguous caches), paged_attention.cu
+// (page pools read through a table) and int4_matmul.cu; the address
+// policies of the decode bodies; and the two decode bodies themselves.
 //
-// decode_partial_kernel is the split body of flash decoding: block
-// (split, b·Hkv + h) streams cache positions [split·split_len,
-// min((split+1)·split_len, lengths[b])) of row b, head h, and writes the
-// split's unnormalised partials (acc, m, l). Where position t of a row
-// lives is the `Rows` policy's business: PagedRows for [P,Hkv,page,D]
-// pools read through a [B,Jmax] page table. decode_merge_kernel combines
-// the splits into the normalised output (B6); the paged parts kernels
-// keep their own merge, which does not normalise.
+// decode_tile_kernel is the one-launch decode of B2/B3 (ContiguousRows:
+// [B,Hkv,T,D] caches) and B6 (PagedRows: [P,Hkv,page,D] pools read through
+// a [B,Jmax] page table): splits sized on the device from lengths[b],
+// tiles of kDcTile positions by 16-byte cp.async, double-buffered, a
+// tile's scores computed at once, and the last split of a (row, kv head)
+// to finish merging the splits through an atomic ticket into the
+// normalised output. Under ContiguousRows its addresses and arithmetic
+// are those of the contiguous kernel it came from, so B2/B3 keep their
+// bits.
+//
+// decode_partial_kernel is the older split body of flash decoding that
+// the paged parts kernels (B4/B5) keep: block (split, b·Hkv + h) streams
+// cache positions [split·split_len, min((split+1)·split_len, lengths[b]))
+// of row b, head h, one position per warp at a time, and writes the
+// split's unnormalised partials (acc, m, l) for parts_merge_kernel
+// (paged_attention.cu), which does not normalise.
 //
 // Every load is widened to f32; scores, softmax and accumulators are f32.
 // A split with no position to read writes (m -inf, l 0) and returns at
@@ -68,6 +77,63 @@ inline float softmax_scale(int d_head) {
 constexpr int kDecWarps = 4;
 constexpr int kGroupMax = 8;  // query heads per kv head held in registers
 
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// ---- asynchronous copies and tensor-core fragments -------------------------
+
+// 16 bytes global → shared; with !pred nothing is read and the bytes are 0.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// c[16×8] += a[16×16] · b[16×8], bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&x);
+}
+
+// The last of `n` blocks to call this on `ticket` gets true, after every
+// block's global writes made before the call are visible to it; it resets
+// the ticket for the next launch.
+__device__ __forceinline__ bool last_to_arrive(int* ticket, int n) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1) == n - 1;
+    if (last) *ticket = 0;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// The one-launch decode body's block, tile and split limits.
+constexpr int kDcWarps = 4;
+constexpr int kDcThreads = kDcWarps * 32;
+constexpr int kDcTile = 32;          // positions per staged tile (one per lane)
+constexpr int kDcMinSplit = 64;      // positions per split, at least
+constexpr int kDcMaxSplits = 128;    // splits per (row, kv head), at most
+
 // Row index (into [..., positions, D] element rows and [..., positions]
 // scales) of position t of batch row b, kv head h; bh = b·Hkv + h.
 struct PagedRows {
@@ -82,6 +148,19 @@ struct PagedRows {
     p = min(max(p, 0), n_pool - 1);
     return (static_cast<size_t>(p) * hkv + h) * page + t % page;
   }
+  // A tile of kDcTile positions from a multiple of kDcTile stays in one page.
+  __device__ __forceinline__ bool tile_contiguous() const { return page % kDcTile == 0; }
+};
+
+// [B,Hkv,T,D] caches (scales [B,Hkv,T]): the T rows of (b, h) are
+// contiguous from row bh·T.
+struct ContiguousRows {
+  int t_cap;  // T
+  __device__ __forceinline__ int capacity() const { return t_cap; }
+  __device__ __forceinline__ size_t row(int bh, int /*b*/, int /*h*/, int t) const {
+    return static_cast<size_t>(bh) * t_cap + t;
+  }
+  __device__ __forceinline__ bool tile_contiguous() const { return true; }
 };
 
 // part_acc [B·Hkv, n_split, G, D], part_ml [B·Hkv, n_split, G, 2] (m, l).
@@ -207,32 +286,361 @@ __global__ void __launch_bounds__(kDecWarps * 32)
   }
 }
 
-// grid (B·Hkv, G), block D threads: out[b, h·G + g, d] = acc / l over the
-// splits of part_acc/part_ml. A row with no position gives 0/0 (NaN), as
-// the plain versions and the JAX kernels do; no decode path makes one.
-template <typename T>
-__global__ void decode_merge_kernel(const float* __restrict__ part_acc,
-                                    const float* __restrict__ part_ml, T* __restrict__ out,
-                                    int group, int d_head, int n_split) {
-  const int bh = blockIdx.x;
-  const int g = blockIdx.y;
-  const int d = threadIdx.x;
-  float mx = -INFINITY;
-  for (int s = 0; s < n_split; ++s) {
-    const size_t p = (static_cast<size_t>(bh) * n_split + s) * group + g;
-    mx = fmaxf(mx, part_ml[2 * p]);
-  }
-  float lsum = 0.f, a = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const size_t p = (static_cast<size_t>(bh) * n_split + s) * group + g;
-    const float ms = part_ml[2 * p];
-    if (ms != -INFINITY) {
-      const float c = expf(ms - mx);
-      lsum += part_ml[2 * p + 1] * c;
-      a += part_acc[p * d_head + d] * c;
+// ---------------------------------------------------------------------------
+// The one-launch decode body (B2, B3, B6): splits sized from each row's
+// length, tiles by cp.async, the last split merging through a ticket.
+
+
+// A 16-byte chunk of a K row widened to f32.
+template <typename KV>
+struct Widen;
+template <>
+struct Widen<__nv_bfloat16> {
+  static constexpr int E = 8;
+  __device__ static void run(const uint4& r, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(h[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
     }
   }
-  out[(static_cast<size_t>(bh) * group + g) * d_head + d] = from_f<T>(a / lsum);
+};
+template <>
+struct Widen<int8_t> {
+  static constexpr int E = 16;
+  __device__ static void run(const uint4& r, float* f) {
+    const int8_t* c = reinterpret_cast<const int8_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(c[i]);
+  }
+};
+template <>
+struct Widen<float> {
+  static constexpr int E = 4;
+  __device__ static void run(const uint4& r, float* f) {
+    const float* x = reinterpret_cast<const float*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = x[i];
+  }
+};
+
+// Dynamic shared memory of decode_tile_kernel: a 2-stage ring of K rows
+// (padded by 16 bytes: lanes read different rows) and V rows, which after
+// the loop holds the warps' accumulators [warps][kGroupMax][D] and then
+// the merge's (m, l) per split and head; then q [kGroupMax][D] f32, p [kDcTile][kGroupMax]
+// (V scale folded in), per-head alpha, m and l, and the staged scales.
+template <typename KV, int D>
+struct DcSmem {
+  static constexpr int kRow = D * static_cast<int>(sizeof(KV));
+  static constexpr int kKStride = kRow + 16;
+  static constexpr int kStage = kDcTile * (kKStride + kRow);
+  static constexpr int kRing = 2 * kStage;
+  static constexpr int kRed = static_cast<int>(sizeof(float)) * kDcWarps * kGroupMax * D;
+  static constexpr int kUnion = kRing > kRed ? kRing : kRed;
+  static constexpr int kBytes =
+      kUnion + static_cast<int>(sizeof(float)) *
+                   (kGroupMax * D + kDcTile * kGroupMax + 3 * kGroupMax + 4 * kDcTile);
+  static_assert(kUnion >= static_cast<int>(sizeof(float)) * 2 * kGroupMax * kDcMaxSplits,
+                "the merge's (m, l) must fit the ring");
+};
+
+// grid (n_grid, B·Hkv), block kDcThreads. part_acc [B·Hkv, n_grid, G, D]
+// and part_ml [B·Hkv, n_grid, G, 2] hold the splits' partials; tickets
+// [B·Hkv]. out [B, Hq, D] = softmax(q·Kᵀ·scale)·V over t < lengths[b]; a
+// row with no position gives 0/0 (NaN), as the plain version does.
+// Where position t of a row lives is the `Rows` policy's business
+// (ContiguousRows for B2/B3, PagedRows for B6). A tile never starts off a
+// multiple of kDcTile, so where rows.tile_contiguous() holds its
+// positions are consecutive rows from the tile's first: one lookup a
+// tile. Otherwise (a page that is not a multiple of kDcTile) each 16-byte
+// chunk looks its position up.
+template <typename T, typename KV, int D, bool kQuant, typename Rows>
+__global__ void __launch_bounds__(kDcThreads)
+    decode_tile_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                       const KV* __restrict__ v, const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale, const int* __restrict__ lengths,
+                       float* __restrict__ part_acc, float* __restrict__ part_ml,
+                       int* __restrict__ tickets, T* __restrict__ out, int hkv, int group,
+                       Rows rows, float scale) {
+  using L = DcSmem<KV, D>;
+  constexpr int V = D / 32;                   // P·V columns per lane
+  constexpr int E = Widen<KV>::E;             // K elements per 16-byte chunk
+  constexpr int C = L::kRow / 16;             // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char dc_smem[];
+  unsigned char* ring = dc_smem;
+  float* red = reinterpret_cast<float*>(dc_smem);
+  float* qs = reinterpret_cast<float*>(dc_smem + L::kUnion);
+  float* pt = qs + kGroupMax * D;
+  float* alpha_s = pt + kDcTile * kGroupMax;
+  float* m_fin = alpha_s + kGroupMax;
+  float* l_fin = m_fin + kGroupMax;
+  float* scales = l_fin + kGroupMax;  // [stage][K, V][kDcTile]
+
+  const int n_grid = gridDim.x;
+  const int split = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / hkv;
+  const int h = bh % hkv;
+  const int len = max(0, min(lengths[b], rows.capacity()));
+  int n_used = max(1, min(n_grid, ceil_div(len, kDcMinSplit)));
+  const int split_len = ceil_div(ceil_div(max(len, 1), n_used), kDcTile) * kDcTile;
+  n_used = max(1, ceil_div(len, split_len));
+  if (split >= n_used) return;  // past the row: no read, no ticket
+  const int t_begin = split * split_len;
+  const int t_end = min(t_begin + split_len, len);
+  const int n_tiles = ceil_div(t_end - t_begin, kDcTile);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(k);
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(v);
+  const bool whole_tiles = rows.tile_contiguous();
+
+  auto load = [&](int t0, int stage) {
+    unsigned char* kd = ring + stage * L::kStage;
+    unsigned char* vd = kd + kDcTile * L::kKStride;
+    const size_t row0 = rows.row(bh, b, h, t0);
+    for (int i = tid; i < kDcTile * C; i += kDcThreads) {
+      const int p = i / C;
+      const int c = i % C;
+      const int t = t0 + p;
+      const bool ok = t < t_end;
+      const size_t r = !ok ? row0 : whole_tiles ? row0 + p : rows.row(bh, b, h, t);
+      const size_t src = r * L::kRow + c * 16;
+      cp_async16(kd + p * L::kKStride + c * 16, kb + src, ok);
+      cp_async16(vd + p * L::kRow + c * 16, vb + src, ok);
+    }
+    if (kQuant && tid < kDcTile) {
+      const int t = t0 + tid;
+      const bool ok = t < t_end;
+      const size_t r = ok ? rows.row(bh, b, h, t) : 0;
+      scales[(stage * 2) * kDcTile + tid] = ok ? k_scale[r] : 0.f;
+      scales[(stage * 2 + 1) * kDcTile + tid] = ok ? v_scale[r] : 0.f;
+    }
+  };
+
+  float m_run[2] = {-INFINITY, -INFINITY};  // heads warp and warp + 4
+  float l_run[2] = {0.f, 0.f};
+  float acc[kGroupMax][V];
+#pragma unroll
+  for (int g = 0; g < kGroupMax; ++g)
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[g][i] = 0.f;
+
+  load(t_begin, 0);
+  cp_async_commit();
+  // q while the first tile is in flight (the first barrier orders it)
+  const T* qg = q + static_cast<size_t>(bh) * group * D;
+#pragma unroll 4
+  for (int i = tid; i < group * D; i += kDcThreads) qs[i] = to_f(qg[i]);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    const int t0 = t_begin + it * kDcTile;
+    if (it + 1 < n_tiles) load(t0 + kDcTile, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const unsigned char* kd = ring + stage * L::kStage;
+    const unsigned char* vd = kd + kDcTile * L::kKStride;
+    const int n_valid = min(kDcTile, t_end - t0);
+
+    // Scores of the tile: lane = position, this warp's two heads.
+    float s[2] = {0.f, 0.f};
+    const unsigned char* krow = kd + lane * L::kKStride;
+#pragma unroll 4
+    for (int c = 0; c < C; ++c) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(krow + c * 16);
+      float kf[E];
+      Widen<KV>::run(raw, kf);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int g = warp + kDcWarps * hh;
+        if (g < group) {
+          const float* qr = qs + g * D + c * E;
+#pragma unroll
+          for (int e = 0; e < E; ++e) s[hh] += qr[e] * kf[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int g = warp + kDcWarps * hh;
+      if (g < group) {  // warp-uniform
+        float x = s[hh] * scale;
+        if (kQuant) x *= scales[(stage * 2) * kDcTile + lane];
+        if (lane >= n_valid) x = -INFINITY;
+        const float m_new = fmaxf(m_run[hh], warp_max(x));  // finite: position 0 is valid
+        const float alpha = expf(m_run[hh] - m_new);        // 0 on the first tile
+        const float p = expf(x - m_new);
+        l_run[hh] = l_run[hh] * alpha + warp_sum(p);
+        m_run[hh] = m_new;
+        const float pv = kQuant ? p * scales[(stage * 2 + 1) * kDcTile + lane] : p;
+        pt[lane * kGroupMax + g] = pv;  // the int8 V scale folds into p
+        if (lane == 0) alpha_s[g] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // P·V: warp w takes positions w, w + 4, ...; lane the D/32 columns.
+#pragma unroll
+    for (int g = 0; g < kGroupMax; ++g) {
+      if (g < group) {
+        const float a = alpha_s[g];
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[g][i] *= a;
+      }
+    }
+    for (int p = warp; p < n_valid; p += kDcWarps) {
+      const KV* vrow = reinterpret_cast<const KV*>(vd + p * L::kRow) + lane * V;
+      float vv[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) vv[i] = to_f(vrow[i]);
+      const float4 p0 = *reinterpret_cast<const float4*>(pt + p * kGroupMax);
+      const float4 p1 = *reinterpret_cast<const float4*>(pt + p * kGroupMax + 4);
+      const float pp[kGroupMax] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+      for (int g = 0; g < kGroupMax; ++g) {
+        if (g < group) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[g][i] += pp[g] * vv[i];
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // The warps share m and l per head; their accumulators simply add.
+#pragma unroll
+  for (int g = 0; g < kGroupMax; ++g) {
+    if (g < group) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) red[(warp * kGroupMax + g) * D + lane * V + i] = acc[g][i];
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int g = warp + kDcWarps * hh;
+    if (g < group && lane == 0) {
+      m_fin[g] = m_run[hh];
+      l_fin[g] = l_run[hh];
+    }
+  }
+  __syncthreads();
+  T* og = out + static_cast<size_t>(bh) * group * D;
+  if (n_used == 1) {
+    for (int i = tid; i < group * D; i += kDcThreads) {
+      const int g = i / D;
+      const int d = i % D;
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kDcWarps; ++w) a += red[(w * kGroupMax + g) * D + d];
+      og[i] = from_f<T>(a / l_fin[g]);
+    }
+    return;
+  }
+  const size_t base = (static_cast<size_t>(bh) * n_grid + split) * group;
+  for (int i = tid; i < group * D; i += kDcThreads) {
+    const int g = i / D;
+    const int d = i % D;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDcWarps; ++w) a += red[(w * kGroupMax + g) * D + d];
+    part_acc[base * D + i] = a;
+  }
+  if (tid < group) {
+    part_ml[2 * (base + tid)] = m_fin[tid];
+    part_ml[2 * (base + tid) + 1] = l_fin[tid];
+  }
+  if (!last_to_arrive(tickets + bh, n_used)) return;
+
+  // The last split merges. Every split's (m, l) is staged in the ring by
+  // all threads at once (no chain of dependent loads), then each head's
+  // weights e^{m_s - m} replace the m's in place; each thread then sums
+  // 4 columns of one head over the splits, several loads in flight.
+  float* ml = red;  // [n_used][group][2]
+  const size_t row0 = static_cast<size_t>(bh) * n_grid;
+  for (int i = tid; i < 2 * n_used * group; i += kDcThreads) ml[i] = __ldcg(part_ml + 2 * row0 * group + i);
+  __syncthreads();
+  if (tid < group) {
+    float mx = -INFINITY;
+    for (int s = 0; s < n_used; ++s) mx = fmaxf(mx, ml[2 * (s * group + tid)]);
+    float lsum = 0.f;
+    for (int s = 0; s < n_used; ++s) {
+      const float ms = ml[2 * (s * group + tid)];
+      const float c = ms == -INFINITY ? 0.f : expf(ms - mx);
+      ml[2 * (s * group + tid)] = c;
+      lsum += c * ml[2 * (s * group + tid) + 1];
+    }
+    l_fin[tid] = lsum;
+  }
+  __syncthreads();
+  for (int i = tid; i < group * (D / 4); i += kDcThreads) {
+    const int g = i / (D / 4);
+    const int d = 4 * (i % (D / 4));
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int s = 0; s < n_used; ++s) {
+      const float c = ml[2 * (s * group + g)];
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(part_acc + ((row0 + s) * group + g) * D + d));
+      a.x += c * x.x;
+      a.y += c * x.y;
+      a.z += c * x.z;
+      a.w += c * x.w;
+    }
+    const float inv = 1.f / l_fin[g];
+    og[g * D + d] = from_f<T>(a.x * inv);
+    og[g * D + d + 1] = from_f<T>(a.y * inv);
+    og[g * D + d + 2] = from_f<T>(a.z * inv);
+    og[g * D + d + 3] = from_f<T>(a.w * inv);
+  }
+}
+
+template <typename T, typename KV, int D, bool kQuant, typename Rows>
+cudaError_t launch_decode_tile(const void* q, const void* k, const void* v, const float* k_scale,
+                               const float* v_scale, const int* lengths, float* part_acc,
+                               float* part_ml, int* tickets, void* out, int batch, int hq,
+                               int hkv, Rows rows, int n_grid, cudaStream_t stream) {
+  constexpr int smem = DcSmem<KV, D>::kBytes;
+  auto kernel = decode_tile_kernel<T, KV, D, kQuant, Rows>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3(n_grid, batch * hkv), kDcThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v), k_scale,
+      v_scale, lengths, part_acc, part_ml, tickets, static_cast<T*>(out), hkv, hq / hkv, rows,
+      softmax_scale(D));
+  return cudaGetLastError();
+}
+
+// n_grid blocks per (row, kv head), 1..kDcMaxSplits (the wrappers' decode_grid).
+template <typename T, typename KV, bool kQuant, typename Rows>
+cudaError_t dispatch_decode_tile(int d_head, const void* q, const void* k, const void* v,
+                                 const float* k_scale, const float* v_scale, const int* lengths,
+                                 float* part_acc, float* part_ml, int* tickets, void* out,
+                                 int batch, int hq, int hkv, Rows rows, int n_grid,
+                                 cudaStream_t stream) {
+  if (n_grid < 1 || n_grid > kDcMaxSplits || tickets == nullptr) return cudaErrorInvalidValue;
+#define DECODE_TILE_CASE(DH)                                                                 \
+  case DH:                                                                                   \
+    return launch_decode_tile<T, KV, DH, kQuant, Rows>(q, k, v, k_scale, v_scale, lengths,   \
+                                                       part_acc, part_ml, tickets, out, batch, \
+                                                       hq, hkv, rows, n_grid, stream);
+  switch (d_head) {
+    DECODE_TILE_CASE(64)
+    DECODE_TILE_CASE(96)
+    DECODE_TILE_CASE(128)
+    DECODE_TILE_CASE(256)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DECODE_TILE_CASE
 }
 
 }  // namespace port_attn

@@ -3,15 +3,16 @@
 // nvcc at first use; ops/cuda_quant.py holds the wrappers and their launch
 // counts).
 //
-// int4_matmul replaces two Pallas kernels of
+// int4_matmul and int4_matmul_i32 replace two Pallas kernels of
 // cain_2025_device_remote_llm_energy_rep_pkg_tpu/ops/pallas_quant.py, and
 // w4a8_matmul the one of scripts/w4a8_probe.py (11, at the end of the file):
 //
-// 9.  layout 0 (halves) — int4_matmul (_int4_matmul_kernel). packed
+// 9.  int4_matmul (halves) — int4_matmul (_int4_matmul_kernel). packed
 //     [K = IN/2, OUT] int8: packed row i holds weight row i in its low
 //     nibble and weight row K + i in its high nibble.
-// 10. layout 1 (int32 lanes) — int4_matmul_i32 (_int4_matmul_kernel_i32).
-//     packed [K = IN/8, OUT] int32: nibble p of lane k is weight row 8k + p.
+// 10. int4_matmul_i32 (int32 lanes) — int4_matmul_i32
+//     (_int4_matmul_kernel_i32). packed [K = IN/8, OUT] int32: nibble p of
+//     lane k is weight row 8k + p.
 //
 // Contract (both): out[M, OUT] = (bf16(x)[M, IN] @ w[IN, OUT]) * scale[OUT],
 // cast once to x's dtype (bf16 or f32), 1 <= M <= 8. x is rounded to bf16
@@ -25,29 +26,51 @@
 // byte; the weights must cross device memory once, packed, so bound =
 // (packed bytes + scales + x + out) / 3.35 TB/s.
 //
-// Design. The TPU kernel keeps the whole of x resident in VMEM and walks the
-// k-blocks of a column tile in order, carrying the sum in scratch. Here a
-// block owns 128 output columns (a warp's 32 threads × 4 adjacent columns)
-// and one split of the packed rows; its 8 warps take interleaved rows of
-// the split. Each thread reads its 4 columns of a packed row as one 32-bit
-// word (halves) or one 16-byte vector (int32 lanes), so a warp's loads
-// coalesce into 128 (512) contiguous bytes; it unpacks the nibbles in
-// registers and accumulates M × 4 f32 sums. Only the split's slice of x is
-// staged in shared memory (rounded to bf16, kept as f32): at llama3.1:8b's
-// w_down the whole of x would not fit a block's 227 KB. The 8 warps' sums
-// are added in a fixed order through shared memory into f32 partials, one
-// per split, and int4_merge_kernel adds the splits in order, scales and
-// casts. No float atomics, so every run gives the same bits. Splits are
-// chosen by the wrapper so that the thin projections (qwen2's wk/wv, OUT
-// 256) still spread over the 132 SMs.
+// Design of 9 (int4_mma_kernel): the tensor cores, one launch. The product
+// runs as mma.sync.m16n8k16 (bf16 in, f32 accumulate) with the weight as
+// the A operand (16 output columns × 16 k) and x as the B operand (16 k ×
+// 8 rows; rows past M are zeros). The k order inside an mma is free, so
+// the k pair (2j, 2j+1) of a fragment register is weight rows (i, K + i)
+// of one packed row i: one packed byte becomes one bf16x2, its nibbles
+// ORed (biased by 8) into the mantissa of 128.0 and 136 subtracted, exact
+// for -8..7 and without an int→float conversion. A lane's 16-byte load of
+// packed row i, columns c..c+15, feeds eight mmas: output column c + 2u
+// (A row g) and c + 2u + 1 (A row g + 8) of mma u. So the weights go from
+// device memory straight to registers (16 bytes a lane, past L1), in a
+// ring of four k-steps per warp (4 KB; 32 KB a block) that is refilled as
+// each step is multiplied. A block of 8 warps owns 128 output columns and
+// one split of the packed rows, and stages its slice of x in shared
+// memory, in the same k order, while its first weights are in flight. The
+// warps' sums are added in a fixed order through shared memory. Where the
+// column tiles leave SMs of the card idle, the packed rows are split over
+// blocks, up to one block per SM of its 132 and at least 128 rows a split
+// (ops/cuda_quant.py::_mma_split); each split writes f32 partials, and the
+// last block of a column tile to arrive (an atomic ticket, reset by that
+// block) adds the partials in split order, scales and casts. No float
+// atomics, so every run gives the same bits.
+//
+// Design of 10 (int4_partial_kernel): the CUDA cores, two launches. A block
+// owns 128 output columns (a warp's 32 threads × 4 adjacent columns) and
+// one split of the packed rows; its 8 warps take interleaved rows of the
+// split. Each thread reads its 4 columns of a packed row as one 16-byte
+// vector, so a warp's loads coalesce into 512 contiguous bytes; it unpacks
+// the nibbles in registers and accumulates M × 4 f32 sums. Only the split's
+// slice of x is staged in shared memory (rounded to bf16, kept as f32).
+// The 8 warps' sums are added in a fixed order through shared memory into
+// f32 partials, one per split, and int4_merge_kernel adds the splits in
+// order, scales and casts.
 
 #include "decode_common.cuh"
 
 namespace {
 
+using port_attn::ceil_div;
 using port_attn::from_f;
 using port_attn::kDtypeBF16;
 using port_attn::kDtypeF32;
+using port_attn::last_to_arrive;
+using port_attn::mma_bf16;
+using port_attn::pack_bf16;
 using port_attn::to_f;
 
 constexpr int kWarps = 8;
@@ -55,13 +78,276 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kCols = 4;              // adjacent output columns per thread
 constexpr int kTileCols = 32 * kCols;  // output columns per block
 constexpr int kMaxRows = 8;            // rows of x
-// Packed rows per split, at most (ops/cuda_quant.py keeps the same limits):
-// 512 weight rows in either layout, so the staged x slice is at most
-// 8 × 512 f32 = 16 KB.
-constexpr int kMaxSplitRowsHalves = 256;
+
+// ---- 9. int4_matmul (halves): tensor cores, one launch ---------------------
+constexpr int kMmaCols = 128;          // output columns per block: 8 lane groups × 16
+constexpr int kMmaValues = 8 * kMmaCols;  // f32 sums per block: 128 columns × 8 rows
+constexpr int kMmaStepRows = 8;        // packed rows per k-step: one mma's 16 k
+constexpr int kMmaUnroll = 4;          // k-steps a warp has in flight
+constexpr int kMmaMaxSplitRows = 1024;  // x slice: 8 rows × 1028 words = 32.9 KB
+constexpr unsigned kBf16x2Of136 = 0x43084308u;
+
+// 32-bit words of a staged x row: at least the split's rows and 4 mod 32,
+// so the lanes' B-fragment reads (row g, word 8s + t) hit 32 distinct banks.
+__host__ __device__ constexpr int mma_x_stride(int split_rows) {
+  return (split_rows + 27) / 32 * 32 + 4;
+}
+
+inline size_t mma_smem_bytes(int split_rows) {
+  const size_t xs = sizeof(uint32_t) * kMaxRows * mma_x_stride(split_rows);
+  const size_t red = sizeof(float) * kWarps * 32 * 32;  // the warps' sums
+  return xs > red ? xs : red;
+}
+
+// bf16x2 {low nibble, high nibble} of byte C of w, w4 = w >> 4: each
+// nibble, biased by 8 (^8), lands in the mantissa of 128.0 (bf16 0x4300,
+// whose ulp is 1), and 136 is subtracted; exact for codes -8..7, and a
+// zero byte gives 0.
+template <int C>
+__device__ __forceinline__ unsigned nibbles_bf16x2(uint32_t w, uint32_t w4) {
+  constexpr unsigned kSel = C | (C << 4) | ((C + 4) << 8) | ((C + 4) << 12);
+  const unsigned magic = kBf16x2Of136;
+  const unsigned biased = (__byte_perm(w, w4, kSel) & 0x000F000Fu) ^ magic;
+  const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&magic));
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// 16 packed bytes from p (columns c..c+15 of a packed row); zeros where
+// !ok, and past `avail` columns without kVec (byte loads). The weights are
+// read once: the vector load skips L1 and asks L2 for the 256-byte block.
+template <bool kVec>
+__device__ __forceinline__ uint4 load_packed16(const uint8_t* p, bool ok, int avail) {
+  if constexpr (kVec) {
+    uint4 r = make_uint4(0u, 0u, 0u, 0u);
+    if (ok)
+      asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+                   : "l"(p));
+    return r;
+  } else {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (ok) {
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+        if (c < avail) w[c / 4] |= static_cast<uint32_t>(__ldg(p + c)) << (8 * (c % 4));
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// 8 consecutive elements of x, 16-byte aligned, widened to f32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// One k-step of a warp: packed rows j = t (lo) and j = t + 4 (hi) of the
+// step, 16 columns each, against x's B fragment at xr = xs[g][8s + t].
+// mma u (acc[u]) holds output columns 16g + 2u (A row g) and 16g + 2u + 1
+// (A row g + 8): bytes 2e and 2e + 1 of word q, u = 2q + e.
+__device__ __forceinline__ void mma_step(float (&acc)[8][4], const uint32_t* xr,
+                                         const uint4 (&w)[2]) {
+  const unsigned b0 = xr[0];
+  const unsigned b1 = xr[4];
+  const uint32_t lo[4] = {w[0].x, w[0].y, w[0].z, w[0].w};
+  const uint32_t hi[4] = {w[1].x, w[1].y, w[1].z, w[1].w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t l4 = lo[q] >> 4;
+    const uint32_t h4 = hi[q] >> 4;
+    const unsigned a0[4] = {nibbles_bf16x2<0>(lo[q], l4), nibbles_bf16x2<1>(lo[q], l4),
+                            nibbles_bf16x2<0>(hi[q], h4), nibbles_bf16x2<1>(hi[q], h4)};
+    mma_bf16(acc[2 * q], a0, b0, b1);
+    const unsigned a1[4] = {nibbles_bf16x2<2>(lo[q], l4), nibbles_bf16x2<3>(lo[q], l4),
+                            nibbles_bf16x2<2>(hi[q], h4), nibbles_bf16x2<3>(hi[q], h4)};
+    mma_bf16(acc[2 * q + 1], a1, b0, b1);
+  }
+}
+
+// Grid (ceil(OUT / 128), n_split), kThreads threads; dynamic shared
+// memory mma_smem_bytes(split_rows). Warp w takes the k-steps w, w +
+// kWarps, ... of its split; lane (g = lane / 4, t = lane % 4) loads columns
+// 16g..16g+15 of the block's 128. With n_split > 1, partial [n_split,
+// tiles, kMmaValues] f32 and tickets [tiles] (zero). kVec: OUT % 16 == 0,
+// K % 8 == 0, and packed and x 16-byte aligned.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+    int4_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
+                    const float* __restrict__ scale, float* __restrict__ partial,
+                    int* __restrict__ tickets, T* __restrict__ out, int m_rows, int in_dim,
+                    int k_rows, int out_dim, int split_rows) {
+  extern __shared__ __align__(16) uint32_t mm_smem[];
+  const int tile = blockIdx.x;
+  const int split = blockIdx.y;
+  const int n_split = gridDim.y;
+  const int r0 = split * split_rows;
+  const int n_rows = min(split_rows, k_rows - r0);  // > 0
+  const int n_steps = ceil_div(n_rows, kMmaStepRows);
+  const int stride = mma_x_stride(split_rows);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int col = tile * kMmaCols + 16 * g;
+  const int avail = out_dim - col;  // this lane group's columns inside OUT
+
+  // Step s: block-local packed rows 8s + t (w[0]) and 8s + t + 4 (w[1]);
+  // nothing is read past the split.
+  auto load_step = [&](int s, uint4(&w)[2]) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = kMmaStepRows * s + t + 4 * half;
+      w[half] = load_packed16<kVec>(packed + static_cast<size_t>(r0 + r) * out_dim + col,
+                                    r < n_rows && avail > 0, avail);
+    }
+  };
+  // A ring of kMmaUnroll steps in flight: step warp + i·kWarps lives in
+  // slot i % kMmaUnroll, and each slot is refilled as soon as its step is
+  // multiplied.
+  uint4 w[kMmaUnroll][2];
+#pragma unroll
+  for (int u = 0; u < kMmaUnroll; ++u) load_step(warp + u * kWarps, w[u]);
+
+  // x while the first weights are in flight: word r of row m packs
+  // bf16(x[m, r0 + r]) (low half) and bf16(x[m, K + r0 + r]) (high half);
+  // rows m >= M and words past the split's rows are 0.
+  uint32_t* xs = mm_smem;
+  const int padded = n_steps * kMmaStepRows;
+  if constexpr (kVec) {  // padded == n_rows: 8 words a unit
+    const int per_row = padded / 8;
+    for (int i = tid; i < kMaxRows * per_row; i += kThreads) {
+      const int m = i / per_row;
+      const int r = (i - m * per_row) * 8;
+      float lo[8] = {}, hi[8] = {};
+      if (m < m_rows) {
+        load8(x + static_cast<size_t>(m) * in_dim + r0 + r, lo);
+        load8(x + static_cast<size_t>(m) * in_dim + k_rows + r0 + r, hi);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(xs + m * stride + r);
+      dst[0] = make_uint4(pack_bf16(lo[0], hi[0]), pack_bf16(lo[1], hi[1]),
+                          pack_bf16(lo[2], hi[2]), pack_bf16(lo[3], hi[3]));
+      dst[1] = make_uint4(pack_bf16(lo[4], hi[4]), pack_bf16(lo[5], hi[5]),
+                          pack_bf16(lo[6], hi[6]), pack_bf16(lo[7], hi[7]));
+    }
+  } else {
+    for (int i = tid; i < kMaxRows * padded; i += kThreads) {
+      const int m = i / padded;
+      const int r = i - m * padded;
+      float lo = 0.f, hi = 0.f;
+      if (m < m_rows && r < n_rows) {
+        lo = to_f(x[static_cast<size_t>(m) * in_dim + r0 + r]);
+        hi = to_f(x[static_cast<size_t>(m) * in_dim + k_rows + r0 + r]);
+      }
+      xs[m * stride + r] = pack_bf16(lo, hi);
+    }
+  }
+  __syncthreads();
+
+  float acc[8][4];
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[u][c] = 0.f;
+  const uint32_t* xr = xs + g * stride + t;
+  for (int s0 = warp; s0 < n_steps; s0 += kWarps * kMmaUnroll) {
+#pragma unroll
+    for (int u = 0; u < kMmaUnroll; ++u) {
+      const int s = s0 + u * kWarps;
+      if (s < n_steps) mma_step(acc, xr + kMmaStepRows * s, w[u]);
+      load_step(s + kMmaUnroll * kWarps, w[u]);
+    }
+  }
+
+  // The warps' sums, added in a fixed order. Value v of the block's
+  // kMmaValues is (mma·4 + c = v / 32, lane v % 32); thread tid holds v =
+  // tid + kThreads·i, and merges the splits' partials of the same v in
+  // split order.
+  __syncthreads();  // the x slice is no longer read
+  float* red = reinterpret_cast<float*>(mm_smem);  // [warp][mma·4 + c][lane]
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) red[(warp * 32 + 4 * u + c) * 32 + lane] = acc[u][c];
+  __syncthreads();
+  // Value (mma u, c, lane (g, t)): column 16g + 2u + c / 2 of the tile, x
+  // row 2t + c % 2. Values outside out (rows past M, columns past OUT) are
+  // neither stored nor merged.
+  constexpr int kPer = kMmaValues / kThreads;
+  float sum[kPer];
+  int m_of[kPer], col_of[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int v = tid + kThreads * i;
+    const int l = v & 31;
+    const int uc = v >> 5;
+    m_of[i] = 2 * (l & 3) + (uc & 1);
+    col_of[i] = tile * kMmaCols + 16 * (l >> 2) + 2 * (uc >> 2) + ((uc >> 1) & 1);
+    sum[i] = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < kWarps; ++wp) sum[i] += red[wp * kMmaValues + v];
+  }
+  auto kept = [&](int i) { return m_of[i] < m_rows && col_of[i] < out_dim; };
+  if (n_split > 1) {
+    const size_t n_tiles = gridDim.x;
+    float* part = partial + (static_cast<size_t>(split) * n_tiles + tile) * kMmaValues + tid;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      if (kept(i)) part[kThreads * i] = sum[i];
+    if (!last_to_arrive(tickets + tile, n_split)) return;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) sum[i] = 0.f;
+    for (int sp = 0; sp < n_split; ++sp) {
+      const float* p = partial + (static_cast<size_t>(sp) * n_tiles + tile) * kMmaValues + tid;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        if (kept(i)) sum[i] += __ldcg(p + kThreads * i);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    if (kept(i))
+      out[static_cast<size_t>(m_of[i]) * out_dim + col_of[i]] = from_f<T>(sum[i] * scale[col_of[i]]);
+}
+
+template <typename T>
+cudaError_t launch_mma(const void* x, const void* packed, const float* scale, float* partial,
+                       int* tickets, void* out, int m, int in_dim, int k_rows, int out_dim,
+                       int n_split, int split_rows, cudaStream_t stream) {
+  const bool vec = out_dim % 16 == 0 && k_rows % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const dim3 grid(ceil_div(out_dim, kMmaCols), n_split);
+  const size_t smem = mma_smem_bytes(split_rows);
+  const T* xt = static_cast<const T*>(x);
+  const uint8_t* pk = static_cast<const uint8_t*>(packed);
+  T* o = static_cast<T*>(out);
+  if (vec)
+    int4_mma_kernel<T, true><<<grid, kThreads, smem, stream>>>(
+        xt, pk, scale, partial, tickets, o, m, in_dim, k_rows, out_dim, split_rows);
+  else
+    int4_mma_kernel<T, false><<<grid, kThreads, smem, stream>>>(
+        xt, pk, scale, partial, tickets, o, m, in_dim, k_rows, out_dim, split_rows);
+  return cudaGetLastError();
+}
+
+// ---- 10. int4_matmul_i32 (int32 lanes): CUDA cores, split + merge ----------
+// Packed rows per split, at most (ops/cuda_quant.py keeps the same limit):
+// 512 weight rows, so the staged x slice is at most 8 × 512 f32 = 16 KB.
 constexpr int kMaxSplitRowsI32 = 64;
-constexpr int kLayoutHalves = 0;
-constexpr int kLayoutI32 = 1;
 
 // Sign-extended nibble at bit `shift` of a 32-bit word.
 __device__ __forceinline__ float nibble(uint32_t w, int shift) {
@@ -75,33 +361,25 @@ __device__ __forceinline__ float x_bf16(T v) {
 }
 
 // Grid (ceil(OUT / 128), n_split), kThreads threads. Dynamic shared memory:
-// max(kW · n · M, kWarps · M · 128) floats (the x slice, then the warps'
+// max(8 · n · M, kWarps · M · 128) floats (the x slice, then the warps'
 // sums).
-template <typename T, int M, bool kI32, bool kVec>
+template <typename T, int M, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    int4_partial_kernel(const T* __restrict__ x, const void* __restrict__ packed,
+    int4_partial_kernel(const T* __restrict__ x, const uint32_t* __restrict__ packed,
                         float* __restrict__ partial, int in_dim, int k_rows,
                         int out_dim, int split_rows) {
-  constexpr int kW = kI32 ? 8 : 2;  // weight rows per packed row
+  constexpr int kW = 8;  // weight rows per packed row
   extern __shared__ __align__(16) float smem[];
   const int split = blockIdx.y;
   const int r0 = split * split_rows;
   const int n = min(split_rows, k_rows - r0);  // packed rows of this block (> 0)
 
-  // Stage the split's x rows: xs[j * M + m], j the block-local weight row.
-  // Halves: j < n is weight row r0 + j, j >= n is row k_rows + r0 + j - n.
-  // Int32 lanes: j is weight row 8·r0 + j.
+  // Stage the split's x rows: xs[j * M + m], weight row 8·r0 + j.
   const int staged = kW * n;
   for (int idx = threadIdx.x; idx < staged * M; idx += kThreads) {
     const int m = idx / staged;
     const int j = idx - m * staged;
-    int col;
-    if constexpr (kI32) {
-      col = kW * r0 + j;
-    } else {
-      col = j < n ? r0 + j : k_rows + r0 + (j - n);
-    }
-    smem[j * M + m] = x_bf16(x[static_cast<size_t>(m) * in_dim + col]);
+    smem[j * M + m] = x_bf16(x[static_cast<size_t>(m) * in_dim + kW * r0 + j]);
   }
   __syncthreads();
 
@@ -115,62 +393,32 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kCols; ++c) acc[m][c] = 0.f;
 
   if (col0 < out_dim) {
-    if constexpr (!kI32) {
-      const uint8_t* p = static_cast<const uint8_t*>(packed);
-#pragma unroll 4
-      for (int lr = warp; lr < n; lr += kWarps) {
-        const size_t row = static_cast<size_t>(r0 + lr) * out_dim + col0;
-        uint32_t w = 0;
-        if constexpr (kVec) {
-          w = __ldg(reinterpret_cast<const uint32_t*>(p + row));
-        } else {
+#pragma unroll 2
+    for (int lr = warp; lr < n; lr += kWarps) {
+      const size_t row = static_cast<size_t>(r0 + lr) * out_dim + col0;
+      uint32_t w[kCols];
+      if constexpr (kVec) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(packed + row));
+        w[0] = v.x;
+        w[1] = v.y;
+        w[2] = v.z;
+        w[3] = v.w;
+      } else {
 #pragma unroll
-          for (int c = 0; c < kCols; ++c)
-            if (col0 + c < out_dim) w |= static_cast<uint32_t>(__ldg(p + row + c)) << (8 * c);
-        }
-        const float* xl = smem + lr * M;        // weight row r0 + lr
-        const float* xh = smem + (n + lr) * M;  // weight row K + r0 + lr
+        for (int c = 0; c < kCols; ++c) w[c] = col0 + c < out_dim ? __ldg(packed + row + c) : 0u;
+      }
+      const float* xr = smem + lr * kW * M;  // weight rows 8(r0 + lr) + p
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
-          const float lo = nibble(w, 8 * c);
-          const float hi = nibble(w, 8 * c + 4);
+          const float wv = nibble(w[c], 4 * q);
 #pragma unroll
-          for (int m = 0; m < M; ++m) {
-            acc[m][c] = fmaf(xl[m], lo, acc[m][c]);
-            acc[m][c] = fmaf(xh[m], hi, acc[m][c]);
-          }
-        }
-      }
-    } else {
-      const uint32_t* p = static_cast<const uint32_t*>(packed);
-#pragma unroll 2
-      for (int lr = warp; lr < n; lr += kWarps) {
-        const size_t row = static_cast<size_t>(r0 + lr) * out_dim + col0;
-        uint32_t w[kCols];
-        if constexpr (kVec) {
-          const uint4 v = __ldg(reinterpret_cast<const uint4*>(p + row));
-          w[0] = v.x;
-          w[1] = v.y;
-          w[2] = v.z;
-          w[3] = v.w;
-        } else {
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) w[c] = col0 + c < out_dim ? __ldg(p + row + c) : 0u;
-        }
-        const float* xr = smem + lr * kW * M;  // weight rows 8(r0 + lr) + p
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            const float wv = nibble(w[c], 4 * q);
-#pragma unroll
-            for (int m = 0; m < M; ++m) acc[m][c] = fmaf(xr[q * M + m], wv, acc[m][c]);
-          }
+          for (int m = 0; m < M; ++m) acc[m][c] = fmaf(xr[q * M + m], wv, acc[m][c]);
         }
       }
     }
   }
-
   // Add the warps' sums in a fixed order.
   __syncthreads();  // the x slice is no longer read
   float4* red = reinterpret_cast<float4*>(smem);  // [kWarps][M][32 lanes] of 4 columns
@@ -204,17 +452,17 @@ __global__ void int4_merge_kernel(const float* __restrict__ partial,
   out[idx] = from_f<T>(s * scale[idx % out_dim]);
 }
 
-template <typename T, int M, bool kI32, bool kVec>
+template <typename T, int M, bool kVec>
 cudaError_t launch(const void* x, const void* packed, const float* scale, float* partial,
                    void* out, int in_dim, int k_rows, int out_dim, int n_split,
                    int split_rows, cudaStream_t stream) {
-  constexpr int kW = kI32 ? 8 : 2;
-  const int staged = kW * split_rows * M;
+  const int staged = 8 * split_rows * M;
   const int reduce = kWarps * M * kTileCols;
   const size_t smem = static_cast<size_t>(staged > reduce ? staged : reduce) * sizeof(float);
   const dim3 grid((out_dim + kTileCols - 1) / kTileCols, n_split);
-  int4_partial_kernel<T, M, kI32, kVec><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), packed, partial, in_dim, k_rows, out_dim, split_rows);
+  int4_partial_kernel<T, M, kVec><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const uint32_t*>(packed), partial, in_dim, k_rows,
+      out_dim, split_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = static_cast<size_t>(M) * out_dim;
@@ -223,14 +471,14 @@ cudaError_t launch(const void* x, const void* packed, const float* scale, float*
   return cudaGetLastError();
 }
 
-template <typename T, bool kI32, bool kVec>
+template <typename T, bool kVec>
 cudaError_t dispatch_rows(int m, const void* x, const void* packed, const float* scale,
                           float* partial, void* out, int in_dim, int k_rows, int out_dim,
                           int n_split, int split_rows, cudaStream_t stream) {
 #define INT4_ROWS_CASE(MM)                                                              \
   case MM:                                                                              \
-    return launch<T, MM, kI32, kVec>(x, packed, scale, partial, out, in_dim, k_rows,    \
-                                     out_dim, n_split, split_rows, stream);
+    return launch<T, MM, kVec>(x, packed, scale, partial, out, in_dim, k_rows, out_dim,  \
+                               n_split, split_rows, stream);
   switch (m) {
     INT4_ROWS_CASE(1)
     INT4_ROWS_CASE(2)
@@ -244,22 +492,6 @@ cudaError_t dispatch_rows(int m, const void* x, const void* packed, const float*
       return cudaErrorInvalidValue;
   }
 #undef INT4_ROWS_CASE
-}
-
-template <typename T>
-cudaError_t dispatch_layout(int layout, bool vec, int m, const void* x, const void* packed,
-                            const float* scale, float* partial, void* out, int in_dim,
-                            int k_rows, int out_dim, int n_split, int split_rows,
-                            cudaStream_t stream) {
-  if (layout == kLayoutHalves)
-    return vec ? dispatch_rows<T, false, true>(m, x, packed, scale, partial, out, in_dim,
-                                               k_rows, out_dim, n_split, split_rows, stream)
-               : dispatch_rows<T, false, false>(m, x, packed, scale, partial, out, in_dim,
-                                                k_rows, out_dim, n_split, split_rows, stream);
-  return vec ? dispatch_rows<T, true, true>(m, x, packed, scale, partial, out, in_dim, k_rows,
-                                            out_dim, n_split, split_rows, stream)
-             : dispatch_rows<T, true, false>(m, x, packed, scale, partial, out, in_dim, k_rows,
-                                             out_dim, n_split, split_rows, stream);
 }
 
 // ---- 11. w4a8_matmul ---------------------------------------------------------
@@ -432,31 +664,54 @@ const char* int4_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// layout 0: packed [in_dim/2, out_dim] int8; layout 1: [in_dim/8, out_dim]
-// int32. partial: [n_split, m, out_dim] f32 scratch. Splits of split_rows
-// packed rows; every split holds at least one row.
-int int4_matmul(int dtype, int layout, const void* x, const void* packed, const float* scale,
-                float* partial, void* out, int m, int in_dim, int k_rows, int out_dim,
-                int n_split, int split_rows, void* stream) {
-  const int per_row = layout == kLayoutI32 ? 8 : 2;
-  if ((layout != kLayoutHalves && layout != kLayoutI32) || m < 1 || m > kMaxRows ||
-      k_rows < 1 || out_dim < 1 || in_dim != per_row * k_rows || split_rows < 1 ||
-      split_rows > (layout == kLayoutI32 ? kMaxSplitRowsI32 : kMaxSplitRowsHalves) || n_split < 1 ||
+// B9. packed [in_dim/2, out_dim] int8 (halves). Splits of split_rows packed
+// rows, a multiple of 8 up to 1024 (kMmaMaxSplitRows); every split holds
+// at least one row. With n_split > 1: partial [n_split, ceil(out_dim/128),
+// 256, 4] f32 scratch and tickets [ceil(out_dim/128)] int32, zero.
+int int4_matmul(int dtype, const void* x, const void* packed, const float* scale,
+                float* partial, int* tickets, void* out, int m, int in_dim, int k_rows,
+                int out_dim, int n_split, int split_rows, void* stream) {
+  if (m < 1 || m > kMaxRows || k_rows < 1 || out_dim < 1 || in_dim != 2 * k_rows ||
+      split_rows < kMmaStepRows || split_rows % kMmaStepRows != 0 ||
+      split_rows > kMmaMaxSplitRows || n_split < 1 ||
       static_cast<long long>(n_split - 1) * split_rows >= k_rows ||
       static_cast<long long>(n_split) * split_rows < k_rows ||
-      partial == nullptr)
+      (n_split > 1 && (partial == nullptr || tickets == nullptr)))
     return cudaErrorInvalidValue;
-  // Vector loads need every thread's 4 columns aligned: 4 bytes (halves) or
-  // 16 bytes (int32 lanes) at every row start.
-  const size_t align = layout == kLayoutI32 ? 16 : 4;
-  const bool vec = out_dim % kCols == 0 && reinterpret_cast<uintptr_t>(packed) % align == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeBF16)
-    return dispatch_layout<__nv_bfloat16>(layout, vec, m, x, packed, scale, partial, out,
-                                          in_dim, k_rows, out_dim, n_split, split_rows, s);
+    return launch_mma<__nv_bfloat16>(x, packed, scale, partial, tickets, out, m, in_dim, k_rows,
+                                     out_dim, n_split, split_rows, s);
   if (dtype == kDtypeF32)
-    return dispatch_layout<float>(layout, vec, m, x, packed, scale, partial, out, in_dim,
-                                  k_rows, out_dim, n_split, split_rows, s);
+    return launch_mma<float>(x, packed, scale, partial, tickets, out, m, in_dim, k_rows, out_dim,
+                             n_split, split_rows, s);
+  return cudaErrorInvalidValue;
+}
+
+// B10. packed [in_dim/8, out_dim] int32. partial: [n_split, m, out_dim] f32
+// scratch. Splits of split_rows packed rows; every split holds at least
+// one row.
+int int4_matmul_i32(int dtype, const void* x, const void* packed, const float* scale,
+                    float* partial, void* out, int m, int in_dim, int k_rows, int out_dim,
+                    int n_split, int split_rows, void* stream) {
+  if (m < 1 || m > kMaxRows || k_rows < 1 || out_dim < 1 || in_dim != 8 * k_rows ||
+      split_rows < 1 || split_rows > kMaxSplitRowsI32 || n_split < 1 ||
+      static_cast<long long>(n_split - 1) * split_rows >= k_rows ||
+      static_cast<long long>(n_split) * split_rows < k_rows || partial == nullptr)
+    return cudaErrorInvalidValue;
+  // Vector loads need every thread's 4 columns 16-byte aligned at every row.
+  const bool vec = out_dim % kCols == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kDtypeBF16)
+    return vec ? dispatch_rows<__nv_bfloat16, true>(m, x, packed, scale, partial, out, in_dim,
+                                                    k_rows, out_dim, n_split, split_rows, s)
+               : dispatch_rows<__nv_bfloat16, false>(m, x, packed, scale, partial, out, in_dim,
+                                                     k_rows, out_dim, n_split, split_rows, s);
+  if (dtype == kDtypeF32)
+    return vec ? dispatch_rows<float, true>(m, x, packed, scale, partial, out, in_dim, k_rows,
+                                            out_dim, n_split, split_rows, s)
+               : dispatch_rows<float, false>(m, x, packed, scale, partial, out, in_dim, k_rows,
+                                             out_dim, n_split, split_rows, s);
   return cudaErrorInvalidValue;
 }
 

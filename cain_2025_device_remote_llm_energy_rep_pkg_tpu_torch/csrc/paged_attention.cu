@@ -47,10 +47,15 @@
 // as the JAX kernel and the plain version do; the write-through decode
 // never makes one (lengths = offset + 1). The step's own K/V must be in
 // the pool before the launch (lengths counts it): the transformer writes
-// it on the same stream just before. Design: B4's split body and
-// PagedRows, then the normalising decode_merge_kernel (both in
-// decode_common.cuh) in place of parts_merge_kernel: one code path with
-// B4 up to the merge. Bound: bytes, as B4, plus the output.
+// it on the same stream just before. Design: B2's one-launch body,
+// decode_tile_kernel (decode_common.cuh), with the PagedRows address
+// policy: the wrapper sizes the grid from B·Hkv and Jmax·page, each block
+// sizes its row's splits from lengths[b], a tile of kDcTile positions
+// within one page (page % kDcTile == 0) costs one table lookup and
+// arrives as contiguous 16-byte cp.async rows (any other page size looks
+// up each position), and the last split of a (row, kv head) merges
+// through an atomic ticket and normalises: one launch a call. Bound:
+// bytes, as B4, plus the output.
 //
 // Multi-query contract (7, 8): Q <= kMqQueryMax query positions per row,
 // q [B,Q,Hq,D] with offsets [B] (the absolute position of query 0); query
@@ -119,13 +124,12 @@ __global__ void parts_merge_kernel(const float* __restrict__ part_acc,
   }
 }
 
-// With `out` (B6), the splits merge into normalised attention out [B,Hq,D]
-// of type T; without it (B4/B5), into the unnormalised (acc, m, l).
+// The splits merge into the unnormalised (acc, m, l).
 template <typename T, typename KV, int D, bool kQuant>
 cudaError_t launch_parts(const void* q, const void* k, const void* v, const float* k_scale,
                          const float* v_scale, const int* table, const int* lengths,
                          float* part_acc, float* part_ml, float* acc, float* m, float* l,
-                         void* out, int batch, int hq, int hkv, int n_pool, int page, int jmax,
+                         int batch, int hq, int hkv, int n_pool, int page, int jmax,
                          int n_split, int split_len, cudaStream_t stream) {
   const int group = hq / hkv;
   const PagedRows rows{table, jmax, page, hkv, n_pool};
@@ -136,12 +140,8 @@ cudaError_t launch_parts(const void* q, const void* k, const void* v, const floa
           softmax_scale(D));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (out != nullptr)
-    decode_merge_kernel<T><<<dim3(batch * hkv, group), D, 0, stream>>>(
-        part_acc, part_ml, static_cast<T*>(out), group, D, n_split);
-  else
-    parts_merge_kernel<<<dim3(batch * hkv, group), D, 0, stream>>>(part_acc, part_ml, acc, m, l,
-                                                                  group, 1, hkv, D, n_split);
+  parts_merge_kernel<<<dim3(batch * hkv, group), D, 0, stream>>>(part_acc, part_ml, acc, m, l,
+                                                                group, 1, hkv, D, n_split);
   return cudaGetLastError();
 }
 
@@ -149,15 +149,14 @@ template <typename T, typename KV, bool kQuant>
 cudaError_t dispatch_parts(int d_head, const void* q, const void* k, const void* v,
                            const float* k_scale, const float* v_scale, const int* table,
                            const int* lengths, float* part_acc, float* part_ml, float* acc,
-                           float* m, float* l, void* out, int batch, int hq, int hkv,
+                           float* m, float* l, int batch, int hq, int hkv,
                            int n_pool, int page, int jmax, int n_split, int split_len,
                            cudaStream_t stream) {
 #define PAGED_PARTS_CASE(DH)                                                               \
   case DH:                                                                                 \
     return launch_parts<T, KV, DH, kQuant>(q, k, v, k_scale, v_scale, table, lengths,      \
-                                           part_acc, part_ml, acc, m, l, out, batch, hq,   \
-                                           hkv, n_pool, page, jmax, n_split, split_len,    \
-                                           stream);
+                                           part_acc, part_ml, acc, m, l, batch, hq, hkv,   \
+                                           n_pool, page, jmax, n_split, split_len, stream);
   switch (d_head) {
     PAGED_PARTS_CASE(64)
     PAGED_PARTS_CASE(96)
@@ -424,45 +423,46 @@ int paged_parts(int dtype, const void* q, const void* k, const void* v, const fl
     if (quant)
       return dispatch_parts<__nv_bfloat16, int8_t, true>(
           d_head, q, k, v, k_scale, v_scale, table, lengths, part_acc, part_ml, acc, m, l,
-          nullptr, batch, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
+          batch, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
     return dispatch_parts<__nv_bfloat16, __nv_bfloat16, false>(
         d_head, q, k, v, nullptr, nullptr, table, lengths, part_acc, part_ml, acc, m, l,
-        nullptr, batch, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
+        batch, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
   }
   if (dtype == kDtypeF32) {
     if (quant)
       return dispatch_parts<float, int8_t, true>(d_head, q, k, v, k_scale, v_scale, table,
-                                                 lengths, part_acc, part_ml, acc, m, l, nullptr,
-                                                 batch, hq, hkv, n_pool, page, jmax, n_split,
+                                                 lengths, part_acc, part_ml, acc, m, l, batch,
+                                                 hq, hkv, n_pool, page, jmax, n_split,
                                                  split_len, s);
     return dispatch_parts<float, float, false>(d_head, q, k, v, nullptr, nullptr, table,
-                                               lengths, part_acc, part_ml, acc, m, l, nullptr,
-                                               batch, hq, hkv, n_pool, page, jmax, n_split,
-                                               split_len, s);
+                                               lengths, part_acc, part_ml, acc, m, l, batch, hq,
+                                               hkv, n_pool, page, jmax, n_split, split_len, s);
   }
   return cudaErrorInvalidValue;
 }
 
 // B6: normalised attention out [B,Hq,D] of `dtype` over a bf16/f32 pool (the
-// JAX package has no int8 twin of this kernel). part_acc/part_ml: the
-// split scratch, as for paged_parts.
+// JAX package has no int8 twin of this kernel). n_grid blocks per (row, kv
+// head), 1..128 (the wrapper's decode_grid over Jmax·page); part_acc
+// [B·Hkv, n_grid, G, D] and part_ml [B·Hkv, n_grid, G, 2] the split
+// scratch; tickets [B·Hkv] zero.
 int paged_decode(int dtype, const void* q, const void* k, const void* v, const int* table,
-                 const int* lengths, float* part_acc, float* part_ml, void* out, int batch,
-                 int hq, int hkv, int n_pool, int page, int jmax, int d_head, int n_split,
-                 int split_len, void* stream) {
+                 const int* lengths, float* part_acc, float* part_ml, int* tickets, void* out,
+                 int batch, int hq, int hkv, int n_pool, int page, int jmax, int d_head,
+                 int n_grid, void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kGroupMax || n_pool <= 0 || page <= 0 ||
-      out == nullptr)
+      jmax <= 0 || out == nullptr)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PagedRows rows{table, jmax, page, hkv, n_pool};
   if (dtype == kDtypeBF16)
-    return dispatch_parts<__nv_bfloat16, __nv_bfloat16, false>(
-        d_head, q, k, v, nullptr, nullptr, table, lengths, part_acc, part_ml, nullptr, nullptr,
-        nullptr, out, batch, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
+    return dispatch_decode_tile<__nv_bfloat16, __nv_bfloat16, false>(
+        d_head, q, k, v, nullptr, nullptr, lengths, part_acc, part_ml, tickets, out, batch, hq,
+        hkv, rows, n_grid, s);
   if (dtype == kDtypeF32)
-    return dispatch_parts<float, float, false>(d_head, q, k, v, nullptr, nullptr, table,
-                                               lengths, part_acc, part_ml, nullptr, nullptr,
-                                               nullptr, out, batch, hq, hkv, n_pool, page,
-                                               jmax, n_split, split_len, s);
+    return dispatch_decode_tile<float, float, false>(d_head, q, k, v, nullptr, nullptr, lengths,
+                                                     part_acc, part_ml, tickets, out, batch, hq,
+                                                     hkv, rows, n_grid, s);
   return cudaErrorInvalidValue;
 }
 

@@ -6,7 +6,8 @@ package (git-ignored). :func:`build` starts one ``nvcc`` per source at once
 and waits for all of them. A library's name carries a digest of its source
 and of every shared header (``csrc/*.cuh``), so an edited kernel never
 loads a stale build. Nothing here runs at import: the CPU tests import
-every module on a machine without ``nvcc``.
+every module on a machine without ``nvcc``. :func:`tickets` holds the
+ticket scratch that the one-launch kernels share.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Dict, Optional, Sequence
+
+import torch
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = _PKG_DIR / "csrc"
@@ -38,7 +41,6 @@ _SIGNATURES = {
         "attn_prefill_rows": ([], _i),
         "attn_decode_group_max": ([], _i),
         "attn_prefill_splits": ([_i, _i, _i, _i, _i, _i, _i], _i),
-        "attn_decode_grid": ([_i, _i, _i], _i),
         "attn_prefill": ([_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p], _i),
         "attn_decode": (
             [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i,
@@ -53,7 +55,7 @@ _SIGNATURES = {
             _i,
         ),
         "paged_decode": (
-            [_i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _p], _i,
+            [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p], _i,
         ),
         "paged_mq_query_max": ([], _i),
         "paged_mq_parts": (
@@ -64,9 +66,8 @@ _SIGNATURES = {
     },
     "int4_matmul": {
         "int4_error_string": ([_i], ctypes.c_char_p),
-        "int4_matmul": (
-            [_i, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i,
-        ),
+        "int4_matmul": ([_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i),
+        "int4_matmul_i32": ([_i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i),
         "w4a8_max_split_rows": ([], _i),
         "w4a8_matmul": ([_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i),
     },
@@ -164,3 +165,21 @@ def check(err: int, name: str, lib: str = "attention") -> None:
     if err != 0:
         msg = getattr(library(lib), _ERROR_STRING[lib])(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} ({msg})")
+
+
+# Per-device int32 tickets of the one-launch kernels (B2, B3, B6, B9), zero
+# between launches: the last block of a group (the splits of a (row, kv
+# head), or of a column tile) to finish takes the group's ticket, merges
+# and resets it. One buffer serves every launch of the current stream
+# (launches on one stream never overlap).
+_TICKETS: "dict[torch.device, torch.Tensor]" = {}
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 tickets on ``device``, shared by every
+    one-launch kernel there."""
+    buf = _TICKETS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = buf
+    return buf

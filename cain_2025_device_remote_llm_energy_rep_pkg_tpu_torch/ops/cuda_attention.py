@@ -23,14 +23,14 @@ from .attention import (
 
 HEAD_DIMS = (64, 96, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The paged kernels split each row so that B·Hkv·n_split blocks cover the
-# card's 132 SMs about twice.
+# The split kernels size their grids so that the blocks cover the card's
+# 132 SMs about twice.
 _TARGET_BLOCKS = 264
-# Per-device int32 tickets of the decode kernel, zero between launches: the
-# last split of a (row, kv head) to finish takes the pair's ticket, merges
-# the splits and resets it. One buffer serves every launch of the current
-# stream (launches on one stream never overlap).
-_TICKETS: "dict[torch.device, torch.Tensor]" = {}
+# The one-launch decode body (``decode_tile_kernel`` of B2, B3 and B6):
+# positions per split at least, and splits per (row, kv head) at most
+# (kDcMinSplit and kDcMaxSplits of ``csrc/decode_common.cuh``).
+_DECODE_MIN_SPLIT = 64
+_DECODE_MAX_SPLITS = 128
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -61,12 +61,15 @@ def _require_aligned(name: str, *tensors: torch.Tensor) -> None:
         _require(t.data_ptr() % 16 == 0, f"{name}: q, k and v must start on a 16-byte boundary")
 
 
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    buf = _TICKETS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _TICKETS[device] = buf
-    return buf
+def decode_grid(batch: int, hkv: int, capacity: int) -> int:
+    """Blocks per (row, kv head) of the one-launch decode grid (B2, B3 over
+    a cache of ``capacity`` = T positions, B6 over ``Jmax·page``): enough
+    that ``B·Hkv·n`` blocks cover the card about twice, none starting past
+    the capacity. Each block sizes its row's splits from ``lengths[b]`` on
+    the device; blocks past a row's splits exit at once."""
+    pairs = max(1, batch * hkv)
+    n = min(_DECODE_MAX_SPLITS, -(-_TARGET_BLOCKS // pairs))
+    return max(1, min(n, -(-max(capacity, 1) // _DECODE_MIN_SPLIT)))
 
 
 def tile_groups(run, q: torch.Tensor, hkv: int, group_max: int):
@@ -146,8 +149,8 @@ def _launch_decode(name, wrapper, q, k, v, k_scale, v_scale, lengths) -> torch.T
     _require(lengths.shape == (b,) and lengths.dtype == torch.int32, f"{name}: lengths must be int32 [B]")
     _require_aligned(name, k, v)
     lib = _kernels.library()
-    n_grid = lib.attn_decode_grid(b, hkv, t)
-    tickets = _tickets(q.device, b * hkv)
+    n_grid = decode_grid(b, hkv, t)
+    tickets = _kernels.tickets(q.device, b * hkv)
 
     def launch(qs: torch.Tensor) -> torch.Tensor:
         group = qs.shape[1] // hkv

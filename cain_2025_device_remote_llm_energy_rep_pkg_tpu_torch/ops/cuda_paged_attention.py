@@ -36,7 +36,15 @@ from .attention import (
     paged_mq_attention_int8_reference,
     paged_mq_attention_reference,
 )
-from .cuda_attention import _TARGET_BLOCKS, _check_inputs, _require, _stream, tile_groups
+from .cuda_attention import (
+    _TARGET_BLOCKS,
+    _check_inputs,
+    _require,
+    _require_aligned,
+    _stream,
+    decode_grid,
+    tile_groups,
+)
 
 Parts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 Layer = Optional[Union[int, torch.Tensor]]
@@ -150,7 +158,9 @@ def cuda_paged_decode_attention(
     """Normalised flash-decode attention over each row's first
     ``lengths[b]`` tokens, read through the table: ``[B,Hq,D]`` in q's
     dtype. Table entries are clipped to the pool; entries past a row's
-    frontier are never read."""
+    frontier are never read. One launch: B2's body through the table,
+    its grid sized from B·Hkv and ``Jmax·page`` (:func:`decode_grid`),
+    one ticket per (row, kv head)."""
     name = "cuda_paged_decode_attention"
     if q.device.type == "cpu":
         return paged_decode_attention_reference(q, k_pool, v_pool, page_table, lengths)
@@ -158,19 +168,21 @@ def cuda_paged_decode_attention(
     code = _check_single_query(name, q, k_pool, v_pool, (), page_table, lengths)
     b, _, d = q.shape
     n_pool, hkv, page, _ = k_pool.shape
+    _require_aligned(name, k_pool, v_pool)
     jmax = page_table.shape[1]
-    n_split, split_len = _paged_split(b, hkv, jmax, page)
+    n_grid = decode_grid(b, hkv, jmax * page)
+    tickets = _kernels.tickets(q.device, b * hkv)
     lib = _kernels.library(_LIB)
 
     def launch(qs: torch.Tensor) -> torch.Tensor:
         hq = qs.shape[1]
-        part_acc = torch.empty((b * hkv, n_split, hq // hkv, d), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((b * hkv, n_split, hq // hkv, 2), dtype=torch.float32, device=q.device)
+        part_acc = torch.empty((b * hkv, n_grid, hq // hkv, d), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((b * hkv, n_grid, hq // hkv, 2), dtype=torch.float32, device=q.device)
         out = torch.empty_like(qs)
         err = lib.paged_decode(
             code, qs.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
-            lengths.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-            b, hq, hkv, n_pool, page, jmax, d, n_split, split_len, _stream(qs),
+            lengths.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
+            out.data_ptr(), b, hq, hkv, n_pool, page, jmax, d, n_grid, _stream(qs),
         )
         _kernels.check(err, name, _LIB)
         cuda_paged_decode_attention.launches += 1

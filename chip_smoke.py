@@ -23,8 +23,10 @@ B7/B8, ``generate_speculative`` and ``generate``'s routing, an n-gram
 session at k 12 (its 13-position verify block runs B7 in two launches a
 layer), and a self-draft whose draft steps run B2. The kernel rows also
 hold the stacked ``layer=`` form of B4/B5/B7/B8 bit for bit against the
-per-layer call. The w4a8 probe
-(``scripts/torch_w4a8_probe.py``) drives B11 and B9.
+per-layer call, and a ``torch.profiler`` trace shows that one call of B6
+(write-through decode) and of B9 (int4 matmul) each runs one device
+kernel. The w4a8 probe (``scripts/torch_w4a8_probe.py``) drives B11 and
+B9.
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -325,9 +327,12 @@ def int4_kernel_phase(torch, cq, qplain, qmod, timer):
     """B9 and B10 against their plain versions at the main path's shapes
     (weights at the model's 1/sqrt(IN) scale, so outputs are O(1)), f32 to
     F32_ATOL and bf16 to BF16_ATOL, timed in bf16 beside torch.matmul on
-    the dequantized bf16 weight (made once, outside the timing); and a CUDA
-    x of 9 rows must raise. Returns the first row of each kernel (qwen2's
-    w_gate at M 1) for the summary."""
+    the dequantized bf16 weight (made once, outside the timing); B10 runs
+    on the same weights and inputs as B9. A second call of B9 gives the
+    same bits; at qwen2's w_gate, M 8, one call of B9 runs one device
+    kernel (B10's two are the profiler's control); and a CUDA x of 9 rows
+    must raise. Returns the first row of each kernel (qwen2's w_gate at M
+    1) for the summary."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     kernels = {
         "cuda_int4_matmul": (cq.cuda_int4_matmul, qplain.int4_matmul_reference,
@@ -347,19 +352,30 @@ def int4_kernel_phase(torch, cq, qplain, qmod, timer):
                 x = torch.randn((m, in_dim), generator=gen, device="cuda").to(dtype)
                 out = fn(x, codes, scale)
                 ref = ref_fn(x, codes, scale)
+                again = fn(x, codes, scale)
                 torch.cuda.synchronize()
                 errs[dtype] = (out.float() - ref.float()).abs().max().item()
+                assert torch.equal(out, again), (label, name, "two calls differ")
             assert errs[torch.float32] <= F32_ATOL, (label, name, "f32", errs)
             assert errs[torch.bfloat16] <= BF16_ATOL, (label, name, "bf16", errs)
+            profiled = {}
+            if name == "cuda_int4_matmul" and label.endswith("w_gate/w_up") and m == 8 and in_dim == 1536:
+                w32 = qmod.quantize_tensor_int4_i32(w)
+                profiled = one_kernel_per_call(
+                    torch, name, lambda: fn(x, codes, scale),
+                    lambda: cq.cuda_int4_matmul_i32(x, w32["q32"], w32["s"]))
             w_bf16 = qmod.maybe_dequant(leaf, torch.bfloat16)
             ms = timer.ms(lambda: fn(x, codes, scale))
             plain_ms = timer.ms(lambda: ref_fn(x, codes, scale), max_iters=20)
             library_ms = timer.ms(lambda: torch.matmul(x, w_bf16))
             bytes_moved = codes.numel() * codes.element_size() + out_dim * 4 + m * (in_dim + out_dim) * 2
             b_ms, b_by = bound(bytes_moved, 2 * m * in_dim * out_dim)
+            split = cq._mma_split if key == "q4" else cq._split
+            n_split = split(codes.shape[0], out_dim)[0]
             row = {
                 "name": name, "shape": label, "M": m, "IN": in_dim, "OUT": out_dim,
-                "splits": cq._split(codes.shape[0], out_dim, int(key == "q32"))[0],
+                "splits": n_split, **profiled,
+                "tickets": cq._tickets_needed(out_dim, n_split) if key == "q4" else None,
                 "max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
                 "ms": ms, "plain_ms": plain_ms,
                 # torch.matmul on the dequantized bf16 weight: 4x the bytes
@@ -387,13 +403,14 @@ def batch_prompt_lengths():
     return [study] * 4 + list(BATCH_CONTEXTS) + [LONG_PROMPT_TOKENS]
 
 
-def paged_inputs(torch, gen, b, hq, hkv, d, lengths, dtype, session=False):
-    """q, a pool whose pages are a shuffled permutation (plus three pages
-    no row names) and its table; rows past ``lengths`` are pad rows that
-    point every entry at one private page, as the engine's do. The table
-    is as wide as the batch path's (pow2 of the most pages a row needs),
-    or with ``session`` as a stepped session's (pow2 of twice that)."""
-    need = [-(-n // PAGE) for n in lengths]
+def paged_inputs(torch, gen, b, hq, hkv, d, lengths, dtype, session=False, page=PAGE):
+    """q, a pool of ``page``-position pages in a shuffled permutation (plus
+    three pages no row names) and its table; rows past ``lengths`` are pad
+    rows that point every entry at one private page, as the engine's do.
+    The table is as wide as the batch path's (pow2 of the most pages a row
+    needs), or with ``session`` as a stepped session's (pow2 of twice
+    that)."""
+    need = [-(-n // page) for n in lengths]
     jmax = 1
     while jmax < max(need + [1]) * (2 if session else 1):
         jmax *= 2
@@ -411,8 +428,8 @@ def paged_inputs(torch, gen, b, hq, hkv, d, lengths, dtype, session=False):
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
     q = rnd(b, hq, d)
-    k = rnd(n_pool, hkv, PAGE, d)
-    v = rnd(n_pool, hkv, PAGE, d)
+    k = rnd(n_pool, hkv, page, d)
+    v = rnd(n_pool, hkv, page, d)
     return q, k, v, table.cuda(), torch.tensor(lens, dtype=torch.int32, device="cuda")
 
 
@@ -673,11 +690,11 @@ def stacked_layer_kernel_phase(torch, cpa, timer, quantize_kv_vector):
         })
 
 
-def with_junk(torch, gen, table, lengths, n_pool):
+def with_junk(torch, gen, table, lengths, n_pool, page=PAGE):
     """The table with every entry past each row's pages replaced by junk,
     inside and outside [0, P): a write-through table's entries past the
     frontier are never read, and the kernel clips what it would read."""
-    need = torch.tensor([-(-n // PAGE) for n in lengths] + [0] * (table.shape[0] - len(lengths)),
+    need = torch.tensor([-(-n // page) for n in lengths] + [0] * (table.shape[0] - len(lengths)),
                         device="cuda")
     junk = torch.randint(-n_pool - 5, 2 * n_pool + 5, table.shape, generator=gen, device="cuda",
                          dtype=torch.int32)
@@ -691,42 +708,85 @@ def write_through_lengths():
     return [n + WRITE_THROUGH_STEPS // 2 for n in spec_prompt_lengths()]
 
 
-def paged_decode_kernel_phase(torch, cpa, plain, timer):
+def device_kernels(torch, fn):
+    """Names of the device kernels one call of ``fn`` runs, from a
+    ``torch.profiler`` trace of that call (after one warm call): a
+    wrapper's launch count counts its calls, this what reached the card."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+def one_kernel_per_call(torch, name, fn, control):
+    """Assert that one call of ``fn`` runs exactly one device kernel, and
+    that the trace sees kernels at all: ``control``, a two-launch kernel
+    on the same inputs, shows two."""
+    ours, theirs = device_kernels(torch, fn), device_kernels(torch, control)
+    assert len(theirs) == 2, (name, "control", theirs)
+    assert len(ours) == 1, (name, ours)
+    return {"device_kernels_per_call": len(ours), "device_kernel": ours[0],
+            "control_device_kernels_per_call": len(theirs)}
+
+
+def paged_decode_kernel_phase(torch, cpa, ca, plain, timer):
     """B6 against its plain version: at the write-through phase's 8 rows,
-    at qwen2:1.5b widths for B 1, 16 and 64 (62–1,100 tokens), and at the
-    phi3/gemma head dims; every table with junk entries past the rows'
-    pages. f32 to 1e-4 and bf16 to 2e-2 (max abs error of the normalised
-    output), timed in bf16 beside SDPA on the rows gathered into a
-    contiguous cache (the gather untimed). Returns the first row."""
+    at qwen2:1.5b widths for B 1, 16 and 64 (62–1,100 tokens), at the
+    phi3/gemma head dims, and at the write-through rows in pages of 48
+    positions (not a multiple of the kernel's 32-position tile); every
+    table with junk entries past the rows' pages. f32 to 1e-4 and bf16 to
+    2e-2 (max abs error of the normalised output), timed in bf16 beside
+    B4 on the same rows and SDPA on the rows gathered into a contiguous
+    cache (the gather untimed). One call runs one device kernel (B4's two
+    are the profiler's control). Returns the first row."""
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(5)
 
     def mixed(n):
         return torch.randint(62, 1101, (n,), generator=gen, device="cuda").tolist()
 
-    # (label, batch, hq, hkv, d, lengths)
+    # (label, batch, hq, hkv, d, lengths, page)
     shapes = [
-        ("qwen2:1.5b write-through rows", 8, 12, 2, 128, write_through_lengths()),
-        ("qwen2:1.5b", 1, 12, 2, 128, mixed(1)),
-        ("qwen2:1.5b", 16, 12, 2, 128, mixed(16)),
-        ("qwen2:1.5b", 64, 12, 2, 128, mixed(64)),
-        ("phi3:3.8b", 8, 32, 32, 96, mixed(8)),
-        ("gemma:2b", 8, 8, 1, 256, mixed(8)),
+        ("qwen2:1.5b write-through rows", 8, 12, 2, 128, write_through_lengths(), PAGE),
+        ("qwen2:1.5b", 1, 12, 2, 128, mixed(1), PAGE),
+        ("qwen2:1.5b", 16, 12, 2, 128, mixed(16), PAGE),
+        ("qwen2:1.5b", 64, 12, 2, 128, mixed(64), PAGE),
+        ("phi3:3.8b", 8, 32, 32, 96, mixed(8), PAGE),
+        ("gemma:2b", 8, 8, 1, 256, mixed(8), PAGE),
+        ("qwen2:1.5b write-through rows, page 48", 8, 12, 2, 128, write_through_lengths(), 48),
     ]
     name = "cuda_paged_decode_attention"
     fn, ref_fn = cpa.cuda_paged_decode_attention, plain.paged_decode_attention_reference
     summary = {}
-    for label, b, hq, hkv, d, lengths in shapes:
+    for label, b, hq, hkv, d, lengths, page in shapes:
         errs = {}
         for dtype, tol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
-            q, k, v, table, lens = paged_inputs(torch, gen, b, hq, hkv, d, lengths, dtype)
-            table = with_junk(torch, gen, table, lengths, k.shape[0])
+            q, k, v, table, lens = paged_inputs(torch, gen, b, hq, hkv, d, lengths, dtype, page=page)
+            table = with_junk(torch, gen, table, lengths, k.shape[0], page=page)
             args = (q, k, v, table, lens)
             out = fn(*args)
             ref = ref_fn(*args)
+            again = fn(*args)
             torch.cuda.synchronize()
             errs[dtype] = (out.float() - ref.float()).abs().max().item()
             assert errs[dtype] <= tol, (label, name, str(dtype), errs)
+            assert torch.equal(out, again), (label, name, "two calls differ")
+        profiled = {}
+        if not summary:
+            profiled = one_kernel_per_call(
+                torch, name, lambda: fn(*args), lambda: cpa.cuda_paged_decode_attention_parts(*args))
         ms = timer.ms(lambda: fn(*args))
         plain_ms = timer.ms(lambda: ref_fn(*args), max_iters=20)
         b4_ms = timer.ms(lambda: cpa.cuda_paged_decode_attention_parts(*args))
@@ -745,7 +805,8 @@ def paged_decode_kernel_phase(torch, cpa, plain, timer):
         b_ms, b_by = bound(bytes_moved, 4 * hq * d * cached)
         row = {
             "name": name, "shape": label, "B": b, "lengths": lengths if b <= 8 else None,
-            "jmax": table.shape[1], "attended_tokens": cached, "junk_table_entries": True,
+            "page": page, "jmax": table.shape[1], "grid": ca.decode_grid(b, hkv, table.shape[1] * page),
+            "tickets": b * hkv, "attended_tokens": cached, "junk_table_entries": True, **profiled,
             "max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
             "ms": ms, "plain_ms": plain_ms, "b4_ms_same_rows": b4_ms,
             # SDPA with a length mask on the rows gathered into [B,Hkv,Jmax·page,D]
@@ -1511,7 +1572,7 @@ def main() -> int:
     summary.update(paged_mq_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector, kernels))
     stacked_layer_kernel_phase(torch, cpa, timer, qmod.quantize_kv_vector)
     summary.update(int4_kernel_phase(torch, cq, qplain, qmod, timer))
-    summary.update(paged_decode_kernel_phase(torch, cpa, plain, timer))
+    summary.update(paged_decode_kernel_phase(torch, cpa, ca, plain, timer))
     summary.update(w4a8_kernel_phase(torch, cq, qplain, qmod, timer))
     del timer
     torch.cuda.empty_cache()

@@ -46,9 +46,9 @@ PROMPT = "In 100 words, please give me information about photosynthesis"
 # Substrings of kernel names, first match wins.
 CATEGORIES = (
     ("attention (port kernels)", (
-        "decode_partial_kernel", "decode_merge_kernel", "parts_merge_kernel", "prefill_kernel",
+        "decode_partial_kernel", "parts_merge_kernel", "prefill_kernel",
         "mq_partial_kernel", "decode_tile_kernel", "prefill_mma_kernel", "prefill_merge_kernel")),
-    ("int4 matmul (port kernels)", ("int4_partial_kernel", "int4_merge_kernel")),
+    ("int4 matmul (port kernels)", ("int4_mma_kernel", "int4_partial_kernel", "int4_merge_kernel")),
     ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),

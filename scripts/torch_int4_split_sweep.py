@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""B9's time against its split of the packed rows, on the card: the int4
+matmul kernel of ``csrc/int4_matmul.cu`` (``int4_mma_kernel``, halves
+layout) launched with splits of 8 to 1,024 packed rows, and with the
+wrapper's own rule (``ops/cuda_quant.py::_mma_split``), at qwen2:1.5b's
+and llama3.1:8b's projections, M 1 and 8, bf16. Run from the repository
+root on a machine with one CUDA card:
+
+    python3 scripts/torch_int4_split_sweep.py
+
+Each split's output is held against the plain version (bf16 to 2e-2) and
+timed with ``chip_smoke.py``'s timer (the L2 flushed before each launch);
+``torch.matmul`` on the dequantized bf16 weight is timed beside them.
+Prints the card's ``nvidia-smi`` line, then one JSON line per shape and
+M: ``ms`` maps split rows to {"blocks", "ms"}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+SHAPES = (
+    ("qwen2:1.5b wk/wv", 1536, 256),
+    ("qwen2:1.5b wq/wo", 1536, 1536),
+    ("qwen2:1.5b w_gate/w_up", 1536, 8960),
+    ("qwen2:1.5b w_down", 8960, 1536),
+    ("llama3.1:8b wk/wv", 4096, 1024),
+    ("llama3.1:8b wq/wo", 4096, 4096),
+)
+SPLIT_ROWS = (8, 16, 32, 64, 128, 256, 512, 1024)
+BF16_ATOL = 2e-2
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_int4_split_sweep: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models import quantize as qmod
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_quant as cq
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import quant as qplain
+
+    smi = chip_smoke.nvidia_smi_line()
+    print(smi, flush=True)
+    timer = chip_smoke.Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for label, in_dim, out_dim in SHAPES:
+        w = torch.randn((in_dim, out_dim), generator=gen, device="cuda") / math.sqrt(in_dim)
+        leaf = qmod.quantize_tensor_int4(w)
+        codes, scale = leaf["q4"], leaf["s"]
+        w_bf16 = qmod.maybe_dequant(leaf, torch.bfloat16)
+        k_rows, tiles = codes.shape[0], -(-out_dim // 128)
+        rule = cq._mma_split(k_rows, out_dim)
+        for m in (1, 8):
+            x = torch.randn((m, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
+            ref = qplain.int4_matmul_reference(x, codes, scale).float()
+            row = {"shape": label, "M": m, "IN": in_dim, "OUT": out_dim, "nvidia_smi": smi,
+                   "rule": {"splits": rule[0], "rows": rule[1], "blocks": rule[0] * tiles}, "ms": {}}
+            for rows in sorted({*SPLIT_ROWS, rule[1]}):
+                n_split = -(-k_rows // rows)
+                if rows > 8 and -(-k_rows // (rows // 2)) == 1:
+                    continue  # half as many rows already make one split
+                split = (n_split, rows)
+
+                def call(split=split):
+                    return cq._launch_mma("cuda_int4_matmul", x, codes, scale, split=split)
+
+                err = (call().float() - ref).abs().max().item()
+                assert err <= BF16_ATOL, (label, m, rows, err)
+                row["ms"][rows] = {"blocks": n_split * tiles, "ms": timer.ms(call)}
+            row["matmul_ms"] = timer.ms(lambda: torch.matmul(x, w_bf16))
+            print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,7 +19,11 @@ MODULES = sorted(
 FORBIDDEN = ("jax", "jaxlib", "cain_2025_device_remote_llm_energy_rep_pkg_tpu")
 REPO = PORT_DIR.parent
 # The port's sources, and the scripts that drive it on the card.
-SCRIPTS = [REPO / "scripts" / "torch_decode_profile.py", REPO / "scripts" / "torch_w4a8_probe.py"]
+SCRIPTS = [
+    REPO / "scripts" / "torch_decode_profile.py",
+    REPO / "scripts" / "torch_w4a8_probe.py",
+    REPO / "scripts" / "torch_int4_split_sweep.py",
+]
 SCANNED = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 
 

@@ -22,7 +22,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.quantize import
     quantize_tensor_int4_i32,
 )
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import attention as port_attn
-from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_attention
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import _kernels, cuda_attention
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import quant as port_quant
 
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -35,6 +35,17 @@ def _to_torch(a, dtype):
 
 def _normal(rng, shape):
     return rng.standard_normal(shape).astype(np.float32)
+
+
+def _junk_past_frontiers(table, lengths, page, n_pool):
+    """``table`` with every entry past a row's pages replaced by junk,
+    inside and outside [0, P)."""
+    gen = torch.Generator(device=table.device).manual_seed(7)
+    need = torch.tensor([-(-n // page) for n in lengths], device=table.device)
+    junk = torch.randint(-n_pool - 5, 2 * n_pool + 5, table.shape, generator=gen,
+                         device=table.device, dtype=torch.int32)
+    cols = torch.arange(table.shape[1], device=table.device)
+    return torch.where(cols[None, :] < need[:, None], table, junk)
 
 
 @pytest.mark.cuda
@@ -203,8 +214,9 @@ def test_paged_mq_parts_kernels_match_plain_versions_on_the_card(dtype, tol, q_l
 def test_paged_decode_kernel_matches_plain_version_on_the_card(dtype, tol, hq, hkv, d):
     """B6 against its plain version, rows at, before and after a page edge
     and over several pages, with junk table entries (outside the pool)
-    past every frontier; and, since B6 is B4's split body with B2's
-    normalising merge, equal bit for bit to B4's acc / l."""
+    past every frontier; and within the same tolerance of B4's acc / l
+    (B6 runs B2's one-launch body, B4 its own split body: the sums are
+    taken in another order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
@@ -212,16 +224,13 @@ def test_paged_decode_kernel_matches_plain_version_on_the_card(dtype, tol, hq, h
     rng = np.random.default_rng(12)
     lengths = [1, 127, 128, 129, 1100]
     q, k, v, table, lens = _paged_inputs(rng, dtype, len(lengths), hq, hkv, d, 128, lengths, "cuda")
-    need = torch.tensor([-(-n // 128) for n in lengths], device="cuda")
-    n_pool = k.shape[0]
-    junk = torch.randint(-n_pool - 5, 2 * n_pool + 5, table.shape, device="cuda", dtype=torch.int32)
-    table = torch.where(torch.arange(table.shape[1], device="cuda") < need[:, None], table, junk)
+    table = _junk_past_frontiers(table, lengths, 128, k.shape[0])
     out = cpa.cuda_paged_decode_attention(q, k, v, table, lens)
     assert out.dtype == dtype and out.shape == q.shape
     ref = port_attn.paged_decode_attention_reference(q, k, v, table, lens)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
     acc, _, l = cpa.cuda_paged_decode_attention_parts(q, k, v, table, lens)
-    assert torch.equal(out, (acc / l[..., None]).reshape(q.shape).to(dtype))
+    torch.testing.assert_close(out.float(), (acc / l[..., None]).reshape(q.shape), **tol)
     torch.cuda.synchronize()
 
 
@@ -309,7 +318,7 @@ def test_decode_kernels_at_split_edges_match_plain_versions_on_the_card(dtype, t
         ref = port_attn.decode_attention_int8_reference(q, kq, ks, vq, vs, lens)
         torch.testing.assert_close(out.float(), ref.float(), **tol, msg=f"int8 lengths {lengths}")
     torch.cuda.synchronize()
-    assert not torch.any(cuda_attention._TICKETS[q.device]).item()
+    assert not torch.any(_kernels._TICKETS[q.device]).item()
 
 
 @pytest.mark.cuda
@@ -418,8 +427,6 @@ def test_prefill_kernel_runs_on_the_tensor_cores():
     import subprocess
     from pathlib import Path
 
-    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import _kernels
-
     _kernels.library("attention")
     cuobjdump = Path(_kernels._nvcc()).parent / "cuobjdump"
     sass = subprocess.run(
@@ -430,4 +437,110 @@ def test_prefill_kernel_runs_on_the_tensor_cores():
     prefill = [f for f in functions if "prefill_mma_kernel" in f.splitlines()[0]]
     assert len(prefill) == 4, [f.splitlines()[0] for f in functions]  # D 64, 96, 128, 256
     for body in prefill:
+        assert "HMMA" in body, body.splitlines()[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("page", [16, 48, 128])
+@pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (8, 1, 256)])
+def test_paged_decode_kernel_at_page_sizes_on_the_card(dtype, tol, page, hq, hkv, d):
+    """B6 at pages of 16 and 48 positions (not multiples of the kernel's
+    32-position tile: each position looks its page up) and 128 (a tile
+    stays in one page), rows of 0 to 2,100 tokens whose splits cut pages,
+    junk table entries past every frontier and a table wider than any row
+    needs; a zero-length row gives NaN, as the plain version does. The
+    kernel's tickets stay zero after every call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+
+    rng = np.random.default_rng(16)
+    lengths = [1, 47, 49, 200, 2100, 0]
+    q, k, v, table, lens = _paged_inputs(rng, dtype, len(lengths), hq, hkv, d, page, lengths, "cuda")
+    table = torch.cat([table, torch.zeros_like(table[:, :3])], dim=1)  # wider than any row needs
+    table = _junk_past_frontiers(table, lengths, page, k.shape[0])
+    out = cpa.cuda_paged_decode_attention(q, k, v, table, lens)
+    ref = port_attn.paged_decode_attention_reference(q, k, v, table, lens)
+    assert torch.all(torch.isnan(out[-1])) and torch.all(torch.isnan(ref[-1]))
+    torch.testing.assert_close(out[:-1].float(), ref[:-1].float(), **tol)
+    torch.cuda.synchronize()
+    assert not torch.any(_kernels._TICKETS[q.device]).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize(
+    "in_dim,out_dim",
+    [(96, 200), (64, 7), (16, 128), (1536, 256), (8960, 1536)],
+)
+def test_int4_kernel_at_every_row_count_on_the_card(dtype, tol, in_dim, out_dim):
+    """B9 at every M from 1 to 8: OUT 200 and 7 exercise the column edge
+    and the byte-wise loads, IN 16 a single k-step, qwen2's wk (1536 →
+    256) and w_down (8960 → 1536) the packed rows split over blocks and
+    merged by the last one to arrive. Its tickets stay zero after every
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_quant
+
+    rng = np.random.default_rng(17)
+    w = _to_torch(_normal(rng, (in_dim, out_dim)) / np.sqrt(in_dim), torch.float32).cuda()
+    leaf = quantize_tensor_int4(w)
+    for m in range(1, 9):
+        x = _to_torch(_normal(rng, (m, in_dim)), dtype).cuda()
+        out = cuda_quant.cuda_int4_matmul(x, leaf["q4"], leaf["s"])
+        ref = port_quant.int4_matmul_reference(x, leaf["q4"], leaf["s"])
+        assert out.dtype == dtype and out.shape == (m, out_dim)
+        torch.testing.assert_close(out.float(), ref.float(), **tol, msg=f"M {m}")
+    torch.cuda.synchronize()
+    assert not torch.any(_kernels._TICKETS[x.device]).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_launch_kernels_repeat_their_bits_on_the_card(dtype):
+    """Two back-to-back calls of B6 (rows split over many blocks) and of B9
+    (split packed rows) on the same inputs give the same bits: the last
+    block of each group finds its ticket reset by the call before, and
+    adds the splits in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_quant
+
+    rng = np.random.default_rng(18)
+    lengths = [300, 2100, 1100, 62]
+    q, k, v, table, lens = _paged_inputs(rng, dtype, len(lengths), 12, 2, 128, 128, lengths, "cuda")
+    first = cpa.cuda_paged_decode_attention(q, k, v, table, lens)
+    assert torch.equal(first, cpa.cuda_paged_decode_attention(q, k, v, table, lens))
+    for in_dim, out_dim in ((1536, 256), (8960, 1536), (1536, 8960)):
+        w = _to_torch(_normal(rng, (in_dim, out_dim)) / np.sqrt(in_dim), torch.float32).cuda()
+        leaf = quantize_tensor_int4(w)
+        x = _to_torch(_normal(rng, (8, in_dim)), dtype).cuda()
+        first = cuda_quant.cuda_int4_matmul(x, leaf["q4"], leaf["s"])
+        assert torch.equal(first, cuda_quant.cuda_int4_matmul(x, leaf["q4"], leaf["s"]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_int4_kernel_runs_on_the_tensor_cores():
+    """The built int4 library's SASS: B9's kernel issues HMMA (mma.sync)
+    instructions, in each of its instantiations (bf16 and f32 x, vector
+    and byte-wise loads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import subprocess
+    from pathlib import Path
+
+    _kernels.library("int4_matmul")
+    cuobjdump = Path(_kernels._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_kernels.library_path("int4_matmul"))],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    functions = sass.split("Function : ")[1:]
+    mma = [f for f in functions if "int4_mma_kernel" in f.splitlines()[0]]
+    assert len(mma) == 4, [f.splitlines()[0] for f in functions]
+    for body in mma:
         assert "HMMA" in body, body.splitlines()[0]

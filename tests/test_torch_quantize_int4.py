@@ -191,11 +191,24 @@ def test_wrappers_check_the_contract_on_every_device(mode):
 )
 def test_k_splits_cover_the_packed_rows_within_the_kernel_limit(in_dim, out_dim, layout):
     k_rows = in_dim // (8 if layout else 2)
-    n_split, rows = cuda_quant._split(k_rows, out_dim, layout)
-    assert 1 <= rows <= cuda_quant._MAX_SPLIT_ROWS[layout]
+    tiles = -(-out_dim // 128)
+    if layout:
+        n_split, rows = cuda_quant._split(k_rows, out_dim)
+        assert 1 <= rows <= cuda_quant._MAX_SPLIT_ROWS
+    else:
+        n_split, rows = cuda_quant._mma_split(k_rows, out_dim)
+        assert 1 <= rows <= cuda_quant._MMA_MAX_SPLIT_ROWS
     assert (n_split - 1) * rows < k_rows <= n_split * rows
-    if in_dim >= 1536:  # every full-width projection spreads over the 132 SMs
-        assert n_split * -(-out_dim // 128) >= 132
+    if layout == 1 and in_dim >= 1536:  # B10: every full-width projection spreads over the 132 SMs
+        assert n_split * tiles >= 132
+    if layout == 0:  # B9: whole k-steps of 8 packed rows, at least 128 a split
+        assert rows % 8 == 0 and rows >= 128
+        # at most one block per SM unless the tiles alone are more or the
+        # 1,024-row x slice forces more splits: more, shorter splits were
+        # slower at every shape swept on the card (PERF.md, PR 7)
+        assert n_split * tiles <= max(132, tiles) or rows == cuda_quant._MMA_MAX_SPLIT_ROWS
+        if in_dim >= 1536:  # split wherever the column tiles leave SMs idle
+            assert n_split >= min(132 // tiles, k_rows // 128)
 
 
 # (code key, B, S, IN, OUT, kernel route in the JAX package)
