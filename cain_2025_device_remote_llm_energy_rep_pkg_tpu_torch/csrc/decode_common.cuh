@@ -1,8 +1,9 @@
 // Shared pieces of the port's kernels: the element types, the warp
-// reductions, asynchronous copies, the bf16 tensor-core product and the
-// arrival ticket of attention.cu (contiguous caches), paged_attention.cu
-// (page pools read through a table) and int4_matmul.cu; the address
-// policies of the decode bodies; and the two decode bodies themselves.
+// reductions, asynchronous copies, the bf16 tensor-core product, ldmatrix
+// fragments and the arrival ticket of attention.cu (contiguous caches),
+// paged_attention.cu (page pools read through a table) and int4_matmul.cu;
+// the address policies of the decode bodies; and the two decode bodies
+// themselves.
 //
 // decode_tile_kernel is the one-launch decode of B2/B3 (ContiguousRows:
 // [B,Hkv,T,D] caches) and B6 (PagedRows: [P,Hkv,page,D] pools read through
@@ -104,6 +105,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8×8 b16 matrices from shared memory into mma fragments (B1, B7/B8).
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {

@@ -49,16 +49,18 @@
 // block) adds the partials in split order, scales and casts. No float
 // atomics, so every run gives the same bits.
 //
-// Design of 10 (int4_partial_kernel): the CUDA cores, two launches. A block
-// owns 128 output columns (a warp's 32 threads × 4 adjacent columns) and
-// one split of the packed rows; its 8 warps take interleaved rows of the
-// split. Each thread reads its 4 columns of a packed row as one 16-byte
-// vector, so a warp's loads coalesce into 512 contiguous bytes; it unpacks
-// the nibbles in registers and accumulates M × 4 f32 sums. Only the split's
-// slice of x is staged in shared memory (rounded to bf16, kept as f32).
-// The 8 warps' sums are added in a fixed order through shared memory into
-// f32 partials, one per split, and int4_merge_kernel adds the splits in
-// order, scales and casts.
+// Design of 10 (int4_i32_mma_kernel): B9's design, one launch on the
+// tensor cores, with the int32-lane layout's own map of lanes to
+// fragments. Byte j of a lane holds weight rows 8k + 2j and 8k + 2j + 1,
+// k-consecutive, so one byte is again one register's k pair and goes
+// through the same conversion. A lane's 16-byte load is 4 columns of one
+// packed row (B9's is 16 columns of one row); the four lanes of a quad
+// take four consecutive packed rows of the same columns, x is staged in
+// its natural k order to match, and one k-step (4 packed rows, 32 k) of a
+// lane is 4 loads feeding 16 mmas, the same bytes per mma as B9. One
+// load instruction of a warp covers 128 contiguous bytes of each of its 4
+// packed rows. The split rule is B9's in weight rows (256 to 2,048 a split:
+// ops/cuda_quant.py::_mma_split), the merge B9's ticket.
 
 #include "decode_common.cuh"
 
@@ -75,8 +77,8 @@ using port_attn::to_f;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 4;              // adjacent output columns per thread
-constexpr int kTileCols = 32 * kCols;  // output columns per block
+constexpr int kCols = 4;              // adjacent output columns per thread (B11)
+constexpr int kTileCols = 32 * kCols;  // output columns per block (B11)
 constexpr int kMaxRows = 8;            // rows of x
 
 // ---- 9. int4_matmul (halves): tensor cores, one launch ---------------------
@@ -344,154 +346,209 @@ cudaError_t launch_mma(const void* x, const void* packed, const float* scale, fl
   return cudaGetLastError();
 }
 
-// ---- 10. int4_matmul_i32 (int32 lanes): CUDA cores, split + merge ----------
-// Packed rows per split, at most (ops/cuda_quant.py keeps the same limit):
-// 512 weight rows, so the staged x slice is at most 8 × 512 f32 = 16 KB.
-constexpr int kMaxSplitRowsI32 = 64;
+// ---- 10. int4_matmul_i32 (int32 lanes): tensor cores, one launch ----------
+// B9's parts with another lane-to-fragment map. Byte j of the int32 lane
+// (k, c) holds weight rows 8k + 2j (low nibble) and 8k + 2j + 1 (high):
+// one byte is one k pair of a fragment register, so nibbles_bf16x2 turns
+// it into the register as it does for B9. A lane's 16-byte load is one
+// packed row × 4 columns; the four lanes of a quad (same g) take four
+// consecutive packed rows of the same columns, so one k-step is 4 packed
+// rows = 32 k = two mmas per column pair.
+constexpr int kI32StepRows = 4;          // packed rows per k-step: the quad's lanes
+constexpr int kI32Loads = 4;             // 16-byte loads per lane per k-step
+constexpr int kI32Unroll = 2;            // k-steps a warp has in flight (4 KB, as B9's ring)
+constexpr int kI32MaxSplitRows = 256;    // 2,048 weight rows: the x slice is B9's 32.9 KB
 
-// Sign-extended nibble at bit `shift` of a 32-bit word.
-__device__ __forceinline__ float nibble(uint32_t w, int shift) {
-  return static_cast<float>(static_cast<int32_t>(w << (28 - shift)) >> 28);
+// 32-bit words of a staged x row (bf16 pairs in natural k order, 4 per
+// packed row): at least the split's and 16 mod 32, so a quad's 16-byte
+// reads (row g, words 4j..4j+3 for t = j) fall in distinct banks.
+__host__ __device__ constexpr int i32_x_stride(int split_rows) {
+  return (4 * split_rows + 31) / 32 * 32 + 16;
 }
 
-// x rounded to bf16, as an f32.
-template <typename T>
-__device__ __forceinline__ float x_bf16(T v) {
-  return __bfloat162float(__float2bfloat16(to_f<T>(v)));
+inline size_t i32_smem_bytes(int split_rows) {
+  const size_t xs = sizeof(uint32_t) * kMaxRows * i32_x_stride(split_rows);
+  const size_t red = sizeof(float) * kWarps * 32 * 32;  // the warps' sums
+  return xs > red ? xs : red;
 }
 
-// Grid (ceil(OUT / 128), n_split), kThreads threads. Dynamic shared memory:
-// max(8 · n · M, kWarps · M · 128) floats (the x slice, then the warps'
-// sums).
-template <typename T, int M, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    int4_partial_kernel(const T* __restrict__ x, const uint32_t* __restrict__ packed,
-                        float* __restrict__ partial, int in_dim, int k_rows,
-                        int out_dim, int split_rows) {
-  constexpr int kW = 8;  // weight rows per packed row
-  extern __shared__ __align__(16) float smem[];
-  const int split = blockIdx.y;
-  const int r0 = split * split_rows;
-  const int n = min(split_rows, k_rows - r0);  // packed rows of this block (> 0)
-
-  // Stage the split's x rows: xs[j * M + m], weight row 8·r0 + j.
-  const int staged = kW * n;
-  for (int idx = threadIdx.x; idx < staged * M; idx += kThreads) {
-    const int m = idx / staged;
-    const int j = idx - m * staged;
-    smem[j * M + m] = x_bf16(x[static_cast<size_t>(m) * in_dim + kW * r0 + j]);
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int col0 = blockIdx.x * kTileCols + lane * kCols;
-  float acc[M][kCols];
+// One k-step of a warp: packed row 4s + t, loads i = 0..3 of columns
+// 32i + 4g .. 32i + 4g + 3 (words x, y, z, w), against x's B fragments xv
+// = words 4(4s + t) .. +3 of staged row g. mma u = 2i + p holds columns
+// 32i + 4g + 2p (A row g) and 32i + 4g + 2p + 1 (A row g + 8); its k pair
+// slot t is byte 2e of those words, slot t + 4 byte 2e + 1, against x
+// words 2e (b0) and 2e + 1 (b1) of xv.
+__device__ __forceinline__ void i32_mma_step(float (&acc)[8][4], uint4 xv,
+                                             const uint4 (&w)[kI32Loads]) {
 #pragma unroll
-  for (int m = 0; m < M; ++m)
+  for (int i = 0; i < kI32Loads; ++i) {
+    const uint32_t words[4] = {w[i].x, w[i].y, w[i].z, w[i].w};
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[m][c] = 0.f;
-
-  if (col0 < out_dim) {
-#pragma unroll 2
-    for (int lr = warp; lr < n; lr += kWarps) {
-      const size_t row = static_cast<size_t>(r0 + lr) * out_dim + col0;
-      uint32_t w[kCols];
-      if constexpr (kVec) {
-        const uint4 v = __ldg(reinterpret_cast<const uint4*>(packed + row));
-        w[0] = v.x;
-        w[1] = v.y;
-        w[2] = v.z;
-        w[3] = v.w;
-      } else {
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) w[c] = col0 + c < out_dim ? __ldg(packed + row + c) : 0u;
-      }
-      const float* xr = smem + lr * kW * M;  // weight rows 8(r0 + lr) + p
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const float wv = nibble(w[c], 4 * q);
-#pragma unroll
-          for (int m = 0; m < M; ++m) acc[m][c] = fmaf(xr[q * M + m], wv, acc[m][c]);
-        }
-      }
+    for (int p = 0; p < 2; ++p) {
+      const uint32_t lo = words[2 * p], hi = words[2 * p + 1];
+      const uint32_t lo4 = lo >> 4, hi4 = hi >> 4;
+      const unsigned a0[4] = {nibbles_bf16x2<0>(lo, lo4), nibbles_bf16x2<0>(hi, hi4),
+                              nibbles_bf16x2<1>(lo, lo4), nibbles_bf16x2<1>(hi, hi4)};
+      mma_bf16(acc[2 * i + p], a0, xv.x, xv.y);
+      const unsigned a1[4] = {nibbles_bf16x2<2>(lo, lo4), nibbles_bf16x2<2>(hi, hi4),
+                              nibbles_bf16x2<3>(lo, lo4), nibbles_bf16x2<3>(hi, hi4)};
+      mma_bf16(acc[2 * i + p], a1, xv.z, xv.w);
     }
   }
-  // Add the warps' sums in a fixed order.
-  __syncthreads();  // the x slice is no longer read
-  float4* red = reinterpret_cast<float4*>(smem);  // [kWarps][M][32 lanes] of 4 columns
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-    red[(warp * M + m) * 32 + lane] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-  __syncthreads();
-  const float* redf = smem;
-  for (int o = threadIdx.x; o < M * kTileCols; o += kThreads) {
-    const int m = o / kTileCols;
-    const int cl = o - m * kTileCols;
-    const int col = blockIdx.x * kTileCols + cl;
-    if (col >= out_dim) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += redf[(w * M + m) * kTileCols + cl];
-    partial[(static_cast<size_t>(split) * M + m) * out_dim + col] = s;
-  }
 }
 
-// One thread per output: the splits' partials added in order, scaled, cast.
-template <typename T>
-__global__ void int4_merge_kernel(const float* __restrict__ partial,
-                                  const float* __restrict__ scale, T* __restrict__ out,
-                                  int m_rows, int out_dim, int n_split) {
-  const size_t total = static_cast<size_t>(m_rows) * out_dim;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  float s = 0.f;
-  for (int sp = 0; sp < n_split; ++sp) s += partial[sp * total + idx];
-  out[idx] = from_f<T>(s * scale[idx % out_dim]);
-}
-
-template <typename T, int M, bool kVec>
-cudaError_t launch(const void* x, const void* packed, const float* scale, float* partial,
-                   void* out, int in_dim, int k_rows, int out_dim, int n_split,
-                   int split_rows, cudaStream_t stream) {
-  const int staged = 8 * split_rows * M;
-  const int reduce = kWarps * M * kTileCols;
-  const size_t smem = static_cast<size_t>(staged > reduce ? staged : reduce) * sizeof(float);
-  const dim3 grid((out_dim + kTileCols - 1) / kTileCols, n_split);
-  int4_partial_kernel<T, M, kVec><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint32_t*>(packed), partial, in_dim, k_rows,
-      out_dim, split_rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t total = static_cast<size_t>(M) * out_dim;
-  int4_merge_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
-      partial, scale, static_cast<T*>(out), M, out_dim, n_split);
-  return cudaGetLastError();
-}
-
+// Grid (ceil(OUT / 128), n_split), kThreads threads; dynamic shared memory
+// i32_smem_bytes(split_rows). As int4_mma_kernel: warp w takes the k-steps
+// w, w + kWarps, ... of its split, a ring of kI32Unroll steps in flight,
+// the warps' sums added in a fixed order, the splits merged by the last
+// block of a column tile (partial [n_split, tiles, kMmaValues] f32 and
+// tickets [tiles], zero, where n_split > 1). kVec: OUT % 4 == 0 and packed
+// and x 16-byte aligned.
 template <typename T, bool kVec>
-cudaError_t dispatch_rows(int m, const void* x, const void* packed, const float* scale,
-                          float* partial, void* out, int in_dim, int k_rows, int out_dim,
-                          int n_split, int split_rows, cudaStream_t stream) {
-#define INT4_ROWS_CASE(MM)                                                              \
-  case MM:                                                                              \
-    return launch<T, MM, kVec>(x, packed, scale, partial, out, in_dim, k_rows, out_dim,  \
-                               n_split, split_rows, stream);
-  switch (m) {
-    INT4_ROWS_CASE(1)
-    INT4_ROWS_CASE(2)
-    INT4_ROWS_CASE(3)
-    INT4_ROWS_CASE(4)
-    INT4_ROWS_CASE(5)
-    INT4_ROWS_CASE(6)
-    INT4_ROWS_CASE(7)
-    INT4_ROWS_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
+__global__ void __launch_bounds__(kThreads, 2)
+    int4_i32_mma_kernel(const T* __restrict__ x, const uint32_t* __restrict__ packed,
+                        const float* __restrict__ scale, float* __restrict__ partial,
+                        int* __restrict__ tickets, T* __restrict__ out, int m_rows, int in_dim,
+                        int k_rows, int out_dim, int split_rows) {
+  extern __shared__ __align__(16) uint32_t mm_smem[];
+  const int tile = blockIdx.x;
+  const int split = blockIdx.y;
+  const int n_split = gridDim.y;
+  const int r0 = split * split_rows;
+  const int n_rows = min(split_rows, k_rows - r0);  // > 0
+  const int n_steps = ceil_div(n_rows, kI32StepRows);
+  const int stride = i32_x_stride(split_rows);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int col = tile * kMmaCols + 4 * g;  // load i adds 32i
+
+  // Step s: block-local packed row 4s + t; nothing is read past the split.
+  auto load_step = [&](int s, uint4(&w)[kI32Loads]) {
+    const int r = kI32StepRows * s + t;
+#pragma unroll
+    for (int i = 0; i < kI32Loads; ++i) {
+      const int c = col + 32 * i;
+      const int avail = out_dim - c;
+      w[i] = load_packed16<kVec>(
+          reinterpret_cast<const uint8_t*>(packed + static_cast<size_t>(r0 + r) * out_dim + c),
+          r < n_rows && avail > 0, 4 * avail);
+    }
+  };
+  uint4 w[kI32Unroll][kI32Loads];
+#pragma unroll
+  for (int u = 0; u < kI32Unroll; ++u) load_step(warp + u * kWarps, w[u]);
+
+  // x while the first weights are in flight: word i of row m packs
+  // bf16(x[m, 8·r0 + 2i]) (low half) and bf16(x[m, 8·r0 + 2i + 1]); rows
+  // m >= M and packed rows past the split are 0.
+  uint32_t* xs = mm_smem;
+  const int padded = n_steps * kI32StepRows;  // packed rows staged, 8 elements each
+  const T* xb = x + static_cast<size_t>(8) * r0;
+  for (int i = tid; i < kMaxRows * padded; i += kThreads) {
+    const int m = i / padded;
+    const int r = i - m * padded;
+    float f[8] = {};
+    if (m < m_rows && r < n_rows) {
+      const T* src = xb + static_cast<size_t>(m) * in_dim + 8 * r;
+      if constexpr (kVec) {
+        load8(src, f);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[e] = to_f(src[e]);
+      }
+    }
+    *reinterpret_cast<uint4*>(xs + m * stride + 4 * r) =
+        make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                   pack_bf16(f[6], f[7]));
   }
-#undef INT4_ROWS_CASE
+  __syncthreads();
+
+  float acc[8][4];
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[u][c] = 0.f;
+  const uint32_t* xr = xs + g * stride + 4 * t;
+  for (int s0 = warp; s0 < n_steps; s0 += kWarps * kI32Unroll) {
+#pragma unroll
+    for (int u = 0; u < kI32Unroll; ++u) {
+      const int s = s0 + u * kWarps;
+      if (s < n_steps)
+        i32_mma_step(acc, *reinterpret_cast<const uint4*>(xr + 4 * kI32StepRows * s), w[u]);
+      load_step(s + kI32Unroll * kWarps, w[u]);
+    }
+  }
+
+  // The warps' sums and the split merge, as int4_mma_kernel's (its text is
+  // kept apart so that B9's SASS stays as it was). Value (mma u, c, lane
+  // (g, t)): column 32(u / 2) + 4g + 2(u % 2) + c / 2 of the tile, x row
+  // 2t + c % 2.
+  __syncthreads();  // the x slice is no longer read
+  float* red = reinterpret_cast<float*>(mm_smem);  // [warp][mma·4 + c][lane]
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) red[(warp * 32 + 4 * u + c) * 32 + lane] = acc[u][c];
+  __syncthreads();
+  constexpr int kPer = kMmaValues / kThreads;
+  float sum[kPer];
+  int m_of[kPer], col_of[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int v = tid + kThreads * i;
+    const int l = v & 31;
+    const int uc = v >> 5;
+    const int u = uc >> 2;
+    m_of[i] = 2 * (l & 3) + (uc & 1);
+    col_of[i] = tile * kMmaCols + 32 * (u >> 1) + 4 * (l >> 2) + 2 * (u & 1) + ((uc >> 1) & 1);
+    sum[i] = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < kWarps; ++wp) sum[i] += red[wp * kMmaValues + v];
+  }
+  auto kept = [&](int i) { return m_of[i] < m_rows && col_of[i] < out_dim; };
+  if (n_split > 1) {
+    const size_t n_tiles = gridDim.x;
+    float* part = partial + (static_cast<size_t>(split) * n_tiles + tile) * kMmaValues + tid;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      if (kept(i)) part[kThreads * i] = sum[i];
+    if (!last_to_arrive(tickets + tile, n_split)) return;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) sum[i] = 0.f;
+    for (int sp = 0; sp < n_split; ++sp) {
+      const float* p = partial + (static_cast<size_t>(sp) * n_tiles + tile) * kMmaValues + tid;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        if (kept(i)) sum[i] += __ldcg(p + kThreads * i);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    if (kept(i))
+      out[static_cast<size_t>(m_of[i]) * out_dim + col_of[i]] = from_f<T>(sum[i] * scale[col_of[i]]);
+}
+
+template <typename T>
+cudaError_t launch_i32_mma(const void* x, const void* packed, const float* scale, float* partial,
+                           int* tickets, void* out, int m, int in_dim, int k_rows, int out_dim,
+                           int n_split, int split_rows, cudaStream_t stream) {
+  const bool vec = out_dim % 4 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const dim3 grid(ceil_div(out_dim, kMmaCols), n_split);
+  const size_t smem = i32_smem_bytes(split_rows);
+  const T* xt = static_cast<const T*>(x);
+  const uint32_t* pk = static_cast<const uint32_t*>(packed);
+  T* o = static_cast<T*>(out);
+  if (vec)
+    int4_i32_mma_kernel<T, true><<<grid, kThreads, smem, stream>>>(
+        xt, pk, scale, partial, tickets, o, m, in_dim, k_rows, out_dim, split_rows);
+  else
+    int4_i32_mma_kernel<T, false><<<grid, kThreads, smem, stream>>>(
+        xt, pk, scale, partial, tickets, o, m, in_dim, k_rows, out_dim, split_rows);
+  return cudaGetLastError();
 }
 
 // ---- 11. w4a8_matmul ---------------------------------------------------------
@@ -688,30 +745,27 @@ int int4_matmul(int dtype, const void* x, const void* packed, const float* scale
   return cudaErrorInvalidValue;
 }
 
-// B10. packed [in_dim/8, out_dim] int32. partial: [n_split, m, out_dim] f32
-// scratch. Splits of split_rows packed rows; every split holds at least
-// one row.
+// B10. packed [in_dim/8, out_dim] int32. Splits of split_rows packed rows,
+// a multiple of 4 up to 256 (kI32MaxSplitRows); every split holds at least
+// one row. With n_split > 1: partial [n_split, ceil(out_dim/128), 256, 4]
+// f32 scratch and tickets [ceil(out_dim/128)] int32, zero.
 int int4_matmul_i32(int dtype, const void* x, const void* packed, const float* scale,
-                    float* partial, void* out, int m, int in_dim, int k_rows, int out_dim,
-                    int n_split, int split_rows, void* stream) {
+                    float* partial, int* tickets, void* out, int m, int in_dim, int k_rows,
+                    int out_dim, int n_split, int split_rows, void* stream) {
   if (m < 1 || m > kMaxRows || k_rows < 1 || out_dim < 1 || in_dim != 8 * k_rows ||
-      split_rows < 1 || split_rows > kMaxSplitRowsI32 || n_split < 1 ||
+      split_rows < kI32StepRows || split_rows % kI32StepRows != 0 ||
+      split_rows > kI32MaxSplitRows || n_split < 1 ||
       static_cast<long long>(n_split - 1) * split_rows >= k_rows ||
-      static_cast<long long>(n_split) * split_rows < k_rows || partial == nullptr)
+      static_cast<long long>(n_split) * split_rows < k_rows ||
+      (n_split > 1 && (partial == nullptr || tickets == nullptr)))
     return cudaErrorInvalidValue;
-  // Vector loads need every thread's 4 columns 16-byte aligned at every row.
-  const bool vec = out_dim % kCols == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeBF16)
-    return vec ? dispatch_rows<__nv_bfloat16, true>(m, x, packed, scale, partial, out, in_dim,
-                                                    k_rows, out_dim, n_split, split_rows, s)
-               : dispatch_rows<__nv_bfloat16, false>(m, x, packed, scale, partial, out, in_dim,
-                                                     k_rows, out_dim, n_split, split_rows, s);
+    return launch_i32_mma<__nv_bfloat16>(x, packed, scale, partial, tickets, out, m, in_dim,
+                                         k_rows, out_dim, n_split, split_rows, s);
   if (dtype == kDtypeF32)
-    return vec ? dispatch_rows<float, true>(m, x, packed, scale, partial, out, in_dim, k_rows,
-                                            out_dim, n_split, split_rows, s)
-               : dispatch_rows<float, false>(m, x, packed, scale, partial, out, in_dim, k_rows,
-                                             out_dim, n_split, split_rows, s);
+    return launch_i32_mma<float>(x, packed, scale, partial, tickets, out, m, in_dim, k_rows,
+                                 out_dim, n_split, split_rows, s);
   return cudaErrorInvalidValue;
 }
 

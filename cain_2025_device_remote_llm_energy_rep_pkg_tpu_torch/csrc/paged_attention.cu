@@ -57,28 +57,39 @@
 // through an atomic ticket and normalises: one launch a call. Bound:
 // bytes, as B4, plus the output.
 //
-// Multi-query contract (7, 8): Q <= kMqQueryMax query positions per row,
-// q [B,Q,Hq,D] with offsets [B] (the absolute position of query 0); query
-// j sees cached tokens kpos < min(lengths[b], offsets[b] + j + 1), and the
-// parts come out per query position, acc [B,Q,Hkv,G,D], m and l [B,Q,Hkv,G].
-// The TPU kernel folds the Q positions into the group dim and streams each
-// row's pages once for all of them. Here Q·G score rows (30 for qwen2 at
-// k = 4, 72 at most) do not fit the decode body's register-held group of
-// kGroupMax, so mq_partial_kernel keeps queries and accumulators in
-// dynamic shared memory (over 48 KB from about 24 rows at D 256, set with
-// cudaFuncSetAttribute) and stages K/V 16 positions at a time; each
-// staged tile serves every score row, so each split's pages are still
-// read once. The split rule and parts_merge_kernel are B4's: the merge
-// writes score row r = j·G + g to query position j. Splits past the last
-// query's limit (the frontier) read nothing. At Q = 1 the wrapper calls
-// paged_parts with lengths cut to min(lengths, offsets + 1): one code, so
-// Q = 1 equals B4 bit for bit.
+// Multi-query contract (7, 8): Q query positions per row, q [B,Q,Hq,D]
+// with offsets [B] (the absolute position of query 0); query j sees
+// cached tokens kpos < min(lengths[b], offsets[b] + j + 1), and the parts
+// come out per query position, acc [B,Q,Hkv,G,D], m and l [B,Q,Hkv,G]. A
+// query that sees no token gives exactly (0, -inf, 0). The TPU kernel
+// folds the Q positions into the group dim and streams each row's pages
+// once for all of them. Here a verify block has R = Q·G score rows per
+// (row, kv head) (30 for qwen2 at k = 4, 78 at k = 12): a product of
+// [R, D] by [D, positions] and of [R, positions] by [positions, D], which
+// is B1's shape. So with a bf16 q (bf16 or int8 pool) mq_mma_kernel runs
+// B1's tensor-core body (attention.cu's prefill_mma_kernel: 64 score rows
+// a block, GQA folded into the rows, ldmatrix fragments, a cp.async ring,
+// the online softmax in log2 units) through the page table, with a
+// per-row limit in place of B1's causal mask, and one launch: the grid is
+// (q-tiles · n_grid, B·Hkv), a q-tile being 64 / G query positions, so Q
+// 13 at G 6 is two q-tiles of one launch; each block sizes its q-tile's
+// splits from the q-tile's frontier on the device (n_grid from the
+// wrapper's mq_grid over B·Hkv·q-tiles and Jmax·page), and the last split
+// to arrive merges through an atomic ticket, in split order, into the
+// unnormalised parts (m in natural units). An int8 pool's codes arrive by
+// cp.async and are widened to bf16 in shared memory (exact), the scales
+// folded as in 5. At Q = 1 the wrapper calls paged_parts with lengths cut
+// to min(lengths, offsets + 1): one code, so Q = 1 equals B4 bit for bit.
+// With an f32 q, mq_partial_kernel keeps the first port's CUDA-core body
+// (f32 products; the tensor cores' bf16 would break its 1e-4 check), Q <=
+// kMqQueryMax, splits and parts_merge_kernel as B4's.
 //
 // Bound on an H100 SXM: bytes. Every cached K/V row of every row must be
-// read once (int8: D codes plus a 4-byte scale per position), against
-// 4·Hq·D flops per cached token and query position; bound = bytes / 3.35
-// TB/s. This first version reads with plain loads (no TMA, no cp.async)
-// and runs the dots on the CUDA cores.
+// read once up to its last query's limit (int8: D codes plus a 4-byte
+// scale per position), against 4·Hq·D flops per visible (query, token)
+// pair; bound = bytes / 3.35 TB/s. At the verify's widths the bytes are
+// too few to cover a launch: the design cuts latency (one launch, work on
+// the tensor cores, 16-byte cp.async rows, one page lookup a tile).
 
 #include "decode_common.cuh"
 
@@ -168,10 +179,10 @@ cudaError_t dispatch_parts(int d_head, const void* q, const void* k, const void*
 #undef PAGED_PARTS_CASE
 }
 
-// ---- multi-query parts (B7/B8): the speculative verify block --------------
+// ---- multi-query parts (B7/B8) with an f32 q: CUDA cores -------------------
 constexpr int kMqWarps = 8;
 constexpr int kMqTile = 16;     // positions staged in shared memory per pass
-constexpr int kMqQueryMax = 9;  // query positions per row: k + 1 for k <= 8
+constexpr int kMqQueryMax = 9;  // query positions per row of an f32 q: k + 1 for k <= 8
 
 // Dynamic shared memory of mq_partial_kernel, in 4-byte words: queries
 // [R][D+1] and accumulators [R][D] (f32), the staged K tile [kMqTile][D+1]
@@ -399,6 +410,467 @@ cudaError_t dispatch_mq_parts(int d_head, const void* q, const void* k, const vo
 #undef PAGED_MQ_CASE
 }
 
+// ---- multi-query parts on the tensor cores (B7/B8 with a bf16 q) ----------
+constexpr int kMqMmaWarps = 4;
+constexpr int kMqMmaThreads = kMqMmaWarps * 32;
+constexpr int kMqMmaRows = 16 * kMqMmaWarps;  // score rows per block: B1's 64
+constexpr int kMqMmaQueryMax = 64;            // query positions per row: 64 at G 1
+constexpr int kMqMinSplit = 64;               // positions per split, at least
+constexpr int kMqMaxSplits = 32;              // splits per (q-tile, row, kv head), at most
+constexpr float kLn2 = 0.69314718055994531f;
+
+// Dynamic shared memory of mq_mma_kernel: q rows [64][S] and the bf16 K and
+// V tiles [stages][kN][S] each, every row padded by 16 bytes as B1's (two
+// cp.async stages; one where int8 codes are widened into them); with an
+// int8 pool, the codes' cp.async ring [2][K, V][kN][D] and the scales
+// [2][K, V][kN] f32. After the loop the merge reuses the front of it.
+template <typename KV, int D>
+struct MqMma {
+  static constexpr bool kQuant = sizeof(KV) == 1;
+  static constexpr int kN = D <= 128 ? 64 : 32;  // positions per tile
+  static constexpr int kStride = D + 8;          // bf16 elements per smem row
+  static constexpr int kBf16Stages = kQuant ? 1 : 2;
+  static constexpr int kQBytes = 2 * kMqMmaRows * kStride;
+  static constexpr int kTileBytes = 2 * kN * kStride;  // one bf16 K or V tile
+  static constexpr int kCodeBytes = kQuant ? 2 * 2 * kN * D : 0;
+  static constexpr int kScaleBytes = kQuant ? 4 * 2 * 2 * kN : 0;
+  static constexpr int kBytes = kQBytes + 2 * kBf16Stages * kTileBytes + kCodeBytes + kScaleBytes;
+  static_assert(kQBytes + 2 * kBf16Stages * kTileBytes >=
+                    4 * (2 * kMqMaxSplits * kMqMmaRows + 2 * kMqMmaRows),
+                "the merge's (m, l) of every split must fit");
+  static_assert(kMqMaxSplits * kMqMmaRows % kMqMmaThreads == 0, "the merge stages (m, l) evenly");
+};
+
+// grid (q_tiles · n_grid, B·Hkv), kMqMmaThreads threads, MqMma<KV, D>::kBytes
+// of dynamic shared memory. Block (x·n_grid + split, bh) is q-tile x of
+// row b, kv head h: its row r is query position j = x·block_q + r / G,
+// head h·G + r % G, which sees positions kpos < min(len, offset + j + 1).
+// The block sizes the q-tile's splits from its frontier (its last query's
+// limit) as decode_tile_kernel sizes a row's, and streams its split in
+// tiles of kN positions through a cp.async ring, looked up in the table
+// once a tile where a tile lies in one page, else once a position. The
+// body is B1's: S = QKᵀ and O += PV by mma.sync from ldmatrix fragments,
+// the online softmax on the S fragment in log2 units; every score is
+// masked by its row's limit. With an int8 pool the codes are widened to
+// bf16 in shared memory (exact), the K scale multiplies the score of its
+// position and the V scale folds into p after l takes it. One split
+// writes the unnormalised parts (m in natural units) itself; several
+// write partials part_acc [B·Hkv, n_grid, Q·G, D] and part_ml [...,
+// Q·G, 2], and the last of them to arrive (tickets [B·Hkv·q_tiles])
+// merges them in split order.
+template <typename KV, int D>
+__global__ void __launch_bounds__(kMqMmaThreads)
+    mq_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
+                  const KV* __restrict__ v, const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale, const int* __restrict__ lengths,
+                  const int* __restrict__ offsets, float* __restrict__ part_acc,
+                  float* __restrict__ part_ml, int* __restrict__ tickets,
+                  float* __restrict__ acc_out, float* __restrict__ m_out,
+                  float* __restrict__ l_out, PagedRows addr, int hkv, int group, int q_len,
+                  int block_q, int n_grid, float scale_log2) {
+  using L = MqMma<KV, D>;
+  constexpr bool kQuant = L::kQuant;
+  constexpr int kN = L::kN;
+  constexpr int S = L::kStride;
+  constexpr int C = D / 8;    // 16-byte chunks of a bf16 row
+  constexpr int C8 = D / 16;  // 16-byte chunks of an int8 row
+  extern __shared__ __align__(16) unsigned char mq_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mq_smem);
+  __nv_bfloat16* ks = qs + kMqMmaRows * S;  // [stages][kN][S]
+  __nv_bfloat16* vs = ks + L::kBf16Stages * kN * S;
+  int8_t* codes = reinterpret_cast<int8_t*>(vs + L::kBf16Stages * kN * S);  // [2][K, V][kN][D]
+  float* scales = reinterpret_cast<float*>(codes + L::kCodeBytes);          // [2][K, V][kN]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int bh = blockIdx.y;
+  const int b = bh / hkv;
+  const int h = bh % hkv;
+  const int x = blockIdx.x / n_grid;
+  const int split = blockIdx.x % n_grid;
+  const int hq = hkv * group;
+  const int rows_all = q_len * group;  // score rows of (b, h) over every q-tile
+  const int j0 = x * block_q;
+  const int n_pos = min(block_q, q_len - j0);
+  const int n_rows = n_pos * group;
+  const int row_base = j0 * group;  // the q-tile's first score row
+  const int len = max(0, min(lengths[b], addr.capacity()));
+  const int off = offsets[b];
+  const int frontier = max(0, min(len, off + j0 + n_pos));
+  int n_used = max(1, min(n_grid, ceil_div(frontier, kMqMinSplit)));
+  const int split_len = ceil_div(ceil_div(max(frontier, 1), n_used), kN) * kN;
+  n_used = max(1, ceil_div(frontier, split_len));
+  const size_t part0 = static_cast<size_t>(bh) * n_grid;  // split s, row r: (part0 + s)·rows_all + row_base + r
+  if (split >= n_used) return;  // past the frontier: no read, no ticket
+  const int t_begin = split * split_len;
+  const int t_end = min(t_begin + split_len, frontier);
+  const int n_tiles = ceil_div(t_end - t_begin, kN);  // 0 where no query sees a position
+  const bool whole = addr.page % kN == 0;             // a tile lies in one page
+
+  for (int i = tid; i < kMqMmaRows * C; i += kMqMmaThreads) {
+    const int r = i / C;
+    const int c = i % C;
+    const bool ok = r < n_rows;
+    const __nv_bfloat16* src = q;
+    if (ok)
+      src = q + ((static_cast<size_t>(b) * q_len + j0 + r / group) * hq + h * group + r % group) * D +
+            c * 8;
+    cp_async16(qs + r * S + c * 8, src, ok);
+  }
+  // Tile `it` of the split into ring stage `stage`; positions past t_end
+  // read nothing and stage zeros.
+  auto load_kv = [&](int it, int stage) {
+    const int t0 = t_begin + it * kN;
+    const size_t row0 = addr.row(bh, b, h, t0);
+    if constexpr (kQuant) {
+      int8_t* kd = codes + stage * 2 * kN * D;
+      int8_t* vd = kd + kN * D;
+      for (int i = tid; i < kN * C8; i += kMqMmaThreads) {
+        const int p = i / C8;
+        const int c = i % C8;
+        const int t = t0 + p;
+        const bool ok = t < t_end;
+        const size_t r = !ok ? row0 : whole ? row0 + p : addr.row(bh, b, h, t);
+        cp_async16(kd + p * D + c * 16, k + r * D + c * 16, ok);
+        cp_async16(vd + p * D + c * 16, v + r * D + c * 16, ok);
+      }
+      if (tid < kN) {
+        const int t = t0 + tid;
+        const bool ok = t < t_end;
+        const size_t r = !ok ? row0 : whole ? row0 + tid : addr.row(bh, b, h, t);
+        scales[stage * 2 * kN + tid] = ok ? k_scale[r] : 0.f;
+        scales[(stage * 2 + 1) * kN + tid] = ok ? v_scale[r] : 0.f;
+      }
+    } else {
+      __nv_bfloat16* kd = ks + stage * kN * S;
+      __nv_bfloat16* vd = vs + stage * kN * S;
+      for (int i = tid; i < kN * C; i += kMqMmaThreads) {
+        const int p = i / C;
+        const int c = i % C;
+        const int t = t0 + p;
+        const bool ok = t < t_end;
+        const size_t r = !ok ? row0 : whole ? row0 + p : addr.row(bh, b, h, t);
+        cp_async16(kd + p * S + c * 8, k + r * D + c * 8, ok);
+        cp_async16(vd + p * S + c * 8, v + r * D + c * 8, ok);
+      }
+    }
+  };
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  // This thread's rows r0 = warp·16 + lane/4 and r0 + 8, and their limits
+  // (0 for padding rows past the q-tile's: they stay (0, -inf, 0)).
+  const int r0 = warp * 16 + lane / 4;
+  const int lim0 = r0 < n_rows ? max(0, min(len, off + j0 + r0 / group + 1)) : 0;
+  const int lim1 = r0 + 8 < n_rows ? max(0, min(len, off + j0 + (r0 + 8) / group + 1)) : 0;
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's columns
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) load_kv(it + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if constexpr (kQuant) {  // the stage's codes widened to bf16 (exact for -127..127)
+      const int8_t* kc = codes + stage * 2 * kN * D;
+      for (int i = tid; i < 2 * kN * C8; i += kMqMmaThreads) {
+        const int which = i / (kN * C8);  // 0: K, 1: V
+        const int p = (i / C8) % kN;
+        const int c = i % C8;
+        const uint4 raw = *reinterpret_cast<const uint4*>(kc + (which * kN + p) * D + c * 16);
+        const int8_t* cb = reinterpret_cast<const int8_t*>(&raw);
+        unsigned wd[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          wd[e] = pack_bf16(static_cast<float>(cb[2 * e]), static_cast<float>(cb[2 * e + 1]));
+        uint4* dst = reinterpret_cast<uint4*>((which ? vs : ks) + p * S + c * 16);
+        dst[0] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+        dst[1] = make_uint4(wd[4], wd[5], wd[6], wd[7]);
+      }
+      __syncthreads();
+    }
+    const __nv_bfloat16* kt = ks + (kQuant ? 0 : stage) * kN * S;
+    const __nv_bfloat16* vt = vs + (kQuant ? 0 : stage) * kN * S;
+    const float* ksc = scales + stage * 2 * kN;
+    const float* vsc = ksc + kN;
+
+    // S = Q Kᵀ over the tile: 16 rows × kN positions per warp.
+    float sc[kN / 8][4];
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, qs + (warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * S + kk * 16 +
+                         (lane / 16) * 8);
+#pragma unroll
+      for (int j = 0; j < kN / 16; ++j) {
+        unsigned bk[4];
+        ldmatrix_x4(bk, kt + (j * 16 + (lane / 16) * 8 + lane % 8) * S + kk * 16 +
+                            ((lane / 8) % 2) * 8);
+        mma_bf16(sc[2 * j], a, bk[0], bk[1]);
+        mma_bf16(sc[2 * j + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // Online softmax on the fragment (log2 units; the scale folded in).
+    const int k0 = t_begin + it * kN;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kl = j * 8 + 2 * (lane % 4) + e;
+        float x0 = sc[j][e] * scale_log2;
+        float x1 = sc[j][2 + e] * scale_log2;
+        if constexpr (kQuant) {
+          x0 *= ksc[kl];
+          x1 *= ksc[kl];
+        }
+        if (k0 + kl >= lim0) x0 = -INFINITY;
+        if (k0 + kl >= lim1) x1 = -INFINITY;
+        sc[j][e] = x0;
+        sc[j][2 + e] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
+    }
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+    }
+    const float mn0 = fmaxf(m0, mx0);
+    const float mn1 = fmaxf(m1, mx1);
+    // A row that has seen no position yet keeps m = -inf; exp2 against 0
+    // then gives p = 0 and alpha = 0, never exp2(-inf - -inf).
+    const float base0 = mn0 == -INFINITY ? 0.f : mn0;
+    const float base1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float al0 = exp2f(m0 - base0);
+    const float al1 = exp2f(m1 - base1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kl = j * 8 + 2 * (lane % 4) + e;
+        const float p0 = exp2f(sc[j][e] - base0);
+        const float p1 = exp2f(sc[j][2 + e] - base1);
+        ps0 += p0;
+        ps1 += p1;
+        sc[j][e] = kQuant ? p0 * vsc[kl] : p0;  // the int8 V scale folds into p
+        sc[j][2 + e] = kQuant ? p1 * vsc[kl] : p1;
+      }
+    }
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= al0;
+      o[j][1] *= al0;
+      o[j][2] *= al1;
+      o[j][3] *= al1;
+    }
+
+    // O += P V: P from the S fragment as bf16 A operands, V by ldmatrix.trans.
+#pragma unroll
+    for (int j = 0; j < kN / 16; ++j) {
+      const unsigned a[4] = {pack_bf16(sc[2 * j][0], sc[2 * j][1]),
+                             pack_bf16(sc[2 * j][2], sc[2 * j][3]),
+                             pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
+                             pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        unsigned bv[4];
+        ldmatrix_x4_trans(bv, vt + (j * 16 + ((lane / 8) % 2) * 8 + lane % 8) * S + c * 16 +
+                                  (lane / 16) * 8);
+        mma_bf16(o[2 * c], a, bv[0], bv[1]);
+        mma_bf16(o[2 * c + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+  }
+
+  // One split writes the parts; several write partials (m in natural
+  // units either way: a -inf stays -inf).
+  const bool direct = n_used == 1;
+  const int col = 2 * (lane % 4);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= n_rows) continue;
+    const size_t mi = direct ? ((static_cast<size_t>(b) * q_len + j0 + r / group) * hkv + h) * group +
+                                   r % group
+                             : (part0 + split) * rows_all + row_base + r;
+    float* dst = (direct ? acc_out : part_acc) + mi * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + j * 8 + col) = make_float2(o[j][2 * half], o[j][2 * half + 1]);
+    if (lane % 4 == 0) {
+      const float m_nat = (half ? m1 : m0) * kLn2;
+      const float l_sum = half ? l1 : l0;
+      if (direct) {
+        m_out[mi] = m_nat;
+        l_out[mi] = l_sum;
+      } else {
+        part_ml[2 * mi] = m_nat;
+        part_ml[2 * mi + 1] = l_sum;
+      }
+    }
+  }
+  if (direct) return;
+  if (!last_to_arrive(tickets + static_cast<size_t>(bh) * (gridDim.x / n_grid) + x, n_used)) return;
+
+  // The last split merges, spread over the block, with its loads issued
+  // together: every split's (m, l) of the q-tile's rows staged at once,
+  // each row's weights e^{m_s - m} replacing its m's in place; then each
+  // thread sums kMergeItems float4 columns of the rows, kMergeSplits
+  // splits a pass in split order, so 32 loads of its are in flight (the
+  // q-tile's partials of a split are contiguous rows).
+  constexpr int kMlPer = kMqMaxSplits * kMqMmaRows / kMqMmaThreads;
+  float2* ml = reinterpret_cast<float2*>(mq_smem);  // [n_used][64] (m, l)
+  float* m_fin = reinterpret_cast<float*>(ml + kMqMaxSplits * kMqMmaRows);
+  float* l_fin = m_fin + kMqMmaRows;
+  {
+    const int n_ml = n_used * n_rows;
+    float2 v[kMlPer];
+#pragma unroll
+    for (int k = 0; k < kMlPer; ++k) {
+      const int i = tid + k * kMqMmaThreads;
+      if (i < n_ml)
+        v[k] = __ldcg(reinterpret_cast<const float2*>(part_ml) +
+                      (part0 + i / n_rows) * rows_all + row_base + i % n_rows);
+    }
+#pragma unroll
+    for (int k = 0; k < kMlPer; ++k) {
+      const int i = tid + k * kMqMmaThreads;
+      if (i < n_ml) ml[(i / n_rows) * kMqMmaRows + i % n_rows] = v[k];
+    }
+  }
+  __syncthreads();
+  if (tid < n_rows) {
+    float mx = -INFINITY;
+    for (int s = 0; s < n_used; ++s) mx = fmaxf(mx, ml[s * kMqMmaRows + tid].x);
+    float lsum = 0.f;
+    for (int s = 0; s < n_used; ++s) {
+      float2& e = ml[s * kMqMmaRows + tid];
+      const float c = e.x == -INFINITY ? 0.f : expf(e.x - mx);  // never exp(-inf - -inf)
+      e.x = c;
+      lsum += c * e.y;
+    }
+    m_fin[tid] = mx;
+    l_fin[tid] = lsum;
+  }
+  __syncthreads();
+  constexpr int kQ = D / 4;  // float4 columns of a row
+  constexpr int kMergeItems = 8;
+  constexpr int kMergeSplits = 4;
+  const int n_out = n_rows * kQ;
+  const float4* pa = reinterpret_cast<const float4*>(part_acc);
+  const size_t split_stride = static_cast<size_t>(rows_all) * kQ;
+  for (int i0 = tid; i0 < n_out; i0 += kMergeItems * kMqMmaThreads) {
+    float4 a[kMergeItems];
+#pragma unroll
+    for (int u = 0; u < kMergeItems; ++u) a[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < n_used; s0 += kMergeSplits) {
+      const float4* p0 = pa + ((part0 + s0) * rows_all + row_base) * kQ;
+      float4 x[kMergeSplits][kMergeItems];
+#pragma unroll
+      for (int q = 0; q < kMergeSplits; ++q)
+#pragma unroll
+        for (int u = 0; u < kMergeItems; ++u) {
+          const int i = i0 + u * kMqMmaThreads;
+          x[q][u] = i < n_out && s0 + q < n_used ? __ldcg(p0 + q * split_stride + i)
+                                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+      for (int q = 0; q < kMergeSplits; ++q) {
+        if (s0 + q >= n_used) break;
+#pragma unroll
+        for (int u = 0; u < kMergeItems; ++u) {
+          const int i = i0 + u * kMqMmaThreads;
+          if (i >= n_out) continue;
+          const float c = ml[(s0 + q) * kMqMmaRows + i / kQ].x;
+          a[u].x += c * x[q][u].x;
+          a[u].y += c * x[q][u].y;
+          a[u].z += c * x[q][u].z;
+          a[u].w += c * x[q][u].w;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMergeItems; ++u) {
+      const int i = i0 + u * kMqMmaThreads;
+      if (i >= n_out) continue;
+      const int r = i / kQ;
+      const int d = 4 * (i % kQ);
+      const size_t mi =
+          ((static_cast<size_t>(b) * q_len + j0 + r / group) * hkv + h) * group + r % group;
+      *reinterpret_cast<float4*>(acc_out + mi * D + d) = a[u];
+      if (d == 0) {
+        m_out[mi] = m_fin[r];
+        l_out[mi] = l_fin[r];
+      }
+    }
+  }
+}
+
+template <typename KV, int D>
+cudaError_t launch_mq_mma(const void* q, const void* k, const void* v, const float* k_scale,
+                          const float* v_scale, const int* table, const int* lengths,
+                          const int* offsets, float* part_acc, float* part_ml, int* tickets,
+                          float* acc, float* m, float* l, int batch, int q_len, int hq, int hkv,
+                          int n_pool, int page, int jmax, int n_grid, cudaStream_t stream) {
+  constexpr int smem = MqMma<KV, D>::kBytes;
+  const int group = hq / hkv;
+  const int block_q = kMqMmaRows / group;
+  const int q_tiles = ceil_div(q_len, block_q);
+  auto kernel = mq_mma_kernel<KV, D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const PagedRows addr{table, jmax, page, hkv, n_pool};
+  kernel<<<dim3(q_tiles * n_grid, batch * hkv), kMqMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
+      k_scale, v_scale, lengths, offsets, part_acc, part_ml, tickets, acc, m, l, addr, hkv, group,
+      q_len, block_q, n_grid, softmax_scale(D) * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+template <typename KV>
+cudaError_t dispatch_mq_mma(int d_head, const void* q, const void* k, const void* v,
+                            const float* k_scale, const float* v_scale, const int* table,
+                            const int* lengths, const int* offsets, float* part_acc,
+                            float* part_ml, int* tickets, float* acc, float* m, float* l,
+                            int batch, int q_len, int hq, int hkv, int n_pool, int page, int jmax,
+                            int n_grid, cudaStream_t stream) {
+#define PAGED_MQ_MMA_CASE(DH)                                                                \
+  case DH:                                                                                   \
+    return launch_mq_mma<KV, DH>(q, k, v, k_scale, v_scale, table, lengths, offsets,          \
+                                 part_acc, part_ml, tickets, acc, m, l, batch, q_len, hq, hkv, \
+                                 n_pool, page, jmax, n_grid, stream);
+  switch (d_head) {
+    PAGED_MQ_MMA_CASE(64)
+    PAGED_MQ_MMA_CASE(96)
+    PAGED_MQ_MMA_CASE(128)
+    PAGED_MQ_MMA_CASE(256)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PAGED_MQ_MMA_CASE
+}
+
 }  // namespace
 
 extern "C" {
@@ -466,11 +938,13 @@ int paged_decode(int dtype, const void* q, const void* k, const void* v, const i
   return cudaErrorInvalidValue;
 }
 
-int paged_mq_query_max() { return kMqQueryMax; }
+// Query positions per row that one multi-query launch of q in `dtype`
+// holds: the tensor-core kernel's (bf16) or the CUDA-core kernel's (f32).
+int paged_mq_query_max(int dtype) { return dtype == kDtypeBF16 ? kMqMmaQueryMax : kMqQueryMax; }
 
-// Q >= 2 query positions per row (Q = 1 is paged_parts with lengths cut to
-// the causal limit). k_scale/v_scale null: the pools hold `dtype`
-// elements; else int8 codes.
+// B7/B8 with an f32 q (the CUDA-core kernel): Q >= 2 query positions per
+// row (Q = 1 is paged_parts with lengths cut to the causal limit).
+// k_scale/v_scale null: the pools hold f32; else int8 codes.
 int paged_mq_parts(int dtype, const void* q, const void* k, const void* v, const float* k_scale,
                    const float* v_scale, const int* table, const int* lengths,
                    const int* offsets, float* part_acc, float* part_ml, float* acc, float* m,
@@ -481,15 +955,6 @@ int paged_mq_parts(int dtype, const void* q, const void* k, const void* v, const
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool quant = k_scale != nullptr;
-  if (dtype == kDtypeBF16) {
-    if (quant)
-      return dispatch_mq_parts<__nv_bfloat16, int8_t, true>(
-          d_head, q, k, v, k_scale, v_scale, table, lengths, offsets, part_acc, part_ml, acc, m,
-          l, batch, q_len, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
-    return dispatch_mq_parts<__nv_bfloat16, __nv_bfloat16, false>(
-        d_head, q, k, v, nullptr, nullptr, table, lengths, offsets, part_acc, part_ml, acc, m,
-        l, batch, q_len, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
-  }
   if (dtype == kDtypeF32) {
     if (quant)
       return dispatch_mq_parts<float, int8_t, true>(
@@ -500,6 +965,30 @@ int paged_mq_parts(int dtype, const void* q, const void* k, const void* v, const
         l, batch, q_len, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// B7/B8 with a bf16 q (the tensor-core kernel): 2 <= Q <= kMqMmaQueryMax,
+// over a bf16 pool (k_scale/v_scale null) or int8 codes with f32 scales.
+// n_grid splits per (q-tile, row, kv head), 1..kMqMaxSplits (the wrapper's
+// mq_grid); part_acc [B·Hkv, n_grid, Q·G, D] and part_ml [B·Hkv, n_grid,
+// Q·G, 2] the split scratch; tickets [B·Hkv·q-tiles] zero.
+int paged_mq_mma_parts(const void* q, const void* k, const void* v, const float* k_scale,
+                       const float* v_scale, const int* table, const int* lengths,
+                       const int* offsets, float* part_acc, float* part_ml, int* tickets,
+                       float* acc, float* m, float* l, int batch, int q_len, int hq, int hkv,
+                       int n_pool, int page, int jmax, int d_head, int n_grid, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kGroupMax || q_len < 2 ||
+      q_len > kMqMmaQueryMax || n_pool <= 0 || page <= 0 || jmax <= 0 || n_grid < 1 ||
+      n_grid > kMqMaxSplits || tickets == nullptr)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k_scale != nullptr)
+    return dispatch_mq_mma<int8_t>(d_head, q, k, v, k_scale, v_scale, table, lengths, offsets,
+                                   part_acc, part_ml, tickets, acc, m, l, batch, q_len, hq, hkv,
+                                   n_pool, page, jmax, n_grid, s);
+  return dispatch_mq_mma<__nv_bfloat16>(d_head, q, k, v, nullptr, nullptr, table, lengths,
+                                        offsets, part_acc, part_ml, tickets, acc, m, l, batch,
+                                        q_len, hq, hkv, n_pool, page, jmax, n_grid, s);
 }
 
 }  // extern "C"

@@ -57,17 +57,18 @@ _SIGNATURES = {
         "paged_decode": (
             [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p], _i,
         ),
-        "paged_mq_query_max": ([], _i),
+        "paged_mq_query_max": ([_i], _i),
         "paged_mq_parts": (
             [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
              _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _p],
             _i,
         ),
+        "paged_mq_mma_parts": ([_p] * 14 + [_i] * 9 + [_p], _i),
     },
     "int4_matmul": {
         "int4_error_string": ([_i], ctypes.c_char_p),
         "int4_matmul": ([_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i),
-        "int4_matmul_i32": ([_i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i),
+        "int4_matmul_i32": ([_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i),
         "w4a8_max_split_rows": ([], _i),
         "w4a8_matmul": ([_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i),
     },
@@ -167,11 +168,12 @@ def check(err: int, name: str, lib: str = "attention") -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} ({msg})")
 
 
-# Per-device int32 tickets of the one-launch kernels (B2, B3, B6, B9), zero
-# between launches: the last block of a group (the splits of a (row, kv
-# head), or of a column tile) to finish takes the group's ticket, merges
-# and resets it. One buffer serves every launch of the current stream
-# (launches on one stream never overlap).
+# Per-device int32 tickets of the one-launch kernels (B2, B3, B6, B7, B8, B9,
+# B10), zero between launches: the last block of a group (the splits of a
+# (row, kv head) or of a (q-tile, row, kv head), or of a column tile) to
+# finish takes the group's ticket, merges and resets it. One buffer serves
+# every launch of the current stream (launches on one stream never
+# overlap).
 _TICKETS: "dict[torch.device, torch.Tensor]" = {}
 
 

@@ -17,8 +17,8 @@ CUDA tensor launches the kernel or raises. Each wrapper counts its
 launches (one per kernel launch) in an integer ``launches`` attribute.
 No kernel's cap reaches a caller: a group of more query heads per kv head
 than a kernel holds is cut into sub-groups (``tile_groups``), and a
-verify block of more query positions than the multi-query kernel holds
-into chunks (:func:`chunk_queries`).
+verify block of more query positions than the multi-query kernel for q's
+dtype holds (64 in bf16, 9 in f32) into chunks (:func:`chunk_queries`).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from .attention import (
     paged_mq_attention_reference,
 )
 from .cuda_attention import (
+    _DTYPE_CODES,
     _TARGET_BLOCKS,
     _check_inputs,
     _require,
@@ -51,6 +52,13 @@ Layer = Optional[Union[int, torch.Tensor]]
 _LIB = "paged_attention"
 # Positions per split: at least this many (8 per warp of the block).
 _MIN_SPLIT_POSITIONS = 32
+# The tensor-core multi-query kernel (B7/B8 with a bf16 q, ``mq_mma_kernel``):
+# score rows per block (a q-tile is 64 // G query positions), positions per
+# split at least, and splits per (q-tile, row, kv head) at most
+# (kMqMmaRows, kMqMinSplit and kMqMaxSplits of ``csrc/paged_attention.cu``).
+MQ_ROWS = 64
+_MQ_MIN_SPLIT = 64
+_MQ_MAX_SPLITS = 32
 
 
 def _paged_split(b: int, hkv: int, jmax: int, page: int) -> "tuple[int, int]":
@@ -62,6 +70,22 @@ def _paged_split(b: int, hkv: int, jmax: int, page: int) -> "tuple[int, int]":
     n = max(jmax, -(-_TARGET_BLOCKS // (b * hkv)))
     split_len = max(_MIN_SPLIT_POSITIONS, -(-t // n))
     return -(-t // split_len), split_len
+
+
+def mq_q_tiles(q_len: int, group: int) -> int:
+    """Q-tiles of a verify block: 64 // G query positions each."""
+    return -(-q_len // (MQ_ROWS // group))
+
+
+def mq_grid(batch: int, hkv: int, q_tiles: int, capacity: int) -> int:
+    """Splits per (q-tile, row, kv head) of the tensor-core multi-query
+    grid: enough that the blocks cover the card about twice, none starting
+    past the capacity (``Jmax·page``), at most 32. Each block sizes its
+    q-tile's splits from the q-tile's frontier on the device (at least 64
+    positions a split, in whole tiles); blocks past them exit at once."""
+    pairs = max(1, batch * hkv * q_tiles)
+    n = min(_MQ_MAX_SPLITS, -(-_TARGET_BLOCKS // pairs))
+    return max(1, min(n, -(-max(capacity, 1) // _MQ_MIN_SPLIT)))
 
 
 def _select_layer(name: str, layer: Layer, *pools: torch.Tensor) -> "tuple[torch.Tensor, ...]":
@@ -244,9 +268,11 @@ def cuda_paged_decode_attention_parts_int8(
 
 
 def _launch_mq_chunk(name, wrapper, q, k, v, k_scale, v_scale, page_table, lengths, offsets) -> Parts:
-    """One multi-query launch of at most ``paged_mq_query_max()`` query
+    """One multi-query launch of at most ``paged_mq_query_max`` query
     positions. Q = 1 runs B4/B5's launch with each row's lengths cut to
-    its causal limit, so the two kernels never differ in summation order."""
+    its causal limit, so the two kernels never differ in summation order;
+    a bf16 q runs the tensor-core kernel (its splits merged by the last
+    to arrive), an f32 q the CUDA-core kernel."""
     b, q_len, hq, d = q.shape
     if q_len == 1:
         limit = torch.clamp(torch.minimum(lengths, offsets + 1), min=0)
@@ -262,27 +288,44 @@ def _launch_mq_chunk(name, wrapper, q, k, v, k_scale, v_scale, page_table, lengt
         f"{name}: page_table must be int32 [B,Jmax]",
     )
     jmax = page_table.shape[1]
-    n_split, split_len = _paged_split(b, hkv, jmax, page)
     dev = q.device
     lib = _kernels.library(_LIB)
+    mma = q.dtype == torch.bfloat16
+    if mma:
+        _require_aligned(name, q, k, v)
+    else:
+        n_split, split_len = _paged_split(b, hkv, jmax, page)
 
     def launch(qs: torch.Tensor) -> Parts:
         hq_s = qs.shape[2]
         group = hq_s // hkv
         rows = q_len * group
-        part_acc = torch.empty((b * hkv, n_split, rows, d), dtype=torch.float32, device=dev)
-        part_ml = torch.empty((b * hkv, n_split, rows, 2), dtype=torch.float32, device=dev)
         acc = torch.empty((b, q_len, hkv, group, d), dtype=torch.float32, device=dev)
         m = torch.empty((b, q_len, hkv, group), dtype=torch.float32, device=dev)
         l = torch.empty((b, q_len, hkv, group), dtype=torch.float32, device=dev)
-        err = lib.paged_mq_parts(
-            code, qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if k_scale is None else k_scale.data_ptr(),
-            None if v_scale is None else v_scale.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), offsets.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            b, q_len, hq_s, hkv, n_pool, page, jmax, d, n_split, split_len, _stream(qs),
-        )
+        pool = (qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if k_scale is None else k_scale.data_ptr(),
+                None if v_scale is None else v_scale.data_ptr(),
+                page_table.data_ptr(), lengths.data_ptr(), offsets.data_ptr())
+        if mma:
+            q_tiles = mq_q_tiles(q_len, group)
+            n_grid = mq_grid(b, hkv, q_tiles, jmax * page)
+            part_acc = torch.empty((b * hkv, n_grid, rows, d), dtype=torch.float32, device=dev)
+            part_ml = torch.empty((b * hkv, n_grid, rows, 2), dtype=torch.float32, device=dev)
+            tickets = _kernels.tickets(dev, b * hkv * q_tiles)
+            err = lib.paged_mq_mma_parts(
+                *pool, part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
+                acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+                b, q_len, hq_s, hkv, n_pool, page, jmax, d, n_grid, _stream(qs),
+            )
+        else:
+            part_acc = torch.empty((b * hkv, n_split, rows, d), dtype=torch.float32, device=dev)
+            part_ml = torch.empty((b * hkv, n_split, rows, 2), dtype=torch.float32, device=dev)
+            err = lib.paged_mq_parts(
+                code, *pool, part_acc.data_ptr(), part_ml.data_ptr(),
+                acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+                b, q_len, hq_s, hkv, n_pool, page, jmax, d, n_split, split_len, _stream(qs),
+            )
         _kernels.check(err, name, _LIB)
         wrapper.launches += 1
         return acc, m, l
@@ -292,15 +335,16 @@ def _launch_mq_chunk(name, wrapper, q, k, v, k_scale, v_scale, page_table, lengt
 
 def _launch_mq_parts(name, wrapper, q, k, v, k_scale, v_scale, page_table, lengths, offsets) -> Parts:
     """The multi-query launches: a block of more query positions than the
-    kernel holds goes in chunks (:func:`chunk_queries`)."""
+    kernel for q's dtype holds goes in chunks (:func:`chunk_queries`)."""
     b, q_len, _, _ = q.shape
     _require(q_len >= 1, f"{name}: no query position")
     _require(offsets.shape == (b,) and offsets.dtype == torch.int32, f"{name}: offsets must be int32 [B]")
     _require(lengths.shape == (b,) and lengths.dtype == torch.int32, f"{name}: lengths must be int32 [B]")
+    _require(q.dtype in _DTYPE_CODES, f"{name}: q must be float32 or bfloat16, got {q.dtype}")
     return chunk_queries(
         lambda qc, oc: _launch_mq_chunk(name, wrapper, qc.contiguous(), k, v, k_scale, v_scale,
                                         page_table, lengths, oc),
-        q, offsets, _kernels.library(_LIB).paged_mq_query_max(),
+        q, offsets, _kernels.library(_LIB).paged_mq_query_max(_DTYPE_CODES[q.dtype]),
     )
 
 

@@ -27,56 +27,42 @@ from .quant import (
 )
 
 _LIB = "int4_matmul"
-_TILE_COLS = 128  # output columns per block (B9: 8 lane groups × 16; B10: 32 threads × 4)
+_TILE_COLS = 128  # output columns per block (B9, B10: 8 lane groups × 16; B11: 32 threads × 4)
 
-# B9 (int4_mma_kernel): at most one block per SM of the card's 132 unless
-# the column tiles alone are more, in splits of at least 128 packed rows
-# (two 8-row k-steps for each of its 8 warps), in whole k-steps, at most
-# 1,024 rows (the x slice it stages in shared memory; it refuses more).
-# More, shorter splits were slower at every shape swept
-# (scripts/torch_int4_split_sweep.py): each adds a partial to write and
-# merge, and the weights' load latency does not shrink with the spread.
+# B9 and B10 (int4_mma_kernel, int4_i32_mma_kernel): at most one block per
+# SM of the card's 132 unless the column tiles alone are more, in splits of
+# 256 to 2,048 weight rows (two k-steps for each of the 8 warps at least;
+# at most the x slice the kernels stage in shared memory, which they
+# refuse past), in whole k-steps. A packed row is 2 weight rows in the
+# halves layout (B9, k-steps of 8 packed rows) and 8 in the int32-lane
+# layout (B10, k-steps of 4). More, shorter splits were slower at every
+# shape swept (scripts/torch_int4_split_sweep.py): each adds a partial to
+# write and merge, and the weights' load latency does not shrink with the
+# spread.
 _MMA_TARGET_BLOCKS = 132
-_MMA_MIN_SPLIT_ROWS = 128
-_MMA_STEP_ROWS = 8
-_MMA_MAX_SPLIT_ROWS = 1024
+_MMA_MIN_SPLIT_WEIGHT_ROWS = 256
+_MMA_MAX_SPLIT_WEIGHT_ROWS = 2048
+_MMA_STEP_ROWS = {2: 8, 8: 4}  # packed rows per k-step, by weight rows per packed row
 _MMA_VALUES = 8 * _TILE_COLS  # f32 sums per block (128 columns × 8 rows): a split's partial
 
-# B10: enough blocks for about four per SM of the card's 132, with at least
-# this many packed rows per split (16 weight rows), so that thin
-# projections (qwen2's wk/wv, OUT 256: two column tiles) still spread over
-# the card; the kernel's per-split limit is 512 weight rows of x staged in
-# shared memory, and it refuses more.
-_TARGET_BLOCKS = 528
-_MIN_SPLIT_ROWS = 2
-_MAX_SPLIT_ROWS = 64
 
-
-def _mma_split(k_rows: int, out_dim: int) -> "tuple[int, int]":
-    """B9's (n_split, split_rows): the packed rows cut into equal splits of
-    whole k-steps (the last may be shorter), split only where the column
-    tiles leave SMs of the card idle."""
+def _mma_split(k_rows: int, out_dim: int, per_row: int = 2) -> "tuple[int, int]":
+    """B9's (``per_row`` 2) or B10's (``per_row`` 8) (n_split, split_rows)
+    in packed rows: the packed rows cut into equal splits of whole k-steps
+    (the last may be shorter), split only where the column tiles leave SMs
+    of the card idle."""
+    step = _MMA_STEP_ROWS[per_row]
     tiles = -(-out_dim // _TILE_COLS)
     want = max(1, _MMA_TARGET_BLOCKS // tiles)
-    rows = max(-(-k_rows // want), _MMA_MIN_SPLIT_ROWS)
-    rows = min(-(-rows // _MMA_STEP_ROWS) * _MMA_STEP_ROWS, _MMA_MAX_SPLIT_ROWS)
+    rows = max(-(-k_rows // want), _MMA_MIN_SPLIT_WEIGHT_ROWS // per_row)
+    rows = min(-(-rows // step) * step, _MMA_MAX_SPLIT_WEIGHT_ROWS // per_row)
     return -(-k_rows // rows), rows
 
 
 def _tickets_needed(out_dim: int, n_split: int) -> int:
-    """B9's tickets: one per column tile where the packed rows are split
-    (the last split of a tile to finish merges), none otherwise."""
+    """B9's and B10's tickets: one per column tile where the packed rows
+    are split (the last split of a tile to finish merges), none otherwise."""
     return -(-out_dim // _TILE_COLS) if n_split > 1 else 0
-
-
-def _split(k_rows: int, out_dim: int) -> "tuple[int, int]":
-    """B10's (n_split, split_rows): the packed rows cut into equal splits
-    (the last may be shorter) within the kernel's per-split limit."""
-    tiles = -(-out_dim // _TILE_COLS)
-    want = -(-_TARGET_BLOCKS // tiles)
-    rows = max(-(-k_rows // want), _MIN_SPLIT_ROWS)
-    rows = min(rows, _MAX_SPLIT_ROWS)
-    return -(-k_rows // rows), rows
 
 
 def _check(name: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
@@ -103,12 +89,14 @@ def _check_cuda(name: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.T
 
 def _launch_mma(name: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                 split: "tuple[int, int] | None" = None) -> torch.Tensor:
-    """B9's one launch; ``split`` = (n_split, split_rows) in place of
-    :func:`_mma_split`'s, for sweeps of the rule."""
+    """B9's (int8 halves codes) or B10's (int32 lanes) one launch;
+    ``split`` = (n_split, split_rows) in place of :func:`_mma_split`'s,
+    for sweeps of the rule."""
     _check_cuda(name, x, packed, scale)
     m, in_dim = x.shape
     k_rows, out_dim = packed.shape
-    n_split, split_rows = split or _mma_split(k_rows, out_dim)
+    per_row = in_dim // k_rows
+    n_split, split_rows = split or _mma_split(k_rows, out_dim, per_row)
     dev = x.device
     out = torch.empty((m, out_dim), dtype=x.dtype, device=dev)
     n_tickets = _tickets_needed(out_dim, n_split)
@@ -116,26 +104,10 @@ def _launch_mma(name: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.T
     if n_tickets:  # split partials in the kernel's own layout
         partial = torch.empty((n_split, n_tickets, _MMA_VALUES), dtype=torch.float32, device=dev)
         tickets = _kernels.tickets(dev, n_tickets)
-    err = _kernels.library(_LIB).int4_matmul(
+    entry = _kernels.library(_LIB).int4_matmul if per_row == 2 else _kernels.library(_LIB).int4_matmul_i32
+    err = entry(
         _DTYPE_CODES[x.dtype], x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
         *(None if t is None else t.data_ptr() for t in (partial, tickets)), out.data_ptr(),
-        m, in_dim, k_rows, out_dim, n_split, split_rows, _stream(x),
-    )
-    _kernels.check(err, name, _LIB)
-    return out
-
-
-def _launch_i32(name: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """B10: the split kernel, then the merge."""
-    _check_cuda(name, x, packed, scale)
-    m, in_dim = x.shape
-    k_rows, out_dim = packed.shape
-    n_split, split_rows = _split(k_rows, out_dim)
-    out = torch.empty((m, out_dim), dtype=x.dtype, device=x.device)
-    partial = torch.empty((n_split, m, out_dim), dtype=torch.float32, device=x.device)
-    err = _kernels.library(_LIB).int4_matmul_i32(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-        partial.data_ptr(), out.data_ptr(),
         m, in_dim, k_rows, out_dim, n_split, split_rows, _stream(x),
     )
     _kernels.check(err, name, _LIB)
@@ -163,12 +135,13 @@ def cuda_int4_matmul_i32(
     packed32: torch.Tensor,  # [IN/8, OUT] int32, 8 nibbles per lane
     scale: torch.Tensor,  # [1, OUT] f32
 ) -> torch.Tensor:
-    """The same product over int32 lanes of 8 k-consecutive nibbles."""
+    """The same product over int32 lanes of 8 k-consecutive nibbles, on
+    the tensor cores through B9's parts; one launch."""
     name = "cuda_int4_matmul_i32"
     _check(name, x, packed32, scale, 8, torch.int32)
     if x.device.type == "cpu":
         return int4_matmul_i32_reference(x, packed32, scale)
-    out = _launch_i32(name, x, packed32, scale)
+    out = _launch_mma(name, x, packed32, scale)
     cuda_int4_matmul_i32.launches += 1
     return out
 
@@ -176,13 +149,16 @@ def cuda_int4_matmul_i32(
 # The w4a8 probe's packed-row blocks: IN/2 must be a multiple of this, as
 # its JAX wrapper demands.
 W4A8_BLOCK_ROWS = 128
+# B11: enough blocks for about four per SM of the card's 132, splits of at
+# least 32 packed rows in multiples of 4, within the kernel's limit.
+_W4A8_TARGET_BLOCKS = 528
 _W4A8_MIN_SPLIT_ROWS = 32
 
 
 def _w4a8_split(k_rows: int, out_dim: int, max_rows: int) -> "tuple[int, int]":
-    """(n_split, split_rows) for B11: B10's rule, in multiples of 4 rows."""
+    """(n_split, split_rows) for B11, in multiples of 4 rows."""
     tiles = -(-out_dim // _TILE_COLS)
-    want = -(-_TARGET_BLOCKS // tiles)
+    want = -(-_W4A8_TARGET_BLOCKS // tiles)
     rows = max(-(-k_rows // want), _W4A8_MIN_SPLIT_ROWS)
     rows = min(-(-rows // 4) * 4, max_rows)
     return -(-k_rows // rows), rows

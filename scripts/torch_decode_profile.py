@@ -47,8 +47,9 @@ PROMPT = "In 100 words, please give me information about photosynthesis"
 CATEGORIES = (
     ("attention (port kernels)", (
         "decode_partial_kernel", "parts_merge_kernel", "prefill_kernel",
-        "mq_partial_kernel", "decode_tile_kernel", "prefill_mma_kernel", "prefill_merge_kernel")),
-    ("int4 matmul (port kernels)", ("int4_mma_kernel", "int4_partial_kernel", "int4_merge_kernel")),
+        "mq_partial_kernel", "mq_mma_kernel", "decode_tile_kernel", "prefill_mma_kernel",
+        "prefill_merge_kernel")),
+    ("int4 matmul (port kernels)", ("int4_mma_kernel", "int4_i32_mma_kernel")),
     ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -242,7 +243,11 @@ def profile_spec_rounds(args, torch, profile, activity, TorchEngine, GenerationR
                     session.step(1)
                 torch.cuda.synchronize()
             prof.export_chrome_trace(path)
-            summary = trace_summary(trace_totals(path), rounds)
+            totals = trace_totals(path)
+            summary = trace_summary(totals, rounds)
+            # the verify's multi-query kernel (B7 or B8), device ms a round
+            verify_ms = sum(t for n, t in totals["by_name"].items()
+                            if "mq_mma_kernel" in n or "mq_partial_kernel" in n) / 1e3 / rounds
             session.close()
             print(json.dumps({
                 "mode": "spec_round", "rows": len(requests), "k": SPEC_K, "weights": args.quantize,
@@ -250,6 +255,7 @@ def profile_spec_rounds(args, torch, profile, activity, TorchEngine, GenerationR
                 "wall_ms_per_step": wall, "tokens_per_round": tokens,
                 "decode_tokens_per_s": tokens / wall * 1e3,
                 "idle_share": 1.0 - summary["device_ms_per_step"] / wall,
+                "verify_kernel_ms_per_round": verify_ms,
                 **summary,
             }), flush=True)
             del engine, session

@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""B9's time against its split of the packed rows, on the card: the int4
-matmul kernel of ``csrc/int4_matmul.cu`` (``int4_mma_kernel``, halves
-layout) launched with splits of 8 to 1,024 packed rows, and with the
-wrapper's own rule (``ops/cuda_quant.py::_mma_split``), at qwen2:1.5b's
-and llama3.1:8b's projections, M 1 and 8, bf16. Run from the repository
-root on a machine with one CUDA card:
+"""B9's or B10's time against its split of the packed rows, on the card:
+the int4 matmul kernels of ``csrc/int4_matmul.cu`` (``int4_mma_kernel``,
+halves layout, splits of 8 to 1,024 packed rows; ``int4_i32_mma_kernel``,
+int32 lanes, splits of 4 to 256 packed rows: 32 to 2,048 weight rows)
+launched with each split, and with the wrapper's own rule
+(``ops/cuda_quant.py::_mma_split``), at qwen2:1.5b's and llama3.1:8b's
+projections, M 1 and 8, bf16. Run from the repository root on a machine
+with one CUDA card:
 
-    python3 scripts/torch_int4_split_sweep.py
+    python3 scripts/torch_int4_split_sweep.py [--layout halves|i32]
 
 Each split's output is held against the plain version (bf16 to 2e-2) and
 timed with ``chip_smoke.py``'s timer (the L2 flushed before each launch);
 ``torch.matmul`` on the dequantized bf16 weight is timed beside them.
 Prints the card's ``nvidia-smi`` line, then one JSON line per shape and
-M: ``ms`` maps split rows to {"blocks", "ms"}.
+M: ``ms`` maps split rows (packed) to {"blocks", "ms"}.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import sys
@@ -31,11 +34,17 @@ SHAPES = (
     ("llama3.1:8b wk/wv", 4096, 1024),
     ("llama3.1:8b wq/wo", 4096, 4096),
 )
-SPLIT_ROWS = (8, 16, 32, 64, 128, 256, 512, 1024)
+# Packed rows per split, by layout: (halves) 16 to 2,048 weight rows in
+# whole 8-row k-steps; (int32 lanes) 32 to 2,048 in whole 4-row k-steps.
+SPLIT_ROWS = {"halves": (8, 16, 32, 64, 128, 256, 512, 1024), "i32": (4, 8, 16, 32, 64, 128, 256)}
 BF16_ATOL = 2e-2
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--layout", choices=sorted(SPLIT_ROWS), default="halves",
+                        help="halves: B9 (int8 codes); i32: B10 (int32 lanes)")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -51,26 +60,32 @@ def main() -> int:
     print(smi, flush=True)
     timer = chip_smoke.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(2)
+    i32 = args.layout == "i32"
+    quantize, key, reference, name, per_row = (
+        (qmod.quantize_tensor_int4_i32, "q32", qplain.int4_matmul_i32_reference, "cuda_int4_matmul_i32", 8)
+        if i32 else (qmod.quantize_tensor_int4, "q4", qplain.int4_matmul_reference, "cuda_int4_matmul", 2))
+    sweep = SPLIT_ROWS[args.layout]
     for label, in_dim, out_dim in SHAPES:
         w = torch.randn((in_dim, out_dim), generator=gen, device="cuda") / math.sqrt(in_dim)
-        leaf = qmod.quantize_tensor_int4(w)
-        codes, scale = leaf["q4"], leaf["s"]
+        leaf = quantize(w)
+        codes, scale = leaf[key], leaf["s"]
         w_bf16 = qmod.maybe_dequant(leaf, torch.bfloat16)
         k_rows, tiles = codes.shape[0], -(-out_dim // 128)
-        rule = cq._mma_split(k_rows, out_dim)
+        rule = cq._mma_split(k_rows, out_dim, per_row)
         for m in (1, 8):
             x = torch.randn((m, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
-            ref = qplain.int4_matmul_reference(x, codes, scale).float()
-            row = {"shape": label, "M": m, "IN": in_dim, "OUT": out_dim, "nvidia_smi": smi,
+            ref = reference(x, codes, scale).float()
+            row = {"layout": args.layout, "shape": label, "M": m, "IN": in_dim, "OUT": out_dim,
+                   "nvidia_smi": smi, "weight_rows_per_packed_row": per_row,
                    "rule": {"splits": rule[0], "rows": rule[1], "blocks": rule[0] * tiles}, "ms": {}}
-            for rows in sorted({*SPLIT_ROWS, rule[1]}):
+            for rows in sorted({*sweep, rule[1]}):
                 n_split = -(-k_rows // rows)
-                if rows > 8 and -(-k_rows // (rows // 2)) == 1:
+                if rows > sweep[0] and -(-k_rows // (rows // 2)) == 1:
                     continue  # half as many rows already make one split
                 split = (n_split, rows)
 
                 def call(split=split):
-                    return cq._launch_mma("cuda_int4_matmul", x, codes, scale, split=split)
+                    return cq._launch_mma(name, x, codes, scale, split=split)
 
                 err = (call().float() - ref).abs().max().item()
                 assert err <= BF16_ATOL, (label, m, rows, err)

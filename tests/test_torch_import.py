@@ -23,6 +23,8 @@ SCRIPTS = [
     REPO / "scripts" / "torch_decode_profile.py",
     REPO / "scripts" / "torch_w4a8_probe.py",
     REPO / "scripts" / "torch_int4_split_sweep.py",
+    REPO / "scripts" / "torch_sass_compare.py",
+    REPO / "scripts" / "torch_profiler_loss.py",
 ]
 SCANNED = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 

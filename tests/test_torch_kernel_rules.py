@@ -1,5 +1,6 @@
-"""The logic the one-launch kernels B6 (write-through paged decode) and B9
-(int4 matmul, halves layout) rest on, pinned on the CPU, where the kernels
+"""The logic the one-launch kernels B6 (write-through paged decode), B9
+(int4 matmul, halves layout), B10 (int4 matmul, int32 lanes) and B7/B8
+(multi-query paged verify) rest on, pinned on the CPU, where the kernels
 cannot run:
 
 - B9's nibble → bf16 conversion (each nibble, biased by 8, ORed into the
@@ -9,6 +10,14 @@ cannot run:
   nibble of one packed byte, x staged in the same order; a lane's 16-byte
   load feeds eight mmas), emulated in torch through the PTX layouts of
   ``mma.sync.m16n8k16``, gives ``int4_matmul_reference`` bit for bit;
+- B10's fragment order (a quad's four lanes on four consecutive packed
+  rows of the same 4 columns, one byte a k pair, x staged in natural k
+  order), emulated the same way, gives ``int4_matmul_i32_reference`` bit
+  for bit;
+- B7's tiling (q-tiles of 64 // G positions, splits sized from each
+  q-tile's frontier, an online softmax per split in log2 units, the last
+  split merging into natural units), emulated in torch, gives
+  ``paged_mq_attention_reference``;
 - the wrappers' grid, split and ticket rules, as pure functions, at the
   shapes ``chip_smoke.py`` drives.
 
@@ -16,13 +25,26 @@ The kernels themselves are held against their plain versions on the card
 (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.quantize import quantize_tensor_int4
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.quantize import (
+    quantize_tensor_int4,
+    quantize_tensor_int4_i32,
+)
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import _kernels, cuda_attention, cuda_quant
-from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops.quant import int4_matmul_reference
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops.attention import (
+    paged_mq_attention_int8_reference,
+    paged_mq_attention_reference,
+)
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops.quant import (
+    int4_matmul_i32_reference,
+    int4_matmul_reference,
+)
 
 MAGIC = 0x43084308  # bf16x2 {136.0, 136.0}; 0x4300 is 128.0, whose ulp is 1
 
@@ -164,6 +186,93 @@ def test_b9_fragment_order_equals_the_plain_version_bit_for_bit(m, in_dim, out_d
     assert torch.equal(got, want)
 
 
+def _emulate_b10(x, packed32, scale):
+    """B10's arithmetic in f32, through its fragment layout, split by the
+    wrapper's rule: per split, column tile and k-step s, lane (g, t) holds
+    packed row 4s + t at columns 32i + 4g .. 32i + 4g + 3 (load i); mma
+    u = 2i + p takes columns 32i + 4g + 2p (A row g) and + 1 (A row g +
+    8), byte 2e of each word as k pair slot t and byte 2e + 1 as slot t +
+    4 of its e-th mma; B is x staged in natural k order (word j of a row
+    = x pair 2j, 2j + 1), the lane reading words 4(4s + t) + 2e (b0) and
+    + 1 (b1). The mmas run as ``mma.sync.m16n8k16`` reads its fragments,
+    and C goes back to columns and rows as the kernel's epilogue writes
+    it; the splits' partials are added in split order."""
+    m_rows, in_dim = x.shape
+    k_rows, out_dim = packed32.shape
+    xb = x.to(torch.bfloat16).float()
+    n_split, split_rows = cuda_quant._mma_split(k_rows, out_dim, 8)
+    tiles = -(-out_dim // 128)
+    words_all = packed32.numpy().view(np.uint32)
+    total = torch.zeros(m_rows, tiles * 128)
+    for sp in range(n_split):
+        r0 = sp * split_rows
+        n_rows = min(split_rows, k_rows - r0)
+        steps = -(-n_rows // 4)
+        w = np.zeros((steps * 4, tiles * 128), dtype=np.uint32)  # zero past the rows and OUT
+        w[:n_rows, :out_dim] = words_all[r0 : r0 + n_rows]
+        # nib[j] = (low, high) nibble of byte j of every word, as bf16 values in f32
+        nib = [tuple(torch.from_numpy(h.copy()) for h in _nibbles_bf16x2(w, j)) for j in range(4)]
+        xs = torch.zeros(8, steps * 32)  # staged x: weight rows 8·r0 ..
+        xs[:m_rows, : 8 * n_rows] = xb[:, 8 * r0 : 8 * (r0 + n_rows)]
+        # A [steps, tiles, u, e, 16, 16], B [steps, e, 16, 8]
+        a = torch.zeros(steps, tiles, 8, 2, 16, 16)
+        b = torch.zeros(steps, 2, 16, 8)
+        s_idx = torch.arange(steps)
+        for g in range(8):
+            for t in range(4):
+                rows = 4 * s_idx + t
+                for e in range(2):
+                    # x words 4(4s + t) + 2e and + 1: weight rows 8(4s + t) + 4e + 0..3
+                    kx = 8 * rows + 4 * e
+                    b[:, e, 2 * t, g] = xs[g, kx]
+                    b[:, e, 2 * t + 1, g] = xs[g, kx + 1]
+                    b[:, e, 2 * t + 8, g] = xs[g, kx + 2]
+                    b[:, e, 2 * t + 9, g] = xs[g, kx + 3]
+                for i in range(4):
+                    for p in range(2):
+                        u = 2 * i + p
+                        cols = torch.arange(tiles) * 128 + 32 * i + 4 * g + 2 * p
+                        for e in range(2):
+                            for arow, c_off in ((g, 0), (g + 8, 1)):
+                                rr, cc = rows[:, None], (cols + c_off)[None, :]
+                                lo, hi = nib[2 * e]
+                                a[:, :, u, e, arow, 2 * t] = lo[rr, cc]
+                                a[:, :, u, e, arow, 2 * t + 1] = hi[rr, cc]
+                                lo, hi = nib[2 * e + 1]
+                                a[:, :, u, e, arow, 2 * t + 8] = lo[rr, cc]
+                                a[:, :, u, e, arow, 2 * t + 9] = hi[rr, cc]
+        c = torch.einsum("stuerk,sekn->turn", a, b)  # [tiles, u, 16, 8], summed over steps and e
+        part = torch.zeros(m_rows, tiles * 128)
+        for g in range(8):
+            for t in range(4):
+                for u in range(8):
+                    for ci in range(4):
+                        m = 2 * t + ci % 2
+                        if m < m_rows:
+                            col = torch.arange(tiles) * 128 + 32 * (u // 2) + 4 * g + 2 * (u % 2) + ci // 2
+                            part[m, col] = c[:, u, g + 8 * (ci // 2), m]
+        total = total + part
+    return total[:, :out_dim] * scale.float()
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("in_dim,out_dim", [(1536, 256), (64, 7), (16, 200)])
+def test_b10_fragment_order_equals_the_plain_version_bit_for_bit(m, in_dim, out_dim):
+    """The emulation against ``int4_matmul_i32_reference`` in f32, bit for
+    bit, on dyadic x (exact in bf16; every product and partial sum exact
+    in f32, so only which weight meets which x can differ). qwen2's wk
+    (1536 → 256) splits into 6, each ragged past its rows at no step
+    boundary; OUT 7 and 200 leave a ragged column tile; IN 16 is 2
+    packed rows, half a k-step."""
+    rng = np.random.default_rng(in_dim * 7 + out_dim + m)
+    w = torch.from_numpy((rng.standard_normal((in_dim, out_dim)) / np.sqrt(in_dim)).astype(np.float32))
+    leaf = quantize_tensor_int4_i32(w)
+    x = torch.from_numpy(rng.integers(-16, 17, (m, in_dim)).astype(np.float32) / 8)
+    want = int4_matmul_i32_reference(x, leaf["q32"], leaf["s"])
+    got = _emulate_b10(x, leaf["q32"], leaf["s"])
+    assert torch.equal(got, want)
+
+
 # (label, IN, OUT, splits) of chip_smoke.py's B9 rows.
 INT4_SHAPES = [
     ("qwen2 w_gate/w_up", 1536, 8960, 1),
@@ -192,6 +301,26 @@ def test_b9_split_and_ticket_rule_at_the_chip_shapes(label, in_dim, out_dim, spl
     assert rows % 8 == 0 and 128 <= rows <= 1024
     assert (n_split - 1) * rows < k_rows <= n_split * rows
     assert n_split * tiles <= max(132, tiles) or rows == 1024
+    assert cuda_quant._tickets_needed(out_dim, n_split) == (tiles if n_split > 1 else 0)
+
+
+@pytest.mark.parametrize("label,in_dim,out_dim,splits", INT4_SHAPES, ids=[s[0] for s in INT4_SHAPES])
+def test_b10_split_and_ticket_rule_at_the_chip_shapes(label, in_dim, out_dim, splits):
+    """B10's splits are B9's rule in weight rows: a packed int32 row is 8
+    weight rows, a k-step 4 packed rows (32 weight rows), and a split
+    holds 256 to 2,048 weight rows (the kernel's x slice; it refuses
+    more), so at every chip shape B10 splits as B9 does, within 32 weight
+    rows of B9's split; one ticket per column tile where split."""
+    k_rows = in_dim // 8
+    tiles = -(-out_dim // 128)
+    n_split, rows = cuda_quant._mma_split(k_rows, out_dim, 8)
+    assert n_split == splits
+    weight_rows = 8 * rows
+    assert rows % 4 == 0 and 256 <= weight_rows <= 2048
+    assert (n_split - 1) * rows < k_rows <= n_split * rows
+    assert n_split * tiles <= max(132, tiles) or weight_rows == 2048
+    b9_split, b9_rows = cuda_quant._mma_split(in_dim // 2, out_dim)
+    assert n_split == b9_split and abs(weight_rows - 2 * b9_rows) < 32
     assert cuda_quant._tickets_needed(out_dim, n_split) == (tiles if n_split > 1 else 0)
 
 
@@ -225,3 +354,209 @@ def test_decode_grid_and_tickets_at_the_chip_shapes(label, b, hkv, capacity, gri
     ticket_buf = _kernels.tickets(torch.device("cpu"), b * hkv)
     assert ticket_buf.dtype == torch.int32 and ticket_buf.numel() >= b * hkv
     assert not torch.any(ticket_buf)
+
+
+def _mq_tile(d):
+    """Positions per K/V tile of the tensor-core verify kernel: B1's, 64,
+    or 32 at D 256."""
+    return 64 if d <= 128 else 32
+
+
+def _mq_splits(frontier, n_grid, tile):
+    """(splits used, positions per split) of a q-tile whose last query sees
+    ``frontier`` positions, as each block of ``mq_mma_kernel`` computes
+    them: at least 64 positions a split, whole tiles, at most ``n_grid``
+    splits; a q-tile that sees nothing has one split with nothing to
+    read."""
+    n_used = max(1, min(n_grid, -(-frontier // 64)))
+    split_len = -(-(-(-max(frontier, 1) // n_used)) // tile) * tile
+    return max(1, -(-frontier // split_len)), split_len
+
+
+def _emulate_b7(q, k_pool, v_pool, table, lengths, offsets, k_scale=None, v_scale=None):
+    """B7's (with scales, B8's) tiling in f32, block by block as the
+    kernel runs it: q-tiles of 64 // G query positions (row r is query
+    j0 + r // G, head h·G + r % G, seeing kpos < min(len, offset + j + 1));
+    the grid's splits (:func:`mq_grid`) cut by each q-tile's own frontier
+    (:func:`_mq_splits`); per split, tiles of ``_mq_tile(D)`` positions read
+    through the clipped table, scores in log2 units with every score
+    masked by its row's limit, the online softmax with a -inf max held at
+    base 0; partials with m in natural units; one split written as is,
+    several merged in split order. The K scale multiplies a score, the V
+    scale folds into p after l takes it."""
+    b, q_len, hq, d = q.shape
+    n_pool, hkv, page, _ = k_pool.shape
+    group = hq // hkv
+    block_q = cpa.MQ_ROWS // group
+    q_tiles = cpa.mq_q_tiles(q_len, group)
+    kn = _mq_tile(d)
+    jmax = table.shape[1]
+    n_grid = cpa.mq_grid(b, hkv, q_tiles, jmax * page)
+    scale_log2 = np.float32((1.0 / math.sqrt(d)) * 1.4426950408889634)
+    ln2 = np.float32(0.69314718055994531)
+    acc = torch.zeros(b, q_len, hkv, group, d)
+    m_out = torch.full((b, q_len, hkv, group), float("-inf"))
+    l_out = torch.zeros(b, q_len, hkv, group)
+    for bi in range(b):
+        length = max(0, min(int(lengths[bi]), jmax * page))
+        off = int(offsets[bi])
+        for h in range(hkv):
+            for x in range(q_tiles):
+                j0 = x * block_q
+                n_rows = min(block_q, q_len - j0) * group
+                r = torch.arange(n_rows)
+                js, gs = j0 + r // group, r % group
+                lim = torch.clamp(torch.minimum(torch.tensor(length), off + js + 1), min=0)
+                frontier = max(0, min(length, off + j0 + n_rows // group))
+                n_used, split_len = _mq_splits(frontier, n_grid, kn)
+                qr = q[bi, js, h * group + gs].float()  # [R, D]
+                parts = []
+                for sp in range(n_used):
+                    t_begin = sp * split_len
+                    t_end = min(t_begin + split_len, frontier)
+                    m_run = torch.full((n_rows,), float("-inf"))
+                    l_run = torch.zeros(n_rows)
+                    o = torch.zeros(n_rows, d)
+                    for t0 in range(t_begin, t_end, kn):
+                        pos = torch.arange(t0, t0 + kn)
+                        ok = pos < t_end
+                        pages = torch.clamp(table[bi, torch.clamp(pos // page, max=jmax - 1)].long(), 0, n_pool - 1)
+                        kk = torch.where(ok[:, None], k_pool[pages, h, pos % page].float(), 0.0)
+                        vv = torch.where(ok[:, None], v_pool[pages, h, pos % page].float(), 0.0)
+                        sc = (qr @ kk.T) * scale_log2
+                        if k_scale is not None:
+                            sc = sc * torch.where(ok, k_scale[pages, h, pos % page], 0.0)[None, :]
+                        sc = torch.where(pos[None, :] >= lim[:, None], float("-inf"), sc)
+                        m_new = torch.maximum(m_run, sc.max(dim=1).values)
+                        base = torch.where(m_new == float("-inf"), 0.0, m_new)
+                        alpha = torch.exp2(m_run - base)
+                        p = torch.exp2(sc - base[:, None])
+                        l_run = l_run * alpha + p.sum(dim=1)
+                        if v_scale is not None:
+                            p = p * torch.where(ok, v_scale[pages, h, pos % page], 0.0)[None, :]
+                        o = o * alpha[:, None] + p @ vv
+                        m_run = m_new
+                    parts.append((o, m_run * ln2, l_run))
+                if n_used == 1:
+                    o, m_nat, l_sum = parts[0]
+                else:
+                    mx = torch.stack([pm for _, pm, _ in parts]).max(dim=0).values
+                    o, l_sum = torch.zeros(n_rows, d), torch.zeros(n_rows)
+                    for po, pm, pl in parts:
+                        c = torch.where(pm == float("-inf"), 0.0, torch.exp(pm - mx))
+                        l_sum = l_sum + c * pl
+                        o = o + c[:, None] * po
+                    m_nat = mx
+                acc[bi, js, h, gs] = o
+                m_out[bi, js, h, gs] = m_nat
+                l_out[bi, js, h, gs] = l_sum
+    return acc, m_out, l_out
+
+
+def _paged_rows(rng, b, hkv, d, page, lengths):
+    """A shuffled pool of ``page``-position pages holding each row's
+    tokens, its table (twice as wide as the longest row needs, junk past
+    every frontier, inside and outside the pool)."""
+    need = [-(-n // page) for n in lengths]
+    jmax = 2 * max(max(need), 1)
+    n_pool = sum(need) + 3
+    perm = rng.permutation(n_pool)
+    table = rng.integers(-n_pool, 2 * n_pool, (b, jmax)).astype(np.int32)
+    pos = 0
+    for r, k in enumerate(need):
+        table[r, :k] = perm[pos : pos + k]
+        pos += k
+    k = torch.from_numpy(rng.standard_normal((n_pool, hkv, page, d)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((n_pool, hkv, page, d)).astype(np.float32))
+    return k, v, torch.from_numpy(table), torch.tensor(lengths, dtype=torch.int32)
+
+
+# (label, Q, Hq, Hkv, D, page, lengths, offsets, int8 pool): an empty row, a
+# first query that sees nothing (offset -1), offsets cutting inside rows,
+# rows of several splits.
+B7_TILING_CASES = [
+    ("Q 5 G 6, cutting offsets", 5, 12, 2, 64, 16, [0, 1, 129, 300, 700], [0, -1, 100, 290, 700], False),
+    ("Q 5 G 6, int8 pool", 5, 12, 2, 64, 16, [0, 1, 129, 300, 700], [0, -1, 100, 290, 700], True),
+    ("Q 13 G 6, two q-tiles", 13, 12, 2, 64, 128, [0, 1, 129, 600], [0, -1, 120, 590], False),
+    ("Q 9 G 8, 72 rows", 9, 8, 1, 128, 48, [0, 5, 129, 400], [0, -1, 125, 396], False),
+    ("Q 5 G 1, D 256", 5, 4, 4, 256, 16, [0, 70, 300], [0, 66, 296], False),
+]
+
+
+@pytest.mark.parametrize(
+    "label,q_len,hq,hkv,d,page,lengths,offs,int8", B7_TILING_CASES, ids=[c[0] for c in B7_TILING_CASES]
+)
+def test_b7_tiling_matches_the_plain_version(label, q_len, hq, hkv, d, page, lengths, offs, int8):
+    """The emulation of B7's q-tiles, device-sized splits, log2-unit online
+    softmax and split merge against ``paged_mq_attention_reference``
+    (int8: ``..._int8_reference``) in f32, within 1e-5 (the exp2/log2
+    units and the merge add a few ulp); a query that sees no token is
+    exactly (0, -inf, 0) in both."""
+    rng = np.random.default_rng(q_len * 100 + hq + d)
+    k, v, table, lens = _paged_rows(rng, len(lengths), hkv, d, page, lengths)
+    q = torch.from_numpy(rng.standard_normal((len(lengths), q_len, hq, d)).astype(np.float32))
+    offsets = torch.tensor(offs, dtype=torch.int32)
+    if int8:
+        ks = torch.from_numpy(rng.uniform(0.005, 0.02, k.shape[:3]).astype(np.float32))
+        vs = torch.from_numpy(rng.uniform(0.005, 0.02, v.shape[:3]).astype(np.float32))
+        k, v = torch.round(k * 40).clamp(-127, 127), torch.round(v * 40).clamp(-127, 127)
+        want = paged_mq_attention_int8_reference(q, k.to(torch.int8), ks, v.to(torch.int8), vs,
+                                                 table, lens, offsets)
+        got = _emulate_b7(q, k, v, table, lens, offsets, ks, vs)
+    else:
+        want = paged_mq_attention_reference(q, k, v, table, lens, offsets)
+        got = _emulate_b7(q, k, v, table, lens, offsets)
+    acc, m, l = got
+    acc_r, m_r, l_r = want
+    empty = l_r == 0
+    assert torch.any(empty) and torch.equal(l == 0, empty)
+    assert torch.all(torch.isneginf(m[empty])) and torch.all(acc[empty] == 0)
+    live = ~empty
+    for a, b in ((m, m_r), (l, l_r), (acc / l[..., None], acc_r / l_r[..., None])):
+        torch.testing.assert_close(a[live], b[live], atol=1e-5, rtol=1e-5)
+
+
+def _study_prompt_tokens():
+    return len("In 100 words, please give me information about photosynthesis") + 1
+
+
+# (label, B, Hq, Hkv, D, Q, capacity Jmax·page, q-tiles, grid): chip_smoke.py's
+# B7/B8 rows (a session's table is the power of two over twice the pages
+# the longest row needs).
+MQ_GRIDS = [
+    ("spec batch Q 5", 8, 12, 2, 128, 5, 32 * 128, 1, 17),
+    ("spec batch Q 10", 8, 12, 2, 128, 10, 32 * 128, 1, 17),
+    ("spec batch Q 13", 8, 12, 2, 128, 13, 32 * 128, 2, 9),
+    ("spec batch Q 17", 8, 12, 2, 128, 17, 32 * 128, 2, 9),
+    ("one-row session", 1, 12, 2, 128, 5, 2 * 128, 1, 4),
+    ("B 4 with an empty row", 4, 12, 2, 128, 5, 32 * 128, 1, 32),
+    ("phi3", 4, 32, 32, 96, 5, 32 * 128, 1, 3),
+    ("gemma", 4, 8, 1, 256, 5, 32 * 128, 1, 32),
+]
+
+
+@pytest.mark.parametrize("label,b,hq,hkv,d,q_len,capacity,q_tiles,grid", MQ_GRIDS, ids=[g[0] for g in MQ_GRIDS])
+def test_mq_grid_and_splits_at_the_chip_shapes(label, b, hq, hkv, d, q_len, capacity, q_tiles, grid):
+    """The tensor-core verify grid: q-tiles of 64 // G positions; enough
+    splits per (q-tile, row, kv head) that the grid covers the card about
+    twice, at most 32 and none starting past the capacity; one ticket per
+    (row, kv head, q-tile). Each q-tile's splits, for every frontier up to
+    the capacity: whole tiles, at least 64 positions (but one), within
+    the grid, covering the frontier with none empty."""
+    group = hq // hkv
+    assert cpa.mq_q_tiles(q_len, group) == q_tiles == -(-q_len // (64 // group))
+    n = cpa.mq_grid(b, hkv, q_tiles, capacity)
+    assert n == grid
+    assert 1 <= n <= 32 and (n - 1) * 64 < capacity
+    assert n * b * hkv * q_tiles >= 264 or n == 32 or n == -(-capacity // 64)
+    tile = _mq_tile(d)
+    for frontier in range(0, capacity + 1, 7):
+        n_used, split_len = _mq_splits(frontier, n, tile)
+        assert 1 <= n_used <= n and split_len % tile == 0
+        if frontier == 0:
+            assert n_used == 1
+        else:
+            assert (n_used - 1) * split_len < frontier <= n_used * split_len
+            assert split_len >= min(64, -(-frontier // tile) * tile)
+    ticket_buf = _kernels.tickets(torch.device("cpu"), b * hkv * q_tiles)
+    assert ticket_buf.numel() >= b * hkv * q_tiles and not torch.any(ticket_buf)

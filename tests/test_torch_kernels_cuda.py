@@ -8,8 +8,12 @@ conftest.py imports jax, so on such a machine run it as
 
 Tolerances: float32 1e-4 (f32 math summed in another order over up to a
 few hundred keys); bfloat16 2e-2 (both round one f32 result to bf16, so
-they differ by about one bf16 ulp of |out| <= 4); the w4a8 kernel none
-(its sums are integers, so it equals its plain version bit for bit).
+they differ by about one bf16 ulp of |out| <= 4); the multi-query
+tensor-core kernel (B7/B8 with a bf16 q) 5e-3 (it rounds each p, the V
+scale folded in, to bf16 for the P·V product: a relative error of at
+most 2^-9 a term, so acc/l moves by at most about 2^-9 · max|v|, within
+atol + rtol · |acc/l|); the w4a8 kernel none (its sums are integers, so
+it equals its plain version bit for bit).
 """
 
 import numpy as np
@@ -27,6 +31,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import quant as po
 
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+MQ_MMA_TOL = dict(atol=5e-3, rtol=5e-3)
 
 
 def _to_torch(a, dtype):
@@ -46,6 +51,18 @@ def _junk_past_frontiers(table, lengths, page, n_pool):
                          device=table.device, dtype=torch.int32)
     cols = torch.arange(table.shape[1], device=table.device)
     return torch.where(cols[None, :] < need[:, None], table, junk)
+
+
+def _page_constant(pool):
+    """A V pool ``[P,Hkv,page,D]`` like ``pool`` whose rows are constant
+    over each (page, kv head), one of nine values in [-1, 1] (exact in
+    bf16): acc/l is then a mix of the constants of the pages a query
+    reads, so a tile read from a wrong page moves it by about its weight."""
+    n_pool, hkv = pool.shape[:2]
+    p = torch.arange(n_pool, device=pool.device)[:, None]
+    h = torch.arange(hkv, device=pool.device)[None, :]
+    c = ((3 * p + 5 * h) % 9 - 4).float() / 4
+    return c[:, :, None, None].expand(pool.shape).to(pool.dtype).contiguous()
 
 
 @pytest.mark.cuda
@@ -164,7 +181,7 @@ def test_int4_kernels_match_plain_versions_on_the_card(dtype, tol, m, in_dim, ou
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, MQ_MMA_TOL)])
 @pytest.mark.parametrize(
     "q_len,hq,hkv,d", [(5, 12, 2, 128), (3, 32, 32, 96), (5, 8, 1, 256), (9, 4, 1, 64), (9, 8, 1, 256)]
 )
@@ -173,8 +190,8 @@ def test_paged_mq_parts_kernels_match_plain_versions_on_the_card(dtype, tol, q_l
     the cached range (row 2's queries see 101–105 of its 129 tokens), a
     first query that sees nothing (row 1, offset -1) and an empty row; at
     Q = 1 each equals B4/B5 on lengths cut to the causal limit, bit for
-    bit; Q 10 and 17, past the kernel's limit of 9, go in chunks and
-    match the plain version too."""
+    bit; Q 10 and 17 (past the f32 kernel's limit of 9: chunks; one launch
+    of the bf16 tensor-core kernel) match the plain version too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
@@ -544,3 +561,110 @@ def test_int4_kernel_runs_on_the_tensor_cores():
     assert len(mma) == 4, [f.splitlines()[0] for f in functions]
     for body in mma:
         assert "HMMA" in body, body.splitlines()[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize(
+    "in_dim,out_dim",
+    [(96, 200), (64, 7), (16, 128), (1536, 256), (1536, 8960), (8960, 1536), (4096, 1024), (14336, 4096)],
+)
+def test_int4_i32_kernel_at_every_row_count_on_the_card(dtype, tol, in_dim, out_dim):
+    """B10 (the tensor-core kernel over int32 lanes) at every M from 1 to
+    8: OUT 200 and 7 exercise the column edge and the byte-wise loads, IN
+    16 and 64 less than one k-step, qwen2's and llama's projections the
+    packed rows split over blocks (up to llama's w_down, 7 splits of 256
+    rows) and merged by the last one to arrive. One launch a call, two
+    calls give the same bits, and its tickets stay zero after every
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_quant
+
+    rng = np.random.default_rng(19)
+    w = _to_torch(_normal(rng, (in_dim, out_dim)) / np.sqrt(in_dim), torch.float32).cuda()
+    leaf = quantize_tensor_int4_i32(w)
+    for m in range(1, 9):
+        x = _to_torch(_normal(rng, (m, in_dim)), dtype).cuda()
+        before = cuda_quant.cuda_int4_matmul_i32.launches
+        out = cuda_quant.cuda_int4_matmul_i32(x, leaf["q32"], leaf["s"])
+        assert cuda_quant.cuda_int4_matmul_i32.launches == before + 1
+        ref = port_quant.int4_matmul_i32_reference(x, leaf["q32"], leaf["s"])
+        assert out.dtype == dtype and out.shape == (m, out_dim)
+        torch.testing.assert_close(out.float(), ref.float(), **tol, msg=f"M {m}")
+        assert torch.equal(out, cuda_quant.cuda_int4_matmul_i32(x, leaf["q32"], leaf["s"]))
+    torch.cuda.synchronize()
+    assert not torch.any(_kernels._TICKETS[x.device]).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [16, 48, 128])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 64), (12, 2, 128), (14, 2, 96), (8, 1, 256), (32, 2, 128)])
+def test_mq_tensor_core_kernel_in_one_launch_on_the_card(page, hq, hkv, d):
+    """B7 and B8 with a bf16 q (the tensor-core kernel) at Q 2 to 17: G 1,
+    6, 7 and 8 (G 16 through two sub-groups), D 64, 96, 128 and 256,
+    pages of 16 and 48 (each position looked up) and 128 (a tile in one
+    page), junk table entries past every frontier, an empty row, a first
+    query that sees nothing and offsets that cut inside rows. Each call is
+    one launch per sub-group (Q 17 at G 6 is two q-tiles of it) and
+    matches the plain version to 5e-3, also over a V pool that is constant
+    per page (a wrong page lookup on the V side shows there); two calls
+    give the same bits (the last split's ticket is reset: the tickets stay
+    zero)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+
+    rng = np.random.default_rng(20)
+    lengths = [0, 1, 129, 300, 1100]
+    offsets = torch.tensor([0, -1, 100, 290, 1090], dtype=torch.int32, device="cuda")
+    _, k, v, table, lens = _paged_inputs(rng, torch.bfloat16, len(lengths), hq, hkv, d, page, lengths, "cuda")
+    table = _junk_past_frontiers(table, lengths, page, k.shape[0])
+    kq, ks = quantize_kv_vector(k)
+    vq, vs = quantize_kv_vector(v)
+    vc = _page_constant(v)
+    vcq, vcs = quantize_kv_vector(vc)
+    sub_groups = -(-(hq // hkv) // 8)
+    pools = {
+        "bf16": (cpa.cuda_paged_decode_attention_mq_parts, port_attn.paged_mq_attention_reference,
+                 ((k, v), (k, vc))),
+        "int8": (cpa.cuda_paged_decode_attention_mq_parts_int8, port_attn.paged_mq_attention_int8_reference,
+                 ((kq, ks, vq, vs), (kq, ks, vcq, vcs))),
+    }
+    for q_len in range(2, 18):
+        q = _to_torch(_normal(rng, (len(lengths), q_len, hq, d)), torch.bfloat16).cuda()
+        for fn, ref_fn, kinds in pools.values():
+            for pool in kinds:
+                before = fn.launches
+                got = fn(q, *pool, table, lens, offsets)
+                assert fn.launches == before + sub_groups, (q_len, fn.launches - before)
+                assert got[0].shape == (len(lengths), q_len, hkv, hq // hkv, d)
+                _assert_parts_close(got, ref_fn(q, *pool, table, lens, offsets), MQ_MMA_TOL)
+                for a, b in zip(got, fn(q, *pool, table, lens, offsets)):
+                    assert torch.equal(a, b), q_len
+    torch.cuda.synchronize()
+    assert not torch.any(_kernels._TICKETS[q.device]).item()
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_run_on_the_tensor_cores():
+    """The built libraries' SASS: B10's kernel (bf16 and f32 x, vector and
+    byte-wise loads) and the multi-query kernel of B7/B8 (bf16 and int8
+    pools, D 64, 96, 128 and 256) issue HMMA (mma.sync) instructions in
+    every instantiation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import subprocess
+    from pathlib import Path
+
+    cuobjdump = Path(_kernels._nvcc()).parent / "cuobjdump"
+    for lib, kernel, count in (("int4_matmul", "int4_i32_mma_kernel", 4), ("paged_attention", "mq_mma_kernel", 8)):
+        _kernels.library(lib)
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(_kernels.library_path(lib))],
+            capture_output=True, text=True, check=True,
+        ).stdout
+        functions = [f for f in sass.split("Function : ")[1:] if kernel in f.splitlines()[0]]
+        assert len(functions) == count, (kernel, [f.splitlines()[0] for f in functions])
+        for body in functions:
+            assert "HMMA" in body, body.splitlines()[0]

@@ -190,25 +190,22 @@ def test_wrappers_check_the_contract_on_every_device(mode):
      (96, 200), (16, 8)],
 )
 def test_k_splits_cover_the_packed_rows_within_the_kernel_limit(in_dim, out_dim, layout):
-    k_rows = in_dim // (8 if layout else 2)
+    per_row = 8 if layout else 2  # weight rows per packed row
+    k_rows = in_dim // per_row
     tiles = -(-out_dim // 128)
-    if layout:
-        n_split, rows = cuda_quant._split(k_rows, out_dim)
-        assert 1 <= rows <= cuda_quant._MAX_SPLIT_ROWS
-    else:
-        n_split, rows = cuda_quant._mma_split(k_rows, out_dim)
-        assert 1 <= rows <= cuda_quant._MMA_MAX_SPLIT_ROWS
+    n_split, rows = cuda_quant._mma_split(k_rows, out_dim, per_row)
     assert (n_split - 1) * rows < k_rows <= n_split * rows
-    if layout == 1 and in_dim >= 1536:  # B10: every full-width projection spreads over the 132 SMs
-        assert n_split * tiles >= 132
-    if layout == 0:  # B9: whole k-steps of 8 packed rows, at least 128 a split
-        assert rows % 8 == 0 and rows >= 128
-        # at most one block per SM unless the tiles alone are more or the
-        # 1,024-row x slice forces more splits: more, shorter splits were
-        # slower at every shape swept on the card (PERF.md, PR 7)
-        assert n_split * tiles <= max(132, tiles) or rows == cuda_quant._MMA_MAX_SPLIT_ROWS
-        if in_dim >= 1536:  # split wherever the column tiles leave SMs idle
-            assert n_split >= min(132 // tiles, k_rows // 128)
+    # B9 and B10 share one rule in weight rows: whole k-steps (8 packed
+    # rows of the halves layout, 4 of the int32 lanes), at least 256 and
+    # at most 2,048 weight rows a split (the x slice the kernels stage)
+    assert rows % (8 if per_row == 2 else 4) == 0
+    assert 256 <= rows * per_row <= cuda_quant._MMA_MAX_SPLIT_WEIGHT_ROWS == 2048
+    # at most one block per SM unless the tiles alone are more or the x
+    # slice forces more splits: more, shorter splits were slower at every
+    # shape swept on the card (PERF.md §6)
+    assert n_split * tiles <= max(132, tiles) or rows * per_row == 2048
+    if in_dim >= 1536:  # split wherever the column tiles leave SMs idle
+        assert n_split >= min(132 // tiles, in_dim // 256)
 
 
 # (code key, B, S, IN, OUT, kernel route in the JAX package)
