@@ -2,30 +2,26 @@
 // reductions, asynchronous copies, the bf16 tensor-core product, ldmatrix
 // fragments and the arrival ticket of attention.cu (contiguous caches),
 // paged_attention.cu (page pools read through a table) and int4_matmul.cu;
-// the address policies of the decode bodies; and the two decode bodies
-// themselves.
+// the address and output policies of the one-query decode body; and that
+// body itself.
 //
 // decode_tile_kernel is the one-launch decode of B2/B3 (ContiguousRows:
-// [B,Hkv,T,D] caches) and B6 (PagedRows: [P,Hkv,page,D] pools read through
-// a [B,Jmax] page table): splits sized on the device from lengths[b],
-// tiles of kDcTile positions by 16-byte cp.async, double-buffered, a
-// tile's scores computed at once, and the last split of a (row, kv head)
-// to finish merging the splits through an atomic ticket into the
-// normalised output. Under ContiguousRows its addresses and arithmetic
-// are those of the contiguous kernel it came from, so B2/B3 keep their
-// bits.
-//
-// decode_partial_kernel is the older split body of flash decoding that
-// the paged parts kernels (B4/B5) keep: block (split, b·Hkv + h) streams
-// cache positions [split·split_len, min((split+1)·split_len, lengths[b]))
-// of row b, head h, one position per warp at a time, and writes the
-// split's unnormalised partials (acc, m, l) for parts_merge_kernel
-// (paged_attention.cu), which does not normalise.
+// [B,Hkv,T,D] caches) and of B4/B5/B6 (PagedRows: [P,Hkv,page,D] pools
+// read through a [B,Jmax] page table): splits sized on the device from
+// lengths[b], tiles of kDcTile positions by 16-byte cp.async,
+// double-buffered, a tile's scores computed at once, and the last split of
+// a (row, kv head) to finish merging the splits through an atomic ticket.
+// Its output policy says what it writes: NormalisedOut the attention
+// itself, acc / l in q's type (B2, B3, B6); PartsOut the unnormalised
+// parts (acc, m, l) in f32 (B4, B5), which the transformer merges with its
+// side cache. Under ContiguousRows and NormalisedOut its addresses and
+// arithmetic are those of the contiguous kernel it came from, so B2/B3
+// keep their bits.
 //
 // Every load is widened to f32; scores, softmax and accumulators are f32.
-// A split with no position to read writes (m -inf, l 0) and returns at
-// once; every merge skips such partials (and their acc), so
-// exp(-inf - -inf) is never formed.
+// A block past its row's splits reads nothing and exits; a row with no
+// position runs one block that reads no tile, so its parts are exactly
+// (0, -inf, 0) and exp(-inf - -inf) is never formed.
 
 #pragma once
 
@@ -75,7 +71,6 @@ inline float softmax_scale(int d_head) {
   return static_cast<float>(1.0 / sqrt(static_cast<double>(d_head)));
 }
 
-constexpr int kDecWarps = 4;
 constexpr int kGroupMax = 8;  // query heads per kv head held in registers
 
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -87,6 +82,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n)
+               : "memory");
+}
+// 4 bytes global → shared (a scale); with !pred nothing is read and it is 0.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem), "r"(n)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -178,131 +180,22 @@ struct ContiguousRows {
   __device__ __forceinline__ bool tile_contiguous() const { return true; }
 };
 
-// part_acc [B·Hkv, n_split, G, D], part_ml [B·Hkv, n_split, G, 2] (m, l).
-// With kQuant, k/v hold int8 codes and k_scale/v_scale one f32 scale per
-// row: the K scale multiplies the score of its position and the V scale
-// folds into p, so no dequantized cache exists.
-template <typename T, typename KV, int D, bool kQuant, typename Rows>
-__global__ void __launch_bounds__(kDecWarps * 32)
-    decode_partial_kernel(const T* __restrict__ q, const KV* __restrict__ k,
-                          const KV* __restrict__ v, const float* __restrict__ k_scale,
-                          const float* __restrict__ v_scale,
-                          const int* __restrict__ lengths, float* __restrict__ part_acc,
-                          float* __restrict__ part_ml, Rows rows, int hkv, int group,
-                          int split_len, float scale) {
-  constexpr int V = D / 32;  // elements of a row per lane
-  const int split = blockIdx.x;
-  const int n_split = gridDim.x;
-  const int bh = blockIdx.y;
-  const int b = bh / hkv;
-  const int h = bh % hkv;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int len = max(0, min(lengths[b], rows.capacity()));
-  const int t_begin = split * split_len;
-  const int t_end = min(t_begin + split_len, len);
-  if (t_begin >= t_end) {
-    // Nothing to read (past the row's length): m = -inf and l = 0 only;
-    // the merges skip such a partial's acc, so it is not written.
-    for (int g = threadIdx.x; g < group; g += blockDim.x) {
-      const size_t p = (static_cast<size_t>(bh) * n_split + split) * group + g;
-      part_ml[2 * p] = -INFINITY;
-      part_ml[2 * p + 1] = 0.f;
-    }
-    return;
-  }
-
-  // q[b, h·G + g, :] for the group's heads: rows bh·G .. bh·G + G - 1.
-  const T* qg = q + static_cast<size_t>(bh) * group * D;
-  float qr[kGroupMax][V];
-  float m[kGroupMax], l[kGroupMax], acc[kGroupMax][V];
-#pragma unroll
-  for (int g = 0; g < kGroupMax; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      qr[g][i] = g < group ? to_f(qg[g * D + lane * V + i]) : 0.f;
-      acc[g][i] = 0.f;
-    }
-  }
-
-  for (int t = t_begin + warp; t < t_end; t += kDecWarps) {
-    const size_t r = rows.row(bh, b, h, t);
-    const KV* kr = k + r * D + lane * V;
-    const KV* vr = v + r * D + lane * V;
-    float kv[V], vv[V];
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      kv[i] = to_f(kr[i]);
-      vv[i] = to_f(vr[i]);
-    }
-    const float ks = kQuant ? k_scale[r] : 1.f;
-    const float vs = kQuant ? v_scale[r] : 1.f;
-#pragma unroll
-    for (int g = 0; g < kGroupMax; ++g) {
-      if (g < group) {
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < V; ++i) s += qr[g][i] * kv[i];
-        s = warp_sum(s) * scale;
-        if (kQuant) s *= ks;
-        const float m_new = fmaxf(m[g], s);
-        const float alpha = expf(m[g] - m_new);  // 0 on the first key
-        const float p = expf(s - m_new);
-        l[g] = l[g] * alpha + p;
-        m[g] = m_new;
-        const float pv = p * vs;  // the int8 V scale folds into p
-#pragma unroll
-        for (int i = 0; i < V; ++i) acc[g][i] = acc[g][i] * alpha + pv * vv[i];
-      }
-    }
-  }
-
-  // Merge the block's warps, then write this split's partials.
-  __shared__ float sm_m[kDecWarps][kGroupMax];
-  __shared__ float sm_l[kDecWarps][kGroupMax];
-  __shared__ float sm_acc[kDecWarps][kGroupMax][D];
-#pragma unroll
-  for (int g = 0; g < kGroupMax; ++g) {
-    if (g < group) {
-      if (lane == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
-      }
-#pragma unroll
-      for (int i = 0; i < V; ++i) sm_acc[warp][g][lane * V + i] = acc[g][i];
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < group * D; idx += blockDim.x) {
-    const int g = idx / D;
-    const int d = idx % D;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float lsum = 0.f, a = 0.f;
-    if (mx != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < kDecWarps; ++w) {
-        if (sm_m[w][g] != -INFINITY) {
-          const float c = expf(sm_m[w][g] - mx);
-          lsum += sm_l[w][g] * c;
-          a += sm_acc[w][g][d] * c;
-        }
-      }
-    }
-    const size_t p = (static_cast<size_t>(bh) * n_split + split) * group + g;
-    part_acc[p * D + d] = a;
-    if (d == 0) {
-      part_ml[2 * p] = mx;
-      part_ml[2 * p + 1] = lsum;
-    }
-  }
-}
+// Output policies of decode_tile_kernel: the element type of its `out`
+// and whether it writes parts. NormalisedOut: out [B,Hq,D] in T = acc / l.
+// PartsOut: out = acc [B,Hkv,G,D] f32 = Σ e^{s-m}·v, with m [B,Hkv,G] f32
+// = max s (natural units) and l [B,Hkv,G] f32 = Σ e^{s-m} beside it.
+template <typename T>
+struct NormalisedOut {
+  using Elem = T;
+  static constexpr bool kParts = false;
+};
+struct PartsOut {
+  using Elem = float;
+  static constexpr bool kParts = true;
+};
 
 // ---------------------------------------------------------------------------
-// The one-launch decode body (B2, B3, B6): splits sized from each row's
+// The one-launch decode body (B2-B6): splits sized from each row's
 // length, tiles by cp.async, the last split merging through a ticket.
 
 
@@ -363,22 +256,27 @@ struct DcSmem {
 
 // grid (n_grid, B·Hkv), block kDcThreads. part_acc [B·Hkv, n_grid, G, D]
 // and part_ml [B·Hkv, n_grid, G, 2] hold the splits' partials; tickets
-// [B·Hkv]. out [B, Hq, D] = softmax(q·Kᵀ·scale)·V over t < lengths[b]; a
-// row with no position gives 0/0 (NaN), as the plain version does.
-// Where position t of a row lives is the `Rows` policy's business
-// (ContiguousRows for B2/B3, PagedRows for B6). A tile never starts off a
-// multiple of kDcTile, so where rows.tile_contiguous() holds its
-// positions are consecutive rows from the tile's first: one lookup a
-// tile. Otherwise (a page that is not a multiple of kDcTile) each 16-byte
-// chunk looks its position up.
-template <typename T, typename KV, int D, bool kQuant, typename Rows>
+// [B·Hkv]. What the block that finishes a (row, kv head) writes is the
+// `Out` policy's business: with NormalisedOut, out [B, Hq, D] =
+// softmax(q·Kᵀ·scale)·V over t < lengths[b], a row with no position giving
+// 0/0 (NaN) as the plain version does; with PartsOut, out = acc, m_out = m
+// and l_out = l (unused otherwise), a row with no position giving exactly
+// (0, -inf, 0). Where position t of a row lives is the `Rows` policy's
+// business (ContiguousRows for B2/B3, PagedRows for B4-B6). A tile never
+// starts off a multiple of kDcTile, so where rows.tile_contiguous() holds
+// its positions are consecutive rows from the tile's first: one lookup a
+// tile, made a tile ahead of the copies that use it. Otherwise (a page
+// that is not a multiple of kDcTile) each position is looked up, a
+// thread's lookups issued together before its copies.
+template <typename T, typename KV, int D, bool kQuant, typename Rows, typename Out>
 __global__ void __launch_bounds__(kDcThreads)
     decode_tile_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                        const KV* __restrict__ v, const float* __restrict__ k_scale,
                        const float* __restrict__ v_scale, const int* __restrict__ lengths,
                        float* __restrict__ part_acc, float* __restrict__ part_ml,
-                       int* __restrict__ tickets, T* __restrict__ out, int hkv, int group,
-                       Rows rows, float scale) {
+                       int* __restrict__ tickets, typename Out::Elem* __restrict__ out, int hkv,
+                       int group, Rows rows, float scale, float* __restrict__ m_out,
+                       float* __restrict__ l_out) {
   using L = DcSmem<KV, D>;
   constexpr int V = D / 32;                   // P·V columns per lane
   constexpr int E = Widen<KV>::E;             // K elements per 16-byte chunk
@@ -414,26 +312,40 @@ __global__ void __launch_bounds__(kDcThreads)
   const unsigned char* vb = reinterpret_cast<const unsigned char*>(v);
   const bool whole_tiles = rows.tile_contiguous();
 
-  auto load = [&](int t0, int stage) {
+  // Tile t0 into ring stage `stage`; row0 is the row of position t0, looked
+  // up a tile ahead by the caller. Where a tile lies in one page its rows
+  // follow row0; otherwise each position is looked up, a thread's lookups
+  // all issued before its copies. The int8 scales arrive by cp.async too.
+  constexpr int kPer = ceil_div(kDcTile * C, kDcThreads);  // chunks per thread
+  auto load = [&](int t0, int stage, size_t row0) {
     unsigned char* kd = ring + stage * L::kStage;
     unsigned char* vd = kd + kDcTile * L::kKStride;
-    const size_t row0 = rows.row(bh, b, h, t0);
-    for (int i = tid; i < kDcTile * C; i += kDcThreads) {
-      const int p = i / C;
-      const int c = i % C;
-      const int t = t0 + p;
-      const bool ok = t < t_end;
-      const size_t r = !ok ? row0 : whole_tiles ? row0 + p : rows.row(bh, b, h, t);
-      const size_t src = r * L::kRow + c * 16;
-      cp_async16(kd + p * L::kKStride + c * 16, kb + src, ok);
-      cp_async16(vd + p * L::kRow + c * 16, vb + src, ok);
+    size_t r[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = tid + j * kDcThreads;
+      const int t = t0 + i / C;
+      r[j] = whole_tiles ? row0 + i / C
+                         : i < kDcTile * C && t < t_end ? rows.row(bh, b, h, t) : row0;
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = tid + j * kDcThreads;
+      if (i < kDcTile * C) {
+        const int p = i / C;
+        const int c = i % C;
+        const bool ok = t0 + p < t_end;
+        const size_t src = (ok ? r[j] : row0) * L::kRow + c * 16;
+        cp_async16(kd + p * L::kKStride + c * 16, kb + src, ok);
+        cp_async16(vd + p * L::kRow + c * 16, vb + src, ok);
+      }
     }
     if (kQuant && tid < kDcTile) {
       const int t = t0 + tid;
       const bool ok = t < t_end;
-      const size_t r = ok ? rows.row(bh, b, h, t) : 0;
-      scales[(stage * 2) * kDcTile + tid] = ok ? k_scale[r] : 0.f;
-      scales[(stage * 2 + 1) * kDcTile + tid] = ok ? v_scale[r] : 0.f;
+      const size_t rs = !ok ? row0 : whole_tiles ? row0 + tid : rows.row(bh, b, h, t);
+      cp_async4(scales + (stage * 2) * kDcTile + tid, k_scale + rs, ok);
+      cp_async4(scales + (stage * 2 + 1) * kDcTile + tid, v_scale + rs, ok);
     }
   };
 
@@ -445,8 +357,10 @@ __global__ void __launch_bounds__(kDcThreads)
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[g][i] = 0.f;
 
-  load(t_begin, 0);
+  load(t_begin, 0, rows.row(bh, b, h, t_begin));
   cp_async_commit();
+  // the next tile's first row, in flight with the first tile
+  size_t row_next = 1 < n_tiles ? rows.row(bh, b, h, t_begin + kDcTile) : 0;
   // q while the first tile is in flight (the first barrier orders it)
   const T* qg = q + static_cast<size_t>(bh) * group * D;
 #pragma unroll 4
@@ -454,7 +368,11 @@ __global__ void __launch_bounds__(kDcThreads)
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it & 1;
     const int t0 = t_begin + it * kDcTile;
-    if (it + 1 < n_tiles) load(t0 + kDcTile, stage ^ 1);
+    if (it + 1 < n_tiles) {
+      const size_t row1 = row_next;
+      if (it + 2 < n_tiles) row_next = rows.row(bh, b, h, t0 + 2 * kDcTile);
+      load(t0 + kDcTile, stage ^ 1, row1);
+    }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -546,7 +464,7 @@ __global__ void __launch_bounds__(kDcThreads)
     }
   }
   __syncthreads();
-  T* og = out + static_cast<size_t>(bh) * group * D;
+  typename Out::Elem* og = out + static_cast<size_t>(bh) * group * D;
   if (n_used == 1) {
     for (int i = tid; i < group * D; i += kDcThreads) {
       const int g = i / D;
@@ -554,7 +472,16 @@ __global__ void __launch_bounds__(kDcThreads)
       float a = 0.f;
 #pragma unroll
       for (int w = 0; w < kDcWarps; ++w) a += red[(w * kGroupMax + g) * D + d];
-      og[i] = from_f<T>(a / l_fin[g]);
+      if constexpr (Out::kParts)
+        og[i] = a;
+      else
+        og[i] = from_f<T>(a / l_fin[g]);
+    }
+    if constexpr (Out::kParts) {
+      if (tid < group) {  // an empty row: m_run -inf, l_run 0, acc 0, as read
+        m_out[static_cast<size_t>(bh) * group + tid] = m_fin[tid];
+        l_out[static_cast<size_t>(bh) * group + tid] = l_fin[tid];
+      }
     }
     return;
   }
@@ -576,7 +503,9 @@ __global__ void __launch_bounds__(kDcThreads)
   // The last split merges. Every split's (m, l) is staged in the ring by
   // all threads at once (no chain of dependent loads), then each head's
   // weights e^{m_s - m} replace the m's in place; each thread then sums
-  // 4 columns of one head over the splits, several loads in flight.
+  // 4 columns of one head over the splits, several loads in flight. Parts
+  // keep m = max m_s and l = Σ e^{m_s - m}·l_s, and acc undivided (every
+  // used split read a position, so m is finite).
   float* ml = red;  // [n_used][group][2]
   const size_t row0 = static_cast<size_t>(bh) * n_grid;
   for (int i = tid; i < 2 * n_used * group; i += kDcThreads) ml[i] = __ldcg(part_ml + 2 * row0 * group + i);
@@ -592,6 +521,10 @@ __global__ void __launch_bounds__(kDcThreads)
       lsum += c * ml[2 * (s * group + tid) + 1];
     }
     l_fin[tid] = lsum;
+    if constexpr (Out::kParts) {
+      m_out[static_cast<size_t>(bh) * group + tid] = mx;
+      l_out[static_cast<size_t>(bh) * group + tid] = lsum;
+    }
   }
   __syncthreads();
   for (int i = tid; i < group * (D / 4); i += kDcThreads) {
@@ -607,21 +540,26 @@ __global__ void __launch_bounds__(kDcThreads)
       a.z += c * x.z;
       a.w += c * x.w;
     }
-    const float inv = 1.f / l_fin[g];
-    og[g * D + d] = from_f<T>(a.x * inv);
-    og[g * D + d + 1] = from_f<T>(a.y * inv);
-    og[g * D + d + 2] = from_f<T>(a.z * inv);
-    og[g * D + d + 3] = from_f<T>(a.w * inv);
+    if constexpr (Out::kParts) {
+      *reinterpret_cast<float4*>(og + g * D + d) = a;
+    } else {
+      const float inv = 1.f / l_fin[g];
+      og[g * D + d] = from_f<T>(a.x * inv);
+      og[g * D + d + 1] = from_f<T>(a.y * inv);
+      og[g * D + d + 2] = from_f<T>(a.z * inv);
+      og[g * D + d + 3] = from_f<T>(a.w * inv);
+    }
   }
 }
 
-template <typename T, typename KV, int D, bool kQuant, typename Rows>
+template <typename T, typename KV, int D, bool kQuant, typename Rows, typename Out>
 cudaError_t launch_decode_tile(const void* q, const void* k, const void* v, const float* k_scale,
                                const float* v_scale, const int* lengths, float* part_acc,
                                float* part_ml, int* tickets, void* out, int batch, int hq,
-                               int hkv, Rows rows, int n_grid, cudaStream_t stream) {
+                               int hkv, Rows rows, int n_grid, cudaStream_t stream,
+                               float* m_out, float* l_out) {
   constexpr int smem = DcSmem<KV, D>::kBytes;
-  auto kernel = decode_tile_kernel<T, KV, D, kQuant, Rows>;
+  auto kernel = decode_tile_kernel<T, KV, D, kQuant, Rows, Out>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -629,24 +567,29 @@ cudaError_t launch_decode_tile(const void* q, const void* k, const void* v, cons
   }
   kernel<<<dim3(n_grid, batch * hkv), kDcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v), k_scale,
-      v_scale, lengths, part_acc, part_ml, tickets, static_cast<T*>(out), hkv, hq / hkv, rows,
-      softmax_scale(D));
+      v_scale, lengths, part_acc, part_ml, tickets, static_cast<typename Out::Elem*>(out), hkv,
+      hq / hkv, rows, softmax_scale(D), m_out, l_out);
   return cudaGetLastError();
 }
 
 // n_grid blocks per (row, kv head), 1..kDcMaxSplits (the wrappers' decode_grid).
-template <typename T, typename KV, bool kQuant, typename Rows>
+// Out = PartsOut also takes m_out and l_out [B·Hkv·G] f32 beside out (acc).
+template <typename T, typename KV, bool kQuant, typename Rows, typename Out = NormalisedOut<T>>
 cudaError_t dispatch_decode_tile(int d_head, const void* q, const void* k, const void* v,
                                  const float* k_scale, const float* v_scale, const int* lengths,
                                  float* part_acc, float* part_ml, int* tickets, void* out,
                                  int batch, int hq, int hkv, Rows rows, int n_grid,
-                                 cudaStream_t stream) {
-  if (n_grid < 1 || n_grid > kDcMaxSplits || tickets == nullptr) return cudaErrorInvalidValue;
-#define DECODE_TILE_CASE(DH)                                                                 \
-  case DH:                                                                                   \
-    return launch_decode_tile<T, KV, DH, kQuant, Rows>(q, k, v, k_scale, v_scale, lengths,   \
-                                                       part_acc, part_ml, tickets, out, batch, \
-                                                       hq, hkv, rows, n_grid, stream);
+                                 cudaStream_t stream, float* m_out = nullptr,
+                                 float* l_out = nullptr) {
+  if (n_grid < 1 || n_grid > kDcMaxSplits || tickets == nullptr || out == nullptr ||
+      (Out::kParts && (m_out == nullptr || l_out == nullptr)))
+    return cudaErrorInvalidValue;
+#define DECODE_TILE_CASE(DH)                                                                  \
+  case DH:                                                                                    \
+    return launch_decode_tile<T, KV, DH, kQuant, Rows, Out>(q, k, v, k_scale, v_scale, lengths, \
+                                                            part_acc, part_ml, tickets, out,    \
+                                                            batch, hq, hkv, rows, n_grid,       \
+                                                            stream, m_out, l_out);
   switch (d_head) {
     DECODE_TILE_CASE(64)
     DECODE_TILE_CASE(96)

@@ -32,13 +32,21 @@
 // CUDA blocks run in no order and carry nothing between them. At the batch
 // path's widths (qwen2:1.5b, Hkv 2, 16–32 rows) the (row, kv head) pairs
 // alone would leave most of the 132 SMs idle, so each row's positions are
-// split flash-decoding style: the split body decode_partial_kernel
-// (decode_common.cuh) runs with a PagedRows
-// address policy that looks the page up in the table, and writes per-split
-// partials; parts_merge_kernel combines the splits into one (acc, m, l)
-// without normalising. Splits past a row's length read nothing, so pages
-// past the frontier are never touched. D ∈ {64, 96, 128, 256} natively (no
-// padding to 128 lanes), scales [P,Hkv,page] with no trailing lane.
+// split flash-decoding style, in one launch: B2's body, decode_tile_kernel
+// (decode_common.cuh), with the PagedRows address policy and the PartsOut
+// output policy. The wrapper sizes the grid from B·Hkv and Jmax·page
+// alone (decode_grid); each block sizes its row's splits from lengths[b]
+// on the device (at least kDcMinSplit positions, whole tiles), so blocks
+// past a row's splits exit at once and pages past the frontier are never
+// touched; a tile of kDcTile positions within one page (page % kDcTile ==
+// 0) costs one table lookup and arrives as contiguous 16-byte cp.async
+// rows (any other page size looks up each position); and the last split
+// of a (row, kv head) to finish merges the splits through an atomic
+// ticket into (acc, m, l) without normalising. A row with no position
+// runs one block that reads no tile and writes (0, -inf, 0). The int8
+// scales are read through the same row index as the codes. D ∈ {64, 96,
+// 128, 256} natively (no padding to 128 lanes), scales [P,Hkv,page] with
+// no trailing lane.
 //
 // Normalised contract (6): the same reads, but the output is attention
 // itself, out [B,Hq,D] in q's dtype = acc / l, as the contiguous decode
@@ -54,7 +62,8 @@
 // within one page (page % kDcTile == 0) costs one table lookup and
 // arrives as contiguous 16-byte cp.async rows (any other page size looks
 // up each position), and the last split of a (row, kv head) merges
-// through an atomic ticket and normalises: one launch a call. Bound:
+// through an atomic ticket and normalises: one launch a call. B4/B5 run
+// the same body and differ only in what the last split writes. Bound:
 // bytes, as B4, plus the output.
 //
 // Multi-query contract (7, 8): Q query positions per row, q [B,Q,Hq,D]
@@ -82,14 +91,16 @@
 // to min(lengths, offsets + 1): one code, so Q = 1 equals B4 bit for bit.
 // With an f32 q, mq_partial_kernel keeps the first port's CUDA-core body
 // (f32 products; the tensor cores' bf16 would break its 1e-4 check), Q <=
-// kMqQueryMax, splits and parts_merge_kernel as B4's.
+// kMqQueryMax, with host-sized splits (at most one page each) merged by a
+// second launch, parts_merge_kernel.
 //
 // Bound on an H100 SXM: bytes. Every cached K/V row of every row must be
-// read once up to its last query's limit (int8: D codes plus a 4-byte
+// read once up to its (last query's) limit (int8: D codes plus a 4-byte
 // scale per position), against 4·Hq·D flops per visible (query, token)
-// pair; bound = bytes / 3.35 TB/s. At the verify's widths the bytes are
-// too few to cover a launch: the design cuts latency (one launch, work on
-// the tensor cores, 16-byte cp.async rows, one page lookup a tile).
+// pair; bound = bytes / 3.35 TB/s. At the decode and verify widths the
+// bytes are too few to cover a launch: the designs cut latency (one
+// launch, 16-byte cp.async rows, one page lookup a tile; the verify's
+// products on the tensor cores).
 
 #include "decode_common.cuh"
 
@@ -133,50 +144,6 @@ __global__ void parts_merge_kernel(const float* __restrict__ part_acc,
     m_out[o] = mx;
     l_out[o] = lsum;
   }
-}
-
-// The splits merge into the unnormalised (acc, m, l).
-template <typename T, typename KV, int D, bool kQuant>
-cudaError_t launch_parts(const void* q, const void* k, const void* v, const float* k_scale,
-                         const float* v_scale, const int* table, const int* lengths,
-                         float* part_acc, float* part_ml, float* acc, float* m, float* l,
-                         int batch, int hq, int hkv, int n_pool, int page, int jmax,
-                         int n_split, int split_len, cudaStream_t stream) {
-  const int group = hq / hkv;
-  const PagedRows rows{table, jmax, page, hkv, n_pool};
-  decode_partial_kernel<T, KV, D, kQuant, PagedRows>
-      <<<dim3(n_split, batch * hkv), kDecWarps * 32, 0, stream>>>(
-          static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
-          k_scale, v_scale, lengths, part_acc, part_ml, rows, hkv, group, split_len,
-          softmax_scale(D));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  parts_merge_kernel<<<dim3(batch * hkv, group), D, 0, stream>>>(part_acc, part_ml, acc, m, l,
-                                                                group, 1, hkv, D, n_split);
-  return cudaGetLastError();
-}
-
-template <typename T, typename KV, bool kQuant>
-cudaError_t dispatch_parts(int d_head, const void* q, const void* k, const void* v,
-                           const float* k_scale, const float* v_scale, const int* table,
-                           const int* lengths, float* part_acc, float* part_ml, float* acc,
-                           float* m, float* l, int batch, int hq, int hkv,
-                           int n_pool, int page, int jmax, int n_split, int split_len,
-                           cudaStream_t stream) {
-#define PAGED_PARTS_CASE(DH)                                                               \
-  case DH:                                                                                 \
-    return launch_parts<T, KV, DH, kQuant>(q, k, v, k_scale, v_scale, table, lengths,      \
-                                           part_acc, part_ml, acc, m, l, batch, hq, hkv,   \
-                                           n_pool, page, jmax, n_split, split_len, stream);
-  switch (d_head) {
-    PAGED_PARTS_CASE(64)
-    PAGED_PARTS_CASE(96)
-    PAGED_PARTS_CASE(128)
-    PAGED_PARTS_CASE(256)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef PAGED_PARTS_CASE
 }
 
 // ---- multi-query parts (B7/B8) with an f32 q: CUDA cores -------------------
@@ -881,34 +848,39 @@ const char* paged_error_string(int err) {
 
 int paged_group_max() { return kGroupMax; }
 
-// k_scale/v_scale null: the pools hold `dtype` elements; else int8 codes.
+// B4/B5: the unnormalised parts acc [B,Hkv,G,D], m and l [B,Hkv,G] (f32)
+// over a pool of `dtype` elements (k_scale/v_scale null) or of int8 codes
+// with f32 scales [P,Hkv,page]. n_grid blocks per (row, kv head),
+// 1..kDcMaxSplits (the wrapper's decode_grid over Jmax·page); part_acc
+// [B·Hkv, n_grid, G, D] and part_ml [B·Hkv, n_grid, G, 2] the split
+// scratch; tickets [B·Hkv] zero.
 int paged_parts(int dtype, const void* q, const void* k, const void* v, const float* k_scale,
                 const float* v_scale, const int* table, const int* lengths, float* part_acc,
-                float* part_ml, float* acc, float* m, float* l, int batch, int hq, int hkv,
-                int n_pool, int page, int jmax, int d_head, int n_split, int split_len,
-                void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kGroupMax || n_pool <= 0 || page <= 0)
+                float* part_ml, int* tickets, float* acc, float* m, float* l, int batch, int hq,
+                int hkv, int n_pool, int page, int jmax, int d_head, int n_grid, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kGroupMax || n_pool <= 0 || page <= 0 ||
+      jmax <= 0 || n_grid < 1 || n_grid > kDcMaxSplits)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PagedRows rows{table, jmax, page, hkv, n_pool};
   const bool quant = k_scale != nullptr;
   if (dtype == kDtypeBF16) {
     if (quant)
-      return dispatch_parts<__nv_bfloat16, int8_t, true>(
-          d_head, q, k, v, k_scale, v_scale, table, lengths, part_acc, part_ml, acc, m, l,
-          batch, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
-    return dispatch_parts<__nv_bfloat16, __nv_bfloat16, false>(
-        d_head, q, k, v, nullptr, nullptr, table, lengths, part_acc, part_ml, acc, m, l,
-        batch, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
+      return dispatch_decode_tile<__nv_bfloat16, int8_t, true, PagedRows, PartsOut>(
+          d_head, q, k, v, k_scale, v_scale, lengths, part_acc, part_ml, tickets, acc, batch, hq,
+          hkv, rows, n_grid, s, m, l);
+    return dispatch_decode_tile<__nv_bfloat16, __nv_bfloat16, false, PagedRows, PartsOut>(
+        d_head, q, k, v, nullptr, nullptr, lengths, part_acc, part_ml, tickets, acc, batch, hq,
+        hkv, rows, n_grid, s, m, l);
   }
   if (dtype == kDtypeF32) {
     if (quant)
-      return dispatch_parts<float, int8_t, true>(d_head, q, k, v, k_scale, v_scale, table,
-                                                 lengths, part_acc, part_ml, acc, m, l, batch,
-                                                 hq, hkv, n_pool, page, jmax, n_split,
-                                                 split_len, s);
-    return dispatch_parts<float, float, false>(d_head, q, k, v, nullptr, nullptr, table,
-                                               lengths, part_acc, part_ml, acc, m, l, batch, hq,
-                                               hkv, n_pool, page, jmax, n_split, split_len, s);
+      return dispatch_decode_tile<float, int8_t, true, PagedRows, PartsOut>(
+          d_head, q, k, v, k_scale, v_scale, lengths, part_acc, part_ml, tickets, acc, batch, hq,
+          hkv, rows, n_grid, s, m, l);
+    return dispatch_decode_tile<float, float, false, PagedRows, PartsOut>(
+        d_head, q, k, v, nullptr, nullptr, lengths, part_acc, part_ml, tickets, acc, batch, hq,
+        hkv, rows, n_grid, s, m, l);
   }
   return cudaErrorInvalidValue;
 }

@@ -49,11 +49,7 @@ _SIGNATURES = {
     "paged_attention": {
         "paged_error_string": ([_i], ctypes.c_char_p),
         "paged_group_max": ([], _i),
-        "paged_parts": (
-            [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
-             _i, _i, _i, _i, _i, _i, _i, _i, _i, _p],
-            _i,
-        ),
+        "paged_parts": ([_i] + [_p] * 13 + [_i] * 8 + [_p], _i),
         "paged_decode": (
             [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p], _i,
         ),
@@ -168,12 +164,11 @@ def check(err: int, name: str, lib: str = "attention") -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} ({msg})")
 
 
-# Per-device int32 tickets of the one-launch kernels (B2, B3, B6, B7, B8, B9,
-# B10), zero between launches: the last block of a group (the splits of a
-# (row, kv head) or of a (q-tile, row, kv head), or of a column tile) to
-# finish takes the group's ticket, merges and resets it. One buffer serves
-# every launch of the current stream (launches on one stream never
-# overlap).
+# Per-device int32 tickets of the one-launch kernels (B2-B10), zero between
+# launches: the last block of a group (the splits of a (row, kv head) or
+# of a (q-tile, row, kv head), or of a column tile) to finish takes the
+# group's ticket, merges and resets it. One buffer serves every launch of
+# the current stream (launches on one stream never overlap).
 _TICKETS: "dict[torch.device, torch.Tensor]" = {}
 
 

@@ -13,12 +13,19 @@ a whole ``[L,P,Hkv,page,D]`` pool (scales ``[L,P,Hkv,page]``) and a layer
 index, read through a zero-copy view of that layer.
 
 A tensor on the CPU goes to the plain version in ``ops/attention.py``; a
-CUDA tensor launches the kernel or raises. Each wrapper counts its
-launches (one per kernel launch) in an integer ``launches`` attribute.
-No kernel's cap reaches a caller: a group of more query heads per kv head
-than a kernel holds is cut into sub-groups (``tile_groups``), and a
-verify block of more query positions than the multi-query kernel for q's
-dtype holds (64 in bf16, 9 in f32) into chunks (:func:`chunk_queries`).
+CUDA tensor launches the kernel or raises. The single-query kernels (the
+write-through decode and both parts kernels) run one body,
+``decode_tile_kernel``, through the page table in one launch: the grid is
+sized here from B·Hkv and ``Jmax·page`` (:func:`decode_grid`,
+:func:`parts_grid`), each block sizes its row's splits from
+``lengths[b]`` on the device, and the last split of a (row, kv head)
+merges them through a ticket, into the normalised output or into the
+unnormalised parts. Each wrapper counts its launches (one per kernel
+launch) in an integer ``launches`` attribute. No kernel's cap reaches a
+caller: a group of more query heads per kv head than a kernel holds is
+cut into sub-groups (``tile_groups``), and a verify block of more query
+positions than the multi-query kernel for q's dtype holds (64 in bf16, 9
+in f32) into chunks (:func:`chunk_queries`).
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from .attention import (
     paged_mq_attention_reference,
 )
 from .cuda_attention import (
+    _DECODE_MAX_SPLITS,
+    _DECODE_MIN_SPLIT,
     _DTYPE_CODES,
     _TARGET_BLOCKS,
     _check_inputs,
@@ -50,7 +59,8 @@ from .cuda_attention import (
 Parts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 Layer = Optional[Union[int, torch.Tensor]]
 _LIB = "paged_attention"
-# Positions per split: at least this many (8 per warp of the block).
+# Positions per split of the f32-q multi-query kernel: at least this many
+# (8 per warp of its block).
 _MIN_SPLIT_POSITIONS = 32
 # The tensor-core multi-query kernel (B7/B8 with a bf16 q, ``mq_mma_kernel``):
 # score rows per block (a q-tile is 64 // G query positions), positions per
@@ -59,17 +69,36 @@ _MIN_SPLIT_POSITIONS = 32
 MQ_ROWS = 64
 _MQ_MIN_SPLIT = 64
 _MQ_MAX_SPLITS = 32
+# Blocks in all of the parts kernels' grid (B4/B5), at most (parts_grid).
+_PARTS_MAX_BLOCKS = 4096
 
 
 def _paged_split(b: int, hkv: int, jmax: int, page: int) -> "tuple[int, int]":
-    """(n_split, split_len): at most one page per split, and enough splits
-    that B·Hkv·n_split blocks cover the card's 132 SMs about twice. Rows
-    differ in length, so the longest row's work must spread over many
-    blocks; the splits past a shorter row's length exit at once."""
+    """(n_split, split_len) of the f32-q multi-query kernel
+    (``mq_partial_kernel``, the only kernel whose splits the host sizes):
+    at most one page per split, and enough splits that B·Hkv·n_split
+    blocks cover the card's 132 SMs about twice. Rows differ in length, so
+    the longest row's work must spread over many blocks; the splits past a
+    shorter row's length exit at once."""
     t = jmax * page
     n = max(jmax, -(-_TARGET_BLOCKS // (b * hkv)))
     split_len = max(_MIN_SPLIT_POSITIONS, -(-t // n))
     return -(-t // split_len), split_len
+
+
+def parts_grid(batch: int, hkv: int, capacity: int) -> int:
+    """Blocks per (row, kv head) of the parts kernels' grid (B4/B5): as
+    many as a row as long as the table holds (``capacity`` = Jmax·page)
+    needs to split into the body's shortest splits (64 positions, two
+    tiles), at most 128, and at most 4,096 blocks in all. The batch's rows
+    differ in length (the engine pads a batch with copies of its first
+    row), and the longest row holds the launch: each block sizes its row's
+    splits from ``lengths[b]`` on the device, and blocks past them exit at
+    once. Past 4,096 blocks those exits cost more than the finer splits
+    save (``scripts/torch_parts_grid_sweep.py``: phi3's 256 (row, kv head)
+    pairs run fastest at 8–16 blocks each, the engine batch's 64 at 64)."""
+    finest = -(-max(capacity, 1) // _DECODE_MIN_SPLIT)
+    return max(1, min(_DECODE_MAX_SPLITS, finest, _PARTS_MAX_BLOCKS // max(1, batch * hkv)))
 
 
 def mq_q_tiles(q_len: int, group: int) -> int:
@@ -140,20 +169,25 @@ def _check_single_query(name, q, k, v, scales, page_table, lengths) -> int:
 
 
 def _launch_parts(name, wrapper, q, k, v, k_scale, v_scale, page_table, lengths) -> Parts:
+    """B4/B5: one launch of the parts kernel per sub-group of at most 8
+    query heads; the codes (and K/V rows) arrive by 16-byte ``cp.async``,
+    so the pools must start on a 16-byte boundary."""
     scales = [x for x in (k_scale, v_scale) if x is not None]
     code = _check_single_query(name, q, k, v, scales, page_table, lengths)
+    _require_aligned(name, k, v)
     b, _, d = q.shape
     n_pool, hkv, page, _ = k.shape
     jmax = page_table.shape[1]
-    n_split, split_len = _paged_split(b, hkv, jmax, page)
+    n_grid = parts_grid(b, hkv, jmax * page)
     dev = q.device
+    tickets = _kernels.tickets(dev, b * hkv)
     lib = _kernels.library(_LIB)
 
     def launch(qs: torch.Tensor) -> Parts:
         hq = qs.shape[1]
         group = hq // hkv
-        part_acc = torch.empty((b * hkv, n_split, group, d), dtype=torch.float32, device=dev)
-        part_ml = torch.empty((b * hkv, n_split, group, 2), dtype=torch.float32, device=dev)
+        part_acc = torch.empty((b * hkv, n_grid, group, d), dtype=torch.float32, device=dev)
+        part_ml = torch.empty((b * hkv, n_grid, group, 2), dtype=torch.float32, device=dev)
         acc = torch.empty((b, hkv, group, d), dtype=torch.float32, device=dev)
         m = torch.empty((b, hkv, group), dtype=torch.float32, device=dev)
         l = torch.empty((b, hkv, group), dtype=torch.float32, device=dev)
@@ -162,8 +196,8 @@ def _launch_parts(name, wrapper, q, k, v, k_scale, v_scale, page_table, lengths)
             None if k_scale is None else k_scale.data_ptr(),
             None if v_scale is None else v_scale.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-            acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            b, hq, hkv, n_pool, page, jmax, d, n_split, split_len, _stream(qs),
+            tickets.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            b, hq, hkv, n_pool, page, jmax, d, n_grid, _stream(qs),
         )
         _kernels.check(err, name, _LIB)
         wrapper.launches += 1
@@ -224,7 +258,13 @@ def cuda_paged_decode_attention_parts(
     *,
     layer: Layer = None,  # an int or 0-d integer tensor: stacked pools
 ) -> Parts:
-    """Unnormalised flash-decode parts over each row's cached pages."""
+    """Unnormalised flash-decode parts over each row's cached pages:
+    ``(acc [B,Hkv,G,D], m [B,Hkv,G], l [B,Hkv,G])`` in f32, m in natural
+    units; a row with no cached token gives exactly ``(0, -inf, 0)``.
+    Table entries are clipped to the pool; entries past a row's frontier
+    are never read. One launch per sub-group of at most 8 query heads:
+    the write-through decode's body (:func:`cuda_paged_decode_attention`),
+    whose last split writes the parts without normalising."""
     name = "cuda_paged_decode_attention_parts"
     k_pool, v_pool = _select_layer(name, layer, k_pool, v_pool)
     if q.device.type == "cpu":

@@ -24,9 +24,10 @@ session at k 12 (its 13-position verify block runs B7 in one launch a
 layer: two q-tiles of the tensor-core kernel), and a self-draft whose
 draft steps run B2. The kernel rows also hold the stacked ``layer=`` form
 of B4/B5/B7/B8 bit for bit against the per-layer call, and
-``torch.profiler`` traces show that one call of B6 (write-through
-decode), of B9 and B10 (int4 matmuls) and of B7/B8 (the verify, at Q 5
-and 13) each runs one device kernel. The w4a8 probe
+``torch.profiler`` traces show that one call of B4/B5 (the paged parts,
+at the batch's rows), of B6 (write-through decode), of B9 and B10 (int4
+matmuls) and of B7/B8 (the verify, at Q 5 and 13) each runs one device
+kernel, beside a control of two (B7 with an f32 q). The w4a8 probe
 (``scripts/torch_w4a8_probe.py``) drives B11 and B9.
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
@@ -337,8 +338,8 @@ def int4_kernel_phase(torch, cq, qplain, qmod, timer, control):
     the dequantized bf16 weight (made once, outside the timing); B10 runs
     on the same weights as B9, and B9 is timed again beside it. A second
     call of each gives the same bits; at qwen2's w_gate, M 8, one call of
-    B9 and one of B10 each run one device kernel (``control``, B4's two,
-    is the profiler's control); and a CUDA x of 9 rows must raise. Returns
+    B9 and one of B10 each run one device kernel (``control``, two device
+    kernels, is the profiler's control); and a CUDA x of 9 rows must raise. Returns
     the first row of each kernel (qwen2's w_gate at M 1) for the
     summary."""
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -466,37 +467,48 @@ def parts_errors(torch, got, want, tol):
     return errs, ok, empty_exact
 
 
-def paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector):
+def paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, control):
     """The paged parts kernels against their plain versions: at the paged
     engine phase's own batch (17 rows of the 62–2,112-token prompts, pad
-    rows to 32), at qwen2:1.5b widths for B 1, 16 (with a row that has no
-    cached token) and 64 with lengths of 62–1,100 tokens, and at the
-    phi3/gemma head dims; float32 to 1e-4, bfloat16 to 2e-2 on acc/l, m
-    and l (atol = rtol), the empty row exactly (0, -inf, 0). Returns the
+    rows to 32), once more in pages of 48 positions (not a multiple of
+    the kernel's 32-position tile: each position looked up), at qwen2:1.5b
+    widths for B 1, 16 (with a row that has no cached token and one that
+    has one) and 64 with lengths of 62–1,100 tokens, and at the phi3/gemma
+    head dims; every table with junk entries past each row's pages.
+    float32 to 1e-4, bfloat16 to 2e-2 on acc/l, m and l (atol = rtol),
+    the empty row exactly (0, -inf, 0); two calls give the same bits. At
+    the engine batch a ``torch.profiler`` trace shows one device kernel a
+    call (``control`` shows two). Timed in bf16 beside SDPA with a length
+    mask over the rows gathered (B5: and dequantized) into a contiguous
+    bf16 cache, the gather untimed: it computes acc / l only. Returns the
     engine-batch row of each kernel for the summary."""
+    F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def mixed(n, empty=False):
         lens = torch.randint(62, 1101, (n,), generator=gen, device="cuda").tolist()
         if empty:
             lens[3] = 0
+            lens[4] = 1
         return lens
 
-    # (label, batch, hq, hkv, d, lengths of the real rows)
+    # (label, batch, hq, hkv, d, lengths of the real rows, page)
     shapes = [
-        ("qwen2:1.5b engine batch", 32, 12, 2, 128, batch_prompt_lengths()),
-        ("qwen2:1.5b", 1, 12, 2, 128, mixed(1)),
-        ("qwen2:1.5b", 16, 12, 2, 128, mixed(16, empty=True)),
-        ("qwen2:1.5b", 64, 12, 2, 128, mixed(64)),
-        ("phi3:3.8b", 8, 32, 32, 96, mixed(8)),
-        ("gemma:2b", 8, 8, 1, 256, mixed(8)),
+        ("qwen2:1.5b engine batch", 32, 12, 2, 128, batch_prompt_lengths(), PAGE),
+        ("qwen2:1.5b engine batch, page 48", 32, 12, 2, 128, batch_prompt_lengths(), 48),
+        ("qwen2:1.5b", 1, 12, 2, 128, mixed(1), PAGE),
+        ("qwen2:1.5b", 16, 12, 2, 128, mixed(16, empty=True), PAGE),
+        ("qwen2:1.5b", 64, 12, 2, 128, mixed(64), PAGE),
+        ("phi3:3.8b", 8, 32, 32, 96, mixed(8), PAGE),
+        ("gemma:2b", 8, 8, 1, 256, mixed(8), PAGE),
     ]
     summary = {}
-    for label, b, hq, hkv, d, lengths in shapes:
+    for label, b, hq, hkv, d, lengths, page in shapes:
         for name in ("cuda_paged_decode_attention_parts", "cuda_paged_decode_attention_parts_int8"):
             errs, empties = {}, True
             for dtype, tol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
-                q, k, v, table, lens = paged_inputs(torch, gen, b, hq, hkv, d, lengths, dtype)
+                q, k, v, table, lens = paged_inputs(torch, gen, b, hq, hkv, d, lengths, dtype, page=page)
+                table = with_junk(torch, gen, table, lens.tolist(), k.shape[0], page=page)
                 if name == "cuda_paged_decode_attention_parts":
                     args = (q, k, v, table, lens)
                     fn, ref_fn = cpa.cuda_paged_decode_attention_parts, plain.paged_decode_attention_parts_reference
@@ -510,12 +522,28 @@ def paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector):
                     kv_bytes_per_token = 2 * hkv * (d + 4)
                 got = fn(*args)
                 want = ref_fn(*args)
+                again = fn(*args)
                 torch.cuda.synchronize()
+                assert all(torch.equal(a, c) for a, c in zip(got, again)), (label, name, "two calls differ")
                 errs[dtype], ok, empty_exact = parts_errors(torch, got, want, tol)
                 empties = empties and empty_exact
                 assert ok, (label, name, str(dtype), errs[dtype], empty_exact)
+            profiled = {}
+            if label == "qwen2:1.5b engine batch":
+                profiled = one_kernel_per_call(torch, name, lambda: fn(*args), control)
             ms = timer.ms(lambda: fn(*args))
             plain_ms = timer.ms(lambda: ref_fn(*args), max_iters=20)
+            if name == "cuda_paged_decode_attention_parts":
+                kg, vg = plain._gather_pages(k, table), plain._gather_pages(v, table)
+            else:  # dequantized, untimed
+                kg = (plain._gather_pages(kq, table).float()
+                      * plain._gather_pages(ks, table)[..., None]).to(torch.bfloat16)
+                vg = (plain._gather_pages(vq, table).float()
+                      * plain._gather_pages(vs, table)[..., None]).to(torch.bfloat16)
+            mask = (torch.arange(kg.shape[2], device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+            library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True))
+            del kg, vg
             cached = int(lens.sum().item())
             group = hq // hkv
             bytes_moved = (
@@ -526,15 +554,18 @@ def paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector):
             )
             b_ms, b_by = bound(bytes_moved, 4 * hq * d * cached)
             row = {
-                "name": name, "shape": label, "B": b, "rows": len(lengths),
-                "jmax": table.shape[1], "cached_tokens": cached,
-                "has_empty_row": 0 in lengths, "empty_row_exact": empties,
+                "name": name, "shape": label, "B": b, "rows": len(lengths), "page": page,
+                "jmax": table.shape[1], "grid": cpa.parts_grid(b, hkv, table.shape[1] * page),
+                "cached_tokens": cached, "junk_table_entries": True,
+                "has_empty_row": 0 in lengths, "has_one_position_row": 1 in lengths,
+                "empty_row_exact": empties, **profiled,
                 "max_abs_err": errs[torch.bfloat16]["out"],
                 "max_abs_err_m_l_bf16": [errs[torch.bfloat16]["m"], errs[torch.bfloat16]["l"]],
                 "max_abs_err_f32": errs[torch.float32],
                 "ms": ms, "plain_ms": plain_ms,
-                # no single PyTorch call returns the unnormalised (acc, m, l)
-                "library_ms": None,
+                # SDPA with a length mask on the rows gathered (B5: dequantized) into a
+                # contiguous bf16 cache, gather untimed: acc / l only
+                "library_ms": library_ms,
                 "bound_ms": b_ms, "bound_by": b_by,
             }
             emit({"phase": "kernel", **row})
@@ -582,7 +613,7 @@ def mq_limits_mask(torch, lens, offsets, q_len, t):
     return (torch.arange(t, device="cuda")[None, None, :] < lim[:, :, None])[:, None]
 
 
-def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, kernels):
+def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, kernels, control):
     """B7/B8 against their plain versions: at the speculative sessions' own
     batch (8 rows of 62–1,100 tokens, qwen2:1.5b widths, a session's table
     width) at Q 5 (k = 4) and Q 1, with offsets that cut inside the cached
@@ -595,8 +626,9 @@ def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, kernels)
     causal limit, bit for bit. bf16 runs the tensor-core kernel, one
     launch a call up to Q 64 (Q 10, 13 and 17 included), two calls giving
     the same bits; f32 the CUDA-core kernel, chunks of 9. At Q 5 and Q 13
-    a ``torch.profiler`` trace shows one device kernel a call (B4/B5's two
-    on the Q 1 rows as the control), and the kernel is held to its plain
+    a ``torch.profiler`` trace shows one device kernel a call (``control``
+    shows two), as does one call at Q 1 (B4/B5's ``decode_tile_kernel``),
+    and the kernel is held to its plain
     version once more over a V pool that is constant per (page, kv head),
     where a tile read from a wrong page moves acc/l by about its weight.
     The library yardstick is SDPA with each query's limit as a boolean mask
@@ -667,11 +699,13 @@ def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, kernels)
                     assert q1_equal, (label, name, "Q 1 differs from the single-query kernel")
             extra = {}
             if label.endswith("engine batch") and q_len in (SPEC_K + 1, LONG_SPEC_K + 1):
-                extra = one_kernel_per_call(torch, name, lambda: fn(*args),
-                                            lambda: single(q0, *pool, table, cut))
-                q1_names = [n for n, _ in device_kernels(torch, lambda: fn(q[:, :1].contiguous(), *args[1:]))]
+                extra = one_kernel_per_call(torch, name, lambda: fn(*args), control)
+                q1 = q[:, :1].contiguous()
+                # the port's kernels of a Q 1 call (its wrapper cuts the lengths with torch ops)
+                q1_names = [n for n, _ in device_kernels(torch, lambda: fn(q1, *args[1:]))
+                            if "at::native" not in n]
                 extra["q1_device_kernels"] = q1_names
-                assert sum("decode_partial_kernel" in n or "parts_merge_kernel" in n for n in q1_names) == 2
+                assert len(q1_names) == 1 and "decode_tile_kernel" in q1_names[0], q1_names
                 vc = page_constant(torch, v)
                 pool_c = (k, vc) if len(pool) == 2 else (kq, ks, *quantize_kv_vector(vc))
                 args_c = (q, *pool_c, table, lens, offsets)
@@ -834,12 +868,15 @@ def device_kernels(torch, fn):
     raise AssertionError(f"{TRACE_TRIES} traces each lost a marker kernel")
 
 
-def b4_control(torch, cpa):
-    """One call of B4 (its split body and its merge: two device kernels)
-    on the speculative sessions' rows, the profiler's control."""
+def b7_f32_control(torch, cpa):
+    """One call of B7 with an f32 q at Q 5 on the speculative sessions'
+    rows (``mq_partial_kernel`` and ``parts_merge_kernel``: two device
+    kernels), the profiler's control."""
     gen = torch.Generator(device="cuda").manual_seed(7)
-    q, k, v, table, lens = paged_inputs(torch, gen, 8, 12, 2, 128, spec_prompt_lengths(), torch.bfloat16)
-    return lambda: cpa.cuda_paged_decode_attention_parts(q, k, v, table, lens)
+    _, k, v, table, lens = paged_inputs(torch, gen, 8, 12, 2, 128, spec_prompt_lengths(), torch.float32,
+                                        session=True)
+    q = torch.randn((8, SPEC_K + 1, 12, 128), generator=gen, device="cuda")
+    return lambda: cpa.cuda_paged_decode_attention_mq_parts(q, k, v, table, lens, lens)
 
 
 def one_kernel_per_call(torch, name, fn, control):
@@ -853,7 +890,7 @@ def one_kernel_per_call(torch, name, fn, control):
             "device_us": ours[0][1], "control_device_kernels_per_call": len(theirs)}
 
 
-def paged_decode_kernel_phase(torch, cpa, ca, plain, timer):
+def paged_decode_kernel_phase(torch, cpa, ca, plain, timer, control):
     """B6 against its plain version: at the write-through phase's 8 rows,
     at qwen2:1.5b widths for B 1, 16 and 64 (62–1,100 tokens), at the
     phi3/gemma head dims, and at the write-through rows in pages of 48
@@ -861,8 +898,8 @@ def paged_decode_kernel_phase(torch, cpa, ca, plain, timer):
     table with junk entries past the rows' pages. f32 to 1e-4 and bf16 to
     2e-2 (max abs error of the normalised output), timed in bf16 beside
     B4 on the same rows and SDPA on the rows gathered into a contiguous
-    cache (the gather untimed). One call runs one device kernel (B4's two
-    are the profiler's control). Returns the first row."""
+    cache (the gather untimed). One call runs one device kernel
+    (``control`` shows two). Returns the first row."""
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(5)
 
@@ -897,8 +934,7 @@ def paged_decode_kernel_phase(torch, cpa, ca, plain, timer):
             assert torch.equal(out, again), (label, name, "two calls differ")
         profiled = {}
         if not summary:
-            profiled = one_kernel_per_call(
-                torch, name, lambda: fn(*args), lambda: cpa.cuda_paged_decode_attention_parts(*args))
+            profiled = one_kernel_per_call(torch, name, lambda: fn(*args), control)
         ms = timer.ms(lambda: fn(*args))
         plain_ms = timer.ms(lambda: ref_fn(*args), max_iters=20)
         b4_ms = timer.ms(lambda: cpa.cuda_paged_decode_attention_parts(*args))
@@ -1679,12 +1715,14 @@ def main() -> int:
     })
 
     timer = Timer(torch)
+    control = b7_f32_control(torch, cpa)  # the profiler's two-kernel control
     summary = kernel_phase(torch, ca, plain, timer)
-    summary.update(paged_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector))
-    summary.update(paged_mq_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector, kernels))
+    summary.update(paged_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector, control))
+    summary.update(paged_mq_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector, kernels,
+                                         control))
     stacked_layer_kernel_phase(torch, cpa, timer, qmod.quantize_kv_vector)
-    summary.update(int4_kernel_phase(torch, cq, qplain, qmod, timer, b4_control(torch, cpa)))
-    summary.update(paged_decode_kernel_phase(torch, cpa, ca, plain, timer))
+    summary.update(int4_kernel_phase(torch, cq, qplain, qmod, timer, control))
+    summary.update(paged_decode_kernel_phase(torch, cpa, ca, plain, timer, control))
     summary.update(w4a8_kernel_phase(torch, cq, qplain, qmod, timer))
     del timer
     torch.cuda.empty_cache()

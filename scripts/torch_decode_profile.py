@@ -46,7 +46,7 @@ PROMPT = "In 100 words, please give me information about photosynthesis"
 # Substrings of kernel names, first match wins.
 CATEGORIES = (
     ("attention (port kernels)", (
-        "decode_partial_kernel", "parts_merge_kernel", "prefill_kernel",
+        "parts_merge_kernel", "prefill_kernel",
         "mq_partial_kernel", "mq_mma_kernel", "decode_tile_kernel", "prefill_mma_kernel",
         "prefill_merge_kernel")),
     ("int4 matmul (port kernels)", ("int4_mma_kernel", "int4_i32_mma_kernel")),

@@ -14,7 +14,8 @@ each trace, and as many times bracketed as ``device_kernels`` brackets it
 the traces by the device kernels they show, in time order: ``K`` is the
 call's kernel, ``M`` a marker, so a whole bare trace reads ``K`` and a
 whole bracketed one ``MMKM``. Then it calls ``device_kernels`` as many
-times on B9 and on B4's parts call (``b4_control``, two kernels) and
+times on B9 and on the control (``b7_f32_control``: B7 with an f32 q at
+Q 5, ``mq_partial_kernel`` and ``parts_merge_kernel``, two kernels) and
 counts how many kernels each read gave, how many traces it took again,
 and how many reads raised. Prints one JSON object.
 """
@@ -95,7 +96,7 @@ def main() -> int:
     def b9():
         return cq.cuda_int4_matmul(x, leaf["q4"], leaf["s"])
 
-    control = smoke.b4_control(torch, cpa)
+    control = smoke.b7_f32_control(torch, cpa)
     out = {"nvidia_smi": smoke.nvidia_smi_line(), "torch": torch.__version__, "traces": args.traces}
     for label, bracket in (("bare", False), ("bracketed", True)):
         t0 = time.perf_counter()
@@ -104,7 +105,7 @@ def main() -> int:
 
     retries = []
     smoke.emit = lambda obj: retries.append(obj)  # device_kernels reports a retaken trace here
-    for label, fn in (("device_kernels_b9", b9), ("device_kernels_b4_control", control)):
+    for label, fn in (("device_kernels_b9", b9), ("device_kernels_b7_f32_control", control)):
         counts, raised = collections.Counter(), 0
         retries.clear()
         t0 = time.perf_counter()

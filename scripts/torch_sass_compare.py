@@ -9,11 +9,16 @@ example ``git archive <commit> | tar -x -C chip_check/parent``):
 
 Both trees' libraries are built from their own ``csrc/`` (into each tree's
 git-ignored ``_build/``). Every kernel function the two builds share is
-compared instruction for instruction, its addresses stripped; kernels in
-anonymous namespaces are matched across the two files' digests. Prints
-one JSON object: ``{"same": [...], "different": [...], "only_this":
-[...], "only_other": [...]}`` of kernel names, and exits 1 if any shared
-kernel differs.
+compared instruction for instruction, its addresses stripped, its runs
+of blanks collapsed and its branch labels renumbered within the function;
+kernels in anonymous namespaces are matched across the two files'
+digests. A kernel
+whose name changed (a template parameter added, say) is matched by its
+body: each kernel found in only one build whose SASS equals that of a
+kernel found only in the other is listed as a renamed pair. Prints one
+JSON object: ``{"same": [...], "different": [...], "renamed_same":
+[[this, other], ...], "only_this": [...], "only_other": [...]}`` of
+kernel names, and exits 1 if any shared kernel differs.
 """
 
 from __future__ import annotations
@@ -51,7 +56,14 @@ def sass_functions(kernels, lib: str) -> "dict[str, list[str]]":
         # an anonymous namespace is mangled with a digest of its source file
         name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", lines[0].strip())
         name = re.sub(r"^_ZN\d+_GLOBAL", "_ZN_GLOBAL", name)
-        body = (re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).strip() for ln in lines[1:])
+        # cuobjdump pads its columns to the file's longest line: runs of
+        # blanks are one blank
+        body = [" ".join(re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).split()) for ln in lines[1:]]
+        # branch labels (.L_x_N) are numbered over the whole file: renumber
+        # them within the function, in order of first appearance
+        labels = {}
+        body = [re.sub(r"\.L_x_\d+", lambda m: labels.setdefault(m.group(0), f".L_{len(labels)}"), ln)
+                for ln in body]
         out[name] = [ln for ln in body if ln]
     return out
 
@@ -64,13 +76,21 @@ def main() -> int:
     this, other = kernels_module(ROOT), kernels_module(other_root)
     this.build()
     other.build()
-    report = {"same": [], "different": [], "only_this": [], "only_other": []}
+    report = {"same": [], "different": [], "renamed_same": [], "only_this": [], "only_other": []}
     for lib in LIBRARIES:
         a, b = sass_functions(this, lib), sass_functions(other, lib)
+        only_other = sorted(set(b) - set(a))
         for name in sorted(set(a) | set(b)):
-            key = "only_other" if name not in a else "only_this" if name not in b else (
-                "same" if a[name] == b[name] else "different")
-            report[key].append(name)
+            if name in a and name in b:
+                report["same" if a[name] == b[name] else "different"].append(name)
+            elif name in a:
+                twin = next((o for o in only_other if b[o] == a[name]), None)
+                if twin is None:
+                    report["only_this"].append(name)
+                else:
+                    only_other.remove(twin)
+                    report["renamed_same"].append([name, twin])
+        report["only_other"].extend(only_other)
     print(json.dumps(report, indent=1))
     return 1 if report["different"] else 0
 

@@ -1,7 +1,7 @@
-"""The logic the one-launch kernels B6 (write-through paged decode), B9
-(int4 matmul, halves layout), B10 (int4 matmul, int32 lanes) and B7/B8
-(multi-query paged verify) rest on, pinned on the CPU, where the kernels
-cannot run:
+"""The logic the one-launch kernels B4/B5 (paged decode parts), B6
+(write-through paged decode), B9 (int4 matmul, halves layout), B10 (int4
+matmul, int32 lanes) and B7/B8 (multi-query paged verify) rest on, pinned
+on the CPU, where the kernels cannot run:
 
 - B9's nibble → bf16 conversion (each nibble, biased by 8, ORed into the
   mantissa of 128.0, then 136 subtracted), emulated in numpy bit for bit,
@@ -18,6 +18,11 @@ cannot run:
   q-tile's frontier, an online softmax per split in log2 units, the last
   split merging into natural units), emulated in torch, gives
   ``paged_mq_attention_reference``;
+- B4/B5's body (``decode_tile_kernel`` through the page table: splits
+  sized from each row's length, tiles of 32 positions with a per-tile
+  max, the four warps' sums, the last split merging into unnormalised
+  parts), emulated in torch, gives the JAX package's Pallas parts kernels
+  (interpret mode);
 - the wrappers' grid, split and ticket rules, as pure functions, at the
   shapes ``chip_smoke.py`` drives.
 
@@ -27,11 +32,14 @@ The kernels themselves are held against their plain versions on the card
 
 import math
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu.ops import pallas_paged_attention as jpa
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.quantize import (
+    quantize_kv_vector,
     quantize_tensor_int4,
     quantize_tensor_int4_i32,
 )
@@ -354,6 +362,193 @@ def test_decode_grid_and_tickets_at_the_chip_shapes(label, b, hkv, capacity, gri
     ticket_buf = _kernels.tickets(torch.device("cpu"), b * hkv)
     assert ticket_buf.dtype == torch.int32 and ticket_buf.numel() >= b * hkv
     assert not torch.any(ticket_buf)
+
+
+# (label, B, Hkv, capacity, grid): B4/B5's rows at chip_smoke.py's shapes
+# (the engine batch's table is the power of two over the pages its longest
+# row needs; a session's, over twice that).
+PARTS_GRIDS = [
+    ("engine batch", 32, 2, 32 * 128, 64),
+    ("engine batch, page 48", 32, 2, 64 * 48, 48),
+    ("B 1", 1, 2, 16 * 128, 32),
+    ("B 16", 16, 2, 16 * 128, 32),
+    ("B 64", 64, 2, 16 * 128, 32),
+    ("phi3", 8, 32, 16 * 128, 16),
+    ("spec batch at Q 1", 8, 2, 32 * 128, 64),
+]
+
+
+@pytest.mark.parametrize("label,b,hkv,capacity,grid", PARTS_GRIDS, ids=[g[0] for g in PARTS_GRIDS])
+def test_parts_grid_and_tickets_at_the_chip_shapes(label, b, hkv, capacity, grid):
+    """The parts kernels' grid: enough blocks per (row, kv head) that a row
+    as long as the table holds runs in the body's shortest splits (64
+    positions), at most 128 and at most 4,096 blocks in all, none starting
+    past the capacity; one ticket per (row, kv head)."""
+    n = cpa.parts_grid(b, hkv, capacity)
+    assert n == grid
+    assert 1 <= n <= 128 and (n - 1) * 64 < capacity and n * b * hkv <= 4096
+    assert n == 128 or n * 64 >= capacity or (n + 1) * b * hkv > 4096
+    ticket_buf = _kernels.tickets(torch.device("cpu"), b * hkv)
+    assert ticket_buf.numel() >= b * hkv and not torch.any(ticket_buf)
+
+
+def _decode_splits(length, n_grid):
+    """(splits used, positions per split) of a row of ``length`` positions,
+    as each block of ``decode_tile_kernel`` computes them: at least 64
+    positions a split, whole 32-position tiles, at most ``n_grid``
+    splits; a row with no position has one split that reads nothing."""
+    n_used = max(1, min(n_grid, -(-length // 64)))
+    split_len = -(-(-(-max(length, 1) // n_used)) // 32) * 32
+    return max(1, -(-length // split_len)), split_len
+
+
+@pytest.mark.parametrize(
+    "label,b,hkv,capacity,grid", DECODE_GRIDS + PARTS_GRIDS, ids=[g[0] for g in DECODE_GRIDS + PARTS_GRIDS]
+)
+def test_decode_splits_cover_every_length(label, b, hkv, capacity, grid):
+    """The one-launch decode body's splits of a row, for every length up to
+    the capacity, within the grid the wrapper gives (B2, B3 and B6:
+    ``decode_grid``; B4/B5: ``parts_grid``): whole tiles, at least 64
+    positions (but one), covering the row with no split empty; a row with
+    no position runs one block; where the parts kernels' grid reaches the
+    capacity, every row runs in splits of at most 64 positions."""
+    parts = (label, b, hkv, capacity, grid) in PARTS_GRIDS
+    n = (cpa.parts_grid if parts else cuda_attention.decode_grid)(b, hkv, capacity)
+    for length in range(0, capacity + 1, 5):
+        n_used, split_len = _decode_splits(length, n)
+        assert 1 <= n_used <= n and split_len % 32 == 0
+        if length == 0:
+            assert n_used == 1
+        else:
+            assert (n_used - 1) * split_len < length <= n_used * split_len
+            assert split_len >= min(64, -(-length // 32) * 32)
+            assert split_len <= 64 or not parts or n * 64 < capacity
+
+
+def _emulate_b4(q, k_pool, v_pool, table, lengths, k_scale=None, v_scale=None):
+    """B4's (with scales, B5's) arithmetic in f32, block by block as
+    ``decode_tile_kernel`` runs it under ``PagedRows`` and ``PartsOut``:
+    the grid from :func:`parts_grid`, each row's splits from its length
+    (:func:`_decode_splits`); per split, tiles of 32 positions read
+    through the clipped table, the G heads' scores of a tile at once
+    (times the K scale), one max per tile and head, ``alpha = exp(m_old -
+    m_new)`` (0 on the first tile), ``l`` from the tile's probabilities,
+    the V scale folded into p; warp w accumulates positions w, w + 4, ...
+    of every tile, and the four warps' accumulators add in warp order.
+    One split is written as is; several are merged by the last in split
+    order into unnormalised parts (m in natural units). A row with no
+    position reads nothing: (0, -inf, 0)."""
+    b, hq, d = q.shape
+    n_pool, hkv, page, _ = k_pool.shape
+    group = hq // hkv
+    jmax = table.shape[1]
+    n_grid = cpa.parts_grid(b, hkv, jmax * page)
+    scale = np.float32(1.0 / math.sqrt(d))
+    acc = torch.zeros(b, hkv, group, d)
+    m_out = torch.full((b, hkv, group), float("-inf"))
+    l_out = torch.zeros(b, hkv, group)
+    for bi in range(b):
+        length = max(0, min(int(lengths[bi]), jmax * page))
+        n_used, split_len = _decode_splits(length, n_grid)
+        for h in range(hkv):
+            qg = q[bi, h * group : (h + 1) * group].float()  # [G, D]
+            parts = []
+            for sp in range(n_used):
+                t_begin = sp * split_len
+                t_end = min(t_begin + split_len, length)
+                m_run = torch.full((group,), float("-inf"))
+                l_run = torch.zeros(group)
+                warps = torch.zeros(4, group, d)
+                for t0 in range(t_begin, t_end, 32):
+                    pos = torch.arange(t0, min(t0 + 32, t_end))
+                    pages = torch.clamp(table[bi, pos // page].long(), 0, n_pool - 1)
+                    kk = k_pool[pages, h, pos % page].float()
+                    vv = v_pool[pages, h, pos % page].float()
+                    sc = (qg @ kk.T) * scale  # [G, positions]
+                    if k_scale is not None:
+                        sc = sc * k_scale[pages, h, pos % page][None, :]
+                    m_new = torch.maximum(m_run, sc.max(dim=1).values)
+                    alpha = torch.exp(m_run - m_new)
+                    p = torch.exp(sc - m_new[:, None])
+                    l_run = l_run * alpha + p.sum(dim=1)
+                    m_run = m_new
+                    if v_scale is not None:
+                        p = p * v_scale[pages, h, pos % page][None, :]
+                    warps = warps * alpha[None, :, None]
+                    for w in range(4):
+                        warps[w] += p[:, w::4] @ vv[w::4]
+                a = warps[0] + warps[1] + warps[2] + warps[3]
+                parts.append((a, m_run, l_run))
+            if n_used == 1:
+                a, m_fin, l_fin = parts[0]
+            else:
+                m_fin = torch.stack([pm for _, pm, _ in parts]).max(dim=0).values
+                a, l_fin = torch.zeros(group, d), torch.zeros(group)
+                for pa, pm, pl in parts:
+                    c = torch.exp(pm - m_fin)
+                    l_fin = l_fin + c * pl
+                    a = a + c[:, None] * pa
+            acc[bi, h], m_out[bi, h], l_out[bi, h] = a, m_fin, l_fin
+    return acc, m_out, l_out
+
+
+def _lane_pad(x, d):
+    """The JAX Pallas kernels take pools pre-padded to 128 lanes."""
+    pad = (-d) % 128
+    return x if not pad else jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
+
+
+# (label, Hq, Hkv, D, page, lengths, int8 pool): an empty row and a
+# one-position row in each; lengths on and off multiples of 32 and 64; rows
+# of several splits; pages of 128 (a tile in one page) and 48 (each position
+# looked up); every table with junk entries past each frontier.
+B4_CASES = [
+    ("qwen2 G 6", 12, 2, 128, 128, [0, 1, 32, 64, 96, 129, 700], False),
+    ("qwen2 G 6, int8 pool", 12, 2, 128, 128, [0, 1, 32, 64, 96, 129, 700], True),
+    ("qwen2 G 6, page 48", 12, 2, 128, 48, [0, 1, 47, 48, 64, 200, 500], False),
+    ("qwen2 G 6, page 48, int8 pool", 12, 2, 128, 48, [0, 1, 47, 48, 64, 200, 500], True),
+    ("phi3 D 96", 32, 32, 96, 128, [0, 1, 65, 300], False),
+    ("phi3 D 96, int8 pool", 32, 32, 96, 128, [0, 1, 65, 300], True),
+    ("gemma D 256", 8, 1, 256, 128, [0, 1, 128, 257, 600], False),
+    ("gemma D 256, int8 pool", 8, 1, 256, 128, [0, 1, 128, 257, 600], True),
+]
+
+
+@pytest.mark.parametrize("label,hq,hkv,d,page,lengths,int8", B4_CASES, ids=[c[0] for c in B4_CASES])
+def test_b4_b5_tile_body_matches_the_pallas_parts_kernels(label, hq, hkv, d, page, lengths, int8):
+    """The emulation of B4/B5's one-launch body against the JAX package's
+    ``pallas_paged_decode_attention_parts`` (int8: ``..._parts_int8``) in
+    interpret mode, in f32 within 1e-5 on acc, m and l (the per-tile max
+    and the split merge sum in another order); a row with no cached token
+    is exactly (0, -inf, 0) in both."""
+    rng = np.random.default_rng(hq * 1000 + d + page)
+    k, v, table, lens = _paged_rows(rng, len(lengths), hkv, d, page, lengths)
+    q = torch.from_numpy(rng.standard_normal((len(lengths), hq, d)).astype(np.float32))
+    if int8:
+        kq, ks = quantize_kv_vector(k)
+        vq, vs = quantize_kv_vector(v)
+        want = jpa.pallas_paged_decode_attention_parts_int8(
+            jnp.asarray(q.numpy()), _lane_pad(jnp.asarray(kq.numpy()), d), jnp.asarray(ks.numpy()),
+            _lane_pad(jnp.asarray(vq.numpy()), d), jnp.asarray(vs.numpy()),
+            jnp.asarray(table.numpy()), jnp.asarray(lens.numpy()), interpret=True,
+        )
+        got = _emulate_b4(q, kq.float(), vq.float(), table, lens, ks, vs)
+    else:
+        want = jpa.pallas_paged_decode_attention_parts(
+            jnp.asarray(q.numpy()), _lane_pad(jnp.asarray(k.numpy()), d),
+            _lane_pad(jnp.asarray(v.numpy()), d), jnp.asarray(table.numpy()),
+            jnp.asarray(lens.numpy()), interpret=True,
+        )
+        got = _emulate_b4(q, k, v, table, lens)
+    acc, m, l = got
+    acc_w, m_w, l_w = (torch.from_numpy(np.array(x)) for x in want)
+    assert acc_w.shape == acc.shape and m_w.shape == m.shape
+    empty = lens == 0
+    assert torch.all(acc[empty] == 0) and torch.all(torch.isneginf(m[empty])) and torch.all(l[empty] == 0)
+    assert torch.all(acc_w[empty] == 0) and torch.all(torch.isneginf(m_w[empty])) and torch.all(l_w[empty] == 0)
+    live = ~empty
+    for a, w in ((acc, acc_w), (m, m_w), (l, l_w)):
+        torch.testing.assert_close(a[live], w[live], atol=1e-5, rtol=1e-5)
 
 
 def _mq_tile(d):

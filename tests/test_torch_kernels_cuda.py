@@ -232,8 +232,8 @@ def test_paged_decode_kernel_matches_plain_version_on_the_card(dtype, tol, hq, h
     """B6 against its plain version, rows at, before and after a page edge
     and over several pages, with junk table entries (outside the pool)
     past every frontier; and within the same tolerance of B4's acc / l
-    (B6 runs B2's one-launch body, B4 its own split body: the sums are
-    taken in another order)."""
+    (both run the one-launch body; B4 writes its parts in f32 where B6
+    rounds acc / l to q's dtype)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
@@ -668,3 +668,108 @@ def test_redesigned_kernels_run_on_the_tensor_cores():
         assert len(functions) == count, (kernel, [f.splitlines()[0] for f in functions])
         for body in functions:
             assert "HMMA" in body, body.splitlines()[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("page", [48, 128])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 64), (32, 32, 96), (12, 2, 128), (8, 1, 256), (32, 2, 128)])
+def test_paged_parts_kernels_on_the_tile_body_on_the_card(dtype, tol, page, hq, hkv, d):
+    """B4 and B5 on the one-launch tile body: D 64, 96, 128 and 256, G 1,
+    6 and 8 (G 16 through two sub-groups), pages of 48 (each position
+    looked up) and 128 (a tile in one page), junk table entries past every
+    frontier, an empty row and a one-position row, lengths on and off
+    multiples of 32 and 64. Each call is one launch per sub-group and
+    matches the plain version (the empty row exactly (0, -inf, 0)); two
+    calls give the same bits and leave the tickets zero; the stacked
+    ``layer=`` form and B7/B8 at Q 1 (lengths cut to the causal limit)
+    equal the per-layer call bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+
+    rng = np.random.default_rng(21)
+    lengths = [0, 1, 32, 64, 97, 300, 1100]
+    offsets = torch.tensor([0, 0, 20, 63, 97, 250, 1100], dtype=torch.int32, device="cuda")
+    q, k, v, table, lens = _paged_inputs(rng, dtype, len(lengths), hq, hkv, d, page, lengths, "cuda")
+    table = _junk_past_frontiers(table, lengths, page, k.shape[0])
+    kq, ks = quantize_kv_vector(k)
+    vq, vs = quantize_kv_vector(v)
+    sub_groups = -(-(hq // hkv) // 8)
+    cases = (
+        (cpa.cuda_paged_decode_attention_parts, port_attn.paged_decode_attention_parts_reference,
+         cpa.cuda_paged_decode_attention_mq_parts, (k, v)),
+        (cpa.cuda_paged_decode_attention_parts_int8, port_attn.paged_decode_attention_parts_int8_reference,
+         cpa.cuda_paged_decode_attention_mq_parts_int8, (kq, ks, vq, vs)),
+    )
+    cut = torch.clamp(torch.minimum(lens, offsets + 1), min=0)
+    for fn, ref_fn, mq_fn, pool in cases:
+        before = fn.launches
+        got = fn(q, *pool, table, lens)
+        assert fn.launches == before + sub_groups
+        assert got[0].shape == (len(lengths), hkv, hq // hkv, d) and got[0].dtype == torch.float32
+        _assert_parts_close(got, ref_fn(q, *pool, table, lens), tol)
+        for a, b in zip(got, fn(q, *pool, table, lens)):
+            assert torch.equal(a, b)
+        stacked = tuple(torch.stack([p, torch.zeros_like(p)]) for p in pool)
+        for a, b in zip(fn(q, *stacked, table, lens, layer=0), got):
+            assert torch.equal(a, b)
+        one = mq_fn(q[:, None], *pool, table, lens, offsets)
+        for a, b in zip(one, fn(q, *pool, table, cut)):
+            assert torch.equal(a[:, 0], b)
+    torch.cuda.synchronize()
+    assert not torch.any(_kernels._TICKETS[q.device]).item()
+
+
+@pytest.mark.cuda
+def test_paged_parts_kernels_refuse_a_misaligned_pool_on_the_card():
+    """B4/B5 copy K/V rows (int8 codes) 16 bytes at a time by cp.async: a
+    pool view that does not start on a 16-byte boundary raises before any
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+
+    rng = np.random.default_rng(22)
+    q, k, v, table, lens = _paged_inputs(rng, torch.bfloat16, 2, 12, 2, 128, 128, [5, 200], "cuda")
+    shifted = torch.empty(k.numel() + 1, dtype=k.dtype, device="cuda")[1:].view(k.shape)
+    shifted.copy_(k)
+    kq, ks = quantize_kv_vector(k)
+    vq, vs = quantize_kv_vector(v)
+    codes = torch.empty(kq.numel() + 4, dtype=torch.int8, device="cuda")[4:].view(kq.shape)
+    codes.copy_(kq)
+    before = (cpa.cuda_paged_decode_attention_parts.launches,
+              cpa.cuda_paged_decode_attention_parts_int8.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        cpa.cuda_paged_decode_attention_parts(q, shifted, v, table, lens)
+    with pytest.raises(ValueError, match="16-byte"):
+        cpa.cuda_paged_decode_attention_parts_int8(q, codes, ks, vq, vs, table, lens)
+    assert before == (cpa.cuda_paged_decode_attention_parts.launches,
+                      cpa.cuda_paged_decode_attention_parts_int8.launches)
+
+
+@pytest.mark.cuda
+def test_one_decode_tile_body_serves_every_single_query_decode():
+    """The built libraries' SASS: the parts kernels B4/B5 and the
+    write-through decode B6 are instantiations of ``decode_tile_kernel``
+    (bf16 and f32 q; bf16/f32 and int8 pools for the parts; D 64, 96, 128
+    and 256), as B2/B3 are in the attention library; the older split body
+    is gone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import subprocess
+    from pathlib import Path
+
+    cuobjdump = Path(_kernels._nvcc()).parent / "cuobjdump"
+    counts = {}
+    for lib in ("attention", "paged_attention"):
+        _kernels.library(lib)
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(_kernels.library_path(lib))],
+            capture_output=True, text=True, check=True,
+        ).stdout
+        names = [f.splitlines()[0] for f in sass.split("Function : ")[1:]]
+        assert not any("decode_partial_kernel" in n for n in names), lib
+        counts[lib] = sum("decode_tile_kernel" in n for n in names)
+    # B2/B3: 2 q dtypes × (cache, int8) × 4 head dims; B6: 2 × 4; B4/B5: 2 × 2 × 4
+    assert counts == {"attention": 16, "paged_attention": 8 + 16}, counts
