@@ -77,8 +77,6 @@ using port_attn::to_f;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 4;              // adjacent output columns per thread (B11)
-constexpr int kTileCols = 32 * kCols;  // output columns per block (B11)
 constexpr int kMaxRows = 8;            // rows of x
 
 // ---- 9. int4_matmul (halves): tensor cores, one launch ---------------------
@@ -551,166 +549,310 @@ cudaError_t launch_i32_mma(const void* x, const void* packed, const float* scale
   return cudaGetLastError();
 }
 
-// ---- 11. w4a8_matmul ---------------------------------------------------------
-// Replaces w4a8_matmul (_w4a8_kernel) of scripts/w4a8_probe.py. Contract:
-// out[M, OUT] f32 = float(acc) * scale[OUT] * sx[M], in that order, where
-// acc[m, o] = Σ_i xq[m, i]·lo(packed[i, o]) + xq[m, K + i]·hi(packed[i, o])
-// in int32 over the K = IN/2 packed rows: xq [M, IN] int8 activation codes
-// (the wrapper quantizes x per row with plain torch ops before the launch,
-// as the probe does outside its kernel), the halves layout of B9, sx [M]
-// f32. The sum is exact, so the result equals the plain version bit for bit.
+// ---- 11. w4a8_matmul: int8 tensor cores, one launch ------------------------
+// Replaces w4a8_matmul (the pl.pallas_call at scripts/w4a8_probe.py:103,
+// kernel _w4a8_kernel). Contract: out[M, OUT] f32 = float(acc) · scale[OUT]
+// · sx[M], multiplied in that order, where sx[m] = max|x[m, :]| / 127,
+// xq = clip(round(x / sx), -127, 127) as int8 (the probe quantizes x ahead
+// of its kernel; this kernel does it itself), and acc[m, o] = Σ_i
+// xq[m, i]·lo(packed[i, o]) + xq[m, K + i]·hi(packed[i, o]) in int32 over
+// the K = IN/2 packed rows of B9's halves layout. x is bf16 or f32, 1 <= M
+// <= 8, K a multiple of 16. The codes follow
+// ops/quant.py::quantize_activations_rowwise operation for operation (the
+// max taken in x's type, then widened; both divisions IEEE, never by a
+// reciprocal; ties to even; the 0/0 of a zero row gives code 0) and the
+// sums are exact, so the result equals the plain version bit for bit.
 //
-// Bound on an H100 SXM: bytes, as for B9 (the packed weights cross device
+// Bound on an H100 SXM: bytes, as B9's (the packed weights cross device
 // memory once; at M 8 a packed byte meets 16 multiply-adds).
 //
-// Design. B9's grid: a block owns 128 output columns (4 per thread, one
-// 32-bit load per packed row) and one split of the packed rows, staged
-// activation codes in shared memory; its 8 warps take groups of 4 packed
-// rows. A thread's 4 words (4 rows × 4 columns) are transposed with
-// __byte_perm into one word per column holding that column's 4 packed
-// bytes. (w << 4) & 0xF0F0F0F0 leaves in each byte its low nibble times 16
-// as a signed int8, w & 0xF0F0F0F0 its high nibble times 16: no shifts per
-// nibble, and one __dp4a against 4 activation codes adds four products.
-// The sums carry the factor 16 exactly (|16·acc| <= 16·IN·8·127 < 2^31 for
-// IN <= 131072) and the merge divides it out. Warp sums, then split
-// partials, are int32 and exact, so the order of every addition is free.
-constexpr int kW4a8MaxSplitRows = 512;  // packed rows per split, a multiple of 4
+// Design: one launch, B9's grid and epilogue on the int8 tensor cores.
+// - The quantization with no wait between blocks. Every code needs its
+//   row's max, and blocks cannot wait on each other (a launch does not
+//   promise they are resident together), so every block reads all M rows
+//   of x (from L2 after the first block: 24 KB bf16 at the probe's shape)
+//   while its first weights are in flight. Warp m reduces row m's max, then
+//   writes the codes of its split's k slice of row m straight into shared
+//   memory: no xq or sx passes through device memory. Splits follow B9's
+//   rule (ops/cuda_quant.py::_w4a8_split): shorter ones repeat the read
+//   and add partials, longer ones leave SMs idle.
+// - The product: mma.sync.m16n8k32 (s8 × s8, s32 accumulate) with the
+//   weight as A (16 output columns × 32 k) and the codes as B (32 k × 8
+//   rows; rows past M are zero codes). The k order inside an mma is free.
+//   Lane (g, t) loads packed rows 16s + 4t + j (j = 0..3), columns
+//   16g..16g+15, 16 bytes each, from device memory straight into registers
+//   (a ring of two k-steps, 4 KB a warp as B9's); __byte_perm turns the
+//   four rows' words into one word per column holding its four packed
+//   bytes, whose low nibbles ×16, (w << 4) & 0xF0F0F0F0, are A's k 4t + j
+//   and high nibbles ×16, w & 0xF0F0F0F0, its k 16 + 4t + j, as s8: no
+//   shift per nibble. The codes are staged in the same order: word 4s + t
+//   of code row m holds the low half's codes of packed rows 16s + 4t ..
+//   16s + 4t + 3 (x[m, r0 + 16s + 4t + j]), and of code row 8 + m the high
+//   half's (x[m, K + ...]), so each B register is one 32-bit read. mma u
+//   of a lane holds output columns 16g + 2u (A row g) and 16g + 2u + 1 (A
+//   row g + 8), as B9's does.
+// - The sums carry the factor 16 exactly (|16·acc| <= 16·IN·8·127 < 2^31
+//   for IN <= 131072, kW4a8MaxIn); the epilogue divides it out. The warps'
+//   sums, then the splits' int32 partials (added by the last block of a
+//   column tile to arrive, through B9's ticket), are exact integers, so the
+//   order of every add is free and no float atomics are needed; then
+//   scale and sx are applied with __fmul_rn in the plain version's order.
+//   The epilogue's index map is B9's; its text is B11's own, so that B9's
+//   SASS stays as it was.
+constexpr int kW4a8StepRows = 16;         // packed rows per k-step: one mma's 32 k
+constexpr int kW4a8Unroll = 2;            // k-steps a warp has in flight (4 KB, as B9's ring)
+constexpr int kW4a8MaxSplitRows = 1024;   // staged codes: 16 rows × 260 words = 16.6 KB
 constexpr int kW4a8MaxIn = 131072;
 
-// Grid (ceil(OUT / 128), n_split), kThreads threads; partial [n_split, M, OUT]
-// int32 holds 16·acc of each split.
-template <int M, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    w4a8_partial_kernel(const int8_t* __restrict__ xq, const uint8_t* __restrict__ packed,
-                        int* __restrict__ partial, int in_dim, int k_rows, int out_dim,
-                        int split_rows) {
-  __shared__ int xs[2][M][kW4a8MaxSplitRows / 4];  // codes of x, 4 to a word: low, high half
-  __shared__ int red[kWarps][M][kTileCols];
-  const int split = blockIdx.y;
-  const int r0 = split * split_rows;
-  const int groups = min(split_rows, k_rows - r0) / 4;
-  for (int idx = threadIdx.x; idx < 2 * M * groups; idx += kThreads) {
-    const int half = idx / (M * groups);
-    const int m = (idx / groups) % M;
-    const int g = idx % groups;
-    const int col = (half ? k_rows : 0) + r0 + 4 * g;
-    xs[half][m][g] = *reinterpret_cast<const int*>(xq + static_cast<size_t>(m) * in_dim + col);
+// 32-bit words of a staged code row (four codes a word): at least the
+// split's rows / 4 and 4 mod 32, so the lanes' B reads (row g, word 4s + t)
+// hit 32 distinct banks.
+__host__ __device__ constexpr int w4a8_x_stride(int split_rows) {
+  return (split_rows / 4 + 27) / 32 * 32 + 4;
+}
+
+inline size_t w4a8_smem_bytes(int split_rows) {
+  const size_t xs = sizeof(uint32_t) * 2 * kMaxRows * w4a8_x_stride(split_rows);
+  const size_t red = sizeof(int) * kWarps * 32 * 32;  // the warps' sums
+  return xs > red ? xs : red;
+}
+
+// 8 consecutive elements of x widened to f32: one 16-byte load (kVec) or
+// eight element loads.
+template <bool kVec, typename T>
+__device__ __forceinline__ void load_x8(const T* p, float (&f)[8]) {
+  if constexpr (kVec) {
+    load8(p, f);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = to_f(p[e]);
   }
-  __syncthreads();
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int col0 = blockIdx.x * kTileCols + lane * kCols;
-  int acc[M][kCols];
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[m][c] = 0;
+// The larger of a and b, a NaN kept, as torch.amax keeps it.
+__device__ __forceinline__ float max_nan(float a, float b) { return (a > b || a != a) ? a : b; }
 
-  if (col0 < out_dim) {
-    for (int g = warp; g < groups; g += kWarps) {
-      uint32_t w[4];
+// Four codes of a row of scale sx, packed in k order: v / sx by IEEE
+// division, rounded to the nearest integer (ties to even), clamped to
+// ±127; a NaN quotient (0/0 in a zero row) gives 0, as torch's cast does.
+__device__ __forceinline__ uint32_t pack_codes4(const float* v, float sx) {
+  uint32_t word = 0u;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint8_t* row = packed + static_cast<size_t>(r0 + 4 * g + i) * out_dim + col0;
-        if constexpr (kVec) {
-          w[i] = __ldg(reinterpret_cast<const uint32_t*>(row));
-        } else {
-          w[i] = 0;
+  for (int i = 0; i < 4; ++i) {
+    const float q = __fdiv_rn(v[i], sx);
+    const int code = q != q ? 0 : min(max(__float2int_rn(q), -127), 127);
+    word |= (static_cast<uint32_t>(code) & 0xFFu) << (8 * i);
+  }
+  return word;
+}
+
+// c[16×8] += a[16×32] · b[32×8], s8 in, s32 accumulate.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k-step of a warp: w[j] holds packed row 16s + 4t + j at columns
+// 16g..16g+15 (word q: columns 4q..4q+3), against the code words b0 (low
+// half) and b1 (high half) of x row g. mma u = 2q + e takes columns 4q +
+// 2e (A row g) and 4q + 2e + 1 (A row g + 8) of the lane's 16.
+__device__ __forceinline__ void w4a8_mma_step(int (&acc)[8][4], unsigned b0, unsigned b1,
+                                              const uint4 (&w)[4]) {
+  const uint32_t rows[4][4] = {{w[0].x, w[0].y, w[0].z, w[0].w},
+                               {w[1].x, w[1].y, w[1].z, w[1].w},
+                               {w[2].x, w[2].y, w[2].z, w[2].w},
+                               {w[3].x, w[3].y, w[3].z, w[3].w}};
 #pragma unroll
-          for (int c = 0; c < kCols; ++c)
-            if (col0 + c < out_dim) w[i] |= static_cast<uint32_t>(__ldg(row + c)) << (8 * c);
-        }
+  for (int q = 0; q < 4; ++q) {
+    // byte j of col[c] is packed row j's byte of column 4q + c
+    const uint32_t t01 = __byte_perm(rows[0][q], rows[1][q], 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
+    const uint32_t t23 = __byte_perm(rows[2][q], rows[3][q], 0x5140);
+    const uint32_t u01 = __byte_perm(rows[0][q], rows[1][q], 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
+    const uint32_t u23 = __byte_perm(rows[2][q], rows[3][q], 0x7362);
+    const uint32_t col[4] = {__byte_perm(t01, t23, 0x5410), __byte_perm(t01, t23, 0x7632),
+                             __byte_perm(u01, u23, 0x5410), __byte_perm(u01, u23, 0x7632)};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const uint32_t lo = col[2 * e], hi = col[2 * e + 1];  // A rows g, g + 8
+      const unsigned a[4] = {(lo << 4) & 0xF0F0F0F0u, (hi << 4) & 0xF0F0F0F0u,
+                             lo & 0xF0F0F0F0u, hi & 0xF0F0F0F0u};
+      mma_s8(acc[2 * q + e], a, b0, b1);
+    }
+  }
+}
+
+// Grid (ceil(OUT / 128), n_split), kThreads threads; dynamic shared memory
+// w4a8_smem_bytes(split_rows). Warp w takes the k-steps w, w + kWarps, ...
+// of its split; lane (g = lane / 4, t = lane % 4) loads columns
+// 16g..16g+15 of the block's 128. With n_split > 1, partial [n_split,
+// tiles, kMmaValues] int32 and tickets [tiles] (zero). kVec: OUT % 16 == 0,
+// and packed and x 16-byte aligned.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+    w4a8_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
+                    const float* __restrict__ scale, int* __restrict__ partial,
+                    int* __restrict__ tickets, float* __restrict__ out, int m_rows, int in_dim,
+                    int k_rows, int out_dim, int split_rows) {
+  extern __shared__ __align__(16) uint32_t w4_smem[];
+  __shared__ float sx_of[kMaxRows];
+  const int tile = blockIdx.x;
+  const int split = blockIdx.y;
+  const int n_split = gridDim.y;
+  const int r0 = split * split_rows;
+  const int n_rows = min(split_rows, k_rows - r0);  // > 0, whole k-steps
+  const int n_steps = n_rows / kW4a8StepRows;
+  const int stride = w4a8_x_stride(split_rows);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int col = tile * kMmaCols + 16 * g;
+  const int avail = out_dim - col;  // this lane group's columns inside OUT
+
+  // Step s: block-local packed rows 16s + 4t + j; nothing past the split.
+  auto load_step = [&](int s, uint4(&w)[4]) {
+    const bool ok = s < n_steps && avail > 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = kW4a8StepRows * s + 4 * t + j;
+      w[j] = load_packed16<kVec>(packed + static_cast<size_t>(r0 + r) * out_dim + col, ok, avail);
+    }
+  };
+  // A ring of kW4a8Unroll steps in flight: step warp + i·kWarps lives in
+  // slot i % kW4a8Unroll, refilled as soon as its step is multiplied.
+  uint4 w[kW4a8Unroll][4];
+#pragma unroll
+  for (int u = 0; u < kW4a8Unroll; ++u) load_step(warp + u * kWarps, w[u]);
+
+  // The codes while the first weights are in flight: warp m takes x row m,
+  // its max over all IN columns, then its split's k slice, 8 codes (two
+  // words) a unit: the low half x[m, r0 + r] into code row m, the high
+  // half x[m, K + r0 + r] into code row 8 + m. Rows m >= M are 0.
+  uint32_t* xs = w4_smem;
+  {
+    const int m = warp;
+    const int units = n_rows / 8;  // per half
+    uint32_t* lo_row = xs + m * stride;
+    uint32_t* hi_row = xs + (kMaxRows + m) * stride;
+    if (m < m_rows) {
+      const T* xm = x + static_cast<size_t>(m) * in_dim;
+      float amax = 0.f;
+#pragma unroll 4
+      for (int i = 8 * lane; i < in_dim; i += 8 * 32) {
+        float f[8];
+        load_x8<kVec>(xm + i, f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) amax = max_nan(amax, fabsf(f[e]));
       }
-      // col[c] = byte c of w[0..3]: column col0 + c at packed rows 4g .. 4g + 3
-      const uint32_t t01 = __byte_perm(w[0], w[1], 0x5140);  // w0.b0 w1.b0 w0.b1 w1.b1
-      const uint32_t t23 = __byte_perm(w[2], w[3], 0x5140);
-      const uint32_t u01 = __byte_perm(w[0], w[1], 0x7362);  // w0.b2 w1.b2 w0.b3 w1.b3
-      const uint32_t u23 = __byte_perm(w[2], w[3], 0x7362);
-      const uint32_t col[kCols] = {__byte_perm(t01, t23, 0x5410), __byte_perm(t01, t23, 0x7632),
-                                   __byte_perm(u01, u23, 0x5410), __byte_perm(u01, u23, 0x7632)};
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int lo16 = static_cast<int>((col[c] << 4) & 0xF0F0F0F0u);
-        const int hi16 = static_cast<int>(col[c] & 0xF0F0F0F0u);
-#pragma unroll
-        for (int m = 0; m < M; ++m) {
-          acc[m][c] = __dp4a(lo16, xs[0][m][g], acc[m][c]);
-          acc[m][c] = __dp4a(hi16, xs[1][m][g], acc[m][c]);
-        }
+      for (int o = 16; o > 0; o >>= 1) amax = max_nan(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      const float sx = __fdiv_rn(amax, 127.f);
+      if (lane == 0) sx_of[m] = sx;
+      for (int i = lane; i < 2 * units; i += 32) {
+        const int half = i >= units;
+        const int r = 8 * (i - half * units);
+        float f[8];
+        load_x8<kVec>(xm + (half ? k_rows : 0) + r0 + r, f);
+        *reinterpret_cast<uint2*>((half ? hi_row : lo_row) + r / 4) =
+            make_uint2(pack_codes4(f, sx), pack_codes4(f + 4, sx));
+      }
+    } else {
+      for (int i = lane; i < 2 * units; i += 32) {
+        const int half = i >= units;
+        const int r = 8 * (i - half * units);
+        *reinterpret_cast<uint2*>((half ? hi_row : lo_row) + r / 4) = make_uint2(0u, 0u);
       }
     }
   }
-
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) red[warp][m][lane * kCols + c] = acc[m][c];
   __syncthreads();
-  for (int o = threadIdx.x; o < M * kTileCols; o += kThreads) {
-    const int m = o / kTileCols;
-    const int cl = o - m * kTileCols;
-    const int col_out = blockIdx.x * kTileCols + cl;
-    if (col_out >= out_dim) continue;
-    int s = 0;
+
+  int acc[8][4];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w][m][cl];
-    partial[(static_cast<size_t>(split) * M + m) * out_dim + col_out] = s;
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[u][c] = 0;
+  const uint32_t* x_lo = xs + g * stride + t;
+  const uint32_t* x_hi = xs + (kMaxRows + g) * stride + t;
+  for (int s0 = warp; s0 < n_steps; s0 += kWarps * kW4a8Unroll) {
+#pragma unroll
+    for (int u = 0; u < kW4a8Unroll; ++u) {
+      const int s = s0 + u * kWarps;
+      if (s < n_steps) w4a8_mma_step(acc, x_lo[4 * s], x_hi[4 * s], w[u]);
+      load_step(s + kW4a8Unroll * kWarps, w[u]);
+    }
   }
+
+  // The warps' sums, then the splits' (int32, exact: any order). Value v
+  // of the block's kMmaValues is (mma·4 + c = v / 32, lane v % 32): column
+  // 16g + 2u + c / 2 of the tile, x row 2t + c % 2, as B9's.
+  __syncthreads();  // the codes are no longer read
+  int* red = reinterpret_cast<int*>(w4_smem);  // [warp][mma·4 + c][lane]
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) red[(warp * 32 + 4 * u + c) * 32 + lane] = acc[u][c];
+  __syncthreads();
+  constexpr int kPer = kMmaValues / kThreads;
+  int sum[kPer];
+  int m_of[kPer], col_of[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int v = tid + kThreads * i;
+    const int l = v & 31;
+    const int uc = v >> 5;
+    m_of[i] = 2 * (l & 3) + (uc & 1);
+    col_of[i] = tile * kMmaCols + 16 * (l >> 2) + 2 * (uc >> 2) + ((uc >> 1) & 1);
+    sum[i] = 0;
+#pragma unroll
+    for (int wp = 0; wp < kWarps; ++wp) sum[i] += red[wp * kMmaValues + v];
+  }
+  auto kept = [&](int i) { return m_of[i] < m_rows && col_of[i] < out_dim; };
+  if (n_split > 1) {
+    const size_t n_tiles = gridDim.x;
+    int* part = partial + (static_cast<size_t>(split) * n_tiles + tile) * kMmaValues + tid;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      if (kept(i)) part[kThreads * i] = sum[i];
+    if (!last_to_arrive(tickets + tile, n_split)) return;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) sum[i] = 0;
+    for (int sp = 0; sp < n_split; ++sp) {
+      const int* p = partial + (static_cast<size_t>(sp) * n_tiles + tile) * kMmaValues + tid;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        if (kept(i)) sum[i] += __ldcg(p + kThreads * i);
+    }
+  }
+  // 16·acc / 16 is exact; then (acc · scale) · sx, each product rounded once.
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    if (kept(i))
+      out[static_cast<size_t>(m_of[i]) * out_dim + col_of[i]] =
+          __fmul_rn(__fmul_rn(static_cast<float>(sum[i] >> 4), scale[col_of[i]]), sx_of[m_of[i]]);
 }
 
-// One thread per output: the splits' int32 partials added, the factor 16
-// divided out (exactly), then the two scales in the plain version's order.
-__global__ void w4a8_merge_kernel(const int* __restrict__ partial,
-                                  const float* __restrict__ scale, const float* __restrict__ sx,
-                                  float* __restrict__ out, int m_rows, int out_dim,
-                                  int n_split) {
-  const size_t total = static_cast<size_t>(m_rows) * out_dim;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  int s = 0;
-  for (int sp = 0; sp < n_split; ++sp) s += partial[sp * total + idx];
-  const float acc = static_cast<float>(s / 16);
-  out[idx] = __fmul_rn(__fmul_rn(acc, scale[idx % out_dim]), sx[idx / out_dim]);
-}
-
-template <int M, bool kVec>
-cudaError_t launch_w4a8(const void* xq, const void* packed, const float* scale, const float* sx,
-                        int* partial, float* out, int in_dim, int k_rows, int out_dim,
+template <typename T>
+cudaError_t launch_w4a8(const void* x, const void* packed, const float* scale, int* partial,
+                        int* tickets, float* out, int m, int in_dim, int k_rows, int out_dim,
                         int n_split, int split_rows, cudaStream_t stream) {
-  const dim3 grid((out_dim + kTileCols - 1) / kTileCols, n_split);
-  w4a8_partial_kernel<M, kVec><<<grid, kThreads, 0, stream>>>(
-      static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(packed), partial, in_dim,
-      k_rows, out_dim, split_rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t total = static_cast<size_t>(M) * out_dim;
-  w4a8_merge_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
-      partial, scale, sx, out, M, out_dim, n_split);
+  const bool vec = out_dim % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const dim3 grid(ceil_div(out_dim, kMmaCols), n_split);
+  const size_t smem = w4a8_smem_bytes(split_rows);
+  const T* xt = static_cast<const T*>(x);
+  const uint8_t* pk = static_cast<const uint8_t*>(packed);
+  if (vec)
+    w4a8_mma_kernel<T, true><<<grid, kThreads, smem, stream>>>(
+        xt, pk, scale, partial, tickets, out, m, in_dim, k_rows, out_dim, split_rows);
+  else
+    w4a8_mma_kernel<T, false><<<grid, kThreads, smem, stream>>>(
+        xt, pk, scale, partial, tickets, out, m, in_dim, k_rows, out_dim, split_rows);
   return cudaGetLastError();
-}
-
-template <bool kVec>
-cudaError_t dispatch_w4a8(int m, const void* xq, const void* packed, const float* scale,
-                          const float* sx, int* partial, float* out, int in_dim, int k_rows,
-                          int out_dim, int n_split, int split_rows, cudaStream_t stream) {
-#define W4A8_ROWS_CASE(MM)                                                                 \
-  case MM:                                                                                 \
-    return launch_w4a8<MM, kVec>(xq, packed, scale, sx, partial, out, in_dim, k_rows,      \
-                                 out_dim, n_split, split_rows, stream);
-  switch (m) {
-    W4A8_ROWS_CASE(1)
-    W4A8_ROWS_CASE(2)
-    W4A8_ROWS_CASE(3)
-    W4A8_ROWS_CASE(4)
-    W4A8_ROWS_CASE(5)
-    W4A8_ROWS_CASE(6)
-    W4A8_ROWS_CASE(7)
-    W4A8_ROWS_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef W4A8_ROWS_CASE
 }
 
 }  // namespace
@@ -769,28 +911,31 @@ int int4_matmul_i32(int dtype, const void* x, const void* packed, const float* s
   return cudaErrorInvalidValue;
 }
 
-int w4a8_max_split_rows() { return kW4a8MaxSplitRows; }
-
-// xq [m, in_dim] int8 (4-byte aligned rows), packed [in_dim/2, out_dim] int8
-// halves layout, scale [out_dim] f32, sx [m] f32; partial [n_split, m,
-// out_dim] int32 scratch; out [m, out_dim] f32. Splits of split_rows packed
-// rows, a multiple of 4 (so is in_dim / 2); every split holds at least one row.
-int w4a8_matmul(const void* xq, const void* packed, const float* scale, const float* sx,
-                int* partial, float* out, int m, int in_dim, int k_rows, int out_dim,
+// B11. x [m, in_dim] bf16 or f32, packed [in_dim/2, out_dim] int8 (halves),
+// scale [out_dim] f32, out [m, out_dim] f32; in_dim / 2 a multiple of 16
+// and in_dim <= 131072 (kW4a8MaxIn). Splits of split_rows packed rows, a
+// multiple of 16 up to 1,024 (kW4a8MaxSplitRows); every split holds at
+// least one row. With n_split > 1: partial [n_split, ceil(out_dim/128),
+// 256, 4] int32 scratch and tickets [ceil(out_dim/128)] int32, zero.
+int w4a8_matmul(int dtype, const void* x, const void* packed, const float* scale, int* partial,
+                int* tickets, float* out, int m, int in_dim, int k_rows, int out_dim,
                 int n_split, int split_rows, void* stream) {
-  if (m < 1 || m > kMaxRows || k_rows < 4 || k_rows % 4 != 0 || in_dim != 2 * k_rows ||
-      in_dim > kW4a8MaxIn || out_dim < 1 || split_rows < 4 || split_rows % 4 != 0 ||
+  if (m < 1 || m > kMaxRows || k_rows < kW4a8StepRows || k_rows % kW4a8StepRows != 0 ||
+      in_dim != 2 * k_rows || in_dim > kW4a8MaxIn || out_dim < 1 ||
+      split_rows < kW4a8StepRows || split_rows % kW4a8StepRows != 0 ||
       split_rows > kW4a8MaxSplitRows || n_split < 1 ||
       static_cast<long long>(n_split - 1) * split_rows >= k_rows ||
       static_cast<long long>(n_split) * split_rows < k_rows ||
-      reinterpret_cast<uintptr_t>(xq) % 4 != 0 || partial == nullptr)
+      (n_split > 1 && (partial == nullptr || tickets == nullptr)))
     return cudaErrorInvalidValue;
-  const bool vec = out_dim % kCols == 0 && reinterpret_cast<uintptr_t>(packed) % 4 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? dispatch_w4a8<true>(m, xq, packed, scale, sx, partial, out, in_dim, k_rows,
-                                   out_dim, n_split, split_rows, s)
-             : dispatch_w4a8<false>(m, xq, packed, scale, sx, partial, out, in_dim, k_rows,
-                                    out_dim, n_split, split_rows, s);
+  if (dtype == kDtypeBF16)
+    return launch_w4a8<__nv_bfloat16>(x, packed, scale, partial, tickets, out, m, in_dim, k_rows,
+                                      out_dim, n_split, split_rows, s);
+  if (dtype == kDtypeF32)
+    return launch_w4a8<float>(x, packed, scale, partial, tickets, out, m, in_dim, k_rows, out_dim,
+                              n_split, split_rows, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -65,8 +65,7 @@ _SIGNATURES = {
         "int4_error_string": ([_i], ctypes.c_char_p),
         "int4_matmul": ([_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i),
         "int4_matmul_i32": ([_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i),
-        "w4a8_max_split_rows": ([], _i),
-        "w4a8_matmul": ([_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i),
+        "w4a8_matmul": ([_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p], _i),
     },
 }
 # The entry point that names a cudaError_t, per library.
@@ -164,7 +163,7 @@ def check(err: int, name: str, lib: str = "attention") -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} ({msg})")
 
 
-# Per-device int32 tickets of the one-launch kernels (B2-B10), zero between
+# Per-device int32 tickets of the one-launch kernels (B2-B11), zero between
 # launches: the last block of a group (the splits of a (row, kv head) or
 # of a (q-tile, row, kv head), or of a column tile) to finish takes the
 # group's ticket, merges and resets it. One buffer serves every launch of

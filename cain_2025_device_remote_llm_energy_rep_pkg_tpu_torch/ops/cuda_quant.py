@@ -4,8 +4,9 @@ Counterparts of the JAX package's ``int4_matmul`` (halves layout, ``q4
 [IN/2, OUT] int8``) and ``int4_matmul_i32`` (``q32 [IN/8, OUT] int32``),
 with their signatures: ``x [M, IN]`` bf16 or f32 with 1 <= M <= 8, scale
 ``[1, OUT]`` f32, result ``[M, OUT]`` in ``x.dtype``; and of the w4a8
-probe's ``w4a8_matmul`` (same weights, int8 activation codes, int32 sums,
-f32 result). The contracts are stated in ``ops/quant.py``.
+probe's ``w4a8_matmul`` (same weights, x quantized per row to int8 codes
+inside the kernel, int32 sums, f32 result). The contracts are stated in
+``ops/quant.py``.
 
 A tensor on the CPU goes to the plain version in ``ops/quant.py``; a CUDA
 tensor launches the kernel or raises. Each wrapper counts its launches in
@@ -22,12 +23,11 @@ from .quant import (
     MAX_KERNEL_ROWS,
     int4_matmul_i32_reference,
     int4_matmul_reference,
-    quantize_activations_rowwise,
     w4a8_matmul_reference,
 )
 
 _LIB = "int4_matmul"
-_TILE_COLS = 128  # output columns per block (B9, B10: 8 lane groups × 16; B11: 32 threads × 4)
+_TILE_COLS = 128  # output columns per block (B9, B10, B11: 8 lane groups × 16)
 
 # B9 and B10 (int4_mma_kernel, int4_i32_mma_kernel): at most one block per
 # SM of the card's 132 unless the column tiles alone are more, in splits of
@@ -43,15 +43,17 @@ _MMA_TARGET_BLOCKS = 132
 _MMA_MIN_SPLIT_WEIGHT_ROWS = 256
 _MMA_MAX_SPLIT_WEIGHT_ROWS = 2048
 _MMA_STEP_ROWS = {2: 8, 8: 4}  # packed rows per k-step, by weight rows per packed row
-_MMA_VALUES = 8 * _TILE_COLS  # f32 sums per block (128 columns × 8 rows): a split's partial
+_MMA_VALUES = 8 * _TILE_COLS  # sums per block (128 columns × 8 rows): a split's partial
 
 
-def _mma_split(k_rows: int, out_dim: int, per_row: int = 2) -> "tuple[int, int]":
+def _mma_split(k_rows: int, out_dim: int, per_row: int = 2,
+               step: "int | None" = None) -> "tuple[int, int]":
     """B9's (``per_row`` 2) or B10's (``per_row`` 8) (n_split, split_rows)
     in packed rows: the packed rows cut into equal splits of whole k-steps
-    (the last may be shorter), split only where the column tiles leave SMs
-    of the card idle."""
-    step = _MMA_STEP_ROWS[per_row]
+    (``step`` packed rows, by default the kernel's; the last split may be
+    shorter), split only where the column tiles leave SMs of the card
+    idle."""
+    step = step or _MMA_STEP_ROWS[per_row]
     tiles = -(-out_dim // _TILE_COLS)
     want = max(1, _MMA_TARGET_BLOCKS // tiles)
     rows = max(-(-k_rows // want), _MMA_MIN_SPLIT_WEIGHT_ROWS // per_row)
@@ -60,8 +62,9 @@ def _mma_split(k_rows: int, out_dim: int, per_row: int = 2) -> "tuple[int, int]"
 
 
 def _tickets_needed(out_dim: int, n_split: int) -> int:
-    """B9's and B10's tickets: one per column tile where the packed rows
-    are split (the last split of a tile to finish merges), none otherwise."""
+    """B9's, B10's and B11's tickets: one per column tile where the packed
+    rows are split (the last split of a tile to finish merges), none
+    otherwise."""
     return -(-out_dim // _TILE_COLS) if n_split > 1 else 0
 
 
@@ -149,19 +152,47 @@ def cuda_int4_matmul_i32(
 # The w4a8 probe's packed-row blocks: IN/2 must be a multiple of this, as
 # its JAX wrapper demands.
 W4A8_BLOCK_ROWS = 128
-# B11: enough blocks for about four per SM of the card's 132, splits of at
-# least 32 packed rows in multiples of 4, within the kernel's limit.
-_W4A8_TARGET_BLOCKS = 528
-_W4A8_MIN_SPLIT_ROWS = 32
+# B11 (w4a8_mma_kernel): B9's rule in B11's 16-row k-steps. Every block
+# reads all of x for its rows' max, yet the sweep (scripts/
+# torch_int4_split_sweep.py --layout w4a8, NVIDIA H100 80GB HBM3, 700.00 W,
+# M 1 and 8) found B9's rule best or within 4% of the best split at every
+# shape. At M 8: the probe's (1536 -> 8960) one split of 768 rows
+# 0.01621 ms (256 rows 0.01618, 16 rows 0.06622); llama3.1:8b's w_gate two
+# splits of 1,024 0.02831 (one of 2,048 0.02909, 256 rows 0.04064);
+# qwen2's wk six of 128 0.01172 (1,024 rows 0.01427). Shorter splits
+# re-read x and add partials; longer ones leave SMs idle.
+_W4A8_STEP_ROWS = 16
 
 
-def _w4a8_split(k_rows: int, out_dim: int, max_rows: int) -> "tuple[int, int]":
-    """(n_split, split_rows) for B11, in multiples of 4 rows."""
-    tiles = -(-out_dim // _TILE_COLS)
-    want = -(-_W4A8_TARGET_BLOCKS // tiles)
-    rows = max(-(-k_rows // want), _W4A8_MIN_SPLIT_ROWS)
-    rows = min(-(-rows // 4) * 4, max_rows)
-    return -(-k_rows // rows), rows
+def _w4a8_split(k_rows: int, out_dim: int) -> "tuple[int, int]":
+    """B11's (n_split, split_rows) in packed rows: B9's rule in whole
+    16-row k-steps (128 to 1,024 packed rows a split)."""
+    return _mma_split(k_rows, out_dim, step=_W4A8_STEP_ROWS)
+
+
+def _launch_w4a8(name: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                 split: "tuple[int, int] | None" = None) -> torch.Tensor:
+    """B11's one launch, x quantized inside it; ``split`` = (n_split,
+    split_rows) in place of :func:`_w4a8_split`'s, for sweeps of the
+    rule."""
+    _check_cuda(name, x, packed, scale)
+    m, in_dim = x.shape
+    k_rows, out_dim = packed.shape
+    n_split, split_rows = split or _w4a8_split(k_rows, out_dim)
+    dev = x.device
+    out = torch.empty((m, out_dim), dtype=torch.float32, device=dev)
+    n_tickets = _tickets_needed(out_dim, n_split)
+    partial = tickets = None
+    if n_tickets:  # split partials (int32) in the kernel's own layout
+        partial = torch.empty((n_split, n_tickets, _MMA_VALUES), dtype=torch.int32, device=dev)
+        tickets = _kernels.tickets(dev, n_tickets)
+    err = _kernels.library(_LIB).w4a8_matmul(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (partial, tickets)), out.data_ptr(),
+        m, in_dim, k_rows, out_dim, n_split, split_rows, _stream(x),
+    )
+    _kernels.check(err, name, _LIB)
+    return out
 
 
 def cuda_w4a8_matmul(
@@ -169,9 +200,9 @@ def cuda_w4a8_matmul(
     packed: torch.Tensor,  # [IN/2, OUT] int8, halves layout
     scale: torch.Tensor,  # [1, OUT] f32
 ) -> torch.Tensor:
-    """The w4a8 product, f32 ``[M, OUT]``: x quantized per row (plain torch
-    ops, before the launch), then int8 codes times int4 nibbles summed in
-    int32 by the kernel, and both scales applied in its epilogue."""
+    """The w4a8 product, f32 ``[M, OUT]``, in one launch: x quantized per
+    row inside the kernel, int8 codes times int4 nibbles summed in int32 on
+    the tensor cores, and both scales applied in its epilogue."""
     name = "cuda_w4a8_matmul"
     _check(name, x, packed, scale, 2, torch.int8)
     _require(
@@ -180,20 +211,7 @@ def cuda_w4a8_matmul(
     )
     if x.device.type == "cpu":
         return w4a8_matmul_reference(x, packed, scale)
-    _check_cuda(name, x, packed, scale)
-    xq, sx = quantize_activations_rowwise(x)
-    m, in_dim = x.shape
-    k_rows, out_dim = packed.shape
-    lib = _kernels.library(_LIB)
-    n_split, split_rows = _w4a8_split(k_rows, out_dim, lib.w4a8_max_split_rows())
-    out = torch.empty((m, out_dim), dtype=torch.float32, device=x.device)
-    partial = torch.empty((n_split, m, out_dim), dtype=torch.int32, device=x.device)
-    err = lib.w4a8_matmul(
-        xq.data_ptr(), packed.data_ptr(), scale.data_ptr(), sx.data_ptr(),
-        partial.data_ptr(), out.data_ptr(),
-        m, in_dim, k_rows, out_dim, n_split, split_rows, _stream(x),
-    )
-    _kernels.check(err, name, _LIB)
+    out = _launch_w4a8(name, x, packed, scale)
     cuda_w4a8_matmul.launches += 1
     return out
 

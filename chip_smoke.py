@@ -26,8 +26,9 @@ draft steps run B2. The kernel rows also hold the stacked ``layer=`` form
 of B4/B5/B7/B8 bit for bit against the per-layer call, and
 ``torch.profiler`` traces show that one call of B4/B5 (the paged parts,
 at the batch's rows), of B6 (write-through decode), of B9 and B10 (int4
-matmuls) and of B7/B8 (the verify, at Q 5 and 13) each runs one device
-kernel, beside a control of two (B7 with an f32 q). The w4a8 probe
+matmuls), of B11 (the w4a8 matmul, x quantized inside it) and of B7/B8
+(the verify, at Q 5 and 13) each runs one device kernel, beside a control
+of two (B7 with an f32 q). The w4a8 probe
 (``scripts/torch_w4a8_probe.py``) drives B11 and B9.
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
@@ -978,15 +979,41 @@ def int_mm_ms(torch, timer, xq, w8):
     return timer.ms(lambda: torch._int_mm(a, w8))
 
 
-def w4a8_kernel_phase(torch, cq, qplain, qmod, timer):
+def w4a8_kernel_phase(torch, cq, qplain, qmod, timer, control):
     """B11 against its plain version, bit for bit, at the probe's shape and
     at llama3.1:8b's w_gate (M 8, weights at the model's 1/sqrt(IN)
-    scale), with bf16 and f32 activations; timed with bf16 activations
-    beside B9 on the same weights and torch._int_mm on the unpacked
-    codes. Returns the first row."""
+    scale), with bf16 and f32 activations, each also with a zero row (its
+    output row exact zeros); at M 1 to 8 with OUT 7 and 130 (the byte-wise
+    loads), a zero row from M 2. One call runs one device kernel
+    (``control`` shows two). Timed with bf16 activations beside B9 on the
+    same weights and torch._int_mm on the unpacked codes; the plain
+    quantization's torch ops (what the wrapper ran ahead of the kernel
+    until the kernel quantized x itself) are timed alone as a yardstick.
+    Returns the first row."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    m = qplain.MAX_KERNEL_ROWS
     name = "cuda_w4a8_matmul"
+    fn, ref_fn = cq.cuda_w4a8_matmul, qplain.w4a8_matmul_reference
+
+    def bit_equal(x, codes, scale, zero_row=None):
+        if zero_row is not None:
+            x = x.clone()
+            x[zero_row] = 0
+        out, ref = fn(x, codes, scale), ref_fn(x, codes, scale)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32 and out.shape == ref.shape, (name, out.shape)
+        assert torch.equal(out, ref), (name, tuple(x.shape), str(x.dtype), (out - ref).abs().max().item())
+        assert zero_row is None or not out[zero_row].any(), (name, "zero row")
+        return (out - ref).abs().max().item()
+
+    for m in range(1, qplain.MAX_KERNEL_ROWS + 1):
+        for in_dim, out_dim in ((256, 7), (512, 130)):
+            leaf = qmod.quantize_tensor_int4(torch.randn((in_dim, out_dim), generator=gen, device="cuda"))
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((m, in_dim), generator=gen, device="cuda").to(dtype)
+                bit_equal(x, leaf["q4"], leaf["s"], m // 2 if m > 1 else None)
+    emit({"phase": "kernel", "name": name, "bit_equal_m_1_to_8": [[256, 7], [512, 130]],
+          "zero_row_from_m": 2})
+    m = qplain.MAX_KERNEL_ROWS
     summary = {}
     for label, in_dim, out_dim in W4A8_SHAPES:
         w = torch.randn((in_dim, out_dim), generator=gen, device="cuda") / math.sqrt(in_dim)
@@ -995,25 +1022,26 @@ def w4a8_kernel_phase(torch, cq, qplain, qmod, timer):
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((m, in_dim), generator=gen, device="cuda").to(dtype)
-            out = cq.cuda_w4a8_matmul(x, codes, scale)
-            ref = qplain.w4a8_matmul_reference(x, codes, scale)
-            torch.cuda.synchronize()
-            errs[dtype] = (out - ref).abs().max().item()
-            assert torch.equal(out, ref), (label, name, str(dtype), errs)
-        ms = timer.ms(lambda: cq.cuda_w4a8_matmul(x, codes, scale))
-        plain_ms = timer.ms(lambda: qplain.w4a8_matmul_reference(x, codes, scale), max_iters=20)
+            errs[dtype] = bit_equal(x, codes, scale)
+            bit_equal(x, codes, scale, zero_row=3)
+        profiled = {}
+        if not summary:
+            profiled = one_kernel_per_call(torch, name, lambda: fn(x, codes, scale), control)
+        ms = timer.ms(lambda: fn(x, codes, scale))
+        plain_ms = timer.ms(lambda: ref_fn(x, codes, scale), max_iters=20)
         b9_ms = timer.ms(lambda: cq.cuda_int4_matmul(x, codes, scale))
-        # the wrapper's torch ops ahead of the launch, alone
+        # the plain quantization's torch ops alone: a yardstick, not part of the call
         quantize_ms = timer.ms(lambda: qplain.quantize_activations_rowwise(x))
         xq, _ = qplain.quantize_activations_rowwise(x)
         library_ms = int_mm_ms(torch, timer, xq, qplain.unpack_int4(codes))
         bytes_moved = codes.numel() + out_dim * 4 + m * in_dim * 2 + m * out_dim * 4
         b_ms, b_by = bound(bytes_moved, 2 * m * in_dim * out_dim, INT8_OPS)
+        n_split = cq._w4a8_split(codes.shape[0], out_dim)[0]
         row = {
             "name": name, "shape": label, "M": m, "IN": in_dim, "OUT": out_dim,
-            "splits": cq._w4a8_split(codes.shape[0], out_dim,
-                                     cq._kernels.library("int4_matmul").w4a8_max_split_rows())[0],
-            "bit_equal": True, "max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
+            "splits": n_split, "tickets": cq._tickets_needed(out_dim, n_split), **profiled,
+            "bit_equal": True, "zero_row_bit_equal": True,
+            "max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
             "ms": ms, "activation_quantize_ms": quantize_ms, "plain_ms": plain_ms,
             "b9_ms_same_weights": b9_ms,
             # torch._int_mm on the unpacked int8 codes, x's codes padded to 17 rows
@@ -1723,7 +1751,7 @@ def main() -> int:
     stacked_layer_kernel_phase(torch, cpa, timer, qmod.quantize_kv_vector)
     summary.update(int4_kernel_phase(torch, cq, qplain, qmod, timer, control))
     summary.update(paged_decode_kernel_phase(torch, cpa, ca, plain, timer, control))
-    summary.update(w4a8_kernel_phase(torch, cq, qplain, qmod, timer))
+    summary.update(w4a8_kernel_phase(torch, cq, qplain, qmod, timer, control))
     del timer
     torch.cuda.empty_cache()
 

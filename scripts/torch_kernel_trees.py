@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Time the single-query decode kernels of several checkouts on the same
-inputs, in turns, on one CUDA card.
+"""Time the single-query decode kernels and the w4a8 and int4 matmuls of
+several checkouts on the same inputs, in turns, on one CUDA card.
 
 Run from the repository root on a machine with one CUDA card, with each
 other checkout unpacked inside this one (for example ``git archive
 <commit> | tar -x -C chip_check/parent``):
 
-    python3 scripts/torch_kernel_trees.py . chip_check/parent [--rounds 2]
+    python3 scripts/torch_kernel_trees.py . chip_check/parent [--rounds 2] [--only B9 B11]
 
 The inputs are made once, from seeds, with this checkout's
 ``chip_smoke.py`` helpers, and shared by every tree: B4 and B5 (the paged
@@ -47,7 +47,7 @@ def load_tree(pkg: str, root: Path) -> dict:
     sys.path.insert(0, str(root))
     try:
         mods = {n: importlib.import_module(f"{pkg}.ops.{n}")
-                for n in ("_kernels", "cuda_attention", "cuda_paged_attention")}
+                for n in ("_kernels", "cuda_attention", "cuda_paged_attention", "cuda_quant")}
     finally:
         sys.path.remove(str(root))
     for mod in mods.values():
@@ -56,7 +56,7 @@ def load_tree(pkg: str, root: Path) -> dict:
     return mods
 
 
-def make_rows(torch, smoke, quantize_kv_vector):
+def make_rows(torch, smoke, quantize_kv_vector, quantize_int4):
     """(label, kernel, args) of every timed row; kernel names the wrapper."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -103,6 +103,12 @@ def make_rows(torch, smoke, quantize_kv_vector):
         vq, vs = quantize_kv_vector(v)
         rows.append((f"B2 {label}", "cuda_decode_attention", (q, k, v, lengths)))
         rows.append((f"B3 {label}", "cuda_decode_attention_int8", (q, kq, ks, vq, vs, lengths)))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for label, in_dim, out_dim in smoke.W4A8_SHAPES:
+        leaf = quantize_int4(torch.randn((in_dim, out_dim), generator=gen, device="cuda") / in_dim ** 0.5)
+        x = torch.randn((8, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
+        rows.append((f"B11 {label}", "cuda_w4a8_matmul", (x, leaf["q4"], leaf["s"])))
+        rows.append((f"B9 {label}", "cuda_int4_matmul", (x, leaf["q4"], leaf["s"])))
     return rows
 
 
@@ -110,6 +116,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("trees", nargs="+", help="checkout roots, this one as '.'")
     parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--only", nargs="+", help="keep rows whose label starts with one of these words")
     args = parser.parse_args()
     import torch
 
@@ -128,8 +135,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     mods = load_tree(pkg, ROOT)
-    quantize = importlib.import_module(f"{pkg}.models.quantize").quantize_kv_vector
-    rows = make_rows(torch, smoke, quantize)
+    quantize = importlib.import_module(f"{pkg}.models.quantize")
+    rows = make_rows(torch, smoke, quantize.quantize_kv_vector, quantize.quantize_tensor_int4)
+    if args.only:
+        rows = [r for r in rows if r[0].split()[0] in args.only]
     del mods
     print(smoke.nvidia_smi_line(), flush=True)
     timer = smoke.Timer(torch)
@@ -137,7 +146,7 @@ def main() -> int:
         for name, root in (trees if rnd % 2 == 0 else trees[::-1]):
             mods = load_tree(pkg, root)
             wrappers = {fn.__name__: fn for fn in mods["cuda_attention"].KERNELS
-                        + mods["cuda_paged_attention"].KERNELS}
+                        + mods["cuda_paged_attention"].KERNELS + mods["cuda_quant"].KERNELS}
             times = {}
             for label, kernel, row_args in rows:
                 fn = wrappers[kernel]

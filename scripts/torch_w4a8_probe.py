@@ -16,7 +16,8 @@ gate), weights from a seeded ``torch.Generator`` through the port's
   dequant(w)|, the f32 product of the dequantized weights;
 - ``{"int4_bf16_kernel": {"us_per_call": t, ...}}`` (B9);
 - ``{"w4a8_kernel": {"us_per_call": t, ...}}`` (B11, the activation
-  quantization's torch ops included, as the original times them).
+  quantization included, as the original times it: B11 quantizes x inside
+  its one launch).
 
 Times are CUDA-event means of one call with the L2 flushed before each
 (``chip_smoke.py``'s ``Timer``), not the original's TPU slope method;

@@ -1,7 +1,7 @@
 """The logic the one-launch kernels B4/B5 (paged decode parts), B6
 (write-through paged decode), B9 (int4 matmul, halves layout), B10 (int4
-matmul, int32 lanes) and B7/B8 (multi-query paged verify) rest on, pinned
-on the CPU, where the kernels cannot run:
+matmul, int32 lanes), B11 (the w4a8 matmul) and B7/B8 (multi-query paged
+verify) rest on, pinned on the CPU, where the kernels cannot run:
 
 - B9's nibble → bf16 conversion (each nibble, biased by 8, ORed into the
   mantissa of 128.0, then 136 subtracted), emulated in numpy bit for bit,
@@ -14,6 +14,13 @@ on the CPU, where the kernels cannot run:
   rows of the same 4 columns, one byte a k pair, x staged in natural k
   order), emulated the same way, gives ``int4_matmul_i32_reference`` bit
   for bit;
+- B11's quantization inside the kernel (the row's max, then each code by
+  IEEE division, ties to even, 0/0 to 0), emulated in numpy, gives
+  ``quantize_activations_rowwise``'s codes and scales bit for bit; its s8
+  fragment order (the k quads of an ``mma.sync.m16n8k32`` register are
+  four packed rows' low or high nibbles ×16 of one column, the codes
+  staged in the same order, 16 divided out at the end), emulated through
+  the PTX layout, gives ``w4a8_matmul_reference`` bit for bit;
 - B7's tiling (q-tiles of 64 // G positions, splits sized from each
   q-tile's frontier, an online softmax per split in log2 units, the last
   split merging into natural units), emulated in torch, gives
@@ -52,6 +59,8 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops.attention import (
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops.quant import (
     int4_matmul_i32_reference,
     int4_matmul_reference,
+    quantize_activations_rowwise,
+    w4a8_matmul_reference,
 )
 
 MAGIC = 0x43084308  # bf16x2 {136.0, 136.0}; 0x4300 is 128.0, whose ulp is 1
@@ -329,6 +338,202 @@ def test_b10_split_and_ticket_rule_at_the_chip_shapes(label, in_dim, out_dim, sp
     assert n_split * tiles <= max(132, tiles) or weight_rows == 2048
     b9_split, b9_rows = cuda_quant._mma_split(in_dim // 2, out_dim)
     assert n_split == b9_split and abs(weight_rows - 2 * b9_rows) < 32
+    assert cuda_quant._tickets_needed(out_dim, n_split) == (tiles if n_split > 1 else 0)
+
+
+def _emulate_w4a8_codes(x):
+    """B11's quantization of ``x [M, IN]`` (bf16 or f32) in numpy, in the
+    kernel's order: each warp's max of |x[m]| over the row widened to f32
+    (exact in any order; a NaN kept), sx = amax / 127 by f32 IEEE division,
+    then each code: x / sx by f32 IEEE division, rounded to the nearest
+    integer with ties to even (``__float2int_rn``, which saturates), a NaN
+    (0/0 in a zero row) made 0, and clamped to ±127 as an integer.
+    Returns (codes int8 [M, IN], sx f32 [M, 1])."""
+    xf = x.float().numpy()
+    amax = np.abs(xf).max(axis=1)
+    sx = amax / np.float32(127.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        q = np.rint(xf / sx[:, None])
+    q = np.clip(np.where(np.isnan(q), 0, q), -(2.0**31), 2.0**31 - 1)
+    return np.clip(q, -127, 127).astype(np.int8), sx[:, None].astype(np.float32)
+
+
+def _w4a8_x(rng, m, in_dim, dtype, case):
+    """x of one B11 case: normal rows, plus ``zero`` (row m // 2 all
+    zeros), ``ties`` (a row of max 127, so sx = 1, and every other entry
+    k + 0.5, exact in bf16), or ``one`` (a row with a single nonzero
+    entry)."""
+    x = torch.from_numpy(rng.standard_normal((m, in_dim)).astype(np.float32))
+    if case == "zero":
+        x[m // 2] = 0
+    elif case == "ties":
+        x[m - 1] = torch.arange(in_dim) % 16 - 7.5
+        x[m - 1, 0] = 127
+    elif case == "one":
+        x[m - 1] = 0
+        x[m - 1, in_dim // 3] = -0.37
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", ["normal", "zero", "ties", "one"])
+def test_b11_quantization_equals_the_plain_codes_bit_for_bit(dtype, case):
+    """The kernel's quantization, emulated in its order of operations,
+    gives ``quantize_activations_rowwise``'s codes and scales bit for bit:
+    bf16 and f32 x, ties at .5 rounded to even, and a zero row, whose 0/0
+    codes are 0 (its output row is then exactly 0)."""
+    rng = np.random.default_rng(len(case) + (dtype == torch.float32))
+    x = _w4a8_x(rng, 8, 1536, dtype, case)
+    codes, sx = _emulate_w4a8_codes(x)
+    want_q, want_s = quantize_activations_rowwise(x)
+    np.testing.assert_array_equal(codes, want_q.numpy())
+    np.testing.assert_array_equal(sx, want_s.numpy())
+    if case == "zero":
+        assert not codes[4].any() and sx[4, 0] == 0
+    if case == "ties":  # -7.5 .. 7.5 in steps of 1: ties to even
+        row = codes[7, 1:16].astype(np.int32)
+        np.testing.assert_array_equal(row, [-6, -6, -4, -4, -2, -2, 0, 0, 2, 2, 4, 4, 6, 6, 8])
+
+
+def _le_words(b):
+    """Little-endian uint32 words of the last axis's byte quads."""
+    b = b.astype(np.uint32)
+    return b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24
+
+
+def _s8_bytes(w):
+    """The four bytes of uint32 words as int8, on a new last axis."""
+    return np.stack([((w >> np.uint32(8 * i)) & np.uint32(0xFF)).astype(np.uint8) for i in range(4)],
+                    axis=-1).view(np.int8)
+
+
+def _emulate_b11(x, packed, scale, tile_chunk=16):
+    """B11 in numpy through its fragment layout, split by the wrapper's
+    rule. Codes as ``_emulate_w4a8_codes``, staged as the kernel stages
+    them (word 4s + t of code row m: the low half's codes of packed rows
+    16s + 4t .. +3; of row 8 + m the high half's; rows past M zero). Lane
+    (g, t) of a k-step s holds packed rows 16s + 4t + j (j = 0..3) at
+    columns 16g..16g+15 (word q: columns 4q..4q+3); ``__byte_perm`` turns
+    the rows' words into one word per column (byte j from row j); mma u =
+    2q + e takes {L(col 2e), L(col 2e + 1), H(col 2e), H(col 2e + 1)}, L =
+    (w << 4) & 0xF0F0F0F0 and H = w & 0xF0F0F0F0, as its A registers and
+    the code words (low, high) of row g as its B registers. The registers
+    go into A [16×32] and B [32×8] as ``mma.sync.m16n8k32`` (s8) reads
+    them (a0: A[g][4t + i], a1: A[g + 8][4t + i], a2: A[g][16 + 4t + i],
+    a3: A[g + 8][16 + 4t + i]; b0: B[4t + i][g], b1: B[16 + 4t + i][g]), C
+    = A·B is summed over the steps, and C's fragments (c0 C[g][2t], c1
+    C[g][2t + 1], c2 C[g + 8][2t], c3 C[g + 8][2t + 1]) go to output column
+    16g + 2u + c / 2 and row 2t + c % 2, as the epilogue writes them. The
+    splits' sums are added, 16 divided out, then (acc · scale) · sx in f32."""
+    m_rows, in_dim = x.shape
+    k_rows, out_dim = packed.shape
+    codes, sx = _emulate_w4a8_codes(x)
+    xc = np.zeros((8, in_dim), dtype=np.int8)
+    xc[:m_rows] = codes
+    n_split, split_rows = cuda_quant._w4a8_split(k_rows, out_dim)
+    tiles = -(-out_dim // 128)
+    pk = np.zeros((k_rows, tiles * 128), dtype=np.uint8)
+    pk[:, :out_dim] = packed.numpy().view(np.uint8)
+    # the epilogue's map: value (u, c, g, t) -> (row, column in the tile, C row, C column)
+    u, c, g, t = (a.ravel() for a in np.meshgrid(np.arange(8), np.arange(4), np.arange(8), np.arange(4),
+                                                   indexing="ij"))
+    out_row, out_col = 2 * t + c % 2, 16 * g + 2 * u + c // 2
+    c_row, c_col = g + 8 * (c // 2), 2 * t + c % 2
+    kept = out_row < m_rows
+    acc16 = np.zeros((m_rows, tiles * 128), dtype=np.int64)
+    for sp in range(n_split):
+        r0 = sp * split_rows
+        steps = min(split_rows, k_rows - r0) // 16
+        n_rows = 16 * steps
+        b = np.zeros((steps, 32, 8))  # [s, k, n]
+        for half, base in ((0, r0), (1, k_rows + r0)):
+            words = _le_words(xc[:, base : base + n_rows].view(np.uint8).reshape(8, 4 * steps, 4))
+            for tt in range(4):
+                # b{half} of lane (g, tt): word 4s + tt of code row g, byte i -> B[16·half + 4tt + i][g]
+                b[:, 16 * half + 4 * tt : 16 * half + 4 * tt + 4, :] = (
+                    _s8_bytes(words[:, tt::4]).transpose(1, 2, 0))
+        for c0 in range(0, tiles, tile_chunk):
+            nt = min(tile_chunk, tiles - c0)
+            blk = pk[r0 : r0 + n_rows, 128 * c0 : 128 * (c0 + nt)]
+            # [s, t, j, tile, g, q, byte]: row 16s + 4t + j, column 128·tile + 16g + 4q + byte
+            w = _le_words(blk.reshape(steps, 4, 4, nt, 8, 4, 4))  # [s, t, j, tile, g, q]
+            t01 = _byte_perm(w[:, :, 0], w[:, :, 1], 0x5140)
+            t23 = _byte_perm(w[:, :, 2], w[:, :, 3], 0x5140)
+            u01 = _byte_perm(w[:, :, 0], w[:, :, 1], 0x7362)
+            u23 = _byte_perm(w[:, :, 2], w[:, :, 3], 0x7362)
+            col = [_byte_perm(t01, t23, 0x5410), _byte_perm(t01, t23, 0x7632),
+                   _byte_perm(u01, u23, 0x5410), _byte_perm(u01, u23, 0x7632)]  # [s, t, tile, g, q]
+            # A as [tile, s, q, e, row half, g, k half, t, i]: u = 2q + e, row = 8·half + g, k = 16·half + 4t + i
+            a = np.zeros((nt, steps, 4, 2, 2, 8, 2, 4, 4), dtype=np.int8)
+            for e in range(2):
+                for row_half in range(2):
+                    src = col[2 * e + row_half]
+                    for k_half, reg in ((0, (src << np.uint32(4)) & np.uint32(0xF0F0F0F0)),
+                                        (1, src & np.uint32(0xF0F0F0F0))):
+                        a[:, :, :, e, row_half, :, k_half] = _s8_bytes(reg).transpose(2, 0, 4, 3, 1, 5)
+            a = a.reshape(nt, steps, 8, 16, 32).astype(np.float64)
+            cm = np.matmul(a, b[None, :, None]).sum(axis=1)  # [tile, u, 16, 8]
+            vals = cm[:, u, c_row, c_col].astype(np.int64)  # [tile, 1024]
+            for i in range(nt):
+                acc16[out_row[kept], 128 * (c0 + i) + out_col[kept]] += vals[i, kept]
+    assert not (acc16 % 16).any()
+    acc = (acc16[:, :out_dim] >> 4).astype(np.float32)
+    return acc * scale.numpy().reshape(1, -1).astype(np.float32) * sx
+
+
+def _w4a8_reference(x, packed, scale, cols=2048):
+    """``w4a8_matmul_reference`` taken over column blocks (each output
+    column is computed alone), so the CPU holds one block's float64 codes."""
+    return torch.cat([w4a8_matmul_reference(x, packed[:, c : c + cols], scale[:, c : c + cols])
+                      for c in range(0, packed.shape[1], cols)], dim=1)
+
+
+@pytest.mark.parametrize(
+    "m,in_dim,out_dim,case",
+    [(8, 1536, 8960, "zero"), (8, 4096, 14336, "normal"), (1, 256, 7, "normal"), (3, 512, 130, "zero"),
+     (3, 256, 640, "one")],
+)
+def test_b11_fragment_order_equals_the_plain_version_bit_for_bit(m, in_dim, out_dim, case):
+    """The emulation against ``w4a8_matmul_reference`` bit for bit, on
+    random packed bytes (every nibble, -8 included) and scales: the
+    probe's shape with a zero row (one split), llama3.1:8b's w_gate (two
+    splits of 1,024 packed rows), M 1 at OUT 7 and M 3 at OUT 130 (ragged
+    column tiles) and 640."""
+    rng = np.random.default_rng(m * 7 + in_dim + out_dim)
+    packed = torch.from_numpy(rng.integers(0, 256, (in_dim // 2, out_dim), dtype=np.uint8).view(np.int8))
+    scale = torch.from_numpy(rng.uniform(0.001, 0.02, (1, out_dim)).astype(np.float32))
+    x = _w4a8_x(rng, m, in_dim, torch.bfloat16, case)
+    want = _w4a8_reference(x, packed, scale)
+    got = _emulate_b11(x, packed, scale)
+    np.testing.assert_array_equal(got, want.numpy())
+    if case == "zero":
+        assert not got[m // 2].any()
+
+
+# (label, M, IN, OUT, splits) of chip_smoke.py's B11 rows: the probe's
+# shape and llama3.1:8b's w_gate, and the M 1-8 rows at OUT 7 and 130.
+W4A8_SHAPES = [
+    ("probe (qwen2 w_gate)", 8, 1536, 8960, 1),
+    ("llama w_gate/w_up", 8, 4096, 14336, 2),
+    ("OUT 7", 1, 256, 7, 1),
+    ("OUT 130", 8, 512, 130, 2),
+]
+
+
+@pytest.mark.parametrize("label,m,in_dim,out_dim,splits", W4A8_SHAPES, ids=[s[0] for s in W4A8_SHAPES])
+def test_b11_split_and_ticket_rule_at_the_chip_shapes(label, m, in_dim, out_dim, splits):
+    """B11's splits: B9's rule in whole 16-row k-steps, 128 to 1,024
+    packed rows (the kernel's staged codes refuse more), covering the
+    packed rows with no empty split; at least as few splits as B9 takes;
+    one ticket per column tile where split, none otherwise."""
+    k_rows = in_dim // 2
+    tiles = -(-out_dim // 128)
+    n_split, rows = cuda_quant._w4a8_split(k_rows, out_dim)
+    assert n_split == splits
+    assert rows % 16 == 0 and 128 <= rows <= 1024
+    assert (n_split - 1) * rows < k_rows <= n_split * rows
+    assert n_split * tiles <= max(132, tiles) or rows == 1024
+    assert n_split <= cuda_quant._mma_split(k_rows, out_dim)[0]
     assert cuda_quant._tickets_needed(out_dim, n_split) == (tiles if n_split > 1 else 0)
 
 

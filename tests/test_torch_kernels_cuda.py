@@ -251,16 +251,21 @@ def test_paged_decode_kernel_matches_plain_version_on_the_card(dtype, tol, hq, h
     torch.cuda.synchronize()
 
 
+W4A8_CASES = [  # (M, IN, OUT)
+    (8, 1536, 8960), (8, 4096, 14336), (8, 256, 640), (3, 512, 130), (1, 256, 7),
+    (2, 256, 7), (5, 256, 7), (8, 256, 7),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "m,in_dim,out_dim", [(8, 1536, 8960), (8, 4096, 14336), (8, 256, 640), (3, 512, 130), (1, 256, 7)]
-)
+@pytest.mark.parametrize("m,in_dim,out_dim", W4A8_CASES)
 def test_w4a8_kernel_equals_plain_version_on_the_card(dtype, m, in_dim, out_dim):
-    """B11 against its plain version bit for bit (integer sums are exact,
-    and both apply the two scales in one order): the probe's shape,
-    llama3.1:8b's w_gate, one OUT past the 512-column block, and OUT 130
-    and 7 through the byte-wise loads."""
+    """B11 against its plain version bit for bit (the kernel quantizes x
+    as the plain torch ops do, its integer sums are exact, and both apply
+    the two scales in one order): the probe's shape, llama3.1:8b's
+    w_gate, one OUT past the 512-column block, OUT 130 and 7 through the
+    byte-wise loads, at M 1, 2, 3, 5 and 8."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_quant
@@ -273,6 +278,34 @@ def test_w4a8_kernel_equals_plain_version_on_the_card(dtype, m, in_dim, out_dim)
     ref = port_quant.w4a8_matmul_reference(x, leaf["q4"], leaf["s"])
     assert out.dtype == torch.float32 and out.shape == (m, out_dim)
     assert torch.equal(out, ref), (out - ref).abs().max().item()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,in_dim,out_dim", [(8, 1536, 8960), (1, 256, 7), (5, 4096, 130)])
+def test_w4a8_kernel_zero_row_on_the_card(dtype, m, in_dim, out_dim):
+    """A zero row of x (0/0 in the kernel's quantization, code 0) gives an
+    output row of exact zeros, the other rows unchanged, bit for bit
+    against the plain version; a row of ties (x/sx = k + 0.5 exactly) is
+    rounded to even as the plain version rounds it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_quant
+
+    rng = np.random.default_rng(17)
+    w = _to_torch(_normal(rng, (in_dim, out_dim)) / np.sqrt(in_dim), torch.float32).cuda()
+    x = _to_torch(_normal(rng, (m, in_dim)), dtype).cuda()
+    x[m // 2] = 0
+    if m > 2:  # max 127 (sx = 1), then the ties ±0.5, ±1.5, ±2.5, ...
+        ties = torch.arange(in_dim, device="cuda") % 16 - 7.5
+        ties[0] = 127
+        x[m - 1] = ties.to(dtype)
+    leaf = quantize_tensor_int4(w)
+    out = cuda_quant.cuda_w4a8_matmul(x, leaf["q4"], leaf["s"])
+    ref = port_quant.w4a8_matmul_reference(x, leaf["q4"], leaf["s"])
+    assert torch.equal(out, ref), (out - ref).abs().max().item()
+    assert not out[m // 2].any()
     torch.cuda.synchronize()
 
 

@@ -10,8 +10,9 @@ code and one ulp. ``w4a8_matmul_reference`` (what ``cuda_w4a8_matmul``
 computes on the CPU) equals the probe's eager output exactly (tolerance
 0: both sum integers exactly and apply the two scales in one order), at
 IN 256 → OUT 512 and at an OUT that is not a multiple of the probe's
-512-column block; its error against the dequantized f32 product is the
-probe's.
+512-column block, also with a zero row (0/0 gives code 0 on both sides,
+and an output row of zeros) and with a row of a single nonzero entry; its
+error against the dequantized f32 product is the probe's.
 """
 
 import importlib.util
@@ -71,12 +72,24 @@ def test_activation_codes_match_the_probe(seed):
     assert np.abs(xq.numpy().astype(np.int32) - np.asarray(jq).astype(np.int32)).max() <= 1
 
 
-@pytest.mark.parametrize("in_dim,out_dim", [(256, 512), (512, 640)])
-def test_plain_w4a8_equals_the_probe_kernel(probe, in_dim, out_dim):
+@pytest.mark.parametrize(
+    "in_dim,out_dim,row",
+    [(256, 512, None), (512, 640, None), (256, 512, "zero"), (512, 640, "one")],
+    ids=["256-512", "512-640", "256-512-zero_row", "512-640-one_nonzero"],
+)
+def test_plain_w4a8_equals_the_probe_kernel(probe, in_dim, out_dim, row):
     rng = np.random.default_rng(in_dim + out_dim)
     w = (rng.standard_normal((in_dim, out_dim)) * 0.05).astype(np.float32)
     leaf = jax_quantize_int4(jnp.asarray(w))
     xj, xt = _x(in_dim, in_dim)
+    if row == "zero":  # 0/0 in the quantization: code 0 on both sides, an output row of zeros
+        xj, xt = xj.at[3].set(0), xt.clone()
+        xt[3] = 0
+    elif row == "one":  # a single nonzero entry: its code is ±127, the rest 0
+        xj = xj.at[5].set(0).at[5, 17].set(-0.8125)
+        xt = xt.clone()
+        xt[5] = 0
+        xt[5, 17] = -0.8125
     want = np.asarray(probe.w4a8_matmul(xj, leaf["q4"], leaf["s"]))
     tleaf = quantize_tensor_int4(torch.from_numpy(w))
     np.testing.assert_array_equal(tleaf["q4"].numpy(), np.asarray(leaf["q4"]))
@@ -84,6 +97,10 @@ def test_plain_w4a8_equals_the_probe_kernel(probe, in_dim, out_dim):
     got = cuda_quant.cuda_w4a8_matmul(xt, tleaf["q4"], tleaf["s"])  # the CPU: the plain version
     assert got.dtype == torch.float32 and got.shape == (M, out_dim)
     np.testing.assert_array_equal(got.numpy(), want)
+    if row == "zero":
+        assert not want[3].any()
+    if row == "one":
+        np.testing.assert_array_equal(tq.quantize_activations_rowwise(xt)[0][5].nonzero().flatten().numpy(), [17])
     # its error against the f32 product of the dequantized weights is the probe's
     ref = np.asarray(xj.astype(jnp.float32) @ maybe_dequant(leaf, jnp.float32))
     err = np.abs(got.numpy() - ref).max() / np.abs(ref).max()
