@@ -29,7 +29,11 @@ at the batch's rows), of B6 (write-through decode), of B9 and B10 (int4
 matmuls), of B11 (the w4a8 matmul, x quantized inside it) and of B7/B8
 (the verify, at Q 5 and 13) each runs one device kernel, beside a control
 of two (B7 with an f32 q). The w4a8 probe
-(``scripts/torch_w4a8_probe.py``) drives B11 and B9.
+(``scripts/torch_w4a8_probe.py``) drives B11 and B9. Last, the study's
+measured run: the port's ``ExperimentController`` over ``LlmEnergyConfig``
+(qwen2:1.5b at int8, on_device and the aliased remote, 100 words, two
+repetitions) writes four rows, each with NVML's measured Joules beside
+the modelled ones, after NVML's idle power is read for 2 s.
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -1659,6 +1663,128 @@ def spec_entry_points_phase(engine, GenerationRequest, kernels):
     return counts
 
 
+STUDY_IDLE_S = 2.0  # NVML power read before the study's first run
+# NVML's two readings of a row must agree: the energy counter's Joules
+# over the request's wall against the mean of the power samples. They
+# differ by the window's edges (the profiler's window holds the request
+# and a few milliseconds around it) and by the power sensor's own
+# averaging; a counter read in the wrong units or a stale difference
+# lies far outside.
+STUDY_POWER_AGREEMENT = 0.15
+# A row's power under load must not read below idle: the card's idle
+# read (before the study) less this share is the floor.
+STUDY_IDLE_MARGIN = 0.2
+
+
+def study_phase(torch, eng_mod, kernels, smi):
+    """The study's measured run: ``ExperimentController`` over
+    ``LlmEnergyConfig`` (qwen2:1.5b, both locations, 100 words, two
+    repetitions), whose ``before_experiment`` builds ``TorchEngine(quantize=
+    "int8")`` itself. Each row must be done, with NVML's Joules beside the
+    modelled ones; B1 and B2 must have run once a layer for every prefill
+    chunk and decode step of the rows and of the warm-ups, and no other
+    kernel at all."""
+    import csv
+    import tempfile
+    from importlib import import_module
+
+    nvml = import_module(f"{PKG}.profilers.nvml")
+    study = import_module(f"{PKG}.experiments.llm_energy")
+    controller = import_module(f"{PKG}.runner.controller")
+
+    dev = nvml.nvml_device()  # the current CUDA device, found by its PCI bus id
+    torch.cuda.synchronize()
+    watts = []
+    t_end = time.perf_counter() + STUDY_IDLE_S
+    while time.perf_counter() < t_end:
+        watts.append(dev.power_w())
+        time.sleep(0.1)
+    idle_w = sum(watts) / len(watts)
+    emit({"phase": "study_idle", "nvml_idle_w": idle_w, "samples": len(watts),
+          "nvml_name": dev.name(), "nvml_power_limit_w": dev.power_limit_w(), "nvidia_smi": smi})
+    assert idle_w > 0, watts
+
+    # Record every generate (the warm-ups' too) to count what B1/B2 owe.
+    seen, warm = [], []
+    generate, warmup = eng_mod.TorchEngine.generate, eng_mod.TorchEngine.warmup
+
+    def recording_generate(self, request):
+        seen.append(generate(self, request))
+        return seen[-1]
+
+    def recording_warmup(self, request):
+        n = len(seen)
+        warmup(self, request)
+        warm.extend(seen[n:])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_study_") as out:
+        config = study.LlmEnergyConfig(
+            models=[MODEL], locations=["on_device", "remote"], lengths=[STUDY_WORDS[0]],
+            repetitions=2, cooldown_ms=2000, results_output_path=out,
+        )
+        counter = nvml.NvmlEnergyProfiler()
+        assert counter.available, f"NVML's energy counter does not read: {counter.unavailable_reason}"
+        assert any(isinstance(p, nvml.NvmlEnergyProfiler) for p in config.profilers), config.profilers
+        ctl = controller.ExperimentController(config, echo=False)
+        eng_mod.TorchEngine.generate, eng_mod.TorchEngine.warmup = recording_generate, recording_warmup
+        t0 = time.perf_counter()
+        try:
+            _, counts = count_launches(kernels, ctl.do_experiment)
+        finally:
+            eng_mod.TorchEngine.generate, eng_mod.TorchEngine.warmup = generate, warmup
+        seconds = time.perf_counter() - t0
+        exp = Path(out) / config.name
+        with (exp / "run_table.csv").open() as f:
+            rows = list(csv.DictReader(f))
+        channels = json.loads((exp / "energy_channels.json").read_text())["channels"]
+        engine = config._backends["on_device"]
+        n_layers = engine._models[MODEL].cfg.n_layers
+
+    assert [c["available"] for c in channels if c["name"] == "nvml"] == [True], channels
+    assert len(rows) == 4 and all(r["__done"] == "DONE" for r in rows), rows
+    measured = [r for r in seen if not any(r is w for w in warm)]
+    assert len(measured) == 4 and len(seen) == 4 + len(engine._warmed), (len(seen), len(warm))
+    assert sorted(int(r["generated_tokens"]) for r in rows) == sorted(r.generated_tokens for r in measured)
+    for r in rows:
+        remote = r["location"] == "remote"
+        assert 1 <= int(r["generated_tokens"]) <= math.ceil(STUDY_WORDS[0] * TOKENS_PER_WORD), r
+        assert float(r["gpu_energy_J"]) > 0 and float(r["energy_model_J"]) > 0, r
+        assert float(r["joules_per_token"]) > 0, r
+        assert r["backend"].endswith("[aliased-on_device]") == remote, r
+        assert (r["remote_modeled_decode_s"] != "") == remote, r
+        tokens = int(r["generated_tokens"])
+        measured_j, modelled_j = float(r["gpu_energy_J"]), float(r["energy_model_J"])
+        counter_w, sampled_w = measured_j / float(r["execution_time_s"]), float(r["gpu_avg_power_W"])
+        assert abs(counter_w - sampled_w) <= STUDY_POWER_AGREEMENT * sampled_w, (counter_w, sampled_w, r)
+        assert min(counter_w, sampled_w) > (1 - STUDY_IDLE_MARGIN) * idle_w, (counter_w, sampled_w, idle_w, r)
+        emit({
+            "phase": "study_row", "run": r["__run_id"], "location": r["location"],
+            "backend": r["backend"], "chips": int(r["chips"]), "prompt_tokens": int(r["prompt_tokens"]),
+            "generated_tokens": tokens, "execution_time_s": float(r["execution_time_s"]),
+            "decode_s": float(r["decode_s"]), "remote_modeled_decode_s": r["remote_modeled_decode_s"],
+            "measured_J": measured_j, "modelled_J": modelled_j,
+            "measured_J_per_token": measured_j / tokens, "modelled_J_per_token": float(r["joules_per_token"]),
+            # one card measured against one card modelled; a remote row's
+            # modelled J is an 8-GPU node's, so no ratio is formed there
+            "measured_over_modelled": None if remote else measured_j / modelled_j,
+            "counter_W": counter_w, "gpu_avg_power_W": sampled_w,
+            "gpu_power_model_W": float(r["gpu_power_model_W"]),
+            "gpu_util_est": float(r["gpu_util_est"]), "nvml_idle_w": idle_w, "nvidia_smi": smi,
+        })
+    chunks = sum(len(eng_mod._prompt_chunks(r.prompt_tokens)) for r in seen)
+    # The decode loop runs one forward per token after the first, and
+    # stops after appending EOS (which the result then drops).
+    steps = sum(min(r.generated_tokens, r.request.max_new_tokens - 1) for r in seen)
+    expected = {fn.__name__: 0 for fn in kernels}
+    expected["cuda_prefill_attention"] = n_layers * chunks
+    expected["cuda_decode_attention"] = n_layers * steps
+    emit({"phase": "study_launches", "counts": counts, "expected": expected, "generates": len(seen),
+          "warmups": len(warm), "seconds": seconds})
+    assert counts == expected, (counts, expected)
+    del config, ctl, engine
+    return counts
+
+
 def mixed_quant_phase(engine, GenerationRequest, kernels, chunks_of, params_nbytes):
     """One engine with per-model modes (qwen2:1.5b at int8, by default
     int4): each model generates the study's 134-token request; the int4
@@ -1859,6 +1985,8 @@ def main() -> int:
     assert counts["cuda_decode_attention"] > 0 and counts[mq_names[0]] > 0, counts
     add(counts)
     del engine
+    torch.cuda.empty_cache()
+    add(study_phase(torch, eng_mod, all_kernels, smi))
     torch.cuda.empty_cache()
     assert all(launches.values()), launches
 

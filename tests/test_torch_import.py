@@ -25,6 +25,8 @@ SCRIPTS = [
     REPO / "scripts" / "torch_int4_split_sweep.py",
     REPO / "scripts" / "torch_sass_compare.py",
     REPO / "scripts" / "torch_profiler_loss.py",
+    REPO / "scripts" / "torch_kernel_trees.py",
+    REPO / "scripts" / "torch_parts_grid_sweep.py",
 ]
 SCANNED = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 
@@ -38,6 +40,15 @@ def test_the_speculation_modules_are_imported_with_jax_blocked(name):
     "name", ["engine.paged_kv", "models.transformer", "ops.cuda_paged_attention", "ops.cuda_quant", "ops.quant"]
 )
 def test_the_write_through_and_w4a8_modules_are_imported_with_jax_blocked(name):
+    assert f"cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.{name}" in MODULES
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["experiments.llm_energy", "obs.tenants", "parallel.roofline", "profilers.energy_probe",
+     "profilers.nvml", "runner.controller", "serve.client", "utils.memory"],
+)
+def test_the_study_modules_are_imported_with_jax_blocked(name):
     assert f"cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.{name}" in MODULES
 
 
