@@ -8,17 +8,24 @@ has a counterpart to be held against. It imports ``torch`` and numpy, never
 - ``runner``      — the experiment kernel: factorial run tables, lifecycle
                     event bus, config-as-code contract, atomic CSV
                     persistence, AST-hash resume, per-run process isolation
-                    (copies).
+                    (copies), and the command line (``runner/cli.py``).
 - ``profilers``   — three-phase measurement plugins: NVML's measured GPU
-                    Joules and the modelled ones (``nvml.py``), host
-                    CPU/memory, RAPL, sysfs power, synthetic; the energy
-                    channel probe.
+                    Joules and the modelled ones (``nvml.py``), the native
+                    host sampler (``native_host.py`` over ``native/``),
+                    host CPU/memory, RAPL, sysfs power, synthetic; the
+                    energy channel probe.
 - ``experiments`` — the study config (``llm_energy.py``): 7 models × 2
-                    locations × 3 lengths, one measured run per row.
+                    locations × 3 lengths, one measured run per row, its
+                    post-hoc analysis and energy recompute.
+- ``analysis``    — the statistics pipeline over ``run_table.csv``
+                    (descriptives, Wilcoxon, Cliff's delta, Spearman,
+                    report and plots; copies, the port's column names).
+- ``native``      — the C++ host sampler, built with g++ at first use.
 - ``serve``       — the wire protocol and the HTTP client backend (the
                     study's remote treatment when a server is named).
-- ``obs``         — metrics registry, span tracer, tenant accounting
-                    (copies).
+- ``obs``         — metrics registry, span tracer, tenant accounting, the
+                    flight recorder, anomaly detection and live energy
+                    attribution (copies; ``energy.py`` on the H100 model).
 - ``models``      — config registry, tokenizers, int8 quantization, the
                     decoder-only transformer over stacked ``[L, ...]``
                     weights, and the numpy bridge from the JAX package's
@@ -31,8 +38,9 @@ has a counterpart to be held against. It imports ``torch`` and numpy, never
 - ``utils``       — ``.env`` loading and the weight/decode byte model.
 
 The package root imports only the hardware-free experiment kernel. Entry
-points run on the card unless the caller asks for the CPU. There is no
-command line yet.
+points run on the card unless the caller asks for the CPU. The command
+line is ``python -m cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch``
+(``help`` lists its commands).
 """
 
 __version__ = "0.1.0"

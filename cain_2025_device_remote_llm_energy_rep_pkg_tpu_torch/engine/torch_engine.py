@@ -47,8 +47,9 @@ Not ported yet: contiguous batched decode (``generate_batch`` with
 ``paged_kv=False``) and the contiguous session, joins, cancellation,
 preemption and the adaptive speculation policy of sessions, prefix
 caches, HF checkpoints, the on-disk weight cache, ``generate_stream``'s
-incremental path (the contract's single-chunk default stands in), CUDA
-graphs and ``extras["energy_model"]``.
+incremental path (the contract's single-chunk default stands in) and
+CUDA graphs. ``generate`` attaches the modelled energy of each result as
+``extras["energy_model"]`` (``obs/energy.py``).
 """
 
 from __future__ import annotations
@@ -611,8 +612,7 @@ class TorchEngine(GenerationBackend):
             decode_s=t2 - st["t1"],
             total_s=t2 - st["t0"],
         )
-        n = result.generated_tokens
-        self._observe_decode_window(st["t1"], t2, n, n)
+        self._observe_result(result, st, t2)
         return result
 
     # -- speculative decoding ---------------------------------------------------
@@ -1322,6 +1322,31 @@ class TorchEngine(GenerationBackend):
         if t2 > t1 and tokens:
             _TOKS_PER_S_G.labels(**labels).set(tokens / (t2 - t1))
         _TRACER.add_span("decode", t1, t2, attrs={"tokens": tokens, "rows": rows, **labels})
+
+    def _observe_result(self, result: GenerationResult, st: Dict[str, Any], t2: float) -> None:
+        """Solo-window telemetry + live energy attribution: the run-table
+        energy model evaluated on this result (nominal + the coefficient
+        box), attached as ``extras["energy_model"]`` and recorded in the
+        ``llm_request_*`` families. Telemetry must never fail a request."""
+        if not _obs_enabled():
+            return
+        try:
+            n = result.generated_tokens
+            self._observe_decode_window(st["t1"], t2, n, n)
+            from ..obs import energy as obs_energy
+
+            model = result.request.model
+            tf = self._models.get(model)
+            if tf is None:
+                return
+            est = obs_energy.attribute_result(
+                tf.cfg, result, quantize=self._quant_mode(model), kv_quantize=self.kv_quantize
+            )
+            if est is not None:
+                result.extras = {**(result.extras or {}), "energy_model": est}
+                obs_energy.observe_estimate(est)
+        except Exception:  # noqa: BLE001 — telemetry only
+            pass
 
     def _observe_batch_window(
         self, results: "list[GenerationResult]", t1: float, t2: float

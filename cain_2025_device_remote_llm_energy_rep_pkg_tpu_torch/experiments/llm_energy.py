@@ -23,16 +23,14 @@ execution_time here is the request wall-time, not hook-to-hook time; the
 measurement runs on profiler threads so ``interact`` genuinely waits on the
 generation rather than being dead code.
 
-Not ported yet: post-hoc energy recomputation and the analysis pipeline
-(``after_experiment`` does nothing), the native host sampler (the
-psutil + RAPL pair stands in, with the same columns), the per-cell CV
-telemetry, a duty-cycle profiler, and a local multi-GPU mesh for
-``remote``.
+Not ported yet: an NVML duty-cycle profiler and a local multi-GPU mesh
+for ``remote``.
 """
 
 from __future__ import annotations
 
 import math
+import types
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
@@ -222,6 +220,178 @@ def generation_stats_from(
     return stats
 
 
+def recompute_energy(
+    experiment_dir: Path,
+    n_chips_by_location: Optional[Dict[str, int]] = None,
+    registry: Optional[Dict[str, Any]] = None,
+    reanalyze: bool = True,
+    quantize_by_model: Optional[Dict[str, str]] = None,
+    assume_aliased_without_backend: bool = True,
+) -> int:
+    """Recompute the modelled energy columns of an existing run table from
+    its persisted RAW measurements (timings + token counts) under the
+    current energy model — the post-hoc derived-column pattern the
+    reference itself uses (``energy_usage_J``, RunnerConfig.py:250-259).
+    Raw measurements are never touched. Returns the number of rows
+    updated; re-runs the analysis pipeline by default.
+
+    The serving-chip count comes from each row's persisted ``chips``
+    column; tables from before that column existed fall back to
+    ``n_chips_by_location`` (default: the study's standard topology,
+    ``DEFAULT_N_CHIPS_BY_LOCATION``) — pass the map the study actually
+    ran with if it was customised. The quantization mode comes from the
+    row's ``quantize`` column; for older tables without it,
+    ``quantize_by_model`` supplies the serving modes (the serve CLI's
+    per-model spec shape: ``{"qwen2:1.5b": "int8", "default": "int4"}``),
+    falling back to the study default ``"int8"`` — and the resolved mode
+    is BACKFILLED into the ``quantize`` column so the table becomes
+    self-contained for future recomputes. A row whose ``backend`` column carries
+    the ``[aliased-on_device]`` marker (or, for pre-backend-column
+    tables, any remote row served by >1 chip — aliasing was the only way
+    such a row could exist then, and how many rows took that ASSUMPTION
+    is warned about, since a genuinely multi-chip remote measurement fed
+    through it would have its window silently rewritten; pass
+    ``assume_aliased_without_backend=False`` for tables known to carry
+    real remote measurements) gets the TP-roofline
+    modelled duration as its energy window and a
+    ``remote_modeled_decode_s`` column (see ``generation_stats_from``). ``registry`` maps model name →
+    ModelConfig for the FLOPs term (default: the full-size
+    ``MODEL_REGISTRY``; pass the study's own registry for tables produced
+    with custom/miniature configs)."""
+
+    from ..models.config import MODEL_REGISTRY
+    from ..runner.persistence import RunTableStore
+
+    fallback_chips = dict(n_chips_by_location or DEFAULT_N_CHIPS_BY_LOCATION)
+    configs = registry if registry is not None else MODEL_REGISTRY
+    store = RunTableStore(Path(experiment_dir))
+    rows = store.read()
+    # Aliasing detection needs cross-row context: a remote row whose
+    # backend ALSO serves on_device rows came from a shared single-chip
+    # process (the loopback-server capstone records the same URL for
+    # both treatments), even without the [aliased-on_device] marker the
+    # in-process alias appends. HTTP backend strings are canonicalized
+    # before comparison — localhost vs 127.0.0.1 is one server.
+    def _canonical_backend(desc: str) -> str:
+        if desc.startswith("http:"):
+            try:
+                return "http:" + _canonical_url(desc[len("http:"):])
+            except ValueError:
+                return desc
+        return desc
+
+    on_device_backends = {
+        _canonical_backend(str(r.get("backend")))
+        for r in rows
+        if str(r.get("location")) == "on_device" and r.get("backend")
+    }
+    updated = 0
+    assumed_aliased = 0
+    for row in rows:
+        # uniform keys: RunTableStore.write derives the header from the
+        # first row, so every row must carry the new columns
+        row.setdefault("remote_modeled_decode_s", None)
+        row.setdefault("chips", None)
+        for col in GpuEnergyModelProfiler.data_columns:
+            row.setdefault(col, None)
+        if quantize_by_model:
+            row.setdefault("quantize", None)
+        # every raw input the model consumes must be present — a legacy
+        # table missing any one of them skips the row, never aborts the
+        # whole recompute
+        if any(
+            row.get(k) is None
+            for k in (
+                "decode_s",
+                "generated_tokens",
+                "prompt_tokens",
+                "execution_time_s",
+            )
+        ):
+            continue
+        cfg = configs.get(str(row.get("model")))
+        result = types.SimpleNamespace(
+            prompt_tokens=int(row["prompt_tokens"]),
+            generated_tokens=int(row["generated_tokens"]),
+            decode_s=float(row["decode_s"]),
+            total_s=float(row["execution_time_s"]),
+            # the unknown-model warning names the row's model through the
+            # same attribute path interact's real result provides
+            request=types.SimpleNamespace(model=str(row.get("model"))),
+        )
+        chips = row.get("chips")
+        n_chips = (
+            int(chips)
+            if chips is not None
+            else fallback_chips.get(str(row.get("location")), 1)
+        )
+        # Backfill the chips column ONLY from an operator-asserted map:
+        # baking the built-in default into the table would make a later
+        # `--chips remote=4` recompute a silent no-op (rows carrying the
+        # column always win), turning a recoverable omission into a
+        # frozen wrong topology.
+        if chips is None and n_chips_by_location is not None:
+            row["chips"] = n_chips
+        backend = row.get("backend")
+        is_remote = str(row.get("location")) == "remote"
+        if backend is not None:
+            aliased = str(backend).endswith("[aliased-on_device]") or (
+                is_remote
+                and _canonical_backend(str(backend)) in on_device_backends
+            )
+        else:
+            # pre-backend-column table: aliasing was the only way a
+            # multi-chip remote row could exist then — but it is an
+            # ASSUMPTION here, counted and warned about below
+            aliased = (
+                assume_aliased_without_backend and is_remote and n_chips > 1
+            )
+            if aliased:
+                assumed_aliased += 1
+        # persisted as "bf16" for unquantized serving (CSV cannot
+        # distinguish None from a missing pre-column cell); missing →
+        # the caller's per-model map, then the study default int8
+        q = row.get("quantize")
+        if not q and quantize_by_model:
+            q = quantize_by_model.get(
+                str(row.get("model")), quantize_by_model.get("default")
+            )
+            row["quantize"] = q or "int8"
+        stats = generation_stats_from(
+            cfg,
+            result,
+            quantize=None if q == "bf16" else (q or "int8"),
+            n_chips=n_chips,
+            aliased=aliased,
+        )
+        profiler = GpuEnergyModelProfiler(n_chips=n_chips)
+        ctx = types.SimpleNamespace(scratch={"generation_stats": stats})
+        row.update(profiler.collect(ctx))
+        row["remote_modeled_decode_s"] = stats.get("modeled_decode_s")
+        updated += 1
+    if assumed_aliased:
+        from ..runner import term
+
+        term.log_warn(
+            f"{assumed_aliased} remote row(s) predate the backend column "
+            f"and were ASSUMED aliased (single-chip measurement of a "
+            f"multi-chip treatment): their energy window is the "
+            f"TP-roofline modelled mesh duration, not their measured "
+            f"decode_s. If this table came from a genuinely multi-chip "
+            f"remote server, re-run with "
+            f"assume_aliased_without_backend=False"
+        )
+    if updated:
+        # one atomic whole-table rewrite, not one per row (update_row
+        # re-reads and rewrites the full CSV each call — O(n²) here)
+        store.write(rows)
+    if reanalyze and updated:
+        from ..analysis.pipeline import analyze_experiment
+
+        analyze_experiment(Path(experiment_dir), make_plots=True)
+    return updated
+
+
 class LlmEnergyConfig(ExperimentConfig):
     """7 models × 2 locations × 3 content lengths × repetitions."""
 
@@ -284,8 +454,7 @@ class LlmEnergyConfig(ExperimentConfig):
         self._n_chips_by_location = dict(
             n_chips_by_location or DEFAULT_N_CHIPS_BY_LOCATION
         )
-        from ..profilers.host import HostResourceProfiler
-        from ..profilers.rapl import RaplEnergyProfiler
+        from ..profilers.native_host import NativeHostProfiler
         from ..profilers.sysfs_power import SysfsPowerProfiler
 
         self.profilers = [
@@ -293,10 +462,10 @@ class LlmEnergyConfig(ExperimentConfig):
             GpuEnergyModelProfiler(
                 n_chips=self._n_chips_by_location.get(self.locations[0], 1)
             ),
-            # host cpu/memory and host energy: the psutil + RAPL pair (the
-            # JAX package's native sampler falls back to it, same columns)
-            HostResourceProfiler(period_s=0.2),
-            RaplEnergyProfiler(),
+            # C++ kHz sampler for host energy/cpu/memory; it transparently
+            # falls back to the psutil+RAPL Python pair (same columns) when
+            # the native library can't build or load at runtime
+            NativeHostProfiler(period_us=1000),
         ]
         # Generic sysfs host power (hwmon rails / battery discharge):
         # host-scoped, so it wires in EVERY mode — a laptop whose only
@@ -359,6 +528,11 @@ class LlmEnergyConfig(ExperimentConfig):
 
     # -- lifecycle ------------------------------------------------------------
     def before_experiment(self) -> None:
+        from ..profilers.native_host import NativeHostProfiler
+
+        for p in self.profilers:
+            if isinstance(p, NativeHostProfiler):
+                p.prepare()  # its build must not land in NVML's first window
         # Audit trail for the energy columns: which measured channels this
         # host offers and why the unavailable ones are unavailable (a
         # modelled-only table must say so).
@@ -528,9 +702,19 @@ class LlmEnergyConfig(ExperimentConfig):
 
             cfg = MODEL_REGISTRY.get(request.model)
         location = context.factor("location")
+        # Bill on the timings as the run table persists them (rounded to
+        # 4 decimals in populate_run_data): recompute_energy then
+        # reproduces the modelled columns from the table exactly.
+        billed = types.SimpleNamespace(
+            prompt_tokens=result.prompt_tokens,
+            generated_tokens=result.generated_tokens,
+            decode_s=round(result.decode_s, 4),
+            total_s=round(result.total_s, 4),
+            request=result.request,
+        )
         stats = generation_stats_from(
             cfg,
-            result,
+            billed,
             quantize=self.quantize,
             n_chips=self._n_chips_by_location.get(location, 1),
             aliased=location == "remote" and self._remote_is_aliased(),
@@ -550,6 +734,30 @@ class LlmEnergyConfig(ExperimentConfig):
             )
         except OSError:
             pass
+        # Streaming per-cell CV (obs/detect.py): fold this run's modelled
+        # J and wall time into the (model, length, location) cell's
+        # Welford tracker, so the study's <=5% CV target is observable
+        # MID-STUDY (llm_run_cell_cv gauges; a breaching cell fires an
+        # anomaly flight event) instead of post-hoc. Telemetry only —
+        # must never fail a run.
+        try:
+            from ..obs.detect import CELL_CV
+            from ..obs.energy import estimate_from_stats
+
+            location = context.factor("location")
+            est = estimate_from_stats(
+                context.scratch.get("generation_stats") or {},
+                n_chips=self._n_chips_by_location.get(location, 1),
+            )
+            CELL_CV.observe_run(
+                model=context.factor("model"),
+                length=context.factor("length"),
+                location=location,
+                energy_J=est["J"] if est else None,
+                wall_s=result.total_s,
+            )
+        except Exception:  # noqa: BLE001
+            pass
         return {
             "topic": context.scratch["topic"],
             "backend": self.describe_backend(context.factor("location")),
@@ -567,3 +775,29 @@ class LlmEnergyConfig(ExperimentConfig):
                 "generation_stats"
             ].get("modeled_decode_s"),
         }
+
+    def after_experiment(self) -> None:
+        # The reference appends a derived J column post-hoc
+        # (RunnerConfig.py:250-259); here the analysis pipeline computes
+        # everything from the persisted table.
+        if self.experiment_path and (self.experiment_path / "run_table.csv").exists():
+            from ..analysis.pipeline import analyze_experiment
+
+            try:
+                analyze_experiment(
+                    self.experiment_path,
+                    # metrics auto-detect from the table (KNOWN_METRIC_COLUMNS
+                    # order): a fixed list here silently EXCLUDED measured
+                    # channels — a host with a live power counter would have
+                    # had its gpu_energy_J column ignored by the study's own
+                    # post-hoc analysis while the pipeline's
+                    # measured-outranks-model selection sat unused
+                    metrics=None,
+                    # the notebook's figure families are part of the study's
+                    # deliverable (nb cells 21-28, 39-40), not an opt-in
+                    make_plots=True,
+                )
+            except Exception as exc:  # analysis must never lose run data
+                from ..runner import term
+
+                term.log_warn(f"post-hoc analysis failed: {exc}")

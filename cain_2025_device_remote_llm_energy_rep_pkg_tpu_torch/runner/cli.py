@@ -1,0 +1,411 @@
+"""CLI entry point: run a config file, or scaffold/describe/analyse one.
+
+Reference: ``experiment-runner/__main__.py`` (config-file dispatch :52-79,
+dynamic import :19-25, AST md5 :27-49) and
+``ConfigValidator/CLIRegister/CLIRegister.py`` (command registry: config-create
+/ prepare / help, :105-125). Usage::
+
+    python -m cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch <config.py>
+    python -m cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch config-create [dir]
+    python -m cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch help
+
+The study commands of the JAX package's CLI, on the port. ``prepare``
+checks torch, the CUDA card (its name and power limit through NVML) and
+the build of the port's kernels. ``serve`` and ``serve-fleet`` are not
+ported yet: they exit with code 2 and say so.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import inspect
+import multiprocessing
+import sys
+import uuid
+from pathlib import Path
+from typing import List, Optional, Type
+
+from . import term
+from .config import ExperimentConfig
+from .controller import ExperimentController
+from .errors import CommandError, ConfigLoadError, ExperimentError
+
+_TEMPLATE = '''"""Experiment config scaffold (edit every TODO)."""
+
+from pathlib import Path
+
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch import (
+    ExperimentConfig,
+    Factor,
+    RunTableModel,
+)
+
+
+class MyExperiment(ExperimentConfig):
+    name = "new_runner_experiment"
+    results_output_path = Path("experiments_output")
+    time_between_runs_in_ms = 1000
+
+    def create_run_table_model(self) -> RunTableModel:
+        return RunTableModel(
+            factors=[
+                Factor("example_factor", ["treatment_a", "treatment_b"]),
+            ],
+            repetitions=1,
+            data_columns=["example_metric"],
+        )
+
+    def start_run(self, context):
+        pass  # TODO: start the measured activity
+
+    def interact(self, context):
+        pass  # TODO: wait for the activity to finish
+
+    def populate_run_data(self, context):
+        return {"example_metric": 0}  # TODO: report measurements
+'''
+
+
+def load_config_class(path: Path) -> Type[ExperimentConfig]:
+    """Import a config module and find its ExperimentConfig subclass.
+
+    The reference requires the class be named exactly ``RunnerConfig``
+    (__main__.py:62-71); any single subclass is accepted here, with the name
+    ``RunnerConfig`` preferred when several are defined.
+    """
+    spec = importlib.util.spec_from_file_location(f"_expconfig_{path.stem}", path)
+    if spec is None or spec.loader is None:
+        raise ConfigLoadError(f"cannot import config file: {path}")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    candidates: List[Type[ExperimentConfig]] = [
+        obj
+        for _, obj in inspect.getmembers(module, inspect.isclass)
+        if issubclass(obj, ExperimentConfig)
+        and obj is not ExperimentConfig
+        and obj.__module__ == module.__name__
+    ]
+    if not candidates:
+        raise ConfigLoadError(f"no ExperimentConfig subclass found in {path}")
+    if len(candidates) > 1:
+        named = [c for c in candidates if c.__name__ == "RunnerConfig"]
+        if len(named) == 1:
+            return named[0]
+        raise ConfigLoadError(
+            f"multiple ExperimentConfig subclasses in {path}: "
+            f"{[c.__name__ for c in candidates]}; name one 'RunnerConfig'"
+        )
+    return candidates[0]
+
+
+def run_config_file(path: Path) -> None:
+    if not path.exists():
+        raise CommandError(f"config file does not exist: {path}")
+    # Children must inherit the wired event bus and config state.
+    if multiprocessing.get_start_method(allow_none=True) != "fork":
+        multiprocessing.set_start_method("fork", force=True)
+    cls = load_config_class(path)
+    config = cls()
+    controller = ExperimentController(config, config_source=path.read_text())
+    controller.do_experiment()
+
+
+def config_create(target_dir: Optional[Path]) -> Path:
+    """Scaffold a fresh config file (reference CLIRegister.py:14-61)."""
+    target = target_dir or Path("examples")
+    target.mkdir(parents=True, exist_ok=True)
+    out = target / f"RunnerConfig-{uuid.uuid1()}.py"
+    out.write_text(_TEMPLATE)
+    term.log_ok(f"created config scaffold: {out}")
+    return out
+
+
+HELP = """usage: python -m cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch <command|config.py>
+
+commands:
+  <config.py>          run the experiment defined by the config file
+  config-create [dir]  scaffold a new config file (default dir: examples/)
+  analyze <exp_dir> [--filter-scope cell|subset|pooled]
+                       (re)run the statistics pipeline over an experiment's
+                       run_table.csv, writing analysis_report.{json,md} + plots;
+                       --filter-scope picks the IQR strata (default `cell` =
+                       model×location×length; `subset` = location×length, the
+                       reference notebook's exact order, nb cells 11-13)
+  recompute-energy <exp_dir> [--chips loc=n,...] [--quantize m=q,...]
+                   [--trust-remote-timings]
+                       recompute the modelled energy columns from the table's
+                       persisted raw measurements (timings + token counts)
+                       under the current energy model, then re-analyze;
+                       --chips is the fallback topology and --quantize the
+                       fallback per-model serving modes (model=mode with a
+                       `default=` entry) for tables predating the per-row
+                       `chips`/`quantize` columns; --trust-remote-timings
+                       keeps such tables' multi-device remote windows as
+                       measured (disables the rows-were-aliased assumption)
+  prepare              validate the environment (torch, the CUDA card and its
+                       NVML power limit, the kernels' build, energy channels)
+  serve, serve-fleet   not ported yet (they come with the port's continuous
+                       serving, ROADMAP item 11); they exit with code 2
+  help                 show this message
+"""
+
+
+def analyze_command(
+    experiment_dir: Path, filter_scope: str = "cell"
+) -> None:
+    """Standalone analysis pass (reference equivalent: opening the R notebook
+    on run_table.csv, data-analysis/analysis-visualization.ipynb).
+    ``filter_scope`` picks the IQR strata: the default ``cell`` is finer
+    than the notebook's procedure; ``subset`` reproduces the notebook's
+    exact order (the report header says which ran)."""
+    if not (experiment_dir / "run_table.csv").exists():
+        raise CommandError(f"no run_table.csv under {experiment_dir}")
+    from ..analysis.pipeline import analyze_experiment
+
+    report = analyze_experiment(
+        experiment_dir, make_plots=True, filter_scope=filter_scope
+    )
+    term.log_ok(
+        f"analysis written to {experiment_dir}/analysis_report.md "
+        f"({report['n_after_iqr']}/{report['n_rows']} rows after IQR, "
+        f"filter scope: {filter_scope})"
+    )
+
+
+def _check_card() -> None:
+    """torch, the card and its power limit, and the kernels' build. Only
+    the card is checked: nothing runs on the CPU in its place."""
+    import torch
+
+    term.log_ok(f"torch {torch.__version__} (CUDA {torch.version.cuda})")
+    if not torch.cuda.is_available():
+        term.log_fail(
+            "no CUDA device: the engine and the kernels need the card "
+            "(TorchEngine raises without one unless device='cpu')"
+        )
+        return
+    term.log_ok(
+        f"CUDA device 0: {torch.cuda.get_device_name(0)} "
+        f"({torch.cuda.device_count()} visible)"
+    )
+    from ..profilers.nvml import NvmlError, nvml_device
+
+    try:
+        dev = nvml_device()
+        term.log_ok(
+            f"NVML: {dev.name()}, power limit {dev.power_limit_w():.2f} W, "
+            f"now {dev.power_w():.2f} W"
+        )
+    except NvmlError as exc:
+        term.log_fail(f"NVML unavailable: {exc}")
+    from ..ops import _kernels
+
+    try:
+        _kernels.build()
+        term.log_ok(
+            "kernels built: "
+            + ", ".join(_kernels.library_path(n).name for n in _kernels.SOURCES)
+        )
+    except RuntimeError as exc:  # nvcc missing, or a source failed to compile
+        term.log_fail(f"kernel build failed: {exc}")
+
+
+def prepare() -> None:
+    """Environment self-check (the reference's ``prepare`` is an empty stub,
+    CLIRegister.py:77-78)."""
+    term.log(f"python: {sys.version.split()[0]}")
+    _check_card()
+    from ..profilers.energy_probe import probe_energy_channels
+
+    # The cooldown promise is derived from the channels the study's
+    # profilers actually CONSUME, not from raw probe kinds: rapl feeds
+    # RaplEnergyProfiler/NativeHostProfiler and hwmon/battery feed
+    # SysfsPowerProfiler (host, every mode); nvml feeds
+    # NvmlEnergyProfiler (device, in-process only). A future channel the
+    # probe learns about before a profiler consumes it lands in the
+    # unconsumed note below rather than inflating the promise.
+    HOST_CONSUMED = {"rapl", "hwmon", "battery"}
+    DEVICE_CONSUMED = {"nvml"}
+    measured_host = False
+    measured_device = False
+    unconsumed = []
+    for status in probe_energy_channels():
+        line = f"energy channel {status.name} ({status.kind}/{status.scope}): {status.detail}"
+        if status.available:
+            term.log_ok(line)
+            if status.name in HOST_CONSUMED:
+                measured_host = True
+            elif status.name in DEVICE_CONSUMED:
+                measured_device = True
+            else:
+                unconsumed.append(status.name)
+        else:
+            term.log_warn(line)
+    if unconsumed:
+        term.log_warn(
+            f"channel(s) {', '.join(unconsumed)} are live but no profiler "
+            "consumes them yet - they appear in energy_channels.json only "
+            "and do not change the study's cooldown policy"
+        )
+    # The channel audit decides the study's thermal policy — say which
+    # way it will go BEFORE a sweep is launched, per scope: host channels
+    # (RAPL/native sampler) wire in every mode, but device channels are
+    # skipped in HTTP-client mode (on_device_url), where the serving
+    # process owns the card — the promise must match what
+    # LlmEnergyConfig will actually do.
+    from ..experiments.llm_energy import LlmEnergyConfig
+
+    cool_measured = LlmEnergyConfig.MEASURED_CHANNEL_COOLDOWN_MS // 1000
+    cool_modelled = LlmEnergyConfig.MODELLED_ONLY_COOLDOWN_MS // 1000
+    if measured_host:
+        term.log_ok(
+            "measured HOST energy channel present - studies wire it in "
+            "every mode, record real host Joules, and use the "
+            f"reference's {cool_measured} s thermal cooldown"
+        )
+    elif measured_device:
+        term.log_ok(
+            "measured DEVICE energy channel present - in-process studies "
+            f"wire it ({cool_measured} s thermal cooldown); a pure "
+            "HTTP-client study (on_device_url set) leaves device channels "
+            f"to the serving process and runs modelled-only at "
+            f"{cool_modelled} s"
+        )
+    else:
+        term.log_warn(
+            "no measured energy source on this host - studies will record "
+            "modelled Joules (energy_model_J), say so in "
+            "energy_channels.json, and drop the cooldown to "
+            f"{cool_modelled} s (modelled energy is thermal-state-free); "
+            "on a host with RAPL or NVML the same study re-runs with "
+            "measured Joules unchanged"
+        )
+
+
+def _parse_recompute(args: List[str]) -> None:
+    if len(args) < 2:
+        raise CommandError("recompute-energy requires an experiment directory")
+    from ..experiments.llm_energy import recompute_energy
+
+    # --chips loc=n[,loc=n...]: fallback chip map for tables from
+    # before the per-row `chips` column (rows carrying the column
+    # always win)
+    chips = None
+    quantize = None
+    trust_remote_timings = False
+    rest = args[2:]
+    while rest:
+        flag = rest[0]
+        if flag == "--trust-remote-timings":
+            # pre-backend-column tables only: disable the
+            # remote-rows-were-aliased assumption so genuinely
+            # multi-device remote measurements keep their own windows
+            # (the warning recompute_energy emits names this flag's
+            # library twin)
+            trust_remote_timings = True
+            rest = rest[1:]
+            continue
+        if flag == "--chips":
+            if len(rest) < 2:
+                raise CommandError(
+                    "recompute-energy: --chips expects loc=n[,loc=n...]"
+                )
+            chips = {}
+            for entry in rest[1].split(","):
+                loc, _, count = entry.partition("=")
+                if not loc or not count.isdigit():
+                    raise CommandError(
+                        "recompute-energy: --chips expects loc=n[,loc=n...]"
+                    )
+                chips[loc] = int(count)
+        elif flag == "--quantize":
+            if len(rest) < 2:
+                raise CommandError(
+                    "recompute-energy: --quantize expects "
+                    "model=mode[,model=mode...]"
+                )
+            quantize = {}
+            valid_modes = ("bf16", "int8", "int4", "int4-i32")
+            for entry in rest[1].split(","):
+                model, sep, mode = entry.partition("=")
+                if not model or not sep or not mode:
+                    raise CommandError(
+                        "recompute-energy: --quantize expects "
+                        "model=mode[,model=mode...]"
+                    )
+                # an unknown mode would silently be billed at int4 width
+                # by the bytes accounting — refuse
+                if mode not in valid_modes:
+                    raise CommandError(
+                        f"recompute-energy: unknown quantize mode "
+                        f"{mode!r} for {model!r}; expected one of "
+                        f"{', '.join(valid_modes)}"
+                    )
+                quantize[model] = mode
+        else:
+            raise CommandError(f"recompute-energy: unknown flag {flag!r}")
+        rest = rest[2:]
+    n = recompute_energy(
+        Path(args[1]),
+        n_chips_by_location=chips,
+        quantize_by_model=quantize,
+        assume_aliased_without_backend=not trust_remote_timings,
+    )
+    term.log_ok(
+        f"recomputed modelled energy for {n} rows from their "
+        f"persisted raw measurements; analysis re-run"
+    )
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = list(sys.argv[1:] if argv is None else argv)
+    if not args or args[0] in ("help", "--help", "-h"):
+        print(HELP)
+        return 0
+    cmd = args[0]
+    try:
+        if cmd == "config-create":
+            config_create(Path(args[1]) if len(args) > 1 else None)
+        elif cmd == "analyze":
+            if len(args) < 2:
+                raise CommandError("analyze requires an experiment directory")
+            scope = "cell"
+            rest = args[2:]
+            while rest:
+                if rest[0] == "--filter-scope":
+                    if len(rest) < 2 or rest[1] not in (
+                        "cell",
+                        "subset",
+                        "pooled",
+                    ):
+                        raise CommandError(
+                            "analyze: --filter-scope expects "
+                            "cell|subset|pooled"
+                        )
+                    scope = rest[1]
+                    rest = rest[2:]
+                else:
+                    raise CommandError(f"analyze: unknown flag {rest[0]!r}")
+            analyze_command(Path(args[1]), filter_scope=scope)
+        elif cmd == "recompute-energy":
+            _parse_recompute(args)
+        elif cmd == "prepare":
+            prepare()
+        elif cmd in ("serve", "serve-fleet"):
+            raise CommandError(
+                f"{cmd} is not ported to the PyTorch package yet: it comes "
+                "with continuous serving (ROADMAP item 11); the JAX "
+                "package's CLI serves meanwhile"
+            )
+        elif cmd.endswith(".py"):
+            run_config_file(Path(cmd))
+        else:
+            raise CommandError(f"unrecognised command: {cmd!r}\n{HELP}")
+    except CommandError as exc:
+        term.log_fail(str(exc))
+        return 2
+    except ExperimentError as exc:
+        term.log_fail(f"{type(exc).__name__}: {exc}")
+        return 1
+    return 0

@@ -33,7 +33,10 @@ of two (B7 with an f32 q). The w4a8 probe
 measured run: the port's ``ExperimentController`` over ``LlmEnergyConfig``
 (qwen2:1.5b at int8, on_device and the aliased remote, 100 words, two
 repetitions) writes four rows, each with NVML's measured Joules beside
-the modelled ones, after NVML's idle power is read for 2 s.
+the modelled ones, after NVML's idle power is read for 2 s; then the study
+from the command line (``runner.cli.main`` over two config files: the
+study's 7 models at 100 words, qwen2:1.5b at 500 and 1,000 words, one
+repetition each, each config's table analysed, then ``recompute-energy``).
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -74,6 +77,15 @@ KERNEL_INFO = {
 }
 MODEL = "qwen2:1.5b"
 LARGE_MODEL = "llama3.1:8b"  # the widest dense model of the study
+# The head layouts of the study's 7B/8B models, (label, hq, hkv, d): the
+# kernel phase checks B1/B2 at each, and each model below runs the
+# full-width logits comparison.
+WIDE_LAYOUTS = (
+    ("qwen2:7b", 28, 4, 128),
+    ("mistral:7b / llama3.1:8b", 32, 8, 128),
+    ("gemma:7b", 16, 16, 256),
+)
+WIDE_MODELS = ("qwen2:7b", "mistral:7b", "gemma:7b")
 # Dense matmuls of a layer (wq, wk, wv, wo, w_gate, w_up, w_down): each is
 # one int4 kernel launch per decode forward of at most 8 rows.
 MATMULS_PER_LAYER = 7
@@ -241,6 +253,11 @@ def kernel_phase(torch, ca, plain, timer):
         ("phi3:3.8b", 32, 32, 96, [1000], 1024),
         ("gemma:2b", 8, 1, 256, [1000], 1024),
     ]
+    # The study's wide layouts as its rows give them to B1/B2: 100 words
+    # decode over ~200 positions of a 320-slot cache, 1,000 words over
+    # ~1,400 of 2,112; prompts of 53-73 tokens prefill at S 64 or 128.
+    for label, hq, hkv, d in WIDE_LAYOUTS:
+        decode_shapes += [(label, hq, hkv, d, [200], 320), (label, hq, hkv, d, [1400], 2112)]
     # (label, batch, hq, hkv, d, S, capacity T, offset)
     prefill_shapes = [
         ("qwen2:1.5b", 1, 12, 2, 128, 64, 320, 0),
@@ -250,6 +267,8 @@ def kernel_phase(torch, ca, plain, timer):
         ("gemma:2b", 1, 8, 1, 256, 128, 1024, 0),
         ("qwen2:1.5b", 16, 12, 2, 128, 512, 512, 0),  # a grouped batch prefill
     ]
+    for label, hq, hkv, d in WIDE_LAYOUTS:
+        prefill_shapes += [(label, 1, hq, hkv, d, 64, 320, 0), (label, 1, hq, hkv, d, 128, 2176, 0)]
     for label, b, hq, hkv, d, s, t, offset in prefill_shapes:
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -1260,14 +1279,14 @@ def paged_engine_phase(phase, engine, requests, kernels, n_layers, eng_mod, matm
     return counts
 
 
-def integration_phase(torch, engine, phase, paths, forward, logits_for, qmod):
+def integration_phase(torch, engine, phase, paths, forward, logits_for, qmod, model=MODEL):
     """Prefill + 8 decode steps of the full-width model with the kernels
     injected, and again with the plain versions: logits per step agree to
     LOGIT_ATOL, and greedy tokens agree except at near-ties narrower than
     the observed difference. ``paths`` maps "kernels" and "plain" to
     (prefill attention, decode attention, int4 matmul of ``dense_dot``)."""
-    tf = engine._models[MODEL]
-    tok = engine._tokenizer_for(MODEL)
+    tf = engine._models[model]
+    tok = engine._tokenizer_for(model)
     ids = tok.encode("In 100 words, please give me information about the water cycle")
     s_bucket = 64
     logits = {name: [] for name in paths}
@@ -1296,6 +1315,20 @@ def integration_phase(torch, engine, phase, paths, forward, logits_for, qmod):
             h = run(name, torch.tensor([[nxt]], device="cuda"), len(ids) + step, False)
             logits[name].append(logits_for(tf.params, tf.cfg, h[:, 0]))
     compare_logits(torch, phase, logits, forced)
+
+
+def wide_integration_phase(torch, eng_mod, ca, plain, cq, tfm, qmod):
+    """The logits comparison of ``integration_phase`` at each of the
+    study's wide head layouts (WIDE_MODELS), int8 weights and a bf16 KV
+    cache as the study runs them."""
+    engine = eng_mod.TorchEngine(quantize="int8")
+    for model in WIDE_MODELS:
+        engine.load_model(model)
+        integration_phase(torch, engine, f"integration_{model}", {
+            "kernels": (ca.cuda_prefill_attention, ca.cuda_decode_attention, cq.cuda_int4_matmul),
+            "plain": (plain.prefill_attention_cached, plain.decode_attention_reference,
+                      cq.cuda_int4_matmul),
+        }, tfm.forward, tfm.logits_for, qmod, model=model)
 
 
 def compare_logits(torch, phase, logits, forced):
@@ -1785,6 +1818,171 @@ def study_phase(torch, eng_mod, kernels, smi):
     return counts
 
 
+# The study through the command line: every study model at 100 words, and
+# qwen2:1.5b at the two long lengths, one repetition each, 2 s cooldown.
+STUDY_CLI_CONFIGS = (
+    ("study_cli", None, (100,)),  # None: the study's 7 models
+    ("study_cli_long", (MODEL,), (500, 1000)),
+)
+STUDY_CLI_COOLDOWN_MS = 2000
+# recompute-energy must give back the stored modelled Joules.
+RECOMPUTE_RTOL = 1e-6
+STUDY_CLI_CONFIG = """from {pkg}.experiments.llm_energy import MODELS, LlmEnergyConfig
+
+
+class RunnerConfig(LlmEnergyConfig):
+    name = {name!r}
+
+    def __init__(self):
+        super().__init__(
+            models={models}, locations=["on_device"], lengths={lengths}, repetitions=1,
+            cooldown_ms={cooldown}, shuffle=False, results_output_path={out!r},
+        )
+"""
+
+
+def study_cli_phase(torch, eng_mod, kernels, smi):
+    """The study from the command line: ``runner.cli.main([config.py])``
+    over two config files written here (the study's 7 models at 100 words;
+    qwen2:1.5b at 500 and 1,000 words), each building its own
+    ``TorchEngine(quantize="int8")`` and analysing its table at the end;
+    then ``recompute-energy`` over the first table. Every row must be
+    done with tokens and NVML Joules, its counter's mean W within
+    STUDY_POWER_AGREEMENT of its sampled mean and both above the idle
+    floor; every ``generate`` (warm-ups too) must carry
+    ``extras["energy_model"]`` and have launched B1 once a layer per
+    prefill chunk and B2 once a layer per decode forward, and nothing
+    else; the report must analyse ``gpu_energy_J``; the recompute must
+    leave ``energy_model_J`` as stored."""
+    import csv
+    import gc
+    import tempfile
+    from importlib import import_module
+
+    cli = import_module(f"{PKG}.runner.cli")
+    nvml = import_module(f"{PKG}.profilers.nvml")
+    study = import_module(f"{PKG}.experiments.llm_energy")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dev = nvml.nvml_device()
+    watts = []
+    t_end = time.perf_counter() + STUDY_IDLE_S
+    while time.perf_counter() < t_end:
+        watts.append(dev.power_w())
+        time.sleep(0.1)
+    idle_w = sum(watts) / len(watts)
+    emit({"phase": "study_cli_idle", "nvml_idle_w": idle_w, "samples": len(watts),
+          "memory_allocated_bytes": held, "nvidia_smi": smi})
+
+    # Each generate's own launches: the counts just before and just after it.
+    calls = []
+    generate = eng_mod.TorchEngine.generate
+
+    def recording_generate(self, request):
+        before = {fn.__name__: fn.launches for fn in kernels}
+        result = generate(self, request)
+        after = {fn.__name__: fn.launches for fn in kernels}
+        n_layers = self._models[request.model].cfg.n_layers
+        calls.append((result, n_layers, {k: after[k] - before[k] for k in after}))
+        return result
+
+    totals = {fn.__name__: 0 for fn in kernels}
+    rows_by_config = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_study_cli_") as out:
+        for name, models, lengths in STUDY_CLI_CONFIGS:
+            path = Path(out) / f"{name}.py"
+            path.write_text(STUDY_CLI_CONFIG.format(
+                pkg=PKG, name=name, models="MODELS" if models is None else list(models),
+                lengths=list(lengths), cooldown=STUDY_CLI_COOLDOWN_MS, out=out))
+            n_calls = len(calls)
+            t1 = time.perf_counter()
+            eng_mod.TorchEngine.generate = recording_generate
+            try:
+                rc, counts = count_launches(kernels, lambda: cli.main([str(path)]))
+            finally:
+                eng_mod.TorchEngine.generate = generate
+            seconds = time.perf_counter() - t1
+            assert rc == 0, (name, rc)
+            gc.collect()  # the config's engine and its models go with it
+            torch.cuda.empty_cache()
+            exp = Path(out) / name
+            with (exp / "run_table.csv").open() as f:
+                rows = list(csv.DictReader(f))
+            want = len(study.MODELS if models is None else models) * len(lengths)
+            assert len(rows) == want and all(r["__done"] == "DONE" for r in rows), rows
+            expected = {fn.__name__: 0 for fn in kernels}
+            for result, n_layers, got in calls[n_calls:]:
+                assert "energy_model" in (result.extras or {}), result.extras
+                chunks = len(eng_mod._prompt_chunks(result.prompt_tokens))
+                steps = min(result.generated_tokens, result.request.max_new_tokens - 1)
+                owed = {fn.__name__: 0 for fn in kernels}
+                owed["cuda_prefill_attention"] = n_layers * chunks
+                owed["cuda_decode_attention"] = n_layers * steps
+                assert got == owed, (result.request.model, got, owed)
+                for k, v in owed.items():
+                    expected[k] += v
+            assert counts == expected, (name, counts, expected)
+            for k, v in counts.items():
+                totals[k] += v
+            for r in rows:
+                tokens = int(r["generated_tokens"])
+                measured_j, modelled_j = float(r["gpu_energy_J"] or 0), float(r["energy_model_J"])
+                assert tokens > 0 and measured_j > 0, r
+                forwards = min(tokens, math.ceil(int(r["length"]) * TOKENS_PER_WORD) - 1)
+                counter_w, sampled_w = measured_j / float(r["execution_time_s"]), float(r["gpu_avg_power_W"])
+                emit({
+                    "phase": "study_cli_row", "config": name, "model": r["model"],
+                    "length": int(r["length"]), "prompt_tokens": int(r["prompt_tokens"]),
+                    "generated_tokens": tokens, "request_s": float(r["execution_time_s"]),
+                    "decode_s": float(r["decode_s"]),
+                    "ms_per_decode_step": 1000 * float(r["decode_s"]) / max(forwards, 1),
+                    "gpu_energy_J": measured_j, "nvml_W": sampled_w, "counter_W": counter_w,
+                    "energy_model_J": modelled_j, "gpu_power_model_W": float(r["gpu_power_model_W"]),
+                    "J_per_token_measured": measured_j / tokens,
+                    "J_per_token_modelled": float(r["joules_per_token"]),
+                    "nvml_idle_w": idle_w, "nvidia_smi": smi,
+                })
+                # NVML's two readings of the row agree, and neither reads
+                # below idle: a window holding outside work (a build, a
+                # load) or a stale counter fails here, as in ``study``.
+                assert abs(counter_w - sampled_w) <= STUDY_POWER_AGREEMENT * sampled_w, (
+                    name, counter_w, sampled_w, r)
+                assert min(counter_w, sampled_w) > (1 - STUDY_IDLE_MARGIN) * idle_w, (
+                    name, counter_w, sampled_w, idle_w, r)
+            # The report's energy metric is NVML's: H2 correlates every
+            # other column (the modelled Joules among them) against it.
+            report = json.loads((exp / "analysis_report.json").read_text())
+            assert "gpu_energy_J" in (exp / "analysis_report.md").read_text()
+            assert report["h2_energy_is_modelled"] is False, report.get("h2_energy_is_modelled")
+            assert report["h2_spearman"], report
+            for loc, per_metric in report["h2_spearman"].items():
+                assert "gpu_energy_J" not in per_metric and "energy_model_J" in per_metric, (loc, per_metric)
+            assert report["variance_check"].get("metric", "gpu_energy_J") == "gpu_energy_J"
+            emit({"phase": "study_cli_launches", "config": name, "counts": counts,
+                  "expected": expected, "generates": len(calls) - n_calls, "seconds": seconds,
+                  "energy_metric": "gpu_energy_J"})
+            rows_by_config[name] = (exp, rows)
+
+        exp, rows = rows_by_config[STUDY_CLI_CONFIGS[0][0]]
+        assert cli.main(["recompute-energy", str(exp)]) == 0
+        with (exp / "run_table.csv").open() as f:
+            again = {r["__run_id"]: float(r["energy_model_J"]) for r in csv.DictReader(f)}
+        worst = 0.0
+        for r in rows:
+            stored = float(r["energy_model_J"])
+            rel = abs(again[r["__run_id"]] - stored) / stored
+            worst = max(worst, rel)
+            assert rel <= RECOMPUTE_RTOL, (r["__run_id"], stored, again[r["__run_id"]])
+    emit({"phase": "study_cli_recompute", "rows": len(rows), "max_rel_change": worst})
+    emit({"phase": "study_cli_done", "seconds": time.perf_counter() - t0,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    return totals
+
+
 def mixed_quant_phase(engine, GenerationRequest, kernels, chunks_of, params_nbytes):
     """One engine with per-model modes (qwen2:1.5b at int8, by default
     int4): each model generates the study's 134-token request; the int4
@@ -1986,8 +2184,11 @@ def main() -> int:
     add(counts)
     del engine
     torch.cuda.empty_cache()
+    wide_integration_phase(torch, eng_mod, ca, plain, cq, tfm, qmod)
+    torch.cuda.empty_cache()
     add(study_phase(torch, eng_mod, all_kernels, smi))
     torch.cuda.empty_cache()
+    add(study_cli_phase(torch, eng_mod, all_kernels, smi))
     assert all(launches.values()), launches
 
     rows = []

@@ -1,0 +1,133 @@
+"""The port's command line against the JAX package's CLI tests.
+
+The six cases of ``tests/test_cli.py`` that do not serve run on the
+port's ``runner/cli.py`` (the file's source with the package name
+swapped): the scaffold, the two config-class lookups, a config file run
+end to end, help and an unknown command, and ``prepare``'s cooldown
+promise, whose device channel is the port's NVML one. Then the port's own
+cases: ``serve`` and ``serve-fleet`` exit 2, ``analyze`` and
+``recompute-energy`` run over a study table the port wrote, and ``python
+-m cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch help`` runs in a
+fresh interpreter with jax blocked.
+"""
+
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner import cli
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner.persistence import RunTableStore
+from test_torch_runner import PORT, TESTS, port_module, run_case
+
+CLI_CASES = (
+    "test_config_create_scaffold_is_loadable",
+    "test_load_rejects_configless_module",
+    "test_load_prefers_runnerconfig_name_on_ambiguity",
+    "test_run_config_file_end_to_end",
+    "test_main_help_and_unknown_command",
+    "test_prepare_cooldown_promise_matches_consumed_channels",
+)
+CLI = port_module("test_cli.py", renames=(('"libtpu_monitoring"', '"nvml"'),))
+
+
+@pytest.mark.parametrize("name", CLI_CASES)
+def test_jax_cli_case_on_the_port(name, request):
+    assert CLI.main is cli.main
+    run_case(getattr(CLI, name), request)
+
+
+@pytest.mark.parametrize("command", ["serve", "serve-fleet"])
+def test_serve_commands_exit_2_until_serving_is_ported(command, capsys):
+    assert cli.main([command, "--port", "0"]) == 2
+    assert "ROADMAP item 11" in capsys.readouterr().out
+
+
+def test_prepare_without_a_card_says_so_and_runs_nothing(monkeypatch, capsys):
+    import torch
+
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import _kernels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_kernels, "build", lambda *a, **k: pytest.fail("built without a card"))
+    assert cli.main(["prepare"]) == 0
+    out = capsys.readouterr().out
+    assert f"torch {torch.__version__}" in out
+    assert "no CUDA device" in out
+
+
+def _study_config(tmp_path):
+    path = tmp_path / "study.py"
+    path.write_text(textwrap.dedent(f"""
+        from {PORT}.experiments.llm_energy import LlmEnergyConfig
+        from cain_2025_device_remote_llm_energy_rep_pkg_tpu.engine.fake import FakeBackend
+
+        _FAKE = FakeBackend(tokens_per_s=5000.0, simulate_delay=True)
+
+
+        class RunnerConfig(LlmEnergyConfig):
+            def __init__(self):
+                super().__init__(
+                    models=["qwen2:1.5b", "gemma:2b"], lengths=[100], repetitions=2,
+                    cooldown_ms=0, results_output_path={str(tmp_path)!r},
+                    backends={{"on_device": _FAKE, "remote": _FAKE}}, shuffle=False,
+                )
+    """))
+    return path
+
+
+def test_study_config_file_then_analyze_and_recompute(tmp_path):
+    """The study through the command line (a fake backend stands in for
+    the card): the run writes its table and analysis; ``analyze`` writes
+    the report again; ``recompute-energy`` leaves the modelled columns
+    as they were; bad flags exit 2."""
+    assert cli.main([str(_study_config(tmp_path))]) == 0
+    exp = tmp_path / "llm_energy_cuda"
+    rows = RunTableStore(exp).read()
+    assert len(rows) == 8 and all(r["__done"] == "DONE" for r in rows)
+    report = exp / "analysis_report.md"
+    assert report.exists()
+    report.unlink()
+    assert cli.main(["analyze", str(exp), "--filter-scope", "subset"]) == 0
+    assert "subset" in report.read_text()
+    modelled = ("energy_model_J", "joules_per_token", "gpu_util_est", "gpu_power_model_W",
+                "remote_modeled_decode_s")
+    before = [{k: r[k] for k in modelled} for r in rows]
+    assert cli.main(["recompute-energy", str(exp)]) == 0
+    after = [{k: r[k] for k in modelled} for r in RunTableStore(exp).read()]
+    assert after == before
+    assert cli.main(["recompute-energy", str(exp), "--quantize", "qwen2:1.5b=int3"]) == 2
+    assert cli.main(["recompute-energy", str(exp), "--chips", "remote"]) == 2
+    assert cli.main(["recompute-energy"]) == 2
+    assert cli.main(["analyze", str(exp), "--filter-scope", "rows"]) == 2
+    assert cli.main(["analyze", str(tmp_path / "missing")]) == 2
+    # a finished table: the run refuses, exit 1, the table untouched
+    assert cli.main([str(_study_config(tmp_path))]) == 1
+    assert len(RunTableStore(exp).read()) == 8
+
+
+def test_module_help_runs_with_jax_blocked():
+    code = (
+        "import runpy, sys\n"
+        "for name in ('jax', 'jaxlib', 'cain_2025_device_remote_llm_energy_rep_pkg_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['x', 'help']\n"
+        f"runpy.run_module({PORT!r}, run_name='__main__')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=str(TESTS.parent),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith(f"usage: python -m {PORT} ")
+    assert "recompute-energy" in proc.stdout and "serve, serve-fleet" in proc.stdout
+    assert not any(line.lstrip().startswith("--backend") for line in proc.stdout.splitlines())
+
+
+def test_module_unknown_command_exits_2():
+    proc = subprocess.run(
+        [sys.executable, "-m", PORT, "no-such-command"], capture_output=True, text=True,
+        timeout=120, cwd=str(TESTS.parent),
+    )
+    assert proc.returncode == 2, proc.stderr

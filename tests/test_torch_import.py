@@ -27,6 +27,8 @@ SCRIPTS = [
     REPO / "scripts" / "torch_profiler_loss.py",
     REPO / "scripts" / "torch_kernel_trees.py",
     REPO / "scripts" / "torch_parts_grid_sweep.py",
+    REPO / "examples" / "torch_llm_energy_study.py",
+    REPO / "examples" / "torch_llm_energy_sweep.py",
 ]
 SCANNED = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 

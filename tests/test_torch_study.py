@@ -34,6 +34,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu.models.config import (
 )
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu.models.transformer import init_params
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu.parallel import roofline as jax_roofline
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu.profilers import tpu
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu.runner.controller import (
     ExperimentController as JaxController,
 )
@@ -52,6 +53,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.profilers import nvml
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner.controller import (
     ExperimentController,
 )
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner.context import RunContext
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.utils import memory
 from test_torch_runner import port_module, run_case
 
@@ -174,6 +176,15 @@ def test_tiny_study_gives_the_same_rows_through_both_packages(tmp_path, monkeypa
         assert (r["remote_modeled_decode_s"] != "") == remote
         assert float(r["energy_model_J"]) > 0 and float(r["joules_per_token"]) > 0
         assert r["quantize"] == "int8" and r["chips"] == ("8" if remote else "1")
+    # the modelled columns of the port's own table come back unchanged
+    exp = tmp_path / "port" / study.LlmEnergyConfig.name
+    assert (exp / "analysis_report.md").exists()
+    modelled = ("energy_model_J", "joules_per_token", "gpu_util_est", "gpu_power_model_W",
+                "remote_modeled_decode_s")
+    assert study.recompute_energy(exp, registry={MODEL: pcfg}) == 4
+    with (exp / "run_table.csv").open() as f:
+        again = list(csv.DictReader(f))
+    assert [{k: r[k] for k in modelled} for r in again] == [{k: r[k] for k in modelled} for r in rows]
 
 
 def test_study_without_a_card_raises_and_writes_no_row(tmp_path, monkeypatch):
@@ -189,17 +200,18 @@ def test_study_without_a_card_raises_and_writes_no_row(tmp_path, monkeypatch):
 # -- the JAX study config's cases on the port ----------------------------------
 
 # The framework-free cases of tests/test_experiment_config.py, loaded with
-# the package name swapped to the port's and the experiment's name to
-# ``llm_energy_cuda``. The fake backend and the HTTP server stay the JAX
-# package's: they are fixtures the port has no module for, and the port's
-# ``serve/client.py`` talks to the server over HTTP. ``profilers.tpu`` is
-# imported at the file's top for cases left out here. Left out: the
-# cooldown case (it patches the native host sampler; its port form is
-# below), both TPU energy-model cases (the GPU model equals the TPU model
-# at equal constants, tests/test_torch_profilers.py), the aliased-rows
-# case (it bounds the rows with the v5e watts; its port form is below),
-# every recompute case and the full-lifecycle and measured-counter cases
-# (they read the analysis report, which the port has not yet).
+# the package name swapped to the port's, the experiment's name to
+# ``llm_energy_cuda`` and the modelled utilisation column to the port's.
+# The fake backend and the HTTP server stay the JAX package's: they are
+# fixtures the port has no module for, and the port's ``serve/client.py``
+# talks to the server over HTTP. ``profilers.tpu`` stays the JAX
+# package's: the aliased-rows case bounds its rows with the v5e watts, so
+# it runs with the port billing on the JAX package's TPU constants, as
+# does the legacy-table recompute case (it expects the v5e memory duty).
+# Left out: both TPU energy-model cases (the GPU model equals the TPU
+# model at equal constants, tests/test_torch_profilers.py) and the
+# measured-counter case (it patches the TPU counter; its port form, over
+# a fake NVML device, is below).
 CONFIG_CASES = (
     "test_topics_pool_and_seeded_pick",
     "test_default_sweep_shape",
@@ -214,16 +226,60 @@ CONFIG_CASES = (
     "test_generation_stats_bill_replicated_kv_per_chip",
     "test_generation_stats_unknown_model_warns_on_aliased_mesh",
     "test_aliased_detection_canonicalizes_urls",
+    "test_cooldown_policy_follows_channel_type",
+    "test_full_study_lifecycle_on_fake_backend",
+    "test_aliased_remote_rows_get_modeled_mesh_duration",
+    "test_recompute_energy_reproduces_modelled_columns",
+    "test_recompute_energy_fallback_aliasing_for_legacy_tables",
+    "test_recompute_energy_skips_rows_missing_raw_inputs",
+    "test_recompute_energy_warning_names_the_model",
+    "test_recompute_cross_row_aliasing_canonicalizes_backend_urls",
+    "test_recompute_does_not_bake_default_chips",
 )
+# The cases whose bounds are the v5e's: the port bills them on the JAX
+# package's TPU constants.
+TPU_CONSTANT_CASES = {
+    "test_aliased_remote_rows_get_modeled_mesh_duration",
+    "test_recompute_energy_fallback_aliasing_for_legacy_tables",
+}
 CONFIG = port_module(
     "test_experiment_config.py", keep=("engine.fake", "serve.server", "profilers.tpu"),
-    renames=(('"llm_energy_tpu"', '"llm_energy_cuda"'),),
+    renames=(('"llm_energy_tpu"', '"llm_energy_cuda"'), ('"tpu_util_est"', '"gpu_util_est"')),
 )
+
+
+V5E_MODEL = dict(
+    peak_tflops=tpu.V5E_PEAK_BF16_TFLOPS, peak_w=tpu.V5E_PEAK_W, idle_w=tpu.V5E_IDLE_W,
+    spec_hbm_gbps=tpu.V5E_SPEC_HBM_GBPS, cuda_core_ops_per_s=tpu.V5E_VPU_OPS_PER_S,
+    tensor_active_w=tpu.V5E_MXU_ACTIVE_W, hbm_active_w=tpu.V5E_HBM_ACTIVE_W,
+    cuda_core_active_w=tpu.V5E_VPU_ACTIVE_W,
+)
+
+
+class V5eModel(nvml.GpuEnergyModelProfiler):
+    """The port's energy model at the JAX package's v5e constants, which
+    make it the JAX model (``tests/test_torch_profilers.py`` pins this);
+    keyword arguments override them as they do the H100's."""
+
+    def __init__(self, n_chips=1, **kw):
+        super().__init__(n_chips=n_chips, **{**V5E_MODEL, **kw})
+
+
+def tpu_constants(monkeypatch):
+    """Bill the port's study on the JAX package's TPU constants: the v5e
+    energy model and the TPU roofline (``generation_stats_from`` then
+    equals the JAX one, ``test_generation_stats_equal_jax``)."""
+    monkeypatch.setattr(study, "GpuEnergyModelProfiler", V5eModel)
+    monkeypatch.setattr(roofline, "SUSTAINED_HBM_GBPS", jax_roofline.V5E_SUSTAINED_HBM_GBPS)
+    monkeypatch.setattr(roofline, "NVLINK_GBPS", jax_roofline.ICI_LINK_GBPS)
+    monkeypatch.setattr(roofline, "NVLINK_HOP_LATENCY_S", jax_roofline.ICI_HOP_LATENCY_S)
 
 
 @pytest.mark.parametrize("name", CONFIG_CASES)
-def test_jax_study_config_case_on_the_port(name, request):
+def test_jax_study_config_case_on_the_port(name, request, monkeypatch):
     assert CONFIG.LlmEnergyConfig is study.LlmEnergyConfig
+    if name in TPU_CONSTANT_CASES:
+        tpu_constants(monkeypatch)
     run_case(getattr(CONFIG, name), request)
 
 
@@ -294,3 +350,101 @@ def test_study_on_a_reading_nvml_records_measured_joules(tmp_path, monkeypatch):
             assert lo * 0.99 <= float(r["energy_model_J"]) <= hi * 1.01, r
         else:
             assert r["remote_modeled_decode_s"] == "" and r["chips"] == "1"
+
+
+def test_full_study_on_a_reading_nvml_analyses_the_measured_joules(tmp_path, monkeypatch):
+    """The port form of the JAX measured-counter case: with NVML reading
+    (a fake device at the module's seam), the study's own post-hoc
+    analysis takes ``gpu_energy_J`` as THE energy metric, and H2 runs
+    unrestricted."""
+    import json
+
+    monkeypatch.setattr(nvml, "nvml_device", _FakeNvml)
+    slow_fake = FakeBackend(tokens_per_s=400.0, simulate_delay=True)
+    cfg = study.LlmEnergyConfig(
+        models=["qwen2:1.5b", "gemma:2b"], locations=["on_device", "remote"], lengths=[100],
+        repetitions=2, results_output_path=tmp_path, cooldown_ms=0,
+        backends={"on_device": slow_fake, "remote": slow_fake}, shuffle=True,
+    )
+    assert any(isinstance(p, nvml.NvmlEnergyProfiler) for p in cfg.profilers)
+    ExperimentController(cfg, echo=False).do_experiment()
+    exp = tmp_path / cfg.name
+    with (exp / "run_table.csv").open() as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 8 and all(r["__done"] == "DONE" for r in rows)
+    assert all(float(r["gpu_energy_J"]) > 0 for r in rows)
+    report = json.loads((exp / "analysis_report.json").read_text())
+    assert "gpu_energy_J" in report["metrics"]
+    assert report["variance_check"]["metric"] == "gpu_energy_J"
+    assert report.get("h2_energy_is_modelled") is False
+    for per_metric in report["h2_spearman"].values():
+        assert not any(h.get("definitional") for h in per_metric.values())
+
+
+def test_host_sampler_is_built_before_the_first_window(tmp_path, monkeypatch):
+    """The native host sampler builds its library (g++, seconds) before
+    the study's first measurement window opens: NVML's counter starts
+    first, so a build inside the window would be billed to the first
+    row's measured Joules."""
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.native import build
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.profilers import native_host
+
+    events = []
+    load = native_host.load_sampler_library
+    monkeypatch.setattr(native_host, "load_sampler_library",
+                        lambda *a, **k: events.append("build") or load(*a, **k))
+    nvml_start = nvml.NvmlEnergyProfiler.on_start
+    monkeypatch.setattr(nvml.NvmlEnergyProfiler, "on_start",
+                        lambda self, ctx: events.append("window") or nvml_start(self, ctx))
+    monkeypatch.setattr(nvml, "nvml_device", _FakeNvml)
+    fake = FakeBackend(tokens_per_s=5000.0, simulate_delay=True)
+    cfg = study.LlmEnergyConfig(
+        models=[MODEL], locations=["on_device"], lengths=[100], repetitions=2,
+        results_output_path=tmp_path, cooldown_ms=0, backends={"on_device": fake},
+    )
+    ExperimentController(cfg, echo=False).do_experiment()
+    assert events == ["build", "window", "window"], events
+    if build.load_sampler_library() is not None:
+        host = next(p for p in cfg.profilers if isinstance(p, native_host.NativeHostProfiler))
+        assert host._handle is not None
+
+
+class _TimedBackend:
+    """Returns one result with timings finer than the run table keeps."""
+
+    registry = None
+
+    def __init__(self, result):
+        self.result = result
+
+    def generate(self, request):
+        return self.result
+
+
+@pytest.mark.parametrize("location", ["on_device", "remote"])
+def test_the_port_bills_the_timings_the_table_keeps(location, tmp_path, monkeypatch):
+    # The port's study bills its modelled columns on decode_s and total_s
+    # rounded to the table's 4 decimals, so recompute_energy gives them
+    # back exactly; the JAX study bills the unrounded timings. On the
+    # rounded timings the two formulas agree (TPU roofline constants make
+    # the port's roofline the JAX one, as above).
+    monkeypatch.setattr(roofline, "SUSTAINED_HBM_GBPS", jax_roofline.V5E_SUSTAINED_HBM_GBPS)
+    monkeypatch.setattr(roofline, "NVLINK_GBPS", jax_roofline.ICI_LINK_GBPS)
+    monkeypatch.setattr(roofline, "NVLINK_HOP_LATENCY_S", jax_roofline.ICI_HOP_LATENCY_S)
+    model = "llama3.1:8b"
+    port_res, jax_res = _results(model, 57, 134, 2.12345678)
+    backend = _TimedBackend(port_res)  # remote aliased to the card
+    cfg = study.LlmEnergyConfig(results_output_path=tmp_path, models=[model],
+                                backends={"on_device": backend, "remote": backend})
+    ctx = RunContext(run_id="run_0_repetition_0", run_nr=1, total_runs=1,
+                     variation={"model": model, "location": location, "length": 100},
+                     run_dir=tmp_path, experiment_dir=tmp_path,
+                     scratch={"request": port_res.request})
+    cfg.interact(ctx)
+    got = ctx.scratch["generation_stats"]
+    remote = location == "remote"
+    kw = dict(quantize="int8", n_chips=8 if remote else 1, aliased=remote)
+    rounded = dataclasses.replace(jax_res, decode_s=round(jax_res.decode_s, 4),
+                                  total_s=round(jax_res.total_s, 4))
+    assert got == jax_study.generation_stats_from(jax_config(model), rounded, **kw)
+    assert got != jax_study.generation_stats_from(jax_config(model), jax_res, **kw)
