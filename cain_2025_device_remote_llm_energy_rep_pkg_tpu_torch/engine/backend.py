@@ -159,8 +159,9 @@ class GenerationBackend:
       channels.
 
     Presence of ``decode_open`` is the capability signal (the base class
-    deliberately does not define it). The port's TorchEngine does not
-    implement it yet.
+    deliberately does not define it). The port's TorchEngine
+    (``paged_kv=True``, ``engine/stepped.py``) and FakeBackend implement
+    it.
     """
 
     def load_model(self, model: str) -> None:

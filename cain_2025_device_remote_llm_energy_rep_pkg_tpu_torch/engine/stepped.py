@@ -1,30 +1,55 @@
-"""Iteration-level decode sessions over the paged pool.
+"""Iteration-level decode sessions over the paged pool: admit and retire
+rows at decode-step granularity.
 
-Counterpart of the part of the JAX package's ``engine/stepped.py`` that
-speculative decoding runs on. :meth:`SteppedDecodeSession.open` prefills
-the rows as ``generate_batch`` does (grouped prefill, the prompts' K/V
-scattered into a page pool) and assembles a resumable decode state at a
-fixed row bucket; :meth:`SteppedDecodeSession.step` runs one bounded
-slice and retires the rows whose done-mask is set, handing their pages
-back to the pool. The state is one dict, ``self.carry``, that every slice
-continues.
+Counterpart of the JAX package's ``engine/stepped.py`` on its stacked
+paged layout (a read-only pool of prompt pages, side caches for the
+generated tokens):
+
+- :meth:`SteppedDecodeSession.open` prefills the rows as
+  ``generate_batch`` does (grouped prefill, the prompts' K/V scattered
+  into a page pool) and assembles a resumable decode state at a fixed
+  row bucket;
+- :meth:`SteppedDecodeSession.step` runs one bounded slice and retires
+  the rows whose done-mask is set, handing their pages back to the pool;
+- :meth:`SteppedDecodeSession.join` admits a compatible request into a
+  free slot between slices, and its resumable variant
+  (:meth:`join_begin` / :meth:`join_step` / :meth:`join_commit` /
+  :meth:`join_abort`) prefills the joiner's prompt chunk by chunk into a
+  private contiguous cache (chunks at offset > 0 go through the prefill
+  kernel as ``generate``'s chunked prefill does), then scatters it into
+  the pages reserved at ``join_begin``; each chunk is fenced, so its wall
+  time is the in-flight rows' stall;
+- :meth:`cancel` retires a live row without completing it,
+  :meth:`stream_deltas` hands out each row's tokens since the last call,
+  and :meth:`preempt` (``policy="swap"``) parks a live row in host memory
+  (its pool pages through ``PagePool.swap_out``, its side-cache columns,
+  its control state and its ``torch.Generator`` state), from which
+  :meth:`resume_begin` and :meth:`join_commit` re-seat it with an
+  unchanged token stream.
+
+The state is one dict, ``self.carry``, that every slice continues. Each
+row's tokens equal its solo ``generate``'s: rows are independent across
+the batch, a row's sampling consumes its own generator exactly as the
+solo loop does, and a joiner's first token is sampled from its own
+prefill with a generator seeded as the solo path seeds it.
 
 With a speculative config for the model (the engine's ``speculative=``,
 or ``spec_override``) and every opening row eligible, a slice runs
 draft-verify ROUNDS (``engine/speculative.py::build_spec_step_fn``)
-instead of single-token steps: each row advances by its accepted prefix,
-and ``extras["spec"]`` of a retired row reports its rounds, accepted and
-drafted tokens. Otherwise a slice runs the batch path's decode steps
-(``TorchEngine._paged_decode_steps``). Either way the layout is the
-stacked-hybrid one: a read-only pool of prompt pages and side caches for
-the generated tokens, with a k-column overshoot in spec mode (a verify
-writes up to ``write_pos + k``). The pool keeps the model's native head
-dim.
+instead of single-token steps, with a k-column overshoot in the side
+caches. A speculating session takes no joiners (``can_join`` is False)
+and refuses to preempt (``preempt`` returns None, and the scheduler
+leaves the row running): both are ROADMAP item 13.
+
+Energy: each slice's wall time and modelled Joules
+(``obs/energy.py::slice_window_stats``) split over its rows by token
+share, each join chunk's over its joiner; a retiring row closes its
+account out into ``extras["energy_model"]`` (``window="slice"``).
 
 Not ported yet: the contiguous session (``paged_kv=False`` raises),
-joins and chunked joins, cancel, preempt/resume, ``stream_deltas``, the
-prefix store, dp shards, the adaptive draft length and fallback, the
-cross-model draft-waste billing, and slice energy attribution.
+``policy="recompute"`` (None on a stacked session, as in the JAX
+package), the prefix store, dp shards, the adaptive draft length and
+fallback, and the cross-model draft-waste billing.
 """
 
 from __future__ import annotations
@@ -35,29 +60,75 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..models.transformer import forward, logits_for
+from ..obs.detect import observe_retired_tokens, observe_slice_tokens
+from ..obs.metrics import enabled as _obs_enabled, observe_swap, swap_host_adjust
+from ..ops.cuda_attention import cuda_prefill_attention
+from ..ops.sampling import sample_token
 from .backend import GenerationRequest, GenerationResult
-from .paged_kv import PagePool
+from .paged_kv import PagePool, _paginate, quantize_chunks, scatter_pages
 from .speculative import DraftSpec
 from .torch_engine import (
+    _PREFILL_H,
     BATCH_BUCKETS,
     DECODE_SLICE_STEPS,
     GEN_BUCKETS,
+    JOIN_PREFILL_CHUNK_TOKENS,
+    PREFILL_CHUNK,
+    PROMPT_BUCKETS,
     _apply_stop,
     _bucket,
+    _floor_bucket,
     _pow2_at_least,
     _prompt_alloc,
+    _prompt_chunks,
     _spec_margin,
 )
 
 _SPEC_COUNTERS = ("rounds", "accepted", "drafted", "rejected")
+_ATTR_KEYS = ("wall", "J", "J_low", "J_high")
 
 
-class _Row:
-    """Host-side record of one live session row."""
+def _leaf_map(fn, leaf):
+    """``fn`` over a side-cache leaf: a tensor, or an int8 ``{"q","s"}``."""
+    if isinstance(leaf, dict):
+        return {k: fn(v) for k, v in leaf.items()}
+    return fn(leaf)
 
-    __slots__ = ("request", "s_real", "generated", "budget", "t0", "t1", "t_decode0", "pages")
+
+def _leaf_nbytes(leaf) -> int:
+    parts = leaf.values() if isinstance(leaf, dict) else (leaf,)
+    return sum(t.numel() * t.element_size() for t in parts)
+
+
+class _Account:
+    """A slice-attribution account: the wall seconds and modelled Joules
+    (nominal and the coefficient box's corners) billed to one row."""
+
+    __slots__ = ("attr_wall", "attr_J", "attr_J_low", "attr_J_high")
+
+    def __init__(self) -> None:
+        self.attr_wall = 0.0
+        self.attr_J = 0.0
+        self.attr_J_low = 0.0
+        self.attr_J_high = 0.0
+
+    def take_account(self, other: "_Account") -> None:
+        for key in _Account.__slots__:
+            setattr(self, key, getattr(self, key) + getattr(other, key))
+
+
+class _Row(_Account):
+    """Host-side record of one live session row. ``streamed`` is the
+    egress cursor (tokens already handed out by ``stream_deltas``)."""
+
+    __slots__ = (
+        "request", "s_real", "generated", "budget", "t0", "t1", "t_decode0", "pages",
+        "streamed", "attr_slices", "attr_wasted_J",
+    )
 
     def __init__(self, request, s_real, first, budget, t0, t1, t_decode0, pages):
+        super().__init__()
         self.request = request
         self.s_real = s_real
         self.generated: List[int] = [first]
@@ -66,6 +137,85 @@ class _Row:
         self.t1 = t1
         self.t_decode0 = t_decode0
         self.pages: List[int] = pages
+        self.streamed = 0
+        self.attr_slices = 0
+        # waste this row caused that the wasted-energy ledger already
+        # holds (its swap): informational, never added to attr_J
+        self.attr_wasted_J = 0.0
+
+
+class _PendingJoin(_Account):
+    """One joiner between ``join_begin`` and ``join_commit``: the reserved
+    slot and pages, the private contiguous cache its prompt chunks fill,
+    and the cursor over those chunks. A preemption resume rides the same
+    object (``resume`` set, no chunks: its KV comes back from host
+    memory at commit)."""
+
+    __slots__ = (
+        "request", "slot", "ids", "chunks", "next_chunk",
+        "k_cache", "v_cache", "presence", "logits", "pages", "prefill_s", "t0",
+        "resume",
+    )
+
+    def __init__(self, request, slot, ids, chunks, k_cache, v_cache, presence, pages):
+        super().__init__()
+        self.request = request
+        self.slot = slot
+        self.ids: List[int] = ids
+        self.chunks: List[tuple] = chunks
+        self.next_chunk = 0
+        self.k_cache = k_cache
+        self.v_cache = v_cache
+        self.presence = presence
+        self.logits = None
+        self.pages: List[int] = pages
+        self.prefill_s = 0.0  # the sum of chunk walls, not the interleaved span
+        self.t0 = time.monotonic()
+        self.resume: "Optional[PreemptedRow]" = None
+
+    @property
+    def total_chunks(self) -> int:
+        return len(self.chunks)
+
+
+class PreemptedRow(_Account):
+    """Everything :meth:`SteppedDecodeSession.resume_begin` needs to
+    continue a row that :meth:`SteppedDecodeSession.preempt` took out:
+    the host copy of its control state (last token, generator state,
+    presence row, offset, remaining budget), its prompt pages' payload
+    (``blob``, a ``PageSwapBlob``) and its side-cache columns
+    (``side_blob``), and its attribution account."""
+
+    __slots__ = (
+        "request", "ids", "generated", "prompt_len", "offsets", "remaining",
+        "gen_state", "presence", "streamed", "t0", "t1", "blob",
+        "side_blob", "n_own_pages", "shared_pages", "host_bytes", "discharged",
+        "attr_slices", "attr_wasted_J",
+    )
+
+    def __init__(self, request, ids, generated, prompt_len) -> None:
+        super().__init__()
+        self.request = request
+        self.ids: List[int] = list(ids)
+        self.generated: List[int] = list(generated)
+        self.prompt_len = prompt_len
+        self.offsets = 0
+        self.remaining = 0
+        self.gen_state: Optional[torch.Tensor] = None
+        self.presence: Optional[torch.Tensor] = None
+        self.streamed = 0
+        self.t0 = 0.0
+        self.t1 = 0.0
+        self.blob = None
+        self.side_blob = None
+        self.n_own_pages = 0
+        # always empty (no prefix store shares pages here); kept because
+        # the JAX package's preempt contract, and its tests, read it
+        self.shared_pages: List[int] = []
+        self.host_bytes = 0
+        self.discharged = False  # swap ledger already settled
+        self.attr_slices = 0
+        self.attr_wasted_J = 0.0
 
 
 class SteppedDecodeSession:
@@ -88,6 +238,23 @@ class SteppedDecodeSession:
         # host mirrors of the carry's cumulative per-row spec counters
         self._spec_host: Dict[str, List[int]] = {}
         self.use_top_p = False
+        # slot -> _PendingJoin: joiners mid-prefill (and resumes). A
+        # reserved slot is neither free nor live: it rides along done.
+        self._pending: Dict[int, _PendingJoin] = {}
+        # streaming egress: while the scheduler has a streaming row live,
+        # retiring rows buffer their unstreamed tails for stream_deltas
+        self.stream_tokens = False
+        self._stream_tail: List[tuple] = []
+        # bytes and rows of this session's preemption victims parked in
+        # host memory (the llm_swap_host_* gauges move through
+        # _swap_account only, so they return to idle exactly)
+        self._swap_bytes = 0
+        self._swap_rows = 0
+        # slice-attribution books: everything billed to this session's
+        # rows, and the accounts of rows that left without retiring
+        # (cancel, abort, close) — live + retired + dropped == totals
+        self._attr_totals = dict.fromkeys(_ATTR_KEYS, 0.0)
+        self._attr_dropped = dict.fromkeys(_ATTR_KEYS, 0.0)
 
     # -- construction ---------------------------------------------------------
     @classmethod
@@ -267,7 +434,15 @@ class SteppedDecodeSession:
 
     @property
     def free_slots(self) -> int:
-        return sum(1 for r in self.rows if r is None)
+        """Slots open to a joiner: not live and not reserved by one."""
+        return sum(1 for r, row in enumerate(self.rows) if row is None and r not in self._pending)
+
+    @property
+    def pending_joins(self) -> int:
+        return len(self._pending)
+
+    def _free_slot(self) -> int:
+        return next(r for r, row in enumerate(self.rows) if row is None and r not in self._pending)
 
     def debug_state(self) -> Dict[str, Any]:
         """A JSON-able snapshot: per-slot row state (age, tokens, budget,
@@ -282,6 +457,11 @@ class SteppedDecodeSession:
             "slice_steps": self.slice_bucket,
             "active": self.active,
             "free_slots": self.free_slots,
+            "pending_joins": [
+                {"slot": r, "chunk": pj.next_chunk, "chunks": pj.total_chunks,
+                 "resume": pj.resume is not None}
+                for r, pj in sorted(self._pending.items())
+            ],
             "rows": [
                 {
                     "slot": r,
@@ -349,12 +529,23 @@ class SteppedDecodeSession:
             n_row_host[r] for r in live
         )
         t2 = time.monotonic()
+        counts = {r: n_row_host[r] for r in live}
+        slice_tokens = sum(counts.values())
+        if _obs_enabled() and slice_tokens:
+            # before retiring: rows that finish in this slice carry their
+            # share of its wall and Joules into their close-out
+            try:
+                self._attr_slice(counts, t2 - t1, max(1, slice_steps))
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
         retired: List[GenerationResult] = []
         for r in live:
-            self.rows[r].generated.extend(out_host[r][: n_row_host[r]])
+            self.rows[r].generated.extend(out_host[r][: counts[r]])
             if done_host[r]:
                 retired.append(self._retire(r, t2))
-        slice_tokens = sum(n_row_host[r] for r in live)
+        # goodput: the slice stepped every bucket row; completed rows
+        # credit their decode tokens at retirement
+        observe_slice_tokens(slice_steps, len(self.rows))
         if slice_tokens:
             # a spec slice's steps are its rounds: one target forward each
             eng._observe_decode_window(
@@ -391,6 +582,11 @@ class SteppedDecodeSession:
                 "source": self.spec_info["source"],
                 "fallback": False,
             }
+        if _obs_enabled() and (row.attr_slices or row.attr_wall):
+            try:
+                self._close_out_energy(row, extras, len(generated))
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
         result = GenerationResult(
             request=req,
             tokens=generated,
@@ -402,21 +598,512 @@ class SteppedDecodeSession:
             total_s=t2 - row.t0,
             extras=extras,
         )
-        # park the slot's table row before its pages return to the pool
-        self.carry["table"][r] = self.parking
-        self.pool.free(row.pages)
-        row.pages = []
-        self.rows[r] = None
+        # the decode-loop tokens of a completed row were useful work (the
+        # first token came from prefill)
+        observe_retired_tokens(max(0, len(row.generated) - 1))
+        if self.stream_tokens and row.streamed < len(generated):
+            # the unstreamed tail, after the cuts, so that the deltas
+            # concatenate to the final tokens
+            tail = generated[row.streamed :]
+            self._stream_tail.append((req, tail, self.tok.decode(tail)))
+        self._vacate(r)
         return result
 
+    def _vacate(self, r: int) -> None:
+        """Take slot ``r`` out of the decode: done with no budget, greedy
+        (a free slot rides along without drawing from anyone's
+        generator), its table row parked before its pages return to the
+        pool."""
+        c = self.carry
+        c["done"][r] = True
+        c["remaining"][r] = 0
+        c["gens"][r] = None
+        c["knobs"]["temperature"][r] = 0.0
+        c["knobs"]["top_p"][r] = 1.0
+        c["knobs"]["repeat_penalty"][r] = 1.0
+        c["table"][r] = self.parking
+        row = self.rows[r]
+        if row.pages:
+            self.pool.free(row.pages)
+            row.pages = []
+        self.rows[r] = None
+
+    # -- slice energy and wall attribution --------------------------------------
+    def _bill(self, account: _Account, wall: float, est, share: float = 1.0) -> None:
+        j = jl = jh = 0.0
+        if est is not None:
+            j, jl, jh = est["J"], est["J_low"], est["J_high"]
+        account.attr_wall += wall * share
+        account.attr_J += j * share
+        account.attr_J_low += jl * share
+        account.attr_J_high += jh * share
+
+    def _attr_slice(self, counts: "Dict[int, int]", wall: float, steps: int) -> None:
+        """Split one decode slice's wall and modelled Joules over its rows
+        by token share: a row that sampled ``cnt`` of the slice's tokens
+        owns ``cnt / tokens`` of both. The model prices the slice at each
+        row's own context (``slice_window_stats``)."""
+        slice_tokens = sum(counts.values())
+        if not slice_tokens or wall <= 0:
+            return
+        pairs = [
+            (self.rows[r].s_real + len(self.rows[r].generated), cnt) for r, cnt in counts.items()
+        ]
+        est = self.engine._slice_energy(self.model, self.cfg, pairs, wall, steps)
+        self._book_total(wall, est)
+        for r, cnt in counts.items():
+            if cnt:
+                row = self.rows[r]
+                self._bill(row, wall, est, cnt / slice_tokens)
+                row.attr_slices += 1
+
+    def _attr_chunk(self, pending: _PendingJoin, ctx: int, new: int, wall: float) -> None:
+        """Bill one join-prefill chunk to its joiner (the rows in flight
+        stall for it, but the work is the joiner's)."""
+        if wall <= 0 or new <= 0:
+            return
+        est = self.engine._slice_energy(self.model, self.cfg, [(ctx, new)], wall, 1)
+        self._book_total(wall, est)
+        self._bill(pending, wall, est)
+
+    def _book_total(self, wall: float, est) -> None:
+        tot = self._attr_totals
+        tot["wall"] += wall
+        if est is not None:
+            tot["J"] += est["J"]
+            tot["J_low"] += est["J_low"]
+            tot["J_high"] += est["J_high"]
+
+    def _attr_drop(self, account: _Account) -> None:
+        """Move a departing account (cancelled row, aborted joiner, row
+        abandoned at close) into the dropped books."""
+        d = self._attr_dropped
+        d["wall"] += account.attr_wall
+        d["J"] += account.attr_J
+        d["J_low"] += account.attr_J_low
+        d["J_high"] += account.attr_J_high
+
+    def _close_out_energy(self, row: _Row, extras: Dict[str, Any], gen_tokens: int) -> None:
+        """Stamp the retiring row's account into ``extras["energy_model"]``
+        (``window="slice"``), record it in the ``llm_request_*`` families
+        and refresh the engine's live J/token."""
+        from ..obs.energy import observe_estimate
+
+        j, jl, jh = row.attr_J, row.attr_J_low, row.attr_J_high
+        per = (lambda x: x / gen_tokens) if gen_tokens else (lambda x: 0.0)
+        extras["energy_model"] = {
+            "J": round(j, 9),
+            "J_low": round(jl, 9),
+            "J_high": round(jh, 9),
+            "J_per_token": round(per(j), 9),
+            "J_per_token_low": round(per(jl), 9),
+            "J_per_token_high": round(per(jh), 9),
+            "wall_attr_s": round(row.attr_wall, 9),
+            "slices": row.attr_slices,
+            "window": "slice",
+            **({"wasted_J": round(row.attr_wasted_J, 9)} if row.attr_wasted_J else {}),
+        }
+        observe_estimate({
+            "J": j,
+            "J_per_token": per(j),
+            "J_per_token_low": per(jl) if gen_tokens else None,
+            "J_per_token_high": per(jh) if gen_tokens else None,
+        })
+        if per(j) > 0:
+            self.engine.last_joules_per_token = per(j)
+            self.engine.last_joules_per_token_by_model[self.model] = per(j)
+
+    # -- streaming egress and cancellation ---------------------------------------
+    def stream_deltas(self) -> List[tuple]:
+        """Each row's tokens since the previous call, as ``(request,
+        tokens, text)``; rows that retired since then give their buffered
+        tail, so a drained stream's deltas concatenate to the final token
+        list (a stop string cuts retroactively: the final text is the
+        authority there). A live row that asked ``stop_at_eos`` never
+        streams its EOS."""
+        out: List[tuple] = list(self._stream_tail)
+        self._stream_tail.clear()
+        eos = self.tok.eos_id
+        for row in self.rows:
+            if row is None or len(row.generated) <= row.streamed:
+                continue
+            new = row.generated[row.streamed :]
+            row.streamed = len(row.generated)
+            if row.request.stop_at_eos and eos in new:
+                new = new[: new.index(eos)]
+            if new:
+                out.append((row.request, new, self.tok.decode(new)))
+        return out
+
+    def cancel(self, request: GenerationRequest) -> bool:
+        """Retire ``request``'s live row now without completing it: its
+        pages go back to the pool and its partial stream is dropped.
+        False when the request has no live row (it already retired)."""
+        for r, row in enumerate(self.rows):
+            if row is not None and row.request is request:
+                self._attr_drop(row)
+                self._vacate(r)
+                return True
+        return False
+
+    # -- preemption --------------------------------------------------------------
+    def _swap_account(self, d_bytes: int, d_rows: int) -> None:
+        self._swap_bytes = max(0, self._swap_bytes + d_bytes)
+        self._swap_rows = max(0, self._swap_rows + d_rows)
+        swap_host_adjust(d_bytes, rows=d_rows)
+
+    def preempt(self, request: GenerationRequest, policy: str = "swap") -> "Optional[PreemptedRow]":
+        """Take ``request``'s live row out now, like :meth:`cancel`, but
+        keep what :meth:`resume_begin` needs to continue it with an
+        unchanged token stream: the row's control state (last token,
+        generator state, presence row, offset, budget), its prompt pages
+        (``PagePool.swap_out``) and its side-cache columns, all in host
+        memory. Fenced: the copies have landed when it returns.
+
+        Returns None, and leaves the row running, when it cannot: no live
+        row, ``policy="recompute"`` (a stacked session keeps the generated
+        K/V in its side caches; swap is the policy, as in the JAX
+        package), or a speculating session (ROADMAP item 13)."""
+        if self.closed or policy != "swap" or self.spec is not None:
+            return None
+        r = next((i for i, row in enumerate(self.rows)
+                  if row is not None and row.request is request), None)
+        if r is None:
+            return None
+        row = self.rows[r]
+        c = self.carry
+        pr = PreemptedRow(request, self.tok.encode(request.prompt), row.generated, row.s_real)
+        pr.offsets = int(c["offsets"][r])
+        pr.remaining = int(c["remaining"][r])
+        gen = c["gens"][r]
+        pr.gen_state = gen.get_state() if gen is not None else None
+        if c["presence"] is not None and request.repeat_penalty != 1.0:
+            pr.presence = c["presence"][r].to("cpu", copy=True)
+        pr.streamed = row.streamed
+        pr.t0, pr.t1 = row.t0, row.t1
+        pr.side_blob = tuple(
+            # copies (on a CPU engine .cpu() would alias the live slot)
+            _leaf_map(lambda t: t[:, r].to("cpu", copy=True), c[key]) for key in ("side_k", "side_v")
+        )
+        pr.n_own_pages = len(row.pages)
+        # the row is untouched until its pages have left: a copy or a
+        # swap_out that raises leaves it live and decoding as it was
+        pr.blob = self.pool.swap_out(row.pages)
+        row.pages = []
+        c["table"][r] = self.parking
+        pr.take_account(row)
+        pr.attr_slices = row.attr_slices
+        pr.attr_wasted_J = row.attr_wasted_J
+        side_bytes = sum(_leaf_nbytes(x) for x in pr.side_blob)
+        observe_swap("out", side_bytes)
+        pr.host_bytes = side_bytes + pr.blob.nbytes
+        self._swap_account(pr.host_bytes, 1)
+        self._vacate(r)
+        return pr
+
+    def can_resume(self, pr: PreemptedRow) -> bool:
+        """Whether ``pr`` fits back now: a free slot, its pages free, and
+        a session of its model and ``top_k`` that takes it (not one that
+        speculates). Side-effect free."""
+        return (
+            not self.closed
+            and self.free_slots > 0
+            and self.spec is None
+            and pr.request.model == self.model
+            and pr.request.top_k == self.top_k
+            and pr.blob is not None
+            and pr.n_own_pages <= self.pool.free_pages
+        )
+
+    def resume_begin(self, pr: PreemptedRow, chunk_tokens: Optional[int] = None) -> _PendingJoin:
+        """Start re-seating ``pr`` through the join machinery: reserve a
+        free slot and its pages. A swap resume has no chunks: its first
+        :meth:`join_step` is done and :meth:`join_commit` brings its K/V
+        back from host memory."""
+        if not self.can_resume(pr):
+            raise RuntimeError("preempted row cannot resume in this session")
+        r = self._free_slot()
+        pending = _PendingJoin(
+            pr.request, r, pr.ids, [], None, None, pr.presence, self.pool.alloc(pr.n_own_pages)
+        )
+        pending.resume = pr
+        self._pending[r] = pending
+        return pending
+
+    def resume_discard(self, pr: PreemptedRow) -> None:
+        """Drop a parked row for good (its ticket was cancelled or its
+        deadline passed): settle the swap ledger. Idempotent."""
+        if pr.discharged:
+            return
+        pr.discharged = True
+        if pr.host_bytes and not self.closed:
+            self._swap_account(-pr.host_bytes, -1)
+        pr.host_bytes = 0
+
+    def _commit_resume(self, pending: _PendingJoin) -> int:
+        """Finish a resume: the pages and side-cache columns back from
+        host memory, then the row re-seated with its captured state (same
+        last token, generator state, presence, offset and budget), so its
+        stream continues as if it had never left. Fenced."""
+        pr = pending.resume
+        r = pending.slot
+        del self._pending[r]
+        eng = self.engine
+        self.pool.swap_in(pr.blob, pages=pending.pages)
+        c = self.carry
+        for key, blob in zip(("side_k", "side_v"), pr.side_blob):
+            if isinstance(blob, dict):
+                for part in blob:
+                    c[key][part][:, r] = blob[part].to(eng.device)
+            else:
+                c[key][:, r] = blob.to(eng.device)
+        observe_swap("in", sum(_leaf_nbytes(x) for x in pr.side_blob))
+        self._set_table_row(r, pending.pages)
+        gen = None
+        if pr.gen_state is not None:
+            gen = torch.Generator(device=eng.device)
+            gen.set_state(pr.gen_state)
+        if pr.host_bytes:
+            self._swap_account(-pr.host_bytes, -1)
+            pr.host_bytes = 0
+        pr.discharged = True
+        self._seat_row(
+            pr.request, r, first_token=pr.generated[-1], gen=gen, presence_row=pr.presence,
+            offsets=pr.offsets, prompt_len=pr.prompt_len, remaining=pr.remaining,
+            pages=pending.pages, t0=pr.t0, t1=pr.t1, generated=pr.generated,
+            streamed=pr.streamed,
+        )
+        row = self.rows[r]
+        row.take_account(pr)
+        row.attr_slices = pr.attr_slices
+        row.attr_wasted_J = pr.attr_wasted_J
+        eng._sync()
+        return r
+
+    # -- admission -----------------------------------------------------------------
+    def can_join(self, request: GenerationRequest) -> bool:
+        """Whether ``request`` fits this session's fixed shapes and free
+        capacity now: its model and ``top_k``, a free slot, a budget the
+        side caches hold (``max_new_tokens - 1 <= g_bucket``), no more
+        pages than a table row names (``jmax``) and that many free pages.
+        A speculating session takes no joiners (ROADMAP item 13).
+        Side-effect free: the scheduler probes before paying a prefill."""
+        if self.closed or self.spec is not None or self.free_slots == 0:
+            return False
+        if request.model != self.model or request.top_k != self.top_k:
+            return False
+        n_ids = len(self.tok.encode(request.prompt))
+        if n_ids == 0 or n_ids + request.max_new_tokens > self.cfg.max_seq_len:
+            return False
+        if request.max_new_tokens - 1 > self.g_bucket:
+            return False
+        need = self._pages_needed(n_ids)
+        return need <= self.jmax and need <= self.pool.free_pages
+
+    def join(self, request: GenerationRequest) -> int:
+        """Admit ``request`` into a free slot, its whole prompt prefilled
+        now (one chunk, as the solo path prefills it); it decodes from the
+        next slice. Returns the slot. Built on the resumable protocol, so
+        the two cannot drift; a failed prefill leaves the slot free."""
+        pending = self.join_begin(request, chunk_tokens=PREFILL_CHUNK)
+        try:
+            while not self.join_step(pending):
+                pass
+            return self.join_commit(pending)
+        except BaseException:
+            self.join_abort(pending)
+            raise
+
+    def join_begin(self, request: GenerationRequest, chunk_tokens: Optional[int] = None) -> _PendingJoin:
+        """Start a resumable join: reserve a free slot and the row's
+        pages (so that other joiners cannot take them while this prompt
+        streams in), make the private cache and split the prompt into
+        chunks of ``chunk_tokens`` (default JOIN_PREFILL_CHUNK_TOKENS,
+        floored to a prompt bucket). No device work yet: each
+        :meth:`join_step` runs one chunk."""
+        if not self.can_join(request):
+            raise RuntimeError("request cannot join this session")
+        r = self._free_slot()
+        eng = self.engine
+        ids = self.tok.encode(request.prompt)
+        chunk = _floor_bucket(int(chunk_tokens or JOIN_PREFILL_CHUNK_TOKENS), PROMPT_BUCKETS)
+        chunks = _prompt_chunks(len(ids), chunk)
+        cache_len = chunks[-1][0] + chunks[-1][1]
+        pages = self.pool.alloc(self._pages_needed(len(ids)))
+        k_cache, v_cache = eng._models[self.model].init_cache(1, cache_len, dtype=eng.dtype)
+        presence = None
+        if request.repeat_penalty != 1.0:
+            presence = torch.zeros((1, self.cfg.vocab_size), dtype=torch.bool, device=eng.device)
+            presence[0, torch.tensor(ids, device=eng.device)] = True
+        pending = _PendingJoin(request, r, ids, chunks, k_cache, v_cache, presence, pages)
+        self._pending[r] = pending
+        return pending
+
+    def join_step(self, pending: _PendingJoin) -> bool:
+        """Run one prefill chunk of a pending join into its private cache
+        (a chunk at offset > 0 attends to the chunks before it, as the
+        solo path's chunked prefill does). Fenced, so the caller's clock
+        around it is the stall of the rows in flight. True once the whole
+        prompt is in (commit next)."""
+        if pending.next_chunk < len(pending.chunks):
+            eng = self.engine
+            tf = eng._models[self.model]
+            t0 = time.monotonic()
+            start, bucket = pending.chunks[pending.next_chunk]
+            ids = pending.ids[start : start + bucket]
+            real = len(ids)
+            tokens = torch.tensor(
+                [ids + [self.tok.pad_id] * (bucket - real)], dtype=torch.long, device=eng.device
+            )
+            hidden, pending.k_cache, pending.v_cache = forward(
+                tf.params, tf.cfg, tokens, start, pending.k_cache, pending.v_cache,
+                None, cuda_prefill_attention, layers=tf.layers,
+            )
+            pending.logits = logits_for(tf.params, tf.cfg, hidden[:, real - 1])
+            eng._sync()
+            pending.next_chunk += 1
+            dt = time.monotonic() - t0
+            pending.prefill_s += dt
+            if _obs_enabled():
+                try:
+                    self._attr_chunk(pending, start, real, dt)
+                except Exception:  # noqa: BLE001 — telemetry only
+                    pass
+        return pending.next_chunk >= len(pending.chunks)
+
+    def join_commit(self, pending: _PendingJoin) -> int:
+        """Finish a fully prefilled join: sample the first token exactly
+        as the solo path does (a generator seeded with the request's
+        seed, the same sampler call), scatter the private cache into the
+        reserved pages, clear the slot's side-cache columns of the
+        previous occupant's K/V and seat the row; it decodes from the
+        next slice. Returns the slot."""
+        if pending.resume is not None:
+            return self._commit_resume(pending)
+        if pending.next_chunk < len(pending.chunks):
+            raise RuntimeError(
+                f"join not fully prefilled: chunk {pending.next_chunk} of {len(pending.chunks)}"
+            )
+        eng = self.engine
+        request = pending.request
+        use_rp = request.repeat_penalty != 1.0
+        t0 = time.monotonic()
+        gen = torch.Generator(device=eng.device).manual_seed(request.seed)
+        first = sample_token(
+            pending.logits, gen, request.temperature, request.top_k,
+            request.top_p if request.top_p < 1.0 else None,
+            pending.presence, request.repeat_penalty if use_rp else None,
+        )
+        first_id = int(first[0])
+        if use_rp:
+            pending.presence[0, first_id] = True
+        r = pending.slot
+        del self._pending[r]
+        self._scatter_private_cache(r, pending)
+        eng._sync()
+        dt = time.monotonic() - t0
+        pending.prefill_s += dt
+        if _obs_enabled():
+            self._attr_totals["wall"] += dt
+            pending.attr_wall += dt
+            _PREFILL_H.observe(pending.prefill_s)
+        self._seat_row(
+            request, r, first_token=first_id, gen=gen,
+            presence_row=None if pending.presence is None else pending.presence[0],
+            offsets=len(pending.ids), prompt_len=len(pending.ids),
+            remaining=request.max_new_tokens - 1, pages=pending.pages,
+            t0=pending.t0, t1=pending.t0 + pending.prefill_s,
+        )
+        self.rows[r].take_account(pending)
+        return r
+
+    def join_abort(self, pending: _PendingJoin) -> None:
+        """Drop a pending join (a failed chunk, a cancelled ticket,
+        shutdown): the slot and its pages are free again."""
+        self._pending.pop(pending.slot, None)
+        self._attr_drop(pending)
+        if pending.pages:
+            self.pool.free(pending.pages)
+            pending.pages = []
+
+    def _set_table_row(self, r: int, pages: "List[int]") -> None:
+        row = [self.parking] * self.jmax
+        row[: len(pages)] = pages
+        self.carry["table"][r] = torch.tensor(row, dtype=torch.int32, device=self.engine.device)
+
+    def _scatter_private_cache(self, r: int, pending: _PendingJoin) -> None:
+        """The joiner's prompt K/V from its private cache into its pages
+        (quantized on the way into an int8 pool, as the opening rows'),
+        its table row, and its side-cache columns zeroed: the slot may
+        hold a retired row's generated K/V."""
+        s_real = len(pending.ids)
+        ck = _paginate(pending.k_cache[:, 0], s_real, self.page_size)
+        cv = _paginate(pending.v_cache[:, 0], s_real, self.page_size)
+        pending.k_cache = pending.v_cache = None
+        if self.pool.quantized:
+            ck, cv = quantize_chunks(ck, cv)
+        scatter_pages(self.pool.k, self.pool.v, pending.pages, ck, cv)
+        self._set_table_row(r, pending.pages)
+        for key in ("side_k", "side_v"):
+            _leaf_map(lambda t: t[:, r].zero_(), self.carry[key])
+
+    def _seat_row(
+        self, request: GenerationRequest, r: int, *, first_token: int, gen, presence_row,
+        offsets: int, prompt_len: int, remaining: int, pages: "List[int]", t0: float,
+        t1: float, generated: "Optional[List[int]]" = None, streamed: int = 0,
+    ) -> None:
+        """Set slot ``r``'s control state and host record: the shared tail
+        of seating a joiner (``offsets == prompt_len``, the full budget)
+        and re-seating a preempted row. A row with no steps left enters
+        done."""
+        c = self.carry
+        dev = self.engine.device
+        c["tokens"][r] = first_token
+        c["gens"][r] = gen
+        c["knobs"]["temperature"][r] = request.temperature
+        c["knobs"]["top_p"][r] = request.top_p
+        c["knobs"]["repeat_penalty"][r] = request.repeat_penalty
+        if request.repeat_penalty != 1.0:
+            if c["presence"] is None:
+                c["presence"] = torch.zeros(
+                    (len(self.rows), self.cfg.vocab_size), dtype=torch.bool, device=dev
+                )
+            c["presence"][r] = presence_row.to(dev)
+        c["offsets"][r] = offsets
+        c["prompt_lens"][r] = prompt_len
+        c["remaining"][r] = remaining
+        c["done"][r] = remaining <= 0
+        self.use_top_p = self.use_top_p or request.top_p < 1.0
+        row = _Row(request, prompt_len, first_token, request.max_new_tokens - 1, t0, t1,
+                   time.monotonic(), pages)
+        if generated is not None:
+            row.generated = list(generated)
+        row.streamed = streamed
+        self.rows[r] = row
+
+    # -- teardown ----------------------------------------------------------------
     def close(self) -> None:
         """Release the session: live rows are abandoned (their partial
-        streams are not returned) and their pages freed."""
+        streams are not returned), pending joins aborted, every page
+        freed, and the swap ledger of parked victims settled."""
         if self.closed:
             return
         self.closed = True
         for row in self.rows:
-            if row is not None and row.pages:
-                self.pool.free(row.pages)
-                row.pages = []
+            if row is not None:
+                self._attr_drop(row)
+                if row.pages:
+                    self.pool.free(row.pages)
+                    row.pages = []
+        for pending in self._pending.values():
+            self._attr_drop(pending)
+            if pending.pages:
+                self.pool.free(pending.pages)
+                pending.pages = []
+        self._pending.clear()
+        self._stream_tail.clear()
         self.rows = [None] * len(self.rows)
+        if self._swap_bytes or self._swap_rows:
+            swap_host_adjust(-self._swap_bytes, rows=-self._swap_rows)
+            self._swap_bytes = 0
+            self._swap_rows = 0

@@ -16,7 +16,9 @@ prompt term with small side caches of the generated tokens
 the JAX paged engine's.
 
 ``decode_open`` (``paged_kv=True``) opens a stepped decode session over
-the same pool (``engine/stepped.py``); with ``speculative=`` configured
+the same pool (``engine/stepped.py``: joins in prefill chunks, cancel,
+stream deltas, swap preemption; what the continuous scheduler of
+``serve/scheduler.py`` drives); with ``speculative=`` configured
 for the model, its slices are draft-verify rounds whose verify forward
 reads the prompt pages through the multi-query paged kernels
 (``engine/speculative.py``). ``generate_speculative`` serves one request
@@ -43,13 +45,16 @@ int4 or int4-i32); at int4 every decode-shaped matmul (at most 8 rows)
 runs an int4 kernel, and prefill and batches of more than 8 rows
 dequantize and call ``torch.matmul``, as the JAX package does.
 
+``generate_stream`` decodes the plain loop's state in chunks, so its
+tokens are ``generate``'s. ``generate`` attaches the modelled energy of
+each result as ``extras["energy_model"]`` (``obs/energy.py``), and so do
+a batch (its window's Joules by token share) and a session (each slice's
+by token share, closed out at retirement).
+
 Not ported yet: contiguous batched decode (``generate_batch`` with
-``paged_kv=False``) and the contiguous session, joins, cancellation,
-preemption and the adaptive speculation policy of sessions, prefix
-caches, HF checkpoints, the on-disk weight cache, ``generate_stream``'s
-incremental path (the contract's single-chunk default stands in) and
-CUDA graphs. ``generate`` attaches the modelled energy of each result as
-``extras["energy_model"]`` (``obs/energy.py``).
+``paged_kv=False``) and the contiguous session, joins into and
+preemption of speculating sessions and the adaptive speculation policy,
+prefix caches, HF checkpoints, the on-disk weight cache and CUDA graphs.
 """
 
 from __future__ import annotations
@@ -80,7 +85,7 @@ from ..ops.cuda_paged_attention import (
     cuda_paged_decode_attention_parts_int8,
 )
 from ..ops.sampling import sample_token, sample_token_per_row
-from .backend import GenerationBackend, GenerationRequest, GenerationResult
+from .backend import GenerationBackend, GenerationChunk, GenerationRequest, GenerationResult
 from .paged_kv import PagePool, _paginate, group_chunks, quantize_chunks, scatter_pages
 from .speculative import DraftSpec, build_spec_fn, build_spec_step_fn
 
@@ -89,15 +94,24 @@ GEN_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 # Prompts longer than the largest bucket prefill in chunks of this size
 # (the prefill kernel takes offset > 0 against a partially-filled cache).
 PREFILL_CHUNK = PROMPT_BUCKETS[-1]
+# A session joiner's prompt prefills in chunks of at most this many tokens
+# (floored to a prompt bucket), one chunk between two decode slices, so
+# the rows in flight stall for one chunk at a time (env
+# PREFILL_CHUNK_TOKENS; the serve CLI's --prefill-chunk-tokens).
+JOIN_PREFILL_CHUNK_TOKENS = int(os.environ.get("PREFILL_CHUNK_TOKENS", 0)) or 256
 # A stop-string request checks its text every this many decode steps —
 # the JAX engine's streamed chunk, so both exit within one chunk of a hit.
 DEFAULT_STREAM_CHUNK = 32
 # generate_batch rows pad up to these buckets.
 BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 # Budget for one sub-batch's K+V bytes: generate_batch picks the widest
-# bucket whose estimated cache fits it. The value is the JAX package's
-# default (sized there for a TPU's program budget); it was not sized for
-# the H100.
+# bucket whose estimated cache fits it, and the schedulers' admission cap
+# (max_admission_rows) is that bucket. The value is the JAX package's
+# default. Measured on an NVIDIA H100 80GB HBM3 (700 W limit) under
+# chip_smoke.py's serve_continuous (qwen2:1.5b, int8 weights, bf16 pool):
+# it admits 64 rows, while the continuous session held at most 4 live rows
+# (its slots and pages are fixed at open) and the process peaked at
+# 3.67 GB of 80 GB. The budget is not what binds there, so it stays.
 BATCH_KV_BUDGET_BYTES = int(os.environ.get("BATCH_KV_BUDGET_BYTES", 2_500_000_000))
 # Never split below this width whatever the estimate says (the JAX
 # package's rule).
@@ -138,6 +152,16 @@ def _bucket(n: int, buckets: Tuple[int, ...]) -> int:
         if n <= b:
             return b
     raise ValueError(f"{n} exceeds the largest bucket {buckets[-1]}")
+
+
+def _floor_bucket(n: int, buckets: Tuple[int, ...]) -> int:
+    """Largest bucket <= n (the smallest when n undershoots them all): a
+    chunk budget rounds down, so that it stays a cap."""
+    best = buckets[0]
+    for b in buckets:
+        if b <= n:
+            best = b
+    return best
 
 
 def _prompt_chunks(s_real: int, chunk: Optional[int] = None) -> "list[tuple[int, int]]":
@@ -366,6 +390,10 @@ class TorchEngine(GenerationBackend):
         # speculative step functions, by (model, draft, k, slice, source,
         # top_k, use_top_p)
         self._decode_cache: Dict[tuple, Callable] = {}
+        # the live modelled J/token of the most recent attributed result
+        # (overall and by model), refreshed by every attribution path
+        self.last_joules_per_token: Optional[float] = None
+        self.last_joules_per_token_by_model: Dict[str, float] = {}
 
     # -- model management -----------------------------------------------------
     def _quant_mode(self, model: str) -> Optional[str]:
@@ -418,6 +446,13 @@ class TorchEngine(GenerationBackend):
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def bind_thread(self) -> None:
+        """Make this engine's card the calling thread's current device: a
+        scheduler thread calls it before it launches anything, so that
+        every launch lands on the card's one stream."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device.index if self.device.index is not None else 0)
 
     def warmup(self, request: GenerationRequest) -> None:
         """Load the weights, build the kernels and bring PyTorch's caches
@@ -543,15 +578,8 @@ class TorchEngine(GenerationBackend):
     ) -> GenerationResult:
         """The plain decode loop over the contiguous cache."""
         st = self._start(request, prompt_ids=prompt_ids)
-        tf, tok = st["tf"], st["tok"]
+        tok = st["tok"]
         eos = tok.eos_id
-        if self.kv_quantize:
-            # Prefill always runs on the bf16 cache; decode reads int8.
-            st["k_cache"], st["v_cache"] = quantize_kv_cache(st["k_cache"], st["v_cache"])
-            decode_attention = _int8_cache_attention
-        else:
-            decode_attention = cuda_decode_attention
-
         generated = [st["first_id"]]
         # With stop strings the host checks the text every chunk and ends
         # the loop after the chunk that hit, as the JAX engine's streamed
@@ -561,17 +589,43 @@ class TorchEngine(GenerationBackend):
             (request.stop_at_eos and generated[0] == eos)
             or any(s in tok.decode(generated) for s in request.stop)
         )
-        token = st["first"].reshape(1, 1)
-        offset = st["s_real"]
-        steps = request.max_new_tokens - 1  # the first token is already sampled
+        remaining = request.max_new_tokens - 1  # the first token is already sampled
+        while remaining > 0 and not stopped:
+            ids = self._decode_plain(request, st, min(chunk, remaining) if request.stop else remaining)
+            generated.extend(ids)
+            remaining -= len(ids)
+            if ids[-1] == eos:
+                break
+            if request.stop:
+                text = tok.decode(generated)
+                stopped = any(s in text for s in request.stop)
+        self._sync()
+        t2 = time.monotonic()
+        return self._finish(request, generated, st, t2)
+
+    def _decode_plain(self, request: GenerationRequest, st: Dict[str, Any], n: int) -> "list[int]":
+        """Up to ``n`` decode steps continuing ``st`` (the caches, the last
+        token and its offset, the generator and presence mask); stops
+        after an EOS. On the first call an int8-KV engine quantizes the
+        prefilled cache (prefill always runs on the bf16 cache). Returns
+        the new token ids."""
+        if "attention" not in st:
+            if self.kv_quantize:
+                st["k_cache"], st["v_cache"] = quantize_kv_cache(st["k_cache"], st["v_cache"])
+                st["attention"] = _int8_cache_attention
+            else:
+                st["attention"] = cuda_decode_attention
+            st["token"] = st["first"].reshape(1, 1)
+            st["offset"] = st["s_real"]
+        tf = st["tf"]
+        eos = st["tok"].eos_id
         top_p = request.top_p if st["use_top_p"] else None
         rp = request.repeat_penalty if st["use_rp"] else None
-        for step in range(steps):
-            if stopped:
-                break
+        out: "list[int]" = []
+        for _ in range(n):
             hidden, _, _ = forward(
-                tf.params, tf.cfg, token, offset, st["k_cache"], st["v_cache"],
-                decode_attention, layers=tf.layers,
+                tf.params, tf.cfg, st["token"], st["offset"], st["k_cache"], st["v_cache"],
+                st["attention"], layers=tf.layers,
             )
             logits = logits_for(tf.params, tf.cfg, hidden[:, 0])
             nxt = sample_token(
@@ -581,17 +635,102 @@ class TorchEngine(GenerationBackend):
             if st["use_rp"]:
                 st["presence"][0, nxt] = True
             nxt_id = int(nxt[0])
-            generated.append(nxt_id)
-            token = nxt.reshape(1, 1)
-            offset += 1
+            out.append(nxt_id)
+            st["token"] = nxt.reshape(1, 1)
+            st["offset"] += 1
             if nxt_id == eos:
                 break
-            if request.stop and (step + 1) % chunk == 0:
-                text = tok.decode(generated)
-                stopped = any(s in text for s in request.stop)
+        return out
+
+    def generate_stream(self, request: GenerationRequest, chunk_tokens: int = DEFAULT_STREAM_CHUNK):
+        """Incremental generation: decode in chunks of ``chunk_tokens``
+        steps over the plain loop's state, yielding a ``GenerationChunk``
+        after each, so the token stream is the one :meth:`generate`'s
+        plain loop makes; the final ``done`` chunk carries the full
+        result. With stop strings the deltas come from the cumulative
+        text, cut before a stop string, and a possibly incomplete
+        trailing character or a prefix of a stop string is held back
+        until the next chunk resolves it. A chunk's text decodes only
+        its own tokens otherwise; the final result's text is the
+        authority."""
+        st = self._start(request)
+        tok = st["tok"]
+        eos = tok.eos_id
+        chunk_bucket = _bucket(min(chunk_tokens, request.max_new_tokens), GEN_BUCKETS)
+        generated = [st["first_id"]]
+        # The plain loop only stops on an EOS sampled inside it; an EOS
+        # first token under stop_at_eos leaves nothing to show.
+        stop = request.stop_at_eos and generated[0] == eos
+        emitted = ""
+        owed: "list[int]" = []  # ids not yet attached to a chunk
+
+        def stop_delta() -> "Tuple[str, bool]":
+            nonlocal emitted
+            cum = tok.decode(generated)
+            cuts = [cum.find(s) for s in request.stop if s in cum]
+            if cuts:
+                cum = cum[: min(cuts)]
+            else:
+                if cum.endswith("\ufffd"):
+                    cum = cum[:-1]
+                hold = 0
+                for s in request.stop:
+                    for k in range(min(len(s) - 1, len(cum)), 0, -1):
+                        if cum.endswith(s[:k]):
+                            hold = max(hold, k)
+                            break
+                if hold:
+                    cum = cum[:-hold]
+            delta = cum[len(emitted):] if len(cum) > len(emitted) else ""
+            emitted += delta
+            return delta, bool(cuts)
+
+        def emit(ids: "list[int]"):
+            nonlocal owed, stop
+            if not request.stop:
+                return GenerationChunk(text=tok.decode(ids), tokens=ids)
+            owed = owed + ids
+            delta, hit = stop_delta()
+            stop = stop or hit
+            if not delta:
+                return None
+            chunk, owed = GenerationChunk(text=delta, tokens=owed), []
+            return chunk
+
+        if not stop:
+            first = emit(list(generated))
+            if first is not None:
+                yield first
+        remaining = request.max_new_tokens - 1
+        while remaining > 0 and not stop:
+            ids = self._decode_plain(request, st, min(chunk_bucket, remaining))
+            generated.extend(ids)
+            remaining -= len(ids)
+            shown = list(ids)
+            if ids[-1] == eos:
+                stop = True
+                if request.stop_at_eos:
+                    shown = shown[: shown.index(eos)]
+            if shown:
+                chunk = emit(shown)
+                if chunk is not None:
+                    yield chunk
+        if request.stop:
+            # the held-back text, so that the deltas sum to the result's
+            final = generated
+            if request.stop_at_eos and eos in final:
+                final = final[: final.index(eos)]
+            cum = tok.decode(final)
+            cuts = [cum.find(s) for s in request.stop if s in cum]
+            if cuts:
+                cum = cum[: min(cuts)]
+            if len(cum) > len(emitted) or owed:
+                yield GenerationChunk(text=cum[len(emitted):], tokens=owed)
         self._sync()
         t2 = time.monotonic()
-        return self._finish(request, generated, st, t2)
+        yield GenerationChunk(
+            text="", tokens=[], done=True, result=self._finish(request, generated, st, t2)
+        )
 
     def _finish(
         self, request: GenerationRequest, generated: "list[int]", st: Dict[str, Any], t2: float
@@ -1345,19 +1484,76 @@ class TorchEngine(GenerationBackend):
             if est is not None:
                 result.extras = {**(result.extras or {}), "energy_model": est}
                 obs_energy.observe_estimate(est)
+                self._note_joules_per_token(model, est)
         except Exception:  # noqa: BLE001 — telemetry only
             pass
+
+    def _note_joules_per_token(self, model: str, est: Dict[str, Any]) -> None:
+        if est.get("J_per_token") is not None:
+            self.last_joules_per_token = est["J_per_token"]
+            self.last_joules_per_token_by_model[model] = est["J_per_token"]
 
     def _observe_batch_window(
         self, results: "list[GenerationResult]", t1: float, t2: float
     ) -> None:
         """One shared paged decode window: every row's tokens, and the
-        window's steps (the longest row's)."""
-        if not results:
+        window's steps (the longest row's); then the window's modelled
+        Joules (``batch_window_stats``: the weight stream billed once per
+        step, each row's KV at its own context), split over the rows by
+        token share into ``extras["energy_model"]`` (``window="shared"``)."""
+        if not results or not _obs_enabled():
             return
+        tokens = sum(r.generated_tokens for r in results)
         self._observe_decode_window(
-            t1, t2,
-            sum(r.generated_tokens for r in results),
-            max(r.generated_tokens for r in results),
+            t1, t2, tokens, max(r.generated_tokens for r in results),
             rows=len(results), path="paged",
         )
+        try:
+            from ..obs import energy as obs_energy
+
+            model = results[0].request.model
+            tf = self._models.get(model)
+            if tf is None or not tokens:
+                return
+            stats = obs_energy.batch_window_stats(
+                tf.cfg, results, quantize=self._quant_mode(model),
+                kv_quantize=self.kv_quantize, duration_s=t2 - t1,
+            )
+            est = obs_energy.estimate_from_stats(stats) if stats else None
+            if est is None:
+                return
+            obs_energy.observe_estimate(est)
+            self._note_joules_per_token(model, est)
+            for r in results:
+                if not r.generated_tokens:
+                    continue
+                share = r.generated_tokens / tokens
+                r.extras = {
+                    **(r.extras or {}),
+                    "energy_model": {
+                        "J": round(est["J"] * share, 4),
+                        "J_low": round(est["J_low"] * share, 4),
+                        "J_high": round(est["J_high"] * share, 4),
+                        "J_per_token": est["J_per_token"],
+                        "J_per_token_low": est["J_per_token_low"],
+                        "J_per_token_high": est["J_per_token_high"],
+                        "power_model_W": est["power_model_W"],
+                        "window": "shared",  # the row's token share of the batch
+                    },
+                }
+        except Exception:  # noqa: BLE001 — telemetry only
+            pass
+
+    def _slice_energy(
+        self, model: str, cfg: ModelConfig, pairs, duration_s: float, steps: int
+    ) -> Optional[Dict[str, Any]]:
+        """The energy model's estimate of one session slice (or one join
+        chunk): ``slice_window_stats`` at this engine's weight and KV
+        modes. Sessions split it over their rows by token share."""
+        from ..obs import energy as obs_energy
+
+        stats = obs_energy.slice_window_stats(
+            cfg, pairs, duration_s, steps,
+            quantize=self._quant_mode(model), kv_quantize=self.kv_quantize,
+        )
+        return obs_energy.estimate_from_stats(stats) if stats is not None else None

@@ -571,10 +571,14 @@ class LlmEnergyConfig(ExperimentConfig):
                 self._wire_remote_backend()
                 return
             from ..engine.torch_engine import TorchEngine
+            from ..serve.client import backend_from_env
 
             # On the card unless none is available, and then it raises:
-            # the engine never moves to the CPU by itself.
-            self._backends = {"on_device": TorchEngine(quantize=self.quantize)}
+            # the engine never moves to the CPU by itself. A study whose
+            # only location is a remote server builds no engine here.
+            self._backends = {}
+            if "on_device" in self.locations or not (self._remote_url or backend_from_env()):
+                self._backends["on_device"] = TorchEngine(quantize=self.quantize)
             self._wire_remote_backend()
 
     def _wire_remote_backend(self) -> None:

@@ -15,10 +15,24 @@ modules; ``energy.py`` prices with the H100 energy model).
   J/token estimates, attached to each solo result as
   ``extras["energy_model"]``.
 - :mod:`.tenants` — per-tenant accounting.
+- :mod:`.timeseries` — a fixed-capacity time-series ring of registry
+  snapshots, and :mod:`.slo` — objectives with burn-rate alerting over it.
 """
 
 from .flight import FLIGHT, FlightRecorder
-from .metrics import REGISTRY, MetricsRegistry, disable, enable, enabled
+from .metrics import (
+    REGISTRY,
+    MetricsRegistry,
+    bucket_fraction_below,
+    disable,
+    enable,
+    enabled,
+    merge_expositions,
+    parse_exposition,
+    quantile_from_buckets,
+)
+from .slo import Objective, SLOEngine, parse_slo_spec
+from .timeseries import SamplerThread, TimeSeriesRing
 from .trace import TRACER, Span, SpanTracer, TraceContext, mint_trace_id
 
 __all__ = [
@@ -34,4 +48,13 @@ __all__ = [
     "enabled",
     "enable",
     "disable",
+    "merge_expositions",
+    "parse_exposition",
+    "quantile_from_buckets",
+    "bucket_fraction_below",
+    "TimeSeriesRing",
+    "SamplerThread",
+    "SLOEngine",
+    "Objective",
+    "parse_slo_spec",
 ]

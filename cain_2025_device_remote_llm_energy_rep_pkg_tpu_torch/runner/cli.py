@@ -11,8 +11,12 @@ dynamic import :19-25, AST md5 :27-49) and
 
 The study commands of the JAX package's CLI, on the port. ``prepare``
 checks torch, the CUDA card (its name and power limit through NVML) and
-the build of the port's kernels. ``serve`` and ``serve-fleet`` are not
-ported yet: they exit with code 2 and say so.
+the build of the port's kernels. ``serve`` runs the HTTP generation
+server over ``TorchEngine`` on the card (``--backend torch``, the
+default) or the fake backend; the options of the layers not ported yet
+(the JAX engines, tensor parallelism, the replica router and the
+multi-model fleet, the prefix store and migration, checkpoints) exit
+with code 2 naming their ROADMAP item, as ``serve-fleet`` does.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ from __future__ import annotations
 import importlib.util
 import inspect
 import multiprocessing
+import signal
 import sys
+import threading
 import uuid
 from pathlib import Path
 from typing import List, Optional, Type
@@ -145,8 +151,39 @@ commands:
                        measured (disables the rows-were-aliased assumption)
   prepare              validate the environment (torch, the CUDA card and its
                        NVML power limit, the kernels' build, energy channels)
-  serve, serve-fleet   not ported yet (they come with the port's continuous
-                       serving, ROADMAP item 11); they exit with code 2
+  serve [opts]         start the HTTP generation server (the framework-native
+                       Ollama-equivalent) over TorchEngine on the card:
+                       --host H --port N (default 11434), --backend
+                       torch|fake, --models a,b,c, --quantize
+                       int8|int4|int4-i32|none or per-model
+                       "m1=int8,default=int4", --kv-quantize int8,
+                       --paged-kv (the page pool; the schedulers need it),
+                       --scheduler window|continuous --window-ms W
+                       --max-batch B --no-budget-admission
+                       --decode-slice-steps N --prefill-chunk-tokens N
+                       --ttft-slo-ms N --default-priority T
+                       --preempt-policy off|swap
+                       --preempt-max-wait-s S, --speculative
+                       target=draft[:k] or draft[:k] (draft: a model, ngram
+                       or cross:<model>) --spec-temperature-max T
+                       --spec-draft-temperature T, --slo SPEC, --role mixed,
+                       --usage-ledger-dir D, --access-log, --no-telemetry.
+                       No scheduler: one request at a time (generate and
+                       generate_stream under one lock); window: concurrent
+                       requests coalesce into generate_batch; continuous:
+                       rows join (in prefill chunks), stream, cancel and
+                       are preempted to host memory (swap) at decode-slice
+                       granularity. Without a card it exits 2 (no CPU
+                       fallback). Not ported, exit 2 with their ROADMAP
+                       item: --backend jax|jax-tp, --tp, --dp (14),
+                       --replicas > 1, --route-policy, --probe-interval-ms,
+                       --roles, --model-policy, --escalate-max-tokens
+                       (15), --prefix-* and --role prefill|decode (12),
+                       --hf (6), --spec-accept-floor > 0 (13),
+                       --preempt-policy recompute, and --scheduler or
+                       --window-ms without --paged-kv on the torch backend
+                       (11.2, the contiguous session)
+  serve-fleet          the replica router: not ported (ROADMAP item 15), exit 2
   help                 show this message
 """
 
@@ -216,6 +253,10 @@ def prepare() -> None:
     CLIRegister.py:77-78)."""
     term.log(f"python: {sys.version.split()[0]}")
     _check_card()
+    term.log(
+        "serve: `python -m cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch serve "
+        "--backend torch [--paged-kv --scheduler continuous]` serves TorchEngine on the card"
+    )
     from ..profilers.energy_probe import probe_energy_channels
 
     # The cooldown promise is derived from the channels the study's
@@ -358,6 +399,222 @@ def _parse_recompute(args: List[str]) -> None:
     )
 
 
+def _not_ported(option: str, item: str) -> CommandError:
+    return CommandError(f"serve: {option} is not ported to the PyTorch package yet (ROADMAP item {item})")
+
+
+def _parse_quantize(spec: str):
+    """``int8`` (every model), ``none``, or per model
+    ``qwen2:1.5b=int8,phi3:3.8b=int4,default=int8``."""
+    if "=" not in spec:
+        return None if spec == "none" else spec
+    quantize = {}
+    for entry in spec.split(","):
+        name, _, mode = entry.partition("=")
+        if not name or not mode:
+            raise CommandError("serve: --quantize per-model spec is model=mode[,model=mode...]")
+        quantize[name] = None if mode == "none" else mode
+    return quantize
+
+
+def _parse_speculative(spec: str):
+    """``target=draft[:k]``, or ``draft[:k]`` for every target (the
+    ``default`` key); model names may hold colons, so only a trailing
+    ``:<int>`` is k."""
+    name, eq, rest = spec.partition("=")
+    if not eq:
+        name, rest = "default", spec
+    head, _, tail = rest.rpartition(":")
+    draft, k = (head, int(tail)) if head and tail.isdigit() else (rest, 4)
+    if not spec or not name or not draft or k < 1:
+        raise CommandError(
+            "serve: --speculative expects target=draft[:k] or draft[:k] with k >= 1 "
+            "(draft: a model name, ngram or cross:<model>)"
+        )
+    return name, (draft, k)
+
+
+def serve_command(args: List[str]) -> None:
+    """Run the generation server, the side of the study that owns the
+    card (the reference's Ollama server, README.md:29-31). The option
+    set is the JAX package's ``serve``; those of layers the port does not
+    have yet refuse with their ROADMAP item."""
+    from ..serve.protocol import DEFAULT_PORT, SERVER_ROLES, parse_priority
+
+    opts = {
+        "host": "0.0.0.0", "port": DEFAULT_PORT, "batch_window_ms": 0.0, "scheduler": None,
+        "max_batch": None, "budget_aware": None, "slice_steps": None,
+        "prefill_chunk_tokens": None, "ttft_slo_ms": None, "default_priority": None,
+        "preempt_policy": None, "preempt_max_wait_s": None, "slo": None, "role": None,
+        "usage_ledger_dir": None, "access_log": False,
+    }
+    backend_kind = "torch"
+    models: Optional[List[str]] = None
+    engine_kwargs: dict = {}
+    speculative: dict = {}
+    paged_kv = False
+    it = iter(args)
+
+    def value(flag: str) -> str:
+        v = next(it, None)
+        if v is None:
+            raise CommandError(f"serve: {flag} expects a value")
+        return v
+
+    def number(flag: str, kind=float, low=None, strict=False):
+        try:
+            v = kind(value(flag))
+        except ValueError:
+            raise CommandError(f"serve: {flag} expects a number")
+        if low is not None and (v <= low if strict else v < low):
+            raise CommandError(f"serve: {flag} expects a number {'>' if strict else '>='} {low}")
+        return v
+
+    for arg in it:
+        if arg == "--port":
+            opts["port"] = number(arg, int, 0)
+        elif arg == "--host":
+            opts["host"] = value(arg)
+        elif arg == "--backend":
+            backend_kind = value(arg)
+            if backend_kind in ("jax", "jax-tp"):
+                raise CommandError(
+                    f"serve: --backend {backend_kind} is the JAX package's engine; the port "
+                    "serves TorchEngine (--backend torch) and its tensor-parallel engine is "
+                    "not ported yet (ROADMAP item 14)"
+                )
+            if backend_kind not in ("torch", "fake"):
+                raise CommandError(f"serve: unknown backend {backend_kind!r} (torch|fake)")
+        elif arg in ("--tp", "--dp"):
+            raise _not_ported(f"{arg} (tensor and data parallelism)", "14")
+        elif arg == "--replicas":
+            if number(arg, int, 1) > 1:
+                raise _not_ported("--replicas > 1 (the replica router)", "15")
+        elif arg in ("--route-policy", "--probe-interval-ms", "--roles"):
+            raise _not_ported(f"{arg} (the replica router)", "15")
+        elif arg in ("--model-policy", "--escalate-max-tokens"):
+            raise _not_ported(f"{arg} (the multi-model fleet)", "15")
+        elif arg.startswith("--prefix-"):
+            raise _not_ported(f"{arg} (the prefix store)", "12")
+        elif arg == "--hf":
+            raise _not_ported("--hf (checkpoint loading)", "6")
+        elif arg == "--models":
+            models = [m for m in value(arg).split(",") if m]
+        elif arg in ("--window-ms", "--batch-window-ms"):
+            opts["batch_window_ms"] = number(arg, float, 0)
+        elif arg == "--scheduler":
+            opts["scheduler"] = value(arg)
+            if opts["scheduler"] not in ("window", "continuous"):
+                raise CommandError("serve: --scheduler expects 'window' or 'continuous'")
+        elif arg == "--max-batch":
+            opts["max_batch"] = number(arg, int, 0) or None
+        elif arg == "--no-budget-admission":
+            opts["budget_aware"] = False
+        elif arg == "--decode-slice-steps":
+            opts["slice_steps"] = number(arg, int, 0, strict=True)
+        elif arg == "--prefill-chunk-tokens":
+            opts["prefill_chunk_tokens"] = number(arg, int, 0, strict=True)
+        elif arg == "--ttft-slo-ms":
+            opts["ttft_slo_ms"] = number(arg, float, 0, strict=True)
+        elif arg == "--default-priority":
+            try:
+                opts["default_priority"] = parse_priority(value(arg))
+            except ValueError as exc:
+                raise CommandError(f"serve: --default-priority: {exc}")
+        elif arg == "--preempt-policy":
+            opts["preempt_policy"] = value(arg)
+            if opts["preempt_policy"] == "recompute":
+                raise _not_ported("--preempt-policy recompute (the contiguous session)", "11.2")
+            if opts["preempt_policy"] not in ("off", "swap"):
+                raise CommandError("serve: --preempt-policy expects 'off' or 'swap'")
+        elif arg == "--preempt-max-wait-s":
+            opts["preempt_max_wait_s"] = number(arg, float, 0)
+        elif arg == "--quantize":
+            engine_kwargs["quantize"] = _parse_quantize(value(arg))
+        elif arg == "--kv-quantize":
+            kv = value(arg)
+            engine_kwargs["kv_quantize"] = None if kv == "none" else kv
+        elif arg == "--paged-kv":
+            paged_kv = True
+        elif arg == "--speculative":
+            name, draft = _parse_speculative(value(arg))
+            speculative[name] = draft
+        elif arg == "--spec-accept-floor":
+            if number(arg, float, 0) > 0:
+                raise _not_ported("--spec-accept-floor > 0 (the adaptive speculative fallback)", "13")
+        elif arg == "--spec-temperature-max":
+            engine_kwargs["spec_temperature_max"] = number(arg, float, 0)
+        elif arg == "--spec-draft-temperature":
+            engine_kwargs["spec_draft_temperature"] = number(arg, float, 0, strict=True)
+        elif arg == "--slo":
+            from ..obs.slo import parse_slo_spec
+
+            opts["slo"] = value(arg)
+            try:
+                parse_slo_spec(opts["slo"])
+            except ValueError as exc:
+                raise CommandError(f"serve: --slo: {exc}")
+        elif arg == "--role":
+            opts["role"] = value(arg)
+            if opts["role"] not in SERVER_ROLES:
+                raise CommandError("serve: --role expects one of " + "|".join(SERVER_ROLES))
+            if opts["role"] != "mixed":
+                raise _not_ported(f"--role {opts['role']} (disaggregated serving, live row migration)", "12")
+        elif arg == "--usage-ledger-dir":
+            opts["usage_ledger_dir"] = value(arg)
+        elif arg == "--access-log":
+            opts["access_log"] = True
+        elif arg == "--no-telemetry":
+            from ..obs import disable as obs_disable
+
+            obs_disable()
+        else:
+            raise CommandError(f"serve: unrecognised option {arg!r}")
+
+    batching = opts["batch_window_ms"] > 0 or opts["scheduler"] is not None
+    if backend_kind == "torch" and batching and not paged_kv:
+        raise _not_ported(
+            "batched serving without --paged-kv (the contiguous session and contiguous "
+            "generate_batch)", "11.2"
+        )
+    if backend_kind == "fake":
+        from ..engine.fake import FakeBackend
+
+        backend = FakeBackend()
+    else:
+        from ..engine.torch_engine import TorchEngine
+        from ..models.config import MODEL_REGISTRY
+
+        if models is None:
+            models = sorted(MODEL_REGISTRY)
+        try:
+            backend = TorchEngine(paged_kv=paged_kv, speculative=speculative or None, **engine_kwargs)
+        except (RuntimeError, ValueError) as exc:
+            raise CommandError(f"serve: {exc}")
+    from ..serve.server import GenerationServer
+
+    server = GenerationServer(backend, models=models, **opts)
+    _serve_until_signalled(server)
+
+
+def _serve_until_signalled(server) -> None:
+    """``serve_forever`` until SIGTERM or Ctrl-C, then stop the server:
+    the scheduler drains its thread and fails what is still queued."""
+
+    def on_term(signum, frame):
+        raise KeyboardInterrupt
+
+    main_thread = threading.current_thread() is threading.main_thread()
+    previous = signal.signal(signal.SIGTERM, on_term) if main_thread else None
+    try:
+        server.serve_forever()
+    finally:
+        server.stop()
+        if main_thread:
+            signal.signal(signal.SIGTERM, previous)
+            term.log_ok("generation server stopped")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
     if not args or args[0] in ("help", "--help", "-h"):
@@ -392,11 +649,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             _parse_recompute(args)
         elif cmd == "prepare":
             prepare()
-        elif cmd in ("serve", "serve-fleet"):
+        elif cmd == "serve":
+            serve_command(args[1:])
+        elif cmd == "serve-fleet":
             raise CommandError(
-                f"{cmd} is not ported to the PyTorch package yet: it comes "
-                "with continuous serving (ROADMAP item 11); the JAX "
-                "package's CLI serves meanwhile"
+                "serve-fleet (the replica router, serve/router.py) is not "
+                "ported to the PyTorch package yet (ROADMAP item 15)"
             )
         elif cmd.endswith(".py"):
             run_config_file(Path(cmd))

@@ -35,8 +35,21 @@ measured run: the port's ``ExperimentController`` over ``LlmEnergyConfig``
 repetitions) writes four rows, each with NVML's measured Joules beside
 the modelled ones, after NVML's idle power is read for 2 s; then the study
 from the command line (``runner.cli.main`` over two config files: the
-study's 7 models at 100 words, qwen2:1.5b at 500 and 1,000 words, one
-repetition each, each config's table analysed, then ``recompute-energy``).
+study's 7 models at 100 words, qwen2:1.5b at 500 words, one repetition
+each, each config's table analysed, then ``recompute-energy``).
+The serving phases run the port's
+``GenerationServer`` in this process over HTTP on 127.0.0.1 at int8
+weights: ``serve_continuous`` (the continuous scheduler over the bf16
+pool, 16 requests with seeded Poisson arrivals: joins in prefill chunks
+through B1, streams, a cancelled stream, and two high-priority requests
+that preempt rows to host memory and resume them; B4 decodes; every
+greedy row replayed teacher-forced, its tokens' logits within
+LOGIT_ATOL of each position's maximum), ``serve_continuous_int8_kv``
+(B5), ``serve_window`` (``generate_batch``) and ``serve_serial``
+(``generate`` and ``generate_stream`` on B2); last,
+``serve_cli_capstone`` starts ``python -m …_tpu_torch serve --backend
+torch`` as a subprocess and runs the study as its HTTP client for both
+locations, then stops the server with SIGTERM.
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -1819,10 +1832,13 @@ def study_phase(torch, eng_mod, kernels, smi):
 
 
 # The study through the command line: every study model at 100 words, and
-# qwen2:1.5b at the two long lengths, one repetition each, 2 s cooldown.
+# qwen2:1.5b at 500 words, one repetition each, 2 s cooldown. (With the
+# 1,000-word row too, the whole script took 973.4 s on an H100 80GB HBM3
+# at 700 W, 81% of its 1,200 s limit; that row and its warm-up were ~110 s
+# of it. The sweep, examples/torch_llm_energy_sweep.py, runs every length.)
 STUDY_CLI_CONFIGS = (
     ("study_cli", None, (100,)),  # None: the study's 7 models
-    ("study_cli_long", (MODEL,), (500, 1000)),
+    ("study_cli_long", (MODEL,), (500,)),
 )
 STUDY_CLI_COOLDOWN_MS = 2000
 # recompute-energy must give back the stored modelled Joules.
@@ -1844,7 +1860,7 @@ class RunnerConfig(LlmEnergyConfig):
 def study_cli_phase(torch, eng_mod, kernels, smi):
     """The study from the command line: ``runner.cli.main([config.py])``
     over two config files written here (the study's 7 models at 100 words;
-    qwen2:1.5b at 500 and 1,000 words), each building its own
+    qwen2:1.5b at 500 words), each building its own
     ``TorchEngine(quantize="int8")`` and analysing its table at the end;
     then ``recompute-energy`` over the first table. Every row must be
     done with tokens and NVML Joules, its counter's mean W within
@@ -1981,6 +1997,464 @@ def study_cli_phase(torch, eng_mod, kernels, smi):
     emit({"phase": "study_cli_done", "seconds": time.perf_counter() - t0,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
     return totals
+
+
+# The serving phases: in-process GenerationServer over TorchEngine at int8
+# weights on 127.0.0.1, driven over HTTP through the port's client. The
+# continuous phase's traffic: seeded Poisson arrivals, prompts of 50–600
+# tokens and 64–128 new tokens (the first request at both maxima, so that
+# the session it opens takes every later request); three requests stream,
+# one of them is closed after its second delta (a cancel), two sample, and
+# the last two, of x_priority "high", are sent only once the session is
+# full (no free slot, requests waiting in the scheduler's queue), so that
+# they preempt.
+SERVE_REQUESTS = 16
+SERVE_SMALL_REQUESTS = 8  # the int8-pool and window phases
+SERVE_MEAN_GAP_S = 0.05
+SERVE_SEED = 13
+SERVE_PROMPT_TOKENS = (50, 600)
+SERVE_NEW_TOKENS = (64, 128)
+SERVE_STREAMED = (2, 6, 10)
+SERVE_CANCELLED = 6  # one of the streamed ones
+SERVE_SAMPLED = (5, 9)
+SERVE_HIGH = (14, 15)
+SERVE_FULL_WAIT_S = 120.0
+SERVE_CHUNK_TOKENS = 64  # the continuous scheduler's join-prefill chunk
+SERVE_POWER_PERIOD_S = 0.05  # NVML power samples during the traffic
+SERVE_SOLO_ROWS = 4  # greedy rows also run through solo generate (the share)
+
+
+def serve_traffic(GenerationRequest, parse_priority, n, seed):
+    """(requests, arrival gaps in s) of one serving phase (see above)."""
+    import random
+
+    rng = random.Random(seed)
+    reqs, gaps = [], []
+    for i in range(n):
+        prompt = SERVE_PROMPT_TOKENS[1] if i == 0 else rng.randint(*SERVE_PROMPT_TOKENS)
+        new = SERVE_NEW_TOKENS[1] if i == 0 else rng.randint(*SERVE_NEW_TOKENS)
+        kw = dict(temperature=0.7, seed=i) if i in SERVE_SAMPLED else {}
+        if i in SERVE_HIGH:
+            kw["priority"] = parse_priority("high")
+        reqs.append(GenerationRequest(MODEL, context_prompt(prompt), new, stop_at_eos=False, **kw))
+        gaps.append(0.0 if i == 0 else rng.expovariate(1.0 / SERVE_MEAN_GAP_S))
+    return reqs, gaps
+
+
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]
+
+
+def drive_server(torch, server_mod, client_mod, engine, kernels, requests, gaps, streamed=(),
+                 cancelled=None, dev=None, when_full=(), poll=True, **server_kw):
+    """Start a GenerationServer over ``engine`` on 127.0.0.1 (port 0), send
+    ``requests`` at their arrival gaps from one client thread each (the
+    ``streamed`` ones through ``generate_stream``, ``cancelled`` closed
+    after its second delta; the ``when_full`` ones only once the live
+    session has no free slot and requests wait in the scheduler's queue),
+    and stop the server. ``poll`` runs the sampler thread (NVML's W when
+    ``dev`` is given, the session's live rows). The launch counts are
+    set to 0 just before the first request and read just after the last
+    answer. Returns (results by index, streamed deltas by index, counts,
+    wall s, mean NVML W, the scheduler's largest live row count)."""
+    import threading
+
+    server = server_mod.GenerationServer(engine, host="127.0.0.1", port=0, quiet=True, **server_kw)
+    server.start()
+    client = client_mod.RemoteHTTPBackend(f"http://127.0.0.1:{server.port}")
+    results, deltas, errors = {}, {}, {}
+    watts, live_rows = [], [0]
+    done = threading.Event()
+
+    def sample():
+        while not done.is_set():
+            if dev is not None:
+                watts.append(dev.power_w())
+            dbg = getattr(server._scheduler, "_dbg", None)
+            if dbg is not None:
+                live_rows[0] = max(live_rows[0], dbg[0].active)
+            time.sleep(SERVE_POWER_PERIOD_S)
+
+    def send(i, req):
+        try:
+            if i not in streamed:
+                results[i] = client.generate(req)
+                return
+            deltas[i] = []
+            stream = client.generate_stream(req)
+            for chunk in stream:
+                if chunk.done:
+                    results[i] = chunk.result
+                    break
+                deltas[i].extend(chunk.tokens)
+                if i == cancelled and len(deltas[i]) >= 2:
+                    stream.close()  # the server's next write fails: the row is cancelled
+                    break
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors[i] = exc
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    try:
+        for fn in kernels:
+            fn.launches = 0
+        if poll:
+            sampler.start()
+        t0 = time.perf_counter()
+        threads = []
+        for i, (req, gap) in enumerate(zip(requests, gaps)):
+            time.sleep(gap)
+            deadline = time.perf_counter() + SERVE_FULL_WAIT_S
+            sched = server._scheduler
+            while i in when_full and not (sched._dbg is not None and sched._dbg[0].free_slots == 0
+                                          and sched._queue.qsize() > 0):
+                assert time.perf_counter() < deadline, "the session never filled"
+                time.sleep(0.01)
+            threads.append(threading.Thread(target=send, args=(i, req)))
+            threads[-1].start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in kernels}
+    finally:
+        done.set()
+        if poll:
+            sampler.join(timeout=5)
+        server.stop()
+    assert not errors, errors
+    assert not any(t.is_alive() for t in threads)
+    mean_w = sum(watts) / len(watts) if watts else None
+    return results, deltas, counts, wall, mean_w, live_rows[0]
+
+
+def replay_gap(torch, engine, tfm, ca, eng_mod, request, tokens):
+    """Teacher-force ``tokens`` after the request's prompt through the
+    engine's solo prefill (B1 over a contiguous cache): the largest gap
+    between a position's maximum logit and the served token's logit."""
+    tf = engine._models[MODEL]
+    tok = engine._tokenizer_for(MODEL)
+    prompt = tok.encode(request.prompt)
+    ids = prompt + tokens[:-1]
+    bucket = eng_mod._bucket(len(ids), eng_mod.PROMPT_BUCKETS)
+    k_cache, v_cache = tf.init_cache(1, bucket, dtype=engine.dtype)
+    x = torch.tensor([ids + [tok.pad_id] * (bucket - len(ids))], device=engine.device)
+    with torch.no_grad():
+        hidden, _, _ = tfm.forward(tf.params, tf.cfg, x, 0, k_cache, v_cache, None,
+                                   ca.cuda_prefill_attention, layers=tf.layers)
+        logits = tfm.logits_for(tf.params, tf.cfg, hidden[0, len(prompt) - 1 : len(ids)]).float()
+        served = torch.tensor(tokens, device=engine.device)[:, None]
+        gap = logits.max(dim=1).values - logits.gather(1, served)[:, 0]
+    return float(gap.max())
+
+
+def hold_greedy(torch, engine, tfm, ca, eng_mod, phase, requests, results, solo_rows=0):
+    """Hold every served greedy row against the solo path: each served
+    token's logit within LOGIT_ATOL of its position's maximum when the row
+    is replayed teacher-forced (gated); the share of tokens equal to solo
+    ``generate``'s over the first ``solo_rows`` rows (printed: random
+    weights give near-ties, and the paged kernels' grids change with the
+    rows)."""
+    gaps, same, total = [], 0, 0
+    for i, res in sorted(results.items()):
+        if requests[i].temperature > 0:
+            continue
+        gaps.append(replay_gap(torch, engine, tfm, ca, eng_mod, requests[i], res.tokens))
+        if len(gaps) <= solo_rows:
+            solo = engine.generate(requests[i]).tokens
+            same += sum(a == b for a, b in zip(solo, res.tokens))
+            total += max(len(solo), len(res.tokens))
+    line = {"phase": phase, "rows": len(gaps), "max_logit_gap": max(gaps), "logit_atol": LOGIT_ATOL}
+    if solo_rows:
+        line.update(solo_rows=min(len(gaps), solo_rows), solo_token_share=same / total)
+    emit(line)
+    assert max(gaps) <= LOGIT_ATOL, gaps
+
+
+def check_served(requests, results, eos, cancelled=()):
+    """Every request that was not cancelled ended (its budget or an EOS)
+    with in-vocabulary tokens and its modelled energy."""
+    for i, req in enumerate(requests):
+        if i in cancelled:
+            assert i not in results, i
+            continue
+        res = results[i]
+        assert res.generated_tokens == len(res.tokens) >= 1, (i, res.generated_tokens)
+        assert len(res.tokens) == req.max_new_tokens or res.tokens[-1] == eos, (i, len(res.tokens))
+        assert "energy_model" in (res.extras or {}), (i, res.extras)
+
+
+def serve_phases(torch, eng_mod, kernels, smi, tfm, ca):
+    """The serving phases on full-width qwen2:1.5b at int8 weights (see
+    SERVE_*): ``serve_continuous`` (the continuous scheduler over the bf16
+    pool: joins in prefill chunks, streams, a cancel, swap preemption),
+    ``serve_continuous_int8_kv`` (the int8 pool), ``serve_window``
+    (``generate_batch``) and ``serve_serial`` (``generate`` and
+    ``generate_stream`` under the server's lock). Returns the launches."""
+    import gc
+    from importlib import import_module
+
+    server_mod = import_module(f"{PKG}.serve.server")
+    client_mod = import_module(f"{PKG}.serve.client")
+    protocol = import_module(f"{PKG}.serve.protocol")
+    flight = import_module(f"{PKG}.obs.flight")
+    nvml = import_module(f"{PKG}.profilers.nvml")
+    GenerationRequest = import_module(f"{PKG}.engine.backend").GenerationRequest
+    dev = nvml.nvml_device()
+    names = {fn.__name__ for fn in kernels}
+    totals = {name: 0 for name in names}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] += v
+
+    def only(counts, ran):
+        """``ran`` launched, every other kernel stayed at 0."""
+        assert all(counts[k] > 0 for k in ran), counts
+        assert all(counts[k] == 0 for k in names - set(ran)), counts
+
+    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True)
+    engine.load_model(MODEL)
+    reqs, gaps = serve_traffic(GenerationRequest, protocol.parse_priority, SERVE_REQUESTS, SERVE_SEED)
+    # warm: a batch, and a session with a chunked joiner
+    engine.generate_batch([dataclasses.replace(r, max_new_tokens=4) for r in reqs[:2]])
+    sess = engine.decode_open([dataclasses.replace(reqs[0], max_new_tokens=4)], reserve_rows=2)
+    pj = sess.join_begin(dataclasses.replace(reqs[1], max_new_tokens=4), SERVE_CHUNK_TOKENS)
+    while not sess.join_step(pj):
+        pass
+    sess.join_commit(pj)
+    while sess.active:
+        sess.step()
+    sess.close()
+    admission_rows = engine.max_admission_rows(reqs[0])
+    flight.FLIGHT.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results, deltas, counts, wall, mean_w, live = drive_server(
+        torch, server_mod, client_mod, engine, kernels, reqs, gaps, streamed=SERVE_STREAMED,
+        cancelled=SERVE_CANCELLED, dev=dev, when_full=SERVE_HIGH, scheduler="continuous",
+        prefill_chunk_tokens=SERVE_CHUNK_TOKENS,
+    )
+    peak = torch.cuda.max_memory_allocated()
+    events = flight.FLIGHT.events()
+    by = lambda kind, **kw: [e for e in events if e["type"] == kind  # noqa: E731
+                             and all(e.get(k) == v for k, v in kw.items())]
+    joins = len(by(flight.EV_REQUEST_ADMITTED, joined=True))
+    chunks = len(by(flight.EV_JOIN_CHUNK))
+    preempts, resumes = len(by(flight.EV_ROW_PREEMPTED)), len(by(flight.EV_ROW_RESUMED))
+    cancels = len(by(flight.EV_ROW_RETIRED, reason="cancelled"))
+    eos = engine._tokenizer_for(MODEL).eos_id
+    check_served(reqs, results, eos, cancelled=(SERVE_CANCELLED,))
+    for i in SERVE_STREAMED:
+        if i != SERVE_CANCELLED:
+            assert deltas[i] == results[i].tokens, i
+    only(counts, ("cuda_prefill_attention", "cuda_paged_decode_attention_parts"))
+    add(counts)
+    tokens = sum(r.generated_tokens for r in results.values())
+    ttft = [r.extras["sched"]["ttft_s"] for r in results.values()]
+    emit({
+        "phase": "serve_continuous", "requests": len(reqs), "completed": len(results),
+        "cancelled": cancels, "joins": joins, "join_chunks": chunks, "preemptions": preempts,
+        "resumes": resumes, "generated_tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "ttft_p50_s": percentile(ttft, 0.5),
+        "ttft_p95_s": percentile(ttft, 0.95),
+        "join_chunk_stall_ms": 1e3 * sum(e["dur_s"] for e in by(flight.EV_JOIN_CHUNK)) / max(chunks, 1),
+        "swap_bytes": sum(e.get("swapped_bytes", 0) for e in by(flight.EV_ROW_PREEMPTED)),
+        "max_live_rows": live, "max_admission_rows": admission_rows,
+        "batch_kv_budget_bytes": eng_mod.BATCH_KV_BUDGET_BYTES,
+        "max_memory_allocated_bytes": peak, "nvml_mean_w": mean_w, "counts": counts,
+        "nvidia_smi": smi,
+    })
+    assert cancels == 1 and SERVE_CANCELLED not in results, (cancels, sorted(results))
+    assert joins > 0 and chunks > 0 and preempts >= 1 and resumes >= 1, (joins, chunks, preempts, resumes)
+    hold_greedy(torch, engine, tfm, ca, eng_mod, "serve_continuous_greedy", reqs, results,
+                solo_rows=SERVE_SOLO_ROWS)
+
+    # the window scheduler: generate_batch over the same engine
+    small, small_gaps = serve_traffic(GenerationRequest, protocol.parse_priority, SERVE_SMALL_REQUESTS,
+                                      SERVE_SEED + 1)
+    small = [dataclasses.replace(r, priority=protocol.DEFAULT_PRIORITY) for r in small]
+    results, _, counts, wall, mean_w, _ = drive_server(
+        torch, server_mod, client_mod, engine, kernels, small, small_gaps, dev=dev,
+        scheduler="window", batch_window_ms=200,
+    )
+    check_served(small, results, eos)
+    assert all(r.extras["energy_model"]["window"] == "shared" for r in results.values())
+    only(counts, ("cuda_prefill_attention", "cuda_paged_decode_attention_parts"))
+    add(counts)
+    tokens = sum(r.generated_tokens for r in results.values())
+    emit({"phase": "serve_window", "requests": len(small), "generated_tokens": tokens, "wall_s": wall,
+          "tokens_per_s": tokens / wall,
+          "decode_windows": len({r.extras["decode_window"] for r in results.values()}),
+          "nvml_mean_w": mean_w, "counts": counts, "nvidia_smi": smi})
+    hold_greedy(torch, engine, tfm, ca, eng_mod, "serve_window_greedy", small, results)
+
+    # no scheduler: generate and generate_stream, one at a time
+    serial = [dataclasses.replace(small[i], temperature=0.0, priority=protocol.DEFAULT_PRIORITY)
+              for i in (0, 1, 0)]
+    results, deltas, counts, wall, mean_w, _ = drive_server(
+        torch, server_mod, client_mod, engine, kernels, serial, [0.0, 0.0, 0.0], streamed=(2,), dev=dev,
+    )
+    check_served(serial, results, eos)
+    assert deltas[2] == results[2].tokens == results[0].tokens
+    only(counts, ("cuda_prefill_attention", "cuda_decode_attention"))
+    add(counts)
+    emit({"phase": "serve_serial", "requests": len(serial), "streamed": 1,
+          "generated_tokens": sum(r.generated_tokens for r in results.values()), "wall_s": wall,
+          "nvml_mean_w": mean_w, "counts": counts, "nvidia_smi": smi})
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, kv_quantize="int8")
+    engine.load_model(MODEL)
+    small8, gaps8 = serve_traffic(GenerationRequest, protocol.parse_priority, SERVE_SMALL_REQUESTS,
+                                  SERVE_SEED + 2)
+    small8 = [dataclasses.replace(r, priority=protocol.DEFAULT_PRIORITY) for r in small8]
+    engine.generate_batch([dataclasses.replace(r, max_new_tokens=4) for r in small8[:2]])  # warm
+    results, _, counts, wall, mean_w, live = drive_server(
+        torch, server_mod, client_mod, engine, kernels, small8, gaps8, dev=dev,
+        scheduler="continuous", prefill_chunk_tokens=SERVE_CHUNK_TOKENS,
+    )
+    check_served(small8, results, engine._tokenizer_for(MODEL).eos_id)
+    only(counts, ("cuda_prefill_attention", "cuda_paged_decode_attention_parts_int8"))
+    add(counts)
+    tokens = sum(r.generated_tokens for r in results.values())
+    emit({"phase": "serve_continuous_int8_kv", "requests": len(small8), "generated_tokens": tokens,
+          "wall_s": wall, "tokens_per_s": tokens / wall, "max_live_rows": live,
+          "nvml_mean_w": mean_w, "counts": counts, "nvidia_smi": smi})
+    # the replay reads a bf16 cache: the gap also holds the int8 pool's error
+    hold_greedy(torch, engine, tfm, ca, eng_mod, "serve_continuous_int8_kv_greedy", small8, results)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+CAPSTONE_CONFIG = """from {pkg}.experiments.llm_energy import LlmEnergyConfig
+from {pkg}.profilers.nvml import NvmlEnergyProfiler
+
+
+class RunnerConfig(LlmEnergyConfig):
+    name = "serve_cli_capstone"
+
+    def __init__(self):
+        super().__init__(
+            models=[{model!r}], locations=["on_device", "remote"], lengths=[100], repetitions=1,
+            cooldown_ms={cooldown}, shuffle=False, results_output_path={out!r},
+            on_device_url={url!r}, remote_url={url!r},
+        )
+        # the card's counter, read from this client beside the serving process
+        self.profilers.insert(0, NvmlEnergyProfiler())
+"""
+SERVER_START_S = 300  # the subprocess imports torch, loads its kernels and weights
+
+
+def serve_cli_capstone_phase(torch, root, smi):
+    """``python -m …_tpu_torch serve --backend torch`` in a subprocess that
+    owns the card, then the study as a pure HTTP client of it:
+    ``runner.cli.main`` over a config naming the server for both locations
+    (qwen2:1.5b, 100 words, one repetition). Each row's ``backend`` is the
+    URL, it has its 134 tokens, its NVML Joules are checked as the study's
+    are,
+    ``recompute-energy`` treats the remote rows as aliased and gives the
+    modelled Joules back, and the server exits 0 on SIGTERM. Its launches
+    happen in the subprocess and are not counted here."""
+    import csv
+    import gc
+    import os
+    import signal
+    import socket
+    import tempfile
+    import urllib.request
+    from importlib import import_module
+
+    cli = import_module(f"{PKG}.runner.cli")
+    nvml = import_module(f"{PKG}.profilers.nvml")
+    client_mod = import_module(f"{PKG}.serve.client")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capstone_") as out:
+        log_path = Path(out) / "serve.log"
+        with log_path.open("w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", PKG, "serve", "--backend", "torch", "--host", "127.0.0.1",
+                 "--port", str(port), "--models", MODEL, "--quantize", "int8"],
+                cwd=str(root), stdout=log, stderr=subprocess.STDOUT,
+                env={**os.environ, "PYTHONPATH": str(root), "PYTHONUNBUFFERED": "1"},
+            )
+        try:
+            deadline = time.perf_counter() + SERVER_START_S
+            while True:
+                assert proc.poll() is None, log_path.read_text()[-4000:]
+                try:
+                    with urllib.request.urlopen(f"{url}/api/tags", timeout=5) as resp:
+                        tags = json.loads(resp.read())
+                    break
+                except OSError:
+                    assert time.perf_counter() < deadline, log_path.read_text()[-4000:]
+                    time.sleep(1.0)
+            started = time.perf_counter() - t0
+            assert [m["name"] for m in tags["models"]] == [MODEL], tags
+            dev = nvml.nvml_device()
+            watts = []
+            t_end = time.perf_counter() + STUDY_IDLE_S
+            while time.perf_counter() < t_end:
+                watts.append(dev.power_w())
+                time.sleep(0.1)
+            idle_w = sum(watts) / len(watts)
+            path = Path(out) / "capstone.py"
+            path.write_text(CAPSTONE_CONFIG.format(pkg=PKG, model=MODEL, cooldown=STUDY_CLI_COOLDOWN_MS,
+                                                   out=out, url=url))
+            assert cli.main([str(path)]) == 0
+            exp = Path(out) / "serve_cli_capstone"
+            with (exp / "run_table.csv").open() as f:
+                rows = list(csv.DictReader(f))
+            assert cli.main(["recompute-energy", str(exp)]) == 0
+            with (exp / "run_table.csv").open() as f:
+                again = {r["__run_id"]: r for r in csv.DictReader(f)}
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise
+        log_tail = log_path.read_text()[-2000:]
+    base = client_mod.RemoteHTTPBackend(url).base_url
+    assert rc == 0, (rc, log_tail)
+    assert len(rows) == 2 and all(r["__done"] == "DONE" for r in rows), rows
+    worst = 0.0
+    for r in rows:
+        remote = r["location"] == "remote"
+        assert r["backend"] == f"http:{base}" + ("[aliased-on_device]" if remote else ""), r["backend"]
+        tokens = int(r["generated_tokens"])
+        assert tokens == math.ceil(100 * TOKENS_PER_WORD), r
+        measured_j = float(r["gpu_energy_J"])
+        counter_w, sampled_w = measured_j / float(r["execution_time_s"]), float(r["gpu_avg_power_W"])
+        assert abs(counter_w - sampled_w) <= STUDY_POWER_AGREEMENT * sampled_w, (counter_w, sampled_w, r)
+        assert min(counter_w, sampled_w) > (1 - STUDY_IDLE_MARGIN) * idle_w, (counter_w, sampled_w, idle_w)
+        redone = again[r["__run_id"]]
+        assert (redone["remote_modeled_decode_s"] != "") == remote, redone
+        rel = abs(float(redone["energy_model_J"]) - float(r["energy_model_J"])) / float(r["energy_model_J"])
+        worst = max(worst, rel)
+        assert rel <= RECOMPUTE_RTOL, (r["__run_id"], rel)
+        emit({
+            "phase": "serve_cli_capstone_row", "location": r["location"], "backend": r["backend"],
+            "generated_tokens": tokens, "request_s": float(r["execution_time_s"]),
+            "gpu_energy_J": measured_j, "counter_W": counter_w, "nvml_W": sampled_w,
+            "energy_model_J": float(r["energy_model_J"]),
+            "remote_modeled_decode_s": r["remote_modeled_decode_s"], "nvml_idle_w": idle_w,
+            "nvidia_smi": smi,
+        })
+    emit({"phase": "serve_cli_capstone", "server_start_s": started, "server_exit_code": rc,
+          "recompute_max_rel_change": worst, "seconds": time.perf_counter() - t0})
 
 
 def mixed_quant_phase(engine, GenerationRequest, kernels, chunks_of, params_nbytes):
@@ -2184,11 +2658,14 @@ def main() -> int:
     add(counts)
     del engine
     torch.cuda.empty_cache()
+    add(serve_phases(torch, eng_mod, all_kernels, smi, tfm, ca))
+    torch.cuda.empty_cache()
     wide_integration_phase(torch, eng_mod, ca, plain, cq, tfm, qmod)
     torch.cuda.empty_cache()
     add(study_phase(torch, eng_mod, all_kernels, smi))
     torch.cuda.empty_cache()
     add(study_cli_phase(torch, eng_mod, all_kernels, smi))
+    serve_cli_capstone_phase(torch, root, smi)
     assert all(launches.values()), launches
 
     rows = []

@@ -1,6 +1,6 @@
 """Where a decode step of the PyTorch port spends its time, on one CUDA card.
 
-    python3 scripts/torch_decode_profile.py [--new-tokens 33] [--batch | --spec]
+    python3 scripts/torch_decode_profile.py [--new-tokens 33] [--batch | --spec | --serve]
         [--quantize {int8,int4,int4-i32}] [--trace-dir DIR]
 
 Drives ``TorchEngine.generate`` (the study's entry point) on full-width
@@ -23,6 +23,20 @@ JSON line per KV mode:
 - ``kernels_per_step`` and ``launch_api_ms_per_step`` (host time in
   ``cudaLaunchKernel`` and its kin, profiled);
 - the kernel time by category and the top kernels by device time.
+
+With ``--serve`` it times the continuous scheduler's session step by
+step (``SteppedDecodeSession.step`` wrapped: its wall, fenced by the
+slice's ``.tolist()``, over the decode steps it ran, B4's launches / the
+layers) in four arms on one bf16-pool engine: ``session``, the session
+driven directly (4 rows); ``served_bare``, ``chip_smoke.py``'s
+``serve_continuous`` traffic through an in-process ``GenerationServer``
+with no polling thread beside it; ``served_smoke``, the same traffic
+exactly as ``chip_smoke.py`` drives it (its 50 ms NVML and session
+sampler, and the 10 ms wait for a full session before the high-tier
+requests); and ``served_bare`` again. In each arm the first slice with 3
+or more live rows runs under ``torch.profiler`` (left out of the wall
+figures): device ms, kernels and launch-call ms a step, and the idle
+share against the arm's median unprofiled step.
 
 Exits 2 without a CUDA device: these are the card's numbers or none.
 """
@@ -118,6 +132,8 @@ def main() -> int:
                     help="profile generate_batch over the paged pool (17 requests)")
     ap.add_argument("--spec", action="store_true",
                     help="profile verify rounds of the n-gram speculative session")
+    ap.add_argument("--serve", action="store_true",
+                    help="profile the continuous scheduler's session steps, served and not")
     ap.add_argument("--quantize", choices=("int8", "int4", "int4-i32"), default="int8",
                     help="the weights' mode")
     ap.add_argument("--trace-dir", default=None,
@@ -143,6 +159,9 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(smi, flush=True)
+    if args.serve:
+        return profile_served_steps(args, torch, profile, ProfilerActivity, TorchEngine,
+                                    GenerationRequest, smi)
     if args.spec:
         return profile_spec_rounds(args, torch, profile, ProfilerActivity, TorchEngine,
                                    GenerationRequest, smi)
@@ -260,6 +279,131 @@ def profile_spec_rounds(args, torch, profile, activity, TorchEngine, GenerationR
             }), flush=True)
             del engine, session
             torch.cuda.empty_cache()
+    return 0
+
+
+def profile_served_steps(args, torch, profile, activity, TorchEngine, GenerationRequest,
+                         smi) -> int:
+    """Per-step figures of the continuous scheduler's session, served and
+    not (see the module docstring), one JSON line per arm."""
+    import statistics
+    from importlib import import_module
+
+    import chip_smoke as cs
+
+    stepped = import_module(f"{cs.PKG}.engine.stepped")
+    ca = import_module(f"{cs.PKG}.ops.cuda_attention")
+    cpa = import_module(f"{cs.PKG}.ops.cuda_paged_attention")
+    cq = import_module(f"{cs.PKG}.ops.cuda_quant")
+    server_mod = import_module(f"{cs.PKG}.serve.server")
+    client_mod = import_module(f"{cs.PKG}.serve.client")
+    protocol = import_module(f"{cs.PKG}.serve.protocol")
+    nvml = import_module(f"{cs.PKG}.profilers.nvml")
+    kernels = ca.KERNELS + cpa.KERNELS + cq.KERNELS
+    parts = cpa.cuda_paged_decode_attention_parts
+
+    engine = TorchEngine(quantize=args.quantize, paged_kv=True)
+    engine.load_model(MODEL)
+    n_layers = engine._models[MODEL].cfg.n_layers
+    reqs, gaps = cs.serve_traffic(GenerationRequest, protocol.parse_priority, cs.SERVE_REQUESTS,
+                                  cs.SERVE_SEED)
+    # warm: a batch, and a session with a chunked joiner (as chip_smoke.py)
+    engine.generate_batch([dataclasses.replace(r, max_new_tokens=4) for r in reqs[:2]])
+    sess = engine.decode_open([dataclasses.replace(reqs[0], max_new_tokens=4)], reserve_rows=2)
+    pj = sess.join_begin(dataclasses.replace(reqs[1], max_new_tokens=4), cs.SERVE_CHUNK_TOKENS)
+    while not sess.join_step(pj):
+        pass
+    sess.join_commit(pj)
+    while sess.active:
+        sess.step()
+    sess.close()
+
+    records = []
+    state = {"arm": None, "profile": False}
+    step = stepped.SteppedDecodeSession.step
+
+    def recorded_step(self, max_steps=None):
+        rows, n0 = self.active, parts.launches
+        prof = None
+        if state["profile"] and rows >= 3:
+            state["profile"] = False
+            prof = profile(activities=[activity.CPU, activity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        try:
+            return step(self, max_steps)
+        finally:
+            wall = time.perf_counter() - t0
+            if prof is not None:
+                prof.__exit__(None, None, None)
+            records.append({"arm": state["arm"], "rows": rows, "slots": len(self.rows),
+                            "steps": (parts.launches - n0) // n_layers, "wall_s": wall,
+                            "prof": prof})
+
+    def session_arm():
+        rows = [dataclasses.replace(reqs[i], max_new_tokens=128, temperature=0.0,
+                                    priority=protocol.DEFAULT_PRIORITY) for i in (1, 2, 3, 4)]
+        session = engine.decode_open(rows, reserve_rows=4)
+        while session.active:
+            session.step()
+        session.close()
+        return {}
+
+    def served_arm(smoke):
+        results, _, _, wall, mean_w, live = cs.drive_server(
+            torch, server_mod, client_mod, engine, kernels, reqs, gaps,
+            streamed=cs.SERVE_STREAMED, cancelled=cs.SERVE_CANCELLED,
+            dev=nvml.nvml_device() if smoke else None, when_full=cs.SERVE_HIGH if smoke else (),
+            poll=smoke, scheduler="continuous", prefill_chunk_tokens=cs.SERVE_CHUNK_TOKENS,
+        )
+        tokens = sum(r.generated_tokens for r in results.values())
+        ttft = [r.extras["sched"]["ttft_s"] for r in results.values()]
+        return {"requests_done": len(results), "tokens_per_s": tokens / wall, "wall_s": wall,
+                "ttft_p50_s": cs.percentile(ttft, 0.5), "max_live_rows": live, "nvml_mean_w": mean_w}
+
+    arms = (("session", session_arm), ("served_bare", lambda: served_arm(False)),
+            ("served_smoke", lambda: served_arm(True)), ("served_bare", lambda: served_arm(False)))
+    stepped.SteppedDecodeSession.step = recorded_step
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = args.trace_dir or tmp
+        os.makedirs(trace_dir, exist_ok=True)
+        try:
+            for turn, (arm, run) in enumerate(arms):
+                state.update(arm=arm, profile=True)
+                first = len(records)
+                extra = run()
+                mine = [r for r in records[first:] if r["steps"]]
+                plain = [1e3 * r["wall_s"] / r["steps"] for r in mine if r["prof"] is None]
+                by_rows = collections.defaultdict(list)
+                for r in mine:
+                    if r["prof"] is None:
+                        by_rows[r["rows"]].append(1e3 * r["wall_s"] / r["steps"])
+                line = {
+                    "mode": "served_step", "arm": arm, "turn": turn, "weights": args.quantize,
+                    "kv": "bf16", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+                    "slices": len(mine), "steps": sum(r["steps"] for r in mine),
+                    "slots": sorted({r["slots"] for r in mine}),
+                    "wall_ms_per_step_median": statistics.median(plain),
+                    "wall_ms_per_step_mean": statistics.fmean(plain),
+                    "wall_ms_per_step_by_live_rows": {
+                        k: statistics.median(v) for k, v in sorted(by_rows.items())},
+                    **extra,
+                }
+                profiled = [r for r in mine if r["prof"] is not None]
+                if profiled:
+                    r = profiled[0]
+                    path = os.path.join(trace_dir, f"served_step_{turn}_{arm}.json")
+                    r["prof"].export_chrome_trace(path)
+                    summary = trace_summary(trace_totals(path), r["steps"])
+                    line.update(profiled_rows=r["rows"], profiled_steps=r["steps"],
+                                profiled_wall_ms_per_step=1e3 * r["wall_s"] / r["steps"],
+                                idle_share=1.0 - summary["device_ms_per_step"]
+                                / line["wall_ms_per_step_median"], **summary)
+                print(json.dumps(line), flush=True)
+                for r in records[first:]:
+                    r["prof"] = None
+        finally:
+            stepped.SteppedDecodeSession.step = step
     return 0
 
 

@@ -5,7 +5,7 @@ port's ``runner/cli.py`` (the file's source with the package name
 swapped): the scaffold, the two config-class lookups, a config file run
 end to end, help and an unknown command, and ``prepare``'s cooldown
 promise, whose device channel is the port's NVML one. Then the port's own
-cases: ``serve`` and ``serve-fleet`` exit 2, ``analyze`` and
+cases: ``serve --backend jax`` and ``serve-fleet`` exit 2, ``analyze`` and
 ``recompute-energy`` run over a study table the port wrote, and ``python
 -m cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch help`` runs in a
 fresh interpreter with jax blocked.
@@ -40,8 +40,12 @@ def test_jax_cli_case_on_the_port(name, request):
 
 @pytest.mark.parametrize("command", ["serve", "serve-fleet"])
 def test_serve_commands_exit_2_until_serving_is_ported(command, capsys):
-    assert cli.main([command, "--port", "0"]) == 2
-    assert "ROADMAP item 11" in capsys.readouterr().out
+    """``serve-fleet`` (the router) is not ported; ``serve`` is, but not
+    over the JAX package's engines."""
+    extra = ["--backend", "jax"] if command == "serve" else []
+    assert cli.main([command, "--port", "0", *extra]) == 2
+    out = capsys.readouterr().out
+    assert ("ROADMAP item 14" if command == "serve" else "ROADMAP item 15") in out
 
 
 def test_prepare_without_a_card_says_so_and_runs_nothing(monkeypatch, capsys):
@@ -61,7 +65,7 @@ def _study_config(tmp_path):
     path = tmp_path / "study.py"
     path.write_text(textwrap.dedent(f"""
         from {PORT}.experiments.llm_energy import LlmEnergyConfig
-        from cain_2025_device_remote_llm_energy_rep_pkg_tpu.engine.fake import FakeBackend
+        from {PORT}.engine.fake import FakeBackend
 
         _FAKE = FakeBackend(tokens_per_s=5000.0, simulate_delay=True)
 
@@ -121,8 +125,9 @@ def test_module_help_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith(f"usage: python -m {PORT} ")
-    assert "recompute-energy" in proc.stdout and "serve, serve-fleet" in proc.stdout
-    assert not any(line.lstrip().startswith("--backend") for line in proc.stdout.splitlines())
+    assert "recompute-energy" in proc.stdout and "serve [opts]" in proc.stdout
+    assert "serve-fleet" in proc.stdout
+    assert "--backend\n                       torch|fake" in proc.stdout
 
 
 def test_module_unknown_command_exits_2():

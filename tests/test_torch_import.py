@@ -29,6 +29,7 @@ SCRIPTS = [
     REPO / "scripts" / "torch_parts_grid_sweep.py",
     REPO / "examples" / "torch_llm_energy_study.py",
     REPO / "examples" / "torch_llm_energy_sweep.py",
+    REPO / "examples" / "torch_llm_energy_capstone.py",
 ]
 SCANNED = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 
@@ -51,6 +52,15 @@ def test_the_write_through_and_w4a8_modules_are_imported_with_jax_blocked(name):
      "profilers.nvml", "runner.controller", "serve.client", "utils.memory"],
 )
 def test_the_study_modules_are_imported_with_jax_blocked(name):
+    assert f"cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.{name}" in MODULES
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["engine.fake", "engine.stepped", "obs.slo", "obs.timeseries", "serve.scheduler",
+     "serve.server", "serve.stream"],
+)
+def test_the_serving_modules_are_imported_with_jax_blocked(name):
     assert f"cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.{name}" in MODULES
 
 

@@ -61,8 +61,8 @@ OBS_ENERGY_CASES = (
     "test_energy_estimate_bounds_bracket_nominal",
     "test_energy_estimate_none_without_window",
 )
-FLIGHT = port_module("test_flight.py", keep=("engine.fake", "serve.server"))
-OBS = port_module("test_obs.py", keep=("engine.fake", "serve.server"))
+FLIGHT = port_module("test_flight.py")
+OBS = port_module("test_obs.py")
 
 
 @pytest.fixture

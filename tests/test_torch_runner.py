@@ -60,6 +60,21 @@ def port_module(file_name: str, keep=(), renames=()) -> types.ModuleType:
     return mod
 
 
+def load_cases(namespace: dict, file_name: str, renames=(), leave_out=()) -> list:
+    """Load the JAX package's test file ``file_name`` onto the port (see
+    :func:`port_module`) into ``namespace``, a test module's globals, so
+    that pytest collects its cases, fixtures and parametrizations there
+    as its own. The cases named in ``leave_out`` are not loaded. Returns
+    the names of the loaded cases."""
+    mod = port_module(file_name, renames=renames)
+    cases = [n for n in vars(mod) if n.startswith("test_") and callable(getattr(mod, n))]
+    assert set(leave_out) <= set(cases), set(leave_out) - set(cases)
+    for name, value in vars(mod).items():
+        if not name.startswith("__") and name not in leave_out:
+            namespace[name] = value
+    return [n for n in cases if n not in leave_out]
+
+
 MODULES = {f: port_module(f) for f in FILES}
 CASES = [
     (f, name) for f, mod in MODULES.items() for name in sorted(vars(mod))

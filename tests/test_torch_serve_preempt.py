@@ -1,0 +1,53 @@
+"""The JAX package's ``tests/test_preempt.py`` on the port's stepped
+session and scheduler, loaded with the package name swapped. The
+real-engine cases run on ``TorchEngine(device="cpu")`` at f32 over the
+paged pool: a swap-preempted and resumed row's stream equals its solo
+``generate``, companions are unperturbed, the pool's free count and the
+host-swap gauges return exactly to idle, a preempt during a pending join
+and a streaming row's delta cursor survive the park.
+
+Left out:
+- ``test_pagepool_swap_roundtrip_exact``,
+  ``test_pagepool_swap_refuses_shared_and_free_pages`` and
+  ``test_pagepool_swap_in_rejects_layout_mismatch``: they fill the pool
+  with jax arrays (``jnp``, ``jax.device_get``); the port's pool swap is
+  held in ``tests/test_torch_serving.py``.
+- the contiguous parametrizations of ``test_preempt_resume_token_parity``
+  (``contig-*``; the contiguous session is ROADMAP item 11.2) and
+  ``paged-int8-recompute`` (the port's session is the stacked one, which
+  refuses ``recompute`` in both packages)."""
+
+from test_torch_runner import load_cases
+
+RENAMES = (
+    ("engine.jax_engine", "engine.torch_engine"),
+    ("JaxEngine", "TorchEngine"),
+    ("import jax\n", "import jax, torch\n"),
+    ("                dtype=jnp.float32,\n", '                dtype=torch.float32, device="cpu",\n'),
+    (
+        '''    [
+        (False, None, "swap"),
+        (True, None, "swap"),
+        (False, "int8", "swap"),
+        (True, "int8", "swap"),
+        (False, None, "recompute"),
+        (True, "int8", "recompute"),
+    ],
+    ids=[
+        "contig-bf16-swap", "paged-bf16-swap", "contig-int8-swap",
+        "paged-int8-swap", "contig-bf16-recompute", "paged-int8-recompute",
+    ],''',
+        '''    [(True, None, "swap"), (True, "int8", "swap")],
+    ids=["paged-bf16-swap", "paged-int8-swap"],''',
+    ),
+)
+LEFT_OUT = (
+    "test_pagepool_swap_roundtrip_exact",
+    "test_pagepool_swap_refuses_shared_and_free_pages",
+    "test_pagepool_swap_in_rejects_layout_mismatch",
+)
+CASES = load_cases(globals(), "test_preempt.py", renames=RENAMES, leave_out=LEFT_OUT)
+
+
+def test_every_preempt_case_is_loaded():
+    assert len(CASES) == 10

@@ -1,0 +1,11 @@
+"""The JAX package's ``tests/test_timeseries.py`` on the port's
+``obs/timeseries.py`` and ``obs/metrics.py``: every case, loaded with the
+package name swapped (no case left out)."""
+
+from test_torch_runner import load_cases
+
+CASES = load_cases(globals(), "test_timeseries.py")
+
+
+def test_every_timeseries_case_is_loaded():
+    assert len(CASES) == 18

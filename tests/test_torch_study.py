@@ -26,7 +26,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu.engine.backend import (
     GenerationRequest as JaxRequest,
     GenerationResult as JaxResult,
 )
-from cain_2025_device_remote_llm_energy_rep_pkg_tpu.engine.fake import FakeBackend
+from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.engine.fake import FakeBackend
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu.engine.jax_engine import JaxEngine
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu.experiments import llm_energy as jax_study
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu.models.config import (
@@ -243,7 +243,7 @@ TPU_CONSTANT_CASES = {
     "test_recompute_energy_fallback_aliasing_for_legacy_tables",
 }
 CONFIG = port_module(
-    "test_experiment_config.py", keep=("engine.fake", "serve.server", "profilers.tpu"),
+    "test_experiment_config.py", keep=("profilers.tpu",),
     renames=(('"llm_energy_tpu"', '"llm_energy_cuda"'), ('"tpu_util_est"', '"gpu_util_est"')),
 )
 
