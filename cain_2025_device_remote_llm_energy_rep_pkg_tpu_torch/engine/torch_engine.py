@@ -61,9 +61,16 @@ each result as ``extras["energy_model"]`` (``obs/energy.py``), and so do
 a batch (its window's Joules by token share) and a session (each slice's
 by token share, closed out at retirement).
 
+With ``prefix_cache_size`` or ``prefix_cache_bytes`` a solo prefill
+seeds its cache from the longest cached prompt that prefixes it (a device
+copy) and prefills only the rest, through B1 at that offset. Weights come
+from random init, or from a local HF checkpoint (``hf_checkpoints``:
+converted and quantized on the CPU, then moved to the device), and with
+``weight_cache_dir`` from the on-disk weight cache (``engine/checkpoint.py``).
+
 Not ported yet: speculation on the contiguous session, joins into and
 preemption of speculating sessions and the adaptive speculation policy,
-prefix caches, HF checkpoints, the on-disk weight cache and CUDA graphs.
+the shared prefix store and CUDA graphs.
 """
 
 from __future__ import annotations
@@ -71,6 +78,7 @@ from __future__ import annotations
 import itertools
 import os
 import time
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -258,6 +266,29 @@ def _resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def _dir_signature(path: str) -> str:
+    """A checkpoint directory's content signature: the latest mtime_ns
+    and the total bytes of its files."""
+    latest, total = 0, 0
+    for root, _, files in os.walk(path):
+        for f in files:
+            try:
+                st = os.stat(os.path.join(root, f))
+            except OSError:
+                continue
+            latest = max(latest, st.st_mtime_ns)
+            total += st.st_size
+    return f"{latest}:{total}"
+
+
+def _params_to(params: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
+    """Every leaf (quantized dicts included) on ``device``."""
+    return {
+        name: {k: t.to(device) for k, t in leaf.items()} if isinstance(leaf, dict) else leaf.to(device)
+        for name, leaf in params.items()
+    }
+
+
 def _int8_cache_attention(q, k_cache, v_cache, lengths):
     return cuda_decode_attention_int8(
         q, k_cache["q"], k_cache["s"], v_cache["q"], v_cache["s"], lengths
@@ -323,6 +354,14 @@ class TorchEngine(GenerationBackend):
     sets the proposal temperature of sampled rows' model drafts, and
     ``spec_accept_floor`` must stay 0.0: the adaptive fallback it drives
     is not ported.
+
+    ``prefix_cache_size`` (entries per model) and ``prefix_cache_bytes``
+    (bytes over every model) cap the solo prompt-prefix KV cache; either
+    one turns it on. ``hf_checkpoints`` maps a model to a local HF
+    checkpoint directory to load its weights and tokenizer from;
+    ``weight_cache_dir`` keeps each model's built params on disk, keyed by
+    config, dtype, source and quant mode. ``prefix_share`` (the shared
+    prefix store) is not ported.
     """
 
     def __init__(
@@ -341,19 +380,23 @@ class TorchEngine(GenerationBackend):
         spec_temperature_max: float = 2.0,
         spec_draft_temperature: Optional[float] = None,
         prefix_cache_size: int = 0,
+        prefix_cache_bytes: Optional[int] = None,
         prefix_share: bool = False,
-        hf_checkpoints=None,
+        hf_checkpoints: Optional[Dict[str, str]] = None,
         weight_cache_dir=None,
     ) -> None:
-        for option, value in (
-            ("spec_accept_floor (the adaptive speculative fallback)", spec_accept_floor),
-            ("prefix_cache_size", prefix_cache_size),
-            ("prefix_share", prefix_share),
-            ("hf_checkpoints", hf_checkpoints),
-            ("weight_cache_dir", weight_cache_dir),
+        for option, value, item in (
+            ("spec_accept_floor (the adaptive speculative fallback)", spec_accept_floor, 13),
+            ("prefix_share (the shared prefix store)", prefix_share, 12),
         ):
             if value:
-                raise NotImplementedError(f"TorchEngine: {option} is not ported yet")
+                raise NotImplementedError(
+                    f"TorchEngine: {option} is not ported yet (ROADMAP item {item})"
+                )
+        if prefix_cache_size < 0:
+            raise ValueError(f"prefix_cache_size must be >= 0, got {prefix_cache_size}")
+        if prefix_cache_bytes is not None and prefix_cache_bytes < 0:
+            raise ValueError(f"prefix_cache_bytes must be >= 0, got {prefix_cache_bytes}")
         valid_modes = (None, *QUANT_MODES)
         if isinstance(quantize, dict):
             for name, mode in quantize.items():
@@ -394,6 +437,27 @@ class TorchEngine(GenerationBackend):
         self.seed = seed
         self.quantize = quantize
         self.kv_quantize = kv_quantize
+        # model name -> local HF checkpoint directory: load_model converts
+        # its weights (models/convert.py) instead of drawing random ones,
+        # and the model tokenizes with the checkpoint's tokenizer
+        self.hf_checkpoints = dict(hf_checkpoints or {})
+        # the on-disk weight cache: a load restores the params it wrote
+        # under the same fingerprint instead of building them again
+        self._weight_cache = None
+        if weight_cache_dir:
+            from .checkpoint import WeightCache
+
+            self._weight_cache = WeightCache(weight_cache_dir)
+        # The solo prompt-prefix KV cache (off by default: the energy study
+        # wants every run to pay its own prefill): model -> OrderedDict LRU
+        # of ids-tuple -> (k, v, last-position logits, lru stamp). Either
+        # cap enables it: entries per model, or bytes over every model.
+        self.prefix_cache_size = prefix_cache_size
+        self.prefix_cache_bytes = prefix_cache_bytes
+        self._prefix_enabled = prefix_cache_size > 0 or prefix_cache_bytes is not None
+        self._prefix_cache: Dict[str, "OrderedDict[tuple, tuple]"] = {}
+        self._prefix_clock = 0  # global LRU stamp across models
+        self._prefix_hits = 0  # prefills seeded from a cached prefix
         # resident models in LRU order (load_model moves a used one to the
         # end; the eviction pass takes from the front)
         self._models: Dict[str, Transformer] = {}
@@ -430,12 +494,46 @@ class TorchEngine(GenerationBackend):
         self._ensure_allocation_capacity(model, cfg)
         self._check_memory_budget(model, cfg)
         t0 = time.monotonic()
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        post = None
         mode = self._quant_mode(model)
+        post = None
         if mode is not None:
             post = lambda name, leaf: quantize_leaf(name, leaf, mode)  # noqa: E731
-        params = init_params(cfg, gen, self.dtype, post=post)
+        ckpt_dir = self.hf_checkpoints.get(model)
+        if ckpt_dir is not None:
+
+            def make_params():
+                # Convert on the CPU leaf by leaf (each cast straight to
+                # the engine's dtype), quantize there, then move only the
+                # result to the device.
+                from ..models.convert import load_hf_pretrained
+
+                return _params_to(load_hf_pretrained(ckpt_dir, cfg, dtype=self.dtype, post=post), self.device)
+
+        else:
+
+            def make_params():
+                gen = torch.Generator(device=self.device).manual_seed(self.seed)
+                return init_params(cfg, gen, self.dtype, post=post)
+
+        if self._weight_cache is not None:
+            import hashlib
+
+            # The fingerprint keys the stored params to this architecture,
+            # dtype, weight source and quant mode: a tiny() config, another
+            # dtype or another checkpoint directory must miss. A checkpoint
+            # source also carries its content signature, so an in-place
+            # re-download at the same path misses too.
+            source = (
+                f"hf:{ckpt_dir}|{_dir_signature(ckpt_dir)}" if ckpt_dir is not None else "init"
+            )
+            fingerprint = hashlib.sha256(
+                f"{cfg!r}|{str(self.dtype).removeprefix('torch.')}|{source}|quant:{mode}".encode()
+            ).hexdigest()[:12]
+            params = self._weight_cache.get_or_init(
+                model, self.seed, make_params, fingerprint=fingerprint, device=self.device
+            )
+        else:
+            params = make_params()
         self._sync()
         self._models[model] = Transformer(cfg=cfg, params=params)
         self._observe_model_loaded(model, load_s=time.monotonic() - t0)
@@ -503,7 +601,9 @@ class TorchEngine(GenerationBackend):
         so a reload serves them as they are. The budget counts the byte
         model's resident estimates plus the load's transient headroom,
         never the allocator's free bytes (freed blocks stay reserved in
-        PyTorch's caching allocator). Installed models are never victims;
+        PyTorch's caching allocator). Cached prompt prefixes are device
+        memory too and count against it; they go first, being only
+        recompute. Installed models are never victims;
         a model with a live stepped session is not either: its eviction
         defers until the session closes."""
         from ..runner import term
@@ -514,7 +614,17 @@ class TorchEngine(GenerationBackend):
             return
         incoming = self._weight_bytes(model, cfg) + memory.LOAD_TRANSIENT_HEADROOM_BYTES
         resident = {name: self._weight_bytes(name, tf.cfg) for name, tf in self._models.items()}
-        while sum(resident.values()) + incoming > budget:
+        prefix_resident = self._prefix_bytes()
+        while sum(resident.values()) + prefix_resident + incoming > budget:
+            if prefix_resident > 0:
+                freed = self._evict_prefix_lru()
+                if freed:
+                    prefix_resident -= freed
+                    term.log(
+                        f"evicted a cached prompt prefix (~{freed / 1024**2:.1f} MiB) to fit {model}"
+                    )
+                    continue
+                prefix_resident = 0
             victim = next(
                 (n for n in self._models
                  if n not in self._pinned and not self._live_sessions.get(n)),
@@ -543,18 +653,22 @@ class TorchEngine(GenerationBackend):
     def _evict_weights(self, model: str, reason: str = "lru") -> None:
         """Drop a model's weights, and with them its device memory: the
         engine holds its only reference (no step function, warm marker or
-        closed session keeps ``params``). Step functions, warm markers and
-        the tokenizer stay."""
-        if self._models.pop(model, None) is not None:
+        closed session keeps ``params``), and its cached prompt prefixes.
+        Step functions, warm markers and the tokenizer stay."""
+        evicted = self._models.pop(model, None) is not None
+        self._prefix_cache.pop(model, None)
+        if evicted:
             self._observe_model_evicted(model, reason)
 
     def _evict_model_state(self, model: str) -> None:
         """Drop every per-model derivative: step functions (their closures
-        hold the old config), warm markers, the tokenizer, the pin and the
-        model itself (keys are tuples naming the model)."""
+        hold the old config), cached prompt prefixes (computed from the old
+        weights), warm markers, the tokenizer, the pin and the model
+        itself (keys are tuples naming the model)."""
         evicted = self._models.pop(model, None) is not None
         self._pinned.discard(model)
         self._tokenizers.pop(model, None)
+        self._prefix_cache.pop(model, None)
         for key in [k for k in self._decode_cache if model in k]:
             del self._decode_cache[key]
         self._warmed = {k for k in self._warmed if model not in k}
@@ -630,6 +744,8 @@ class TorchEngine(GenerationBackend):
         with their estimated bytes, live-session counts and last modelled
         J/token, and the pinned ones."""
         out: Dict[str, Any] = {"loaded": {}, "pinned": sorted(self._pinned)}
+        if self._prefix_enabled:
+            out["prefix_cache"] = self.prefix_cache_state()
         for name in self.loaded_models():
             try:
                 nbytes = self.model_weight_bytes(name)
@@ -654,11 +770,15 @@ class TorchEngine(GenerationBackend):
         self._models.clear()
         self._pinned.clear()
         self._tokenizers.clear()
+        self._prefix_cache.clear()
         self._warmed.clear()
 
     def _tokenizer_for(self, model: str):
+        """The checkpoint's own tokenizer for a model served from a local
+        HF checkpoint (its ids index the trained embeddings); the byte
+        tokenizer otherwise, or when the checkpoint's does not load."""
         if model not in self._tokenizers:
-            self._tokenizers[model] = load_tokenizer(None)
+            self._tokenizers[model] = load_tokenizer(self.hf_checkpoints.get(model))
         return self._tokenizers[model]
 
     def _sync(self) -> None:
@@ -689,22 +809,132 @@ class TorchEngine(GenerationBackend):
     # -- generation -----------------------------------------------------------
     def _run_prefill(self, model: str, prompt_ids: "list[int]", cache_len: int):
         """Build the KV cache and prefill the prompt chunk by chunk; returns
-        the last prompt position's logits and the caches."""
+        the last prompt position's logits and the caches.
+
+        With the prefix cache on, the longest cached prompt that is an
+        exact prefix of this one is copied into the fresh cache and only
+        the rest is prefilled, from that position on (the system-prompt
+        win); the prompt's own K/V are then cached in turn."""
         tf = self._models[model]
         pad = self._tokenizer_for(model).pad_id
+        s_real = len(prompt_ids)
         k_cache, v_cache = tf.init_cache(1, cache_len, dtype=self.dtype)
-        for start, bucket in _prompt_chunks(len(prompt_ids)):
-            ids = prompt_ids[start : start + bucket]
-            real = len(ids)
-            tokens = torch.tensor(
-                [ids + [pad] * (bucket - real)], dtype=torch.long, device=self.device
-            )
-            hidden, k_cache, v_cache = forward(
-                tf.params, tf.cfg, tokens, start, k_cache, v_cache,
-                None, cuda_prefill_attention, layers=tf.layers,
-            )
-        logits = logits_for(tf.params, tf.cfg, hidden[:, real - 1])
+        logits = None
+        covered = 0
+        hit = self._find_prefix(model, prompt_ids)
+        if hit is not None:
+            hit_ids, hit_k, hit_v, hit_logits = hit
+            p = len(hit_ids)
+            # The rest re-chunks from p, and the tail chunk's bucket must
+            # end inside cache_len: use less of the hit where it would not.
+            while 0 < p < s_real and p + _prompt_alloc(s_real - p) > cache_len:
+                p -= 1
+            if p > 0:
+                # a copy into this request's cache: the entry stays intact
+                k_cache[:, :, :, :p].copy_(hit_k[:, :, :, :p])
+                v_cache[:, :, :, :p].copy_(hit_v[:, :, :, :p])
+                covered = p
+                logits = hit_logits  # read only when the hit covers the prompt
+                self._prefix_hits += 1
+        if covered < s_real:
+            remaining = prompt_ids[covered:]
+            for start, bucket in _prompt_chunks(len(remaining)):
+                ids = remaining[start : start + bucket]
+                real = len(ids)
+                tokens = torch.tensor(
+                    [ids + [pad] * (bucket - real)], dtype=torch.long, device=self.device
+                )
+                hidden, k_cache, v_cache = forward(
+                    tf.params, tf.cfg, tokens, covered + start, k_cache, v_cache,
+                    None, cuda_prefill_attention, layers=tf.layers,
+                )
+            logits = logits_for(tf.params, tf.cfg, hidden[:, real - 1])
+        self._store_prefix(model, prompt_ids, k_cache, v_cache, logits, s_real)
         return logits, k_cache, v_cache
+
+    # -- the prompt-prefix cache ------------------------------------------------
+    def _find_prefix(self, model: str, prompt_ids: "list[int]"):
+        """The longest cached (ids, k, v, logits) whose ids are a prefix
+        of ``prompt_ids``; refreshes its LRU position."""
+        if not self._prefix_enabled:
+            return None
+        entries = self._prefix_cache.get(model)
+        if not entries:
+            return None
+        best_key = None
+        n = len(prompt_ids)
+        for key in entries:
+            if len(key) <= n and list(key) == prompt_ids[: len(key)]:
+                if best_key is None or len(key) > len(best_key):
+                    best_key = key
+        if best_key is None:
+            return None
+        entries.move_to_end(best_key)
+        k, v, logits, _ = entries[best_key]
+        self._prefix_clock += 1
+        entries[best_key] = (k, v, logits, self._prefix_clock)
+        return list(best_key), k, v, logits
+
+    @staticmethod
+    def _prefix_entry_bytes(entry) -> int:
+        k, v, logits, _stamp = entry
+        return sum(t.numel() * t.element_size() for t in (k, v) + ((logits,) if logits is not None else ()))
+
+    def _prefix_bytes(self) -> int:
+        """Device bytes held by cached prompt K/V, over every model."""
+        return sum(
+            self._prefix_entry_bytes(e) for entries in self._prefix_cache.values() for e in entries.values()
+        )
+
+    def _evict_prefix_lru(self) -> int:
+        """Drop the least recently used prefix entry of any model; returns
+        the bytes freed (0 when the cache is empty)."""
+        best = None
+        for model, entries in self._prefix_cache.items():
+            for key, entry in entries.items():
+                if best is None or entry[3] < best[0]:
+                    best = (entry[3], model, key)
+        if best is None:
+            return 0
+        _, model, key = best
+        freed = self._prefix_entry_bytes(self._prefix_cache[model].pop(key))
+        if not self._prefix_cache[model]:
+            del self._prefix_cache[model]
+        return freed
+
+    def _store_prefix(self, model, prompt_ids, k_cache, v_cache, logits, s_real) -> None:
+        if not self._prefix_enabled:
+            return
+        entries = self._prefix_cache.setdefault(model, OrderedDict())
+        # Only the prompt's own positions, and as a copy: the caches are
+        # written in place by the decode that follows, and a view would
+        # hold the whole allocation (and its bf16 original after an int8
+        # conversion) while the budget counted only the prompt.
+        self._prefix_clock += 1
+        entries[tuple(prompt_ids)] = (
+            k_cache[:, :, :, :s_real].clone(),
+            v_cache[:, :, :, :s_real].clone(),
+            logits,
+            self._prefix_clock,
+        )
+        entries.move_to_end(tuple(prompt_ids))
+        while self.prefix_cache_size and len(entries) > self.prefix_cache_size:
+            entries.popitem(last=False)
+        # The byte cap holds over every model's entries: evict the least
+        # recently used until under it; an entry larger than the cap alone
+        # goes too.
+        if self.prefix_cache_bytes is not None:
+            while self._prefix_bytes() > self.prefix_cache_bytes and self._evict_prefix_lru():
+                pass
+
+    def prefix_cache_state(self) -> Dict[str, Any]:
+        """The prefix cache as ``GET /debug/state`` shows it: entries per
+        model, the bytes held, and the prefills a cached prefix seeded."""
+        return {
+            "entries": {model: len(entries) for model, entries in self._prefix_cache.items()},
+            "bytes": self._prefix_bytes(),
+            "hits": self._prefix_hits,
+        }
 
     def _start(
         self,
@@ -1163,7 +1393,10 @@ class TorchEngine(GenerationBackend):
         groups: "Dict[int, list[int]]" = {}  # prompt bucket -> rows
         for i, ids in enumerate(all_prompt_ids):
             chunks = _prompt_chunks(len(ids))
-            if ids and len(chunks) == 1:
+            # A single-chunk row with a cached prefix prefills solo (a copy
+            # and the rest); only such rows probe, since multi-chunk rows
+            # go solo anyway and their prefill repeats the scan.
+            if ids and len(chunks) == 1 and self._find_prefix(model, ids) is None:
                 groups.setdefault(chunks[0][1], []).append(i)
             else:  # multi-chunk; an empty prompt fails there as a solo one does
                 states[i] = self._start(

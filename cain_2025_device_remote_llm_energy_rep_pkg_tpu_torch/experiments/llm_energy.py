@@ -13,7 +13,7 @@ TPU:
   length ∈ {100,500,1000} words (:82)    → max_new_tokens = ceil(words·4/3)
   curl POST /api/generate (:128-131)     → in-process GenerationRequest
   CodeCarbon kWh→J (:250-259)            → NVML energy counter + modelled J
-  powermetrics GPU sampling (:140)       → modelled GPU utilisation column
+  powermetrics GPU sampling (:140)       → NVML duty cycle + modelled utilisation
   psutil cpu/mem loop (:153-178)         → HostResourceProfiler thread
   random topic from topics.csv (:115)    → seeded topic per run (reproducible)
   30 reps, shuffle, 90 s cooldown (:87)  → constructor-configurable
@@ -23,8 +23,7 @@ execution_time here is the request wall-time, not hook-to-hook time; the
 measurement runs on profiler threads so ``interact`` genuinely waits on the
 generation rather than being dead code.
 
-Not ported yet: an NVML duty-cycle profiler and a local multi-GPU mesh
-for ``remote``.
+Not ported yet: a local multi-GPU mesh for ``remote``.
 """
 
 from __future__ import annotations
@@ -474,12 +473,18 @@ class LlmEnergyConfig(ExperimentConfig):
         sysfs = SysfsPowerProfiler()
         if sysfs.available:
             self.profilers.insert(1, sysfs)
-        # The card's energy counter only when this process owns (or will
-        # own) the card; in HTTP-client mode the serving process does.
+        # The card's energy counter and duty cycle only when this process
+        # owns (or will own) the card; in HTTP-client mode the serving
+        # process does.
         if on_device_url is None:
+            from ..profilers.energy_probe import NvmlDutyCycleProfiler
+
             counter = NvmlEnergyProfiler()
             if counter.available:  # NVML and the card's energy counter
                 self.profilers.insert(0, counter)
+            duty = NvmlDutyCycleProfiler()
+            if duty.available:  # NVML's utilization rates of the card
+                self.profilers.insert(0, duty)
         # Cooldown by channel type (see the class attributes): explicit
         # cooldown_ms always wins; otherwise a measured energy/power
         # channel re-grows the reference's 90 s thermal discipline.

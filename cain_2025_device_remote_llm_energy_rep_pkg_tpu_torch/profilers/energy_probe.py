@@ -19,6 +19,8 @@ Channels probed:
   - battery discharge rate (/sys/class/power_supply/*/power_now)
   - NVIDIA GPU energy and power through NVML (``libnvidia-ml.so.1``;
     what ``profilers/nvml.py::NvmlEnergyProfiler`` reads)
+  - the GPU's duty cycle through NVML's utilization rates (what
+    :class:`NvmlDutyCycleProfiler`, defined here, samples)
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ import glob
 import json
 import os
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
+from .base import Profiler
 from .nvml import NvmlError, all_devices
 
 
@@ -201,9 +204,31 @@ def _probe_nvml() -> ChannelStatus:
     )
 
 
+def _probe_nvml_utilization() -> ChannelStatus:
+    # consumer-mirroring: NvmlDutyCycleProfiler needs a device whose
+    # utilization rates read
+    try:
+        devices = all_devices()
+    except NvmlError as exc:
+        return ChannelStatus("nvml_utilization", "utilization", "device", False, str(exc))
+    parts = []
+    reading = 0
+    for i, dev in enumerate(devices):
+        try:
+            parts.append(f"{i}: duty cycle {dev.utilization_pct()}%")
+            reading += 1
+        except NvmlError as exc:
+            parts.append(f"{i}: utilization unread ({exc})")
+    if not devices:
+        parts.append("NVML loads but sees no device")
+    return ChannelStatus(
+        "nvml_utilization", "utilization", "device", reading > 0, "; ".join(parts),
+    )
+
+
 def probe_energy_channels(include_device: bool = True) -> List[ChannelStatus]:
     """Probe every channel; never raises. ``include_device=False`` skips
-    the accelerator-touching probe, as an HTTP-client experiment process
+    the accelerator-touching probes, as an HTTP-client experiment process
     whose serving process owns the card requires."""
     statuses = [
         _probe_rapl(),
@@ -211,10 +236,13 @@ def probe_energy_channels(include_device: bool = True) -> List[ChannelStatus]:
         _probe_battery(),
     ]
     if include_device:
-        statuses.append(_probe_nvml())
+        statuses += [_probe_nvml(), _probe_nvml_utilization()]
     else:
         skip = "skipped: a separate serving process owns the accelerator"
-        statuses.append(ChannelStatus("nvml", "energy", "device", False, skip))
+        statuses += [
+            ChannelStatus("nvml", "energy", "device", False, skip),
+            ChannelStatus("nvml_utilization", "utilization", "device", False, skip),
+        ]
     return statuses
 
 
@@ -243,3 +271,114 @@ def write_probe_report(
     return statuses
 
 
+
+
+class NvmlDutyCycleProfiler(Profiler):
+    """The card's measured duty cycle, sampled through NVML.
+
+    The counterpart of the JAX package's ``TpuDutyCycleProfiler``: each
+    sample is ``nvmlDeviceGetUtilizationRates(...).gpu``, the percent of
+    NVML's last sample period in which a kernel ran, on the engine's card
+    only (the current CUDA device, found by its PCI bus id). Power is
+    ``P = idle + duty · (peak − idle)`` over the sampled span, with the
+    energy model's envelope (``profilers/nvml.py``'s H100_IDLE_W and
+    H100_PEAK_W) by default, so ``energy_duty_J`` and ``energy_model_J``
+    compare directly. The columns stay apart from NVML's measured Joules
+    (``gpu_energy_J``): a duty-cycle figure is a utilisation reading priced
+    by a model.
+
+    NVML averages its utilization over a driver period of 1/6 s to 1 s: a
+    window with fewer than two readings gives None, as the JAX rule does.
+    ``source`` injects a device-like reader (``utilization_pct()``). A
+    :class:`Profiler`, so that the runner's config check takes it (the
+    JAX profiler is not one).
+    """
+
+    data_columns = ("gpu_duty_cycle_pct", "energy_duty_J")
+    measured_channel = True
+
+    def __init__(
+        self,
+        period_s: float = 0.25,
+        peak_w: Optional[float] = None,
+        idle_w: Optional[float] = None,
+        source: Optional[Any] = None,
+    ) -> None:
+        from .nvml import H100_IDLE_W, H100_PEAK_W
+
+        self.peak_w = H100_PEAK_W if peak_w is None else peak_w
+        self.idle_w = H100_IDLE_W if idle_w is None else idle_w
+        self._source = source
+        self._opened = source is not None
+        self.unavailable_reason: Optional[str] = None
+        from .base import SamplingProfiler
+
+        outer = self
+
+        class _Sampler(SamplingProfiler):
+            artifact_name = "gpu_duty_cycle"
+            data_columns = outer.data_columns
+
+            def sample(self) -> Dict[str, Any]:
+                reading = outer._read_duty()
+                if reading is None:
+                    return {"duty_pct": None, "n_chips": None}
+                return {"duty_pct": reading[0], "n_chips": reading[1]}
+
+            def summarise(self, samples: List[Dict[str, Any]]) -> Dict[str, Any]:
+                pts = [
+                    (s["t_s"], float(s["duty_pct"]), int(s["n_chips"]))
+                    for s in samples
+                    if s.get("duty_pct") is not None
+                ]
+                if len(pts) < 2:
+                    return {"gpu_duty_cycle_pct": None, "energy_duty_J": None}
+                span = pts[-1][0] - pts[0][0]
+                mean_duty = sum(p for _, p, _ in pts) / len(pts) / 100.0
+                n_chips = max(n for _, _, n in pts)
+                energy = (outer.idle_w + mean_duty * (outer.peak_w - outer.idle_w)) * n_chips * span
+                return {
+                    "gpu_duty_cycle_pct": round(mean_duty * 100.0, 2),
+                    "energy_duty_J": round(energy, 4),
+                }
+
+        self._impl = _Sampler(period_s=period_s)
+
+    def device(self) -> Optional[Any]:
+        """The card's reader, opened on first use (from the thread that
+        owns the engine's card); None when NVML or the device is absent."""
+        if not self._opened:
+            self._opened = True
+            try:
+                from .nvml import nvml_device
+
+                self._source = nvml_device()
+            except NvmlError as exc:
+                self.unavailable_reason = str(exc)
+        return self._source
+
+    def _read_duty(self) -> "Optional[tuple[float, int]]":
+        """(duty %, 1: the one card sampled), or None."""
+        dev = self.device()
+        if dev is None:
+            return None
+        try:
+            return float(dev.utilization_pct()), 1
+        except Exception as exc:  # noqa: BLE001 - a reader that cannot read is unavailable
+            self.unavailable_reason = f"{type(exc).__name__}: {exc}"
+            return None
+
+    @property
+    def available(self) -> bool:
+        return self._read_duty() is not None
+
+    # the Profiler contract, delegated
+    def on_start(self, context) -> None:
+        self.device()  # open it here, not in the sampler thread
+        self._impl.on_start(context)
+
+    def on_stop(self, context) -> None:
+        self._impl.on_stop(context)
+
+    def collect(self, context) -> Dict[str, Any]:
+        return self._impl.collect(context)

@@ -120,6 +120,14 @@ def cuda_pci_bus_id() -> str:
     return format_pci_bus_id(props.pci_domain_id, props.pci_bus_id, props.pci_device_id)
 
 
+class NvmlUtilization(ctypes.Structure):
+    """``nvmlUtilization_t``: the percent of the last sample period in
+    which a kernel ran (``gpu``) and in which device memory was read or
+    written (``memory``)."""
+
+    _fields_ = [("gpu", ctypes.c_uint), ("memory", ctypes.c_uint)]
+
+
 class NvmlDevice:
     """One GPU as NVML sees it."""
 
@@ -139,6 +147,14 @@ class NvmlDevice:
         _check(self._lib, self._lib.nvmlDeviceGetPowerUsage(self._handle, ctypes.byref(out)),
                "nvmlDeviceGetPowerUsage")
         return out.value / 1000.0
+
+    def utilization_pct(self) -> int:
+        """The card's duty cycle: percent of NVML's last sample period (1/6
+        s to 1 s by product) in which one or more kernels ran."""
+        out = NvmlUtilization()
+        _check(self._lib, self._lib.nvmlDeviceGetUtilizationRates(self._handle, ctypes.byref(out)),
+               "nvmlDeviceGetUtilizationRates")
+        return int(out.gpu)
 
     def power_limit_w(self) -> float:
         out = ctypes.c_uint()

@@ -15,8 +15,8 @@ the build of the port's kernels. ``serve`` runs the HTTP generation
 server over ``TorchEngine`` on the card (``--backend torch``, the
 default) or the fake backend; the options of the layers not ported yet
 (the JAX engines, tensor parallelism, the replica router and the
-multi-model fleet, the prefix store and migration, checkpoints) exit
-with code 2 naming their ROADMAP item, as ``serve-fleet`` does.
+multi-model fleet, the shared prefix store and migration) exit with
+code 2 naming their ROADMAP item, as ``serve-fleet`` does.
 """
 
 from __future__ import annotations
@@ -167,7 +167,12 @@ commands:
                        target=draft[:k] or draft[:k] (draft: a model, ngram
                        or cross:<model>) --spec-temperature-max T
                        --spec-draft-temperature T, --slo SPEC, --role mixed,
-                       --usage-ledger-dir D, --access-log, --no-telemetry.
+                       --usage-ledger-dir D, --access-log, --no-telemetry,
+                       --prefix-cache N (the prompt-prefix KV cache, N
+                       entries a model; 4 when N is left out), --hf
+                       model=/ckpt/dir (repeatable: that model's weights
+                       and tokenizer from a local HF checkpoint's
+                       *.safetensors, converted and quantized on the CPU).
                        No scheduler: one request at a time (generate and
                        generate_stream under one lock); window: concurrent
                        requests coalesce into generate_batch; continuous:
@@ -184,9 +189,10 @@ commands:
                        item: --backend jax|jax-tp, --tp, --dp (14),
                        --replicas > 1, --route-policy, --probe-interval-ms,
                        --roles, --model-policy, --escalate-max-tokens
-                       (15), --prefix-* and --role prefill|decode (12),
-                       --hf (6), --spec-accept-floor > 0 and --speculative
-                       without --paged-kv (13)
+                       (15), --prefix-share, --prefix-index-entries,
+                       --prefix-store-* and --role prefill|decode (12),
+                       --spec-accept-floor > 0 and --speculative without
+                       --paged-kv (13)
   serve-fleet          the replica router: not ported (ROADMAP item 15), exit 2
   help                 show this message
 """
@@ -267,11 +273,12 @@ def prepare() -> None:
     # profilers actually CONSUME, not from raw probe kinds: rapl feeds
     # RaplEnergyProfiler/NativeHostProfiler and hwmon/battery feed
     # SysfsPowerProfiler (host, every mode); nvml feeds
-    # NvmlEnergyProfiler (device, in-process only). A future channel the
+    # NvmlEnergyProfiler and nvml_utilization NvmlDutyCycleProfiler
+    # (device, in-process only). A future channel the
     # probe learns about before a profiler consumes it lands in the
     # unconsumed note below rather than inflating the promise.
     HOST_CONSUMED = {"rapl", "hwmon", "battery"}
-    DEVICE_CONSUMED = {"nvml"}
+    DEVICE_CONSUMED = {"nvml", "nvml_utilization"}
     measured_host = False
     measured_device = False
     unconsumed = []
@@ -498,10 +505,23 @@ def serve_command(args: List[str]) -> None:
             raise _not_ported(f"{arg} (the replica router)", "15")
         elif arg in ("--model-policy", "--escalate-max-tokens"):
             raise _not_ported(f"{arg} (the multi-model fleet)", "15")
+        elif arg == "--prefix-cache":
+            # the solo prompt-prefix KV cache: N entries per model (the
+            # JAX package's default when N is left out: 4)
+            try:
+                engine_kwargs["prefix_cache_size"] = int(next(it, "4"))
+            except ValueError:
+                raise CommandError("serve: --prefix-cache expects a number of entries")
         elif arg.startswith("--prefix-"):
-            raise _not_ported(f"{arg} (the prefix store)", "12")
+            raise _not_ported(f"{arg} (the shared prefix store)", "12")
         elif arg == "--hf":
-            raise _not_ported("--hf (checkpoint loading)", "6")
+            # --hf model=/path/to/checkpoint (repeatable): serve the model's
+            # weights and tokenizer from a local HF checkpoint directory
+            spec = value(arg)
+            if "=" not in spec:
+                raise CommandError("serve: --hf expects model=/path/to/dir")
+            name, _, path = spec.partition("=")
+            engine_kwargs.setdefault("hf_checkpoints", {})[name] = path
         elif arg == "--models":
             models = [m for m in value(arg).split(",") if m]
         elif arg in ("--window-ms", "--batch-window-ms"):

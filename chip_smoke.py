@@ -35,8 +35,8 @@ measured run: the port's ``ExperimentController`` over ``LlmEnergyConfig``
 repetitions) writes four rows, each with NVML's measured Joules beside
 the modelled ones, after NVML's idle power is read for 2 s; then the study
 from the command line (``runner.cli.main`` over two config files: the
-study's 7 models at 100 words, qwen2:1.5b at 500 words, one repetition
-each, each config's table analysed, then ``recompute-energy``).
+study's 7 models at 100 words, one repetition, the table analysed, then
+``recompute-energy``).
 The serving phases run the port's
 ``GenerationServer`` in this process over HTTP on 127.0.0.1 at int8
 weights: ``serve_continuous`` (the continuous scheduler over the bf16
@@ -61,7 +61,17 @@ and its memory freed, a model with a live session is passed over, and
 the evicted one reloads with the same tokens). Last,
 ``serve_cli_capstone`` starts ``python -m …_tpu_torch serve --backend
 torch`` as a subprocess and runs the study as its HTTP client for both
-locations, then stops the server with SIGTERM.
+locations, then stops the server with SIGTERM. Then the solo engine's
+rest: ``engine_prefix_cache`` (+ ``_int8_kv``; a 2,048-token turn, then
+that prompt plus 64 tokens run cold and with a prefix hit: equal greedy
+tokens, B1 56 launches cold and 28 on a hit; then a byte cap that
+evicts), ``engine_hf_checkpoint`` (a full-width checkpoint written under
+HF's names, loaded through ``hf_checkpoints`` and the weight cache: every
+leaf bit-equal to the install path's), ``serve_cli_hf`` (``serve --hf
+... --prefix-cache 4`` in a subprocess: two prefix hits over three
+requests) and ``study_duty_trace`` (two study rows with NVML's duty
+cycle and a ``torch.profiler`` trace naming the port's kernels; every
+study row now carries the duty cycle).
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -187,8 +197,20 @@ WRITE_THROUGH_STEPS = 64
 # The solo phases of the int8 KV cache and the int4 layouts run
 # qwen2:1.5b cut to this many of its 28 layers (full width): with the
 # contiguous and LRU phases the whole script took 1,052.5 s, 88% of its
-# limit, and these three phases about 170 s of it (PERF.md, PR 14).
+# limit, and these three phases about 170 s of it (PERF.md, PR 14). With
+# the prefix-cache, checkpoint and duty-cycle phases (~220 s) the serving
+# phases over an int8 cache and the contiguous session's traffic were cut
+# to it too (``cut_registry``): before the cut the script reached the new
+# phases at 879.3 s, and those phases took 115 s at full depth.
 SOLO_CUT_LAYERS = 7
+
+
+def cut_registry():
+    """qwen2:1.5b at full width, cut to SOLO_CUT_LAYERS layers."""
+    from importlib import import_module
+
+    cfg = import_module(f"{PKG}.models.config").get_model_config(MODEL)
+    return {MODEL: dataclasses.replace(cfg, n_layers=SOLO_CUT_LAYERS)}
 # B2/B3 at a contiguous session's widths: the serving session's 4 rows
 # over its cache (a 1,024-token prompt bucket + 128 generated), and 16
 # and 64 rows over the widest cache the study's rows make (a 2,112-token
@@ -211,7 +233,13 @@ LRU_NEW_TOKENS = 16
 LRU_FREED_SHARE = 0.9  # memory_allocated must fall by this share of the evicted weights
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's elapsed seconds."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1333,7 +1361,8 @@ def paged_engine_phase(phase, engine, requests, kernels, n_layers, eng_mod, matm
 def contiguous_batch_phase(torch, eng_mod, tfm, ca, kernels, GenerationRequest, smi):
     """``generate_batch`` without ``paged_kv`` (one contiguous batch cache)
     at int8 weights: the 17 ``batch_requests`` rows over a bf16 cache,
-    then the first CONTIG_INT8_ROWS over an int8 cache. Each runs in one
+    then the first CONTIG_INT8_ROWS over an int8 cache (at SOLO_CUT_LAYERS
+    layers). Each runs in one
     decode window whose every step is one B2 (B3) launch a layer; B1 runs
     once a layer per prefill forward; nothing else launches. Every greedy
     row is replayed teacher-forced (its tokens' logits within LOGIT_ATOL
@@ -1346,7 +1375,8 @@ def contiguous_batch_phase(torch, eng_mod, tfm, ca, kernels, GenerationRequest, 
     for kv, reqs in ((None, batch_requests(GenerationRequest)),
                      ("int8", batch_requests(GenerationRequest)[:CONTIG_INT8_ROWS])):
         phase = "engine_batch_contiguous" + ("_int8_kv" if kv else "")
-        engine = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv)
+        engine = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv,
+                                     registry=cut_registry() if kv else None)
         engine.load_model(MODEL)
         n_layers = engine._models[MODEL].cfg.n_layers
         engine.generate_batch([dataclasses.replace(r, max_new_tokens=4) for r in reqs[:2] + reqs[-2:]])
@@ -1901,7 +1931,7 @@ def study_phase(torch, eng_mod, kernels, smi):
     ``LlmEnergyConfig`` (qwen2:1.5b, both locations, 100 words, two
     repetitions), whose ``before_experiment`` builds ``TorchEngine(quantize=
     "int8")`` itself. Each row must be done, with NVML's Joules beside the
-    modelled ones; B1 and B2 must have run once a layer for every prefill
+    modelled ones and NVML's duty cycle in [0, 100] %; B1 and B2 must have run once a layer for every prefill
     chunk and decode step of the rows and of the warm-ups, and no other
     kernel at all."""
     import csv
@@ -1989,8 +2019,11 @@ def study_phase(torch, eng_mod, kernels, smi):
             "measured_over_modelled": None if remote else measured_j / modelled_j,
             "counter_W": counter_w, "gpu_avg_power_W": sampled_w,
             "gpu_power_model_W": float(r["gpu_power_model_W"]),
-            "gpu_util_est": float(r["gpu_util_est"]), "nvml_idle_w": idle_w, "nvidia_smi": smi,
+            "gpu_util_est": float(r["gpu_util_est"]), "nvml_idle_w": idle_w,
+            "gpu_duty_cycle_pct": float(r["gpu_duty_cycle_pct"]), "energy_duty_J": float(r["energy_duty_J"]),
+            "profiled_busy_pct": 100 * (1 - PROFILED_IDLE_SHARE), "nvidia_smi": smi,
         })
+        assert 0.0 <= float(r["gpu_duty_cycle_pct"]) <= 100.0 and float(r["energy_duty_J"]) > 0, r
     chunks = sum(len(eng_mod._prompt_chunks(r.prompt_tokens)) for r in seen)
     # The decode loop runs one forward per token after the first, and
     # stops after appending EOS (which the result then drops).
@@ -2005,14 +2038,15 @@ def study_phase(torch, eng_mod, kernels, smi):
     return counts
 
 
-# The study through the command line: every study model at 100 words, and
-# qwen2:1.5b at 500 words, one repetition each, 2 s cooldown. (With the
-# 1,000-word row too, the whole script took 973.4 s on an H100 80GB HBM3
-# at 700 W, 81% of its 1,200 s limit; that row and its warm-up were ~110 s
-# of it. The sweep, examples/torch_llm_energy_sweep.py, runs every length.)
+# The study through the command line: every study model at 100 words, one
+# repetition, 2 s cooldown. (A 1,000-word row was cut when the whole script
+# took 973.4 s on an H100 80GB HBM3 at 700 W, 81% of its 1,200 s limit; the
+# qwen2:1.5b 500-word row, 76.45 s of the 886.58 s script, was cut when the
+# prefix-cache, checkpoint and duty-cycle phases came. The engine phases
+# still decode 667 tokens on qwen2:1.5b, and the sweep,
+# examples/torch_llm_energy_sweep.py, runs every length.)
 STUDY_CLI_CONFIGS = (
     ("study_cli", None, (100,)),  # None: the study's 7 models
-    ("study_cli_long", (MODEL,), (500,)),
 )
 STUDY_CLI_COOLDOWN_MS = 2000
 # recompute-energy must give back the stored modelled Joules.
@@ -2033,8 +2067,8 @@ class RunnerConfig(LlmEnergyConfig):
 
 def study_cli_phase(torch, eng_mod, kernels, smi):
     """The study from the command line: ``runner.cli.main([config.py])``
-    over two config files written here (the study's 7 models at 100 words;
-    qwen2:1.5b at 500 words), each building its own
+    over the config files of STUDY_CLI_CONFIGS written here (the study's 7
+    models at 100 words), each building its own
     ``TorchEngine(quantize="int8")`` and analysing its table at the end;
     then ``recompute-energy`` over the first table. Every row must be
     done with tokens and NVML Joules, its counter's mean W within
@@ -2370,7 +2404,8 @@ def serve_phases(torch, eng_mod, kernels, smi, tfm, ca):
     """The serving phases on full-width qwen2:1.5b at int8 weights (see
     SERVE_*): ``serve_continuous`` (the continuous scheduler over the bf16
     pool: joins in prefill chunks, streams, a cancel, swap preemption),
-    ``serve_continuous_int8_kv`` (the int8 pool), ``serve_window``
+    ``serve_continuous_int8_kv`` (the int8 pool; SOLO_CUT_LAYERS layers),
+    ``serve_window``
     (``generate_batch``) and ``serve_serial`` (``generate`` and
     ``generate_stream`` under the server's lock). Returns the launches."""
     import gc
@@ -2491,7 +2526,8 @@ def serve_phases(torch, eng_mod, kernels, smi, tfm, ca):
     gc.collect()
     torch.cuda.empty_cache()
 
-    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, kv_quantize="int8")
+    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, kv_quantize="int8",
+                                 registry=cut_registry())
     engine.load_model(MODEL)
     small8, gaps8 = serve_traffic(GenerationRequest, protocol.parse_priority, SERVE_SMALL_REQUESTS,
                                   SERVE_SEED + 2)
@@ -2518,7 +2554,8 @@ def serve_phases(torch, eng_mod, kernels, smi, tfm, ca):
 
 def contiguous_serve_phases(torch, eng_mod, kernels, smi, tfm, ca):
     """The serving phases on the contiguous layouts (the JAX package's
-    ``serve`` defaults: no ``paged_kv``), qwen2:1.5b at int8 weights:
+    ``serve`` defaults: no ``paged_kv``), qwen2:1.5b at int8 weights cut
+    to SOLO_CUT_LAYERS layers:
     ``serve_continuous_contiguous`` (``serve_continuous``'s traffic over
     the contiguous session, its high-tier requests preempting rows with
     ``recompute``: their K/V dropped and re-prefilled in join chunks
@@ -2545,7 +2582,7 @@ def contiguous_serve_phases(torch, eng_mod, kernels, smi, tfm, ca):
         for k, v in counts.items():
             totals[k] += v
 
-    engine = eng_mod.TorchEngine(quantize="int8")
+    engine = eng_mod.TorchEngine(quantize="int8", registry=cut_registry())
     engine.load_model(MODEL)
     reqs, gaps = serve_traffic(GenerationRequest, protocol.parse_priority, SERVE_REQUESTS, SERVE_SEED)
     # warm: a batch, and a session with a chunked joiner and a recompute resume
@@ -2616,7 +2653,7 @@ def contiguous_serve_phases(torch, eng_mod, kernels, smi, tfm, ca):
     gc.collect()
     torch.cuda.empty_cache()
 
-    engine = eng_mod.TorchEngine(quantize="int8", kv_quantize="int8")
+    engine = eng_mod.TorchEngine(quantize="int8", kv_quantize="int8", registry=cut_registry())
     engine.load_model(MODEL)
     small, small_gaps = serve_traffic(GenerationRequest, protocol.parse_priority, SERVE_SMALL_REQUESTS,
                                       SERVE_SEED + 3)
@@ -2840,6 +2877,372 @@ def serve_cli_contiguous_phase(torch, root, smi):
           "server_exit_code": server.rc, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
 
+# The solo prefix cache: turn 1 is exactly one prefill chunk, turn 2 that
+# prompt plus PREFIX_TAIL_TOKENS, answered in PREFIX_NEW_TOKENS tokens.
+PREFIX_TAIL_TOKENS = 64
+PREFIX_NEW_TOKENS = 128
+
+
+def prefix_tail(k: int = 0) -> str:
+    """PREFIX_TAIL_TOKENS characters (byte-tokenizer tokens), distinct per k."""
+    return (f" Question {k}: how do the dark reactions fix carbon dioxide? " * 3)[:PREFIX_TAIL_TOKENS]
+
+
+def prefix_cache_phase(torch, eng_mod, kernels, GenerationRequest, smi):
+    """The solo prompt-prefix KV cache on qwen2:1.5b at int8 weights, full
+    width and depth: turn 1 is a prompt of exactly one prefill chunk
+    (``PREFILL_CHUNK`` tokens), turn 2 that prompt plus PREFIX_TAIL_TOKENS.
+    Turn 2 runs cold (no cache: chunk (0, 2048), then a 64-token bucket at
+    offset 2048) and with a hit (the cached 2,048 positions copied in, then
+    the same 64-token bucket at offset 2048): the greedy tokens must be
+    equal token for token, and B1 launches n_layers × 2 cold and n_layers
+    on a hit. (A ``torch.profiler`` trace of a one-token turn counted the
+    same ``prefill_mma_kernel`` device kernels, 28 and 56, in a call of
+    these phases alone; in the whole script the same trace lost its
+    leading records five times running, so the script does not take it.)
+    Over a bf16 and an int8 decode cache (the cache stores the bf16
+    prefill either way). Then a byte cap below two entries evicts the
+    older. Returns the launches."""
+    import gc
+
+    chunk = eng_mod.PREFILL_CHUNK
+    turn1 = context_prompt(chunk)
+    turn2 = turn1 + prefix_tail()
+    totals = {fn.__name__: 0 for fn in kernels}
+    params = None
+    for kv in (None, "int8"):
+        phase = "engine_prefix_cache" + ("_int8_kv" if kv else "")
+        warm = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv, prefix_cache_size=4)
+        if params is None:
+            warm.load_model(MODEL)
+            params = warm._models[MODEL].params
+        else:
+            warm.install_model(MODEL, warm.registry[MODEL], params)
+        cold = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv)
+        cold.install_model(MODEL, warm.registry[MODEL], params)  # the same tensors
+        cfg = warm._models[MODEL].cfg
+        tok = warm._tokenizer_for(MODEL)
+        ids1, ids2 = tok.encode(turn1), tok.encode(turn2)
+        assert len(ids1) == chunk and len(ids2) == chunk + PREFIX_TAIL_TOKENS and ids2[:chunk] == ids1
+        for eng in (warm, cold):  # allocator and library state, outside the timed turns
+            eng.generate(GenerationRequest(MODEL, "warm up the engine", 8, stop_at_eos=False))
+        warm.generate(GenerationRequest(MODEL, turn1, 16, stop_at_eos=False))
+        assert tuple(ids1) in warm._prefix_cache[MODEL]
+        req = GenerationRequest(MODEL, turn2, PREFIX_NEW_TOKENS, stop_at_eos=False)
+        res_cold, c_cold = count_launches(kernels, lambda: cold.generate(req))
+        res_hit, c_hit = count_launches(kernels, lambda: warm.generate(req))
+        hits = warm._prefix_hits
+        decode = "cuda_decode_attention_int8" if kv else "cuda_decode_attention"
+        steps = PREFIX_NEW_TOKENS - 1
+        expected_cold = {fn.__name__: 0 for fn in kernels}
+        expected_cold.update({"cuda_prefill_attention": 2 * cfg.n_layers, decode: cfg.n_layers * steps})
+        expected_hit = dict(expected_cold, cuda_prefill_attention=cfg.n_layers)
+        equal = res_hit.tokens == res_cold.tokens
+        b1_repeat = None
+        if not equal:
+            b1_repeat = b1_repeat_bit_equal(torch, cold, eng_mod, ids2)
+        emit({
+            "phase": phase, "prompt_tokens": res_hit.prompt_tokens, "cached_tokens": chunk,
+            "generated_tokens": res_hit.generated_tokens, "tokens_equal": equal,
+            "prefill_s_cold": res_cold.prefill_s, "prefill_s_hit": res_hit.prefill_s,
+            "decode_s_cold": res_cold.decode_s, "decode_s_hit": res_hit.decode_s,
+            "hits": hits, "entries": len(warm._prefix_cache[MODEL]),
+            "prefix_bytes": warm._prefix_bytes(), "counts_cold": c_cold, "counts_hit": c_hit,
+            "b1_repeat_bit_equal": b1_repeat, "nvidia_smi": smi,
+        })
+        assert equal, (phase, b1_repeat, res_hit.tokens[:16], res_cold.tokens[:16])
+        assert hits == 1, hits
+        assert c_cold == expected_cold, (c_cold, expected_cold)
+        assert c_hit == expected_hit, (c_hit, expected_hit)
+        for counts in (c_cold, c_hit):
+            for k, v in counts.items():
+                totals[k] += v
+        del warm, cold
+        gc.collect()
+    # The byte cap: below two turn-1-sized entries, the second evicts the first.
+    eng = eng_mod.TorchEngine(quantize="int8", prefix_cache_bytes=1 << 40)
+    eng.install_model(MODEL, eng.registry[MODEL], params)
+    other = ("Background: " + "the Calvin cycle builds sugars from carbon dioxide. " * 60)[: chunk - 1]
+    eng.generate(GenerationRequest(MODEL, turn1, 4, stop_at_eos=False))
+    one = eng._prefix_bytes()
+    eng.prefix_cache_bytes = int(1.5 * one)
+    eng.generate(GenerationRequest(MODEL, other, 4, stop_at_eos=False))
+    kept = list(eng._prefix_cache[MODEL])
+    emit({"phase": "engine_prefix_cache_eviction", "entry_bytes": one, "cap_bytes": eng.prefix_cache_bytes,
+          "entries_after": len(kept), "bytes_after": eng._prefix_bytes(), "nvidia_smi": smi})
+    assert kept == [tuple(eng._tokenizer_for(MODEL).encode(other))], len(kept)
+    assert eng._prefix_bytes() <= eng.prefix_cache_bytes
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def b1_repeat_bit_equal(torch, engine, eng_mod, ids):
+    """B1 twice on the same inputs (the tail chunk's shape: S 64 at offset
+    2048 over layer 0's cache after a cold prefill): are the two outputs
+    bit-equal? Read only when a hit's tokens differ from the cold ones."""
+    from importlib import import_module
+
+    ca = import_module(f"{PKG}.ops.cuda_attention")
+    tf = engine._models[MODEL]
+    cfg = tf.cfg
+    _, k_cache, v_cache = engine._run_prefill(MODEL, ids, len(ids) + 64)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((1, PREFIX_TAIL_TOKENS, cfg.n_heads, cfg.d_head), generator=gen, device="cuda",
+                    dtype=k_cache.dtype)
+    outs = [ca.cuda_prefill_attention(q, k_cache[0], v_cache[0], len(ids) - PREFIX_TAIL_TOKENS)
+            for _ in range(2)]
+    return bool(torch.equal(outs[0], outs[1]))
+
+
+def hf_state_dict(params, cfg):
+    """The port's params under HF's tensor names and [out, in] layout (the
+    inverse of ``models/convert.py``; a tied model writes no lm_head)."""
+    sd = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"]}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}"
+        sd[f"{p}.input_layernorm.weight"] = params["attn_norm"][i]
+        sd[f"{p}.post_attention_layernorm.weight"] = params["mlp_norm"][i]
+        for leaf, proj in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "o_proj")):
+            sd[f"{p}.self_attn.{proj}.weight"] = params[leaf][i].T
+        if cfg.qkv_bias:
+            for leaf, proj in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
+                sd[f"{p}.self_attn.{proj}.bias"] = params[leaf][i]
+        for leaf, proj in (("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj")):
+            sd[f"{p}.mlp.{proj}.weight"] = params[leaf][i].T
+    if not cfg.tie_embeddings:
+        sd["lm_head.weight"] = params["lm_head"].T
+    return sd
+
+
+def same_leaves(torch, got, want):
+    """The names of the leaves (quantized parts included) that differ in
+    dtype, shape or any bit."""
+    bad = [] if sorted(got) == sorted(want) else ["<names>"]
+    for name, leaf in want.items():
+        if name not in got:
+            continue
+        parts = leaf.items() if isinstance(leaf, dict) else [("", leaf)]
+        for sub, t in parts:
+            g = got[name][sub] if sub else got[name]
+            if g.dtype != t.dtype or g.shape != t.shape or not torch.equal(g, t):
+                bad.append(f"{name}.{sub}" if sub else name)
+    return bad
+
+
+HF_SEED = 21
+HF_SERVE_PROMPT_TOKENS = 1024
+HF_SERVE_NEW_TOKENS = 64
+
+
+def hf_checkpoint_phases(torch, root, eng_mod, kernels, GenerationRequest, smi):
+    """Weights from a local checkpoint: qwen2:1.5b's params at full width
+    and depth, drawn from a seed at bf16, written under HF's tensor names
+    (``hf_state_dict``) as one safetensors file by the port's own writer
+    into a temporary directory. ``TorchEngine(hf_checkpoints=...,
+    weight_cache_dir=...)`` loads it at int8 twice: cold (read, converted
+    and quantized on the CPU, moved to the card, and written to the weight
+    cache) and warm (read back from the cache). Every leaf of both must
+    equal the same params quantized on the install path (on the card),
+    bit for bit, and the greedy tokens must be equal; the load seconds and
+    the bytes on disk are printed. Then ``serve --backend torch
+    --hf qwen2:1.5b=<dir> --prefix-cache 4`` in a subprocess: 3 requests,
+    the second and third extending the first's prompt, two prefix hits in
+    ``GET /debug/state``, exit 0 on SIGTERM. The directory goes at the
+    end. Returns the launches."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import urllib.request
+    from importlib import import_module
+
+    ckpt = import_module(f"{PKG}.engine.checkpoint")
+    tfm = import_module(f"{PKG}.models.transformer")
+    client_mod = import_module(f"{PKG}.serve.client")
+    totals = {fn.__name__: 0 for fn in kernels}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_hf_"))
+    try:
+        cfg = import_module(f"{PKG}.models.config").get_model_config(MODEL)
+        dtype = eng_mod.TorchEngine().dtype  # the engines' own: unquantized leaves compare as stored
+        params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(HF_SEED), dtype)
+        hf_dir = tmp / "qwen2-1.5b-hf"
+        hf_dir.mkdir()
+        t0 = time.perf_counter()
+        ckpt.save_params(hf_state_dict(params, cfg), hf_dir / "model.safetensors")
+        write_s = time.perf_counter() - t0
+        installed = eng_mod.TorchEngine(quantize="int8")
+        installed.install_model(MODEL, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the first load converts, quantizes on the CPU and writes the weight
+        # cache (cold); a second engine reads the cache back (warm)
+        cache_dir = tmp / "weight_cache"
+        engines, load = {}, {}
+        for turn in ("cold", "warm"):
+            engines[turn] = eng_mod.TorchEngine(quantize="int8", hf_checkpoints={MODEL: str(hf_dir)},
+                                                weight_cache_dir=str(cache_dir))
+            t0 = time.perf_counter()
+            engines[turn].load_model(MODEL)
+            load[turn] = time.perf_counter() - t0
+        engine = engines["cold"]
+        bad = same_leaves(torch, engine._models[MODEL].params, installed._models[MODEL].params)
+        cached_bad = same_leaves(torch, engines["warm"]._models[MODEL].params, engine._models[MODEL].params)
+        on_card = {t.device.type for e in engines.values() for leaf in e._models[MODEL].params.values()
+                   for t in (leaf.values() if isinstance(leaf, dict) else [leaf])} == {engine.device.type}
+        del engines
+        cache_files = sorted(cache_dir.glob("*.safetensors"))
+        req = study_requests(GenerationRequest)[0]
+        engine.warmup(req)
+        res, counts = count_launches(kernels, lambda: engine.generate(req))
+        want = installed.generate(req)
+        expected = {fn.__name__: 0 for fn in kernels}
+        expected.update({"cuda_prefill_attention": cfg.n_layers,
+                         "cuda_decode_attention": cfg.n_layers * (len(res.tokens) - 1)})
+        emit({
+            "phase": "engine_hf_checkpoint", "checkpoint_bytes": (hf_dir / "model.safetensors").stat().st_size,
+            "write_s": write_s, "cold_load_s": load["cold"], "warm_load_s": load["warm"],
+            "leaves": len(engine._models[MODEL].params), "leaves_differing": bad,
+            "cached_leaves_differing": cached_bad, "params_on_card": on_card,
+            "tokens_equal": res.tokens == want.tokens, "generated_tokens": res.generated_tokens,
+            "counts": counts, "expected": expected, "weight_cache_files": len(cache_files),
+            "weight_cache_bytes": sum(f.stat().st_size for f in cache_files), "nvidia_smi": smi,
+        })
+        assert not bad and not cached_bad and on_card, (bad, cached_bad, on_card)
+        assert res.tokens == want.tokens
+        assert counts == expected, (counts, expected)
+        assert len(cache_files) == 1, cache_files
+        for k, v in counts.items():
+            totals[k] += v
+        del engine, installed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # serve --hf --prefix-cache from the command line
+        base = context_prompt(HF_SERVE_PROMPT_TOKENS)
+        prompts = [base, base + prefix_tail(1), base + prefix_tail(1) + prefix_tail(2)]
+        log_path = tmp / "serve.log"
+        args = ["--models", MODEL, "--quantize", "int8", "--hf", f"{MODEL}={hf_dir}", "--prefix-cache", "4"]
+        t0 = time.perf_counter()
+        with ServeProcess(root, log_path, args) as server:
+            client = client_mod.RemoteHTTPBackend(server.url)
+            served = [client.generate(GenerationRequest(MODEL, p, HF_SERVE_NEW_TOKENS, stop_at_eos=False))
+                      for p in prompts]
+            with urllib.request.urlopen(f"{server.url}/debug/state", timeout=30) as resp:
+                state = json.loads(resp.read())
+        log_tail = log_path.read_text()[-2000:]
+        prefix_state = state.get("models", {}).get("prefix_cache")
+        emit({
+            "phase": "serve_cli_hf", "args": [a if a != f"{MODEL}={hf_dir}" else f"{MODEL}=<dir>" for a in args],
+            "server_start_s": server.started, "server_exit_code": server.rc,
+            "prompt_tokens": [r.prompt_tokens for r in served],
+            "generated_tokens": [r.generated_tokens for r in served],
+            "prefill_s": [r.prefill_s for r in served], "prefix_cache": prefix_state,
+            "seconds": time.perf_counter() - t0, "nvidia_smi": smi,
+        })
+        assert server.rc == 0, (server.rc, log_tail)
+        assert [r.generated_tokens for r in served] == [HF_SERVE_NEW_TOKENS] * 3, log_tail
+        assert prefix_state is not None and prefix_state["hits"] == 2, (state.get("models"), log_tail)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert not os.path.exists(tmp)
+    torch.cuda.empty_cache()
+    return totals
+
+
+# PR 3's solo int8 step profile (scripts/torch_decode_profile.py, an
+# H100 80GB HBM3 at 700 W): the card idled 0.620 of the step.
+PROFILED_IDLE_SHARE = 0.620
+
+
+def trace_busy_share(path):
+    """Busy share of the card over a ``torch.profiler`` trace: the union
+    of its kernels' intervals over the span from the first kernel's start
+    to the last one's end. Kernels the trace lost count as idle."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in events)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    names = {e["name"] for e in events}
+    return busy / (spans[-1][1] - spans[0][0]), len(events), names
+
+
+def study_duty_trace_phase(torch, eng_mod, kernels, smi):
+    """The study's two on_device rows (qwen2:1.5b, 100 words, two
+    repetitions) with ``NvmlDutyCycleProfiler`` (the study wires it when
+    NVML's utilization reads) and ``TorchTraceProfiler`` (CUDA activity)
+    attached: each row's ``gpu_duty_cycle_pct`` lies in [0, 100], its
+    ``energy_duty_J`` is set, and its trace names the port's kernels
+    (``prefill_mma_kernel``, ``decode_tile_kernel``; names, not counts:
+    a trace can lose records). The duty cycle is printed beside the busy
+    share read from the row's own trace and beside 1 − PR 3's profiled
+    idle share. Returns the launches."""
+    import csv
+    import tempfile
+    from importlib import import_module
+
+    study = import_module(f"{PKG}.experiments.llm_energy")
+    controller = import_module(f"{PKG}.runner.controller")
+    probe = import_module(f"{PKG}.profilers.energy_probe")
+    trace_mod = import_module(f"{PKG}.profilers.torch_trace")
+    from torch.profiler import ProfilerActivity
+
+    # A process's first trace initialises CUPTI (seconds): not inside a row.
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_duty_") as out:
+        config = study.LlmEnergyConfig(
+            models=[MODEL], locations=["on_device"], lengths=[STUDY_WORDS[0]],
+            repetitions=2, cooldown_ms=STUDY_CLI_COOLDOWN_MS, results_output_path=out,
+        )
+        assert isinstance(config.profilers[0], probe.NvmlDutyCycleProfiler), config.profilers
+        config.profilers.append(trace_mod.TorchTraceProfiler(activities=[ProfilerActivity.CUDA]))
+        ctl = controller.ExperimentController(config, echo=False)
+        _, counts = count_launches(kernels, ctl.do_experiment)
+        exp = Path(out) / config.name
+        with (exp / "run_table.csv").open() as f:
+            rows = list(csv.DictReader(f))
+        channels = json.loads((exp / "energy_channels.json").read_text())["channels"]
+        results = []
+        for r in rows:
+            t1 = time.perf_counter()
+            path = Path(r["trace_dir"]) / "trace.json"
+            busy, n_kernels, names = trace_busy_share(path)
+            results.append((r, busy, n_kernels, names, path.stat().st_size, time.perf_counter() - t1))
+        del config, ctl
+    assert [c["available"] for c in channels if c["name"] == "nvml_utilization"] == [True], channels
+    assert len(rows) == 2 and all(r["__done"] == "DONE" for r in rows), rows
+    for r, busy, n_kernels, names, trace_bytes, parse_s in results:
+        duty = float(r["gpu_duty_cycle_pct"])
+        emit({
+            "phase": "study_duty_trace_row", "run": r["__run_id"], "generated_tokens": int(r["generated_tokens"]),
+            "execution_time_s": float(r["execution_time_s"]), "gpu_duty_cycle_pct": duty,
+            "energy_duty_J": float(r["energy_duty_J"]), "gpu_energy_J": float(r["gpu_energy_J"]),
+            "energy_model_J": float(r["energy_model_J"]), "trace_busy_share": busy,
+            "trace_kernels": n_kernels, "trace_bytes": trace_bytes, "trace_parse_s": parse_s,
+            "profiled_busy_share": 1 - PROFILED_IDLE_SHARE,
+            "names_port_kernels": sorted(n for n in names if "prefill_mma" in n or "decode_tile" in n)[:4],
+            "nvidia_smi": smi,
+        })
+        assert 0.0 <= duty <= 100.0 and float(r["energy_duty_J"]) > 0, r
+        assert any("prefill_mma_kernel" in n for n in names), sorted(names)[:20]
+        assert any("decode_tile_kernel" in n for n in names), sorted(names)[:20]
+    emit({"phase": "study_duty_trace", "counts": counts, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    return counts
+
+
 def mixed_quant_phase(engine, GenerationRequest, kernels, chunks_of, params_nbytes):
     """One engine with per-model modes (qwen2:1.5b at int8, by default
     int4): each model generates the study's 134-token request; the int4
@@ -2950,8 +3353,7 @@ def main() -> int:
     attention = (ca.cuda_prefill_attention, ca.cuda_decode_attention)
     # (phase, weights, kv, int4 kernel, its plain version, layers: None for
     # the model's own depth)
-    cut = dataclasses.replace(import_module(f"{PKG}.models.config").get_model_config(MODEL),
-                              n_layers=SOLO_CUT_LAYERS)
+    cut = cut_registry()[MODEL]
     solo_phases = (
         ("engine_bf16_kv", "int8", None, None, None, None),
         ("engine_int8_kv", "int8", "int8", None, None, cut),
@@ -3058,6 +3460,10 @@ def main() -> int:
     add(study_cli_phase(torch, eng_mod, all_kernels, smi))
     serve_cli_capstone_phase(torch, root, smi)
     serve_cli_contiguous_phase(torch, root, smi)
+    torch.cuda.empty_cache()
+    add(prefix_cache_phase(torch, eng_mod, all_kernels, backend.GenerationRequest, smi))
+    add(hf_checkpoint_phases(torch, root, eng_mod, all_kernels, backend.GenerationRequest, smi))
+    add(study_duty_trace_phase(torch, eng_mod, all_kernels, smi))
     assert all(launches.values()), launches
 
     rows = []

@@ -125,22 +125,43 @@ def test_engine_without_device_needs_cuda(monkeypatch):
         TorchEngine()
 
 
+UNPORTED_ITEMS = {"spec_accept_floor": 13, "prefix_share": 12}
+
+
 @pytest.mark.parametrize(
     "option",
     [
         # speculation is ported; its adaptive fallback (a positive floor) is not
         dict(speculative={"tiny": ("ngram", 3)}, spec_accept_floor=0.5),
-        dict(prefix_cache_size=2),
         dict(prefix_share=True),
+    ],
+    ids=lambda o: next(iter(o)),
+)
+def test_unported_options_raise(option):
+    name = list(option)[-1]
+    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP item {UNPORTED_ITEMS[name]}"):
+        TorchEngine(device="cpu", **option)
+
+
+@pytest.mark.parametrize(
+    "option",
+    [
+        dict(prefix_cache_size=2),
+        dict(prefix_cache_bytes=1 << 20),
         dict(hf_checkpoints={"tiny": "/nonexistent"}),
         dict(weight_cache_dir="weights"),
     ],
     ids=lambda o: next(iter(o)),
 )
-def test_unported_options_raise(option):
-    name = next(iter(option))
-    with pytest.raises(NotImplementedError, match=name):
-        TorchEngine(device="cpu", **option)
+def test_ported_engine_options_are_taken(option, tmp_path):
+    """The prefix cache, HF checkpoints and the weight cache build an
+    engine (a checkpoint directory is read only when its model loads)."""
+    if "weight_cache_dir" in option:
+        option = dict(weight_cache_dir=str(tmp_path / "weights"))
+    eng = TorchEngine(device="cpu", **option)
+    assert eng._prefix_enabled == ("prefix_cache_size" in option or "prefix_cache_bytes" in option)
+    assert eng.hf_checkpoints == option.get("hf_checkpoints", {})
+    assert (eng._weight_cache is not None) == ("weight_cache_dir" in option)
 
 
 @pytest.mark.parametrize("mode", ["int4", "int4-i32"])

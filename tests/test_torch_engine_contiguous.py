@@ -12,19 +12,17 @@ cache by default:
   ids) and the residency cases (LRU eviction under an allocation budget,
   recency refreshed on use, a re-install dropping the old state).
   ``test_install_model_reinstall_evicts_stale_state`` is loaded without
-  its prefix-cache assertions (the prefix cache is ROADMAP item 6's later
-  part): the engine is built without ``prefix_cache_size`` and the lines
-  reading ``_prefix_cache`` and ``_prefill_cache`` (compiled prefill
-  functions, which the port has not) are cut; its ``_decode_cache``
-  assertion stays. The two grouped-prefill cases count prefill forwards
+  its reads of ``_prefill_cache`` (compiled prefill functions, which the
+  port has not); its prefix-cache and ``_decode_cache`` assertions stay.
+  The two grouped-prefill cases count prefill forwards
   (a ``forward`` of more than one token) where the JAX file counts calls
   of its compiled prefill functions. Left out of this range:
   ``test_max_batch_rows_paged_estimates_are_mode_aware`` (it drives the
   JAX engine's unstacked paged mode, which the port has not; the paged
   estimates are held against the JAX engine's in
   ``tests/test_torch_batch_engine.py``) and
-  ``test_generate_batch_grouped_prefill_with_prefix_cache`` (the prefix
-  cache).
+  ``test_generate_batch_grouped_prefill_with_prefix_cache`` (loaded by
+  ``tests/test_torch_prefix_cache.py``).
 - from ``tests/test_kv_quantize.py``: an int8-KV contiguous batch equal
   to its rows' solo decodes, and installed weights never evicted.
 
@@ -71,10 +69,10 @@ ENGINE_RENAMES = (
     ("TorchEngine(registry=registry, dtype=jnp.float32)",
      'TorchEngine(registry=registry, dtype=torch.float32, device="cpu")'),
     ("TorchEngine(registry={}, dtype=jnp.float32, prefix_cache_size=2)",
-     'TorchEngine(registry={}, dtype=torch.float32, device="cpu")'),
-    ('    assert eng._prefill_cache and eng._prefix_cache.get("m")\n', ""),
-    ('    assert not eng._prefix_cache.get("m")\n'
-     '    assert not [k for k in eng._prefill_cache if "m" in k]\n', ""),
+     'TorchEngine(registry={}, dtype=torch.float32, device="cpu", prefix_cache_size=2)'),
+    ('    assert eng._prefill_cache and eng._prefix_cache.get("m")\n',
+     '    assert eng._prefix_cache.get("m")\n'),
+    ('    assert not [k for k in eng._prefill_cache if "m" in k]\n', ""),
     ("jax.random.PRNGKey(0), jnp.float32)", "torch.Generator().manual_seed(0), torch.float32)"),
     ("jax.random.PRNGKey(1), jnp.float32)", "torch.Generator().manual_seed(1), torch.float32)"),
     (_SPY.group(0), '''def _spy_prefill_calls(monkeypatch, engine):

@@ -75,14 +75,14 @@ def _ctx(tmp_path) -> RunContext:
 
 def test_probe_covers_host_channels_and_nvml():
     statuses = probe_energy_channels()
-    assert [s.name for s in statuses] == ["rapl", "hwmon", "battery", "nvml"]
+    assert [s.name for s in statuses] == ["rapl", "hwmon", "battery", "nvml", "nvml_utilization"]
     for s in statuses:
-        assert s.kind in ("energy", "power")
+        assert s.kind in (("utilization",) if s.name == "nvml_utilization" else ("energy", "power"))
         assert s.scope in ("host", "device")
         assert s.detail
-    skipped = probe_energy_channels(include_device=False)[-1]
-    assert (skipped.name, skipped.available) == ("nvml", False)
-    assert "skipped" in skipped.detail
+    skipped = probe_energy_channels(include_device=False)[-2:]
+    assert [(s.name, s.available) for s in skipped] == [("nvml", False), ("nvml_utilization", False)]
+    assert all("skipped" in s.detail for s in skipped)
 
 
 # -- NVML through a fake libnvidia-ml ----------------------------------------
@@ -94,10 +94,19 @@ extern "C" {
 static unsigned long long energy_mj = 0;
 static unsigned power_mw = 0;
 static int energy_supported = 1;
+static unsigned util_gpu = 0;
+static int util_supported = 1;
 static int initialised = 0;
 static int dev;
-void fake_set(unsigned long long e, unsigned p, int supported) {
+void fake_set(unsigned long long e, unsigned p, int supported, unsigned util, int util_ok) {
     energy_mj = e; power_mw = p; energy_supported = supported;
+    util_gpu = util; util_supported = util_ok;
+}
+struct Utilization { unsigned gpu; unsigned memory; };
+int nvmlDeviceGetUtilizationRates(void* h, Utilization* u) {
+    if (h != &dev) return 6;
+    if (!util_supported) return 3;
+    u->gpu = util_gpu; u->memory = util_gpu / 2; return 0;
 }
 const char* nvmlErrorString(int rc) {
     return rc == 3 ? "Not Supported" : rc == 6 ? "Not Found" : "Uninitialized";
@@ -128,8 +137,10 @@ int nvmlDeviceGetName(void* h, char* name, unsigned len) {
 
 @pytest.fixture
 def fake_nvml(tmp_path, monkeypatch):
-    """The fake library's setter; ``nvml.NVML_LIB`` points at the fake and
-    the current CUDA device is the fake's, at ``BUS_ID``."""
+    """The fake library's setter (energy mJ, power mW, the counter's
+    support, the utilization's percent and support); ``nvml.NVML_LIB``
+    points at the fake and the current CUDA device is the fake's, at
+    ``BUS_ID``."""
     src = tmp_path / "fake_nvml.cpp"
     src.write_text(FAKE_NVML)
     lib = tmp_path / "libfake_nvml.so"
@@ -138,10 +149,10 @@ def fake_nvml(tmp_path, monkeypatch):
     import ctypes
 
     handle = ctypes.CDLL(str(lib))
-    handle.fake_set.argtypes = [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_int]
+    handle.fake_set.argtypes = [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_int, ctypes.c_uint, ctypes.c_int]
 
-    def set_state(energy_mj, power_mw, supported=1):
-        handle.fake_set(energy_mj, power_mw, supported)
+    def set_state(energy_mj, power_mw, supported=1, util=0, util_supported=1):
+        handle.fake_set(energy_mj, power_mw, supported, util, util_supported)
 
     monkeypatch.setattr(nvml, "NVML_LIB", str(lib))
     monkeypatch.setattr(nvml, "cuda_pci_bus_id", lambda: BUS_ID)

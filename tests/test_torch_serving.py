@@ -404,9 +404,9 @@ REFUSED = {
     "--replicas": ("ROADMAP item 15", ["--backend", "fake", "--replicas", "2"]),
     "--model-policy": ("ROADMAP item 15", ["--backend", "fake", "--model-policy", "small-first"]),
     "--prefix-share": ("ROADMAP item 12", ["--backend", "fake", "--prefix-share"]),
-    "--prefix-cache": ("ROADMAP item 12", ["--backend", "fake", "--prefix-cache", "4"]),
+    "--prefix-index-entries": ("ROADMAP item 12", ["--backend", "fake", "--prefix-index-entries", "8"]),
     "--role decode": ("ROADMAP item 12", ["--backend", "fake", "--role", "decode"]),
-    "--hf": ("ROADMAP item 6", ["--hf", "tiny=/nowhere"]),
+    "--prefix-store-hbm-bytes": ("ROADMAP item 12", ["--prefix-store-hbm-bytes", "1000000"]),
     "--spec-accept-floor": ("ROADMAP item 13", ["--spec-accept-floor", "0.3"]),
     "--speculative without --paged-kv": (
         "ROADMAP item 13", ["--scheduler", "continuous", "--speculative", "ngram:4"]
