@@ -167,6 +167,9 @@ struct PagedRows {
   }
   // A tile of kDcTile positions from a multiple of kDcTile stays in one page.
   __device__ __forceinline__ bool tile_contiguous() const { return page % kDcTile == 0; }
+  // A tile of n positions from a multiple of n lies in one run of
+  // consecutive rows (one page): its rows are row(t0) + 0..n-1.
+  __device__ __forceinline__ bool tile_in_run(int n) const { return page % n == 0; }
 };
 
 // [B,Hkv,T,D] caches (scales [B,Hkv,T]): the T rows of (b, h) are
@@ -178,6 +181,7 @@ struct ContiguousRows {
     return static_cast<size_t>(bh) * t_cap + t;
   }
   __device__ __forceinline__ bool tile_contiguous() const { return true; }
+  __device__ __forceinline__ bool tile_in_run(int /*n*/) const { return true; }
 };
 
 // Output policies of decode_tile_kernel: the element type of its `out`

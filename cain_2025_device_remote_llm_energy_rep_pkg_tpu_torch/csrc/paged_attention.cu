@@ -94,6 +94,22 @@
 // kMqQueryMax, with host-sized splits (at most one page each) merged by a
 // second launch, parts_merge_kernel.
 //
+// Contiguous rows (7, 8 over a [B,Hkv,T,D] cache: contig_mq_parts,
+// contig_mq_mma_parts): the contiguous session's verify. The JAX package
+// writes each row's k+1 candidates into its carry cache at offset[b] + j
+// and attends them with XLA under a per-row causal mask
+// (cain_2025_device_remote_llm_energy_rep_pkg_tpu/models/transformer.py,
+// the carry-cache branch and its per_seq mask); no pallas_call serves it.
+// Here the same two bodies run over the contiguous rows: both kernels are
+// templates on the address policy (PagedRows, or decode_common.cuh's
+// ContiguousRows, as decode_tile_kernel serves B2 and B4), whose
+// tile_in_run says whether a tile's rows are one run (always, for
+// contiguous rows: one 16-byte cp.async row after another, no lookup).
+// Every key of a row is in its cache, so the caller passes lengths =
+// offsets + Q and query j's limit is offsets[b] + j + 1; the wrapper
+// normalises acc / l. Bound: bytes, each row's K/V read once up to its
+// last query's limit.
+//
 // Bound on an H100 SXM: bytes. Every cached K/V row of every row must be
 // read once up to its (last query's) limit (int8: D codes plus a 4-byte
 // scale per position), against 4·Hq·D flops per visible (query, token)
@@ -175,13 +191,13 @@ inline size_t mq_smem_bytes(int rows, int d) {
 // position j = r / G, head h·G + r % G, and sees positions
 // t < min(len, offset + j + 1). Partials go to part_acc [B·Hkv, n_split,
 // R, D] and part_ml [B·Hkv, n_split, R, 2] for parts_merge_kernel.
-template <typename T, typename KV, int D, bool kQuant>
+template <typename T, typename KV, int D, bool kQuant, typename Rows>
 __global__ void __launch_bounds__(kMqWarps * 32)
     mq_partial_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                       const KV* __restrict__ v, const float* __restrict__ k_scale,
                       const float* __restrict__ v_scale, const int* __restrict__ lengths,
                       const int* __restrict__ offsets, float* __restrict__ part_acc,
-                      float* __restrict__ part_ml, PagedRows addr, int hkv, int group,
+                      float* __restrict__ part_ml, Rows addr, int hkv, int group,
                       int q_len, int split_len, float scale) {
   extern __shared__ float smem[];
   constexpr int QS = D + 1;  // padded row strides
@@ -325,23 +341,21 @@ __global__ void __launch_bounds__(kMqWarps * 32)
   }
 }
 
-template <typename T, typename KV, int D, bool kQuant>
+template <typename T, typename KV, int D, bool kQuant, typename Rows>
 cudaError_t launch_mq_parts(const void* q, const void* k, const void* v, const float* k_scale,
-                            const float* v_scale, const int* table, const int* lengths,
+                            const float* v_scale, const Rows& addr, const int* lengths,
                             const int* offsets, float* part_acc, float* part_ml, float* acc,
                             float* m, float* l, int batch, int q_len, int hq, int hkv,
-                            int n_pool, int page, int jmax, int n_split, int split_len,
-                            cudaStream_t stream) {
+                            int n_split, int split_len, cudaStream_t stream) {
   const int group = hq / hkv;
   const int rows = q_len * group;
   const size_t smem = mq_smem_bytes(rows, D);
-  auto kernel = mq_partial_kernel<T, KV, D, kQuant>;
+  auto kernel = mq_partial_kernel<T, KV, D, kQuant, Rows>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const PagedRows addr{table, jmax, page, hkv, n_pool};
   kernel<<<dim3(n_split, batch * hkv), kMqWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v), k_scale,
       v_scale, lengths, offsets, part_acc, part_ml, addr, hkv, group, q_len, split_len,
@@ -353,19 +367,19 @@ cudaError_t launch_mq_parts(const void* q, const void* k, const void* v, const f
   return cudaGetLastError();
 }
 
-template <typename T, typename KV, bool kQuant>
+template <typename T, typename KV, bool kQuant, typename Rows>
 cudaError_t dispatch_mq_parts(int d_head, const void* q, const void* k, const void* v,
-                              const float* k_scale, const float* v_scale, const int* table,
+                              const float* k_scale, const float* v_scale, const Rows& addr,
                               const int* lengths, const int* offsets, float* part_acc,
                               float* part_ml, float* acc, float* m, float* l, int batch,
-                              int q_len, int hq, int hkv, int n_pool, int page, int jmax,
-                              int n_split, int split_len, cudaStream_t stream) {
-#define PAGED_MQ_CASE(DH)                                                                  \
-  case DH:                                                                                 \
-    return launch_mq_parts<T, KV, DH, kQuant>(q, k, v, k_scale, v_scale, table, lengths,   \
-                                              offsets, part_acc, part_ml, acc, m, l, batch, \
-                                              q_len, hq, hkv, n_pool, page, jmax, n_split,  \
-                                              split_len, stream);
+                              int q_len, int hq, int hkv, int n_split, int split_len,
+                              cudaStream_t stream) {
+#define PAGED_MQ_CASE(DH)                                                                   \
+  case DH:                                                                                  \
+    return launch_mq_parts<T, KV, DH, kQuant, Rows>(q, k, v, k_scale, v_scale, addr, lengths, \
+                                                    offsets, part_acc, part_ml, acc, m, l,     \
+                                                    batch, q_len, hq, hkv, n_split, split_len, \
+                                                    stream);
   switch (d_head) {
     PAGED_MQ_CASE(64)
     PAGED_MQ_CASE(96)
@@ -425,7 +439,7 @@ struct MqMma {
 // write partials part_acc [B·Hkv, n_grid, Q·G, D] and part_ml [...,
 // Q·G, 2], and the last of them to arrive (tickets [B·Hkv·q_tiles])
 // merges them in split order.
-template <typename KV, int D>
+template <typename KV, int D, typename Rows>
 __global__ void __launch_bounds__(kMqMmaThreads)
     mq_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
                   const KV* __restrict__ v, const float* __restrict__ k_scale,
@@ -433,7 +447,7 @@ __global__ void __launch_bounds__(kMqMmaThreads)
                   const int* __restrict__ offsets, float* __restrict__ part_acc,
                   float* __restrict__ part_ml, int* __restrict__ tickets,
                   float* __restrict__ acc_out, float* __restrict__ m_out,
-                  float* __restrict__ l_out, PagedRows addr, int hkv, int group, int q_len,
+                  float* __restrict__ l_out, Rows addr, int hkv, int group, int q_len,
                   int block_q, int n_grid, float scale_log2) {
   using L = MqMma<KV, D>;
   constexpr bool kQuant = L::kQuant;
@@ -473,7 +487,7 @@ __global__ void __launch_bounds__(kMqMmaThreads)
   const int t_begin = split * split_len;
   const int t_end = min(t_begin + split_len, frontier);
   const int n_tiles = ceil_div(t_end - t_begin, kN);  // 0 where no query sees a position
-  const bool whole = addr.page % kN == 0;             // a tile lies in one page
+  const bool whole = addr.tile_in_run(kN);            // a tile lies in one run of rows
 
   for (int i = tid; i < kMqMmaRows * C; i += kMqMmaThreads) {
     const int r = i / C;
@@ -794,20 +808,19 @@ __global__ void __launch_bounds__(kMqMmaThreads)
   }
 }
 
-template <typename KV, int D>
+template <typename KV, int D, typename Rows>
 cudaError_t launch_mq_mma(const void* q, const void* k, const void* v, const float* k_scale,
-                          const float* v_scale, const int* table, const int* lengths,
+                          const float* v_scale, const Rows& addr, const int* lengths,
                           const int* offsets, float* part_acc, float* part_ml, int* tickets,
                           float* acc, float* m, float* l, int batch, int q_len, int hq, int hkv,
-                          int n_pool, int page, int jmax, int n_grid, cudaStream_t stream) {
+                          int n_grid, cudaStream_t stream) {
   constexpr int smem = MqMma<KV, D>::kBytes;
   const int group = hq / hkv;
   const int block_q = kMqMmaRows / group;
   const int q_tiles = ceil_div(q_len, block_q);
-  auto kernel = mq_mma_kernel<KV, D>;
+  auto kernel = mq_mma_kernel<KV, D, Rows>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const PagedRows addr{table, jmax, page, hkv, n_pool};
   kernel<<<dim3(q_tiles * n_grid, batch * hkv), kMqMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
       k_scale, v_scale, lengths, offsets, part_acc, part_ml, tickets, acc, m, l, addr, hkv, group,
@@ -815,18 +828,18 @@ cudaError_t launch_mq_mma(const void* q, const void* k, const void* v, const flo
   return cudaGetLastError();
 }
 
-template <typename KV>
+template <typename KV, typename Rows>
 cudaError_t dispatch_mq_mma(int d_head, const void* q, const void* k, const void* v,
-                            const float* k_scale, const float* v_scale, const int* table,
+                            const float* k_scale, const float* v_scale, const Rows& addr,
                             const int* lengths, const int* offsets, float* part_acc,
                             float* part_ml, int* tickets, float* acc, float* m, float* l,
-                            int batch, int q_len, int hq, int hkv, int n_pool, int page, int jmax,
-                            int n_grid, cudaStream_t stream) {
-#define PAGED_MQ_MMA_CASE(DH)                                                                \
-  case DH:                                                                                   \
-    return launch_mq_mma<KV, DH>(q, k, v, k_scale, v_scale, table, lengths, offsets,          \
-                                 part_acc, part_ml, tickets, acc, m, l, batch, q_len, hq, hkv, \
-                                 n_pool, page, jmax, n_grid, stream);
+                            int batch, int q_len, int hq, int hkv, int n_grid,
+                            cudaStream_t stream) {
+#define PAGED_MQ_MMA_CASE(DH)                                                                 \
+  case DH:                                                                                    \
+    return launch_mq_mma<KV, DH, Rows>(q, k, v, k_scale, v_scale, addr, lengths, offsets,      \
+                                       part_acc, part_ml, tickets, acc, m, l, batch, q_len, hq, \
+                                       hkv, n_grid, stream);
   switch (d_head) {
     PAGED_MQ_MMA_CASE(64)
     PAGED_MQ_MMA_CASE(96)
@@ -836,6 +849,24 @@ cudaError_t dispatch_mq_mma(int d_head, const void* q, const void* k, const void
       return cudaErrorInvalidValue;
   }
 #undef PAGED_MQ_MMA_CASE
+}
+
+// The f32-q multi-query parts (mq_partial_kernel + parts_merge_kernel) under
+// either address policy; k_scale null: the caches hold f32, else int8 codes.
+template <typename Rows>
+int mq_parts_f32(int dtype, const void* q, const void* k, const void* v, const float* k_scale,
+                 const float* v_scale, const Rows& addr, const int* lengths, const int* offsets,
+                 float* part_acc, float* part_ml, float* acc, float* m, float* l, int batch,
+                 int q_len, int hq, int hkv, int d_head, int n_split, int split_len,
+                 cudaStream_t s) {
+  if (dtype != kDtypeF32) return cudaErrorInvalidValue;
+  if (k_scale != nullptr)
+    return dispatch_mq_parts<float, int8_t, true>(d_head, q, k, v, k_scale, v_scale, addr,
+                                                  lengths, offsets, part_acc, part_ml, acc, m, l,
+                                                  batch, q_len, hq, hkv, n_split, split_len, s);
+  return dispatch_mq_parts<float, float, false>(d_head, q, k, v, nullptr, nullptr, addr, lengths,
+                                                offsets, part_acc, part_ml, acc, m, l, batch,
+                                                q_len, hq, hkv, n_split, split_len, s);
 }
 
 }  // namespace
@@ -925,18 +956,10 @@ int paged_mq_parts(int dtype, const void* q, const void* k, const void* v, const
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kGroupMax || q_len < 1 || q_len > kMqQueryMax ||
       n_pool <= 0 || page <= 0)
     return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool quant = k_scale != nullptr;
-  if (dtype == kDtypeF32) {
-    if (quant)
-      return dispatch_mq_parts<float, int8_t, true>(
-          d_head, q, k, v, k_scale, v_scale, table, lengths, offsets, part_acc, part_ml, acc, m,
-          l, batch, q_len, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
-    return dispatch_mq_parts<float, float, false>(
-        d_head, q, k, v, nullptr, nullptr, table, lengths, offsets, part_acc, part_ml, acc, m,
-        l, batch, q_len, hq, hkv, n_pool, page, jmax, n_split, split_len, s);
-  }
-  return cudaErrorInvalidValue;
+  const PagedRows addr{table, jmax, page, hkv, n_pool};
+  return mq_parts_f32(dtype, q, k, v, k_scale, v_scale, addr, lengths, offsets, part_acc,
+                      part_ml, acc, m, l, batch, q_len, hq, hkv, d_head, n_split, split_len,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // B7/B8 with a bf16 q (the tensor-core kernel): 2 <= Q <= kMqMmaQueryMax,
@@ -954,13 +977,56 @@ int paged_mq_mma_parts(const void* q, const void* k, const void* v, const float*
       n_grid > kMqMaxSplits || tickets == nullptr)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PagedRows addr{table, jmax, page, hkv, n_pool};
   if (k_scale != nullptr)
-    return dispatch_mq_mma<int8_t>(d_head, q, k, v, k_scale, v_scale, table, lengths, offsets,
+    return dispatch_mq_mma<int8_t>(d_head, q, k, v, k_scale, v_scale, addr, lengths, offsets,
                                    part_acc, part_ml, tickets, acc, m, l, batch, q_len, hq, hkv,
-                                   n_pool, page, jmax, n_grid, s);
-  return dispatch_mq_mma<__nv_bfloat16>(d_head, q, k, v, nullptr, nullptr, table, lengths,
+                                   n_grid, s);
+  return dispatch_mq_mma<__nv_bfloat16>(d_head, q, k, v, nullptr, nullptr, addr, lengths,
                                         offsets, part_acc, part_ml, tickets, acc, m, l, batch,
-                                        q_len, hq, hkv, n_pool, page, jmax, n_grid, s);
+                                        q_len, hq, hkv, n_grid, s);
+}
+
+// B7/B8's bodies over contiguous rows (the contiguous session's verify):
+// caches [B,Hkv,T,D] of bf16/f32 elements, or int8 codes with f32 scales
+// [B,Hkv,T] (k_scale/v_scale non-null). Query j of row b sees positions
+// kpos < min(lengths[b], offsets[b] + j + 1); the caller passes lengths =
+// offsets + Q (every candidate is in the cache). Outputs and scratch as
+// paged_mq_parts (f32 q: n_split host-sized splits of split_len positions,
+// merged by parts_merge_kernel) and paged_mq_mma_parts (bf16 q: n_grid
+// splits per (q-tile, row, kv head), 1..kMqMaxSplits, tickets
+// [B·Hkv·q-tiles] zero). Q >= 1.
+int contig_mq_parts(int dtype, const void* q, const void* k, const void* v,
+                    const float* k_scale, const float* v_scale, const int* lengths,
+                    const int* offsets, float* part_acc, float* part_ml, float* acc, float* m,
+                    float* l, int batch, int q_len, int hq, int hkv, int t_cap, int d_head,
+                    int n_split, int split_len, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kGroupMax || q_len < 1 || q_len > kMqQueryMax ||
+      t_cap <= 0)
+    return cudaErrorInvalidValue;
+  return mq_parts_f32(dtype, q, k, v, k_scale, v_scale, ContiguousRows{t_cap}, lengths, offsets,
+                      part_acc, part_ml, acc, m, l, batch, q_len, hq, hkv, d_head, n_split,
+                      split_len, static_cast<cudaStream_t>(stream));
+}
+
+int contig_mq_mma_parts(const void* q, const void* k, const void* v, const float* k_scale,
+                        const float* v_scale, const int* lengths, const int* offsets,
+                        float* part_acc, float* part_ml, int* tickets, float* acc, float* m,
+                        float* l, int batch, int q_len, int hq, int hkv, int t_cap, int d_head,
+                        int n_grid, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kGroupMax || q_len < 1 ||
+      q_len > kMqMmaQueryMax || t_cap <= 0 || n_grid < 1 || n_grid > kMqMaxSplits ||
+      tickets == nullptr)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ContiguousRows addr{t_cap};
+  if (k_scale != nullptr)
+    return dispatch_mq_mma<int8_t>(d_head, q, k, v, k_scale, v_scale, addr, lengths, offsets,
+                                   part_acc, part_ml, tickets, acc, m, l, batch, q_len, hq, hkv,
+                                   n_grid, s);
+  return dispatch_mq_mma<__nv_bfloat16>(d_head, q, k, v, nullptr, nullptr, addr, lengths,
+                                        offsets, part_acc, part_ml, tickets, acc, m, l, batch,
+                                        q_len, hq, hkv, n_grid, s);
 }
 
 }  // extern "C"

@@ -33,10 +33,13 @@ Two factories of step functions, as in the JAX package:
   caches at a scalar offset; the verify runs the plain masked attention,
   the drafts the engine's decode kernel);
 - :func:`build_spec_step_fn`, the batched slice step of a stepped
-  session over the paged pool in the stacked-hybrid layout: candidates
+  session: over the paged pool in the stacked-hybrid layout (candidates
   land in the side caches and the prompt pages are read by the
-  multi-query paged parts kernel. The scratch (kernel-less) and
-  contiguous verify branches are not ported.
+  multi-query paged parts kernel), or over the contiguous batch cache
+  (candidates land in each row's own cache at ``offset[b] + j`` and the
+  multi-query kernel reads the row, candidates included). The JAX
+  package's scratch (kernel-less) verify is not ported: the port's paged
+  sessions are stacked-hybrid, and B7/B8 serve every head width it runs.
 
 Where the JAX package runs the rounds inside one compiled
 ``while_loop``, the port runs them in a Python loop and reads the
@@ -337,30 +340,38 @@ def build_spec_step_fn(
     top_k: int = 0,
     use_top_p: bool = False,
     draft_temperature: Optional[float] = None,
+    paged: bool = True,
 ) -> Callable:
-    """The batched speculative slice step of a stepped session over the
-    paged pool, stacked-hybrid layout::
+    """The batched speculative slice step of a stepped session, over the
+    paged pool in the stacked-hybrid layout or (``paged=False``) over the
+    contiguous batch cache::
 
         decode((target, draft), carry, n_real) -> (out [B, n_steps*(k+1)], n_row [B])
 
     ``carry`` is the session's state dict (``engine/stepped.py``), updated
     in place: ``tokens``/``offsets``/``prompt_lens``/``remaining``/
     ``done`` [B], the pool, ``table`` and side caches (side columns
-    ``g_bucket + k``: a verify writes up to ``write_pos + k``), ``gens``
+    ``g_bucket + k``: a verify writes up to ``write_pos + k``) or the
+    batch cache ``k_cache``/``v_cache`` (its rows carry the rounds'
+    overshoot margin, ``_spec_margin``), ``gens``
     (one generator per row) and the host ``knobs``; the source's state
     (``draft_k``/``draft_v``/``draft_offsets`` or ``ngram_hist``/
     ``ngram_len``); and the cumulative per-row counters ``spec_rounds``/
     ``spec_accepted``/``spec_drafted``/``spec_rejected``.
 
     Per round, for every row at once: k proposals from the source; ONE
-    target forward over ``[last, d_1..d_k]`` at the rows' own offsets, its
-    K/V landing in the side caches at ``write_pos..write_pos+k`` and the
-    prompt pages read through ``decode_attention`` (the engine's paged
-    parts callable, which takes the [B, k+1, Hq, D] block to the
-    multi-query kernel); the per-row accept rule (greedy or sampled, by
-    the row's temperature); an EOS clip inside the round and the row's
-    budget cut. Done rows ride along at frozen positions no mask reads.
-    Rejected candidates' side columns are overwritten by the next round."""
+    target forward over ``[last, d_1..d_k]`` at the rows' own offsets.
+    Paged, its K/V land in the side caches at ``write_pos..write_pos+k``
+    and the prompt pages are read through ``decode_attention`` (the
+    engine's paged parts callable, which takes the [B, k+1, Hq, D] block
+    to the multi-query kernel); contiguous, they land in the batch cache
+    at ``offset..offset+k`` and ``decode_attention`` (the engine's
+    contiguous callable) reads each row up to each query's own position
+    through the multi-query kernel over contiguous rows. Then the per-row
+    accept rule (greedy or sampled, by the row's temperature); an EOS clip
+    inside the round and the row's budget cut. Done rows ride along at
+    frozen positions no mask reads. Rejected candidates' columns lie past
+    the advanced offset and are overwritten by the next round."""
     idx_cpu = torch.arange(k + 1)
     out_w = n_steps * (k + 1)
     src = make_draft_source(
@@ -396,9 +407,12 @@ def build_spec_step_fn(
             live_host = live.tolist() if need_q else None
             drafts, qdist, sstate = src.propose(draft, sstate, last, temps, top_ps, gens, need_q)
             ver = torch.cat([last[:, None], drafts], dim=1)  # [B, k+1]
-            leaf = {"table": carry["table"], "write_pos": offs - plens, "prompt_lens": plens}
-            kc = {**leaf, "pool": carry["pool"].k, "side": carry["side_k"]}
-            vc = {**leaf, "pool": carry["pool"].v, "side": carry["side_v"]}
+            if paged:
+                leaf = {"table": carry["table"], "write_pos": offs - plens, "prompt_lens": plens}
+                kc = {**leaf, "pool": carry["pool"].k, "side": carry["side_k"]}
+                vc = {**leaf, "pool": carry["pool"].v, "side": carry["side_v"]}
+            else:
+                kc, vc = carry["k_cache"], carry["v_cache"]
             hidden, _, _ = forward(
                 target.params, tcfg, ver, offs, kc, vc, decode_attention, layers=target.layers
             )

@@ -42,14 +42,21 @@ solo loop does, and a joiner's first token is sampled from its own
 prefill with a generator seeded as the solo path seeds it.
 
 With a speculative config for the model (the engine's ``speculative=``,
-or ``spec_override``) and every opening row eligible, a paged session's
-slice runs draft-verify ROUNDS (``engine/speculative.py::build_spec_step_fn``)
-instead of single-token steps, with a k-column overshoot in the side
-caches. A speculating session takes no joiners (``can_join`` is False)
-and refuses to preempt (``preempt`` returns None, and the scheduler
-leaves the row running); a contiguous session that would speculate
-(the JAX package's "legacy" verify) raises. All three are ROADMAP item
-13.
+or ``spec_override``) and every opening row eligible, a session's slice
+runs draft-verify ROUNDS (``engine/speculative.py::build_spec_step_fn``)
+instead of single-token steps: over the paged pool with a k-column
+overshoot in the side caches, or over the contiguous batch cache, whose
+rows carry the rounds' overshoot margin (``_spec_margin``). It admits any
+eligible joiner, whose draft prefill rides the join's chunks after the
+target's, and preempts a speculating row with its draft-cache row (swap)
+or re-prefills the draft (recompute); an n-gram row's history is rebuilt
+from its tokens. With a positive ``spec_accept_floor`` the session adapts
+its draft length to a rolling window of acceptance (halving k below the
+floor, doubling it back toward the configured k once recovered) and falls
+back to plain decode from k = 1 (``_spec_after_slice``); the engine keeps
+each source's recent fallbacks and skips arming a source that keeps
+failing. A ``cross`` draft's fully rejected rounds are billed to the
+wasted-energy ledger (``extras["spec"]["draft_wasted_J"]``).
 
 While a session is open, its model's weights are out of the engine's
 LRU guard's reach (``_session_opened`` / ``_session_closed``).
@@ -59,8 +66,7 @@ Energy: each slice's wall time and modelled Joules
 share, each join chunk's over its joiner; a retiring row closes its
 account out into ``extras["energy_model"]`` (``window="slice"``).
 
-Not ported yet: the prefix store, dp shards, the adaptive draft length
-and fallback, and the cross-model draft-waste billing.
+Not ported yet: the prefix store and dp shards.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ from ..models.quantize import quantize_kv_cache
 from ..models.transformer import forward, logits_for
 from ..obs.detect import observe_retired_tokens, observe_slice_tokens
 from ..obs.metrics import enabled as _obs_enabled, observe_swap, swap_host_adjust
+from ..runner import term
 from ..ops.cuda_attention import cuda_prefill_attention
 from ..ops.sampling import sample_token
 from .backend import GenerationRequest, GenerationResult
@@ -179,12 +186,16 @@ class _PendingJoin(_Account):
     chunks fill, and the cursor over those chunks. A preemption resume
     rides the same object (``resume`` set): a swap resume has no chunks
     (its KV comes back from host memory at commit), a recompute resume's
-    chunks re-prefill the prompt and the generated tokens."""
+    chunks re-prefill the prompt and the generated tokens. In a
+    speculating session with a model draft, ``draft_chunks`` prefill the
+    draft's private cache (``draft_k``/``draft_v``, ``spec_draft_len``
+    positions) over ``draft_ids`` after the target's chunks."""
 
     __slots__ = (
         "request", "slot", "ids", "chunks", "next_chunk",
         "k_cache", "v_cache", "presence", "logits", "pages", "prefill_s", "t0",
-        "resume", "resume_mode",
+        "resume", "resume_mode", "draft_k", "draft_v", "draft_chunks", "draft_next",
+        "draft_ids",
     )
 
     def __init__(self, request, slot, ids, chunks, k_cache, v_cache, presence, pages):
@@ -203,10 +214,15 @@ class _PendingJoin(_Account):
         self.t0 = time.monotonic()
         self.resume: "Optional[PreemptedRow]" = None
         self.resume_mode: Optional[str] = None  # "swap" or "recompute"
+        self.draft_k = None
+        self.draft_v = None
+        self.draft_chunks: List[tuple] = []
+        self.draft_next = 0
+        self.draft_ids: List[int] = ids
 
     @property
     def total_chunks(self) -> int:
-        return len(self.chunks)
+        return len(self.chunks) + len(self.draft_chunks)
 
 
 class PreemptedRow(_Account):
@@ -216,13 +232,15 @@ class PreemptedRow(_Account):
     presence row, offset, remaining budget), under ``policy="swap"`` its
     KV payload (a paged row's prompt pages, ``blob``, a ``PageSwapBlob``,
     and its side-cache columns, ``side_blob``; a contiguous row's cache
-    slab, ``cache_blob``), and its attribution account."""
+    slab, ``cache_blob``; a speculating row's draft-cache row and draft
+    offset, ``draft_blob`` and ``draft_offset``), and its attribution
+    account."""
 
     __slots__ = (
         "request", "ids", "generated", "prompt_len", "offsets", "remaining",
         "gen_state", "presence", "streamed", "t0", "t1", "policy", "blob",
-        "side_blob", "cache_blob", "n_own_pages", "shared_pages", "host_bytes",
-        "discharged", "attr_slices", "attr_wasted_J",
+        "side_blob", "cache_blob", "draft_blob", "draft_offset", "n_own_pages",
+        "shared_pages", "host_bytes", "discharged", "attr_slices", "attr_wasted_J",
     )
 
     def __init__(self, request, ids, generated, prompt_len) -> None:
@@ -242,6 +260,8 @@ class PreemptedRow(_Account):
         self.blob = None
         self.side_blob = None
         self.cache_blob = None
+        self.draft_blob = None
+        self.draft_offset = 0
         self.n_own_pages = 0
         # always empty (no prefix store shares pages here); kept because
         # the JAX package's preempt contract, and its tests, read it
@@ -271,13 +291,20 @@ class SteppedDecodeSession:
         self._session_pins: List[str] = []
         self.carry: Dict[str, Any] = {}
         self.rows: List[Optional[_Row]] = []
-        # the active speculative config ({source, draft, k, dcfg, floor})
-        # or None; spec_info is what retiring rows report
+        # the active speculative config ({source, draft, k, dcfg, floor,
+        # k0}) or None; spec_info is what retiring rows report, kept
+        # through a fallback (spec_fallback)
         self.spec: Optional[Dict[str, Any]] = None
         self.spec_info: Optional[Dict[str, Any]] = None
+        self.spec_fallback = False
         self.spec_draft_len = 0
-        # host mirrors of the carry's cumulative per-row spec counters
+        self.spec_margin = 0  # the contiguous rows' overshoot margin
+        # host mirrors of the carry's cumulative per-row spec counters,
+        # the adaptive policy's window of recent (accepted, drafted), and
+        # each row's cross-model draft Joules billed as wasted
         self._spec_host: Dict[str, List[int]] = {}
+        self._spec_recent: List[tuple] = []
+        self._spec_draft_wasted: List[float] = []
         self.use_top_p = False
         # slot -> _PendingJoin: joiners mid-prefill (and resumes). A
         # reserved slot is neither free nor live: it rides along done.
@@ -328,12 +355,6 @@ class SteppedDecodeSession:
         # before the caches are sized: the side caches carry the verify's
         # overshoot only when the session speculates
         self._init_spec(requests, all_ids, spec_accept_floor, spec_override)
-        if self.spec is not None and not self.paged:
-            raise NotImplementedError(
-                "TorchEngine: speculation on a contiguous session (the JAX "
-                "package's legacy verify) is not ported yet (ROADMAP item 13); "
-                "speculate over the paged pool (paged_kv=True)"
-            )
         if self.paged:
             self._open_paged(requests, all_ids)
         else:
@@ -354,25 +375,32 @@ class SteppedDecodeSession:
     def _init_spec(self, requests, all_ids, spec_accept_floor, spec_override) -> None:
         """Decide whether this session runs draft-verify: a DraftSpec
         applies (``spec_override``, else the engine's config), every
-        opening row is eligible and, for a model draft, the draft shares
-        the target's vocabulary and its contiguous cache fits its
-        ``max_seq_len``. Any miss serves the session plain: configuring
-        a draft never fails a request that plain decode would serve."""
+        opening row is eligible, the source is not blocked by its recent
+        fallbacks (``_spec_source_blocked``, without an override) and,
+        for a model draft, target and draft are resident together, share
+        a vocabulary and the draft's contiguous cache fits its
+        ``max_seq_len``. Any miss serves the session plain: configuring a
+        draft never fails a request that plain decode would serve."""
         eng = self.engine
         spec = spec_override if spec_override is not None else eng._resolve_spec(self.model)
         if spec is None or not all(eng._spec_eligible(r) for r in requests):
             return
         floor = eng.spec_accept_floor if spec_accept_floor is None else float(spec_accept_floor)
-        if floor > 0.0:
-            raise NotImplementedError(
-                "TorchEngine: spec_accept_floor (the adaptive fallback) is not ported yet"
-            )
-        draft_len = (
-            max(_prompt_alloc(max(len(i), 1)) for i in all_ids) + self.g_bucket + _spec_margin(spec.k)
-        )
+        if spec_override is None and eng._spec_source_blocked(spec.source, spec.draft, floor):
+            return  # the consult decays the memory: a later session re-probes
+        margin = _spec_margin(spec.k)
+        draft_len = max(_prompt_alloc(max(len(i), 1)) for i in all_ids) + self.g_bucket + margin
         dcfg = None
         if spec.draft is not None:
             eng.load_model(spec.draft)
+            if self.model not in eng._models:  # the draft's load evicted the target
+                eng.load_model(self.model)
+            if self.model not in eng._models or spec.draft not in eng._models:
+                warnings.warn(
+                    f"speculative session: {self.model} and {spec.draft} cannot be "
+                    "co-resident; serving plain"
+                )
+                return
             dcfg = eng._models[spec.draft].cfg
             if dcfg.vocab_size != self.cfg.vocab_size:
                 warnings.warn(
@@ -382,12 +410,25 @@ class SteppedDecodeSession:
                 return
             if draft_len > dcfg.max_seq_len:
                 return
+        # k0: the configured draft length, which sized every allocation
+        # (side-cache overshoot, contiguous margin); the adaptive policy
+        # moves "k" at or below it
         self.spec = {
             "source": spec.source, "draft": spec.draft, "k": spec.k, "dcfg": dcfg,
-            "floor": floor,
+            "floor": floor, "k0": spec.k,
         }
         self.spec_info = {"draft_model": spec.draft, "k": spec.k, "source": spec.source}
         self.spec_draft_len = draft_len
+        self.spec_margin = margin
+
+    def _disable_spec_at_open(self) -> None:
+        """Back out of speculation during open (the contiguous cache with
+        its margin would pass ``max_seq_len``): the session never
+        speculated, so no fallback is recorded."""
+        self.spec = None
+        self.spec_info = None
+        self.spec_margin = 0
+        self.spec_draft_len = 0
 
     def _open_draft(self, all_ids: "list[list[int]]") -> None:
         """Prefill the draft over every opening row's prompt into one
@@ -426,13 +467,39 @@ class SteppedDecodeSession:
                 (self.b_bucket,), dtype=torch.long, device=self.engine.device
             )
         self._spec_host = {key: [0] * self.b_bucket for key in _SPEC_COUNTERS}
+        self._spec_draft_wasted = [0.0] * self.b_bucket
+
+    def _set_ngram_row(self, r: int, full: "List[int]") -> None:
+        """(Re)build slot ``r``'s n-gram history from its known tokens (a
+        joiner's prompt and first token; a resumed row's prompt and
+        generated tokens): the host holds them exactly."""
+        hist = self.carry["ngram_hist"]
+        full = full[: hist.shape[1]]
+        hist[r].zero_()
+        hist[r, : len(full)] = torch.tensor(full, dtype=hist.dtype, device=hist.device)
+        self.carry["ngram_len"][r] = len(full)
+
+    def _reset_spec_row(self, r: int) -> None:
+        """Slot ``r``'s spec counters (carry and host mirror) and draft
+        waste back to 0 for a new occupant."""
+        for key in _SPEC_COUNTERS:
+            self.carry["spec_" + key][r] = 0
+            self._spec_host[key][r] = 0
+        self._spec_draft_wasted[r] = 0.0
 
     def _open_contiguous(self, requests, all_ids) -> None:
         """Grouped prefill straight into one batch cache of ``cache_len``
         = the widest prompt allocation + ``g_bucket`` positions a row (an
         int8-KV engine quantizes it once); free slots copy row 0."""
         eng = self.engine
-        self.cache_len = max(_prompt_alloc(max(len(i), 1)) for i in all_ids) + self.g_bucket
+        rows_len = max(_prompt_alloc(max(len(i), 1)) for i in all_ids) + self.g_bucket
+        # a speculating session's rows carry the rounds' overshoot margin
+        # (a verify writes up to offset + k); where that would pass
+        # max_seq_len the session serves plain
+        self.cache_len = rows_len + self.spec_margin
+        if self.spec is not None and self.cache_len > self.cfg.max_seq_len:
+            self._disable_spec_at_open()
+            self.cache_len = rows_len
         if self.cache_len > self.cfg.max_seq_len:
             raise ValueError(
                 f"{self.model}: session cache {self.cache_len} exceeds "
@@ -491,10 +558,17 @@ class SteppedDecodeSession:
         self.carry.update(carry)
         self._seat_opening_rows(requests, states, row_pages)
 
-    def _pages_needed(self, s_real: int) -> int:
-        """Pages one row pins: its prompt's only (generated tokens, and a
-        spec row's verify candidates, live in the side caches)."""
+    def _pages_needed(self, s_real: int, max_new_tokens: int = 0) -> int:
+        """Pages one row pins: its prompt's only, whatever its budget
+        (generated tokens, and a spec row's verify candidates, live in the
+        side caches)."""
         return -(-max(s_real, 1) // self.page_size)
+
+    @property
+    def stacked(self) -> bool:
+        """Whether the session is paged in the stacked-hybrid layout: every
+        paged session of the port is."""
+        return self.paged
 
     # -- state ----------------------------------------------------------------
     @property
@@ -544,7 +618,7 @@ class SteppedDecodeSession:
                         {
                             "spec_rounds": self._spec_host["rounds"][r],
                             "spec_accepted": self._spec_host["accepted"][r],
-                            "verify_mode": "native",
+                            "verify_mode": self._verify_mode(),
                         }
                         if spec_rows else {}
                     ),
@@ -558,17 +632,44 @@ class SteppedDecodeSession:
         else:
             state["cache_len"] = self.cache_len
         if self.spec_info is not None:
+            recent_acc = sum(a for a, _ in self._spec_recent)
+            recent_drafted = sum(d for _, d in self._spec_recent)
             state["spec"] = {
                 "active": self.spec is not None,
                 "draft_model": self.spec_info["draft_model"],
                 "source": self.spec_info["source"],
                 "k": self.spec_info["k"],
-                "fallback": False,
-                "verify_mode": "native",
+                "fallback": self.spec_fallback,
+                "verify_mode": self._verify_mode(),
+                "scratch_bytes": self._spec_scratch_bytes(),
                 "accept_floor": self.spec["floor"] if self.spec is not None else None,
+                "acceptance_recent": (
+                    round(recent_acc / recent_drafted, 4) if recent_drafted else None
+                ),
                 **{f"{key}_total": sum(self._spec_host.get(key, [])) for key in _SPEC_COUNTERS},
             }
         return state
+
+    def _verify_mode(self) -> str:
+        """``native`` on a paged session (the candidates live in the side
+        caches' overshoot columns; the pool stays read-only), ``legacy`` on
+        a contiguous one (the candidates land in the rows' own margin), as
+        the JAX package names them."""
+        return "native" if self.paged else "legacy"
+
+    def _spec_scratch_bytes(self) -> int:
+        """Bytes of verify scratch the session holds: a paged speculating
+        session's side-cache overshoot columns (k0 of ``g_bucket + k0``); 0
+        on a contiguous session, whose candidates land inside the rows'
+        margin."""
+        if not self.paged or self.spec is None:
+            return 0
+        total = 0
+        for key in ("side_k", "side_v"):
+            leaf = self.carry[key]
+            for t in leaf.values() if isinstance(leaf, dict) else (leaf,):
+                total += t.numel() * t.element_size() * self.spec["k0"] // t.shape[3]
+        return total
 
     # -- stepping -------------------------------------------------------------
     def step(self, max_steps: Optional[int] = None) -> List[GenerationResult]:
@@ -587,7 +688,7 @@ class SteppedDecodeSession:
         if self.spec is not None:
             decode = eng._spec_batch_decode_step_fn(
                 self.model, self.spec["draft"], self.spec["k"], self.slice_bucket,
-                self.spec["source"], self.top_k, self.use_top_p,
+                self.spec["source"], self.top_k, self.use_top_p, paged=self.paged,
             )
             draft = eng._models[self.spec["draft"]] if self.spec["draft"] is not None else None
             out, n_row = decode((tf, draft), self.carry, n_real)
@@ -626,13 +727,146 @@ class SteppedDecodeSession:
         return retired
 
     def _spec_after_slice(self, live: "List[int]") -> int:
-        """Refresh the host mirrors of the cumulative spec counters;
-        returns the rounds this slice ran (the largest per-row delta:
-        every live row rides every round)."""
+        """Refresh the host mirrors of the cumulative spec counters, bill
+        a cross-model draft's fully rejected rounds, publish the slice's
+        deltas (``llm_spec_*``, one ``spec_round`` flight event) and run
+        the adaptive policy. Returns the rounds this slice ran (the
+        largest per-row delta: every live row rides every round).
+
+        The policy: a window of the last 4 slices' (accepted, drafted),
+        judged once it holds at least 2 slices and 2k drafts. Below the
+        floor, k halves toward 1 (a shorter draft is accepted more
+        often), and at k = 1 the session falls back to plain decode; at
+        or above ``min(0.95, floor + 0.15)`` (the band keeps the two
+        thresholds from oscillating) k doubles back toward k0, never past
+        it. Every k emits the target's own tokens: k moves only the
+        speed."""
         new = {key: self.carry["spec_" + key].tolist() for key in _SPEC_COUNTERS}
-        rounds = max(new["rounds"][r] - self._spec_host["rounds"][r] for r in live)
+        prev = self._spec_host
+        rounds_delta = [a - b for a, b in zip(new["rounds"], prev["rounds"])]
+        rej_delta = [a - b for a, b in zip(new["rejected"], prev["rejected"])]
+        acc_delta = sum(new["accepted"]) - sum(prev["accepted"])
+        drafted_delta = sum(new["drafted"]) - sum(prev["drafted"])
         self._spec_host = new
-        return rounds
+        source, k = self.spec["source"], self.spec["k"]
+        if source == "cross" and any(d > 0 for d in rej_delta):
+            # a fully rejected round burned k forwards of another lane's
+            # model for no emitted token: those Joules go to the
+            # wasted-energy ledger, priced at the draft's live J/token
+            # when the fleet's hook gives one (partly accepted rounds
+            # bill nothing: their drafts became tokens)
+            try:
+                from ..obs.energy import charge_wasted
+
+                hook = self.engine.spec_draft_jpt
+                jpt = hook(self.spec["draft"]) if hook else None
+                for r, d in enumerate(rej_delta):
+                    if d > 0:
+                        self._spec_draft_wasted[r] += charge_wasted(
+                            "draft", tokens=float(d * k), jpt=jpt
+                        )
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+        slice_rounds = max([rounds_delta[r] for r in live] or [0])
+        if _obs_enabled() and slice_rounds:
+            try:
+                from ..obs.flight import EV_SPEC_ROUND, FLIGHT, trace_attrs
+                from ..obs.metrics import SPEC_VERIFY_NATIVE_C, observe_spec
+                from ..obs.trace import TRACER
+
+                observe_spec(
+                    slice_rounds, acc_delta, drafted_delta, source=source,
+                    rejected=sum(rej_delta) * k,
+                )
+                if self.paged:
+                    SPEC_VERIFY_NATIVE_C.inc(slice_rounds)
+                FLIGHT.emit(
+                    EV_SPEC_ROUND, **trace_attrs(TRACER.current()),
+                    model=self.model, draft=self.spec["draft"], source=source, k=k,
+                    rounds=slice_rounds, accepted=acc_delta, drafted=drafted_delta,
+                    acceptance=round(acc_delta / drafted_delta, 4) if drafted_delta else None,
+                )
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+        floor = self.spec["floor"]
+        if floor > 0.0 and drafted_delta:
+            self._spec_recent = (self._spec_recent + [(acc_delta, drafted_delta)])[-4:]
+            win_acc = sum(a for a, _ in self._spec_recent)
+            win_drafted = sum(d for _, d in self._spec_recent)
+            if len(self._spec_recent) >= 2 and win_drafted >= 2 * k:
+                measured = win_acc / win_drafted
+                if measured < floor:
+                    if k > 1:
+                        self._spec_set_k(max(1, k // 2), measured)
+                    else:
+                        self._spec_fall_back(measured)
+                elif k < self.spec["k0"] and measured >= min(0.95, floor + 0.15):
+                    self._spec_set_k(min(self.spec["k0"], k * 2), measured)
+        return slice_rounds
+
+    def _spec_set_k(self, k_new: int, measured: float) -> None:
+        """Move the session's draft length: the next slice takes the
+        engine's step function for ``k_new`` (one per k, no allocation:
+        the side caches and the contiguous margin were sized at k0), and
+        the acceptance window restarts so that the new length earns its
+        own evidence."""
+        k_old = self.spec["k"]
+        if k_new == k_old:
+            return
+        self.spec["k"] = k_new
+        self.spec_info["k"] = k_new
+        self._spec_recent = []
+        direction = "down" if k_new < k_old else "up"
+        source = self.spec["source"]
+        term.log_warn(
+            f"speculative session [{self.model}]: source {source} acceptance "
+            f"{measured:.2f}; draft length k {k_old} -> {k_new} ({direction})"
+        )
+        if _obs_enabled():
+            try:
+                from ..obs.flight import EV_SPEC_K_ADAPT, FLIGHT
+                from ..obs.metrics import SPEC_K_ADAPT_C
+
+                SPEC_K_ADAPT_C.labels(source=source, direction=direction).inc()
+                FLIGHT.emit(
+                    EV_SPEC_K_ADAPT, model=self.model, source=source, k_from=k_old,
+                    k_to=k_new, acceptance=round(measured, 4), floor=self.spec["floor"],
+                )
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+
+    def _spec_fall_back(self, measured: float) -> None:
+        """Switch the session to plain decode mid-flight: drop the draft,
+        n-gram and counter leaves from the carry (the row-control and
+        target-KV leaves are the plain step's too, so tokens, offsets,
+        budgets and done-masks carry over, and both emit the target's own
+        tokens), keep ``spec_info`` and the host counters for the retiring
+        rows' extras, and tell the engine's per-source memory."""
+        for key in ("draft_k", "draft_v", "draft_offsets", "ngram_hist", "ngram_len"):
+            self.carry.pop(key, None)
+        for key in _SPEC_COUNTERS:
+            self.carry.pop("spec_" + key, None)
+        floor, source, draft = self.spec["floor"], self.spec["source"], self.spec["draft"]
+        self.spec = None
+        self.spec_fallback = True
+        self._spec_recent = []
+        self.engine._spec_source_feedback(source, draft, measured)
+        term.log_warn(
+            f"speculative session [{self.model}]: source {source} measured acceptance "
+            f"{measured:.2f} < floor {floor:g}; falling back to plain decode"
+        )
+        if _obs_enabled():
+            try:
+                from ..obs.flight import EV_SPEC_FALLBACK, FLIGHT
+                from ..obs.metrics import SPEC_FALLBACK_C
+
+                SPEC_FALLBACK_C.labels(source=source).inc()
+                FLIGHT.emit(
+                    EV_SPEC_FALLBACK, model=self.model, source=source,
+                    acceptance=round(measured, 4), floor=floor,
+                )
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
 
     def _retire(self, r: int, t2: float) -> GenerationResult:
         row = self.rows[r]
@@ -647,16 +881,22 @@ class SteppedDecodeSession:
             generated, text = _apply_stop(generated, text, self.tok, req.stop)
         extras: Dict[str, Any] = {"retire_reason": reason, "stepped": True}
         if self.spec_info is not None and self._spec_host:
+            # the row's own counters, frozen at their values before a
+            # fallback to plain decode
             extras["spec"] = {
                 **{key: self._spec_host[key][r] for key in _SPEC_COUNTERS},
                 "k": self.spec_info["k"],
                 "draft_model": self.spec_info["draft_model"],
                 "source": self.spec_info["source"],
-                "fallback": False,
+                "fallback": self.spec_fallback,
             }
+            if self._spec_draft_wasted[r]:
+                # another lane's model's Joules burned in this row's fully
+                # rejected rounds (already in the wasted-energy ledger)
+                extras["spec"]["draft_wasted_J"] = round(self._spec_draft_wasted[r], 6)
         if _obs_enabled() and (row.attr_slices or row.attr_wall):
             try:
-                self._close_out_energy(row, extras, len(generated))
+                self._close_out_energy(r, row, extras, len(generated))
             except Exception:  # noqa: BLE001 — telemetry only
                 pass
         result = GenerationResult(
@@ -756,7 +996,7 @@ class SteppedDecodeSession:
         d["J_low"] += account.attr_J_low
         d["J_high"] += account.attr_J_high
 
-    def _close_out_energy(self, row: _Row, extras: Dict[str, Any], gen_tokens: int) -> None:
+    def _close_out_energy(self, r: int, row: _Row, extras: Dict[str, Any], gen_tokens: int) -> None:
         """Stamp the retiring row's account into ``extras["energy_model"]``
         (``window="slice"``), record it in the ``llm_request_*`` families
         and refresh the engine's live J/token."""
@@ -764,6 +1004,7 @@ class SteppedDecodeSession:
 
         j, jl, jh = row.attr_J, row.attr_J_low, row.attr_J_high
         per = (lambda x: x / gen_tokens) if gen_tokens else (lambda x: 0.0)
+        wasted = row.attr_wasted_J + (self._spec_draft_wasted[r] if self._spec_draft_wasted else 0.0)
         extras["energy_model"] = {
             "J": round(j, 9),
             "J_low": round(jl, 9),
@@ -774,7 +1015,7 @@ class SteppedDecodeSession:
             "wall_attr_s": round(row.attr_wall, 9),
             "slices": row.attr_slices,
             "window": "slice",
-            **({"wasted_J": round(row.attr_wasted_J, 9)} if row.attr_wasted_J else {}),
+            **({"wasted_J": round(wasted, 9)} if wasted else {}),
         }
         observe_estimate({
             "J": j,
@@ -836,22 +1077,29 @@ class SteppedDecodeSession:
         resume re-prefills the prompt and the generated tokens. Fenced:
         the copies have landed when it returns.
 
+        A speculating row parks with its draft-cache row and draft offset
+        under ``swap``; under ``recompute`` the resume re-prefills the
+        draft too; an n-gram row's history is rebuilt from its tokens. Its
+        generator advances once a round, so the resumed stream is the
+        uninterrupted one.
+
         Returns None, and leaves the row running, when it cannot: no live
         row, an unknown policy, ``recompute`` on a paged session (it
         keeps the generated K/V in its side caches; swap is its policy,
         as in the JAX package) or a re-prefill that would not fit the
-        session's cache, or a speculating session (ROADMAP item 13)."""
-        if self.closed or policy not in ("swap", "recompute") or self.spec is not None:
+        session's cache (or the draft's)."""
+        if self.closed or policy not in ("swap", "recompute"):
             return None
         r = next((i for i, row in enumerate(self.rows)
                   if row is not None and row.request is request), None)
         if r is None:
             return None
         row = self.rows[r]
-        if policy == "recompute" and (
-            self.paged or _prompt_alloc(self.s_prefilled(row)) > self.cache_len
-        ):
-            return None
+        draft_row = self.spec is not None and self.spec["draft"] is not None
+        if policy == "recompute":
+            need = _prompt_alloc(self.s_prefilled(row))
+            if self.paged or need > self.cache_len or (draft_row and need > self.spec_draft_len):
+                return None
         c = self.carry
         pr = PreemptedRow(request, self.tok.encode(request.prompt), row.generated, row.s_real)
         pr.policy = policy
@@ -864,6 +1112,10 @@ class SteppedDecodeSession:
         pr.streamed = row.streamed
         pr.t0, pr.t1 = row.t0, row.t1
         host_bytes = 0
+        if draft_row and policy == "swap":
+            pr.draft_blob = (_row_slab(c["draft_k"], r), _row_slab(c["draft_v"], r))
+            pr.draft_offset = int(c["draft_offsets"][r])
+            host_bytes += sum(_leaf_nbytes(x) for x in pr.draft_blob)
         if self.paged:
             pr.side_blob = tuple(
                 # copies (on a CPU engine .cpu() would alias the live slot)
@@ -878,11 +1130,12 @@ class SteppedDecodeSession:
             c["table"][r] = self.parking
             side_bytes = sum(_leaf_nbytes(x) for x in pr.side_blob)
             observe_swap("out", side_bytes)
-            host_bytes = side_bytes + pr.blob.nbytes
+            host_bytes += side_bytes + pr.blob.nbytes
         elif policy == "swap":
             pr.cache_blob = (_row_slab(c["k_cache"], r), _row_slab(c["v_cache"], r))
-            host_bytes = sum(_leaf_nbytes(x) for x in pr.cache_blob)
-            observe_swap("out", host_bytes)
+            cache_bytes = sum(_leaf_nbytes(x) for x in pr.cache_blob)
+            observe_swap("out", cache_bytes)
+            host_bytes += cache_bytes
         pr.take_account(row)
         pr.attr_slices = row.attr_slices
         pr.attr_wasted_J = row.attr_wasted_J
@@ -904,13 +1157,23 @@ class SteppedDecodeSession:
     def _resume_plan(self, pr: PreemptedRow) -> Optional[Dict[str, Any]]:
         """How ``pr`` can re-enter this session now: ``{"mode": "swap" |
         "recompute", "need": pool pages}``, or None when it cannot (another
-        model or ``top_k``, a speculating session, a paged victim without
-        its pages, a swap slab of another row width, a re-prefill that no
-        longer fits). Side-effect free."""
+        model or ``top_k``, a paged victim without its pages, a swap slab
+        of another row width, a re-prefill that no longer fits; in a
+        speculating session a row that may not speculate, or whose
+        history and budget, or whose draft re-prefill, would not fit the
+        draft cache). Side-effect free."""
         if pr.request.model != self.model or pr.request.top_k != self.top_k:
             return None
         if self.spec is not None:
-            return None
+            # the resumed row speculates with this session's config
+            if not self.engine._spec_eligible(pr.request):
+                return None
+            if self.s_prefilled(pr) + pr.remaining + 1 + self.spec_margin > self.spec_draft_len:
+                return None
+            if self.spec["draft"] is not None and self._draft_blob(pr) is None and (
+                _prompt_alloc(self.s_prefilled(pr)) > self.spec_draft_len
+            ):
+                return None
         if self.paged:
             return None if pr.blob is None else {"mode": "swap", "need": pr.n_own_pages}
         if pr.cache_blob is not None:
@@ -920,6 +1183,14 @@ class SteppedDecodeSession:
         if _prompt_alloc(self.s_prefilled(pr)) > self.cache_len:
             return None
         return {"mode": "recompute", "need": 0}
+
+    def _draft_blob(self, pr: PreemptedRow):
+        """``pr``'s draft-cache slab when this session can seat it (the
+        same draft cache width), else None: its draft re-prefills."""
+        if pr.draft_blob is None or self.spec is None or self.spec["draft"] is None:
+            return None
+        k = pr.draft_blob[0]
+        return pr.draft_blob if k.shape[3] == self.spec_draft_len else None
 
     def can_resume(self, pr: PreemptedRow) -> bool:
         """Whether ``pr`` fits back now: a free slot, a plan, and for a
@@ -935,7 +1206,9 @@ class SteppedDecodeSession:
         :meth:`join_step` is done and :meth:`join_commit` brings its K/V
         back from host memory. A recompute resume splits the re-prefill of
         prompt + generated tokens into chunks of ``chunk_tokens`` (as a
-        joiner's), which interleave with decode slices."""
+        joiner's), which interleave with decode slices. In a speculating
+        session a row without a draft slab this session can seat
+        re-prefills the draft over the same tokens in chunks after those."""
         if not self.can_resume(pr):
             raise RuntimeError("preempted row cannot resume in this session")
         plan = self._resume_plan(pr)
@@ -952,8 +1225,21 @@ class SteppedDecodeSession:
             pending = _PendingJoin(pr.request, r, ids, chunks, k_cache, v_cache, pr.presence, [])
         pending.resume = pr
         pending.resume_mode = plan["mode"]
+        if self.spec is not None and self.spec["draft"] is not None and self._draft_blob(pr) is None:
+            self._begin_draft_prefill(pending, pr.ids + pr.generated[:-1], chunk_tokens)
         self._pending[r] = pending
         return pending
+
+    def _begin_draft_prefill(self, pending: _PendingJoin, ids: "List[int]", chunk_tokens) -> None:
+        """The pending row's private draft cache (``spec_draft_len``
+        positions) and its chunks over ``ids``, run by :meth:`join_step`
+        after the target's."""
+        eng = self.engine
+        pending.draft_k, pending.draft_v = eng._models[self.spec["draft"]].init_cache(
+            1, self.spec_draft_len, dtype=eng.dtype
+        )
+        pending.draft_ids = ids
+        pending.draft_chunks = self._join_chunks(ids, chunk_tokens, self.spec_draft_len)
 
     def resume_discard(self, pr: PreemptedRow) -> None:
         """Drop a parked row for good (its ticket was cancelled or its
@@ -993,6 +1279,17 @@ class SteppedDecodeSession:
             for key, blob in zip(("k_cache", "v_cache"), pr.cache_blob):
                 _set_row(c[key], r, blob)
             observe_swap("in", sum(_leaf_nbytes(x) for x in pr.cache_blob))
+        if self.spec is not None:
+            # the row's draft-source state: its draft-cache row (the
+            # parked slab, or the re-prefilled private cache), or its
+            # n-gram history rebuilt from its tokens; counters from 0
+            if self.spec["draft"] is None:
+                self._set_ngram_row(r, pr.ids + pr.generated)
+            elif pending.draft_k is not None:
+                self._install_draft_row(r, pending.draft_k, pending.draft_v, len(pending.draft_ids))
+            else:
+                self._install_draft_row(r, *pr.draft_blob, pr.draft_offset)
+            self._reset_spec_row(r)
         gen = None
         if pr.gen_state is not None:
             gen = torch.Generator(device=eng.device)
@@ -1021,23 +1318,29 @@ class SteppedDecodeSession:
         """Whether ``request`` fits this session's fixed shapes and free
         capacity now: its model and ``top_k``, a free slot, and then
         contiguous: its prompt allocation + generation bucket within the
-        row cache (``cache_len``); paged: a budget the side caches hold
-        (``max_new_tokens - 1 <= g_bucket``), no more pages than a table
-        row names (``jmax``) and that many free pages. A speculating
-        session takes no joiners (ROADMAP item 13). Side-effect free: the
-        scheduler probes before paying a prefill."""
-        if self.closed or self.spec is not None or self.free_slots == 0:
+        row cache (``cache_len`` less a speculating session's margin);
+        paged: a budget the side caches hold (``max_new_tokens - 1 <=
+        g_bucket``), no more pages than a table row names (``jmax``) and
+        that many free pages. A speculating session admits a joiner that
+        may speculate (``_spec_eligible``) and whose prompt allocation,
+        generation bucket and margin fit the draft cache
+        (``spec_draft_len``): it inherits the session's draft config.
+        Side-effect free: the scheduler probes before paying a prefill."""
+        if self.closed or self.free_slots == 0:
             return False
         if request.model != self.model or request.top_k != self.top_k:
             return False
         n_ids = len(self.tok.encode(request.prompt))
         if n_ids == 0 or n_ids + request.max_new_tokens > self.cfg.max_seq_len:
             return False
+        need = _prompt_alloc(n_ids) + _bucket(request.max_new_tokens, GEN_BUCKETS)
+        if self.spec is not None and (
+            not self.engine._spec_eligible(request)
+            or need + self.spec_margin > self.spec_draft_len
+        ):
+            return False
         if not self.paged:
-            return (
-                _prompt_alloc(n_ids) + _bucket(request.max_new_tokens, GEN_BUCKETS)
-                <= self.cache_len
-            )
+            return need <= self.cache_len - self.spec_margin
         if request.max_new_tokens - 1 > self.g_bucket:
             return False
         need = self._pages_needed(n_ids)
@@ -1057,17 +1360,22 @@ class SteppedDecodeSession:
             self.join_abort(pending)
             raise
 
-    def _join_chunks(self, ids: "List[int]", chunk_tokens: Optional[int]) -> "List[tuple]":
+    def _join_chunks(
+        self, ids: "List[int]", chunk_tokens: Optional[int], limit: Optional[int] = None
+    ) -> "List[tuple]":
         """A joiner's (or a recompute resume's) prefill chunks of
         ``chunk_tokens`` (default JOIN_PREFILL_CHUNK_TOKENS, floored to a
-        prompt bucket). On the contiguous layout, where the budgeted
-        chunking's bucket rounding would overshoot the row cache, the
+        prompt bucket). Into a cache of ``limit`` positions (the
+        contiguous row cache by default, or a draft cache), where the
+        budgeted chunking's bucket rounding would overshoot it, the
         standard chunks instead (``can_join`` guarantees that they fit)."""
+        if limit is None and not self.paged:
+            limit = self.cache_len
         chunk = _floor_bucket(int(chunk_tokens or JOIN_PREFILL_CHUNK_TOKENS), PROMPT_BUCKETS)
         chunks = _prompt_chunks(len(ids), chunk)
-        if not self.paged and chunks[-1][0] + chunks[-1][1] > self.cache_len:
+        if limit is not None and chunks[-1][0] + chunks[-1][1] > limit:
             chunks = _prompt_chunks(len(ids))
-            if chunks[-1][0] + chunks[-1][1] > self.cache_len:
+            if chunks[-1][0] + chunks[-1][1] > limit:
                 raise RuntimeError("the re-prefill does not fit the session cache")
         return chunks
 
@@ -1076,8 +1384,10 @@ class SteppedDecodeSession:
         row's pages, so that other joiners cannot take them while this
         prompt streams in), make the private cache (contiguous: a whole
         row of ``cache_len``; paged: the prompt's allocation) and split
-        the prompt into chunks (:meth:`_join_chunks`). No device work yet:
-        each :meth:`join_step` runs one chunk."""
+        the prompt into chunks (:meth:`_join_chunks`); in a speculating
+        session with a model draft, also the draft's private cache and
+        its chunks over the prompt. No device work yet: each
+        :meth:`join_step` runs one chunk."""
         if not self.can_join(request):
             raise RuntimeError("request cannot join this session")
         r = self._free_slot()
@@ -1095,31 +1405,32 @@ class SteppedDecodeSession:
             presence = torch.zeros((1, self.cfg.vocab_size), dtype=torch.bool, device=eng.device)
             presence[0, torch.tensor(ids, device=eng.device)] = True
         pending = _PendingJoin(request, r, ids, chunks, k_cache, v_cache, presence, pages)
+        if self.spec is not None and self.spec["draft"] is not None:
+            self._begin_draft_prefill(pending, ids, chunk_tokens)
         self._pending[r] = pending
         return pending
 
     def join_step(self, pending: _PendingJoin) -> bool:
         """Run one prefill chunk of a pending join into its private cache
         (a chunk at offset > 0 attends to the chunks before it, as the
-        solo path's chunked prefill does). Fenced, so the caller's clock
-        around it is the stall of the rows in flight. True once the whole
-        prompt is in (commit next)."""
-        if pending.next_chunk < len(pending.chunks):
-            eng = self.engine
-            tf = eng._models[self.model]
+        solo path's chunked prefill does): the target's chunks, then a
+        speculating session's draft chunks (those bill wall time only:
+        this session's model would misprice the draft). Fenced, so the
+        caller's clock around it is the stall of the rows in flight. True
+        once everything is in (commit next); a session that fell back to
+        plain decode no longer needs the draft chunks."""
+        if pending.next_chunk >= len(pending.chunks) and self._draft_pending(pending):
             t0 = time.monotonic()
-            start, bucket = pending.chunks[pending.next_chunk]
-            ids = pending.ids[start : start + bucket]
-            real = len(ids)
-            tokens = torch.tensor(
-                [ids + [self.tok.pad_id] * (bucket - real)], dtype=torch.long, device=eng.device
-            )
-            hidden, pending.k_cache, pending.v_cache = forward(
-                tf.params, tf.cfg, tokens, start, pending.k_cache, pending.v_cache,
-                None, cuda_prefill_attention, layers=tf.layers,
-            )
-            pending.logits = logits_for(tf.params, tf.cfg, hidden[:, real - 1])
-            eng._sync()
+            self._prefill_chunk(self.spec["draft"], pending, draft=True)
+            pending.draft_next += 1
+            dt = time.monotonic() - t0
+            pending.prefill_s += dt
+            if _obs_enabled():
+                self._attr_totals["wall"] += dt
+                pending.attr_wall += dt
+        elif pending.next_chunk < len(pending.chunks):
+            t0 = time.monotonic()
+            start, real = self._prefill_chunk(self.model, pending, draft=False)
             pending.next_chunk += 1
             dt = time.monotonic() - t0
             pending.prefill_s += dt
@@ -1128,7 +1439,38 @@ class SteppedDecodeSession:
                     self._attr_chunk(pending, start, real, dt)
                 except Exception:  # noqa: BLE001 — telemetry only
                     pass
-        return pending.next_chunk >= len(pending.chunks)
+        return pending.next_chunk >= len(pending.chunks) and not self._draft_pending(pending)
+
+    def _draft_pending(self, pending: _PendingJoin) -> bool:
+        return self.spec is not None and pending.draft_next < len(pending.draft_chunks)
+
+    def _prefill_chunk(self, model: str, pending: _PendingJoin, draft: bool) -> "tuple[int, int]":
+        """The pending row's next chunk through ``model`` into its private
+        cache (the draft's, with ``draft``), fenced; the target's keeps
+        the chunk's last logits for the first token. Returns (start, real
+        tokens)."""
+        eng = self.engine
+        tf = eng._models[model]
+        if draft:
+            start, bucket = pending.draft_chunks[pending.draft_next]
+            ids = pending.draft_ids[start : start + bucket]
+            k_cache, v_cache = pending.draft_k, pending.draft_v
+        else:
+            start, bucket = pending.chunks[pending.next_chunk]
+            ids = pending.ids[start : start + bucket]
+            k_cache, v_cache = pending.k_cache, pending.v_cache
+        real = len(ids)
+        tokens = torch.tensor(
+            [ids + [self.tok.pad_id] * (bucket - real)], dtype=torch.long, device=eng.device
+        )
+        hidden, _, _ = forward(
+            tf.params, tf.cfg, tokens, start, k_cache, v_cache,
+            None, cuda_prefill_attention, layers=tf.layers,
+        )
+        if not draft:
+            pending.logits = logits_for(tf.params, tf.cfg, hidden[:, real - 1])
+        eng._sync()
+        return start, real
 
     def join_commit(self, pending: _PendingJoin) -> int:
         """Finish a fully prefilled join: sample the first token exactly
@@ -1139,9 +1481,10 @@ class SteppedDecodeSession:
         it decodes from the next slice. A resume (``pending.resume``)
         commits through :meth:`_commit_resume` once its chunks are in.
         Returns the slot."""
-        if pending.next_chunk < len(pending.chunks):
+        if pending.next_chunk < len(pending.chunks) or self._draft_pending(pending):
             raise RuntimeError(
-                f"join not fully prefilled: chunk {pending.next_chunk} of {len(pending.chunks)}"
+                f"join not fully prefilled: chunk {pending.next_chunk} of {len(pending.chunks)} "
+                f"(+ draft {pending.draft_next} of {len(pending.draft_chunks)})"
             )
         if pending.resume is not None:
             return self._commit_resume(pending)
@@ -1164,6 +1507,15 @@ class SteppedDecodeSession:
             self._scatter_private_cache(r, pending)
         else:
             self._install_contiguous_row(r, pending)
+        if self.spec is not None:
+            # the joiner inherits the session's draft config: its draft
+            # row (at offset len(prompt)) or its n-gram history (prompt +
+            # first token), counters from 0
+            if self.spec["draft"] is None:
+                self._set_ngram_row(r, pending.ids + [first_id])
+            else:
+                self._install_draft_row(r, pending.draft_k, pending.draft_v, len(pending.ids))
+            self._reset_spec_row(r)
         eng._sync()
         dt = time.monotonic() - t0
         pending.prefill_s += dt
@@ -1194,6 +1546,13 @@ class SteppedDecodeSession:
         row = [self.parking] * self.jmax
         row[: len(pages)] = pages
         self.carry["table"][r] = torch.tensor(row, dtype=torch.int32, device=self.engine.device)
+
+    def _install_draft_row(self, r: int, k_row, v_row, offset: int) -> None:
+        """A draft-cache row [L, 1, Hkv, T, D] (any device) into slot ``r``
+        of the session's draft cache, with its offset."""
+        _set_row(self.carry["draft_k"], r, k_row)
+        _set_row(self.carry["draft_v"], r, v_row)
+        self.carry["draft_offsets"][r] = offset
 
     def _install_contiguous_row(self, r: int, pending: _PendingJoin) -> None:
         """The private cache, every one of its ``cache_len`` positions,
@@ -1251,6 +1610,11 @@ class SteppedDecodeSession:
         c["remaining"][r] = remaining
         c["done"][r] = remaining <= 0
         self.use_top_p = self.use_top_p or request.top_p < 1.0
+        if self._spec_host:
+            # a reused slot never reports its previous occupant's counters
+            # (after a fallback the host mirrors outlive the carry's)
+            for key in self._spec_host:
+                self._spec_host[key][r] = 0
         row = _Row(request, prompt_len, first_token, request.max_new_tokens - 1, t0, t1,
                    time.monotonic(), pages)
         if generated is not None:
@@ -1266,6 +1630,9 @@ class SteppedDecodeSession:
         if self.closed:
             return
         self.closed = True
+        if self.spec is not None:
+            # it speculated to its close: the source's fallbacks are forgiven
+            self.engine._spec_source_clear(self.spec["source"], self.spec["draft"])
         for row in self.rows:
             if row is not None:
                 self._attr_drop(row)

@@ -21,9 +21,12 @@ stacked-hybrid leaf). Each row's tokens equal the JAX engine's.
 (``engine/stepped.py``: joins in prefill chunks, cancel, stream deltas,
 swap preemption, and on the contiguous layout recompute preemption; what
 the continuous scheduler of ``serve/scheduler.py`` drives); with
-``speculative=`` configured for the model, a paged session's slices are
-draft-verify rounds whose verify forward reads the prompt pages through
-the multi-query paged kernels (``engine/speculative.py``).
+``speculative=`` configured for the model, a session's slices are
+draft-verify rounds whose verify forward runs the multi-query kernels
+(``engine/speculative.py``): through the page table over the paged pool,
+or over the contiguous rows of the batch cache (:func:`_contiguous_attention`).
+A positive ``spec_accept_floor`` adapts a session's draft length to its
+acceptance and falls it back to plain decode.
 ``generate_speculative`` serves one request that way (a greedy model
 draft through the solo loop, anything else through a one-row session),
 and ``generate`` routes eligible requests there.
@@ -68,9 +71,7 @@ from random init, or from a local HF checkpoint (``hf_checkpoints``:
 converted and quantized on the CPU, then moved to the device), and with
 ``weight_cache_dir`` from the on-disk weight cache (``engine/checkpoint.py``).
 
-Not ported yet: speculation on the contiguous session, joins into and
-preemption of speculating sessions and the adaptive speculation policy,
-the shared prefix store and CUDA graphs.
+Not ported yet: the shared prefix store and CUDA graphs.
 """
 
 from __future__ import annotations
@@ -95,6 +96,8 @@ from ..ops.cuda_attention import (
     cuda_prefill_attention,
 )
 from ..ops.cuda_paged_attention import (
+    cuda_contiguous_mq_attention,
+    cuda_contiguous_mq_attention_int8,
     cuda_paged_decode_attention,
     cuda_paged_decode_attention_mq_parts,
     cuda_paged_decode_attention_mq_parts_int8,
@@ -295,6 +298,24 @@ def _int8_cache_attention(q, k_cache, v_cache, lengths):
     )
 
 
+def _contiguous_attention(q, k_cache, v_cache, lengths):
+    """The engine's attention callable over a contiguous batch cache with
+    per-row positions: one query a row (``q [B, Hq, D]``) goes to B2/B3; a
+    speculative verify block ``q [B, k+1, Hq, D]``, whose candidates the
+    transformer has written at ``offset..offset+k``, to the multi-query
+    kernels over contiguous rows, query 0 at ``lengths - (k+1)``."""
+    if q.dim() == 3:
+        if isinstance(k_cache, dict):
+            return _int8_cache_attention(q, k_cache, v_cache, lengths)
+        return cuda_decode_attention(q, k_cache, v_cache, lengths)
+    offsets = lengths - q.shape[1]
+    if isinstance(k_cache, dict):
+        return cuda_contiguous_mq_attention_int8(
+            q, k_cache["q"], k_cache["s"], v_cache["q"], v_cache["s"], lengths, offsets
+        )
+    return cuda_contiguous_mq_attention(q, k_cache, v_cache, lengths, offsets)
+
+
 def _paged_parts(q, k_leaf, v_leaf, lengths):
     """The engine's paged attention callable (the JAX engine's
     ``_paged_decode_attention`` dispatch). On a stacked-hybrid leaf: the
@@ -352,8 +373,10 @@ class TorchEngine(GenerationBackend):
     as the JAX engine takes it. ``spec_temperature_max`` caps the
     temperature of requests that speculate, ``spec_draft_temperature``
     sets the proposal temperature of sampled rows' model drafts, and
-    ``spec_accept_floor`` must stay 0.0: the adaptive fallback it drives
-    is not ported.
+    ``spec_accept_floor`` (in [0, 1)) turns on a session's adaptive draft
+    length and fallback to plain decode (``engine/stepped.py``);
+    ``spec_draft_jpt`` is the fleet's hook that prices a cross-model
+    draft's wasted tokens.
 
     ``prefix_cache_size`` (entries per model) and ``prefix_cache_bytes``
     (bytes over every model) cap the solo prompt-prefix KV cache; either
@@ -385,14 +408,13 @@ class TorchEngine(GenerationBackend):
         hf_checkpoints: Optional[Dict[str, str]] = None,
         weight_cache_dir=None,
     ) -> None:
-        for option, value, item in (
-            ("spec_accept_floor (the adaptive speculative fallback)", spec_accept_floor, 13),
-            ("prefix_share (the shared prefix store)", prefix_share, 12),
-        ):
-            if value:
-                raise NotImplementedError(
-                    f"TorchEngine: {option} is not ported yet (ROADMAP item {item})"
-                )
+        if prefix_share:
+            raise NotImplementedError(
+                "TorchEngine: prefix_share (the shared prefix store) is not ported yet "
+                "(ROADMAP item 12)"
+            )
+        if not 0.0 <= float(spec_accept_floor) < 1.0:
+            raise ValueError(f"spec_accept_floor must be in [0, 1), got {spec_accept_floor}")
         if prefix_cache_size < 0:
             raise ValueError(f"prefix_cache_size must be >= 0, got {prefix_cache_size}")
         if prefix_cache_bytes is not None and prefix_cache_bytes < 0:
@@ -419,7 +441,14 @@ class TorchEngine(GenerationBackend):
                 f"spec_draft_temperature must be > 0 when set, got {spec_draft_temperature}"
             )
         self.speculative = {name: _norm_spec(v) for name, v in (speculative or {}).items()}
-        self.spec_accept_floor = 0.0
+        self.spec_accept_floor = float(spec_accept_floor)
+        # recent fallback acceptances per draft source ("source:draft"):
+        # sessions append on fallback and clear on a healthy close, and
+        # _init_spec skips arming a source whose window sits under the floor
+        self._spec_source_health: Dict[str, list] = {}
+        # the fleet's hook: a draft model's live J/token, which prices the
+        # tokens of a cross-model draft's fully rejected rounds
+        self.spec_draft_jpt: Optional[Callable[[str], Optional[float]]] = None
         self.spec_temperature_max = float(spec_temperature_max)
         self.spec_draft_temperature = (
             None if spec_draft_temperature is None else float(spec_draft_temperature)
@@ -1211,6 +1240,36 @@ class TorchEngine(GenerationBackend):
                 return None
         return spec
 
+    @staticmethod
+    def _spec_source_key(source: str, draft: Optional[str]) -> str:
+        return f"{source}:{draft or ''}"
+
+    def _spec_source_feedback(self, source: str, draft: Optional[str], acceptance: float) -> None:
+        """Record one session's fallback acceptance under its source (the
+        last 8 are kept)."""
+        window = self._spec_source_health.setdefault(self._spec_source_key(source, draft), [])
+        window.append(float(acceptance))
+        del window[:-8]
+
+    def _spec_source_clear(self, source: str, draft: Optional[str]) -> None:
+        """A session speculated to its close: forget the source's fallbacks."""
+        self._spec_source_health.pop(self._spec_source_key(source, draft), None)
+
+    def _spec_source_blocked(self, source: str, draft: Optional[str], floor: float) -> bool:
+        """Whether a new session skips arming this source: at least two
+        recent fallbacks whose mean acceptance is under ``floor``. A
+        consult that blocks drops the oldest entry, so the source re-arms
+        after a few skipped sessions."""
+        if floor <= 0.0:
+            return False
+        window = self._spec_source_health.get(self._spec_source_key(source, draft))
+        if window is None or len(window) < 2:
+            return False
+        blocked = sum(window) / len(window) < floor
+        if blocked:
+            window.pop(0)
+        return blocked
+
     def _spec_eligible(self, request: GenerationRequest) -> bool:
         """Greedy rows and sampled rows up to ``spec_temperature_max``
         speculate; a repeat penalty never does (it changes the modified
@@ -1232,9 +1291,7 @@ class TorchEngine(GenerationBackend):
         A greedy request with a model or cross draft runs the solo loop
         over contiguous caches that carry a ``2k+2``-slot margin (the
         draft must share the target's vocabulary); a sampled or n-gram
-        request drains a one-row stepped session, which needs
-        ``paged_kv=True`` (speculation on the contiguous session is
-        ROADMAP item 13).
+        request drains a one-row stepped session on the engine's KV layout.
         ``extras`` report rounds and accepted drafts."""
         if request.repeat_penalty != 1.0:
             raise ValueError(
@@ -1263,6 +1320,18 @@ class TorchEngine(GenerationBackend):
         model = request.model
         self.load_model(model)
         self.load_model(draft_model)
+        if model not in self._models:  # the draft's load evicted the target: one retry
+            self.load_model(model)
+        if model not in self._models or draft_model not in self._models:
+            # the pair cannot be resident together under the budget: plain
+            # greedy decode gives the same tokens
+            from ..runner import term
+
+            term.log_warn(
+                f"speculative decoding: {model} and {draft_model} cannot be co-resident "
+                "under the device allocation budget; falling back to plain decode"
+            )
+            return self._generate_plain(request, prompt_ids=prompt_ids)
         tcfg = self._models[model].cfg
         dcfg = self._models[draft_model].cfg
         if tcfg.vocab_size != dcfg.vocab_size:
@@ -1306,6 +1375,19 @@ class TorchEngine(GenerationBackend):
                 "draft_model": draft_model, "source": source,
             },
         }
+        if _obs_enabled():
+            try:
+                from ..obs.flight import EV_SPEC_ROUND, FLIGHT, trace_of
+                from ..obs.metrics import observe_spec
+
+                observe_spec(rounds, accepted, rounds * k, source=source)
+                FLIGHT.emit(
+                    EV_SPEC_ROUND, trace=trace_of(_TRACER.current()), model=model,
+                    draft=draft_model, source=source, k=k, rounds=rounds, accepted=accepted,
+                    acceptance=round(accepted / (rounds * k), 4) if rounds else None,
+                )
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
         return result
 
     def _spec_batch_decode_step_fn(
@@ -1317,14 +1399,17 @@ class TorchEngine(GenerationBackend):
         source: str,
         top_k: int,
         use_top_p: bool,
+        paged: bool = True,
     ) -> Callable:
-        """The speculative slice step of a paged session
+        """The speculative slice step of a session
         (:func:`build_spec_step_fn`), one per key: the draft's steps run
-        the decode kernel on its batch cache, the verify reads the prompt
-        pages through :func:`_paged_parts` (the multi-query kernels)."""
+        the decode kernel on its batch cache; a paged session's verify
+        reads the prompt pages through :func:`_paged_parts`, a contiguous
+        one's its cache rows through :func:`_contiguous_attention` (the
+        multi-query kernels either way)."""
         key = (
             "spec-step", model, draft_model, k, n_steps, source, top_k, use_top_p,
-            self.spec_draft_temperature,
+            self.spec_draft_temperature, paged,
         )
         if key not in self._decode_cache:
             self._decode_cache[key] = build_spec_step_fn(
@@ -1332,9 +1417,9 @@ class TorchEngine(GenerationBackend):
                 self._models[draft_model].cfg if draft_model is not None else None,
                 k, n_steps, self._tokenizer_for(model).eos_id,
                 draft_decode_attention=cuda_decode_attention,
-                decode_attention=_paged_parts,
+                decode_attention=_paged_parts if paged else _contiguous_attention,
                 source=source, top_k=top_k, use_top_p=use_top_p,
-                draft_temperature=self.spec_draft_temperature,
+                draft_temperature=self.spec_draft_temperature, paged=paged,
             )
         return self._decode_cache[key]
 
@@ -1350,10 +1435,9 @@ class TorchEngine(GenerationBackend):
         engine's KV layout (contiguous, or the paged pool): every row
         prefills now, then each ``session.step()`` runs one slice and
         returns the rows that retired in it. With a speculative config
-        for the model (or ``spec_override``) and every row eligible, a
-        paged session's slices are draft-verify rounds
-        (``engine/stepped.py``); a contiguous one raises (ROADMAP item
-        13)."""
+        for the model (or ``spec_override``) and every row eligible, the
+        session's slices are draft-verify rounds (``engine/stepped.py``),
+        on either layout."""
         from .stepped import SteppedDecodeSession
 
         return SteppedDecodeSession.open(

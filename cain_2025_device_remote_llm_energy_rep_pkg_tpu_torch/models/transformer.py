@@ -15,9 +15,11 @@ or the write-through leaf ``{"pool", "table"}``, whose decode step
 writes its K/V into the pool through the table and reads it back with
 the normalised paged kernel (B6). A contiguous batch cache also decodes
 one token per row at per-row offsets ``[B]`` (a speculative draft model's
-cache), and the stacked-hybrid leaf takes the speculative verify block of
-S = k+1 candidates per row. The scratch verify mode and the
-mixture-of-experts MLP are not ported yet.
+cache) or, on the contiguous session's cache, the speculative verify
+block of S = k+1 candidates per row; the stacked-hybrid leaf takes that
+block too. The mixture-of-experts MLP is not ported yet; the JAX package's
+kernel-less scratch verify leaf is not ported (the port's paged sessions
+are stacked-hybrid, and B7/B8 serve every head width it runs).
 """
 
 from __future__ import annotations
@@ -166,8 +168,10 @@ def _cache_layer(cache, i: int):
     if is_paged_cache(cache):
         if "side" not in cache or {"layer", "side_layer"} & set(cache):
             raise NotImplementedError(
-                "the scratch paged leaf and the layer= forms of the "
-                "stacked-hybrid leaf are not ported"
+                "the scratch paged leaf (the JAX package's kernel-less verify: the "
+                "port's paged sessions are stacked-hybrid, and B7/B8 serve every "
+                "head width it runs) and the layer= forms of the stacked-hybrid "
+                "leaf are not ported"
             )
         return {
             **cache,
@@ -316,7 +320,7 @@ def _attention_block(
     sin: torch.Tensor,
     decode_attention: Optional[DecodeAttentionFn],
     prefill_attention: Optional[PrefillAttentionFn],
-    lengths: Optional[torch.Tensor],  # [B] int32 = offset + 1 (decode, but not stacked-hybrid)
+    lengths: Optional[torch.Tensor],  # [B] int32 = offset + S (decode or per-row verify, not paged)
 ) -> torch.Tensor:
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -357,17 +361,23 @@ def _attention_block(
         return dense_dot(out, layer["wo"])
 
     if isinstance(offset, torch.Tensor):
-        # One token per row at its own position [B] (a speculative draft's
-        # batch cache; the JAX package's carry-resident branch).
-        if s != 1 or decode_attention is None:
-            raise NotImplementedError(
-                "per-row offsets on a contiguous cache take one token per row "
-                "and the decode attention callable"
-            )
+        # Per-row positions [B] on a batch cache (the JAX package's
+        # carry-resident branch): one token per row (a decode step, a
+        # speculative draft's), or the contiguous verify block of S = k+1
+        # candidates per row, written at offset[b] + j; query j then sees
+        # kpos <= offset[b] + j (``lengths`` = offset + S).
+        if decode_attention is None:
+            raise ValueError("per-row offsets on a contiguous cache need the decode attention callable")
         rows = torch.arange(b, device=x.device)
-        _write_rows(k_cache, rows, offset, k[:, 0])
-        _write_rows(v_cache, rows, offset, v[:, 0])
-        out = decode_attention(q[:, 0], k_cache, v_cache, lengths)[:, None]
+        if s == 1:
+            _write_rows(k_cache, rows, offset, k[:, 0])
+            _write_rows(v_cache, rows, offset, v[:, 0])
+            out = decode_attention(q[:, 0], k_cache, v_cache, lengths)[:, None]
+        else:
+            pos = offset[:, None] + torch.arange(s, device=x.device)
+            _write_rows(k_cache, rows[:, None], pos, k)
+            _write_rows(v_cache, rows[:, None], pos, v)
+            out = decode_attention(q, k_cache, v_cache, lengths)
         return dense_dot(out.to(x.dtype).reshape(b, s, hq * dh), layer["wo"])
 
     span = slice(offset, offset + s)
@@ -412,10 +422,10 @@ def run_blocks(
     b, s, _ = x.shape
     lengths = None
     stacked_hybrid = is_paged_cache(k_cache) and not _is_write_through(k_cache)
-    if s == 1 and decode_attention is not None and not stacked_hybrid:
-        if isinstance(offset, torch.Tensor):  # per-row positions
-            lengths = (offset + 1).to(torch.int32)
-        else:
+    if decode_attention is not None and not stacked_hybrid:
+        if isinstance(offset, torch.Tensor):  # per-row positions: S = 1, or a verify block
+            lengths = (offset + s).to(torch.int32)
+        elif s == 1:
             lengths = torch.full((b,), offset + 1, dtype=torch.int32, device=x.device)
     for i, layer in enumerate(layers):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps, gemma_style=cfg.gemma_norm)

@@ -60,6 +60,8 @@ _SIGNATURES = {
             _i,
         ),
         "paged_mq_mma_parts": ([_p] * 14 + [_i] * 9 + [_p], _i),
+        "contig_mq_parts": ([_i] + [_p] * 12 + [_i] * 8 + [_p], _i),
+        "contig_mq_mma_parts": ([_p] * 13 + [_i] * 7 + [_p], _i),
     },
     "int4_matmul": {
         "int4_error_string": ([_i], ctypes.c_char_p),

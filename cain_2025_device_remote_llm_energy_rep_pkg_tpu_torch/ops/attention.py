@@ -268,6 +268,52 @@ def paged_mq_attention_int8_reference(
     )
 
 
+def _normalised(parts, q: torch.Tensor) -> torch.Tensor:
+    """``acc / l`` of multi-query parts as ``[B,Q,Hq,D]`` in q's dtype."""
+    acc, _, l = parts
+    b, q_len, hq, d = q.shape
+    return (acc / l[..., None]).reshape(b, q_len, hq, d).to(q.dtype)
+
+
+def contiguous_mq_attention_reference(
+    q: torch.Tensor,  # [B,Q,Hq,D]: Q candidate positions per row
+    k_cache: torch.Tensor,  # [B,Hkv,T,D]
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,  # [B] int32: cached tokens, the candidates included
+    offsets: torch.Tensor,  # [B] int32: absolute position of query 0
+) -> torch.Tensor:
+    """The contiguous-rows twin of :func:`paged_mq_attention_reference`,
+    normalised: query j of row b attends positions ``kpos < min(lengths[b],
+    offsets[b] + j + 1)`` of its own cache row, ``[B,Q,Hq,D]`` in q's dtype
+    (the JAX package's per-row causal mask of the contiguous verify block).
+    Plain version of ``cuda_contiguous_mq_attention``."""
+    parts = _dense_parts(
+        q, k_cache.to(torch.float32), v_cache.to(torch.float32),
+        _mq_limits(lengths, offsets, q.shape[1]),
+    )
+    return _normalised(parts, q)
+
+
+def contiguous_mq_attention_int8_reference(
+    q: torch.Tensor,  # [B,Q,Hq,D]
+    k_q: torch.Tensor,  # [B,Hkv,T,D] int8
+    k_s: torch.Tensor,  # [B,Hkv,T] f32
+    v_q: torch.Tensor,
+    v_s: torch.Tensor,
+    lengths: torch.Tensor,  # [B] int32
+    offsets: torch.Tensor,  # [B] int32
+) -> torch.Tensor:
+    """:func:`contiguous_mq_attention_reference` over an int8 cache, the
+    scales folded as :func:`decode_attention_int8_reference` folds them.
+    Plain version of ``cuda_contiguous_mq_attention_int8``."""
+    parts = _dense_parts(
+        q, k_q.to(torch.float32), v_q.to(torch.float32),
+        _mq_limits(lengths, offsets, q.shape[1]),
+        k_s.to(torch.float32), v_s.to(torch.float32),
+    )
+    return _normalised(parts, q)
+
+
 def paged_decode_attention_reference(
     q: torch.Tensor,  # [B,Hq,D]
     k_pool: torch.Tensor,  # [P,Hkv,page,D]

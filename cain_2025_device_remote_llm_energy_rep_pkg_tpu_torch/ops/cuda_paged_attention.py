@@ -8,7 +8,11 @@ int32`` (cached tokens), returning the unnormalised ``(acc [B,Hkv,G,D]
 f32, m [B,Hkv,G] f32, l [B,Hkv,G] f32)``; and of their multi-query twins
 ``pallas_paged_decode_attention_mq_parts{,_int8}`` (the speculative
 verify): ``q [B,Q,Hq,D]`` with ``offsets [B] int32``, parts per query
-position. The four parts wrappers also take the stacked ``layer=`` form:
+position. ``cuda_contiguous_mq_attention{,_int8}`` run the same two
+multi-query bodies over a contiguous cache ``[B,Hkv,T,D]`` (the contiguous
+session's verify, whose candidates are in the cache: ``lengths = offsets
++ Q``) and return the normalised ``[B,Q,Hq,D]`` in q's dtype. The four
+parts wrappers also take the stacked ``layer=`` form:
 a whole ``[L,P,Hkv,page,D]`` pool (scales ``[L,P,Hkv,page]``) and a layer
 index, read through a zero-copy view of that layer.
 
@@ -37,6 +41,9 @@ import torch
 
 from . import _kernels
 from .attention import (
+    _normalised,
+    contiguous_mq_attention_int8_reference,
+    contiguous_mq_attention_reference,
     paged_decode_attention_parts_int8_reference,
     paged_decode_attention_reference,
     paged_decode_attention_parts_reference,
@@ -435,11 +442,132 @@ def cuda_paged_decode_attention_mq_parts_int8(
                             k_scale, v_scale, page_table, lengths, offsets)
 
 
+def _contiguous_split(b: int, hkv: int, t: int) -> "tuple[int, int]":
+    """(n_split, split_len) of the f32-q multi-query kernel over contiguous
+    rows: enough splits that B·Hkv·n_split blocks cover the card's 132 SMs
+    about twice, at least 32 positions each; splits past a row's frontier
+    exit at once."""
+    n = -(-_TARGET_BLOCKS // max(1, b * hkv))
+    split_len = max(_MIN_SPLIT_POSITIONS, -(-t // n))
+    return -(-t // split_len), split_len
+
+
+def _launch_contiguous_mq(name, wrapper, q, k, v, k_scale, v_scale, lengths, offsets) -> torch.Tensor:
+    """B7/B8's bodies over contiguous rows (``contig_mq_mma_parts`` with a
+    bf16 q, ``contig_mq_parts`` with an f32 one), in chunks of at most the
+    kernel's query positions (:func:`chunk_queries`) and sub-groups of at
+    most its query heads (:func:`tile_groups`), then ``acc / l``."""
+    b, q_len, hq, d = q.shape
+    _require(q_len >= 1, f"{name}: no query position")
+    _require(offsets.shape == (b,) and offsets.dtype == torch.int32, f"{name}: offsets must be int32 [B]")
+    _require(lengths.shape == (b,) and lengths.dtype == torch.int32, f"{name}: lengths must be int32 [B]")
+    scales = [x for x in (k_scale, v_scale) if x is not None]
+    code = _check_inputs(name, q, k, v, lengths, offsets, *scales)
+    _, hkv, t, _ = k.shape
+    _require(k.shape == v.shape == (b, hkv, t, d), f"{name}: caches must be [B,Hkv,T,D]")
+    _require(hq % hkv == 0, f"{name}: Hq must be a multiple of Hkv")
+    dev = q.device
+    lib = _kernels.library(_LIB)
+    mma = q.dtype == torch.bfloat16
+    if mma:
+        _require_aligned(name, q, k, v)
+    else:
+        n_split, split_len = _contiguous_split(b, hkv, t)
+    scale_ptrs = (None if k_scale is None else k_scale.data_ptr(),
+                  None if v_scale is None else v_scale.data_ptr())
+
+    def launch_chunk(qc: torch.Tensor, oc: torch.Tensor) -> Parts:
+        q_c = qc.shape[1]
+
+        def launch(qs: torch.Tensor) -> Parts:
+            hq_s = qs.shape[2]
+            group = hq_s // hkv
+            rows = q_c * group
+            acc = torch.empty((b, q_c, hkv, group, d), dtype=torch.float32, device=dev)
+            m = torch.empty((b, q_c, hkv, group), dtype=torch.float32, device=dev)
+            l = torch.empty((b, q_c, hkv, group), dtype=torch.float32, device=dev)
+            io = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), *scale_ptrs,
+                  lengths.data_ptr(), oc.data_ptr())
+            if mma:
+                q_tiles = mq_q_tiles(q_c, group)
+                n_grid = mq_grid(b, hkv, q_tiles, t)
+                part_acc = torch.empty((b * hkv, n_grid, rows, d), dtype=torch.float32, device=dev)
+                part_ml = torch.empty((b * hkv, n_grid, rows, 2), dtype=torch.float32, device=dev)
+                tickets = _kernels.tickets(dev, b * hkv * q_tiles)
+                err = lib.contig_mq_mma_parts(
+                    *io, part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
+                    acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+                    b, q_c, hq_s, hkv, t, d, n_grid, _stream(qs),
+                )
+            else:
+                part_acc = torch.empty((b * hkv, n_split, rows, d), dtype=torch.float32, device=dev)
+                part_ml = torch.empty((b * hkv, n_split, rows, 2), dtype=torch.float32, device=dev)
+                err = lib.contig_mq_parts(
+                    code, *io, part_acc.data_ptr(), part_ml.data_ptr(),
+                    acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+                    b, q_c, hq_s, hkv, t, d, n_split, split_len, _stream(qs),
+                )
+            _kernels.check(err, name, _LIB)
+            wrapper.launches += 1
+            return acc, m, l
+
+        return tile_groups(launch, qc.contiguous(), hkv, lib.paged_group_max())
+
+    parts = chunk_queries(launch_chunk, q, offsets, lib.paged_mq_query_max(code))
+    return _normalised(parts, q)
+
+
+def cuda_contiguous_mq_attention(
+    q: torch.Tensor,  # [B,Q,Hq,D]: Q candidate positions per row
+    k_cache: torch.Tensor,  # [B,Hkv,T,D]
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,  # [B] int32: cached tokens, the candidates included
+    offsets: torch.Tensor,  # [B] int32: absolute position of query 0
+) -> torch.Tensor:
+    """The contiguous session's verify attention: query j of row b attends
+    positions ``kpos < min(lengths[b], offsets[b] + j + 1)`` of its own
+    cache row, ``[B,Q,Hq,D]`` in q's dtype. B7's bodies over contiguous
+    rows (``ContiguousRows`` in place of the page table): a bf16 q runs
+    ``mq_mma_kernel`` (one launch up to Q 64), an f32 q ``mq_partial_kernel``
+    + ``parts_merge_kernel`` (chunks of 9); the wrapper normalises."""
+    name = "cuda_contiguous_mq_attention"
+    if q.device.type == "cpu":
+        return contiguous_mq_attention_reference(q, k_cache, v_cache, lengths, offsets)
+    _require(k_cache.dtype == v_cache.dtype == q.dtype, f"{name}: caches must be in q's dtype")
+    return _launch_contiguous_mq(name, cuda_contiguous_mq_attention, q, k_cache, v_cache, None, None,
+                                 lengths, offsets)
+
+
+def cuda_contiguous_mq_attention_int8(
+    q: torch.Tensor,  # [B,Q,Hq,D]
+    k_q: torch.Tensor,  # [B,Hkv,T,D] int8
+    k_s: torch.Tensor,  # [B,Hkv,T] f32
+    v_q: torch.Tensor,
+    v_s: torch.Tensor,
+    lengths: torch.Tensor,  # [B] int32
+    offsets: torch.Tensor,  # [B] int32
+) -> torch.Tensor:
+    """:func:`cuda_contiguous_mq_attention` over an int8 cache (B8's
+    bodies): the scales fold into the scores (K) and the probabilities (V)."""
+    name = "cuda_contiguous_mq_attention_int8"
+    if q.device.type == "cpu":
+        return contiguous_mq_attention_int8_reference(q, k_q, k_s, v_q, v_s, lengths, offsets)
+    _require(k_q.dtype == v_q.dtype == torch.int8, f"{name}: codes must be int8")
+    _require(
+        k_s.dtype == v_s.dtype == torch.float32 and k_s.shape == v_s.shape == k_q.shape[:3],
+        f"{name}: scales must be float32 [B,Hkv,T]",
+    )
+    return _launch_contiguous_mq(name, cuda_contiguous_mq_attention_int8, q, k_q, v_q, k_s, v_s,
+                                 lengths, offsets)
+
+
 cuda_paged_decode_attention.launches = 0
 cuda_paged_decode_attention_parts.launches = 0
 cuda_paged_decode_attention_parts_int8.launches = 0
 cuda_paged_decode_attention_mq_parts.launches = 0
 cuda_paged_decode_attention_mq_parts_int8.launches = 0
+cuda_contiguous_mq_attention.launches = 0
+cuda_contiguous_mq_attention_int8.launches = 0
 
 # Every kernel wrapper of this module, for code that resets or reads counts.
 KERNELS = (
@@ -448,4 +576,6 @@ KERNELS = (
     cuda_paged_decode_attention_parts_int8,
     cuda_paged_decode_attention_mq_parts,
     cuda_paged_decode_attention_mq_parts_int8,
+    cuda_contiguous_mq_attention,
+    cuda_contiguous_mq_attention_int8,
 )

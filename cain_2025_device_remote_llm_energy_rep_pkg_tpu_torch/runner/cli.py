@@ -165,8 +165,15 @@ commands:
                        --preempt-policy off|swap
                        --preempt-max-wait-s S, --speculative
                        target=draft[:k] or draft[:k] (draft: a model, ngram
-                       or cross:<model>) --spec-temperature-max T
-                       --spec-draft-temperature T, --slo SPEC, --role mixed,
+                       or cross:<model>; on either KV layout, the
+                       contiguous one included; a speculating session
+                       admits eligible joiners and preempts its rows)
+                       --spec-temperature-max T --spec-draft-temperature
+                       T, --spec-accept-floor F (a session whose rolling
+                       acceptance drops below F halves its draft length,
+                       then falls back to plain decode at k 1; a source
+                       that keeps failing is not armed for a while;
+                       default 0: never), --slo SPEC, --role mixed,
                        --usage-ledger-dir D, --access-log, --no-telemetry,
                        --prefix-cache N (the prompt-prefix KV cache, N
                        entries a model; 4 when N is left out), --hf
@@ -190,9 +197,7 @@ commands:
                        --replicas > 1, --route-policy, --probe-interval-ms,
                        --roles, --model-policy, --escalate-max-tokens
                        (15), --prefix-share, --prefix-index-entries,
-                       --prefix-store-* and --role prefill|decode (12),
-                       --spec-accept-floor > 0 and --speculative without
-                       --paged-kv (13)
+                       --prefix-store-* and --role prefill|decode (12)
   serve-fleet          the replica router: not ported (ROADMAP item 15), exit 2
   help                 show this message
 """
@@ -562,8 +567,13 @@ def serve_command(args: List[str]) -> None:
             name, draft = _parse_speculative(value(arg))
             speculative[name] = draft
         elif arg == "--spec-accept-floor":
-            if number(arg, float, 0) > 0:
-                raise _not_ported("--spec-accept-floor > 0 (the adaptive speculative fallback)", "13")
+            # a speculating session whose rolling acceptance drops under
+            # this fraction shortens its draft, then falls back (0: never)
+            floor = number(arg, float, 0)
+            if floor >= 1.0:
+                raise CommandError("serve: --spec-accept-floor expects a fraction in [0, 1)")
+            engine_kwargs["spec_accept_floor"] = floor
+            opts["spec_accept_floor"] = floor
         elif arg == "--spec-temperature-max":
             engine_kwargs["spec_temperature_max"] = number(arg, float, 0)
         elif arg == "--spec-draft-temperature":
@@ -593,11 +603,6 @@ def serve_command(args: List[str]) -> None:
         else:
             raise CommandError(f"serve: unrecognised option {arg!r}")
 
-    if backend_kind == "torch" and speculative and not paged_kv:
-        raise _not_ported(
-            "--speculative without --paged-kv (speculation on the contiguous session, "
-            "the legacy verify)", "13"
-        )
     if backend_kind == "fake":
         from ..engine.fake import FakeBackend
 

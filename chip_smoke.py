@@ -11,14 +11,15 @@ on the card and times both (with the library yardstick and the card's bound
 beside them), then drives the port's paths on full-width qwen2:1.5b:
 ``TorchEngine.generate`` (the study's solo path) at int8 weights with a
 bf16 and then an int8 KV cache, ``TorchEngine.generate_batch`` over the
-paged pool (17 requests) with a bf16 and then an int8 pool, ``generate``
+paged pool (17 requests) with a bf16 and then an int8 pool (at 7 of 28
+layers), ``generate``
 at int4 and at int4-i32 weights, one engine with per-model modes (qwen2 at
 int8, full-width llama3.1:8b at int4), an int4 paged batch of 8 rows,
 the write-through paged decode (8 rows prefilled, written into a pool
 with ``write_prefill`` and decoded through ``forward`` with the engine's
 paged dispatch, whose attention is B6), and speculative sessions over the
 paged pool (``decode_open`` and ``step``): an n-gram draft over 8 rows
-with a bf16 and an int8 pool, whose verify runs the multi-query kernels
+with a bf16 and an int8 pool (7 layers), whose verify runs the multi-query kernels
 B7/B8, ``generate_speculative`` and ``generate``'s routing, an n-gram
 session at k 12 (its 13-position verify block runs B7 in one launch a
 layer: two q-tiles of the tensor-core kernel), and a self-draft whose
@@ -48,8 +49,8 @@ LOGIT_ATOL of each position's maximum), ``serve_continuous_int8_kv``
 (B5), ``serve_window`` (``generate_batch``) and ``serve_serial``
 (``generate`` and ``generate_stream`` on B2). Then the contiguous
 layouts, the JAX package's defaults: ``engine_batch_contiguous``
-(``generate_batch`` without ``paged_kv``: the 17 batch rows over one
-bf16 cache, 8 over an int8 one; B2/B3 once a layer a step, every greedy
+(``generate_batch`` without ``paged_kv``, 7 layers: the 17 batch rows
+over one bf16 cache, 8 over an int8 one; B2/B3 once a layer a step, every greedy
 row replayed teacher-forced), ``serve_continuous_contiguous``
 (``serve_continuous``'s traffic on the contiguous session, the
 high-priority requests preempting rows with ``recompute``: their K/V
@@ -71,7 +72,21 @@ leaf bit-equal to the install path's), ``serve_cli_hf`` (``serve --hf
 ... --prefix-cache 4`` in a subprocess: two prefix hits over three
 requests) and ``study_duty_trace`` (two study rows with NVML's duty
 cycle and a ``torch.profiler`` trace naming the port's kernels; every
-study row now carries the duty cycle).
+study row now carries the duty cycle). Then the rest of speculation: the
+kernel rows of B7/B8's contiguous instantiations (the contiguous
+session's verify, beside SDPA under the same per-query mask),
+``engine_spec_contiguous_bf16_kv`` / ``_int8_kv`` (the 8 n-gram rows and
+a joiner on the engine's default contiguous layout at full depth, B7/B8
+over contiguous rows once a layer a round, the greedy share against the
+plain contiguous session), ``spec_contiguous_entry_points`` (``generate``
+routing a greedy and a sampled request there), ``engine_spec_adaptive``
+(a 2-layer cross-model draft with no skill under a floor of 0.5: k 4 ->
+2 -> 1, the fallback to plain decode, the draft's wasted Joules, tokens/s
+before and after), ``engine_spec_join_preempt_paged`` / ``_contiguous``
+(a greedy and a sampled joiner, and a row preempted by swap whose resumed
+tokens equal an uninterrupted run's) and ``serve_cli_speculative_contiguous``
+(``serve --speculative qwen2:1.5b=ngram:4 --spec-accept-floor 0.3``
+without ``--paged-kv``, 8 requests, exit 0).
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -105,6 +120,12 @@ KERNEL_INFO = {
     "cuda_paged_decode_attention_mq_parts": (
         f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:531"),
     "cuda_paged_decode_attention_mq_parts_int8": (
+        f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:531"),
+    # B7/B8's bodies over contiguous rows (the contiguous verify, which the
+    # JAX package attends in XLA under a per-row mask)
+    "cuda_contiguous_mq_attention": (
+        f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:531"),
+    "cuda_contiguous_mq_attention_int8": (
         f"{PKG}/csrc/paged_attention.cu", f"{JAX_PKG}/ops/pallas_paged_attention.py:531"),
     "cuda_int4_matmul": (f"{PKG}/csrc/int4_matmul.cu", f"{JAX_PKG}/ops/pallas_quant.py:266"),
     "cuda_int4_matmul_i32": (f"{PKG}/csrc/int4_matmul.cu", f"{JAX_PKG}/ops/pallas_quant.py:199"),
@@ -191,6 +212,23 @@ SELFDRAFT_LENGTHS = [94, 332, 732, 1132]
 LONG_SPEC_K = 12
 LONG_SPEC_ROWS = 4
 LONG_SPEC_NEW_TOKENS = 40
+# The contiguous speculating sessions: the 8 n-gram rows and a joiner of
+# this many context tokens, after one slice; the weak cross-model draft
+# of the adaptive phase (qwen2:1.5b's config at 2 layers, its own random
+# weights) under its floor, and the slice it steps at; the floor of
+# ``serve_cli_speculative_contiguous`` and its requests.
+CONTIG_SPEC_JOINER_TOKENS = 500
+WEAK_DRAFT = "qwen2:1.5b-2l"
+WEAK_DRAFT_LAYERS = 2
+WEAK_DRAFT_SEED = 17
+ADAPTIVE_FLOOR = 0.5
+ADAPTIVE_SLICE_STEPS = 8
+CLI_SPEC_FLOOR = 0.3
+CLI_SPEC_REQUESTS = 8
+# The contiguous verify kernel returns attention in q's dtype: a bf16
+# output rounds once more, by up to one bf16 ulp of |out| <= 4 (0.0156),
+# on top of the tensor-core kernel's 5e-3 (the bf16 p of P·V).
+CONTIG_MQ_BF16_ATOL = 2e-2
 # The write-through phase's greedy decode steps (B6 launches n_layers ×
 # this many times).
 WRITE_THROUGH_STEPS = 64
@@ -201,7 +239,11 @@ WRITE_THROUGH_STEPS = 64
 # the prefix-cache, checkpoint and duty-cycle phases (~220 s) the serving
 # phases over an int8 cache and the contiguous session's traffic were cut
 # to it too (``cut_registry``): before the cut the script reached the new
-# phases at 879.3 s, and those phases took 115 s at full depth.
+# phases at 879.3 s, and those phases took 115 s at full depth. With the
+# rest of speculation's phases (~95 s; the whole script 1,030.8 s in its
+# first run with them) the int8-pool paged batch and n-gram session and
+# the bf16 contiguous batch were cut to it too (~40 s at full depth), and
+# so are the join/preempt phases of speculating sessions.
 SOLO_CUT_LAYERS = 7
 
 
@@ -897,6 +939,119 @@ def stacked_layer_kernel_phase(torch, cpa, timer, quantize_kv_vector):
         })
 
 
+def contiguous_session_shape():
+    """(rows, lengths, capacity) of the contiguous n-gram session's verify
+    midway: its 8 prompts and the joiner, 60 tokens generated each, in a
+    bucket of 16 rows (pad rows copy row 0), over a cache of the widest
+    prompt allocation + the 134-token budget's bucket + the rounds'
+    margin (2,048 + 256 + 128)."""
+    prompts = spec_prompt_lengths() + [CONTIG_SPEC_JOINER_TOKENS]
+    offsets = [n + 60 for n in prompts]
+    offsets += [offsets[0]] * (16 - len(offsets))
+    return 16, offsets, 2048 + 256 + 128
+
+
+def contiguous_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector):
+    """The contiguous instantiations of B7/B8 against their plain version:
+    at the contiguous n-gram session's shape (16 rows of 70–1,160 tokens
+    over a 2,432-position cache) at Q 5 (k = 4), Q 2 (the adaptive
+    policy's k = 1) and Q 13 (k = 12), at the one-row session of
+    ``generate``, and at the phi3/gemma head dims. f32 to 1e-4 (the
+    CUDA-core kernel, chunks of 9), bf16 to CONTIG_MQ_BF16_ATOL (the
+    tensor-core kernel, one launch up to Q 64); two calls give the same
+    bits. At Q 5 a ``torch.profiler`` trace shows one device kernel of the
+    contiguous instantiation a call (the wrapper's ``acc / l`` is torch's).
+    The library yardstick is SDPA with each query's limit as a boolean
+    mask over the same cache (B8: dequantized to bf16, untimed)."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, offs_sess, t_sess = contiguous_session_shape()
+    one = spec_prompt_lengths()[0] + 20
+    # (label, batch, hq, hkv, d, offsets, capacity, Q)
+    shapes = [
+        ("qwen2:1.5b contiguous session", b, 12, 2, 128, offs_sess, t_sess, SPEC_K + 1),
+        ("qwen2:1.5b contiguous session", b, 12, 2, 128, offs_sess, t_sess, 2),
+        ("qwen2:1.5b contiguous session", b, 12, 2, 128, offs_sess, t_sess, LONG_SPEC_K + 1),
+        ("qwen2:1.5b one-row session", 1, 12, 2, 128, [one], 128 + 256 + 128, SPEC_K + 1),
+        ("phi3:3.8b", 4, 32, 32, 96, [62, 300, 700, 1000], 1152, SPEC_K + 1),
+        ("gemma:2b", 4, 8, 1, 256, [62, 300, 700, 1000], 1152, SPEC_K + 1),
+    ]
+    mq = {
+        "cuda_contiguous_mq_attention": (cpa.cuda_contiguous_mq_attention,
+                                         plain.contiguous_mq_attention_reference),
+        "cuda_contiguous_mq_attention_int8": (cpa.cuda_contiguous_mq_attention_int8,
+                                              plain.contiguous_mq_attention_int8_reference),
+    }
+    summary = {}
+    for label, b, hq, hkv, d, offs, t, q_len in shapes:
+        for name, (fn, ref_fn) in mq.items():
+            errs, launches = {}, {}
+            for dtype, tol in ((torch.float32, F32_ATOL), (torch.bfloat16, CONTIG_MQ_BF16_ATOL)):
+                k = torch.randn((b, hkv, t, d), generator=gen, device="cuda").to(dtype)
+                v = torch.randn((b, hkv, t, d), generator=gen, device="cuda").to(dtype)
+                q = torch.randn((b, q_len, hq, d), generator=gen, device="cuda").to(dtype)
+                offsets = torch.tensor(offs, dtype=torch.int32, device="cuda")
+                lens = offsets + q_len  # every candidate is in the cache
+                if name.endswith("int8"):
+                    kq, ks = quantize_kv_vector(k)
+                    vq, vs = quantize_kv_vector(v)
+                    cache = (kq, ks, vq, vs)
+                    kv_bytes_per_token = 2 * hkv * (d + 4)
+                else:
+                    cache = (k, v)
+                    kv_bytes_per_token = 2 * hkv * d * q.element_size()
+                args = (q, *cache, lens, offsets)
+                fn.launches = 0
+                got = fn(*args)
+                launches[dtype] = fn.launches
+                want = ref_fn(*args)
+                again = fn(*args)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), (label, name, "two calls differ")
+                diff = (got.float() - want.float()).abs()
+                errs[dtype] = diff.max().item()
+                assert bool(torch.all(diff <= tol + tol * want.float().abs())), (
+                    label, name, q_len, str(dtype), errs[dtype])
+            extra = {}
+            if label.endswith("session") and q_len == SPEC_K + 1:
+                names = [n for n, _ in device_kernels(torch, lambda: fn(*args))]
+                ours = [n for n in names if "mq_mma_kernel" in n and "ContiguousRows" in n]
+                assert len(ours) == 1, names
+                extra = {"device_kernels_of_the_instantiation_per_call": len(ours),
+                         "device_kernel": ours[0], "device_kernels_per_call": len(names)}
+            ms = timer.ms(lambda: fn(*args))
+            plain_ms = timer.ms(lambda: ref_fn(*args), max_iters=20)
+            kd, vd = cache[0], cache[-2] if len(cache) == 4 else cache[1]
+            if len(cache) == 4:  # dequantized, untimed
+                kd = (kd.float() * cache[1][..., None]).to(torch.bfloat16)
+                vd = (vd.float() * cache[3][..., None]).to(torch.bfloat16)
+            mask = mq_limits_mask(torch, lens, offsets, q_len, t)
+            qt = q.transpose(1, 2)
+            library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kd, vd, attn_mask=mask, enable_gqa=True))
+            del kd, vd
+            frontier = sum(min(n + q_len, t) for n in offs)
+            visible = sum(min(n + j + 1, t) for n in offs for j in range(q_len))
+            bytes_moved = (b * q_len * hq * d * 2 * q.element_size() + frontier * kv_bytes_per_token
+                           + 2 * b * 4)
+            b_ms, b_by = bound(bytes_moved, 4 * hq * d * visible)
+            row = {
+                "name": name, "shape": label, "B": b, "Q": q_len, "offsets": offs, "capacity": t,
+                "frontier_tokens": frontier, "visible_pairs": visible,
+                "launches_per_call": launches[torch.bfloat16],
+                "launches_per_call_f32": launches[torch.float32],
+                **extra,
+                "max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
+                "ms": ms, "plain_ms": plain_ms,
+                # SDPA, per-query limit mask over the same cache (B8: dequantized to bf16, untimed)
+                "library_ms": library_ms,
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit({"phase": "kernel", **row})
+            summary.setdefault(name, row)
+    return summary
+
+
 def with_junk(torch, gen, table, lengths, n_pool, page=PAGE):
     """The table with every entry past each row's pages replaced by junk,
     inside and outside [0, P): a write-through table's entries past the
@@ -1360,9 +1515,9 @@ def paged_engine_phase(phase, engine, requests, kernels, n_layers, eng_mod, matm
 
 def contiguous_batch_phase(torch, eng_mod, tfm, ca, kernels, GenerationRequest, smi):
     """``generate_batch`` without ``paged_kv`` (one contiguous batch cache)
-    at int8 weights: the 17 ``batch_requests`` rows over a bf16 cache,
-    then the first CONTIG_INT8_ROWS over an int8 cache (at SOLO_CUT_LAYERS
-    layers). Each runs in one
+    at int8 weights and SOLO_CUT_LAYERS layers: the 17 ``batch_requests``
+    rows over a bf16 cache, then the first CONTIG_INT8_ROWS over an int8
+    cache. Each runs in one
     decode window whose every step is one B2 (B3) launch a layer; B1 runs
     once a layer per prefill forward; nothing else launches. Every greedy
     row is replayed teacher-forced (its tokens' logits within LOGIT_ATOL
@@ -1375,8 +1530,7 @@ def contiguous_batch_phase(torch, eng_mod, tfm, ca, kernels, GenerationRequest, 
     for kv, reqs in ((None, batch_requests(GenerationRequest)),
                      ("int8", batch_requests(GenerationRequest)[:CONTIG_INT8_ROWS])):
         phase = "engine_batch_contiguous" + ("_int8_kv" if kv else "")
-        engine = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv,
-                                     registry=cut_registry() if kv else None)
+        engine = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv, registry=cut_registry())
         engine.load_model(MODEL)
         n_layers = engine._models[MODEL].cfg.n_layers
         engine.generate_batch([dataclasses.replace(r, max_new_tokens=4) for r in reqs[:2] + reqs[-2:]])
@@ -1911,6 +2065,320 @@ def spec_entry_points_phase(engine, GenerationRequest, kernels):
     assert counts["cuda_paged_decode_attention_parts"] == counts["cuda_decode_attention"] == 0, counts
     emit({"phase": "spec_entry_points_launches", "counts": counts})
     return counts
+
+
+def stepped_rounds(session, live_before):
+    """The verify rounds a session's last slice ran: the largest delta of
+    a row's cumulative rounds (every live row rides every round)."""
+    host = session._spec_host
+    return max((host["rounds"][r] - live_before.get(r, 0) for r in live_before), default=0)
+
+
+def contiguous_spec_phase(phase, torch, engine, kernels, n_layers, eng_mod, GenerationRequest, verify):
+    """The contiguous speculating session (the engine's default layout, an
+    n-gram draft): the 8 n-gram rows open in a bucket of 16, one slice
+    runs, a greedy joiner of CONTIG_SPEC_JOINER_TOKENS context joins (one
+    prefill chunk), and the session drains. The verify ran ``verify`` (B7's
+    or B8's contiguous instantiation) once a layer a round, the prefill
+    kernel once a layer a prefill forward, and no other kernel; a
+    ``torch.profiler`` trace of one round of the warm-up session shows
+    n_layers device kernels of the instantiation (a trace of a round's
+    ~2,700 kernels can lose records on every retake: it is then reported
+    as lost, and the launch counts stand alone). Then the greedy share
+    against the same rows through the plain contiguous session."""
+    reqs = spec_requests(GenerationRequest)
+    joiner = GenerationRequest(MODEL, context_prompt(CONTIG_SPEC_JOINER_TOKENS), SPEC_NEW_TOKENS,
+                               stop_at_eos=False)
+    warm = engine.decode_open([dataclasses.replace(r, max_new_tokens=8) for r in reqs[:2] + reqs[-2:]])
+    assert warm.spec is not None and not warm.paged
+    try:
+        traced = [n for n, _ in device_kernels(torch, lambda: warm.step(1))]
+    except AssertionError:  # every retake lost a marker: no count is read
+        traced = []
+    ours = [n for n in traced if "mq_mma_kernel" in n and "ContiguousRows" in n]
+    assert not traced or len(ours) == n_layers, (len(ours), traced[:5])
+    drain(warm)
+    warm.close()
+    rounds, times = [0], {}
+
+    def step(session, n=None):
+        before = {r: session._spec_host["rounds"][r] for r, row in enumerate(session.rows) if row}
+        out = session.step(n)
+        rounds[0] += stepped_rounds(session, before)
+        return out
+
+    def run():
+        t0 = time.perf_counter()
+        session = engine.decode_open(reqs, reserve_rows=len(reqs) + 1)
+        assert session.spec is not None and not session.paged
+        engine._sync()
+        t1 = time.perf_counter()
+        out = list(step(session))
+        assert session.can_join(joiner)
+        session.join(joiner)
+        while session.active:
+            out.extend(step(session))
+        engine._sync()
+        times.update(open_s=t1 - t0, decode_window_s=time.perf_counter() - t1,
+                      cache_len=session.cache_len, b_bucket=session.b_bucket)
+        session.close()
+        return out
+
+    results, counts = count_launches(kernels, run)
+    order = {id(r): i for i, r in enumerate(reqs + [joiner])}
+    results.sort(key=lambda res: order[id(res.request)])
+    check_results(engine, reqs + [joiner], results)
+    spec = [r.extras["spec"] for r in results]
+    accepted = sum(x["accepted"] for x in spec)
+    drafted = sum(x["drafted"] for x in spec)
+    tokens = sum(r.generated_tokens for r in results)
+    forwards = prefill_forwards(eng_mod, [r.prompt_tokens for r in results[:-1]])
+    joiner_chunks = len(eng_mod._prompt_chunks(results[-1].prompt_tokens))
+    expected = {fn.__name__: 0 for fn in kernels}
+    expected[verify] = n_layers * rounds[0]
+    expected["cuda_prefill_attention"] = n_layers * (forwards + joiner_chunks)
+    for res, x in zip(results, spec):
+        emit({"phase": phase, "prompt_tokens": res.prompt_tokens,
+              "generated_tokens": res.generated_tokens, "sampled": res.request.temperature > 0,
+              "joiner": res.request is joiner, "rounds": x["rounds"], "accepted": x["accepted"],
+              "drafted": x["drafted"], "prefill_s": res.prefill_s, "decode_s": res.decode_s})
+    # the greedy share against the plain contiguous session over the same rows
+    speculative, engine.speculative = engine.speculative, {}
+    try:
+        plain_session = engine.decode_open(reqs + [joiner])
+        assert plain_session.spec is None
+        plain = {id(r.request): r for r in drain(plain_session)}
+        plain_session.close()
+    finally:
+        engine.speculative = speculative
+    same = total = 0
+    for res in results:
+        if res.request.temperature == 0:
+            p = plain[id(res.request)].tokens
+            total += len(res.tokens)
+            same += sum(a == c for a, c in zip(res.tokens, p))
+    emit({
+        "phase": phase + "_summary", "rows": len(results), "k": SPEC_K, "verify_rounds": rounds[0],
+        "accepted": accepted, "drafted": drafted, "acceptance": accepted / drafted,
+        "decode_tokens_per_round_all_rows": (tokens - len(results)) / rounds[0],
+        "generated_tokens": tokens, **times, "decode_tokens_per_s": tokens / times["decode_window_s"],
+        "greedy_tokens": total, "greedy_equal_to_plain_session": same, "greedy_share": same / total,
+        "profiled_round_device_kernels": len(traced) if traced else "trace lost",
+        "profiled_round_contiguous_instantiation_kernels": len(ours) if traced else "trace lost",
+        "device_kernel": ours[0] if ours else None,
+        "prefill_forwards": forwards, "joiner_chunks": joiner_chunks,
+        "counts": counts, "expected": expected,
+    })
+    assert counts == expected, (counts, expected)
+    return counts
+
+
+def adaptive_spec_phase(torch, eng_mod, kernels, GenerationRequest, smi):
+    """The adaptive policy on the card: full-width qwen2:1.5b at int8 with
+    a ``cross`` draft of the same vocabulary and no skill (WEAK_DRAFT: its
+    config at 2 layers, installed with random weights of another seed, so
+    that it shares not even the embedding), the 8 n-gram rows on the
+    contiguous layout under ``spec_accept_floor`` ADAPTIVE_FLOOR, slices
+    of ADAPTIVE_SLICE_STEPS. k halves 4 -> 2 -> 1 and the session falls
+    back to plain decode; every row's fully rejected rounds are billed as
+    the draft's wasted Joules. Reports k a slice, the slice of the
+    fallback, the session's tokens/s before and after it, and the billed
+    Joules."""
+    from importlib import import_module
+
+    cfg = import_module(f"{PKG}.models.config").get_model_config(MODEL)
+    engine = eng_mod.TorchEngine(quantize="int8", registry={MODEL: cfg},
+                                 speculative={MODEL: (f"cross:{WEAK_DRAFT}", SPEC_K)},
+                                 spec_accept_floor=ADAPTIVE_FLOOR)
+    engine.load_model(MODEL)
+    dcfg = dataclasses.replace(cfg, n_layers=WEAK_DRAFT_LAYERS)
+    gen = torch.Generator(device=engine.device).manual_seed(WEAK_DRAFT_SEED)
+    engine.install_model(WEAK_DRAFT, dcfg,
+                         import_module(f"{PKG}.models.transformer").init_params(dcfg, gen, engine.dtype))
+    reqs = spec_requests(GenerationRequest)
+    warm = engine.decode_open([dataclasses.replace(r, max_new_tokens=8) for r in reqs[:2]])
+    drain(warm)
+    warm.close()
+    engine._spec_source_health.clear()  # the warm-up's verdict is not this session's
+    slices = []
+
+    def run():
+        session = engine.decode_open(reqs, slice_steps=ADAPTIVE_SLICE_STEPS)
+        assert session.spec is not None and session.spec["source"] == "cross"
+        out = []
+        while session.active:
+            k = session.spec["k"] if session.spec is not None else None
+            made = sum(len(row.generated) for row in session.rows if row)
+            t0 = time.perf_counter()
+            retired = session.step()
+            engine._sync()
+            wall = time.perf_counter() - t0
+            made = sum(len(row.generated) for row in session.rows if row) - made
+            made += sum(len(r.tokens) for r in retired)  # stop_at_eos=False: all of them
+            slices.append({"k": k, "tokens": made, "wall_s": wall, "fallback": session.spec_fallback})
+            out.extend(retired)
+        session.close()
+        return out
+
+    results, counts = count_launches(kernels, run)
+    check_results(engine, reqs, sorted(results, key=lambda r: reqs.index(r.request)))
+    ks = [x["k"] for x in slices]
+    at = next(i for i, x in enumerate(slices) if x["fallback"])
+    before, after = slices[:at + 1], slices[at + 1:]
+    rate = lambda xs: sum(x["tokens"] for x in xs) / sum(x["wall_s"] for x in xs)  # noqa: E731
+    wasted = [r.extras["spec"].get("draft_wasted_J", 0.0) for r in results]
+    emit({
+        "phase": "engine_spec_adaptive", "draft": WEAK_DRAFT, "draft_layers": WEAK_DRAFT_LAYERS,
+        "floor": ADAPTIVE_FLOOR, "slice_steps": ADAPTIVE_SLICE_STEPS, "k_per_slice": ks,
+        # rows that retired before the fallback report fallback false
+        "fallback_after_slice": at, "rows_reporting_fallback": sum(r.extras["spec"]["fallback"] for r in results),
+        "tokens_per_s_speculating": rate(before), "tokens_per_s_after_fallback": rate(after) if after else None,
+        "rows_with_draft_waste": sum(1 for w in wasted if w), "draft_wasted_J": sum(wasted),
+        "rejected_rounds": sum(r.extras["spec"]["rejected"] for r in results),
+        "counts": counts, "nvidia_smi": smi,
+    })
+    assert ks[0] == SPEC_K and 1 in ks and ks[-1] is None, ks
+    assert after and any(r.extras["spec"]["fallback"] for r in results)
+    assert sum(wasted) > 0 and counts["cuda_contiguous_mq_attention"] > 0, (wasted, counts)
+    assert counts["cuda_decode_attention"] > 0, counts  # the draft's steps, then plain decode
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
+
+def spec_join_preempt_phase(torch, eng_mod, kernels, GenerationRequest, smi, paged):
+    """Joins into and preemption of a speculating session (n-gram draft,
+    qwen2:1.5b at int8 cut to SOLO_CUT_LAYERS layers), paged and
+    contiguous: an anchor and a victim open, one slice runs, a greedy and
+    a sampled joiner join; then the victim is preempted by swap, one
+    slice runs without it, and it resumes into its slot. Its
+    tokens, and every other row's, equal those of the same schedule run
+    without the preemption (rows are independent and the n-gram history
+    is rebuilt from the tokens)."""
+    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=paged, registry=cut_registry(),
+                                 speculative={MODEL: ("ngram", SPEC_K)})
+    engine.load_model(MODEL)
+    anchor = GenerationRequest(MODEL, STUDY_PROMPT.format(words=STUDY_WORDS[0]), SPEC_NEW_TOKENS,
+                               stop_at_eos=False)
+    # the joiners inherit the session's draft config: their prompt
+    # allocations fit the history buffer the opening rows sized
+    victim = GenerationRequest(MODEL, context_prompt(700), SPEC_NEW_TOKENS, stop_at_eos=False)
+    greedy = GenerationRequest(MODEL, context_prompt(300), 64, stop_at_eos=False)
+    sampled = GenerationRequest(MODEL, context_prompt(200), 64, temperature=0.7, seed=5,
+                                stop_at_eos=False)
+    info = {}
+
+    def schedule(preempt):
+        session = engine.decode_open([anchor, victim], reserve_rows=4)
+        assert session.spec is not None and session.paged == paged
+        out = list(session.step())
+        for joiner in (greedy, sampled):
+            assert session.can_join(joiner)
+            session.join(joiner)
+        if preempt:
+            slot = next(r for r, row in enumerate(session.rows) if row and row.request is victim)
+            pr = session.preempt(victim, policy="swap")
+            assert pr is not None
+            info.update(host_bytes=pr.host_bytes, generated_at_preempt=len(pr.generated))
+            out += session.step()
+            assert session.can_resume(pr)
+            assert session.join_commit(session.resume_begin(pr)) == slot
+        else:
+            out += session.step()
+        out += drain(session)
+        session.close()
+        return {r.request.prompt: r for r in out}
+
+    ref = schedule(False)
+    got, counts = count_launches(kernels, lambda: schedule(True))
+    equal = {name: got[r.prompt].tokens == ref[r.prompt].tokens
+             for name, r in (("anchor", anchor), ("victim", victim), ("greedy_joiner", greedy),
+                             ("sampled_joiner", sampled))}
+    phase = "engine_spec_join_preempt_" + ("paged" if paged else "contiguous")
+    emit({
+        "phase": phase, "layers": SOLO_CUT_LAYERS, "equal_to_the_uninterrupted_run": equal,
+        "rounds": {name: got[r.prompt].extras["spec"]["rounds"] for name, r in
+                   (("greedy_joiner", greedy), ("sampled_joiner", sampled), ("victim", victim))},
+        "generated_tokens": {name: got[r.prompt].generated_tokens for name, r in
+                             (("greedy_joiner", greedy), ("sampled_joiner", sampled))},
+        **info, "counts": counts, "nvidia_smi": smi,
+    })
+    assert all(equal.values()), equal
+    assert got[sampled.prompt].extras["spec"]["rounds"] >= 1
+    assert got[greedy.prompt].extras["spec"]["rounds"] >= 1
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
+
+def contiguous_spec_entry_points_phase(engine, GenerationRequest, kernels):
+    """``generate`` on a default (contiguous) engine with an n-gram
+    ``speculative=`` config: a greedy and a sampled request each drain a
+    one-row contiguous session whose verify runs B7's contiguous
+    instantiation, and no paged kernel runs."""
+    prompt = STUDY_PROMPT.format(words=STUDY_WORDS[0])
+    reqs = [GenerationRequest(MODEL, prompt, 64, stop_at_eos=False),
+            GenerationRequest(MODEL, prompt, 64, temperature=0.7, seed=3, stop_at_eos=False)]
+    results, counts = count_launches(kernels, lambda: [engine.generate(r) for r in reqs])
+    for req, res in zip(reqs, results):
+        x = res.extras["spec"]
+        assert x["source"] == "ngram" and x["rounds"] >= 1 and res.extras["stepped"], res.extras
+        emit({"phase": "spec_contiguous_entry_points", "sampled": req.temperature > 0,
+              "generated_tokens": res.generated_tokens, "rounds": x["rounds"],
+              "accepted": x["accepted"], "decode_s": res.decode_s, "tokens_per_s": res.tokens_per_s})
+    assert counts["cuda_contiguous_mq_attention"] > 0, counts
+    assert not any(n for name, n in counts.items() if "paged" in name), counts
+    emit({"phase": "spec_contiguous_entry_points_launches", "counts": counts})
+    return counts
+
+
+def serve_cli_speculative_contiguous_phase(torch, root, smi):
+    """``serve --backend torch --scheduler continuous --speculative
+    qwen2:1.5b=ngram:4 --spec-accept-floor CLI_SPEC_FLOOR`` without
+    ``--paged-kv`` (the contiguous session's verify), in a subprocess that
+    owns the card: CLI_SPEC_REQUESTS concurrent requests through the
+    port's HTTP client, each answered in full, the server's
+    ``llm_spec_rounds_total`` moved, then SIGTERM and exit 0."""
+    import gc
+    import re
+    import tempfile
+    import threading
+    import urllib.request
+    from importlib import import_module
+
+    client_mod = import_module(f"{PKG}.serve.client")
+    GenerationRequest = import_module(f"{PKG}.engine.backend").GenerationRequest
+    gc.collect()
+    torch.cuda.empty_cache()
+    reqs = [GenerationRequest(MODEL, context_prompt(n), 64, stop_at_eos=False)
+            for n in (100, 200, 300, 400, 500, 600, 700, 800)[:CLI_SPEC_REQUESTS]]
+    results = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_spec_") as out:
+        log_path = Path(out) / "serve.log"
+        args = ["--models", MODEL, "--quantize", "int8", "--scheduler", "continuous",
+                "--speculative", f"{MODEL}=ngram:{SPEC_K}", "--spec-accept-floor", str(CLI_SPEC_FLOOR)]
+        with ServeProcess(root, log_path, args) as server:
+            client = client_mod.RemoteHTTPBackend(server.url)
+            threads = [threading.Thread(target=lambda i=i: results.__setitem__(i, client.generate(reqs[i])))
+                       for i in range(len(reqs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            with urllib.request.urlopen(f"{server.url}/metrics", timeout=30) as resp:
+                metrics = resp.read().decode()
+        log_tail = log_path.read_text()[-2000:]
+    rounds = sum(float(x) for x in re.findall(r"^llm_spec_rounds_total\{[^}]*\} (\S+)$", metrics, re.M))
+    assert server.rc == 0, (server.rc, log_tail)
+    assert sorted(results) == list(range(len(reqs))), (sorted(results), log_tail)
+    for i, res in results.items():
+        assert 1 <= res.generated_tokens == len(res.tokens) <= reqs[i].max_new_tokens, (i, res)
+    assert rounds > 0, metrics[-2000:]
+    emit({"phase": "serve_cli_speculative_contiguous", "args": args, "server_start_s": server.started,
+          "requests": len(reqs), "generated_tokens": [r.generated_tokens for _, r in sorted(results.items())],
+          "spec_rounds_served": rounds, "server_exit_code": server.rc,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
 
 STUDY_IDLE_S = 2.0  # NVML power read before the study's first run
@@ -3332,6 +3800,7 @@ def main() -> int:
     summary.update(paged_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector, control))
     summary.update(paged_mq_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector, kernels,
                                          control))
+    summary.update(contiguous_mq_kernel_phase(torch, cpa, plain, timer, qmod.quantize_kv_vector))
     stacked_layer_kernel_phase(torch, cpa, timer, qmod.quantize_kv_vector)
     summary.update(int4_kernel_phase(torch, cq, qplain, qmod, timer, control))
     summary.update(paged_decode_kernel_phase(torch, cpa, ca, plain, timer, control))
@@ -3392,7 +3861,8 @@ def main() -> int:
         ("engine_paged_int4", "int4", None, int4_batch_requests, "cuda_int4_matmul"),
     )
     for phase, weights, kv, make_requests, matmul in paged_phases:
-        engine = eng_mod.TorchEngine(quantize=weights, paged_kv=True, kv_quantize=kv)
+        engine = eng_mod.TorchEngine(quantize=weights, paged_kv=True, kv_quantize=kv,
+                                     registry=cut_registry() if kv else None)
         engine.load_model(MODEL)
         n_layers = engine._models[MODEL].cfg.n_layers
         add(paged_engine_phase(phase, engine, make_requests(backend.GenerationRequest),
@@ -3413,6 +3883,7 @@ def main() -> int:
     for phase, kv, verify in (("engine_spec_ngram_bf16_kv", None, mq_names[0]),
                               ("engine_spec_ngram_int8_kv", "int8", mq_names[1])):
         engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, kv_quantize=kv,
+                                     registry=cut_registry() if kv else None,
                                      speculative={MODEL: ("ngram", SPEC_K)})
         engine.load_model(MODEL)
         n_layers = engine._models[MODEL].cfg.n_layers
@@ -3447,6 +3918,26 @@ def main() -> int:
     add(counts)
     del engine
     torch.cuda.empty_cache()
+    # The contiguous session's verify (the engine's default layout): B7/B8's
+    # bodies over contiguous rows, bf16 and int8 caches, a joiner mid-flight;
+    # then generate's routing there, the adaptive policy, and joins into
+    # and preemption of a speculating session on both layouts.
+    contig_names = ("cuda_contiguous_mq_attention", "cuda_contiguous_mq_attention_int8")
+    for phase, kv, verify in (("engine_spec_contiguous_bf16_kv", None, contig_names[0]),
+                              ("engine_spec_contiguous_int8_kv", "int8", contig_names[1])):
+        engine = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv,
+                                     speculative={MODEL: ("ngram", SPEC_K)})
+        engine.load_model(MODEL)
+        n_layers = engine._models[MODEL].cfg.n_layers
+        add(contiguous_spec_phase(phase, torch, engine, all_kernels, n_layers, eng_mod,
+                                  backend.GenerationRequest, verify))
+        if kv is None:
+            add(contiguous_spec_entry_points_phase(engine, backend.GenerationRequest, all_kernels))
+        del engine
+        torch.cuda.empty_cache()
+    add(adaptive_spec_phase(torch, eng_mod, all_kernels, backend.GenerationRequest, smi))
+    for paged in (True, False):
+        add(spec_join_preempt_phase(torch, eng_mod, all_kernels, backend.GenerationRequest, smi, paged))
     add(serve_phases(torch, eng_mod, all_kernels, smi, tfm, ca))
     torch.cuda.empty_cache()
     add(contiguous_batch_phase(torch, eng_mod, tfm, ca, all_kernels, backend.GenerationRequest, smi))
@@ -3460,6 +3951,7 @@ def main() -> int:
     add(study_cli_phase(torch, eng_mod, all_kernels, smi))
     serve_cli_capstone_phase(torch, root, smi)
     serve_cli_contiguous_phase(torch, root, smi)
+    serve_cli_speculative_contiguous_phase(torch, root, smi)
     torch.cuda.empty_cache()
     add(prefix_cache_phase(torch, eng_mod, all_kernels, backend.GenerationRequest, smi))
     add(hf_checkpoint_phases(torch, root, eng_mod, all_kernels, backend.GenerationRequest, smi))

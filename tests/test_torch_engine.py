@@ -125,14 +125,12 @@ def test_engine_without_device_needs_cuda(monkeypatch):
         TorchEngine()
 
 
-UNPORTED_ITEMS = {"spec_accept_floor": 13, "prefix_share": 12}
+UNPORTED_ITEMS = {"prefix_share": 12}
 
 
 @pytest.mark.parametrize(
     "option",
     [
-        # speculation is ported; its adaptive fallback (a positive floor) is not
-        dict(speculative={"tiny": ("ngram", 3)}, spec_accept_floor=0.5),
         dict(prefix_share=True),
     ],
     ids=lambda o: next(iter(o)),
@@ -150,18 +148,22 @@ def test_unported_options_raise(option):
         dict(prefix_cache_bytes=1 << 20),
         dict(hf_checkpoints={"tiny": "/nonexistent"}),
         dict(weight_cache_dir="weights"),
+        # the adaptive draft length and fallback of a speculating session
+        dict(speculative={"tiny": ("ngram", 3)}, spec_accept_floor=0.5),
     ],
     ids=lambda o: next(iter(o)),
 )
 def test_ported_engine_options_are_taken(option, tmp_path):
-    """The prefix cache, HF checkpoints and the weight cache build an
-    engine (a checkpoint directory is read only when its model loads)."""
+    """The prefix cache, HF checkpoints, the weight cache and a positive
+    ``spec_accept_floor`` build an engine (a checkpoint directory is read
+    only when its model loads)."""
     if "weight_cache_dir" in option:
         option = dict(weight_cache_dir=str(tmp_path / "weights"))
     eng = TorchEngine(device="cpu", **option)
     assert eng._prefix_enabled == ("prefix_cache_size" in option or "prefix_cache_bytes" in option)
     assert eng.hf_checkpoints == option.get("hf_checkpoints", {})
     assert (eng._weight_cache is not None) == ("weight_cache_dir" in option)
+    assert eng.spec_accept_floor == option.get("spec_accept_floor", 0.0)
 
 
 @pytest.mark.parametrize("mode", ["int4", "int4-i32"])

@@ -273,10 +273,23 @@ def test_contiguous_session_equals_jax_and_solo(np_params, kv):
 
 
 def test_a_contiguous_session_that_would_speculate_raises_naming_item_13(np_params):
+    """Item 13 is ported: a contiguous session that would speculate now
+    does (the JAX package's legacy verify), its rows carrying the rounds'
+    margin, with the solo tokens; it pins its model while open and
+    leaks no pin after its close."""
     eng = _port_engine(np_params, speculative={"tiny": ("ngram", 3)})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        eng.decode_open([GenerationRequest("tiny", "abc abc abc", 8)])
-    assert eng.live_sessions("tiny") == 0  # a failed open leaks no pin
+    req = GenerationRequest("tiny", "abc abc abc", 8, stop_at_eos=False)
+    sess = eng.decode_open([req])
+    assert sess.spec is not None and not sess.paged
+    assert sess.spec_margin == 128 and sess.cache_len == 32 + 16 + 128  # prompt, budget, margin buckets
+    assert eng.live_sessions("tiny") == 1
+    results = []
+    while sess.active:
+        results.extend(sess.step())
+    assert results[0].tokens == eng.generate(req).tokens
+    assert results[0].extras["spec"]["source"] == "ngram"
+    sess.close()
+    assert eng.live_sessions("tiny") == 0
 
 
 # -- model residency ------------------------------------------------------------

@@ -806,3 +806,48 @@ def test_one_decode_tile_body_serves_every_single_query_decode():
         counts[lib] = sum("decode_tile_kernel" in n for n in names)
     # B2/B3: 2 q dtypes × (cache, int8) × 4 head dims; B6: 2 × 4; B4/B5: 2 × 2 × 4
     assert counts == {"attention": 16, "paged_attention": 8 + 16}, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 64), (12, 2, 128), (14, 2, 96), (8, 1, 256), (32, 2, 128)])
+def test_contiguous_mq_kernels_on_the_card(hq, hkv, d):
+    """B7/B8's bodies over contiguous rows (the contiguous session's
+    verify) against their plain version: bf16 caches with a bf16 q (the
+    tensor-core kernel, one launch per sub-group up to Q 64, within the
+    bf16 tolerance: the output rounds to bf16 once more), f32 with an f32
+    q (the CUDA-core kernel, chunks of 9, to 1e-4), and int8 codes with
+    either q; Q 1 to 13 over four rows whose candidates sit at the cache's
+    start, middle and end. Two calls give the same bits; the tickets stay
+    zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+
+    rng = np.random.default_rng(21)
+    b, t = 4, 320
+    sub_groups = -(-(hq // hkv) // 8)
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        k = _to_torch(_normal(rng, (b, hkv, t, d)), dtype).cuda()
+        v = _to_torch(_normal(rng, (b, hkv, t, d)), dtype).cuda()
+        kq, ks = quantize_kv_vector(k)
+        vq, vs = quantize_kv_vector(v)
+        caches = {
+            "plain": (cpa.cuda_contiguous_mq_attention, port_attn.contiguous_mq_attention_reference, (k, v)),
+            "int8": (cpa.cuda_contiguous_mq_attention_int8, port_attn.contiguous_mq_attention_int8_reference,
+                     (kq, ks, vq, vs)),
+        }
+        for q_len in range(1, 14):
+            q = _to_torch(_normal(rng, (b, q_len, hq, d)), dtype).cuda()
+            offsets = torch.tensor([0, 1, 150, t - q_len], dtype=torch.int32, device="cuda")
+            lengths = offsets + q_len
+            chunks = 1 if dtype == torch.bfloat16 else -(-q_len // 9)
+            for fn, ref_fn, cache in caches.values():
+                before = fn.launches
+                got = fn(q, *cache, lengths, offsets)
+                assert fn.launches == before + chunks * sub_groups, (q_len, fn.launches - before)
+                assert got.shape == q.shape and got.dtype == dtype
+                want = ref_fn(q, *cache, lengths, offsets)
+                torch.testing.assert_close(got.float(), want.float(), **tol)
+                assert torch.equal(got, fn(q, *cache, lengths, offsets)), q_len
+    torch.cuda.synchronize()
+    assert not torch.any(_kernels._TICKETS[q.device]).item()

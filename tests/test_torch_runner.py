@@ -79,6 +79,21 @@ def load_cases(namespace: dict, file_name: str, renames=(), leave_out=(), only=N
     return [n for n in cases if n not in leave_out]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module, restored after it: a tiny
+    model's ops are too small to split, and parallel test workers that
+    each spin a pool of every core oversubscribe the host (a module of
+    speculative sessions ran over 10× slower under six workers). Import it
+    into a test module to apply it there."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODULES = {f: port_module(f) for f in FILES}
 CASES = [
     (f, name) for f, mod in MODULES.items() for name in sorted(vars(mod))

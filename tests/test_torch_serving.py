@@ -12,11 +12,12 @@ resumed, on the bf16 and the int8 pool. Greedy rows' tokens must equal
 the JAX session's and each request's solo ``generate``, exactly; the
 sampled row's must equal the port's own solo ``generate`` (the two
 frameworks' random streams differ). The refusals are pinned on both
-sides, and the one the port adds: a speculating session takes no
-joiners and preempts nothing (ROADMAP item 13). From the command line,
-``serve`` batches without ``--paged-kv`` (the JAX package's defaults)
-and with ``--preempt-policy recompute``, and refuses what is not ported
-with exit 2 naming its ROADMAP item.
+sides, and a speculating session's own: it takes no joiner that may not
+speculate and preempts nothing by recompute on the pool. From the
+command line, ``serve`` batches without ``--paged-kv`` (the JAX
+package's defaults) and with ``--preempt-policy recompute``, speculates
+without ``--paged-kv`` and takes ``--spec-accept-floor``, and refuses
+what is not ported with exit 2 naming its ROADMAP item.
 """
 
 import collections
@@ -186,19 +187,34 @@ def test_admission_refusals_equal_jax(np_params, monkeypatch):
 
 
 def test_a_speculating_session_takes_no_joiners_and_preempts_nothing(np_params):
-    eng = _port_engine(np_params, speculative={"tiny": ("ngram", 3)})
+    """What a speculating session over the pool still refuses: a joiner
+    that may not speculate (a repeat penalty, a temperature above
+    ``spec_temperature_max``) and a ``recompute`` preemption (the pool's
+    policy is swap). An eligible joiner joins, and a row preempted by swap
+    resumes; every row keeps its solo tokens."""
+    eng = _port_engine(np_params, speculative={"tiny": ("ngram", 3)}, spec_temperature_max=1.0)
     anchor = GenerationRequest("tiny", "abc abc abc abc", 24, stop_at_eos=False)
     sess = eng.decode_open([anchor], reserve_rows=4)
     assert sess.spec is not None
     assert sess.free_slots == 3
-    assert not sess.can_join(GenerationRequest("tiny", "a joiner", 8))
-    with pytest.raises(RuntimeError, match="cannot join"):
-        sess.join_begin(GenerationRequest("tiny", "a joiner", 8))
-    assert sess.preempt(anchor, policy="swap") is None
-    results = []
+    for refused in (GenerationRequest("tiny", "a joiner", 8, repeat_penalty=1.2),
+                    GenerationRequest("tiny", "a joiner", 8, temperature=1.5, seed=3)):
+        assert not sess.can_join(refused)
+        with pytest.raises(RuntimeError, match="cannot join"):
+            sess.join_begin(refused)
+    assert sess.preempt(anchor, policy="recompute") is None
+    joiner = GenerationRequest("tiny", "a joiner", 8, stop_at_eos=False)
+    assert sess.can_join(joiner)
+    sess.join(joiner)
+    results = list(sess.step(2))
+    pr = sess.preempt(anchor, policy="swap")
+    assert pr is not None and sess.can_resume(pr)
+    sess.join_commit(sess.resume_begin(pr))
     while sess.active:
         results.extend(sess.step())
-    assert results[0].tokens == eng.generate(anchor).tokens
+    by_prompt = {r.request.prompt: r.tokens for r in results}
+    assert by_prompt[anchor.prompt] == eng.generate(anchor).tokens
+    assert by_prompt[joiner.prompt] == eng.generate(joiner).tokens
     sess.close()
 
 
@@ -407,10 +423,6 @@ REFUSED = {
     "--prefix-index-entries": ("ROADMAP item 12", ["--backend", "fake", "--prefix-index-entries", "8"]),
     "--role decode": ("ROADMAP item 12", ["--backend", "fake", "--role", "decode"]),
     "--prefix-store-hbm-bytes": ("ROADMAP item 12", ["--prefix-store-hbm-bytes", "1000000"]),
-    "--spec-accept-floor": ("ROADMAP item 13", ["--spec-accept-floor", "0.3"]),
-    "--speculative without --paged-kv": (
-        "ROADMAP item 13", ["--scheduler", "continuous", "--speculative", "ngram:4"]
-    ),
 }
 
 
@@ -450,6 +462,38 @@ def test_serve_starts_batched_without_paged_kv(option, monkeypatch):
                                     "window": "BatchScheduler"}[kind]
     if kind == "continuous":
         assert sched.preempt_policy == policy
+
+
+# Options that ROADMAP item 13 once refused, now taken: the engine's
+# keyword arguments and the scheduler's floor, for each.
+SPECULATION_TAKEN = {
+    "--spec-accept-floor": (
+        ["--paged-kv", "--speculative", "ngram:4", "--spec-accept-floor", "0.3"],
+        {"paged_kv": True, "spec_accept_floor": 0.3}, 0.3,
+    ),
+    "--speculative without --paged-kv": (
+        ["--speculative", "ngram:4"], {"paged_kv": False}, None,
+    ),
+}
+
+
+@pytest.mark.parametrize("option", list(SPECULATION_TAKEN))
+def test_serve_takes_the_speculation_options(option, monkeypatch):
+    """``serve --backend torch`` builds its engine with the option (the
+    engine here a recorder standing in for the card's) and the continuous
+    scheduler forwards the floor to every session it opens."""
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.engine import torch_engine
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.engine.fake import FakeBackend
+
+    args, engine_kw, floor = SPECULATION_TAKEN[option]
+    built, served = [], []
+    monkeypatch.setattr(torch_engine, "TorchEngine", lambda **kw: built.append(kw) or FakeBackend())
+    monkeypatch.setattr(cli, "_serve_until_signalled", served.append)
+    assert cli.main(["serve", "--port", "0", "--scheduler", "continuous", *args]) == 0
+    (kw,) = built
+    assert kw["speculative"] == {"default": ("ngram", 4)}
+    assert {key: kw.get(key, False) for key in engine_kw} == engine_kw
+    assert served[0]._scheduler.spec_accept_floor == floor
 
 
 @pytest.mark.parametrize("option", ["continuous", "window"])

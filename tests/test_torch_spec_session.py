@@ -323,7 +323,8 @@ def test_generate_routes_eligible_requests_to_speculation(model):
 def test_session_plain_branch_debug_state_and_guards(model):
     """Without a spec config a session decodes on the batch path's steps
     (the same tokens as ``generate_batch``); a draft whose vocabulary
-    differs serves the session plain; the unported options raise."""
+    differs serves the session plain; a floor is taken (one of 1 or more
+    raises), and a contiguous engine serves an n-gram request."""
     reqs = [GenerationRequest("tiny", p, n, stop_at_eos=False) for p, n in ROWS]
     eng = _port_engine(model)
     sess = eng.decode_open(reqs, reserve_rows=8, slice_steps=3)
@@ -359,13 +360,19 @@ def test_session_plain_branch_debug_state_and_guards(model):
     assert sess.spec is None and any("vocab" in str(w.message) for w in caught)
     sess.close()
 
-    with pytest.raises(NotImplementedError, match="spec_accept_floor"):
-        _port_engine(model, spec_accept_floor=0.5)
-    with pytest.raises(NotImplementedError, match="spec_accept_floor"):
-        spec_eng.decode_open(reqs[:1], spec_accept_floor=0.5)
+    # the options item 13 once refused: an engine's floor and a session's
+    # override of it, and an n-gram request on the contiguous layout
+    assert _port_engine(model, spec_accept_floor=0.5).spec_accept_floor == 0.5
+    sess = spec_eng.decode_open(reqs[:1], spec_accept_floor=0.5)
+    assert sess.spec["floor"] == 0.5 and sess.debug_state()["spec"]["accept_floor"] == 0.5
+    sess.close()
+    with pytest.raises(ValueError, match="spec_accept_floor"):
+        _port_engine(model, spec_accept_floor=1.0)
     contiguous = TorchEngine(
         registry={"tiny": tcfg}, dtype=torch.float32, device="cpu", speculative={"tiny": ("ngram", 3)}
     )
-    with pytest.raises(NotImplementedError, match="paged_kv"):
-        contiguous.generate_speculative(reqs[0], k=3, source="ngram")
+    res = contiguous.generate_speculative(reqs[0], k=3, source="ngram")
+    assert res.extras["spec"]["source"] == "ngram" and res.extras["stepped"]
+    assert res.tokens == contiguous._generate_plain(
+        GenerationRequest("tiny", reqs[0].prompt, reqs[0].max_new_tokens, stop_at_eos=False)).tokens
 
