@@ -27,6 +27,211 @@ from ..obs.detect import observe_retired_tokens, observe_slice_tokens
 from ..obs.metrics import enabled as _obs_enabled
 from .backend import GenerationBackend, GenerationRequest, GenerationResult
 
+# Fake "page" granularity for the shared-prefix simulation: small enough
+# that smoke-test prompts span several pages (1 byte ≈ 1 prompt token).
+FAKE_PREFIX_PAGE = 16
+# simulated device bytes of one fake page — keeps the fake store's
+# byte-budget arithmetic proportional to a real pool's
+FAKE_PAGE_BYTES = 1024
+
+
+class _FakePrefixStore:
+    """The hermetic twin of engine/radix_store.py::RadixPrefixStore,
+    BACKEND-owned (it outlives every `_FakeStepSession`), so the CI
+    smoke can assert CROSS-SESSION hits, budget-pressure spills and
+    hit-time restores with no accelerator. Entries are flat published
+    prompt byte-streams with a tier each; the llm_prefix_store_*
+    families move with the same semantics as the real store's."""
+
+    def __init__(self, hbm_bytes=None, host_bytes=None) -> None:
+        self.hbm_bytes = hbm_bytes
+        self.host_bytes = host_bytes
+        self._entries: List[dict] = []  # {prompt, pages, tier, stamp}
+        self._clock = 0
+
+    def _gauges(self) -> None:
+        try:
+            from .radix_store import (
+                STORE_HBM_PAGES_G,
+                STORE_HOST_BYTES_G,
+                STORE_NODES_G,
+            )
+
+            STORE_NODES_G.set(len(self._entries))
+            STORE_HBM_PAGES_G.set(self.hbm_pages_held)
+            STORE_HOST_BYTES_G.set(self.host_bytes_held)
+        except Exception:  # noqa: BLE001 — telemetry only
+            pass
+
+    @property
+    def hbm_pages_held(self) -> int:
+        return sum(
+            e["pages"] for e in self._entries if e["tier"] == "hbm"
+        )
+
+    @property
+    def host_bytes_held(self) -> int:
+        return sum(
+            e["pages"] * FAKE_PAGE_BYTES
+            for e in self._entries
+            if e["tier"] == "host"
+        )
+
+    def debug_state(self) -> dict:
+        tiers = {"hbm": 0, "host": 0, "seed": 0}
+        for e in self._entries:
+            tiers[e["tier"]] += 1
+        return {
+            "scope": "engine",
+            "nodes": len(self._entries),
+            "depth": max((len(e["prompt"]) for e in self._entries), default=0),
+            "tiers": tiers,
+            "hbm_pages": self.hbm_pages_held,
+            "hbm_bytes": self.hbm_pages_held * FAKE_PAGE_BYTES,
+            "hbm_budget_bytes": self.hbm_bytes,
+            "host_bytes": self.host_bytes_held,
+            "host_budget_bytes": self.host_bytes,
+        }
+
+    def digest(self, max_prefixes=None, max_hashes=None) -> dict:
+        """The hermetic twin of ``RadixPrefixStore.digest``: published prompt byte-streams re-tokenized
+        with the ByteTokenizer convention (BOS + byte+3 — the id stream
+        a real byte-tokenizer engine would have published), chunk-hashed
+        at the fake page width. Same bounded shape, same hash, so the
+        router's probe-side estimator needs no fake-awareness."""
+        from .radix_store import (
+            DIGEST_MAX_HASHES,
+            DIGEST_MAX_PREFIXES,
+            prefix_chunk_hashes,
+        )
+
+        max_prefixes = (
+            DIGEST_MAX_PREFIXES if max_prefixes is None else max_prefixes
+        )
+        max_hashes = DIGEST_MAX_HASHES if max_hashes is None else max_hashes
+        ranked = sorted(
+            self._entries, key=lambda e: -e["stamp"]
+        )[: max(0, int(max_prefixes))]
+        entries = []
+        for e in ranked:
+            ids = [1] + [b + 3 for b in e["prompt"]]
+            entries.append(
+                {
+                    "model": None,  # the fake serves any model name
+                    "page": FAKE_PREFIX_PAGE,
+                    "h": prefix_chunk_hashes(
+                        ids, FAKE_PREFIX_PAGE, max_hashes
+                    ),
+                    "tokens": len(ids),
+                }
+            )
+        return {"v": 1, "entries": entries}
+
+    def peek(self, prompt: bytes) -> int:
+        """Read-only longest-common-prefix lookup — no publication, no
+        stamp refresh, no counters. The chunked-join prefill planner's
+        view: mapped prefix tokens are NOT re-prefilled (the real
+        session maps the shared pages and computes only the divergent
+        tail), while the probe/publication accounting stays at admit
+        time where an aborted join never reaches."""
+        best = 0
+        for e in self._entries:
+            pub = e["prompt"]
+            n = min(len(pub), len(prompt), len(prompt) - 1)
+            common = 0
+            while common < n and pub[common] == prompt[common]:
+                common += 1
+            best = max(best, common)
+        return best
+
+    def probe(self, prompt: bytes) -> dict:
+        """Longest published common prefix (cross-session), restoring a
+        spilled entry on hit; then publish ``prompt`` and enforce the
+        byte budgets — one call models the whole join-time store
+        interaction."""
+        from .radix_store import STORE_HITS_C, STORE_RESTORES_C
+
+        best, best_entry = 0, None
+        for e in self._entries:
+            pub = e["prompt"]
+            n = min(len(pub), len(prompt), len(prompt) - 1)
+            common = 0
+            while common < n and pub[common] == prompt[common]:
+                common += 1
+            if common > best:
+                best, best_entry = common, e
+        out = {"hit_tokens": best, "shared_pages": 0}
+        if best > 0:
+            self._clock += 1
+            best_entry["stamp"] = self._clock
+            if best_entry["tier"] == "host":
+                # hit on a spilled entry: swap it back in
+                best_entry["tier"] = "hbm"
+                STORE_RESTORES_C.inc()
+                self._emit(
+                    "prefix_restore", pages=best_entry["pages"],
+                    tokens=len(best_entry["prompt"]),
+                )
+            out["shared_pages"] = min(
+                best // FAKE_PREFIX_PAGE, best_entry["pages"]
+            )
+            STORE_HITS_C.inc()
+        covered = any(
+            len(e["prompt"]) >= len(prompt)
+            and e["prompt"][: len(prompt)] == prompt
+            for e in self._entries
+        )
+        if not covered:
+            self._clock += 1
+            self._entries.append(
+                {
+                    "prompt": bytes(prompt),
+                    "pages": len(prompt) // FAKE_PREFIX_PAGE,
+                    "tier": "hbm",
+                    "stamp": self._clock,
+                }
+            )
+        self._enforce()
+        self._gauges()
+        return out
+
+    def _emit(self, type_: str, **attrs) -> None:
+        try:
+            from ..obs.flight import FLIGHT, trace_attrs
+            from ..obs.metrics import enabled as _enabled
+            from ..obs.trace import TRACER
+
+            if _enabled():
+                FLIGHT.emit(type_, **trace_attrs(TRACER.current()), **attrs)
+        except Exception:  # noqa: BLE001 — telemetry only
+            pass
+
+    def _enforce(self) -> None:
+        from .radix_store import STORE_EVICTIONS_C, STORE_SPILLS_C
+
+        if self.hbm_bytes is not None:
+            while self.hbm_pages_held * FAKE_PAGE_BYTES > self.hbm_bytes:
+                hbm = [e for e in self._entries if e["tier"] == "hbm"]
+                if not hbm:
+                    break
+                victim = min(hbm, key=lambda e: e["stamp"])
+                victim["tier"] = "host"
+                STORE_SPILLS_C.inc()
+                self._emit(
+                    "prefix_spill", pages=victim["pages"],
+                    tokens=len(victim["prompt"]),
+                )
+        if self.host_bytes is not None:
+            while self.host_bytes_held > self.host_bytes:
+                host = [e for e in self._entries if e["tier"] == "host"]
+                if not host:
+                    break
+                victim = min(host, key=lambda e: e["stamp"])
+                self._entries.remove(victim)
+                STORE_EVICTIONS_C.inc()
+                self._emit("prefix_evict", tokens=len(victim["prompt"]))
+
+
 class _FakeStepSession:
     """Stepped-decode session over precomputed deterministic streams."""
 
@@ -89,6 +294,11 @@ class _FakeStepSession:
         # stream_deltas() drain
         self.stream_tokens = False
         self._stream_tail: List[tuple] = []
+        # shared-prefix simulation (backend.prefix_share — the fake twin
+        # of engine/radix_store.py): publications and hits go through the
+        # BACKEND-owned store (it survives this session), while the live
+        # shared-page gauge stays session accounting
+        self._shared_live = 0
         # preemption swap ledger — the fake twin of the stepped
         # session's, so smoke/CI can assert the swap gauges
         # rise and return exactly to zero with no accelerator
@@ -105,6 +315,37 @@ class _FakeStepSession:
         self._attr_dropped = {"wall": 0.0, "J": 0.0, "J_low": 0.0, "J_high": 0.0}
         for r in requests:
             self._admit(r)
+
+    def _prefix_probe(self, request: GenerationRequest) -> dict:
+        """Longest published common prefix for this prompt (from the
+        BACKEND store — cross-session), page-floored — mirrors
+        SteppedDecodeSession._prefix_hit + observe_hit."""
+        out = {"hit_tokens": 0, "shared_pages": 0}
+        store = self.backend.prefix_store
+        if store is None:
+            return out
+        hit = store.probe(request.prompt.encode("utf-8"))
+        if hit["hit_tokens"] > 0:
+            from .prefix import PREFIX_SHARED_PAGES_G, observe_hit
+
+            out = hit
+            observe_hit(
+                hit["hit_tokens"],
+                hit["shared_pages"],
+                cow=hit["hit_tokens"]
+                > hit["shared_pages"] * FAKE_PREFIX_PAGE,
+            )
+            self._shared_live += hit["shared_pages"]
+            PREFIX_SHARED_PAGES_G.set(self._shared_live)
+        return out
+
+    def _prefix_release(self, row: dict) -> None:
+        shared = row.get("shared_pages", 0)
+        if shared:
+            from .prefix import PREFIX_SHARED_PAGES_G
+
+            self._shared_live = max(0, self._shared_live - shared)
+            PREFIX_SHARED_PAGES_G.set(self._shared_live)
 
     def _admit(self, request: GenerationRequest) -> None:
         self._rows.append(
@@ -126,6 +367,7 @@ class _FakeStepSession:
                 "attr_J": 0.0,
                 "attr_slices": 0,
                 "attr_wasted_J": 0.0,
+                **self._prefix_probe(request),
             }
         )
 
@@ -162,10 +404,16 @@ class _FakeStepSession:
             raise RuntimeError("request cannot join this session")
         chunk = max(1, int(chunk_tokens or 256))
         n_prompt = len(request.prompt.encode("utf-8")) + 1
+        # Store-mapped prefix tokens skip prefill (the real chunked join
+        # computes only the divergent tail) — a read-only peek, so hit and
+        # publication accounting still happens exactly once, at admit
+        # (which an aborted join never reaches).
+        store = self.backend.prefix_store
+        mapped = store.peek(request.prompt.encode("utf-8")) if store is not None else 0
         pending = {
             "request": request,
             "chunk_tokens": chunk,
-            "tokens_left": max(1, n_prompt),
+            "tokens_left": max(1, n_prompt - mapped),
             "attr_wall": 0.0,
         }
         self._pending.append(pending)
@@ -235,6 +483,7 @@ class _FakeStepSession:
         for row in self._rows:
             if row["request"] is request:
                 self._rows.remove(row)
+                self._prefix_release(row)
                 tokens_resident = row["result"].prompt_tokens + min(
                     row["cursor"], row["result"].generated_tokens
                 )
@@ -651,6 +900,7 @@ class _FakeStepSession:
                     self._stream_tail.append(
                         (res.request, tail, res.text[row["streamed"] :])
                     )
+                self._prefix_release(row)
                 retired.append(res)
             else:
                 keep.append(row)
@@ -686,6 +936,7 @@ class _FakeStepSession:
         the partial stream is discarded."""
         for row in self._rows:
             if row["request"] is request:
+                self._prefix_release(row)
                 self._rows.remove(row)
                 self._attr_drop(row)
                 return True
@@ -694,6 +945,7 @@ class _FakeStepSession:
     def close(self) -> None:
         self.closed = True
         for row in self._rows:
+            self._prefix_release(row)
             self._attr_drop(row)
         for pending in self._pending:
             self._attr_drop(pending)
@@ -730,11 +982,6 @@ class FakeBackend(GenerationBackend):
         model_bytes: "Optional[Dict[str, int]]" = None,
         clock=None,
     ):
-        if prefix_share or prefix_store_hbm_bytes or prefix_store_host_bytes:
-            raise NotImplementedError(
-                "FakeBackend: the shared-prefix store is not ported yet "
-                "(ROADMAP item 12)"
-            )
         self.tokens_per_s = tokens_per_s
         self.simulate_delay = simulate_delay
         # Deterministic clock hook: tests hand ONE hand-driven
@@ -773,6 +1020,19 @@ class FakeBackend(GenerationBackend):
         # session row capacity: small values simulate a saturated pool
         # so scheduler preemption is testable hermetically
         self.max_rows = int(max_rows)
+        # the fake twin of TorchEngine(prefix_share=True) and its engine
+        # store: the BACKEND owns a _FakePrefixStore that survives
+        # sessions, so cross-session hits, budget spills and restores are
+        # testable with no accelerator
+        self.prefix_share = prefix_share
+        self.prefix_store = (
+            _FakePrefixStore(
+                hbm_bytes=prefix_store_hbm_bytes,
+                host_bytes=prefix_store_host_bytes,
+            )
+            if prefix_share
+            else None
+        )
         # the fake twin of TorchEngine(speculative=..., spec_accept_floor=):
         # spec_k > 0 makes stepped sessions speak the draft-verify
         # protocol with CONFIGURABLE synthetic acceptance — llm_spec_*

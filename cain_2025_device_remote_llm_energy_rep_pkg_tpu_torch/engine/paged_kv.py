@@ -30,6 +30,7 @@ import torch
 
 from ..models.quantize import quantize_kv_vector
 from ..obs.metrics import REGISTRY, enabled as _obs_enabled, observe_swap
+from .prefix import PREFIX_SHARED_PAGES_G
 
 DEFAULT_PAGE_SIZE = 128
 
@@ -56,12 +57,6 @@ _POOL_EXHAUSTED = REGISTRY.counter(
     "llm_paged_pool_exhausted_total",
     "Allocations refused because the pool had too few free pages",
 )
-# The JAX package declares this gauge with its prefix store.
-_POOL_SHARED = REGISTRY.gauge(
-    "llm_prefix_shared_pages",
-    "Pages of the most recent page pool currently held by MORE than one "
-    "reader (prefix-store reference + sharer rows)",
-)
 
 
 def _fragmentation(free: List[int]) -> float:
@@ -85,7 +80,7 @@ def _publish_pool_gauges(free: List[int], total: int, shared: int = 0) -> None:
     _POOL_FREE.set(len(free))
     _POOL_OCCUPANCY.set(1.0 - len(free) / total if total else 0.0)
     _POOL_FRAGMENTATION.set(_fragmentation(free))
-    _POOL_SHARED.set(shared)
+    PREFIX_SHARED_PAGES_G.set(shared)
 
 
 def _codes(leaf: PoolLeaf) -> torch.Tensor:
@@ -263,6 +258,15 @@ class PagePool:
                     f"page {p} is shared (refcount {refs}) — shared CoW "
                     "prefix pages are released, never swapped"
                 )
+        blob = self.copy_out(pages)
+        self.free(pages)
+        observe_swap("out", blob.nbytes)
+        return blob
+
+    def copy_out(self, pages: List[int]) -> PageSwapBlob:
+        """Copy ``pages``' payload to host memory as a swap blob, leaving
+        the pages and their references as they are (a shared page keeps
+        its other readers)."""
         idx = torch.as_tensor(pages, dtype=torch.int64, device=_codes(self.k).device)
 
         def gather(pool):  # [L, N, ...] -> scatter_pages' [N, L, ...] chunks
@@ -271,12 +275,10 @@ class PagePool:
             return pool[:, idx].transpose(0, 1).cpu()
 
         k_chunks, v_chunks = gather(self.k), gather(self.v)
-        nbytes = _nbytes(k_chunks) + _nbytes(v_chunks)
-        self.free(pages)
-        observe_swap("out", nbytes)
         return PageSwapBlob(
             k_chunks=k_chunks, v_chunks=v_chunks, n_pages=len(pages),
-            page_size=self.page_size, quantized=self.quantized, nbytes=nbytes,
+            page_size=self.page_size, quantized=self.quantized,
+            nbytes=_nbytes(k_chunks) + _nbytes(v_chunks),
         )
 
     def swap_in(self, blob: PageSwapBlob, pages: Optional[List[int]] = None) -> List[int]:

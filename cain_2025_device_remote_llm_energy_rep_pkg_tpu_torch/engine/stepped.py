@@ -66,11 +66,28 @@ Energy: each slice's wall time and modelled Joules
 share, each join chunk's over its joiner; a retiring row closes its
 account out into ``extras["energy_model"]`` (``window="slice"``).
 
-Not ported yet: the prefix store and dp shards.
+With the engine's shared prefix store (``TorchEngine(prefix_share=True)``,
+``engine/radix_store.py``), every prompt the session prefills is
+published at open and at join commit: its full pool pages (the store
+takes one reference each, so they outlive the row) and its
+pre-quantization K/V as a host seed slab. A joiner whose prompt shares a
+published prefix seeds its private prefill cache with the slab, prefills
+only the divergent tail (through B1 at that offset), and on the paged
+pool maps the store's pages read-only into its table row (spilled nodes
+are restored first); the positions past the last shared page boundary
+are copied into the joiner's own page (copy on write). On the
+contiguous cache reuse is seed-only. A preempted sharer copies its
+shared pages to host memory with its own and releases them; the resume
+re-shares them while the store still holds them, else swaps the copy
+in. The store outlives the session: close detaches the pool, spilling
+the store's pages to host memory.
+
+Not ported yet: dp shards.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 import warnings
 from typing import Any, Dict, List, Optional
@@ -86,6 +103,7 @@ from ..ops.cuda_attention import cuda_prefill_attention
 from ..ops.sampling import sample_token
 from .backend import GenerationRequest, GenerationResult
 from .paged_kv import PagePool, _paginate, quantize_chunks, scatter_pages
+from .prefix import observe_hit
 from .speculative import DraftSpec
 from .torch_engine import (
     _PREFILL_H,
@@ -128,6 +146,23 @@ def _set_row(cache, r: int, row) -> None:
             _set_row(cache[key], r, row[key])
         return
     cache[:, r].copy_(row[:, 0])
+
+
+def _state_kv(st):
+    """One prefill state's private K/V [L, 1, Hkv, T, D]: a solo row's
+    own cache, or a grouped row's slice of its group's."""
+    if "group" in st:
+        g, gi = st["group"], st["gi"]
+        return g["k"][:, gi : gi + 1], g["v"][:, gi : gi + 1]
+    return st["k_cache"], st["v_cache"]
+
+
+def _cut_lanes(leaf, d: int):
+    """A K/V leaf (or an int8 ``{"q","s"}`` pair) with its head dim cut to
+    ``d``: the JAX package's stacked pools pad it with zero lanes."""
+    if isinstance(leaf, dict):
+        return {k: (v[..., :d] if k == "q" else v) for k, v in leaf.items()}
+    return leaf[..., :d]
 
 
 def _row_slab(cache, r: int):
@@ -189,13 +224,17 @@ class _PendingJoin(_Account):
     chunks re-prefill the prompt and the generated tokens. In a
     speculating session with a model draft, ``draft_chunks`` prefill the
     draft's private cache (``draft_k``/``draft_v``, ``spec_draft_len``
-    positions) over ``draft_ids`` after the target's chunks."""
+    positions) over ``draft_ids`` after the target's chunks. With a
+    shared-prefix hit, ``hit_tokens`` leading positions are seeded from
+    the prefix store (the chunks cover only the tail) and the first
+    ``shared_pages`` entries of ``pages`` are read-only mappings of the
+    store's pool pages (one reference each)."""
 
     __slots__ = (
         "request", "slot", "ids", "chunks", "next_chunk",
         "k_cache", "v_cache", "presence", "logits", "pages", "prefill_s", "t0",
         "resume", "resume_mode", "draft_k", "draft_v", "draft_chunks", "draft_next",
-        "draft_ids",
+        "draft_ids", "hit_tokens", "shared_pages",
     )
 
     def __init__(self, request, slot, ids, chunks, k_cache, v_cache, presence, pages):
@@ -219,6 +258,8 @@ class _PendingJoin(_Account):
         self.draft_chunks: List[tuple] = []
         self.draft_next = 0
         self.draft_ids: List[int] = ids
+        self.hit_tokens = 0
+        self.shared_pages = 0
 
     @property
     def total_chunks(self) -> int:
@@ -234,13 +275,19 @@ class PreemptedRow(_Account):
     and its side-cache columns, ``side_blob``; a contiguous row's cache
     slab, ``cache_blob``; a speculating row's draft-cache row and draft
     offset, ``draft_blob`` and ``draft_offset``), and its attribution
-    account."""
+    account. A paged row's leading pages that it shares with the prefix
+    store are copied into ``blob`` with its own and released; their ids
+    (``shared_pages``) let the resume re-share them while the store still
+    holds them, and swap the whole blob in when it does not. ``use_top_p``, ``use_rp``, ``paged`` and
+    ``stacked`` describe the row and its layout for a migrate bundle
+    (``serve/migrate.py``)."""
 
     __slots__ = (
         "request", "ids", "generated", "prompt_len", "offsets", "remaining",
         "gen_state", "presence", "streamed", "t0", "t1", "policy", "blob",
         "side_blob", "cache_blob", "draft_blob", "draft_offset", "n_own_pages",
         "shared_pages", "host_bytes", "discharged", "attr_slices", "attr_wasted_J",
+        "use_top_p", "use_rp", "paged", "stacked",
     )
 
     def __init__(self, request, ids, generated, prompt_len) -> None:
@@ -263,9 +310,13 @@ class PreemptedRow(_Account):
         self.draft_blob = None
         self.draft_offset = 0
         self.n_own_pages = 0
-        # always empty (no prefix store shares pages here); kept because
-        # the JAX package's preempt contract, and its tests, read it
+        # leading page ids shared with the prefix store, released at
+        # preempt and re-shared at resume while the store holds them
         self.shared_pages: List[int] = []
+        self.use_top_p = False
+        self.use_rp = False
+        self.paged = False
+        self.stacked = False
         self.host_bytes = 0
         self.discharged = False  # swap ledger already settled
         self.attr_slices = 0
@@ -323,6 +374,10 @@ class SteppedDecodeSession:
         # (cancel, abort, close) — live + retired + dropped == totals
         self._attr_totals = dict.fromkeys(_ATTR_KEYS, 0.0)
         self._attr_dropped = dict.fromkeys(_ATTR_KEYS, 0.0)
+        # the engine's shared prefix store (None when prefix_share is
+        # off: every store path below guards on it). The session consults
+        # and publishes to it but never owns it.
+        self.store = getattr(engine, "prefix_store", None)
 
     # -- construction ---------------------------------------------------------
     @classmethod
@@ -506,8 +561,13 @@ class SteppedDecodeSession:
                 f"max_seq_len {self.cfg.max_seq_len}"
             )
         states = eng._batch_states(requests, all_ids, cache_len=self.cache_len)
+        published = [_state_kv(st) for st in states] if self.store is not None else []
         self.carry.update(eng._contiguous_state(requests, all_ids, states, self.b_bucket))
         self._seat_opening_rows(requests, states, [[] for _ in states])
+        if self.store is not None:
+            self.store.attach_pool(self.model, None)
+            for ids, (k, v) in zip(all_ids, published):
+                self._publish_prefix(ids, k, v, None)
 
     def _seat_opening_rows(self, requests, states, row_pages) -> None:
         self.use_top_p = any(r.top_p < 1.0 for r in requests)
@@ -549,6 +609,7 @@ class SteppedDecodeSession:
             row_pages.append(pages)
             table[r][:need] = pages
         asm = eng._assemble_rows(states, self.b_bucket, eng._row_field_specs(states))
+        published = [_state_kv(st) for st in states] if self.store is not None else []
         eng._scatter_prompts(self.pool, states, asm.pop("_groups"), row_pages, self.parking)
         carry = eng._rows_state(requests, all_ids, states, asm, self.b_bucket)
         carry["pool"] = self.pool
@@ -557,12 +618,56 @@ class SteppedDecodeSession:
         carry["side_k"], carry["side_v"] = eng._side_caches(cfg, self.b_bucket, side_cols)
         self.carry.update(carry)
         self._seat_opening_rows(requests, states, row_pages)
+        if self.store is not None:
+            self.store.attach_pool(self.model, self.pool)
+            for ids, (k, v), pages in zip(all_ids, published, row_pages):
+                self._publish_prefix(ids, k, v, pages)
 
     def _pages_needed(self, s_real: int, max_new_tokens: int = 0) -> int:
         """Pages one row pins: its prompt's only, whatever its budget
         (generated tokens, and a spec row's verify candidates, live in the
         side caches)."""
         return -(-max(s_real, 1) // self.page_size)
+
+    # -- the shared prefix store ------------------------------------------------
+    def _publish_prefix(self, ids, k_cache, v_cache, pages) -> None:
+        """Publish a completed prompt prefill to the engine's store: its
+        full pool pages (no layout writes a full prompt page again:
+        generated tokens land in the side caches, or at positions past the
+        prompt) and the seed slab a later sharer's tail prefill attends
+        through. ``k_cache`` is the row's pre-quantization private cache
+        [L, 1, Hkv, S, D]. The store takes one reference per adopted page,
+        a joiner's divergent-tail pages included, so they outlive the
+        row."""
+        s_real = len(ids)
+        if self.store is None or s_real < 2:
+            return
+        k_seed = k_cache[:, 0, :, :s_real]
+        v_seed = v_cache[:, 0, :, :s_real]
+        if self.paged:
+            full = s_real // self.page_size
+            self.store.publish(self.model, ids, k_seed, v_seed, pages[:full], self.pool)
+        else:
+            self.store.publish(self.model, ids, k_seed, v_seed, None, None)
+
+    def _prefix_hit(self, ids: "List[int]") -> Optional[Dict[str, Any]]:
+        """The longest usable store hit for ``ids`` as a plan, ``{"common",
+        "hbm_lead", "restore_nodes", "restore_pages", "full_pages"}``, with
+        ``common`` capped so that at least one tail token is computed (the
+        prefill gives the first token's logits), or None. Side-effect
+        free: ``can_join`` probes it, ``join_begin`` carries it out."""
+        if self.store is None:
+            return None
+        common = min(self.store.match_len(self.model, ids), len(ids) - 1)
+        if common <= 0:
+            return None
+        plan = {
+            "common": common, "hbm_lead": [], "restore_nodes": [],
+            "restore_pages": 0, "full_pages": 0,
+        }
+        if self.paged:
+            plan.update(self.store.page_plan(self.model, ids, common))
+        return plan
 
     @property
     def stacked(self) -> bool:
@@ -631,6 +736,9 @@ class SteppedDecodeSession:
             state["pool"] = self.pool.debug_state()
         else:
             state["cache_len"] = self.cache_len
+        if self.store is not None:
+            # the engine store's snapshot: what a joiner could hit now
+            state["prefix_store"] = self.store.debug_state()
         if self.spec_info is not None:
             recent_acc = sum(a for a, _ in self._spec_recent)
             recent_drafted = sum(d for _, d in self._spec_recent)
@@ -1083,11 +1191,18 @@ class SteppedDecodeSession:
         generator advances once a round, so the resumed stream is the
         uninterrupted one.
 
+        A paged row's leading pages shared with the prefix store (and
+        other readers) are copied out with its own and released:
+        ``pr.shared_pages`` keeps their ids, which the resume re-shares
+        while the store still holds them, and swaps in from the copy
+        when it does not.
+
         Returns None, and leaves the row running, when it cannot: no live
         row, an unknown policy, ``recompute`` on a paged session (it
         keeps the generated K/V in its side caches; swap is its policy,
-        as in the JAX package) or a re-prefill that would not fit the
-        session's cache (or the draft's)."""
+        as in the JAX package), a paged row with shared pages past its
+        leading run, or a re-prefill that would not fit the session's
+        cache (or the draft's)."""
         if self.closed or policy not in ("swap", "recompute"):
             return None
         r = next((i for i, row in enumerate(self.rows)
@@ -1101,8 +1216,17 @@ class SteppedDecodeSession:
             if self.paged or need > self.cache_len or (draft_row and need > self.spec_draft_len):
                 return None
         c = self.carry
+        shared_n = 0
+        if self.paged:
+            while shared_n < len(row.pages) and self.pool.refcount(row.pages[shared_n]) > 1:
+                shared_n += 1
+            if any(self.pool.refcount(p) > 1 for p in row.pages[shared_n:]):
+                return None  # shared pages past the leading run: keep it running
         pr = PreemptedRow(request, self.tok.encode(request.prompt), row.generated, row.s_real)
         pr.policy = policy
+        pr.use_top_p = request.top_p < 1.0
+        pr.use_rp = request.repeat_penalty != 1.0
+        pr.paged = pr.stacked = self.paged
         pr.offsets = int(c["offsets"][r])
         pr.remaining = int(c["remaining"][r])
         gen = c["gens"][r]
@@ -1122,15 +1246,22 @@ class SteppedDecodeSession:
                 _leaf_map(lambda t: t[:, r].to("cpu", copy=True), c[key])
                 for key in ("side_k", "side_v")
             )
-            pr.n_own_pages = len(row.pages)
-            # the row is untouched until its pages have left: a copy or a
-            # swap_out that raises leaves it live and decoding as it was
-            pr.blob = self.pool.swap_out(row.pages)
+            pr.n_own_pages = len(row.pages) - shared_n
+            pr.shared_pages = row.pages[:shared_n]
+            # the row is untouched until its pages have left: a copy that
+            # raises leaves it live and decoding as it was. The shared run
+            # is copied too, so that the row resumes (and exports) after
+            # the store has spilled or dropped it.
+            if row.pages:
+                pr.blob = self.pool.copy_out(row.pages)
+                self.pool.free(row.pages)  # this row's references only
+                observe_swap("out", pr.blob.nbytes)
+                host_bytes += pr.blob.nbytes
             row.pages = []
             c["table"][r] = self.parking
             side_bytes = sum(_leaf_nbytes(x) for x in pr.side_blob)
             observe_swap("out", side_bytes)
-            host_bytes += side_bytes + pr.blob.nbytes
+            host_bytes += side_bytes
         elif policy == "swap":
             pr.cache_blob = (_row_slab(c["k_cache"], r), _row_slab(c["v_cache"], r))
             cache_bytes = sum(_leaf_nbytes(x) for x in pr.cache_blob)
@@ -1175,7 +1306,7 @@ class SteppedDecodeSession:
             ):
                 return None
         if self.paged:
-            return None if pr.blob is None else {"mode": "swap", "need": pr.n_own_pages}
+            return self._paged_resume_plan(pr)
         if pr.cache_blob is not None:
             k = pr.cache_blob[0]
             width = (k["q"] if isinstance(k, dict) else k).shape[3]
@@ -1183,6 +1314,97 @@ class SteppedDecodeSession:
         if _prompt_alloc(self.s_prefilled(pr)) > self.cache_len:
             return None
         return {"mode": "recompute", "need": 0}
+
+    def _paged_resume_plan(self, pr: PreemptedRow) -> Optional[Dict[str, Any]]:
+        """A swap resume into this paged session: the blob and side-cache
+        columns must fit its layout (a row from another session, or from
+        another replica's bundle, may not), and a row that released pages
+        shared with the prefix store re-shares them while they are still
+        the store's leading device-resident run for its prompt. Once the
+        store has moved on, the stacked layout cannot re-prefill (the
+        generated K/V live in the side caches), so the whole prompt comes
+        back from the blob, which holds the shared run too."""
+        if pr.policy != "swap" or not self._adopt_layout(pr) or pr.side_blob is None:
+            return None
+        if pr.blob is None and pr.n_own_pages:
+            return None
+        if pr.blob is not None and (
+            pr.blob.page_size != self.page_size or pr.blob.quantized != self.pool.quantized
+        ):
+            return None
+        if len(pr.shared_pages) + pr.n_own_pages > self.jmax:
+            return None
+        # the generated positions so far and to come fit the side columns
+        if pr.offsets - pr.prompt_len + pr.remaining > self.g_bucket:
+            return None
+        for key, blob in zip(("side_k", "side_v"), pr.side_blob):
+            want = self.carry[key]
+            if isinstance(want, dict) != isinstance(blob, dict):
+                return None
+            pairs = zip(want.values(), blob.values()) if isinstance(want, dict) else [(want, blob)]
+            for w, b in pairs:
+                if b.dtype != w.dtype or b.dim() != w.dim() - 1:
+                    return None
+                if b.shape[:2] != w.shape[:1] + w.shape[2:3] or b.shape[3:] != w.shape[4:]:
+                    return None
+                if b.shape[2] > w.shape[3]:
+                    return None
+        if not pr.shared_pages:
+            return {"mode": "swap", "need": pr.n_own_pages, "reshare": False}
+        if self.store is not None:
+            held = self.store.hbm_run(self.model, pr.ids)[: len(pr.shared_pages)]
+            if held == list(pr.shared_pages) and all(self.pool.refcount(p) >= 1 for p in held):
+                return {"mode": "swap", "need": pr.n_own_pages, "reshare": True}
+        need = len(pr.shared_pages) + pr.n_own_pages
+        if pr.blob is None or pr.blob.n_pages != need:
+            return None
+        return {"mode": "swap", "need": need, "reshare": False}
+
+    def _adopt_layout(self, pr: PreemptedRow) -> bool:
+        """Bring a row imported from another engine's bundle to this
+        session's layout, on ``pr`` itself (once; a row of this layout is
+        left as it is). The JAX package's stacked pools pad the head dim
+        to 128 lanes: the padding (zeros) is cut. Its unstacked paged rows
+        keep the generated positions in their pages: the prompt's pages
+        stay the blob and the generated positions become side-cache
+        columns. False where no such mapping exists (a contiguous row's
+        cache slab: this is a paged session)."""
+        if pr.cache_blob is not None:
+            return False
+        d = self.cfg.d_head
+        if pr.blob is not None:
+            pr.blob.k_chunks = _cut_lanes(pr.blob.k_chunks, d)
+            pr.blob.v_chunks = _cut_lanes(pr.blob.v_chunks, d)
+        if pr.side_blob is not None:
+            pr.side_blob = tuple(_cut_lanes(x, d) for x in pr.side_blob)
+        if pr.stacked or pr.blob is None:
+            return True
+        # unstacked: pages hold the prompt and the generated positions
+        page = self.page_size
+        n_prompt = -(-max(pr.prompt_len, 1) // page)
+        if pr.blob.n_pages < n_prompt or pr.offsets > pr.blob.n_pages * page:
+            return False
+
+        def positions(chunks):  # [N, L, Hkv, page, ...] -> [L, Hkv, N·page, ...]
+            n, l, h = chunks.shape[:3]
+            flat = chunks.permute(1, 2, 0, *range(3, chunks.dim()))
+            return flat.reshape(l, h, n * page, *chunks.shape[4:])
+
+        side = []
+        for chunks in (pr.blob.k_chunks, pr.blob.v_chunks):
+            side.append(_leaf_map(
+                lambda c: positions(c)[:, :, pr.prompt_len : pr.offsets].contiguous(), chunks
+            ))
+        prompt_k = _leaf_map(lambda c: c[:n_prompt].contiguous(), pr.blob.k_chunks)
+        prompt_v = _leaf_map(lambda c: c[:n_prompt].contiguous(), pr.blob.v_chunks)
+        pr.blob = dataclasses.replace(
+            pr.blob, k_chunks=prompt_k, v_chunks=prompt_v, n_pages=n_prompt,
+            nbytes=_leaf_nbytes(prompt_k) + _leaf_nbytes(prompt_v),
+        )
+        pr.side_blob = tuple(side)
+        pr.n_own_pages = n_prompt
+        pr.stacked = True
+        return True
 
     def _draft_blob(self, pr: PreemptedRow):
         """``pr``'s draft-cache slab when this session can seat it (the
@@ -1214,8 +1436,16 @@ class SteppedDecodeSession:
         plan = self._resume_plan(pr)
         r = self._free_slot()
         if plan["mode"] == "swap":
-            pages = self.pool.alloc(pr.n_own_pages) if self.paged else []
+            pages = []
+            shared = pr.shared_pages if plan.get("reshare") else []
+            if self.paged:
+                own = self.pool.alloc(plan["need"])
+                if shared:
+                    self.pool.share(shared)
+                    self.store.touch(self.model, pr.ids)
+                pages = list(shared) + own
             pending = _PendingJoin(pr.request, r, pr.ids, [], None, None, pr.presence, pages)
+            pending.shared_pages = len(shared)
         else:
             ids = pr.ids + pr.generated[:-1]
             chunks = self._join_chunks(ids, chunk_tokens)
@@ -1266,13 +1496,29 @@ class SteppedDecodeSession:
         if pending.resume_mode == "recompute":
             self._install_contiguous_row(r, pending)
         elif self.paged:
-            self.pool.swap_in(pr.blob, pages=pending.pages)
+            if pr.blob is not None:
+                # a re-shared run is on the device already: the rest
+                skip = pending.shared_pages
+                blob = pr.blob
+                if skip:
+                    k, v = (_leaf_map(lambda t: t[skip:], x) for x in (blob.k_chunks, blob.v_chunks))
+                    blob = dataclasses.replace(
+                        blob, k_chunks=k, v_chunks=v, n_pages=blob.n_pages - skip,
+                        nbytes=_leaf_nbytes(k) + _leaf_nbytes(v),
+                    )
+                self.pool.swap_in(blob, pages=pending.pages[skip:])
             for key, blob in zip(("side_k", "side_v"), pr.side_blob):
+                # a row from a narrower session (or an unstacked layout)
+                # fills the first columns; the rest start clean
+                def put(side, part):
+                    side[:, r].zero_()
+                    side[:, r, :, : part.shape[2]] = part.to(eng.device)
+
                 if isinstance(blob, dict):
-                    for part in blob:
-                        c[key][part][:, r] = blob[part].to(eng.device)
+                    for name in blob:
+                        put(c[key][name], blob[name])
                 else:
-                    c[key][:, r] = blob.to(eng.device)
+                    put(c[key], blob)
             observe_swap("in", sum(_leaf_nbytes(x) for x in pr.side_blob))
             self._set_table_row(r, pending.pages)
         else:
@@ -1325,12 +1571,17 @@ class SteppedDecodeSession:
         may speculate (``_spec_eligible``) and whose prompt allocation,
         generation bucket and margin fit the draft cache
         (``spec_draft_len``): it inherits the session's draft config.
+        With a prefix-store hit, pages mapped from the store are billed
+        once, to the store: only the divergent tail's pages (and the pages
+        that restoring spilled nodes takes) come off the free list; where
+        a restore would not fit, only the resident leading run counts.
         Side-effect free: the scheduler probes before paying a prefill."""
         if self.closed or self.free_slots == 0:
             return False
         if request.model != self.model or request.top_k != self.top_k:
             return False
-        n_ids = len(self.tok.encode(request.prompt))
+        ids = self.tok.encode(request.prompt)
+        n_ids = len(ids)
         if n_ids == 0 or n_ids + request.max_new_tokens > self.cfg.max_seq_len:
             return False
         need = _prompt_alloc(n_ids) + _bucket(request.max_new_tokens, GEN_BUCKETS)
@@ -1344,7 +1595,15 @@ class SteppedDecodeSession:
         if request.max_new_tokens - 1 > self.g_bucket:
             return False
         need = self._pages_needed(n_ids)
-        return need <= self.jmax and need <= self.pool.free_pages
+        if need > self.jmax:
+            return False
+        hit = self._prefix_hit(ids)
+        free = self.pool.free_pages
+        if hit is None:
+            return need <= free
+        if need - hit["full_pages"] + hit["restore_pages"] <= free:
+            return True
+        return need - len(hit["hbm_lead"]) <= free  # the resident run only
 
     def join(self, request: GenerationRequest) -> int:
         """Admit ``request`` into a free slot, its whole prompt prefilled
@@ -1387,25 +1646,88 @@ class SteppedDecodeSession:
         the prompt into chunks (:meth:`_join_chunks`); in a speculating
         session with a model draft, also the draft's private cache and
         its chunks over the prompt. No device work yet: each
-        :meth:`join_step` runs one chunk."""
+        :meth:`join_step` runs one chunk.
+
+        A prefix-store hit seeds the private cache's first ``common``
+        positions from the store's slab and chunks only the tail, at
+        absolute offsets; on the paged pool spilled nodes on the path are
+        restored (where the free list holds them) and the store's resident
+        leading pages are mapped read-only into the row. A speculating
+        session's draft prefills over the whole prompt."""
         if not self.can_join(request):
             raise RuntimeError("request cannot join this session")
         r = self._free_slot()
         eng = self.engine
         ids = self.tok.encode(request.prompt)
-        chunks = self._join_chunks(ids, chunk_tokens)
+        hit = self._prefix_hit(ids)
+        seed = None
+        if hit is not None:
+            # the slab first: a path that raced an eviction joins cold
+            seed = self.store.seed(self.model, ids, hit["common"])
+            if seed is None:
+                hit = None
+        common = hit["common"] if hit is not None else 0
+        chunk = _floor_bucket(int(chunk_tokens or JOIN_PREFILL_CHUNK_TOKENS), PROMPT_BUCKETS)
+
+        def tail_chunks(at: int, width: Optional[int]) -> "List[tuple]":
+            return [(at + s0, b) for s0, b in _prompt_chunks(len(ids) - at, width)]
+
+        if common:
+            chunks = tail_chunks(common, chunk)
+            if not self.paged and chunks[-1][0] + chunks[-1][1] > self.cache_len:
+                # the bucket rounding overshot the row cache: the standard
+                # chunks, then less of the hit until the tail's end fits
+                chunks = tail_chunks(common, None)
+                while common > 0 and chunks[-1][0] + chunks[-1][1] > self.cache_len:
+                    common -= 1
+                    chunks = tail_chunks(common, None)
+        if not common:  # no hit, or none left after the overshoot
+            hit = None
+            chunks = self._join_chunks(ids, chunk_tokens)
+        shared = 0
         if self.paged:
             cache_len = chunks[-1][0] + chunks[-1][1]
-            pages = self.pool.alloc(self._pages_needed(len(ids)))
+            need = self._pages_needed(len(ids))
+            shared_ids: List[int] = []
+            if hit is not None and common // self.page_size:
+                # spilled nodes on the path come back into fresh store
+                # pages first, where the free list holds them (the pool is
+                # written in place: the carry holds the same tensors)
+                if hit["restore_nodes"] and (
+                    need - hit["full_pages"] + hit["restore_pages"] <= self.pool.free_pages
+                ):
+                    self.store.restore(self.model, ids, common)
+                shared_ids = self.store.page_plan(self.model, ids, common)["hbm_lead"]
+            shared = len(shared_ids)
+            pages = self.pool.alloc(need - shared)
+            if shared:
+                # read-only mappings: one reference each, recycled when
+                # the last reader (row or store node) lets go
+                self.pool.share(shared_ids)
+                pages = list(shared_ids) + pages
         else:
             cache_len, pages = self.cache_len, []
         k_cache, v_cache = eng._models[self.model].init_cache(1, cache_len, dtype=eng.dtype)
+        if hit is not None:
+            # the store's exact pre-quantization K/V: the tail prefill
+            # attends to the prefix at the solo path's precision
+            k_seed, v_seed = seed
+            k_cache[:, 0, :, :common].copy_(k_seed[:, :, :common])
+            v_cache[:, 0, :, :common].copy_(v_seed[:, :, :common])
+            self.store.record_hit(self.model, ids)
+            # positions past the last shared page boundary are copied into
+            # the joiner's own page at commit (paged), or live only in its
+            # private cache (contiguous)
+            observe_hit(common, shared, cow=self.paged and common > shared * self.page_size)
         presence = None
         if request.repeat_penalty != 1.0:
             presence = torch.zeros((1, self.cfg.vocab_size), dtype=torch.bool, device=eng.device)
             presence[0, torch.tensor(ids, device=eng.device)] = True
         pending = _PendingJoin(request, r, ids, chunks, k_cache, v_cache, presence, pages)
+        pending.hit_tokens = common
+        pending.shared_pages = shared
         if self.spec is not None and self.spec["draft"] is not None:
+            # a hit seeds the target only: the draft prefills the prompt
             self._begin_draft_prefill(pending, ids, chunk_tokens)
         self._pending[r] = pending
         return pending
@@ -1503,10 +1825,17 @@ class SteppedDecodeSession:
             pending.presence[0, first_id] = True
         r = pending.slot
         del self._pending[r]
+        k_private, v_private = pending.k_cache, pending.v_cache
         if self.paged:
             self._scatter_private_cache(r, pending)
         else:
             self._install_contiguous_row(r, pending)
+        if self.store is not None:
+            # publish at commit: the next sharer seeds from this prompt's
+            # slab (the seeded region is in the private cache too) and
+            # maps this joiner's own full tail pages
+            self._publish_prefix(pending.ids, k_private, v_private, pending.pages)
+        del k_private, v_private
         if self.spec is not None:
             # the joiner inherits the session's draft config: its draft
             # row (at offset len(prompt)) or its n-gram history (prompt +
@@ -1568,17 +1897,23 @@ class SteppedDecodeSession:
         _set_row(self.carry["v_cache"], r, v_row)
 
     def _scatter_private_cache(self, r: int, pending: _PendingJoin) -> None:
-        """The joiner's prompt K/V from its private cache into its pages
-        (quantized on the way into an int8 pool, as the opening rows'),
-        its table row, and its side-cache columns zeroed: the slot may
-        hold a retired row's generated K/V."""
+        """The joiner's prompt K/V from its private cache into its own
+        pages (quantized on the way into an int8 pool, as the opening
+        rows'), its table row, and its side-cache columns zeroed: the slot
+        may hold a retired row's generated K/V. The first
+        ``pending.shared_pages`` pages are the store's, read-only: the
+        scatter starts past them, so the seeded positions of a partial
+        boundary page land in the joiner's own page (copy on write)."""
         s_real = len(pending.ids)
-        ck = _paginate(pending.k_cache[:, 0], s_real, self.page_size)
-        cv = _paginate(pending.v_cache[:, 0], s_real, self.page_size)
+        base = min(pending.shared_pages, -(-s_real // self.page_size))
+        start = base * self.page_size
+        if start < s_real:
+            ck = _paginate(pending.k_cache[:, 0, :, start:], s_real - start, self.page_size)
+            cv = _paginate(pending.v_cache[:, 0, :, start:], s_real - start, self.page_size)
+            if self.pool.quantized:
+                ck, cv = quantize_chunks(ck, cv)
+            scatter_pages(self.pool.k, self.pool.v, pending.pages[base:], ck, cv)
         pending.k_cache = pending.v_cache = None
-        if self.pool.quantized:
-            ck, cv = quantize_chunks(ck, cv)
-        scatter_pages(self.pool.k, self.pool.v, pending.pages, ck, cv)
         self._set_table_row(r, pending.pages)
         for key in ("side_k", "side_v"):
             _leaf_map(lambda t: t[:, r].zero_(), self.carry[key])
@@ -1644,6 +1979,12 @@ class SteppedDecodeSession:
             if pending.pages:
                 self.pool.free(pending.pages)
                 pending.pages = []
+        if self.store is not None:
+            # last, with every row's reference freed: the store is now its
+            # pages' sole holder, so its resident nodes spill to host
+            # memory (the pool's free count is restored) and outlive the
+            # session
+            self.store.detach_pool(self.model, self.pool if self.paged else None)
         self._pending.clear()
         self._stream_tail.clear()
         self.rows = [None] * len(self.rows)

@@ -71,7 +71,14 @@ from random init, or from a local HF checkpoint (``hf_checkpoints``:
 converted and quantized on the CPU, then moved to the device), and with
 ``weight_cache_dir`` from the on-disk weight cache (``engine/checkpoint.py``).
 
-Not ported yet: the shared prefix store and CUDA graphs.
+With ``prefix_share=True`` the engine owns a persistent cross-session
+prefix store (``engine/radix_store.py``): stepped sessions publish every
+prompt they prefill, and a joiner whose prompt shares a published prefix
+maps its read-only pool pages (copy-on-write at a mid-page boundary) and
+prefills only the divergent tail; a contiguous session reuses the seed
+slab alone.
+
+Not ported yet: CUDA graphs.
 """
 
 from __future__ import annotations
@@ -107,6 +114,7 @@ from ..ops.cuda_paged_attention import (
 from ..ops.sampling import sample_token, sample_token_per_row
 from .backend import GenerationBackend, GenerationChunk, GenerationRequest, GenerationResult
 from .paged_kv import PagePool, _paginate, group_chunks, quantize_chunks, scatter_pages
+from .radix_store import RadixPrefixStore
 from .speculative import DraftSpec, build_spec_fn, build_spec_step_fn
 
 PROMPT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
@@ -383,8 +391,13 @@ class TorchEngine(GenerationBackend):
     one turns it on. ``hf_checkpoints`` maps a model to a local HF
     checkpoint directory to load its weights and tokenizer from;
     ``weight_cache_dir`` keeps each model's built params on disk, keyed by
-    config, dtype, source and quant mode. ``prefix_share`` (the shared
-    prefix store) is not ported.
+    config, dtype, source and quant mode. ``prefix_share`` builds the
+    engine's shared prefix store (``engine/radix_store.py``), capped at
+    ``prefix_index_entries`` nodes a model and by the byte budgets
+    ``prefix_store_hbm_bytes`` (device pages; over it, cold nodes spill to
+    host memory) and ``prefix_store_host_bytes`` (spilled pages and seed
+    slabs; over it, cold leaves are evicted); ``prefix_store_scope``
+    ``"session"`` drops a model's tree when its session closes.
     """
 
     def __init__(
@@ -405,14 +418,13 @@ class TorchEngine(GenerationBackend):
         prefix_cache_size: int = 0,
         prefix_cache_bytes: Optional[int] = None,
         prefix_share: bool = False,
+        prefix_index_entries: int = 16,
+        prefix_store_hbm_bytes: Optional[int] = None,
+        prefix_store_host_bytes: Optional[int] = None,
+        prefix_store_scope: str = "engine",
         hf_checkpoints: Optional[Dict[str, str]] = None,
         weight_cache_dir=None,
     ) -> None:
-        if prefix_share:
-            raise NotImplementedError(
-                "TorchEngine: prefix_share (the shared prefix store) is not ported yet "
-                "(ROADMAP item 12)"
-            )
         if not 0.0 <= float(spec_accept_floor) < 1.0:
             raise ValueError(f"spec_accept_floor must be in [0, 1), got {spec_accept_floor}")
         if prefix_cache_size < 0:
@@ -455,6 +467,28 @@ class TorchEngine(GenerationBackend):
         )
         self.paged_kv = bool(paged_kv)
         self.page_size = page_size
+        # The shared prefix store: engine-owned, so it outlives every
+        # stepped session (a joiner in a fresh session still hits what an
+        # earlier one published). Page sharing engages on the paged pool,
+        # seed-only reuse on the contiguous cache.
+        self.prefix_share = bool(prefix_share)
+        if prefix_index_entries < 1:
+            raise ValueError(f"prefix_index_entries must be >= 1, got {prefix_index_entries}")
+        self.prefix_index_entries = int(prefix_index_entries)
+        for knob, value in (
+            ("prefix_store_hbm_bytes", prefix_store_hbm_bytes),
+            ("prefix_store_host_bytes", prefix_store_host_bytes),
+        ):
+            if value is not None and int(value) < 0:
+                raise ValueError(f"{knob} must be >= 0, got {value}")
+        self.prefix_store: Optional[RadixPrefixStore] = None
+        if self.prefix_share:
+            self.prefix_store = RadixPrefixStore(
+                capacity=self.prefix_index_entries,
+                hbm_bytes=prefix_store_hbm_bytes,
+                host_bytes=prefix_store_host_bytes,
+                scope=prefix_store_scope,
+            )
         self.device = _resolve_device(device)
         if self.device.type == "cuda":
             # Full-precision float32 products in the plain code around the
@@ -2015,6 +2049,18 @@ class TorchEngine(GenerationBackend):
         cfg = self.registry[model] if model in self.registry else get_model_config(model)
         ids = self._tokenizer_for(model).encode(request.prompt)
         width = max(BATCH_BUCKETS)
+        if self.paged_kv and ids and self.prefix_share:
+            # Shared-prefix billing: a fleet anchored by this request
+            # shares the prompt's full pages, so the first row pays them
+            # and every later sharer only its divergent tail (the boundary
+            # page copied on write). The session's can_join / join_begin
+            # enforce the same rule exactly; this estimate only keeps the
+            # cap from under-admitting what the pool can hold.
+            need = -(-len(ids) // self.page_size)
+            shared = min((len(ids) - 1) // self.page_size, need - 1)
+            rows_pages = [need] + [need - shared] * (width - 1)
+            g_bucket = _bucket(request.max_new_tokens, GEN_BUCKETS)
+            return self._paged_rows_cap(cfg, rows_pages, g_bucket)
         return self._max_batch_rows(cfg, [request] * width, [ids] * width)
 
     def generate_batch(self, requests: "list[GenerationRequest]") -> "list[GenerationResult]":

@@ -15,8 +15,8 @@ the build of the port's kernels. ``serve`` runs the HTTP generation
 server over ``TorchEngine`` on the card (``--backend torch``, the
 default) or the fake backend; the options of the layers not ported yet
 (the JAX engines, tensor parallelism, the replica router and the
-multi-model fleet, the shared prefix store and migration) exit with
-code 2 naming their ROADMAP item, as ``serve-fleet`` does.
+multi-model fleet) exit with code 2 naming their ROADMAP item, as
+``serve-fleet`` does.
 """
 
 from __future__ import annotations
@@ -173,10 +173,18 @@ commands:
                        acceptance drops below F halves its draft length,
                        then falls back to plain decode at k 1; a source
                        that keeps failing is not armed for a while;
-                       default 0: never), --slo SPEC, --role mixed,
-                       --usage-ledger-dir D, --access-log, --no-telemetry,
-                       --prefix-cache N (the prompt-prefix KV cache, N
-                       entries a model; 4 when N is left out), --hf
+                       default 0: never), --slo SPEC, --role
+                       mixed|prefill|decode (a prefill server primes rows
+                       for x_prime requests and ships them as migrate
+                       bundles; every role serves /api/migrate and
+                       /admin/evacuate), --usage-ledger-dir D,
+                       --access-log, --no-telemetry, --prefix-cache N (the
+                       prompt-prefix KV cache, N entries a model; 4 when N
+                       is left out), --prefix-share (the shared prefix
+                       store: sessions publish prompts, joiners map their
+                       shared pages copy-on-write and prefill the tail)
+                       --prefix-index-entries N --prefix-store-hbm-bytes B
+                       --prefix-store-host-bytes B, --hf
                        model=/ckpt/dir (repeatable: that model's weights
                        and tokenizer from a local HF checkpoint's
                        *.safetensors, converted and quantized on the CPU).
@@ -196,8 +204,7 @@ commands:
                        item: --backend jax|jax-tp, --tp, --dp (14),
                        --replicas > 1, --route-policy, --probe-interval-ms,
                        --roles, --model-policy, --escalate-max-tokens
-                       (15), --prefix-share, --prefix-index-entries,
-                       --prefix-store-* and --role prefill|decode (12)
+                       (15)
   serve-fleet          the replica router: not ported (ROADMAP item 15), exit 2
   help                 show this message
 """
@@ -467,6 +474,7 @@ def serve_command(args: List[str]) -> None:
     backend_kind = "torch"
     models: Optional[List[str]] = None
     engine_kwargs: dict = {}
+    prefix_kwargs: dict = {}  # the shared prefix store's, both backends
     speculative: dict = {}
     paged_kv = False
     it = iter(args)
@@ -517,8 +525,20 @@ def serve_command(args: List[str]) -> None:
                 engine_kwargs["prefix_cache_size"] = int(next(it, "4"))
             except ValueError:
                 raise CommandError("serve: --prefix-cache expects a number of entries")
-        elif arg.startswith("--prefix-"):
-            raise _not_ported(f"{arg} (the shared prefix store)", "12")
+        elif arg == "--prefix-share":
+            # the engine's shared prefix store: sessions publish their
+            # prompts, joiners map the shared pages and prefill the tail
+            prefix_kwargs["prefix_share"] = True
+        elif arg == "--prefix-index-entries":
+            prefix_kwargs["prefix_index_entries"] = number(arg, int, 1)
+        elif arg == "--prefix-store-hbm-bytes":
+            # device-byte budget of the store: over it, cold prefix pages
+            # spill to host memory
+            prefix_kwargs["prefix_store_hbm_bytes"] = number(arg, int, 0)
+        elif arg == "--prefix-store-host-bytes":
+            # host-byte budget (spilled pages + seed slabs): over it, cold
+            # leaves are evicted outright
+            prefix_kwargs["prefix_store_host_bytes"] = number(arg, int, 0)
         elif arg == "--hf":
             # --hf model=/path/to/checkpoint (repeatable): serve the model's
             # weights and tokenizer from a local HF checkpoint directory
@@ -590,8 +610,6 @@ def serve_command(args: List[str]) -> None:
             opts["role"] = value(arg)
             if opts["role"] not in SERVER_ROLES:
                 raise CommandError("serve: --role expects one of " + "|".join(SERVER_ROLES))
-            if opts["role"] != "mixed":
-                raise _not_ported(f"--role {opts['role']} (disaggregated serving, live row migration)", "12")
         elif arg == "--usage-ledger-dir":
             opts["usage_ledger_dir"] = value(arg)
         elif arg == "--access-log":
@@ -606,7 +624,7 @@ def serve_command(args: List[str]) -> None:
     if backend_kind == "fake":
         from ..engine.fake import FakeBackend
 
-        backend = FakeBackend()
+        backend = FakeBackend(**{k: v for k, v in prefix_kwargs.items() if k != "prefix_index_entries"})
     else:
         from ..engine.torch_engine import TorchEngine
         from ..models.config import MODEL_REGISTRY
@@ -614,7 +632,9 @@ def serve_command(args: List[str]) -> None:
         if models is None:
             models = sorted(MODEL_REGISTRY)
         try:
-            backend = TorchEngine(paged_kv=paged_kv, speculative=speculative or None, **engine_kwargs)
+            backend = TorchEngine(
+                paged_kv=paged_kv, speculative=speculative or None, **engine_kwargs, **prefix_kwargs
+            )
         except (RuntimeError, ValueError) as exc:
             raise CommandError(f"serve: {exc}")
     from ..serve.server import GenerationServer

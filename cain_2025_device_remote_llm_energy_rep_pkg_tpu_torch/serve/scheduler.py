@@ -59,6 +59,7 @@ from ..obs.flight import (
     EV_REQUEST_REJECTED,
     EV_ROW_PREEMPTED,
     EV_ROW_RESUMED,
+    EV_ROW_MIGRATED,
     EV_ROW_RETIRED,
     EV_SLICE,
     EV_STREAM_CHUNK,
@@ -70,6 +71,7 @@ from ..obs.metrics import (
     REGISTRY,
     ROW_BUCKETS,
     enabled as _obs_enabled,
+    observe_migrate,
 )
 from ..obs.tenants import account_request
 from ..obs.trace import TRACER
@@ -223,13 +225,6 @@ _QUEUE_DEPTH_G = REGISTRY.gauge(
     "between scrapes)",
 )
 
-# The paths that live row migration serves (disaggregated prefill/decode,
-# drain evacuation) refuse until it is ported.
-_MIGRATE_NOT_PORTED = (
-    "live row migration (serve/migrate.py: prime, migrate-in, evacuate) "
-    "is not ported yet (ROADMAP item 12)"
-)
-
 
 class _Ticket:
     """One submitted request: the caller blocks on ``event`` until the
@@ -251,7 +246,7 @@ class _Ticket:
         "request", "event", "result", "error", "t_submit", "t_first",
         "span", "queue_wait_s", "joined", "join_chunks", "stream",
         "priority", "preempts", "resumed", "wasted",
-        "accounted",
+        "prime", "prime_buf", "migrate_pr", "migrated", "accounted",
     )
 
     def __init__(self, request: GenerationRequest) -> None:
@@ -271,6 +266,19 @@ class _Ticket:
         # cause (swap/recompute here; the router adds retry) — merged
         # into extras["energy"]["wasted_J"] at completion
         self.wasted: Dict[str, float] = {}
+        # Live row migration (disaggregated prefill/decode). ``prime``:
+        # run prefill to completion, then preempt + export the row as a
+        # migrate bundle instead of decoding it locally — the final
+        # stream event carries the bundle in extras["migrate"] (deltas
+        # buffer in ``prime_buf`` meanwhile; an export refusal flushes
+        # them and the ticket decays to a normal local stream).
+        # ``migrate_pr``: an imported preempted row to SEAT (through
+        # resume_begin) instead of prefilling; ``migrated`` stamps the
+        # wire attribution (extras["sched"]["migrated"]).
+        self.prime = False
+        self.prime_buf: Optional[list] = None
+        self.migrate_pr = None
+        self.migrated = False
         # EFFECTIVE SLO tier: starts at the request's priority; a parked
         # preemption victim ages UP one tier per --preempt-max-wait-s
         # waited (starvation protection), so victim selection and resume
@@ -806,6 +814,10 @@ class _SchedulerBase:
             sched_extras["preempted"] = ticket.preempts
             sched_extras["resumed"] = ticket.resumed
             sched_extras["tier"] = ticket.priority
+        if ticket.migrated:
+            # live-migration attribution: this row was seated from
+            # another server's exported bundle
+            sched_extras["migrated"] = True
         result.extras = {
             **(result.extras or {}),
             "sched": sched_extras,
@@ -1136,6 +1148,11 @@ class ContinuousScheduler(_SchedulerBase):
         # pending) while a session runs, None when idle. Read
         # best-effort by the /debug/state endpoint — never locked.
         self._dbg = None
+        # Pending drain-evacuation request: set by evacuate() from ANY
+        # thread, consumed by the loop thread's _evac_sweep between two
+        # decode slices (the loop thread owns all session state —
+        # evacuate never touches it directly).
+        self._evac_req: Optional[dict] = None
     def health_state(self) -> Dict[str, object]:
         """The base liveness fields plus the continuous loop's in-flight
         row count (live rows + pending chunked joiners — what a router's
@@ -1185,6 +1202,15 @@ class ContinuousScheduler(_SchedulerBase):
             )
         except Exception:  # noqa: BLE001 — probe only
             state["backend_mesh"] = None
+        # the ENGINE-owned prefix store rides the backend — a scheduler
+        # restart builds a new loop over the same backend, so this block
+        # (and the hits it promises) survives it
+        try:
+            store = getattr(self.backend, "prefix_store", None)
+            if store is not None:
+                state["prefix_store"] = store.debug_state()
+        except Exception:  # noqa: BLE001 — probe only
+            pass
         dbg = self._dbg
         if dbg is None:
             state["session"] = None
@@ -1238,21 +1264,255 @@ class ContinuousScheduler(_SchedulerBase):
         ]
         return state
 
-    # -- live row migration (not ported) ---------------------------------------
+    # -- live row migration (disaggregated prefill/decode) ----------------------
     def submit_prime(self, request: GenerationRequest) -> TokenStream:
-        """Disaggregated prefill (prime, export, seat elsewhere) needs
-        live row migration, which is not ported."""
-        raise NotImplementedError(_MIGRATE_NOT_PORTED)
+        """Enqueue a PRIME request: the row runs its (chunked) prefill
+        here, is then preempted and exported as a migrate bundle
+        instead of decoding locally — the returned stream's FINAL event
+        carries the bundle under ``extras["migrate"]`` and no token
+        deltas are pushed meanwhile (the decode replica re-streams from
+        token 0). When the row cannot export (spec-active session,
+        shared prefix pages, engine refusing the capture) it decays to
+        a NORMAL local stream — callers must handle a final event
+        without the bundle; a prime is never dropped."""
+        ticket = _Ticket(request)
+        ticket.stream = open_stream()
+        ticket.prime = True
+        _REQUESTS_C.inc()
+        with self._state_lock:
+            if not self._running:
+                raise RuntimeError("scheduler is not running")
+            self._queue.put(ticket)
+        _QUEUE_DEPTH_G.set(self._queue.qsize())
+        return ticket.stream
 
     def submit_migrate(self, bundle: dict) -> TokenStream:
-        """Seating another replica's exported row needs live row
-        migration, which is not ported."""
-        raise NotImplementedError(_MIGRATE_NOT_PORTED)
+        """Seat another replica's exported row: deserialize ``bundle``
+        (serve/migrate.py), enqueue a ticket that RESUMES it through
+        ``resume_begin``/``_seat_row`` — no re-prefill — and return its
+        egress stream; re-emitted deltas start at the bundle's streamed
+        watermark, so a disagg prime streams from token 0 while a
+        drain evacuation continues exactly at the client's cursor.
+        Raises when the bundle cannot deserialize; a seating failure
+        after that fails the returned stream instead (the router falls
+        back to the source, counted ``migrate_failed``)."""
+        from .migrate import bundle_nbytes, charge_transfer, import_bundle
+
+        pr = import_bundle(bundle, self.backend)
+        ticket = _Ticket(_pr_field(pr, "request"))
+        ticket.stream = open_stream()
+        ticket.migrate_pr = pr
+        ticket.migrated = True
+        nbytes = bundle_nbytes(bundle)
+        observe_migrate("in", nbytes)
+        # The port has no replica router yet, which charges each transfer
+        # in the JAX package: the seating server charges the bundle it
+        # takes, into the ledger and the ticket's wasted_J.
+        joules = charge_transfer(bundle, str(bundle.get("reason") or "disagg"))
+        if joules:
+            ticket.wasted["migration"] = joules
+        FLIGHT.emit(
+            EV_ROW_MIGRATED,
+            direction="in",
+            reason=bundle.get("reason"),
+            src=bundle.get("src"),
+            dst=bundle.get("dst"),
+            nbytes=nbytes,
+            **trace_attrs(ticket.span),
+        )
+        _REQUESTS_C.inc()
+        with self._state_lock:
+            if not self._running:
+                raise RuntimeError("scheduler is not running")
+            self._queue.put(ticket)
+        _QUEUE_DEPTH_G.set(self._queue.qsize())
+        return ticket.stream
 
     def evacuate(self, timeout_s: float = 30.0) -> int:
-        """Drain evacuation exports live rows as migrate bundles, which
-        needs live row migration: not ported."""
-        raise NotImplementedError(_MIGRATE_NOT_PORTED)
+        """Drain evacuation: ask the LOOP THREAD (which owns all
+        session state) to preempt + export every live STREAMING row as
+        a migrate bundle — each affected ticket's stream ends with
+        ``extras["migrate"]`` + ``extras["evacuated"]``, which the
+        router's relay splices onto a surviving replica mid-stream.
+        Returns the number of rows evacuated (0 when idle). Buffered
+        (non-streaming) rows, joiners mid-prefill and parked victims
+        wait out instead — there is no live relay to splice them into."""
+        req = {"event": threading.Event(), "count": 0}
+        self._evac_req = req
+        try:
+            deadline = time.monotonic() + timeout_s
+            while not req["event"].is_set():
+                if self._dbg is None:  # idle — nothing live to move
+                    return 0
+                if time.monotonic() >= deadline:
+                    return 0
+                req["event"].wait(0.05)
+            return int(req["count"])
+        finally:
+            self._evac_req = None
+
+    def _session_exportable(self, session) -> bool:
+        """Speculating sessions never export rows: draft cache layout
+        and rng discipline are properties of the SOURCE engine's draft
+        config, not of the row (real sessions carry ``spec``, the fake
+        twin ``spec_active``)."""
+        return (
+            getattr(session, "spec", None) is None
+            and not getattr(session, "spec_active", False)
+        )
+
+    def _export_row(self, session, ticket: _Ticket, reason: str):
+        """Preempt ``ticket``'s live row and serialize it. Returns
+        ``(pr, bundle)`` on success — with the SOURCE swap ledger
+        settled (the bundle ships ``host_bytes=0``, see
+        serve/migrate.py); ``(pr, None)`` when the row was captured but
+        refused export (caller parks it for LOCAL resume — never
+        dropped); ``(None, None)`` when the engine refused the capture
+        itself (the row keeps running untouched)."""
+        from .migrate import MigrateRefused, bundle_nbytes, export_bundle
+
+        try:
+            with self._backend_lock:
+                pr = session.preempt(ticket.request, policy="swap")
+        except Exception:  # noqa: BLE001 — engine refused the capture
+            pr = None
+        if pr is None:
+            return None, None
+        try:
+            bundle = export_bundle(
+                pr,
+                reason=reason,
+                streamed=0 if ticket.prime else None,
+            )
+        except MigrateRefused:
+            return pr, None
+        except Exception:  # noqa: BLE001 — serialization failure
+            return pr, None
+        try:
+            with self._backend_lock:
+                discard = getattr(session, "resume_discard", None)
+                if discard is not None:
+                    discard(pr)
+        except Exception:  # noqa: BLE001 — ledger only
+            pass
+        nbytes = bundle_nbytes(bundle)
+        observe_migrate("out", nbytes)
+        FLIGHT.emit(
+            EV_ROW_MIGRATED,
+            direction="out",
+            reason=reason,
+            nbytes=nbytes,
+            **trace_attrs(ticket.span),
+        )
+        return pr, bundle
+
+    def _prime_fallback(self, ticket: _Ticket) -> None:
+        """Decay a prime ticket to a normal local stream: buffered
+        deltas flush to the consumer (stamping TTFT at the flush — the
+        first moment the caller could see a token) and subsequent
+        egress pushes directly."""
+        ticket.prime = False
+        buf, ticket.prime_buf = ticket.prime_buf, None
+        if ticket.stream is None:
+            return
+        for text, tokens in buf or ():
+            if (
+                ticket.stream.push(text, tokens)
+                and ticket.t_first is None
+            ):
+                ticket.t_first = ticket.stream.t_first_chunk
+
+    def _finish_migrated(
+        self, ticket: _Ticket, pr, bundle: dict, evacuated: bool
+    ) -> None:
+        """Complete an exported row's ticket: the stream's final event
+        carries the bundle (and the ``evacuated`` marker for drain
+        moves) — the router's relay consumes it instead of the client."""
+        generated = _pr_field(pr, "generated", ()) or ()
+        extras = {"migrate": bundle, "generated": len(generated)}
+        if evacuated:
+            extras["evacuated"] = True
+        result = GenerationResult(
+            request=ticket.request,
+            tokens=[],
+            text="",
+            prompt_tokens=int(_pr_field(pr, "prompt_len", 0) or 0),
+            generated_tokens=0,
+            prefill_s=float(bundle.get("prefill_s", 0.0)),
+            decode_s=0.0,
+            total_s=time.monotonic() - ticket.t_submit,
+            extras=extras,
+        )
+        _ROWS_RETIRED_C.labels(reason="migrated").inc()
+        FLIGHT.emit(
+            EV_ROW_RETIRED,
+            reason="migrated",
+            generated_tokens=len(generated),
+            **trace_attrs(ticket.span),
+        )
+        self._finish_ticket(ticket, result)
+
+    def _prime_sweep(
+        self, session, live: Dict[int, _Ticket], parked: "List[_Parked]"
+    ) -> None:
+        """PRIME phase: a prime ticket whose row is LIVE has finished
+        its prefill — preempt + export it now, before the next decode
+        slice advances it here. Every refusal decays the ticket to a
+        normal local stream (see submit_prime)."""
+        for ticket in list(live.values()):
+            if not ticket.prime:
+                continue
+            if not self._session_exportable(session):
+                self._prime_fallback(ticket)
+                continue
+            pr, bundle = self._export_row(session, ticket, "disagg")
+            if pr is None:
+                # the engine refused the capture (recompute-only shape,
+                # overflow) — that will not change next slice: decay
+                self._prime_fallback(ticket)
+                continue
+            live.pop(id(ticket.request), None)
+            if bundle is None:
+                # captured but not exportable (shared prefix run): park
+                # for LOCAL resume — the stream continues here
+                ticket.preempts += 1
+                _PREEMPTED_C.labels(policy="swap").inc()
+                self._prime_fallback(ticket)
+                parked.append(_Parked(ticket, pr))
+                _PARKED_G.set(len(parked))
+                continue
+            self._finish_migrated(ticket, pr, bundle, evacuated=False)
+
+    def _evac_sweep(
+        self, session, live: Dict[int, _Ticket], parked: "List[_Parked]"
+    ) -> None:
+        """Serve a pending evacuate() request (loop thread only): every
+        live STREAMING row exports as a drain bundle; a row captured
+        but refused export parks for local resume (wait-out)."""
+        req = self._evac_req
+        if req is None or req["event"].is_set():
+            return
+        count = 0
+        if self._session_exportable(session):
+            for ticket in list(live.values()):
+                if ticket.stream is None:
+                    continue  # buffered caller — no relay to splice
+                pr, bundle = self._export_row(session, ticket, "drain")
+                if pr is None:
+                    continue
+                live.pop(id(ticket.request), None)
+                if bundle is None:
+                    ticket.preempts += 1
+                    _PREEMPTED_C.labels(policy="swap").inc()
+                    if ticket.prime:
+                        self._prime_fallback(ticket)
+                    parked.append(_Parked(ticket, pr))
+                    _PARKED_G.set(len(parked))
+                    continue
+                count += 1
+                self._finish_migrated(ticket, pr, bundle, evacuated=True)
+        req["count"] = count
+        req["event"].set()
 
     def _loop(self) -> None:
         while self._running:
@@ -1266,7 +1526,10 @@ class ContinuousScheduler(_SchedulerBase):
             _QUEUE_DEPTH_G.set(self._queue.qsize())
             if self._preadmit_reject(first):
                 continue
-            self._run_session(first)
+            if first.migrate_pr is not None:
+                self._run_migrate(first)
+            else:
+                self._run_session(first)
         _INFLIGHT_G.set(0)
 
     def _drain_compatible(
@@ -1288,6 +1551,13 @@ class ContinuousScheduler(_SchedulerBase):
                 self._queue.put(None)
                 break
             if self._preadmit_reject(ticket):
+                continue
+            if ticket.migrate_pr is not None:
+                # a migrate-in ticket never rides a session OPEN's request
+                # list (its prefill already happened on the source server):
+                # it seats mid-session via _admit_into's resume branch or
+                # anchors _run_migrate
+                self._requeue(ticket)
                 continue
             if self._compatible(anchor, ticket.request):
                 got.append(ticket)
@@ -1361,6 +1631,74 @@ class ContinuousScheduler(_SchedulerBase):
         parked: "List[_Parked]" = []
         self._drive(first, session, live, pending, parked)
 
+    def _run_migrate(self, first: _Ticket) -> None:
+        """Anchor a session with a MIGRATED-IN row: open an
+        idle session — no admission prefill, the row's KV arrives in
+        the imported bundle — seat the row through ``resume_begin``
+        (committing on the first interleave turn exactly like a local
+        swap resume), then drive the standard loop. Backends whose
+        ``decode_open`` refuses an empty request list (the real engine
+        anchors its carry shapes on the first request) fail the ticket
+        here; the JAX package's router counts ``migrate_failed`` and falls
+        back to decoding on the source server. The port has no router
+        yet: the client sees the failure and holds the bundle, which
+        seats on any server with an open session."""
+        pr = first.migrate_pr
+        open_kwargs = (
+            {"spec_accept_floor": self.spec_accept_floor}
+            if self.spec_accept_floor is not None
+            else {}
+        )
+        try:
+            with TRACER.attach(first.span), self._backend_lock:
+                session = self.backend.decode_open(
+                    [],
+                    reserve_rows=4,
+                    slice_steps=self.slice_steps,
+                    **open_kwargs,
+                )
+        except BaseException as exc:  # noqa: BLE001
+            self._fail_ticket(first, exc)
+            return
+        try:
+            with TRACER.attach(first.span), self._backend_lock:
+                if not session.can_resume(pr):
+                    raise RuntimeError(
+                        "migrated row cannot seat here (no free "
+                        "slot/pages or the bundle's resume plan is "
+                        "incompatible with this session)"
+                    )
+                pj = session.resume_begin(pr, self.prefill_chunk_tokens)
+        except BaseException as exc:  # noqa: BLE001
+            try:
+                with self._backend_lock:
+                    session.close()
+            except Exception:  # noqa: BLE001
+                pass
+            self._fail_ticket(first, exc)
+            return
+        _BATCHES_C.inc()
+        now = time.monotonic()
+        first.queue_wait_s = now - first.t_submit
+        _QUEUE_WAIT_H.observe(first.queue_wait_s)
+        TRACER.add_span(
+            "queue", first.t_submit, now,
+            attrs={"migrated": True}, parent=first.span,
+        )
+        FLIGHT.emit(
+            EV_REQUEST_ADMITTED,
+            mode="continuous",
+            migrated=True,
+            model=first.request.model,
+            queue_wait_s=round(first.queue_wait_s or 0.0, 6),
+            **trace_attrs(first.span),
+        )
+        live: Dict[int, _Ticket] = {}
+        pending: "deque[tuple[_Ticket, object]]" = deque()
+        parked: "List[_Parked]" = []
+        pending.append((first, pj))
+        self._drive(first, session, live, pending, parked)
+
     def _drive(
         self,
         first: _Ticket,
@@ -1370,7 +1708,11 @@ class ContinuousScheduler(_SchedulerBase):
         parked: "List[_Parked]",
     ) -> None:
         """The continuous loop proper — admit/step/retire/join/egress
-        phases over an OPEN session (see the class docstring)."""
+        phases over an OPEN session (see the class docstring). Shared by
+        :meth:`_run_session` (prefilled anchors) and :meth:`_run_migrate`
+        (a seated import), plus the migration sweeps: primes export after
+        their prefill, and a pending drain-evacuation request exports
+        every live streaming row between two slices."""
         self._dbg = (session, live, pending, parked)
         _INFLIGHT_G.set(session.active)
         try:
@@ -1378,6 +1720,9 @@ class ContinuousScheduler(_SchedulerBase):
             # prefill tokens egress immediately: a streamed anchor's
             # first chunk exists before any decode slice ran
             self._push_deltas(session, live)
+            # a prime ANCHOR's prefill is already complete at open —
+            # export it before paying any decode slice here
+            self._prime_sweep(session, live, parked)
             while self._running and (
                 session.active or pending or parked
             ):
@@ -1385,6 +1730,10 @@ class ContinuousScheduler(_SchedulerBase):
                 # that hung up (or a deadline that passed) retires its
                 # row within one decode slice
                 self._reap_expired(session, live, pending, parked)
+                # drain evacuation: a pending evacuate() request exports
+                # every live streaming row between two slices — their
+                # streams end carrying migrate bundles
+                self._evac_sweep(session, live, parked)
                 rows_before = session.active
                 if rows_before:
                     t_slice0 = time.monotonic()
@@ -1441,6 +1790,9 @@ class ContinuousScheduler(_SchedulerBase):
                 # prefill token now, and the session's stream_tokens
                 # flag is refreshed before the next slice
                 self._push_deltas(session, live)
+                # prime rows whose chunked prefill just committed export
+                # now — before the next slice decodes them here
+                self._prime_sweep(session, live, parked)
                 _INFLIGHT_G.set(session.active + len(pending))
                 _PARKED_G.set(len(parked))
         except BaseException as exc:  # noqa: BLE001 — engine died mid-session
@@ -1533,6 +1885,15 @@ class ContinuousScheduler(_SchedulerBase):
         for request, tokens, text in session.stream_deltas():
             ticket = live.get(id(request))
             if ticket is None or ticket.stream is None:
+                continue
+            if ticket.prime:
+                # prime rows buffer instead of pushing: the deltas either
+                # ship inside the migrate bundle (the decode server
+                # re-streams from token 0, TTFT stamps there) or flush
+                # here on an export fallback
+                if ticket.prime_buf is None:
+                    ticket.prime_buf = []
+                ticket.prime_buf.append((text, tokens))
                 continue
             if ticket.stream.push(text, tokens) and ticket.t_first is None:
                 # TTFT-at-first-chunk: the stream's own first-push clock
@@ -1978,6 +2339,45 @@ class ContinuousScheduler(_SchedulerBase):
             request = ticket.request
             admitted = False
             pj = None
+            if ticket.migrate_pr is not None:
+                # migrate-in: seat through resume_begin —
+                # never a join (its prefill happened on the source
+                # server). No capacity → requeue; it retries next
+                # slice or anchors its own session via _run_migrate.
+                if self._compatible(anchor, request):
+                    try:
+                        with TRACER.attach(
+                            ticket.span
+                        ), self._backend_lock:
+                            if session.can_resume(ticket.migrate_pr):
+                                pj = session.resume_begin(
+                                    ticket.migrate_pr,
+                                    self.prefill_chunk_tokens,
+                                )
+                                admitted = True
+                    except BaseException as exc:  # noqa: BLE001
+                        self._fail_ticket(ticket, exc)
+                        continue
+                if not admitted:
+                    self._requeue(ticket)
+                    continue
+                now = time.monotonic()
+                ticket.queue_wait_s = now - ticket.t_submit
+                _QUEUE_WAIT_H.observe(ticket.queue_wait_s)
+                TRACER.add_span(
+                    "queue", ticket.t_submit, now,
+                    attrs={"migrated": True}, parent=ticket.span,
+                )
+                FLIGHT.emit(
+                    EV_REQUEST_ADMITTED,
+                    mode="continuous",
+                    migrated=True,
+                    model=request.model,
+                    queue_wait_s=round(ticket.queue_wait_s or 0.0, 6),
+                    **trace_attrs(ticket.span),
+                )
+                pending.append((ticket, pj))
+                continue
             if self._compatible(anchor, request):
                 cap = self._admission_cap(ticket)
 

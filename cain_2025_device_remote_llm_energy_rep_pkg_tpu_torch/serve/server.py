@@ -33,15 +33,11 @@ from ..runner import term
 from . import protocol
 from .stream import DeadlineExceeded, StreamCancelled
 
-# What the paths left for later answer: the multi-model fleet refuses at
-# construction, live row migration with HTTP 501.
+# What the path left for later answers: the multi-model fleet refuses at
+# construction.
 FLEET_NOT_PORTED = (
     "the multi-model fleet (model_policy, serve/model_fleet.py) is not "
     "ported yet (ROADMAP item 15)"
-)
-MIGRATE_NOT_PORTED = (
-    "live row migration (/api/migrate, /admin/evacuate, x_prime) is not "
-    "ported yet (ROADMAP item 12)"
 )
 
 # HTTP-surface telemetry (obs): request counts by (method, path, status)
@@ -193,9 +189,16 @@ class GenerationServer:
         ``--role``, default "mixed") declares this replica's place in a
         role fleet. "mixed" is byte-identical today-behavior; "prefill"
         and "decode" only change what the replica REPORTS (/healthz
-        gains ``role``). ``/api/migrate``, ``/admin/evacuate`` and the
-        ``x_prime`` body key (live row migration) answer 501: they are
-        not ported.
+        gains ``role``) — a router does the role-aware dispatch, the
+        server itself serves every endpoint under any role. Two POST
+        endpoints ride along regardless of role: ``/api/migrate`` accepts
+        a serialized primed-row bundle (serve/migrate.py) and answers with
+        the seated row's SSE stream; ``/admin/evacuate`` asks the
+        continuous scheduler to export every exportable in-flight row
+        (drain evacuation — each row's bundle rides its own stream's final
+        record) and returns the count. An ``x_prime`` body key on a
+        streaming ``/api/generate`` primes the row: prefill here, then the
+        final record carries its bundle.
 
         Tenant usage accounting: every request may carry
         ``x_tenant``; terminal outcomes land in the ``llm_tenant_*``
@@ -448,6 +451,15 @@ class GenerationServer:
                         state["mesh"] = info
                 except Exception:  # noqa: BLE001 — probe only
                     pass
+                # the engine-owned prefix store: reported top-level —
+                # present between sessions and across scheduler restarts,
+                # exactly the lifetime the store exists to provide
+                try:
+                    store = getattr(server.backend, "prefix_store", None)
+                    if store is not None:
+                        state["prefix_store"] = store.debug_state()
+                except Exception:  # noqa: BLE001 — probe only
+                    pass
                 # weight lifecycle: which models are
                 # resident, their estimated bytes, and which hold live
                 # stepped rows (the eviction-guard refcounts) — the
@@ -589,6 +601,15 @@ class GenerationServer:
                             state["status"] = "stopping"
                 except Exception:  # noqa: BLE001 — probe only
                     pass
+                try:
+                    # bounded radix-store prefix summary (affinity
+                    # routing) — absent when prefix sharing is off or the
+                    # backend has no store
+                    store = getattr(server.backend, "prefix_store", None)
+                    if store is not None and hasattr(store, "digest"):
+                        state["prefix_digest"] = store.digest()
+                except Exception:  # noqa: BLE001 — probe only
+                    pass
                 self._send_json(200, state)
 
             def _send_json(self, status: int, payload) -> None:
@@ -662,11 +683,13 @@ class GenerationServer:
                     self._handle_generate(body)
                 elif self.path == protocol.LOAD_PATH:
                     self._handle_load(body)
-                elif self.path.split("?", 1)[0] in (
-                    protocol.MIGRATE_PATH,
-                    protocol.ADMIN_EVACUATE_PATH,
+                elif self.path == protocol.MIGRATE_PATH:
+                    self._handle_migrate(body)
+                elif (
+                    self.path.split("?", 1)[0]
+                    == protocol.ADMIN_EVACUATE_PATH
                 ):
-                    self._send_json(501, {"error": MIGRATE_NOT_PORTED})
+                    self._handle_evacuate()
                 else:
                     self._send_json(404, {"error": f"unknown path {self.path}"})
 
@@ -694,17 +717,22 @@ class GenerationServer:
                     # the forwarding hop's span id — the cross-process
                     # parent link a timeline viewer stitches on
                     span_attrs["parent_hop"] = request.trace.parent
-                if body.get(protocol.PRIME_KEY):
-                    self._send_json(501, {"error": MIGRATE_NOT_PORTED})
-                    return
                 if body.get("stream"):
+                    # Disaggregated prime: x_prime rides the raw body
+                    # (request_from_wire ignores unknown keys) — run
+                    # prefill to completion, export the row, answer with a
+                    # final record carrying the bundle. Only the
+                    # continuous scheduler speaks it; anything else decays
+                    # to a normal stream (the caller treats the absence of
+                    # a bundle as "serve it here").
+                    prime = bool(body.get(protocol.PRIME_KEY))
                     with TRACER.span(
                         "request",
                         trace_id=request.trace.trace_id,
                         stream=True,
                         **span_attrs,
                     ):
-                        self._handle_generate_stream(request)
+                        self._handle_generate_stream(request, prime=prime)
                     return
                 # The request's ROOT span: the scheduler's queue span and
                 # the engine's prefill/decode spans parent under it (the
@@ -784,7 +812,7 @@ class GenerationServer:
                 final["x_text"] = result.text
                 return final
 
-            def _handle_generate_stream(self, request) -> None:
+            def _handle_generate_stream(self, request, prime=False) -> None:
                 """``stream: true``: Server-Sent Events of incremental
                 ``response`` deltas ending with a ``done: true`` event
                 carrying the aggregate stats + extras (energy payload
@@ -797,11 +825,11 @@ class GenerationServer:
                     server._scheduler is not None
                     and server.scheduler_mode == "continuous"
                 ):
-                    self._stream_via_scheduler(request)
+                    self._stream_via_scheduler(request, prime=prime)
                 else:
                     self._stream_serial(request)
 
-            def _stream_via_scheduler(self, request) -> None:
+            def _stream_via_scheduler(self, request, prime=False) -> None:
                 """Streaming delivery: the scheduler's slice
                 loop produces into the bounded egress channel; this
                 handler drains it onto the SSE socket. A failed socket
@@ -809,14 +837,19 @@ class GenerationServer:
                 row within one decode slice (``reason="cancelled"``) and
                 its pages return to the pool."""
                 try:
-                    channel = server._scheduler.submit_stream(request)
+                    if prime and hasattr(server._scheduler, "submit_prime"):
+                        channel = server._scheduler.submit_prime(request)
+                    else:
+                        channel = server._scheduler.submit_stream(request)
                 except RuntimeError as exc:
                     self._send_json(503, {"error": str(exc)})
                     return
                 self._pump_channel(channel, request.model)
 
             def _pump_channel(self, channel, model) -> None:
-                """Drain one egress channel onto the SSE socket."""
+                """Drain one egress channel onto the SSE socket — the
+                shared tail of /api/generate streaming and the migrate
+                endpoint's seated-row stream."""
                 events = channel.events(keepalive_s=STREAM_KEEPALIVE_S)
                 # Headers wait for the first REAL event, so fast
                 # pre-admission failures (bad prompt, unknown model,
@@ -983,7 +1016,91 @@ class GenerationServer:
                 else:
                     self._send_json(200, {"status": "loaded", "model": model})
 
-        return Handler
+            def _handle_migrate(self, body) -> None:
+                """``POST /api/migrate``: seat one serialized
+                primed/evacuated row (serve/migrate.py bundle) into the
+                continuous scheduler and answer with the row's SSE
+                stream — the same framing /api/generate streams, so the
+                router relays it to the waiting client unchanged."""
+                sched = server._scheduler
+                if sched is None or not hasattr(sched, "submit_migrate"):
+                    self._send_json(
+                        503,
+                        {
+                            "error": (
+                                "migrate requires the continuous "
+                                "scheduler (got "
+                                f"{server.scheduler_mode!r})"
+                            )
+                        },
+                    )
+                    return
+                # The bundle's embedded request carries the fleet-wide
+                # trace (x_trace) when the router stamped one — the
+                # seated row's spans and flight events join it, so one
+                # trace id covers both replicas' halves of the request.
+                span_kwargs = {"model": body.get("model", "")}
+                req_wire = body.get("request")
+                xt = (
+                    req_wire.get("x_trace")
+                    if isinstance(req_wire, dict)
+                    else None
+                )
+                if isinstance(xt, dict) and xt.get("id"):
+                    span_kwargs["trace_id"] = str(xt["id"])
+                with TRACER.span(
+                    "request", stream=True, migrated=True, **span_kwargs
+                ):
+                    try:
+                        channel = sched.submit_migrate(body)
+                    except (ValueError, KeyError, TypeError) as exc:
+                        self._send_json(
+                            400, {"error": f"bad migrate bundle: {exc}"}
+                        )
+                        return
+                    except RuntimeError as exc:
+                        self._send_json(503, {"error": str(exc)})
+                        return
+                    self._pump_channel(channel, body.get("model", ""))
+
+            def _handle_evacuate(self) -> None:
+                """``POST /admin/evacuate``: export every
+                exportable in-flight row as a migrate bundle (each rides
+                its own stream's final record) and report the count —
+                the router's drain(migrate=True) calls this on remote
+                replicas before waiting out whatever refused to move."""
+                sched = server._scheduler
+                if sched is None or not hasattr(sched, "evacuate"):
+                    self._send_json(
+                        503,
+                        {
+                            "error": (
+                                "evacuate requires the continuous "
+                                "scheduler (got "
+                                f"{server.scheduler_mode!r})"
+                            )
+                        },
+                    )
+                    return
+                query = parse_qs(
+                    self.path.partition("?")[2], keep_blank_values=False
+                )
+                try:
+                    timeout_s = float(query.get("timeout", ["30"])[0])
+                except ValueError:
+                    self._send_json(
+                        400, {"error": "timeout must be a number"}
+                    )
+                    return
+                try:
+                    count = sched.evacuate(timeout_s=timeout_s)
+                except Exception as exc:  # noqa: BLE001 — admin probe
+                    self._send_json(
+                        500, {"error": f"{type(exc).__name__}: {exc}"}
+                    )
+                    return
+                self._send_json(200, {"status": "ok", "evacuated": count})
+
         return Handler
 
     def start(self) -> None:

@@ -10,7 +10,7 @@ all started together), holds each kernel against its plain PyTorch version
 on the card and times both (with the library yardstick and the card's bound
 beside them), then drives the port's paths on full-width qwen2:1.5b:
 ``TorchEngine.generate`` (the study's solo path) at int8 weights with a
-bf16 and then an int8 KV cache, ``TorchEngine.generate_batch`` over the
+bf16 and then an int8 KV cache (7 of 28 layers), ``TorchEngine.generate_batch`` over the
 paged pool (17 requests) with a bf16 and then an int8 pool (at 7 of 28
 layers), ``generate``
 at int4 and at int4-i32 weights, one engine with per-model modes (qwen2 at
@@ -40,7 +40,7 @@ study's 7 models at 100 words, one repetition, the table analysed, then
 ``recompute-energy``).
 The serving phases run the port's
 ``GenerationServer`` in this process over HTTP on 127.0.0.1 at int8
-weights: ``serve_continuous`` (the continuous scheduler over the bf16
+weights (7 of 28 layers): ``serve_continuous`` (the continuous scheduler over the bf16
 pool, 16 requests with seeded Poisson arrivals: joins in prefill chunks
 through B1, streams, a cancelled stream, and two high-priority requests
 that preempt rows to host memory and resume them; B4 decodes; every
@@ -63,10 +63,10 @@ the evicted one reloads with the same tokens). Last,
 ``serve_cli_capstone`` starts ``python -m …_tpu_torch serve --backend
 torch`` as a subprocess and runs the study as its HTTP client for both
 locations, then stops the server with SIGTERM. Then the solo engine's
-rest: ``engine_prefix_cache`` (+ ``_int8_kv``; a 2,048-token turn, then
-that prompt plus 64 tokens run cold and with a prefix hit: equal greedy
-tokens, B1 56 launches cold and 28 on a hit; then a byte cap that
-evicts), ``engine_hf_checkpoint`` (a full-width checkpoint written under
+rest: ``engine_prefix_cache`` (+ ``_int8_kv``; 7 layers: a 2,048-token
+turn, then that prompt plus 64 tokens run cold and with a prefix hit:
+equal greedy tokens, B1 two launches a layer cold and one on a hit; then
+a byte cap that evicts), ``engine_hf_checkpoint`` (a full-width checkpoint written under
 HF's names, loaded through ``hf_checkpoints`` and the weight cache: every
 leaf bit-equal to the install path's), ``serve_cli_hf`` (``serve --hf
 ... --prefix-cache 4`` in a subprocess: two prefix hits over three
@@ -76,7 +76,7 @@ study row now carries the duty cycle). Then the rest of speculation: the
 kernel rows of B7/B8's contiguous instantiations (the contiguous
 session's verify, beside SDPA under the same per-query mask),
 ``engine_spec_contiguous_bf16_kv`` / ``_int8_kv`` (the 8 n-gram rows and
-a joiner on the engine's default contiguous layout at full depth, B7/B8
+a joiner on the engine's default contiguous layout at 7 layers, B7/B8
 over contiguous rows once a layer a round, the greedy share against the
 plain contiguous session), ``spec_contiguous_entry_points`` (``generate``
 routing a greedy and a sampled request there), ``engine_spec_adaptive``
@@ -86,7 +86,23 @@ before and after), ``engine_spec_join_preempt_paged`` / ``_contiguous``
 (a greedy and a sampled joiner, and a row preempted by swap whose resumed
 tokens equal an uninterrupted run's) and ``serve_cli_speculative_contiguous``
 (``serve --speculative qwen2:1.5b=ngram:4 --spec-accept-floor 0.3``
-without ``--paged-kv``, 8 requests, exit 0).
+without ``--paged-kv``, 8 requests, exit 0). Last, the shared prefix
+store and live row migration: ``engine_prefix_share_paged`` (full depth,
+bf16 pool: a 2,048-token anchor joined in 256-token chunks, then three
+joiners sharing whole pages, one diverging mid-page and one sharing BOS
+alone; the aligned hits' tokens equal the cold joins', the other two are
+held by their replay, B1 runs only over the tails, the pages the rows
+hold with and without sharing), ``engine_prefix_share_spill`` (7 layers: a
+one-node device budget spills a node that a later joiner restores, int8
+pool; seed-only reuse on the contiguous session), ``serve_migrate`` and
+``serve_migrate_evacuate`` (7 layers: an idle decode server refuses a
+bundle; rows primed on a prefill server, seated through
+``/api/migrate`` on the decode server once a row is live there, and
+four live rows evacuated; every row's tokens equal one server's, the
+counts read around the primes and seats and around the evacuation and
+seats, and each transfer's charge read from the seating server's
+``/metrics``) and
+``serve_cli_prefix_share`` (``serve --prefix-share`` as a subprocess).
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -243,7 +259,17 @@ WRITE_THROUGH_STEPS = 64
 # rest of speculation's phases (~95 s; the whole script 1,030.8 s in its
 # first run with them) the int8-pool paged batch and n-gram session and
 # the bf16 contiguous batch were cut to it too (~40 s at full depth), and
-# so are the join/preempt phases of speculating sessions.
+# so are the join/preempt phases of speculating sessions. With the shared
+# prefix store's and migration's phases (76 s alone, their spill and
+# migration phases at this depth; the script took 1,016.1 s without
+# them) the bf16 pool's serving phases (``serve_continuous`` with its
+# greedy replay, ``serve_window``, ``serve_serial``: ~147 s at full depth)
+# were cut to it too: the script then took 1,014.5 s, and 1,255.6 s to
+# fail in its migration phase on a card whose host ran every phase
+# 1.2-1.3x slower. So the solo bf16-KV phase with its logits check, the
+# paged bf16-pool batch with the write-through decode, the bf16-pool
+# n-gram session, the contiguous layout's speculating sessions and the
+# solo prefix cache (~115 s at full depth) were cut to it too.
 SOLO_CUT_LAYERS = 7
 
 
@@ -2869,13 +2895,13 @@ def check_served(requests, results, eos, cancelled=()):
 
 
 def serve_phases(torch, eng_mod, kernels, smi, tfm, ca):
-    """The serving phases on full-width qwen2:1.5b at int8 weights (see
-    SERVE_*): ``serve_continuous`` (the continuous scheduler over the bf16
-    pool: joins in prefill chunks, streams, a cancel, swap preemption),
-    ``serve_continuous_int8_kv`` (the int8 pool; SOLO_CUT_LAYERS layers),
-    ``serve_window``
-    (``generate_batch``) and ``serve_serial`` (``generate`` and
-    ``generate_stream`` under the server's lock). Returns the launches."""
+    """The serving phases on full-width qwen2:1.5b at int8 weights cut to
+    SOLO_CUT_LAYERS layers (see SERVE_*): ``serve_continuous`` (the
+    continuous scheduler over the bf16 pool: joins in prefill chunks,
+    streams, a cancel, swap preemption), ``serve_continuous_int8_kv`` (the
+    int8 pool), ``serve_window`` (``generate_batch``) and
+    ``serve_serial`` (``generate`` and ``generate_stream`` under the
+    server's lock). Returns the launches."""
     import gc
     from importlib import import_module
 
@@ -2898,7 +2924,7 @@ def serve_phases(torch, eng_mod, kernels, smi, tfm, ca):
         assert all(counts[k] > 0 for k in ran), counts
         assert all(counts[k] == 0 for k in names - set(ran)), counts
 
-    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True)
+    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, registry=cut_registry())
     engine.load_model(MODEL)
     reqs, gaps = serve_traffic(GenerationRequest, protocol.parse_priority, SERVE_REQUESTS, SERVE_SEED)
     # warm: a batch, and a session with a chunked joiner
@@ -3358,7 +3384,7 @@ def prefix_tail(k: int = 0) -> str:
 
 def prefix_cache_phase(torch, eng_mod, kernels, GenerationRequest, smi):
     """The solo prompt-prefix KV cache on qwen2:1.5b at int8 weights, full
-    width and depth: turn 1 is a prompt of exactly one prefill chunk
+    width, cut to SOLO_CUT_LAYERS layers: turn 1 is a prompt of exactly one prefill chunk
     (``PREFILL_CHUNK`` tokens), turn 2 that prompt plus PREFIX_TAIL_TOKENS.
     Turn 2 runs cold (no cache: chunk (0, 2048), then a 64-token bucket at
     offset 2048) and with a hit (the cached 2,048 positions copied in, then
@@ -3380,13 +3406,14 @@ def prefix_cache_phase(torch, eng_mod, kernels, GenerationRequest, smi):
     params = None
     for kv in (None, "int8"):
         phase = "engine_prefix_cache" + ("_int8_kv" if kv else "")
-        warm = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv, prefix_cache_size=4)
+        warm = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv, prefix_cache_size=4,
+                                   registry=cut_registry())
         if params is None:
             warm.load_model(MODEL)
             params = warm._models[MODEL].params
         else:
             warm.install_model(MODEL, warm.registry[MODEL], params)
-        cold = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv)
+        cold = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv, registry=cut_registry())
         cold.install_model(MODEL, warm.registry[MODEL], params)  # the same tensors
         cfg = warm._models[MODEL].cfg
         tok = warm._tokenizer_for(MODEL)
@@ -3428,7 +3455,7 @@ def prefix_cache_phase(torch, eng_mod, kernels, GenerationRequest, smi):
         del warm, cold
         gc.collect()
     # The byte cap: below two turn-1-sized entries, the second evicts the first.
-    eng = eng_mod.TorchEngine(quantize="int8", prefix_cache_bytes=1 << 40)
+    eng = eng_mod.TorchEngine(quantize="int8", prefix_cache_bytes=1 << 40, registry=cut_registry())
     eng.install_model(MODEL, eng.registry[MODEL], params)
     other = ("Background: " + "the Calvin cycle builds sugars from carbon dioxide. " * 60)[: chunk - 1]
     eng.generate(GenerationRequest(MODEL, turn1, 4, stop_at_eos=False))
@@ -3747,6 +3774,613 @@ def mixed_quant_phase(engine, GenerationRequest, kernels, chunks_of, params_nbyt
     return all_counts
 
 
+# -- the shared prefix store and live row migration ---------------------------
+SHARE_ANCHOR_TOKENS = 2048
+SHARE_CHUNK_TOKENS = 256
+SHARE_NEW_TOKENS = 64
+# Two 2,048-token openers size the session's pool (pow2(2·(32 + 1)) = 128
+# pages): the cold run's six joined rows need 82 of them beside the
+# openers' 32 (78 for the anchor and its four sharers, 28 when shared).
+SHARE_OPENERS = 2
+# (prompt tokens shared with the anchor, own tail tokens): whole pages and
+# whole chunks first, then one divergence mid-page (a copy on write)
+SHARE_JOINERS = ((1536, 512), (1792, 256), (1536, 256))
+SHARE_MIDPAGE = (1600, 400)
+# a prompt of its own: it shares BOS alone, the one-token hit every joiner
+# of a live store takes, and its chunks start at position 1
+SHARE_NATURAL = (1, 512)
+SPILL_PREFIX_TOKENS = 1024
+MIGRATE_PROMPT_TOKENS = (900, 930, 960, 990, 1000)  # 8 pages each, as the anchor's
+MIGRATE_NEW_TOKENS = 64
+MIGRATE_SAMPLED = 4  # the one sampled request
+EVAC_NEW_TOKENS = 128
+EVAC_JOINER_TOKENS = (700, 800, 900)
+CLI_SHARE_SYSTEM_TOKENS = 1024
+CLI_SHARE_REQUESTS = 8
+CLI_SHARE_HBM_BYTES = 256 << 20
+
+
+def share_text(n_tokens: int, tag: str) -> str:
+    """Prompt text of ``n_tokens`` byte-tokenizer tokens (BOS included)
+    built from ``tag``'s sentence: each tag gives other bytes."""
+    sentence = f"{tag}: the dark reactions fix carbon dioxide into sugars. "
+    return (sentence * (n_tokens // len(sentence) + 1))[: n_tokens - 1]
+
+
+def share_joiner(anchor: str, shared: int, tail: int, k: int) -> str:
+    """The anchor's first ``shared`` tokens, then ``tail`` tokens of its
+    own (the first of them differs from the anchor's next byte)."""
+    own = share_text(tail + 1, f"{'QRSTUVW'[k]} tail question")
+    assert own[0] != anchor[shared - 1]
+    return anchor[: shared - 1] + own
+
+
+def ran_only(counts, per_layer, exact=()):
+    """The path launched each kernel of ``per_layer`` ({name: layers}) a
+    whole number of times a layer, at least once, those of ``exact``
+    ({name: launches}) that many times, and no other kernel."""
+    for name, n in counts.items():
+        layers = per_layer.get(name)
+        assert (n == 0) if layers is None else (n > 0 and n % layers == 0), (name, counts)
+    for name, n in dict(exact).items():
+        assert counts[name] == n, (name, n, counts)
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def chunked_join(torch, session, request):
+    """``join_begin`` in SHARE_CHUNK_TOKENS chunks through ``join_commit``:
+    (pending, wall seconds)."""
+    def run():
+        pending = session.join_begin(request, chunk_tokens=SHARE_CHUNK_TOKENS)
+        while not session.join_step(pending):
+            pass
+        session.join_commit(pending)
+        return pending
+
+    return timed(torch, run)
+
+
+def prefix_share_paged_phase(torch, eng_mod, kernels, GenerationRequest, smi, tfm, ca):
+    """The shared prefix store on the bf16 pool, qwen2:1.5b at int8 weights,
+    full width and depth. Two openers, then an anchor of
+    SHARE_ANCHOR_TOKENS tokens by a chunked join (256-token chunks), then
+    five joiners: three share its first 1,536 or 1,792 tokens (whole
+    pages and whole chunks) and diverge in 256–512-token tails, one
+    diverges mid-page, so its join copies a page on write, and one shares
+    BOS alone (the hit every joiner of a live store takes). The same
+    schedule runs cold, on an engine without ``prefix_share`` over the
+    same weights. Each chunk-aligned joiner's greedy tokens equal its cold
+    twin's; the mid-page and the BOS joiners, whose chunks lie otherwise
+    than their twins', are replayed teacher-forced (LOGIT_ATOL), their
+    share of equal tokens printed. B1 runs once a layer for each
+    prefill forward and join chunk, and a hit's join runs only its tail's
+    chunks. Returns the shared run's launches."""
+    import gc
+
+    from importlib import import_module
+
+    prefix = import_module(f"{PKG}.engine.prefix")
+    share = eng_mod.TorchEngine(quantize="int8", paged_kv=True, prefix_share=True)
+    share.load_model(MODEL)
+    params = share._models[MODEL].params
+    cold = eng_mod.TorchEngine(quantize="int8", paged_kv=True)
+    cold.install_model(MODEL, share.registry[MODEL], params)  # the same tensors
+    n_layers = share._models[MODEL].cfg.n_layers
+    b1 = next(fn for fn in kernels if fn.__name__ == "cuda_prefill_attention")
+    anchor_text = context_prompt(SHARE_ANCHOR_TOKENS)
+    openers = [GenerationRequest(MODEL, share_text(SHARE_ANCHOR_TOKENS, f"Opener {i}"), SHARE_NEW_TOKENS,
+                                 stop_at_eos=False) for i in range(SHARE_OPENERS)]
+    anchor = GenerationRequest(MODEL, anchor_text, SHARE_NEW_TOKENS, stop_at_eos=False)
+    shapes = (*SHARE_JOINERS, SHARE_MIDPAGE, SHARE_NATURAL)
+    joiners = [GenerationRequest(MODEL, share_joiner(anchor_text, s, t, k), SHARE_NEW_TOKENS,
+                                 stop_at_eos=False)
+               for k, (s, t) in enumerate(shapes)]
+    publish_ms = []
+    store = share.prefix_store
+    publish = store.publish
+
+    def timed_publish(model, ids, *args, **kwargs):
+        out, dt = timed(torch, lambda: publish(model, ids, *args, **kwargs))
+        publish_ms.append((len(ids), dt * 1e3))
+        return out
+
+    store.publish = timed_publish
+    for eng in (share, cold):  # allocator and library state, outside the timed runs
+        eng.generate(GenerationRequest(MODEL, "warm up the engine", 8, stop_at_eos=False))
+
+    def schedule(engine):
+        session = engine.decode_open(openers, reserve_rows=1 + len(joiners) + SHARE_OPENERS)
+        if engine is share:
+            # The openers only size the pool: their nodes leave the store,
+            # so that the anchor's join does not hit their one shared token
+            # (BOS), which would seed position 0 and move its chunks by one
+            # against the cold run's.
+            store.release_all()
+        session.step(8)
+        rec = {"anchor": chunked_join(torch, session, anchor)}
+        session.step(8)
+        for k, joiner in enumerate(joiners):
+            b0 = b1.launches
+            rec[k] = (*chunked_join(torch, session, joiner), b1.launches - b0)
+        five = (anchor, *joiners[: len(SHARE_JOINERS) + 1])  # the anchor's sharers
+        live = [row for row in session.rows if row is not None and row.request in five]
+        pages = sorted(p for row in live for p in row.pages)
+        rec["pages"] = {"held": len(set(pages)), "mapped": len(pages),
+                        "pool": session.pool.n_pages, "store": store.hbm_pages_held if engine is share else 0}
+        out = drain(session)
+        session.close()
+        rec["results"] = {r.request.prompt: r for r in out}
+        return rec
+
+    counters0 = (prefix.PREFIX_HIT_TOKENS_C.labels().value, prefix.PREFIX_COW_COPIES_C.labels().value)
+    cold_rec = schedule(cold)
+    hit_rec, counts = count_launches(kernels, lambda: schedule(share))
+    hit_tokens = prefix.PREFIX_HIT_TOKENS_C.labels().value - counters0[0]
+    cow = prefix.PREFIX_COW_COPIES_C.labels().value - counters0[1]
+    store.publish = publish
+    rows, equal = [], {}
+    for k, joiner in enumerate(joiners):
+        pend, wall, b1_hit = hit_rec[k]
+        cpend, cwall, b1_cold = cold_rec[k]
+        got = hit_rec["results"][joiner.prompt].tokens
+        want = cold_rec["results"][joiner.prompt].tokens
+        aligned = k < len(SHARE_JOINERS)
+        row = {"shared_tokens": shapes[k][0], "tail_tokens": len(pend.ids) - shapes[k][0],
+            "hit_tokens": pend.hit_tokens, "shared_pages": pend.shared_pages,
+            "b1_launches_hit": b1_hit, "b1_launches_cold": b1_cold,
+            "join_ms_hit": wall * 1e3, "join_ms_cold": cwall * 1e3,
+            "tail_chunks": len(pend.chunks), "cold_chunks": len(cpend.chunks)}
+        assert pend.hit_tokens >= shapes[k][0] and pend.shared_pages == pend.hit_tokens // PAGE, row
+        assert b1_hit == n_layers * len(pend.chunks) and b1_cold == n_layers * len(cpend.chunks), row
+        if aligned:
+            equal[k] = got == want
+            row["tokens_equal_cold"] = equal[k]
+        else:
+            row["max_logit_gap"] = replay_gap(torch, share, tfm, ca, eng_mod, joiner, got)
+            row["share_equal_cold"] = sum(a == b for a, b in zip(got, want)) / max(len(got), len(want))
+        rows.append(row)
+    # the openers (one chunk each, one bucket) prefill in one grouped forward
+    expected_b1 = n_layers * (1 + len(hit_rec["anchor"][0].chunks)
+                              + sum(len(hit_rec[k][0].chunks) for k in range(len(joiners))))
+    emit({
+        "phase": "engine_prefix_share_paged", "layers": n_layers, "joiners": rows,
+        "anchor_tokens_equal_cold": hit_rec["results"][anchor.prompt].tokens
+        == cold_rec["results"][anchor.prompt].tokens,
+        "hit_tokens_total": hit_tokens, "cow_copies": cow,
+        "pages_five_rows_shared": hit_rec["pages"], "pages_five_rows_cold": cold_rec["pages"],
+        "publish_ms": publish_ms, "anchor_join_ms": hit_rec["anchor"][1] * 1e3,
+        "store": store.debug_state(), "counts": counts, "nvidia_smi": smi,
+    })
+    assert all(equal.values()), equal
+    assert all(row["max_logit_gap"] <= LOGIT_ATOL for row in rows[len(SHARE_JOINERS):]), rows
+    # the store is empty when the anchor joins; the mid-page and the BOS
+    # joiners each copy a page on write
+    assert cow == 2 and hit_tokens == sum(r["hit_tokens"] for r in rows), (cow, hit_tokens)
+    assert rows[-1]["hit_tokens"] == 1, rows[-1]
+    assert counts["cuda_prefill_attention"] == expected_b1, (counts, expected_b1)
+    parts = counts["cuda_paged_decode_attention_parts"]
+    assert parts > 0 and parts % n_layers == 0, counts
+    assert all(n == 0 for name, n in counts.items()
+               if name not in ("cuda_prefill_attention", "cuda_paged_decode_attention_parts")), counts
+    store.release_all()
+    del share, cold, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def prefix_share_spill_phase(torch, eng_mod, kernels, GenerationRequest, smi):
+    """The store's budgets and seed-only reuse, qwen2:1.5b at int8 weights
+    cut to SOLO_CUT_LAYERS layers. On an int8 pool with a device budget
+    that holds one SPILL_PREFIX_TOKENS-token node: a joiner publishes it and
+    retires, a second joiner's publication spills it to host memory, and a
+    third joiner that shares it restores it (``llm_prefix_store_restores``)
+    and gives the cold join's tokens. Then on the contiguous session (no
+    pool): a joiner sharing a published prefix seeds its private cache
+    from the slab (seed-only reuse) and gives the cold join's tokens.
+    Returns the launches of the two shared runs."""
+    import gc
+
+    from importlib import import_module
+
+    store_mod = import_module(f"{PKG}.engine.radix_store")
+    totals = {fn.__name__: 0 for fn in kernels}
+    params = None
+    first = share_text(SPILL_PREFIX_TOKENS + 1, "Spilled prefix")[:SPILL_PREFIX_TOKENS - 1]
+    opener = GenerationRequest(MODEL, share_text(SHARE_ANCHOR_TOKENS, "Opener"), EVAC_NEW_TOKENS,
+                               stop_at_eos=False)
+    publisher = GenerationRequest(MODEL, first, 8, stop_at_eos=False)
+    other = GenerationRequest(MODEL, share_text(512, "Another prefix"), 32, stop_at_eos=False)
+    sharer = GenerationRequest(MODEL, first + share_text(257, "#restored tail"), 32, stop_at_eos=False)
+    for layout, kv in (("paged", "int8"), ("contiguous", None)):
+        kw = dict(quantize="int8", paged_kv=layout == "paged", kv_quantize=kv, registry=cut_registry())
+        share = eng_mod.TorchEngine(prefix_share=True, **kw)
+        if params is None:
+            share.load_model(MODEL)
+            params = share._models[MODEL].params
+        else:
+            share.install_model(MODEL, share.registry[MODEL], params)
+        cold = eng_mod.TorchEngine(**kw)
+        cold.install_model(MODEL, share.registry[MODEL], params)
+        store = share.prefix_store
+        node_bytes = None
+
+        def schedule(engine):
+            nonlocal node_bytes
+            session = engine.decode_open([opener], reserve_rows=4)
+            if engine is share:
+                store.release_all()  # as in prefix_share_paged_phase: no BOS hit for the publisher
+            out = []
+            if layout == "paged" and engine is share:
+                node_bytes = (SPILL_PREFIX_TOKENS // PAGE) * (
+                    session.pool.payload_nbytes() // session.pool.n_pages)
+                store.hbm_bytes = node_bytes  # the device budget holds one such node
+            chunked_join(torch, session, publisher)
+            while any(row is not None and row.request is publisher for row in session.rows):
+                out += session.step(8)
+            if layout == "paged":
+                chunked_join(torch, session, other)  # its publication spills the cold node
+            pending, _ = chunked_join(torch, session, sharer)
+            out += drain(session)
+            session.close()
+            return pending, {r.request.prompt: r for r in out}
+
+        _, want = schedule(cold)
+        spills0 = store_mod.STORE_SPILLS_C.labels().value
+        restores0 = store_mod.STORE_RESTORES_C.labels().value
+        (pending, got), counts = count_launches(kernels, lambda: schedule(share))
+        line = {
+            "phase": "engine_prefix_share_spill", "layout": layout, "kv": kv or "bf16",
+            "layers": SOLO_CUT_LAYERS, "hit_tokens": pending.hit_tokens, "shared_pages": pending.shared_pages,
+            "spills": store_mod.STORE_SPILLS_C.labels().value - spills0,
+            "restores": store_mod.STORE_RESTORES_C.labels().value - restores0,
+            "hbm_budget_bytes": node_bytes, "store": store.debug_state(),
+            "tokens_equal_cold": got[sharer.prompt].tokens == want[sharer.prompt].tokens,
+            "counts": counts, "nvidia_smi": smi,
+        }
+        emit(line)
+        assert line["tokens_equal_cold"], line
+        assert pending.hit_tokens >= SPILL_PREFIX_TOKENS - 1, line
+        decode = "cuda_paged_decode_attention_parts_int8" if layout == "paged" else "cuda_decode_attention"
+        if layout == "paged":
+            assert line["spills"] >= 1 and line["restores"] >= 1, line
+        else:
+            assert pending.shared_pages == 0 and line["store"]["hbm_pages"] == 0, line
+        ran_only(counts, {"cuda_prefill_attention": SOLO_CUT_LAYERS, decode: SOLO_CUT_LAYERS})
+        for name, n in counts.items():
+            totals[name] += n
+        store.release_all()
+        del share, cold
+        gc.collect()
+    del params
+    torch.cuda.empty_cache()
+    return totals
+
+
+def collect_stream(chunks):
+    """(tokens, final result) of a client's chunk iterator."""
+    toks, final = [], None
+    for ch in chunks:
+        if ch.done:
+            final = ch.result
+        else:
+            toks.extend(ch.tokens)
+    return toks, final
+
+
+def wait_until(cond, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, "timed out"
+        time.sleep(0.005)
+
+
+def stream_thread(fn, out, key):
+    """Consume the chunk iterator ``fn()`` on a thread into ``out[key]``:
+    ``{"tokens", "final", "t_first", "error"}``, filled as chunks arrive."""
+    import threading
+
+    rec = out[key] = {"tokens": [], "final": None, "t_first": None, "error": None}
+
+    def run():
+        try:
+            for ch in fn():
+                if ch.done:
+                    rec["final"] = ch.result
+                elif ch.tokens:
+                    if rec["t_first"] is None:
+                        rec["t_first"] = time.perf_counter()
+                    rec["tokens"].extend(ch.tokens)
+        except BaseException as exc:  # noqa: BLE001 — the caller reads it
+            rec["error"] = exc
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def joined(threads, out):
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive(), "a stream did not end"
+    for key, rec in out.items():
+        assert rec["error"] is None and rec["final"] is not None, (key[:40], rec["error"])
+    return out
+
+
+def migration_joules(url):
+    """The wasted-energy ledger's ``cause="migration"`` Joules, read from
+    a server's ``/metrics``."""
+    import re
+    import urllib.request
+
+    with urllib.request.urlopen(f"{url}/metrics", timeout=30) as resp:
+        text = resp.read().decode()
+    found = re.findall(r'^llm_request_wasted_joules_total\{cause="migration"\} (\S+)$', text, re.M)
+    return float(found[0]) if found else 0.0
+
+
+def serve_migrate_phase(torch, eng_mod, kernels, smi):
+    """Live row migration between in-process ``GenerationServer``s on
+    127.0.0.1 (the continuous scheduler over the bf16 pool, qwen2:1.5b at
+    int8 weights cut to SOLO_CUT_LAYERS layers). Each request is first
+    served alone on a third server: the reference. A bundle sent to the
+    ``role="decode"`` server while it has no live row fails (a real
+    engine opens a session on a first request). Then, with an anchor
+    stream open there, a ``role="prefill"`` server primes four greedy
+    requests and one sampled (``x_prime``: the prefill, then the row
+    exported as a bundle), the port's client ships each bundle to the
+    decode server's ``/api/migrate``, and the row streams from there
+    with the reference's tokens (the sampled row carries its generator's
+    state). Then ``/admin/evacuate`` on a server with four live
+    streaming rows: each bundle seats on the decode server and the rows
+    finish with the tokens of the same schedule run uninterrupted on the
+    third. Every session has 4 slots, and the rows of a part share their
+    page span and side columns, so a row's arithmetic does not depend on
+    the server that decodes it. The counts are read around the primes
+    and seats (B1 once a layer for each prime's prefill, the paged parts
+    kernel, nothing else) and around the evacuation and seats (the
+    paged parts kernel alone: a seated row brings its K/V); the seating
+    server charges each transfer, read from its ``/metrics``. Returns
+    the launches of those two runs."""
+    import gc
+    from importlib import import_module
+
+    server_mod = import_module(f"{PKG}.serve.server")
+    client_mod = import_module(f"{PKG}.serve.client")
+    migrate = import_module(f"{PKG}.serve.migrate")
+    GenerationRequest = import_module(f"{PKG}.engine.backend").GenerationRequest
+    j_per_byte = import_module(f"{PKG}.obs.energy").SWAP_J_PER_BYTE
+    obs = import_module(f"{PKG}.obs")
+    was = obs.enabled()
+    obs.enable()
+    engines = [eng_mod.TorchEngine(quantize="int8", paged_kv=True, registry=cut_registry()) for _ in range(3)]
+    engines[0].load_model(MODEL)
+    params = engines[0]._models[MODEL].params
+    for eng in engines[1:]:
+        eng.install_model(MODEL, eng.registry[MODEL], params)  # the same tensors
+    servers = [server_mod.GenerationServer(
+        eng, host="127.0.0.1", port=0, models=[MODEL], quiet=True, scheduler="continuous",
+        max_batch=4, budget_aware=False, prefill_chunk_tokens=1024, role=role,
+    ) for eng, role in zip(engines, ("mixed", "prefill", "decode"))]
+    for srv in servers:
+        srv.start()
+    dec_url = f"http://127.0.0.1:{servers[2].port}"
+    ref, pre, dec = (client_mod.RemoteHTTPBackend(f"http://127.0.0.1:{srv.port}") for srv in servers)
+    pre_sched, dec_sched = servers[1]._scheduler, servers[2]._scheduler
+    export_row, submit_migrate = pre_sched._export_row, dec_sched.submit_migrate
+    export_ms, seat_mark = [], {}
+
+    def timed_export(*a, **k):
+        t0 = time.perf_counter()
+        out = export_row(*a, **k)
+        export_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def marked_submit(bundle):
+        seat_mark[bundle["request"]["prompt"]] = time.perf_counter()
+        return submit_migrate(bundle)
+
+    pre_sched._export_row, dec_sched.submit_migrate = timed_export, marked_submit
+    reqs = [GenerationRequest(MODEL, share_text(n, f"Migrant {i}"), MIGRATE_NEW_TOKENS, stop_at_eos=False,
+                              seed=21 + i,
+                              **({"temperature": 0.7, "top_p": 0.9} if i == MIGRATE_SAMPLED else {}))
+            for i, n in enumerate(MIGRATE_PROMPT_TOKENS)]
+    t_phase = time.perf_counter()
+    try:
+        alone = {}
+        for r in reqs:  # each alone on one server: the reference
+            joined([stream_thread(lambda r=r: ref.generate_stream(r), alone, r.prompt)], alone)
+        want = {prompt: rec["tokens"] for prompt, rec in alone.items()}
+
+        # the decode server has no live row: the migration fails
+        idle = collect_stream(pre.generate_stream(reqs[0], prime=True))[1].extras["migrate"]
+        try:
+            collect_stream(dec.migrate_stream(idle))
+            idle_error = None
+        except client_mod.RemoteServerError as exc:
+            idle_error = str(exc)
+        assert idle_error and "needs at least one request" in idle_error, idle_error
+        export_ms.clear()
+
+        streams = {}
+        anchor = GenerationRequest(MODEL, share_text(MIGRATE_PROMPT_TOKENS[-1], "Decode anchor"),
+                                   MIGRATE_NEW_TOKENS, stop_at_eos=False)
+        anchor_t = stream_thread(lambda: dec.generate_stream(anchor), streams, "anchor")
+        wait_until(lambda: streams["anchor"]["tokens"])  # its prefill is done
+        migrated, rows = {}, []
+        j0 = migration_joules(dec_url)
+
+        def prime_and_seat():
+            threads = [anchor_t]
+            for r in reqs:
+                t0 = time.perf_counter()
+                toks, primed = collect_stream(pre.generate_stream(r, prime=True))
+                bundle = primed.extras["migrate"]
+                assert toks == [] and bundle["kind"] == "real", (toks, primed.extras)
+                t_post = time.perf_counter()
+                threads.append(stream_thread(lambda b=bundle: dec.migrate_stream(b), migrated, r.prompt))
+                rows.append({"sampled": r.temperature > 0, "prime_ms": (t_post - t0) * 1e3,
+                             "bundle_bytes": migrate.bundle_nbytes(bundle),
+                             "json_bytes": len(json.dumps(bundle)), "t_post": t_post})
+            joined(threads, {**migrated, **streams})
+
+        _, counts = count_launches(kernels, prime_and_seat)
+        joules = migration_joules(dec_url) - j0
+        for r, row, ms in zip(reqs, rows, export_ms):
+            rec = migrated[r.prompt]
+            t_post = row.pop("t_post")
+            row.update(
+                export_ms=ms, wire_ms=(seat_mark[r.prompt] - t_post) * 1e3,
+                seat_to_first_token_ms=(rec["t_first"] - seat_mark[r.prompt]) * 1e3,
+                migrated=rec["final"].extras["sched"].get("migrated") is True,
+                tokens_equal_one_server=rec["tokens"] == want[r.prompt],
+            )
+        bundle_bytes = sum(row["bundle_bytes"] for row in rows)
+        emit({"phase": "serve_migrate", "layers": SOLO_CUT_LAYERS, "rows": rows, "idle_receiver_error": idle_error,
+              "charged_J": joules, "charged_J_expected": 2 * bundle_bytes * j_per_byte,
+              "anchor_generated": len(streams["anchor"]["tokens"]), "counts": counts, "nvidia_smi": smi})
+        assert all(row["tokens_equal_one_server"] and row["migrated"] for row in rows), rows
+        assert abs(joules - 2 * bundle_bytes * j_per_byte) <= 1e-9 * max(1.0, joules), (joules, bundle_bytes)
+        # one prefill forward a prime (a prompt in one chunk); the seats
+        # prefill nothing. The anchor decodes across the count's edges, so
+        # B4's count need not be a whole number of steps.
+        ran_only(counts, {"cuda_prefill_attention": SOLO_CUT_LAYERS, "cuda_paged_decode_attention_parts": 1},
+                 exact={"cuda_prefill_attention": SOLO_CUT_LAYERS * len(reqs)})
+
+        # Drain evacuation: four live streaming rows (an anchor whose
+        # 2,048-token prompt sizes the pool, and three joiners, one
+        # sampled) leave the prefill server for the decode server, which
+        # serves an anchor of the same span; the same schedule run on the
+        # third server uninterrupted is the reference.
+        evac = [GenerationRequest(MODEL, share_text(SHARE_ANCHOR_TOKENS, "Evacuated anchor"),
+                                  EVAC_NEW_TOKENS, stop_at_eos=False)]
+        evac += [GenerationRequest(MODEL, share_text(n, f"Evacuee {i}"), EVAC_NEW_TOKENS, stop_at_eos=False,
+                                   seed=31 + i, **({"temperature": 0.7} if i == 1 else {}))
+                 for i, n in enumerate(EVAC_JOINER_TOKENS)]
+
+        def four_live(client, sched, out):
+            threads = [stream_thread(lambda: client.generate_stream(evac[0]), out, evac[0].prompt)]
+            wait_until(lambda: out[evac[0].prompt]["tokens"])  # the anchor's session is open
+            threads += [stream_thread(lambda r=r: client.generate_stream(r), out, r.prompt) for r in evac[1:]]
+            wait_until(lambda: sched._dbg is not None and sched._dbg[0].active == len(evac))
+            return threads
+
+        uninterrupted = {}
+        joined(four_live(ref, servers[0]._scheduler, uninterrupted), uninterrupted)
+        heads = {}
+        threads = four_live(pre, pre_sched, heads)
+        threads.append(stream_thread(
+            lambda: dec.generate_stream(GenerationRequest(
+                MODEL, share_text(SHARE_ANCHOR_TOKENS, "Receiving anchor"), EVAC_NEW_TOKENS,
+                stop_at_eos=False)),
+            streams, "receiving anchor"))
+        wait_until(lambda: streams["receiving anchor"]["tokens"])  # its prefill is done
+        seated, timing = {}, {}
+        j0 = migration_joules(dec_url)
+
+        def evacuate_and_seat():
+            t0 = time.perf_counter()
+            timing["evacuated"] = pre.evacuate(timeout_s=60)
+            timing["evacuate_ms"] = (time.perf_counter() - t0) * 1e3
+            joined(threads[:-1], heads)
+            for r in evac:
+                bundle = heads[r.prompt]["final"].extras["migrate"]
+                threads.append(stream_thread(lambda b=bundle: dec.migrate_stream(b), seated, r.prompt))
+            joined(threads, {**seated, **streams})
+
+        _, evac_counts = count_launches(kernels, evacuate_and_seat)
+        evac_joules = migration_joules(dec_url) - j0
+        evac_rows = [{
+            "sampled": r.temperature > 0, "streamed_before": len(heads[r.prompt]["tokens"]),
+            "after": len(seated[r.prompt]["tokens"]),
+            "bundle_bytes": migrate.bundle_nbytes(heads[r.prompt]["final"].extras["migrate"]),
+            "tokens_equal_uninterrupted":
+                heads[r.prompt]["tokens"] + seated[r.prompt]["tokens"] == uninterrupted[r.prompt]["tokens"],
+        } for r in evac]
+        evac_bytes = sum(row["bundle_bytes"] for row in evac_rows)
+        emit({"phase": "serve_migrate_evacuate", "layers": SOLO_CUT_LAYERS, "evacuated": timing["evacuated"],
+              "evacuate_ms": timing["evacuate_ms"], "rows": evac_rows, "charged_J": evac_joules,
+              "charged_J_expected": 2 * evac_bytes * j_per_byte, "counts": evac_counts,
+              "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+        assert timing["evacuated"] == len(evac), timing
+        assert all(row["tokens_equal_uninterrupted"] for row in evac_rows), evac_rows
+        assert abs(evac_joules - 2 * evac_bytes * j_per_byte) <= 1e-9 * max(1.0, evac_joules), evac_joules
+        # every row was prefilled before the count: nothing prefills again
+        # (and the rows decode across the count's edges)
+        ran_only(evac_counts, {"cuda_paged_decode_attention_parts": 1})
+    finally:
+        for srv in servers:
+            srv.stop()
+        (obs.enable if was else obs.disable)()
+    del engines, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: n + evac_counts[name] for name, n in counts.items()}
+
+
+def serve_cli_prefix_share_phase(torch, root, smi):
+    """``serve --backend torch --paged-kv --prefix-share
+    --prefix-store-hbm-bytes CLI_SHARE_HBM_BYTES`` (continuous scheduler,
+    int8 weights, full depth) in a subprocess that owns the card:
+    CLI_SHARE_REQUESTS requests over one shared CLI_SHARE_SYSTEM_TOKENS-token
+    system prompt, the first streamed until its session is open, the
+    rest sent together so that they join it and hit the store; the
+    server's ``llm_prefix_hit_tokens_total`` read from ``/metrics``, then
+    SIGTERM and exit 0."""
+    import gc
+    import re
+    import tempfile
+    import threading
+    import urllib.request
+    from importlib import import_module
+
+    client_mod = import_module(f"{PKG}.serve.client")
+    GenerationRequest = import_module(f"{PKG}.engine.backend").GenerationRequest
+    gc.collect()
+    torch.cuda.empty_cache()
+    system = share_text(CLI_SHARE_SYSTEM_TOKENS, "System")
+    reqs = [GenerationRequest(MODEL, system + f" Question {i}: how is light turned into sugar?", 64,
+                              stop_at_eos=False) for i in range(CLI_SHARE_REQUESTS)]
+    results = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_share_") as out:
+        log_path = Path(out) / "serve.log"
+        args = ["--models", MODEL, "--quantize", "int8", "--scheduler", "continuous", "--paged-kv",
+                "--prefix-share", "--prefix-store-hbm-bytes", str(CLI_SHARE_HBM_BYTES)]
+        with ServeProcess(root, log_path, args) as server:
+            client = client_mod.RemoteHTTPBackend(server.url)
+            first = {}
+            t_first = stream_thread(lambda: client.generate_stream(reqs[0]), first, "first")
+            wait_until(lambda: first["first"]["tokens"], timeout=300)
+            threads = [threading.Thread(target=lambda i=i: results.__setitem__(i, client.generate(reqs[i])))
+                       for i in range(1, len(reqs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            joined([t_first], first)
+            with urllib.request.urlopen(f"{server.url}/metrics", timeout=30) as resp:
+                metrics = resp.read().decode()
+        log_tail = log_path.read_text()[-2000:]
+    hit = sum(float(x) for x in re.findall(r"^llm_prefix_hit_tokens_total(?:\{[^}]*\})? (\S+)$", metrics, re.M))
+    assert server.rc == 0, (server.rc, log_tail)
+    assert sorted(results) == list(range(1, len(reqs))), (sorted(results), log_tail)
+    for i, res in results.items():
+        assert res.generated_tokens == len(res.tokens) == reqs[i].max_new_tokens, (i, res.generated_tokens)
+    assert hit > 0, metrics[-2000:]
+    emit({"phase": "serve_cli_prefix_share", "args": args, "server_start_s": server.started,
+          "requests": len(reqs), "prefix_hit_tokens_total": hit, "server_exit_code": server.rc,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+
+
 def main() -> int:
     import torch
 
@@ -3824,7 +4458,7 @@ def main() -> int:
     # the model's own depth)
     cut = cut_registry()[MODEL]
     solo_phases = (
-        ("engine_bf16_kv", "int8", None, None, None, None),
+        ("engine_bf16_kv", "int8", None, None, None, cut),
         ("engine_int8_kv", "int8", "int8", None, None, cut),
         ("engine_int4", "int4", None, cq.cuda_int4_matmul, qplain.int4_matmul_reference, cut),
         ("engine_int4_i32", "int4-i32", None, cq.cuda_int4_matmul_i32, None, cut),
@@ -3862,7 +4496,7 @@ def main() -> int:
     )
     for phase, weights, kv, make_requests, matmul in paged_phases:
         engine = eng_mod.TorchEngine(quantize=weights, paged_kv=True, kv_quantize=kv,
-                                     registry=cut_registry() if kv else None)
+                                     registry=cut_registry() if weights == "int8" else None)
         engine.load_model(MODEL)
         n_layers = engine._models[MODEL].cfg.n_layers
         add(paged_engine_phase(phase, engine, make_requests(backend.GenerationRequest),
@@ -3883,8 +4517,7 @@ def main() -> int:
     for phase, kv, verify in (("engine_spec_ngram_bf16_kv", None, mq_names[0]),
                               ("engine_spec_ngram_int8_kv", "int8", mq_names[1])):
         engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, kv_quantize=kv,
-                                     registry=cut_registry() if kv else None,
-                                     speculative={MODEL: ("ngram", SPEC_K)})
+                                     registry=cut_registry(), speculative={MODEL: ("ngram", SPEC_K)})
         engine.load_model(MODEL)
         n_layers = engine._models[MODEL].cfg.n_layers
         reqs = spec_requests(backend.GenerationRequest)
@@ -3925,7 +4558,7 @@ def main() -> int:
     contig_names = ("cuda_contiguous_mq_attention", "cuda_contiguous_mq_attention_int8")
     for phase, kv, verify in (("engine_spec_contiguous_bf16_kv", None, contig_names[0]),
                               ("engine_spec_contiguous_int8_kv", "int8", contig_names[1])):
-        engine = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv,
+        engine = eng_mod.TorchEngine(quantize="int8", kv_quantize=kv, registry=cut_registry(),
                                      speculative={MODEL: ("ngram", SPEC_K)})
         engine.load_model(MODEL)
         n_layers = engine._models[MODEL].cfg.n_layers
@@ -3956,6 +4589,12 @@ def main() -> int:
     add(prefix_cache_phase(torch, eng_mod, all_kernels, backend.GenerationRequest, smi))
     add(hf_checkpoint_phases(torch, root, eng_mod, all_kernels, backend.GenerationRequest, smi))
     add(study_duty_trace_phase(torch, eng_mod, all_kernels, smi))
+    torch.cuda.empty_cache()
+    # The shared prefix store and live row migration.
+    add(prefix_share_paged_phase(torch, eng_mod, all_kernels, backend.GenerationRequest, smi, tfm, ca))
+    add(prefix_share_spill_phase(torch, eng_mod, all_kernels, backend.GenerationRequest, smi))
+    add(serve_migrate_phase(torch, eng_mod, all_kernels, smi))
+    serve_cli_prefix_share_phase(torch, root, smi)
     assert all(launches.values()), launches
 
     rows = []

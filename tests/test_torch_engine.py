@@ -125,22 +125,6 @@ def test_engine_without_device_needs_cuda(monkeypatch):
         TorchEngine()
 
 
-UNPORTED_ITEMS = {"prefix_share": 12}
-
-
-@pytest.mark.parametrize(
-    "option",
-    [
-        dict(prefix_share=True),
-    ],
-    ids=lambda o: next(iter(o)),
-)
-def test_unported_options_raise(option):
-    name = list(option)[-1]
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP item {UNPORTED_ITEMS[name]}"):
-        TorchEngine(device="cpu", **option)
-
-
 @pytest.mark.parametrize(
     "option",
     [
@@ -150,13 +134,19 @@ def test_unported_options_raise(option):
         dict(weight_cache_dir="weights"),
         # the adaptive draft length and fallback of a speculating session
         dict(speculative={"tiny": ("ngram", 3)}, spec_accept_floor=0.5),
+        # the shared prefix store and its knobs
+        dict(prefix_share=True),
+        dict(prefix_share=True, prefix_index_entries=4),
+        dict(prefix_share=True, prefix_store_hbm_bytes=1 << 20),
+        dict(prefix_share=True, prefix_store_host_bytes=1 << 20),
+        dict(prefix_share=True, prefix_store_scope="session"),
     ],
-    ids=lambda o: next(iter(o)),
+    ids=lambda o: "-".join(o) if "prefix_share" in o else next(iter(o)),
 )
 def test_ported_engine_options_are_taken(option, tmp_path):
-    """The prefix cache, HF checkpoints, the weight cache and a positive
-    ``spec_accept_floor`` build an engine (a checkpoint directory is read
-    only when its model loads)."""
+    """The prefix cache, HF checkpoints, the weight cache, a positive
+    ``spec_accept_floor`` and the shared prefix store build an engine (a
+    checkpoint directory is read only when its model loads)."""
     if "weight_cache_dir" in option:
         option = dict(weight_cache_dir=str(tmp_path / "weights"))
     eng = TorchEngine(device="cpu", **option)
@@ -164,6 +154,13 @@ def test_ported_engine_options_are_taken(option, tmp_path):
     assert eng.hf_checkpoints == option.get("hf_checkpoints", {})
     assert (eng._weight_cache is not None) == ("weight_cache_dir" in option)
     assert eng.spec_accept_floor == option.get("spec_accept_floor", 0.0)
+    store = eng.prefix_store
+    assert (store is not None) == ("prefix_share" in option)
+    if store is not None:
+        assert store.capacity == option.get("prefix_index_entries", 16)
+        assert store.hbm_bytes == option.get("prefix_store_hbm_bytes")
+        assert store.host_bytes == option.get("prefix_store_host_bytes")
+        assert store.scope == option.get("prefix_store_scope", "engine")
 
 
 @pytest.mark.parametrize("mode", ["int4", "int4-i32"])

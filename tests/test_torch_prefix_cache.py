@@ -21,8 +21,8 @@ same LRU order, the same cached K/V and the same evictions (entry and
 byte caps), with bf16-layout and int8 decode caches; a hit prefills one
 chunk where a cold prompt of the chunk size plus a tail prefills two;
 an entry is a copy, never a view of a request's cache. Last, the serve
-CLI: ``--prefix-cache`` reaches the engine, ``--prefix-share`` still
-exits 2 naming ROADMAP item 12."""
+CLI: ``--prefix-cache`` reaches the engine, and so does ``--prefix-share``
+(the shared prefix store, ``tests/test_torch_prefix.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -233,15 +233,23 @@ def test_prefix_cache_goes_with_the_model(np_params):
     assert port._prefix_cache == {}
 
 
-def test_prefix_share_still_raises_naming_item_12():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TorchEngine(device="cpu", prefix_share=True)
+def test_prefix_share_builds_the_store_beside_the_cache():
+    eng = TorchEngine(device="cpu", prefix_share=True, prefix_cache_size=2)
+    assert eng.prefix_store is not None and eng._prefix_enabled
 
 
 # -- the serve CLI -------------------------------------------------------------
-def test_serve_prefix_share_still_exits_2_naming_item_12(capsys):
-    assert cli.main(["serve", "--port", "0", "--prefix-share"]) == 2
-    assert "ROADMAP item 12" in capsys.readouterr().out
+def test_serve_prefix_share_reaches_the_engine(monkeypatch, capsys):
+    seen = {}
+
+    def fake_engine(**kwargs):
+        seen.update(kwargs)
+        raise RuntimeError("engine built")
+
+    monkeypatch.setattr(te, "TorchEngine", fake_engine)
+    assert cli.main(["serve", "--port", "0", "--prefix-share", "--prefix-cache", "3"]) == 2
+    assert "engine built" in capsys.readouterr().out
+    assert seen.get("prefix_share") is True and seen.get("prefix_cache_size") == 3
 
 
 @pytest.mark.parametrize("args, size", [(["--prefix-cache", "6"], 6), (["--prefix-cache"], 4), ([], None)])

@@ -219,8 +219,9 @@ def test_a_speculating_session_takes_no_joiners_and_preempts_nothing(np_params):
 
 
 def test_a_failed_swap_leaves_the_row_decoding_as_before(np_params, monkeypatch):
-    """A preempt whose swap-out raises changes nothing: the row keeps its
-    slot, its table row and its pages, and still gives its solo tokens."""
+    """A preempt whose swap-out (the host copy of its pages) raises
+    changes nothing: the row keeps its slot, its table row and its pages,
+    and still gives its solo tokens."""
     eng = _port_engine(np_params)
     anchor = GenerationRequest("tiny", "anchor row", 12, stop_at_eos=False)
     victim = GenerationRequest("tiny", "victim row", 12, stop_at_eos=False)
@@ -232,7 +233,7 @@ def test_a_failed_swap_leaves_the_row_decoding_as_before(np_params, monkeypatch)
     def fail(pages):
         raise RuntimeError("host copy failed")
 
-    monkeypatch.setattr(sess.pool, "swap_out", fail)
+    monkeypatch.setattr(sess.pool, "copy_out", fail)
     with pytest.raises(RuntimeError, match="host copy failed"):
         sess.preempt(victim)
     assert sess.active == 2
@@ -419,10 +420,7 @@ REFUSED = {
     "--dp": ("ROADMAP item 14", ["--backend", "fake", "--dp", "2"]),
     "--replicas": ("ROADMAP item 15", ["--backend", "fake", "--replicas", "2"]),
     "--model-policy": ("ROADMAP item 15", ["--backend", "fake", "--model-policy", "small-first"]),
-    "--prefix-share": ("ROADMAP item 12", ["--backend", "fake", "--prefix-share"]),
-    "--prefix-index-entries": ("ROADMAP item 12", ["--backend", "fake", "--prefix-index-entries", "8"]),
-    "--role decode": ("ROADMAP item 12", ["--backend", "fake", "--role", "decode"]),
-    "--prefix-store-hbm-bytes": ("ROADMAP item 12", ["--prefix-store-hbm-bytes", "1000000"]),
+    "--roles": ("ROADMAP item 15", ["--backend", "fake", "--roles", "prefill,decode"]),
 }
 
 
@@ -431,6 +429,50 @@ def test_serve_refuses_what_is_not_ported_with_exit_2(option, capsys):
     message, args = REFUSED[option]
     assert cli.main(["serve", "--port", "0", *args]) == 2
     assert message in capsys.readouterr().out
+
+
+# Options that ROADMAP item 12 once refused, now taken: what reaches the
+# torch engine (a recorder here) and the server's role.
+PREFIX_AND_ROLE_TAKEN = {
+    "--prefix-share": (["--prefix-share"], {"prefix_share": True}, "mixed"),
+    "--prefix-index-entries": (
+        ["--prefix-share", "--prefix-index-entries", "8"],
+        {"prefix_share": True, "prefix_index_entries": 8}, "mixed",
+    ),
+    "--prefix-store-hbm-bytes": (
+        ["--prefix-store-hbm-bytes", "1000000"], {"prefix_store_hbm_bytes": 1000000}, "mixed",
+    ),
+    "--prefix-store-host-bytes": (
+        ["--prefix-share", "--prefix-store-host-bytes", "2000"],
+        {"prefix_share": True, "prefix_store_host_bytes": 2000}, "mixed",
+    ),
+    "--role prefill": (["--role", "prefill"], {}, "prefill"),
+    "--role decode": (["--role", "decode"], {}, "decode"),
+}
+
+
+@pytest.mark.parametrize("option", list(PREFIX_AND_ROLE_TAKEN))
+def test_serve_takes_the_prefix_store_and_role_options(option, monkeypatch):
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.engine import torch_engine
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.engine.fake import FakeBackend
+
+    args, engine_kw, role = PREFIX_AND_ROLE_TAKEN[option]
+    built, served = [], []
+    monkeypatch.setattr(torch_engine, "TorchEngine", lambda **kw: built.append(kw) or FakeBackend())
+    monkeypatch.setattr(cli, "_serve_until_signalled", served.append)
+    assert cli.main(["serve", "--port", "0", "--paged-kv", "--scheduler", "continuous", *args]) == 0
+    (kw,) = built
+    assert {key: kw.get(key) for key in engine_kw} == engine_kw
+    assert served[0].role == role
+
+
+def test_serve_fake_backend_owns_a_prefix_store_with_its_budgets(monkeypatch):
+    served = []
+    monkeypatch.setattr(cli, "_serve_until_signalled", served.append)
+    args = ["--prefix-share", "--prefix-store-hbm-bytes", "4096", "--prefix-store-host-bytes", "8192"]
+    assert cli.main(["serve", "--backend", "fake", "--port", "0", "--scheduler", "continuous", *args]) == 0
+    store = served[0].backend.prefix_store
+    assert (store.hbm_bytes, store.host_bytes) == (4096, 8192)
 
 
 def test_serve_without_a_card_exits_2_and_says_so(monkeypatch, capsys):
