@@ -24,7 +24,7 @@ kernel.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Callable, Dict, Tuple, Union
 
 import torch
 
@@ -162,14 +162,33 @@ def embed_lookup(
     return leaf[tokens]
 
 
+def stack_layers(n: int, layer: Callable[[int], Any]) -> Any:
+    """``layer(i)`` for ``i < n`` stacked on a new leading axis. Each part
+    (a tensor, or a quantized leaf's codes and scales) is written into
+    tensors allocated once from layer 0's shapes, so only one layer's part
+    exists beside the stacked leaf, never a list of all of them."""
+    out = None
+    for i in range(n):
+        part = layer(i)
+        is_leaf = isinstance(part, dict)
+        parts = part if is_leaf else {None: part}
+        if out is None:
+            out = {k: t.new_empty((n, *t.shape)) for k, t in parts.items()}
+        for k, t in parts.items():
+            out[k][i] = t
+        del part, parts
+    return out if is_leaf else out[None]
+
+
 def _per_layer(fn, w: torch.Tensor) -> QuantLeaf:
-    """``fn`` over a stacked ``[L, in, out]`` leaf one layer at a time (the
+    """``fn`` over a stacked ``[L, ...]`` leaf one layer at a time (the
     scales are per layer and output channel, so the result is the same),
-    so that the float32 temporaries of a full-width model stay one layer's."""
+    so that the float32 temporaries of a full-width model stay one layer's:
+    an MoE leaf ``[L, E, in, out]`` goes one ``[E, in, out]`` layer, and
+    within it one expert, at a time."""
     if w.ndim < 3:
         return fn(w)
-    parts = [fn(w[i]) for i in range(w.shape[0])]
-    return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+    return stack_layers(w.shape[0], lambda i: _per_layer(fn, w[i]))
 
 
 def quantize_leaf(name: str, leaf: Any, mode: str = "int8", keys=DEFAULT_QUANT_KEYS) -> Any:

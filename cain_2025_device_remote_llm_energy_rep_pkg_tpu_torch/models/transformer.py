@@ -17,7 +17,8 @@ the normalised paged kernel (B6). A contiguous batch cache also decodes
 one token per row at per-row offsets ``[B]`` (a speculative draft model's
 cache) or, on the contiguous session's cache, the speculative verify
 block of S = k+1 candidates per row; the stacked-hybrid leaf takes that
-block too. The mixture-of-experts MLP is not ported yet; the JAX package's
+block too. A config with ``n_experts`` runs the mixture-of-experts MLP
+(:func:`_moe_mlp`, the JAX package's dense dispatch). The JAX package's
 kernel-less scratch verify leaf is not ported (the port's paged sessions
 are stacked-hybrid, and B7/B8 serve every head width it runs).
 """
@@ -49,6 +50,7 @@ from .quantize import (
     is_quantized_cache,
     maybe_dequant,
     quantize_kv_vector,
+    stack_layers,
 )
 
 Params = Dict[str, Any]
@@ -97,9 +99,15 @@ def init_params(
     """Random-init weights on the generator's device.
 
     ``post(name, leaf)`` is applied to each leaf as it is created, so a
-    quantizing caller never holds the full-precision model at once."""
-    if cfg.n_experts:
-        raise NotImplementedError("mixture-of-experts MLPs are not ported yet")
+    quantizing caller never holds the full-precision model at once. The
+    generator draws each leaf whole, in leaf order, except the expert
+    leaves of a mixture-of-experts config (``w_gate``, ``w_up``,
+    ``w_down``, each ``[L, E, in, out]``): for each of them, in that
+    order, one ``[E, in, out]`` draw per layer, which ``post`` sees alone
+    and :func:`stack_layers` writes into the stacked leaf, so that float
+    temporaries stay one layer's (mixtral's ``w_gate`` is 60 GB in f32);
+    then ``router`` ``[L, D, E]`` (fan-in D) in one draw, before an untied
+    ``lm_head``."""
     device = generator.device
     d, f, l = cfg.d_model, cfg.d_ff, cfg.n_layers
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -114,6 +122,11 @@ def init_params(
     def mat(shape, fan_in):
         return (normal(shape) / math.sqrt(fan_in)).to(dtype)
 
+    def mlp(name, shape, fan_in):
+        if not cfg.n_experts:
+            return post(name, mat((l, *shape), fan_in))
+        return stack_layers(l, lambda _i: post(name, mat((cfg.n_experts, *shape), fan_in)))
+
     def norm_gain(shape):
         fill = torch.zeros if cfg.gemma_norm else torch.ones
         return fill(shape, dtype=dtype, device=device)
@@ -126,15 +139,17 @@ def init_params(
     params["wv"] = post("wv", mat((l, d, hkv * dh), d))
     params["wo"] = post("wo", mat((l, hq * dh, d), hq * dh))
     params["mlp_norm"] = post("mlp_norm", norm_gain((l, d)))
-    params["w_gate"] = post("w_gate", mat((l, d, f), d))
-    params["w_up"] = post("w_up", mat((l, d, f), d))
-    params["w_down"] = post("w_down", mat((l, f, d), f))
+    params["w_gate"] = mlp("w_gate", (d, f), d)
+    params["w_up"] = mlp("w_up", (d, f), d)
+    params["w_down"] = mlp("w_down", (f, d), f)
     params["final_norm"] = post("final_norm", norm_gain((d,)))
     if cfg.qkv_bias:
         for name, width in (("bq", hq * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
             params[name] = post(
                 name, torch.zeros((l, width), dtype=dtype, device=device)
             )
+    if cfg.n_experts:
+        params["router"] = post("router", mat((l, d, cfg.n_experts), d))
     if not cfg.tie_embeddings:
         params["lm_head"] = post("lm_head", mat((d, cfg.vocab_size), d))
     return params
@@ -309,6 +324,54 @@ def _activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+# The dense dispatch runs tokens in chunks that keep each [E, T, F]
+# intermediate (gate, up, their product) at or below this many bytes.
+MOE_CHUNK_BYTES = 1 << 30
+
+
+def moe_route(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor):
+    """Router of the MoE MLP over tokens ``x [T, D]``: f32 logits against
+    ``router [D, E]``, softmax, the top-k probabilities renormalised.
+    Returns (weights [T, k] f32, experts [T, k] int64), the highest
+    probability first and, on equal ones, the lower expert first, as
+    ``jax.lax.top_k`` orders them (a stable descending sort; ``torch.topk``
+    does not promise that order)."""
+    probs = torch.softmax(x.to(torch.float32) @ router.to(torch.float32), dim=-1)
+    top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_i = top_w[:, : cfg.top_k_experts], top_i[:, : cfg.top_k_experts]
+    return top_w / torch.sum(top_w, dim=-1, keepdim=True), top_i
+
+
+def _moe_mlp(cfg: ModelConfig, h: torch.Tensor, layer: Params) -> torch.Tensor:
+    """Mixtral-style top-k MoE MLP with the JAX package's dense dispatch:
+    every expert computes every token, and a dense [T, E] combine tensor
+    (the renormalised top-k weights, 0 elsewhere, cast to ``h.dtype``)
+    contracts the expert axis. Static shapes, no host sync and a launch
+    count that does not depend on the routing. The experts dequantize to
+    ``h.dtype`` (never the int4 kernels: those take 2-D leaves), and the
+    products run in ``h.dtype``. Tokens go in chunks, as many as keep an
+    [E, T, F] tensor within MOE_CHUNK_BYTES; each token's output depends
+    on that token alone."""
+    b, s, d = h.shape
+    e = cfg.n_experts
+    w_gate = maybe_dequant(layer["w_gate"], h.dtype)  # [E, D, F]
+    w_up = maybe_dequant(layer["w_up"], h.dtype)
+    w_down = maybe_dequant(layer["w_down"], h.dtype)  # [E, F, D]
+    chunk_tokens = max(1, MOE_CHUNK_BYTES // (e * cfg.d_ff * h.element_size()))
+    x = h.reshape(b * s, d)
+    out = torch.empty_like(x)
+    for start in range(0, b * s, chunk_tokens):
+        xc = x[start : start + chunk_tokens]
+        top_w, top_i = moe_route(cfg, xc, layer["router"])
+        combine = torch.zeros(
+            (xc.shape[0], e), dtype=torch.float32, device=h.device
+        ).scatter_(1, top_i, top_w).to(h.dtype)
+        gate = _activation(cfg, torch.matmul(xc, w_gate))  # [E, T, F]
+        y = torch.matmul(gate * torch.matmul(xc, w_up), w_down)  # [E, T, D]
+        out[start : start + chunk_tokens] = torch.einsum("te,etd->td", combine, y)
+    return out.reshape(b, s, d)
+
+
 def _attention_block(
     cfg: ModelConfig,
     x: torch.Tensor,  # [B,S,D]
@@ -434,8 +497,11 @@ def run_blocks(
             offset, cos, sin, decode_attention, prefill_attention, lengths,
         )
         h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps, gemma_style=cfg.gemma_norm)
-        gate = _activation(cfg, dense_dot(h, layer["w_gate"]))
-        x = x + dense_dot(gate * dense_dot(h, layer["w_up"]), layer["w_down"])
+        if cfg.n_experts:
+            x = x + _moe_mlp(cfg, h, layer)
+        else:
+            gate = _activation(cfg, dense_dot(h, layer["w_gate"]))
+            x = x + dense_dot(gate * dense_dot(h, layer["w_up"]), layer["w_down"])
     return x
 
 
@@ -457,8 +523,6 @@ def forward(
     :func:`split_layers` views, so a decode loop need not rebuild them
     every step. Without attention callables, attention runs the plain
     masked path (dequantizing an int8 cache)."""
-    if cfg.n_experts:
-        raise NotImplementedError("mixture-of-experts MLPs are not ported yet")
     b, s = tokens.shape
     x = embed_lookup(params["embed"], tokens, params["final_norm"].dtype)
     if cfg.gemma_norm:

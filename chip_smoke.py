@@ -14,7 +14,8 @@ bf16 and then an int8 KV cache (7 of 28 layers), ``TorchEngine.generate_batch`` 
 paged pool (17 requests) with a bf16 and then an int8 pool (at 7 of 28
 layers), ``generate``
 at int4 and at int4-i32 weights, one engine with per-model modes (qwen2 at
-int8, full-width llama3.1:8b at int4), an int4 paged batch of 8 rows,
+int8, 7 layers, and full-width llama3.1:8b at int4), an int4 paged batch
+of 8 rows (7 layers),
 the write-through paged decode (8 rows prefilled, written into a pool
 with ``write_prefill`` and decoded through ``forward`` with the engine's
 paged dispatch, whose attention is B6), and speculative sessions over the
@@ -70,8 +71,8 @@ a byte cap that evicts), ``engine_hf_checkpoint`` (a full-width checkpoint writt
 HF's names, loaded through ``hf_checkpoints`` and the weight cache: every
 leaf bit-equal to the install path's), ``serve_cli_hf`` (``serve --hf
 ... --prefix-cache 4`` in a subprocess: two prefix hits over three
-requests) and ``study_duty_trace`` (two study rows with NVML's duty
-cycle and a ``torch.profiler`` trace naming the port's kernels; every
+requests) and ``study_duty_trace`` (two study rows, 7 layers, with NVML's
+duty cycle and a ``torch.profiler`` trace naming the port's kernels; every
 study row now carries the duty cycle). Then the rest of speculation: the
 kernel rows of B7/B8's contiguous instantiations (the contiguous
 session's verify, beside SDPA under the same per-query mask),
@@ -87,7 +88,7 @@ before and after), ``engine_spec_join_preempt_paged`` / ``_contiguous``
 tokens equal an uninterrupted run's) and ``serve_cli_speculative_contiguous``
 (``serve --speculative qwen2:1.5b=ngram:4 --spec-accept-floor 0.3``
 without ``--paged-kv``, 8 requests, exit 0). Last, the shared prefix
-store and live row migration: ``engine_prefix_share_paged`` (full depth,
+store and live row migration: ``engine_prefix_share_paged`` (7 layers,
 bf16 pool: a 2,048-token anchor joined in 256-token chunks, then three
 joiners sharing whole pages, one diverging mid-page and one sharing BOS
 alone; the aligned hits' tokens equal the cold joins', the other two are
@@ -103,6 +104,17 @@ counts read around the primes and seats and around the evacuation and
 seats, and each transfer's charge read from the seating server's
 ``/metrics``) and
 ``serve_cli_prefix_share`` (``serve --prefix-share`` as a subprocess).
+Last, the mixture-of-experts MLP on mixtral:8x7b at full width and
+depth (32 layers, 8 experts of d_ff 14,336, top-2), after every earlier
+engine has let go: ``mixtral_bf16_refused`` (the bf16 load, 93.4 GB,
+refused before it allocates), ``mixtral_load_int8`` (46.7 GB, the
+allocator's peak over the weights), ``moe_layer`` (one layer's dense
+dispatch against an independent routed loop), ``engine_mixtral_int8``
+(the study's ``generate``, bf16 KV cache), ``engine_mixtral_int8_kv``,
+``engine_mixtral_paged_batch`` (4 rows over the paged pool) and, on a
+fresh int4 engine, ``engine_mixtral_int4`` (B9 on the attention
+weights); each request's tokens replayed teacher-forced through the plain
+forward under the served routing.
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -269,7 +281,17 @@ WRITE_THROUGH_STEPS = 64
 # 1.2-1.3x slower. So the solo bf16-KV phase with its logits check, the
 # paged bf16-pool batch with the write-through decode, the bf16-pool
 # n-gram session, the contiguous layout's speculating sessions and the
-# solo prefix cache (~115 s at full depth) were cut to it too.
+# solo prefix cache (~115 s at full depth) were cut to it too. With
+# mixtral:8x7b's phases (72 s alone) the shared prefix store's paged phase
+# (17.2 s at full depth; ``serve_cli_prefix_share`` runs the store at full
+# depth) and the study's two traced rows (86.0 s; the ``study`` phase runs
+# the study's own engine at full depth) were cut to it too; then, after
+# the script took 1,012.7 s on a host 1.1-1.2x slower than PR 17's, the
+# int4 paged batch (12.9 s at full depth; llama3.1:8b's and mixtral's int4
+# phases run B9 at full depth) and the qwen2:1.5b half of the mixed-mode
+# engine (the study runs it at full depth). The study's own rows stay at
+# full depth: at 7 layers a row lasts ~1.8 s, too short for NVML's
+# sampled and counted watts to agree within STUDY_POWER_AGREEMENT.
 SOLO_CUT_LAYERS = 7
 
 
@@ -2424,10 +2446,10 @@ def study_phase(torch, eng_mod, kernels, smi):
     """The study's measured run: ``ExperimentController`` over
     ``LlmEnergyConfig`` (qwen2:1.5b, both locations, 100 words, two
     repetitions), whose ``before_experiment`` builds ``TorchEngine(quantize=
-    "int8")`` itself. Each row must be done, with NVML's Joules beside the
-    modelled ones and NVML's duty cycle in [0, 100] %; B1 and B2 must have run once a layer for every prefill
-    chunk and decode step of the rows and of the warm-ups, and no other
-    kernel at all."""
+    "int8")`` itself. Each row must be done, with NVML's Joules beside the modelled ones and
+    NVML's duty cycle in [0, 100] %; B1 and B2 must have run once a layer
+    for every prefill chunk and decode step of the rows and of the
+    warm-ups, and no other kernel at all."""
     import csv
     import tempfile
     from importlib import import_module
@@ -2829,12 +2851,13 @@ def drive_server(torch, server_mod, client_mod, engine, kernels, requests, gaps,
     return results, deltas, counts, wall, mean_w, live_rows[0]
 
 
-def replay_gap(torch, engine, tfm, ca, eng_mod, request, tokens):
+def replay_gap(torch, engine, tfm, ca, eng_mod, request, tokens, plain=False):
     """Teacher-force ``tokens`` after the request's prompt through the
-    engine's solo prefill (B1 over a contiguous cache): the largest gap
-    between a position's maximum logit and the served token's logit."""
-    tf = engine._models[MODEL]
-    tok = engine._tokenizer_for(MODEL)
+    engine's solo prefill (B1 over a contiguous cache; with ``plain``, the
+    plain forward, no kernel at all): the largest gap between a position's
+    maximum logit and the served token's logit."""
+    tf = engine._models[request.model]
+    tok = engine._tokenizer_for(request.model)
     prompt = tok.encode(request.prompt)
     ids = prompt + tokens[:-1]
     bucket = eng_mod._prompt_alloc(len(ids))  # one forward, past 2,048 tokens too
@@ -2842,7 +2865,7 @@ def replay_gap(torch, engine, tfm, ca, eng_mod, request, tokens):
     x = torch.tensor([ids + [tok.pad_id] * (bucket - len(ids))], device=engine.device)
     with torch.no_grad():
         hidden, _, _ = tfm.forward(tf.params, tf.cfg, x, 0, k_cache, v_cache, None,
-                                   ca.cuda_prefill_attention, layers=tf.layers)
+                                   None if plain else ca.cuda_prefill_attention, layers=tf.layers)
         logits = tfm.logits_for(tf.params, tf.cfg, hidden[0, len(prompt) - 1 : len(ids)]).float()
         served = torch.tensor(tokens, device=engine.device)[:, None]
         gap = logits.max(dim=1).values - logits.gather(1, served)[:, 0]
@@ -3672,9 +3695,12 @@ def trace_busy_share(path):
 
 
 def study_duty_trace_phase(torch, eng_mod, kernels, smi):
-    """The study's two on_device rows (qwen2:1.5b, 100 words, two
-    repetitions) with ``NvmlDutyCycleProfiler`` (the study wires it when
-    NVML's utilization reads) and ``TorchTraceProfiler`` (CUDA activity)
+    """The study's two on_device rows (qwen2:1.5b at full width cut to
+    SOLO_CUT_LAYERS layers, the engine passed in as ``backends``: the
+    ``study`` phase runs the study's own engine at full depth; 100 words,
+    two repetitions) with
+    ``NvmlDutyCycleProfiler`` (the study wires it when NVML's utilization
+    reads) and ``TorchTraceProfiler`` (CUDA activity)
     attached: each row's ``gpu_duty_cycle_pct`` lies in [0, 100], its
     ``energy_duty_J`` is set, and its trace names the port's kernels
     (``prefill_mma_kernel``, ``decode_tile_kernel``; names, not counts:
@@ -3700,6 +3726,7 @@ def study_duty_trace_phase(torch, eng_mod, kernels, smi):
         config = study.LlmEnergyConfig(
             models=[MODEL], locations=["on_device"], lengths=[STUDY_WORDS[0]],
             repetitions=2, cooldown_ms=STUDY_CLI_COOLDOWN_MS, results_output_path=out,
+            backends={"on_device": eng_mod.TorchEngine(quantize="int8", registry=cut_registry())},
         )
         assert isinstance(config.profilers[0], probe.NvmlDutyCycleProfiler), config.profilers
         config.profilers.append(trace_mod.TorchTraceProfiler(activities=[ProfilerActivity.CUDA]))
@@ -3849,7 +3876,8 @@ def chunked_join(torch, session, request):
 
 def prefix_share_paged_phase(torch, eng_mod, kernels, GenerationRequest, smi, tfm, ca):
     """The shared prefix store on the bf16 pool, qwen2:1.5b at int8 weights,
-    full width and depth. Two openers, then an anchor of
+    full width, cut to SOLO_CUT_LAYERS layers (``serve_cli_prefix_share``
+    runs the store at full depth). Two openers, then an anchor of
     SHARE_ANCHOR_TOKENS tokens by a chunked join (256-token chunks), then
     five joiners: three share its first 1,536 or 1,792 tokens (whole
     pages and whole chunks) and diverge in 256–512-token tails, one
@@ -3867,7 +3895,7 @@ def prefix_share_paged_phase(torch, eng_mod, kernels, GenerationRequest, smi, tf
     from importlib import import_module
 
     prefix = import_module(f"{PKG}.engine.prefix")
-    share = eng_mod.TorchEngine(quantize="int8", paged_kv=True, prefix_share=True)
+    share = eng_mod.TorchEngine(quantize="int8", paged_kv=True, prefix_share=True, registry=cut_registry())
     share.load_model(MODEL)
     params = share._models[MODEL].params
     cold = eng_mod.TorchEngine(quantize="int8", paged_kv=True)
@@ -4381,6 +4409,376 @@ def serve_cli_prefix_share_phase(torch, root, smi):
           "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
 
+# -- mixtral:8x7b: the mixture-of-experts MLP at full width --------------------
+MOE_MODEL = "mixtral:8x7b"
+MOE_PROMPT_TOKENS = 256
+MOE_NEW_TOKENS = 24
+MOE_SHORT_TOKENS = 12  # the paged batch's rows and the int4 request
+MOE_BATCH_PROMPTS = (256, 220, 180, 140)  # row 0 is the solo request's prompt
+MOE_LAYER_TOKENS = 64
+# Dense dispatch against the routed loop, of the largest output: the two
+# round the combine weights and the expert sum to bf16 at other places,
+# each within 2^-8 of a value; four such steps.
+MOE_LAYER_RTOL = 2**-6
+# A served token's experts against the plain replay's own router: the
+# served choice may fall short of the replay's k-th probability by this
+# much and no more. The two paths' bf16 hidden states part by rounding
+# over 32 layers, which moves a router probability by up to ~0.02 (a
+# near-tie then goes either way); a wrong expert falls short by the
+# router's spread, ~0.1.
+MOE_ROUTE_SLACK = 2**-5
+MOE_ATTENTION_MATMULS = 4  # wq, wk, wv, wo: an MoE layer's 2-D leaves (B9 at int4)
+# Load headroom over the resident weights: one layer of one expert leaf's
+# float draw ([8, 4096, 14336] f32 is 1.88 GB) and its temporaries, far
+# under one whole bf16 expert leaf (30.1 GB).
+MOE_LOAD_HEADROOM = 8 * 1024**3
+MOE_PROFILED_TOKENS = 4
+
+
+def moe_request(GenerationRequest, n_tokens=MOE_PROMPT_TOKENS, new_tokens=MOE_NEW_TOKENS):
+    """An ``n_tokens``-token prompt asking ``new_tokens`` greedy tokens."""
+    return GenerationRequest(MOE_MODEL, context_prompt(n_tokens), new_tokens, stop_at_eos=False)
+
+
+def moe_load(torch, eng_mod, qmod, memory, phase, smi, **engine_kw):
+    """A fresh engine loads full-width mixtral:8x7b at the given weight
+    mode (random weights from the engine's seed, drawn a layer at a time):
+    its bytes, load seconds and the allocator's peak over the weights."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    engine = eng_mod.TorchEngine(**engine_kw)
+    _, load_s = timed(torch, lambda: engine.load_model(MOE_MODEL))
+    tf = engine._models[MOE_MODEL]
+    cfg = tf.cfg
+    nbytes = qmod.params_nbytes(tf.params)
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": phase, "weights": engine._quant_mode(MOE_MODEL), "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "experts": cfg.n_experts, "top_k": cfg.top_k_experts,
+          "weight_bytes": nbytes, "estimate_bytes": memory.estimate_weight_bytes(cfg, engine._quant_mode(MOE_MODEL)),
+          "load_s": load_s, "allocated_before_bytes": before,
+          "memory_allocated_bytes": torch.cuda.memory_allocated(), "max_memory_allocated_bytes": peak,
+          "peak_over_weights_bytes": peak - before - nbytes, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k_experts) == (32, 4096, 14336, 8, 2)
+    assert peak - before - nbytes <= MOE_LOAD_HEADROOM, (peak, before, nbytes)
+    return engine
+
+
+def moe_layer_phase(torch, tfm, engine, smi):
+    """Layer 0 of the loaded int8 model at full width (E 8, k 2, D 4096,
+    F 14336) on MOE_LAYER_TOKENS bf16 tokens: the port's dense dispatch
+    (``_moe_mlp``: every expert computes every token) against an
+    independent routed loop (``torch.topk`` on its own f32 router logits,
+    then each expert's own dequantized weights over the tokens routed to
+    it, summed in f32). The experts chosen must be identical and the
+    outputs within MOE_LAYER_RTOL of the largest one; both are timed."""
+    import torch.nn.functional as F
+
+    t0 = time.perf_counter()
+    tf = engine._models[MOE_MODEL]
+    cfg, layer = tf.cfg, tf.layers[0]
+    gen = torch.Generator(device=engine.device).manual_seed(18)
+    h = torch.randn((MOE_LAYER_TOKENS, cfg.d_model), generator=gen, device=engine.device).to(torch.bfloat16)
+
+    def expert(name, e):
+        return (layer[name]["q"][e].to(torch.float32) * layer[name]["s"][e]).to(torch.bfloat16)
+
+    def routed():
+        probs = torch.softmax(h.to(torch.float32) @ layer["router"].to(torch.float32), dim=-1)
+        top_w, top_i = torch.topk(probs, cfg.top_k_experts, dim=-1)
+        top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+        out = torch.zeros((h.shape[0], cfg.d_model), dtype=torch.float32, device=h.device)
+        for e in range(cfg.n_experts):
+            rows, slot = (top_i == e).nonzero(as_tuple=True)
+            x = h[rows]
+            y = (F.silu(x @ expert("w_gate", e)) * (x @ expert("w_up", e))) @ expert("w_down", e)
+            out.index_add_(0, rows, y.to(torch.float32) * top_w[rows, slot, None])
+        return out, top_i
+
+    def dense():
+        return tfm._moe_mlp(cfg, h[None], layer)[0]
+
+    (want, want_i), _ = timed(torch, routed)  # the first calls pay cuBLAS's setup
+    got, _ = timed(torch, dense)
+    _, got_i = tfm.moe_route(cfg, h, layer["router"])
+    _, routed_s = timed(torch, routed)
+    _, dense_s = timed(torch, dense)
+    diff = (got.to(torch.float32) - want).abs().max().item()
+    scale = want.abs().max().item()
+    same_experts = bool(torch.equal(got_i, want_i))
+    emit({"phase": "moe_layer", "tokens": MOE_LAYER_TOKENS, "experts": cfg.n_experts, "top_k": cfg.top_k_experts,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "same_experts": same_experts,
+          "tokens_per_expert": torch.bincount(want_i.flatten(), minlength=cfg.n_experts).tolist(),
+          "max_abs_err": diff, "max_abs_out": scale, "tolerance": MOE_LAYER_RTOL * scale,
+          "dense_ms": dense_s * 1e3, "routed_loop_ms": routed_s * 1e3,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    assert torch.isfinite(got).all() and got.shape == (MOE_LAYER_TOKENS, cfg.d_model)
+    assert same_experts, (got_i, want_i)
+    assert diff <= MOE_LAYER_RTOL * scale, (diff, scale)
+
+
+class MoeRouting:
+    """Wraps ``models/transformer.py::moe_route`` (the MoE MLP's router)
+    while a context is open. Recording (``forced`` None): the experts it
+    chooses on each call, [T, k] per call, in call order (each forward
+    calls it once a layer). Forcing: each call takes its experts from
+    ``forced`` (one (positions, experts) pair a call; other positions keep
+    the router's own choice) and their renormalised probabilities as
+    weights, and records how far short of the router's own k-th
+    probability the forced experts' probabilities fall (0 where the two
+    agree)."""
+
+    def __init__(self, torch, tfm, forced=None):
+        self.torch, self.tfm, self.forced = torch, tfm, forced
+        self.calls, self.shortfall, self.changed = [], 0.0, 0
+
+    def __enter__(self):
+        self.route = self.tfm.moe_route
+        self.tfm.moe_route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.tfm.moe_route = self.route
+
+    def _route(self, cfg, x, router):
+        torch = self.torch
+        w, own = self.route(cfg, x, router)
+        if self.forced is None:
+            self.calls.append(own)
+            return w, own
+        positions, experts = self.forced.pop(0)
+        probs = torch.softmax(x.to(torch.float32) @ router.to(torch.float32), dim=-1)
+        i = own.clone()
+        i[positions] = experts
+        top = probs.gather(1, i)
+        kth = torch.sort(probs, dim=-1, descending=True).values[:, cfg.top_k_experts - 1]
+        self.shortfall = max(self.shortfall, float((kth - top.min(dim=-1).values).max()))
+        self.changed += int((i.sort(dim=-1).values != own.sort(dim=-1).values).any(dim=-1).sum())
+        return top / top.sum(dim=-1, keepdim=True), i
+
+
+def moe_replay(torch, engine, tfm, ca, eng_mod, request, tokens, calls, row=0, rows=1):
+    """Teacher-force a served row through the plain forward twice: with
+    the router's own choices, and with the experts the served run chose
+    at every position and layer (``calls``: the served run's recorded
+    [T, k] a call; its first forward's calls hold the row's prompt at
+    ``row`` of ``rows`` equal-width rows, each later forward's one token a
+    row). Routing is discontinuous: a token whose k-th and (k+1)-th router
+    probabilities are within rounding of each other takes either expert,
+    and the served path and the replay round differently. Returns (the
+    largest logit gap with the replay's own routing, with the served
+    routing, the largest shortfall of a served expert's replayed
+    probability under the replay's own k-th, the positions and layers
+    whose served experts differ from the replay's own)."""
+    cfg = engine._models[request.model].cfg
+    n_layers = cfg.n_layers
+    prompt = len(engine._tokenizer_for(request.model).encode(request.prompt))
+    steps = len(tokens) - 1
+    assert len(calls) == n_layers * (1 + steps), (len(calls), steps)
+    width = calls[0].shape[0] // rows  # the prefill's bucket
+    device = calls[0].device
+    forced = []
+    for layer in range(n_layers):
+        prefill = calls[layer][row * width : row * width + prompt]
+        decode = [calls[n_layers * (1 + s) + layer][row] for s in range(steps)]
+        experts = torch.cat([prefill, torch.stack(decode)]) if decode else prefill
+        forced.append((torch.arange(prompt + steps, device=device), experts))
+    own = replay_gap(torch, engine, tfm, ca, eng_mod, request, tokens, plain=True)
+    with MoeRouting(torch, tfm, forced) as routing:
+        served = replay_gap(torch, engine, tfm, ca, eng_mod, request, tokens, plain=True)
+    assert not routing.forced, len(routing.forced)
+    return own, served, routing.shortfall, routing.changed
+
+
+def moe_generate_phase(torch, phase, engine, tfm, ca, eng_mod, kernels, request, smi, matmul=None):
+    """One study-shaped request through ``generate``: its launches (B1
+    once a layer for the prompt's chunk, the decode kernel of the cache's
+    kind once a layer a decode forward, with ``matmul`` the int4 kernel
+    MOE_ATTENTION_MATMULS times a layer a decode forward, nothing else),
+    its tokens replayed teacher-forced through the plain forward under the
+    experts the served run chose (``moe_replay``: each token within
+    LOGIT_ATOL of its position's maximum, each served expert within
+    MOE_ROUTE_SLACK of the replay's own k-th probability), its ms a step,
+    NVML's Joules and mean W over the call beside
+    ``extras["energy_model"]``."""
+    from importlib import import_module
+
+    dev = import_module(f"{PKG}.profilers.nvml").nvml_device()
+    cfg = engine._models[MOE_MODEL].cfg
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    e0 = dev.total_energy_mj()
+    with MoeRouting(torch, tfm) as routing:
+        (res,), counts = count_launches(kernels, lambda: [engine.generate(request)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    joules = (dev.total_energy_mj() - e0) / 1e3
+    check_results(engine, [request], [res])
+    steps = len(res.tokens) - 1
+    decode = "cuda_decode_attention_int8" if engine.kv_quantize else "cuda_decode_attention"
+    expected = {fn.__name__: 0 for fn in kernels}
+    expected["cuda_prefill_attention"] = cfg.n_layers * len(eng_mod._prompt_chunks(res.prompt_tokens))
+    expected[decode] = cfg.n_layers * steps
+    if matmul:
+        expected[matmul] = MOE_ATTENTION_MATMULS * cfg.n_layers * steps
+    own_gap, gap, shortfall, changed = moe_replay(torch, engine, tfm, ca, eng_mod, request, res.tokens,
+                                                  routing.calls)
+    model = (res.extras or {}).get("energy_model") or {}
+    emit({"phase": phase, "weights": engine._quant_mode(MOE_MODEL), "kv": engine.kv_quantize or "bf16",
+          "prompt_tokens": res.prompt_tokens, "generated_tokens": res.generated_tokens,
+          "prefill_s": res.prefill_s, "decode_s": res.decode_s, "ms_per_step": res.decode_s / steps * 1e3,
+          "tokens_per_s": res.tokens_per_s, "wall_s": wall, "nvml_J": joules, "nvml_mean_W": joules / wall,
+          "nvml_J_per_token": joules / res.generated_tokens, "energy_model": model,
+          "max_logit_gap_plain": gap, "logit_atol": LOGIT_ATOL, "max_logit_gap_plain_own_routing": own_gap,
+          "routing_changed": changed, "routing_shortfall": shortfall, "routing_slack": MOE_ROUTE_SLACK,
+          "counts": counts, "expected": expected,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "seconds": wall,
+          "nvidia_smi": smi})
+    assert counts == expected, (counts, expected)
+    assert model.get("J_per_token") is not None, res.extras
+    assert gap <= LOGIT_ATOL and shortfall <= MOE_ROUTE_SLACK, (gap, shortfall)
+    return counts, res
+
+
+def moe_busy_share(torch, engine, GenerationRequest):
+    """The card's busy share over a ``torch.profiler`` trace of one
+    MOE_PROFILED_TOKENS-token ``generate`` (prefill included), and the
+    trace's kernel count."""
+    import tempfile
+    from torch.profiler import ProfilerActivity
+
+    req = moe_request(GenerationRequest, new_tokens=MOE_PROFILED_TOKENS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_trace_") as out:
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine.generate(req)
+            torch.cuda.synchronize()
+        path = Path(out) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        busy, n_kernels, _ = trace_busy_share(path)
+    return busy, n_kernels
+
+
+def moe_batch_phase(torch, engine, tfm, ca, eng_mod, kernels, GenerationRequest, solo, smi):
+    """``generate_batch`` of MOE_BATCH_PROMPTS rows over the paged bf16
+    pool: B1 once a layer a prefill forward, B4 once a layer a decode
+    step (every row asks MOE_SHORT_TOKENS), nothing else; every row's
+    tokens replayed as ``moe_generate_phase`` replays them; row 0's tokens
+    beside the solo request's."""
+    cfg = engine._models[MOE_MODEL].cfg
+    reqs = [moe_request(GenerationRequest, n, MOE_SHORT_TOKENS) for n in MOE_BATCH_PROMPTS]
+    t0 = time.perf_counter()
+    with MoeRouting(torch, tfm) as routing:
+        results, counts = count_launches(kernels, lambda: engine.generate_batch(reqs))
+    wall = time.perf_counter() - t0
+    check_results(engine, reqs, results)
+    forwards = prefill_forwards(eng_mod, [r.prompt_tokens for r in results])
+    expected = {fn.__name__: 0 for fn in kernels}
+    expected["cuda_prefill_attention"] = cfg.n_layers * forwards
+    expected["cuda_paged_decode_attention_parts"] = cfg.n_layers * (MOE_SHORT_TOKENS - 1)
+    replays = [moe_replay(torch, engine, tfm, ca, eng_mod, r, res.tokens, routing.calls, row, len(reqs))
+               for row, (r, res) in enumerate(zip(reqs, results))]
+    own_gaps, gaps, shortfalls, changed = (list(x) for x in zip(*replays))
+    same = sum(a == b for a, b in zip(results[0].tokens, solo.tokens)) / len(results[0].tokens)
+    windows = {res.extras["decode_window"]: res.decode_s for res in results}
+    emit({"phase": "engine_mixtral_paged_batch", "rows": len(reqs),
+          "prompt_tokens": [r.prompt_tokens for r in results], "generated_tokens": [r.generated_tokens for r in results],
+          "decode_window_s": sum(windows.values()),
+          "ms_per_step": sum(windows.values()) / (MOE_SHORT_TOKENS - 1) * 1e3,
+          "decode_tokens_per_s": sum(r.generated_tokens for r in results) / sum(windows.values()),
+          "max_logit_gap_plain": gaps, "logit_atol": LOGIT_ATOL, "max_logit_gap_plain_own_routing": own_gaps,
+          "routing_changed": changed, "routing_shortfall": shortfalls, "routing_slack": MOE_ROUTE_SLACK,
+          "row0_solo_token_share": same, "counts": counts, "expected": expected, "seconds": wall,
+          "nvidia_smi": smi})
+    assert counts == expected, (counts, expected)
+    assert max(gaps) <= LOGIT_ATOL and max(shortfalls) <= MOE_ROUTE_SLACK, (gaps, shortfalls)
+    return counts
+
+
+def mixtral_phases(torch, eng_mod, tfm, qmod, ca, kernels, GenerationRequest, smi):
+    """mixtral:8x7b at its published width and depth (32 layers, 8 experts
+    of d_ff 14336, top-2), random weights from the engine's seed, after
+    every earlier engine has let go of its memory: the bf16 load refused
+    before it allocates (93.4 GB); an int8 engine (46.7 GB) whose layer 0
+    holds the dense dispatch against a routed loop (``moe_layer``), then
+    the study's ``generate`` over a bf16 KV cache and over an int8 one,
+    and ``generate_batch`` over the paged bf16 pool (engines that install
+    the int8 engine's weights, no copy); last a fresh int4 engine (B9 on
+    wq/wk/wv/wo, the experts dequantized). Returns the launches."""
+    import gc
+    from importlib import import_module
+
+    memory = import_module(f"{PKG}.utils.memory")
+    gc.collect()
+    torch.cuda.empty_cache()
+    totals = {fn.__name__: 0 for fn in kernels}
+
+    def add(counts):
+        for name, n in counts.items():
+            totals[name] += n
+
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    engine = eng_mod.TorchEngine()  # bf16 weights
+    try:
+        engine.load_model(MOE_MODEL)
+    except memory.ModelMemoryError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("the bf16 load of mixtral:8x7b was not refused")
+    after = torch.cuda.memory_allocated()
+    emit({"phase": "mixtral_bf16_refused", "error": refused,
+          "estimate_bytes": memory.estimate_weight_bytes(eng_mod.get_model_config(MOE_MODEL), None),
+          "allocated_before_bytes": before, "allocated_after_bytes": after,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    assert after == before and not engine._models and "quantize" in refused, (before, after, refused)
+    del engine
+
+    engine = moe_load(torch, eng_mod, qmod, memory, "mixtral_load_int8", smi, quantize="int8")
+    cfg, params = engine._models[MOE_MODEL].cfg, engine._models[MOE_MODEL].params
+    moe_layer_phase(torch, tfm, engine, smi)
+    request = moe_request(GenerationRequest)
+    counts, solo = moe_generate_phase(torch, "engine_mixtral_int8", engine, tfm, ca, eng_mod, kernels,
+                                      request, smi)
+    add(counts)
+    t0 = time.perf_counter()
+    busy, n_kernels = moe_busy_share(torch, engine, GenerationRequest)
+    # The byte model bills a decode step's top-k experts; dense dispatch
+    # reads the codes of all of them.
+    all_experts = dataclasses.replace(cfg, top_k_experts=cfg.n_experts)
+    emit({"phase": "engine_mixtral_int8_profile", "generated_tokens": MOE_PROFILED_TOKENS,
+          "trace_busy_share": busy, "trace_kernels": n_kernels,
+          "modelled_step_weight_bytes": memory.decode_weight_stream_bytes(cfg, "int8"),
+          "streamed_step_weight_bytes": memory.decode_weight_stream_bytes(all_experts, "int8"),
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    del engine
+
+    for phase, kw in (("engine_mixtral_int8_kv", dict(kv_quantize="int8")),
+                      ("engine_mixtral_paged_batch", dict(paged_kv=True))):
+        engine = eng_mod.TorchEngine(quantize="int8", **kw)
+        engine.install_model(MOE_MODEL, cfg, params)  # the same tensors: int8 leaves pass through
+        if phase == "engine_mixtral_int8_kv":
+            add(moe_generate_phase(torch, phase, engine, tfm, ca, eng_mod, kernels, request, smi)[0])
+        else:
+            add(moe_batch_phase(torch, engine, tfm, ca, eng_mod, kernels, GenerationRequest, solo, smi))
+        del engine
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    engine = moe_load(torch, eng_mod, qmod, memory, "mixtral_load_int4", smi, quantize="int4")
+    counts, res = moe_generate_phase(torch, "engine_mixtral_int4", engine, tfm, ca, eng_mod, kernels,
+                                     moe_request(GenerationRequest, new_tokens=MOE_SHORT_TOKENS), smi,
+                                     matmul="cuda_int4_matmul")
+    add(counts)
+    emit({"phase": "mixtral_done", "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "int8_int4_token_share": sum(a == b for a, b in zip(solo.tokens, res.tokens)) / len(res.tokens)})
+    del engine, res, solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -4483,7 +4881,7 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
 
-    engine = eng_mod.TorchEngine(quantize={MODEL: "int8", "default": "int4"})
+    engine = eng_mod.TorchEngine(quantize={MODEL: "int8", "default": "int4"}, registry=cut_registry())
     add(mixed_quant_phase(engine, backend.GenerationRequest, all_kernels, chunks_of, qmod.params_nbytes))
     del engine
     torch.cuda.empty_cache()
@@ -4496,7 +4894,7 @@ def main() -> int:
     )
     for phase, weights, kv, make_requests, matmul in paged_phases:
         engine = eng_mod.TorchEngine(quantize=weights, paged_kv=True, kv_quantize=kv,
-                                     registry=cut_registry() if weights == "int8" else None)
+                                     registry=cut_registry())
         engine.load_model(MODEL)
         n_layers = engine._models[MODEL].cfg.n_layers
         add(paged_engine_phase(phase, engine, make_requests(backend.GenerationRequest),
@@ -4595,6 +4993,8 @@ def main() -> int:
     add(prefix_share_spill_phase(torch, eng_mod, all_kernels, backend.GenerationRequest, smi))
     add(serve_migrate_phase(torch, eng_mod, all_kernels, smi))
     serve_cli_prefix_share_phase(torch, root, smi)
+    # The mixture-of-experts MLP: mixtral:8x7b at full width and depth.
+    add(mixtral_phases(torch, eng_mod, tfm, qmod, ca, all_kernels, backend.GenerationRequest, smi))
     assert all(launches.values()), launches
 
     rows = []

@@ -2,10 +2,10 @@
 ``hf_checkpoints`` route, held against the JAX package.
 
 The cases of ``tests/test_convert.py`` and ``tests/test_tokenizer.py:84``
-on the port: for each study family (and mixtral, whose conversion the
-port has although its forward is not ported), an HF model built from its
-config with ``transformers`` is written with ``save_pretrained`` (a
-``model.safetensors``; sharded too, with its index), and
+on the port: for each study family and mixtral (top-2 of 4 experts), an
+HF model built from its config with ``transformers`` is written with
+``save_pretrained`` (a ``model.safetensors``; sharded too, with its
+index), and
 
 - the port's ``load_hf_pretrained`` of the directory and its
   ``convert_hf_state_dict`` of the state dict both equal the JAX
@@ -65,7 +65,7 @@ FAMILIES = {
     "qwen2": ("qwen2:1.5b", {}),  # qkv bias, tied embeddings
     "gemma": ("gemma:2b", dict(n_kv_heads=1)),  # (1 + w) norm, embed scaling
     "phi3": ("phi3:3.8b", dict(n_kv_heads=4)),  # fused qkv_proj / gate_up_proj
-    "mixtral": ("mixtral:8x7b", dict(n_experts=4)),  # conversion only
+    "mixtral": ("mixtral:8x7b", dict(n_experts=4)),  # MixtralForCausalLM
 }
 
 
@@ -130,7 +130,7 @@ def test_sharded_checkpoint_reads_through_its_index(tmp_path):
     _assert_equal_trees(convert.load_hf_pretrained(tmp_path, cfg, dtype=torch.float32), want)
 
 
-@pytest.mark.parametrize("family", [f for f in FAMILIES if f != "mixtral"])
+@pytest.mark.parametrize("family", list(FAMILIES))
 def test_logits_match_hf(family):
     cfg, _ = tiny_cfgs(family)
     model = hf_model_for(cfg)
