@@ -11,14 +11,15 @@ Counterpart of the JAX package's ``engine/paged_kv.py``:
 - the paged kernels (``ops/cuda_paged_attention.py``) read K/V through
   the page table; nothing gathers the pages into a contiguous cache;
 - :func:`write_token` and :func:`write_prefill` write through the table
-  (the write-through mode, whose decode reads the pool with B6).
+  (the write-through mode, whose decode reads the pool with B6);
+- ``dp_shards`` partitions the pages into contiguous equal ranges, one a
+  dp shard of a sharded session (``parallel/tp.py``): an allocation
+  tagged with a shard takes its pages from that range first.
 
 Unlike the JAX arrays, the pool tensors are updated in place: the writers
 write into the tensors they are given and return them. The pool keeps the
 model's native head dim (the JAX engine pads stacked pools to 128 lanes
 for its TPU kernels; the CUDA kernels need no padding).
-
-Not ported yet: ``dp_shards`` (row sharding over a multi-device mesh).
 """
 
 from __future__ import annotations
@@ -132,6 +133,11 @@ class PagePool:
     _free: List[int] = dataclasses.field(default_factory=list)
     # page index -> live reference count; absent = on the free list
     _refs: Dict[int, int] = dataclasses.field(default_factory=dict)
+    # dp row sharding: pages partition into ``dp_shards`` contiguous equal
+    # ranges, so shard-tagged allocations keep a row's pages in the range
+    # of the dp shard that owns the row. A starved shard spills into any
+    # free page (every refcount and exhaustion contract is unchanged).
+    dp_shards: int = 1
 
     @classmethod
     def create(
@@ -144,6 +150,7 @@ class PagePool:
         dtype: torch.dtype = torch.bfloat16,
         quantized: bool = False,
         device="cpu",
+        dp_shards: int = 1,
     ) -> "PagePool":
         shape = (n_layers, n_pages, n_kv_heads, page_size, d_head)
 
@@ -155,9 +162,18 @@ class PagePool:
                 }
             return torch.zeros(shape, dtype=dtype, device=device)
 
-        pool = cls(k=leaf(), v=leaf(), page_size=page_size, _free=list(range(n_pages)))
+        pool = cls(
+            k=leaf(), v=leaf(), page_size=page_size, _free=list(range(n_pages)),
+            dp_shards=max(1, int(dp_shards)),
+        )
         _publish_pool_gauges(pool._free, n_pages)
         return pool
+
+    def shard_of(self, page: int) -> int:
+        """The dp shard whose range holds ``page``."""
+        if self.dp_shards <= 1:
+            return 0
+        return min(page // max(1, self.n_pages // self.dp_shards), self.dp_shards - 1)
 
     @property
     def quantized(self) -> bool:
@@ -199,16 +215,28 @@ class PagePool:
             "fragmentation": round(_fragmentation(self._free), 4),
             "shared_pages": self.shared_pages,
             "payload_bytes": self.payload_nbytes(),
+            "dp_shards": self.dp_shards,
         }
 
-    def alloc(self, n_pages: int) -> List[int]:
+    def alloc(self, n_pages: int, shard: Optional[int] = None) -> List[int]:
+        """``n_pages`` pages at one reference each: off the free list's
+        head, or with ``shard`` (a dp-sharded pool) from that shard's range
+        first and any free page after, the free list's order kept."""
         if n_pages > len(self._free):
             _POOL_EXHAUSTED.inc()
             raise PagePoolExhausted(
                 f"need {n_pages} pages, {len(self._free)} free of "
                 f"{self.n_pages} — evict a finished request or grow the pool"
             )
-        pages, self._free = self._free[:n_pages], self._free[n_pages:]
+        if shard is None or self.dp_shards <= 1:
+            pages, self._free = self._free[:n_pages], self._free[n_pages:]
+        else:
+            pages = [p for p in self._free if self.shard_of(p) == shard][:n_pages]
+            if len(pages) < n_pages:
+                taken = set(pages)
+                pages += [p for p in self._free if p not in taken][: n_pages - len(pages)]
+            taken = set(pages)
+            self._free = [p for p in self._free if p not in taken]
         for p in pages:
             self._refs[p] = 1
         _publish_pool_gauges(self._free, self.n_pages, self.shared_pages)

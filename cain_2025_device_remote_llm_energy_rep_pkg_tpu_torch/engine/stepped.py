@@ -82,7 +82,12 @@ re-shares them while the store still holds them, else swaps the copy
 in. The store outlives the session: close detaches the pool, spilling
 the store's pages to host memory.
 
-Not ported yet: dp shards.
+On a sharded engine with a ``dp`` axis (``parallel/tp.py``) the rows
+split into ``dp_shards`` contiguous blocks when the bucket divides the
+axis: the sharded forward runs each block on its replica's shards, and
+a paged session's pool partitions its pages into as many ranges
+(``PagePool(dp_shards=)``), a row's pages, its parking page and its
+joins', resumes' and copies' pages taken from its block's range first.
 """
 
 from __future__ import annotations
@@ -336,6 +341,11 @@ class SteppedDecodeSession:
         self.closed = False
         self.paged = bool(engine.paged_kv)
         self.pool: Optional[PagePool] = None
+        # dp row sharding (a sharded engine's ``_dp_shards``): the rows
+        # split into this many contiguous blocks, each a dp shard's, and a
+        # paged session's pool into as many page ranges
+        self.dp_shards = 1
+        self.parking_pages: List[int] = []
         self.cache_len = 0  # the contiguous batch cache's positions a row
         # models whose weights this session keeps out of the LRU guard's
         # reach (set at the end of a successful open, released by close)
@@ -560,6 +570,8 @@ class SteppedDecodeSession:
                 f"{self.model}: session cache {self.cache_len} exceeds "
                 f"max_seq_len {self.cfg.max_seq_len}"
             )
+        dp = eng._dp_shards()
+        self.dp_shards = dp if dp > 1 and self.b_bucket % dp == 0 else 1
         states = eng._batch_states(requests, all_ids, cache_len=self.cache_len)
         published = [_state_kv(st) for st in states] if self.store is not None else []
         self.carry.update(eng._contiguous_state(requests, all_ids, states, self.b_bucket))
@@ -596,16 +608,25 @@ class SteppedDecodeSession:
         states = eng._batch_states(requests, all_ids)
         rows_pages = [self._pages_needed(st["s_real"]) for st in states]
         self.jmax = _pow2_at_least(2 * max(rows_pages))
+        # one parking page a dp shard; dp engages when the bucket and the
+        # page count divide it (the JAX package's rule)
+        dp = eng._dp_shards()
+        n_pages = _pow2_at_least(2 * (sum(rows_pages) + max(1, dp)), 4)
+        self.dp_shards = dp if dp > 1 and self.b_bucket % dp == 0 and n_pages % dp == 0 else 1
+        n_layers, n_kv_heads = eng._kv_dims(cfg)
         self.pool = PagePool.create(
-            n_layers=cfg.n_layers, n_pages=_pow2_at_least(2 * (sum(rows_pages) + 1), 4),
-            n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, page_size=self.page_size,
+            n_layers=n_layers, n_pages=n_pages,
+            n_kv_heads=n_kv_heads, d_head=cfg.d_head, page_size=self.page_size,
             dtype=eng.dtype, quantized=bool(eng.kv_quantize), device=eng.device,
+            dp_shards=self.dp_shards,
         )
-        self.parking = self.pool.alloc(1)[0]
-        table = [[self.parking] * self.jmax for _ in range(self.b_bucket)]
+        # free slots' table rows name a parking page in their own shard
+        self.parking_pages = [self.pool.alloc(1, shard=d)[0] for d in range(self.dp_shards)]
+        self.parking = self.parking_pages[0]
+        table = [[self._parking_for(r)] * self.jmax for r in range(self.b_bucket)]
         row_pages = []
         for r, need in enumerate(rows_pages):
-            pages = self.pool.alloc(need)
+            pages = self.pool.alloc(need, shard=self._row_shard(r))
             row_pages.append(pages)
             table[r][:need] = pages
         asm = eng._assemble_rows(states, self.b_bucket, eng._row_field_specs(states))
@@ -622,6 +643,19 @@ class SteppedDecodeSession:
             self.store.attach_pool(self.model, self.pool)
             for ids, (k, v), pages in zip(all_ids, published, row_pages):
                 self._publish_prefix(ids, k, v, pages)
+
+    def _row_shard(self, r: int) -> int:
+        """The dp shard owning slot ``r``: slots split into ``dp_shards``
+        contiguous blocks."""
+        if self.dp_shards <= 1:
+            return 0
+        return min(r // (self.b_bucket // self.dp_shards), self.dp_shards - 1)
+
+    def _parking_for(self, r: int) -> int:
+        """The parking page in slot ``r``'s dp shard."""
+        if not self.parking_pages:
+            return self.parking
+        return self.parking_pages[self._row_shard(r)]
 
     def _pages_needed(self, s_real: int, max_new_tokens: int = 0) -> int:
         """Pages one row pins: its prompt's only, whatever its budget
@@ -736,6 +770,18 @@ class SteppedDecodeSession:
             state["pool"] = self.pool.debug_state()
         else:
             state["cache_len"] = self.cache_len
+        mesh_info = getattr(self.engine, "mesh_info", None)
+        info = mesh_info() if callable(mesh_info) else None
+        if info is not None:
+            # a sharded session: the mesh, and the KV bytes one shard holds
+            state["mesh"] = dict(info)
+            state["mesh"]["per_device_kv_bytes"] = self._per_device_kv_bytes()
+            if self.paged:
+                state["pool"]["per_device"] = {
+                    "bytes": self._per_device_kv_bytes(pool_only=True),
+                    "pages": self.pool.n_pages,
+                    "occupancy": state["pool"]["occupancy"],
+                }
         if self.store is not None:
             # the engine store's snapshot: what a joiner could hit now
             state["prefix_store"] = self.store.debug_state()
@@ -757,6 +803,29 @@ class SteppedDecodeSession:
                 **{f"{key}_total": sum(self._spec_host.get(key, [])) for key in _SPEC_COUNTERS},
             }
         return state
+
+    def _per_device_kv_bytes(self, pool_only: bool = False) -> int:
+        """KV payload bytes one shard holds: each leaf's bytes over the
+        attention shards folded into its layer axis (a draft's by the
+        draft's own heads) and over the session's dp shards, whose rows
+        (the pool: its page ranges) split the leaf. A model whose
+        attention does not shard holds its whole cache on one shard."""
+        eng, c = self.engine, self.carry
+        keys = ["pool"] if self.paged else ["k_cache", "v_cache"]
+        if not pool_only:
+            keys += (["side_k", "side_v"] if self.paged else []) + ["draft_k", "draft_v"]
+        total = 0
+        for key in keys:
+            leaf = c.get(key)
+            if leaf is None:
+                continue
+            cfg = (self.spec or {}).get("dcfg") if key.startswith("draft") else self.cfg
+            if cfg is None:
+                continue
+            shards = eng._kv_dims(cfg)[0] // cfg.n_layers
+            nbytes = leaf.payload_nbytes() if key == "pool" else _leaf_nbytes(leaf)
+            total += nbytes // shards // self.dp_shards
+        return int(total)
 
     def _verify_mode(self) -> str:
         """``native`` on a paged session (the candidates live in the side
@@ -1043,7 +1112,7 @@ class SteppedDecodeSession:
         c["knobs"]["repeat_penalty"][r] = 1.0
         row = self.rows[r]
         if self.paged:
-            c["table"][r] = self.parking
+            c["table"][r] = self._parking_for(r)
             if row.pages:
                 self.pool.free(row.pages)
                 row.pages = []
@@ -1258,7 +1327,7 @@ class SteppedDecodeSession:
                 observe_swap("out", pr.blob.nbytes)
                 host_bytes += pr.blob.nbytes
             row.pages = []
-            c["table"][r] = self.parking
+            c["table"][r] = self._parking_for(r)
             side_bytes = sum(_leaf_nbytes(x) for x in pr.side_blob)
             observe_swap("out", side_bytes)
             host_bytes += side_bytes
@@ -1439,7 +1508,7 @@ class SteppedDecodeSession:
             pages = []
             shared = pr.shared_pages if plan.get("reshare") else []
             if self.paged:
-                own = self.pool.alloc(plan["need"])
+                own = self.pool.alloc(plan["need"], shard=self._row_shard(r))
                 if shared:
                     self.pool.share(shared)
                     self.store.touch(self.model, pr.ids)
@@ -1699,7 +1768,7 @@ class SteppedDecodeSession:
                     self.store.restore(self.model, ids, common)
                 shared_ids = self.store.page_plan(self.model, ids, common)["hbm_lead"]
             shared = len(shared_ids)
-            pages = self.pool.alloc(need - shared)
+            pages = self.pool.alloc(need - shared, shard=self._row_shard(r))
             if shared:
                 # read-only mappings: one reference each, recycled when
                 # the last reader (row or store node) lets go
@@ -1872,7 +1941,7 @@ class SteppedDecodeSession:
             pending.pages = []
 
     def _set_table_row(self, r: int, pages: "List[int]") -> None:
-        row = [self.parking] * self.jmax
+        row = [self._parking_for(r)] * self.jmax
         row[: len(pages)] = pages
         self.carry["table"][r] = torch.tensor(row, dtype=torch.int32, device=self.engine.device)
 

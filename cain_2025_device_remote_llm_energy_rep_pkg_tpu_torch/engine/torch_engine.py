@@ -1685,8 +1685,9 @@ class TorchEngine(GenerationBackend):
         total_pages = sum(rows_pages) + (1 if pad_rows else 0) + (1 if fused_rows else 0)
         n_pages = _pow2_at_least(total_pages, 4)
         jmax = _pow2_at_least(max(rows_pages or [1]))
+        n_layers, n_kv_heads = self._kv_dims(cfg)
         pool = PagePool.create(
-            n_layers=cfg.n_layers, n_pages=n_pages, n_kv_heads=cfg.n_kv_heads,
+            n_layers=n_layers, n_pages=n_pages, n_kv_heads=n_kv_heads,
             d_head=cfg.d_head, page_size=page, dtype=self.dtype,
             quantized=bool(self.kv_quantize), device=self.device,
         )
@@ -1897,10 +1898,22 @@ class TorchEngine(GenerationBackend):
             ),
         }
 
+    def _kv_dims(self, cfg: ModelConfig) -> Tuple[int, int]:
+        """The leading (layer) and head extents of the KV leaves this
+        engine allocates for ``cfg``: the model's own here; a sharded
+        engine folds its shards into the layer axis (``parallel/tp.py``)."""
+        return cfg.n_layers, cfg.n_kv_heads
+
+    def _dp_shards(self) -> int:
+        """The dp extent stepped sessions split their rows over: 1 here; a
+        sharded engine's mesh ``dp`` (``parallel/tp.py``)."""
+        return 1
+
     def _side_caches(self, cfg: ModelConfig, b: int, cols: int):
         """Zeroed K and V side caches [L, B, Hkv, cols, D] of the engine's
         KV representation (int8: codes and f32 scales)."""
-        shape = (cfg.n_layers, b, cfg.n_kv_heads, cols, cfg.d_head)
+        n_layers, n_kv_heads = self._kv_dims(cfg)
+        shape = (n_layers, b, n_kv_heads, cols, cfg.d_head)
 
         def side():
             if self.kv_quantize:

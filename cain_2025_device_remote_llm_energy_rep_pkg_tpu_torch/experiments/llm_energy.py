@@ -8,8 +8,10 @@ TPU:
   ------------------------------------------------------------------
   7 Ollama models (RunnerConfig.py:80)   → same 7 families, TorchEngine
   location ∈ {on_device, remote} (:81)   → the card, or an HTTP server;
-                                           without one, the card again,
-                                           billed as an 8-GPU node
+                                           without one, a tensor-parallel
+                                           engine over the visible GPUs
+                                           (more than one), else the card
+                                           again, billed as an 8-GPU node
   length ∈ {100,500,1000} words (:82)    → max_new_tokens = ceil(words·4/3)
   curl POST /api/generate (:128-131)     → in-process GenerationRequest
   CodeCarbon kWh→J (:250-259)            → NVML energy counter + modelled J
@@ -22,8 +24,6 @@ The reference's quirks are deliberately fixed (SURVEY.md §7):
 execution_time here is the request wall-time, not hook-to-hook time; the
 measurement runs on profiler threads so ``interact`` genuinely waits on the
 generation rather than being dead code.
-
-Not ported yet: a local multi-GPU mesh for ``remote``.
 """
 
 from __future__ import annotations
@@ -423,6 +423,7 @@ class LlmEnergyConfig(ExperimentConfig):
         seed: int = 0,
         n_chips_by_location: Optional[Dict[str, int]] = None,
         quantize: Optional[str] = "int8",
+        remote_tp: int = -1,
     ) -> None:
         self.models = models or MODELS
         self.locations = locations or LOCATIONS
@@ -439,6 +440,9 @@ class LlmEnergyConfig(ExperimentConfig):
         self._cooldown_ms = cooldown_ms  # None → decided by channel type below
         self._backends = backends  # None → built lazily in before_experiment
         self._remote_url = remote_url
+        # tp extent of the local mesh ``remote`` runs on when this host
+        # sees more than one GPU: the first remote_tp of them (-1: all)
+        self._remote_tp = remote_tp
         # The reference's on-device treatment ALSO crosses a process+HTTP
         # boundary — curl to the local Ollama on localhost:11434
         # (experiment/RunnerConfig.py:122-131). With on_device_url set, this
@@ -584,14 +588,17 @@ class LlmEnergyConfig(ExperimentConfig):
             self._backends = {}
             if "on_device" in self.locations or not (self._remote_url or backend_from_env()):
                 self._backends["on_device"] = TorchEngine(quantize=self.quantize)
-            self._wire_remote_backend()
+            self._wire_remote_backend(allow_local_mesh=True)
 
-    def _wire_remote_backend(self) -> None:
+    def _wire_remote_backend(self, allow_local_mesh: bool = False) -> None:
         """Choose the remote treatment's backend: an HTTP server named by
         ``remote_url`` / ``.env SERVER_IP`` (the reference's machine
-        boundary, experiment/RunnerConfig.py:122-131), else the on-device
-        backend aliased and *recorded as aliased* in the run table's
-        backend column."""
+        boundary, experiment/RunnerConfig.py:122-131), else a local
+        tensor-parallel engine over ``remote_tp`` of the visible GPUs
+        (a host with more than one, in-process mode only: a serving
+        process that owns the cards must not meet a second engine on
+        them), else the on-device backend aliased and *recorded as
+        aliased* in the run table's backend column."""
         if "remote" not in self.locations:
             return
         from ..serve.client import backend_from_env
@@ -615,6 +622,18 @@ class LlmEnergyConfig(ExperimentConfig):
                 )
             self._backends["remote"] = http_backend
             return
+        if allow_local_mesh:
+            from ..parallel.mesh import MeshSpec, build_mesh, visible_devices
+
+            devices = visible_devices()
+            if len(devices) > 1:
+                from ..parallel.tp import TensorParallelEngine
+
+                if self._remote_tp > 0:
+                    devices = devices[: self._remote_tp]
+                mesh = build_mesh(MeshSpec.tp_only(self._remote_tp), devices)
+                self._backends["remote"] = TensorParallelEngine(mesh=mesh, quantize=self.quantize)
+                return
         # single-card host: the remote treatment still runs against the
         # on-device backend, distinguished by the energy model's device
         # count — and the aliasing is recorded per row (describe_backend),

@@ -11,7 +11,9 @@ are dicts, scales per output channel:
 - int4-i32: ``{"q32": int32[..., in/8, out], "s": f32[..., 1, out]}``;
   nibble p of lane k is weight row 8k + p.
 
-Embeddings and an untied ``lm_head`` stay int8 in every mode. Both
+Embeddings and an untied ``lm_head`` stay int8 in every mode.
+:func:`slice_leaf` cuts any leaf form by rows or columns for a shard of
+``parallel/sharding.py`` (packed int4 rows repacked where they must be). Both
 frameworks round half to even, so the codes equal the JAX package's bit for
 bit.
 
@@ -79,10 +81,17 @@ def quantize_tensor_int4(w: torch.Tensor) -> QuantLeaf:
     """int4 in [-7, 7], the (even) input-feature axis packed as halves."""
     if w.shape[-2] % 2:
         raise ValueError(f"int4 packing needs an even input-feature dim, got {tuple(w.shape)}")
-    half = w.shape[-2] // 2
     q, scale = _int4_codes(w)
+    return {"q4": _pack_halves(q), "s": scale}
+
+
+def _pack_halves(q: torch.Tensor) -> torch.Tensor:
+    """Codes ``[..., IN, OUT]`` in [-8, 7] → the halves layout: packed row
+    i carries row i in its low nibble and row i + IN/2 in its high one."""
+    half = q.shape[-2] // 2
+    q = q.to(torch.int32)
     packed = (q[..., :half, :] & 0xF) | ((q[..., half:, :] & 0xF) << 4)  # 0..255
-    return {"q4": packed.to(torch.uint8).view(torch.int8), "s": scale}
+    return packed.to(torch.uint8).view(torch.int8)
 
 
 def quantize_tensor_int4_i32(w: torch.Tensor) -> QuantLeaf:
@@ -95,12 +104,18 @@ def quantize_tensor_int4_i32(w: torch.Tensor) -> QuantLeaf:
             f"i32 nibble packing needs an input-feature dim divisible by 8, got {tuple(w.shape)}"
         )
     q, scale = _int4_codes(w)
+    return {"q32": _pack_i32(q), "s": scale}
+
+
+def _pack_i32(q: torch.Tensor) -> torch.Tensor:
+    """Codes ``[..., IN, OUT]`` in [-8, 7] → int32 lanes ``[..., IN/8,
+    OUT]``, nibble p of lane k holding row 8k + p."""
     qg = q.to(torch.int64).reshape(*q.shape[:-2], q.shape[-2] // 8, 8, q.shape[-1])
-    lane = torch.zeros(qg.shape[:-2] + qg.shape[-1:], dtype=torch.int64, device=w.device)
+    lane = torch.zeros(qg.shape[:-2] + qg.shape[-1:], dtype=torch.int64, device=q.device)
     for p in range(8):
         lane |= (qg[..., p, :] & 0xF) << (4 * p)  # 0 .. 2^32 - 1
     lane = torch.where(lane >= 2**31, lane - 2**32, lane)
-    return {"q32": lane.to(torch.int32), "s": scale}
+    return lane.to(torch.int32)
 
 
 def is_quantized(leaf: Any) -> bool:
@@ -150,6 +165,45 @@ def dense_dot(x: torch.Tensor, leaf: Union[torch.Tensor, QuantLeaf]) -> torch.Te
                 out = cuda_int4_matmul_i32(x.reshape(b * s, d).contiguous(), leaf["q32"], leaf["s"])
                 return out.reshape(b, s, out_dim)
     return torch.matmul(x, maybe_dequant(leaf, x.dtype))
+
+
+def _narrow(t: torch.Tensor, axis: int, start: int, stop: int) -> torch.Tensor:
+    """A contiguous copy of ``t``'s [start, stop) along ``axis``: a shard
+    never keeps the full leaf alive through a view."""
+    return t.narrow(axis, start, stop - start).clone(memory_format=torch.contiguous_format)
+
+
+def slice_leaf(leaf: Any, axis: int, start: int, stop: int) -> Any:
+    """Indices [start, stop) of a weight leaf along ``axis``, a tensor's
+    axis (negative for the matmul axes: -1 the output columns, -2 the
+    input rows): a tensor-parallel shard's part of any leaf form.
+
+    A quantized leaf slices its codes and, where they span the axis, its
+    scales (a row slice keeps every per-column scale: each row's products
+    are scaled by the column's scale whatever rows a shard holds). Packed
+    rows cannot always be sliced as they are: an int4 halves leaf pairs
+    row j with row j + IN/2 in one byte, so a row slice unpacks, cuts and
+    packs the shard's rows as halves of its own; an i32 leaf packs 8
+    consecutive rows a lane, so its row slice cuts lanes when both ends
+    are multiples of 8 and repacks otherwise. The codes are the same
+    codes either way, so the shard dequantizes to the full leaf's slice
+    bit for bit."""
+    if not is_quantized(leaf):
+        return _narrow(leaf, axis, start, stop)
+    key = next(k for k in _CODE_KEYS if k in leaf)
+    codes_ = leaf[key]
+    ax = axis % codes_.ndim
+    scale = leaf["s"]
+    out_scale = scale.clone() if scale.shape[ax] == 1 else _narrow(scale, ax, start, stop)
+    row_axis = codes_.ndim - 2
+    if key == "q" or ax != row_axis:
+        return {key: _narrow(codes_, ax, start, stop), "s": out_scale}
+    if key == "q32" and start % 8 == 0 and stop % 8 == 0:
+        return {key: _narrow(codes_, ax, start // 8, stop // 8), "s": out_scale}
+    full = unpack_int4(codes_) if key == "q4" else unpack_int4_i32(codes_)
+    part = full.narrow(ax, start, stop - start)
+    pack = _pack_halves if key == "q4" else _pack_i32
+    return {key: pack(part).contiguous(), "s": out_scale}
 
 
 def embed_lookup(

@@ -18,7 +18,11 @@ one token per row at per-row offsets ``[B]`` (a speculative draft model's
 cache) or, on the contiguous session's cache, the speculative verify
 block of S = k+1 candidates per row; the stacked-hybrid leaf takes that
 block too. A config with ``n_experts`` runs the mixture-of-experts MLP
-(:func:`_moe_mlp`, the JAX package's dense dispatch). The JAX package's
+(:func:`_moe_mlp`, the JAX package's dense dispatch). A layer's two
+halves, :func:`attention_block` and :func:`mlp_block` (and the MoE's
+:func:`moe_combine` / :func:`moe_experts`), are what the sharded forward
+of ``parallel/tp.py`` runs on each shard's slice; ``forward`` and
+``logits_for`` hand it params that are not a dict. The JAX package's
 kernel-less scratch verify leaf is not ported (the port's paged sessions
 are stacked-hybrid, and B7/B8 serve every head width it runs).
 """
@@ -342,6 +346,38 @@ def moe_route(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor):
     return top_w / torch.sum(top_w, dim=-1, keepdim=True), top_i
 
 
+def moe_chunks(cfg: ModelConfig, n_tokens: int, itemsize: int) -> range:
+    """Token-chunk starts of the dense dispatch: as many tokens a chunk as
+    keep one ``[E, T, F]`` tensor of the whole model within
+    MOE_CHUNK_BYTES."""
+    return range(0, n_tokens, max(1, MOE_CHUNK_BYTES // (cfg.n_experts * cfg.d_ff * itemsize)))
+
+
+def moe_combine(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """The dense ``[T, E]`` combine tensor of tokens ``x [T, D]``: the
+    renormalised top-k weights, 0 elsewhere, cast to ``x.dtype``."""
+    top_w, top_i = moe_route(cfg, x, router)
+    combine = torch.zeros((x.shape[0], cfg.n_experts), dtype=torch.float32, device=x.device)
+    return combine.scatter_(1, top_i, top_w).to(x.dtype)
+
+
+def moe_experts(
+    cfg: ModelConfig,
+    x: torch.Tensor,  # [T, D]
+    combine: torch.Tensor,  # [T, E'] the columns of these experts
+    w_gate: torch.Tensor,  # [E', D, F'] dequantized
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,  # [E', F', D]
+) -> torch.Tensor:
+    """Every expert of the leaves on every token, contracted with its
+    combine column: the whole MLP for all experts at full width, or an
+    expert-parallel shard's partial sum (``E' = E/ep`` experts, ``F' =
+    F/tp`` columns of each) for the others to be added to."""
+    gate = _activation(cfg, torch.matmul(x, w_gate))  # [E', T, F']
+    y = torch.matmul(gate * torch.matmul(x, w_up), w_down)  # [E', T, D]
+    return torch.einsum("te,etd->td", combine, y)
+
+
 def _moe_mlp(cfg: ModelConfig, h: torch.Tensor, layer: Params) -> torch.Tensor:
     """Mixtral-style top-k MoE MLP with the JAX package's dense dispatch:
     every expert computes every token, and a dense [T, E] combine tensor
@@ -353,26 +389,31 @@ def _moe_mlp(cfg: ModelConfig, h: torch.Tensor, layer: Params) -> torch.Tensor:
     [E, T, F] tensor within MOE_CHUNK_BYTES; each token's output depends
     on that token alone."""
     b, s, d = h.shape
-    e = cfg.n_experts
     w_gate = maybe_dequant(layer["w_gate"], h.dtype)  # [E, D, F]
     w_up = maybe_dequant(layer["w_up"], h.dtype)
     w_down = maybe_dequant(layer["w_down"], h.dtype)  # [E, F, D]
-    chunk_tokens = max(1, MOE_CHUNK_BYTES // (e * cfg.d_ff * h.element_size()))
     x = h.reshape(b * s, d)
     out = torch.empty_like(x)
-    for start in range(0, b * s, chunk_tokens):
-        xc = x[start : start + chunk_tokens]
-        top_w, top_i = moe_route(cfg, xc, layer["router"])
-        combine = torch.zeros(
-            (xc.shape[0], e), dtype=torch.float32, device=h.device
-        ).scatter_(1, top_i, top_w).to(h.dtype)
-        gate = _activation(cfg, torch.matmul(xc, w_gate))  # [E, T, F]
-        y = torch.matmul(gate * torch.matmul(xc, w_up), w_down)  # [E, T, D]
-        out[start : start + chunk_tokens] = torch.einsum("te,etd->td", combine, y)
+    chunks = moe_chunks(cfg, b * s, h.element_size())
+    for start in chunks:
+        xc = x[start : start + chunks.step]
+        combine = moe_combine(cfg, xc, layer["router"])
+        out[start : start + xc.shape[0]] = moe_experts(cfg, xc, combine, w_gate, w_up, w_down)
     return out.reshape(b, s, d)
 
 
-def _attention_block(
+def mlp_block(cfg: ModelConfig, h: torch.Tensor, layer: Params) -> torch.Tensor:
+    """The MLP half of a layer over the normed residual ``h [B,S,D]``:
+    gated dense, or the MoE MLP when the config has experts. With a
+    tensor-parallel shard's ``F/tp`` columns of ``w_gate``/``w_up`` and
+    rows of ``w_down`` it returns that shard's partial sum."""
+    if cfg.n_experts:
+        return _moe_mlp(cfg, h, layer)
+    gate = _activation(cfg, dense_dot(h, layer["w_gate"]))
+    return dense_dot(gate * dense_dot(h, layer["w_up"]), layer["w_down"])
+
+
+def attention_block(
     cfg: ModelConfig,
     x: torch.Tensor,  # [B,S,D]
     layer: Params,
@@ -385,6 +426,10 @@ def _attention_block(
     prefill_attention: Optional[PrefillAttentionFn],
     lengths: Optional[torch.Tensor],  # [B] int32 = offset + S (decode or per-row verify, not paged)
 ) -> torch.Tensor:
+    """The attention half of a layer over the normed residual ``x``: the
+    step's K/V written into the caches, attention over them, and ``wo``.
+    With a tensor-parallel shard's config (its heads) and leaves it
+    returns that shard's partial sum."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
@@ -467,6 +512,23 @@ def _attention_block(
     return dense_dot(out, layer["wo"])
 
 
+def decode_lengths(
+    b: int, s: int, offset, k_cache, decode_attention: Optional[DecodeAttentionFn], device
+) -> Optional[torch.Tensor]:
+    """The ``lengths [B]`` (int32) that a decode callable reads, where one
+    is used: per-row positions take ``offset + S`` (a decode step or a
+    verify block), a scalar offset ``offset + 1`` for a decode step; the
+    stacked-hybrid leaf carries its own lengths."""
+    stacked_hybrid = is_paged_cache(k_cache) and not _is_write_through(k_cache)
+    if decode_attention is None or stacked_hybrid:
+        return None
+    if isinstance(offset, torch.Tensor):  # per-row positions: S = 1, or a verify block
+        return (offset + s).to(torch.int32)
+    if s == 1:
+        return torch.full((b,), offset + 1, dtype=torch.int32, device=device)
+    return None
+
+
 def run_blocks(
     layers: List[Params],
     cfg: ModelConfig,
@@ -483,26 +545,35 @@ def run_blocks(
     ``i`` gets its views of the caches (for a paged leaf, ``pool[i]`` and
     ``side[i]``, no copy)."""
     b, s, _ = x.shape
-    lengths = None
-    stacked_hybrid = is_paged_cache(k_cache) and not _is_write_through(k_cache)
-    if decode_attention is not None and not stacked_hybrid:
-        if isinstance(offset, torch.Tensor):  # per-row positions: S = 1, or a verify block
-            lengths = (offset + s).to(torch.int32)
-        elif s == 1:
-            lengths = torch.full((b,), offset + 1, dtype=torch.int32, device=x.device)
+    lengths = decode_lengths(b, s, offset, k_cache, decode_attention, x.device)
     for i, layer in enumerate(layers):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps, gemma_style=cfg.gemma_norm)
-        x = x + _attention_block(
+        x = x + attention_block(
             cfg, h, layer, _cache_layer(k_cache, i), _cache_layer(v_cache, i),
             offset, cos, sin, decode_attention, prefill_attention, lengths,
         )
         h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps, gemma_style=cfg.gemma_norm)
-        if cfg.n_experts:
-            x = x + _moe_mlp(cfg, h, layer)
-        else:
-            gate = _activation(cfg, dense_dot(h, layer["w_gate"]))
-            x = x + dense_dot(gate * dense_dot(h, layer["w_up"]), layer["w_down"])
+        x = x + mlp_block(cfg, h, layer)
     return x
+
+
+def embed_tokens(cfg: ModelConfig, embed, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Token embeddings ``[B,S,D]`` (gemma's √d_model scale applied)."""
+    x = embed_lookup(embed, tokens, dtype)
+    if cfg.gemma_norm:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    return x
+
+
+def rope_for(cfg: ModelConfig, b: int, s: int, offset, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoPE ``cos, sin [B,S,half]`` of S tokens from ``offset`` (an int,
+    or per-row positions [B])."""
+    steps = torch.arange(s, dtype=torch.int32, device=device)
+    if isinstance(offset, torch.Tensor):  # per-row positions [B]
+        positions = offset.to(torch.int32)[:, None] + steps[None, :]
+    else:
+        positions = (offset + steps).expand(b, s)
+    return rope_angles(positions, cfg.d_head, cfg.rope_theta)
 
 
 def forward(
@@ -522,17 +593,14 @@ def forward(
     passed in, written in place. ``layers`` takes precomputed
     :func:`split_layers` views, so a decode loop need not rebuild them
     every step. Without attention callables, attention runs the plain
-    masked path (dequantizing an int8 cache)."""
+    masked path (dequantizing an int8 cache). Params that are not a dict
+    (``parallel/tp.py``'s sharded params) run their own sharded forward
+    over the same arguments."""
+    if not isinstance(params, dict):
+        return params.forward(cfg, tokens, offset, k_cache, v_cache, decode_attention, prefill_attention)
     b, s = tokens.shape
-    x = embed_lookup(params["embed"], tokens, params["final_norm"].dtype)
-    if cfg.gemma_norm:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
-    steps = torch.arange(s, dtype=torch.int32, device=x.device)
-    if isinstance(offset, torch.Tensor):  # per-row positions [B]
-        positions = offset.to(torch.int32)[:, None] + steps[None, :]
-    else:
-        positions = (offset + steps).expand(b, s)
-    cos, sin = rope_angles(positions, cfg.d_head, cfg.rope_theta)
+    x = embed_tokens(cfg, params["embed"], tokens, params["final_norm"].dtype)
+    cos, sin = rope_for(cfg, b, s, offset, x.device)
     if layers is None:
         layers = split_layers(params)
     x = run_blocks(
@@ -548,7 +616,9 @@ def logits_for(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.
 
     A quantized head dequantizes to bf16 operands whose products are
     summed in float32, as the JAX package does; a full-precision head
-    stays all-float32."""
+    stays all-float32. Sharded params gather their vocabulary shards."""
+    if not isinstance(params, dict):
+        return params.logits(cfg, hidden)
     leaf = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     if is_quantized(leaf):
         head = maybe_dequant(leaf, torch.bfloat16).to(torch.float32)

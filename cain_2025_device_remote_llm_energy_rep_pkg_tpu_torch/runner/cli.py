@@ -13,9 +13,10 @@ The study commands of the JAX package's CLI, on the port. ``prepare``
 checks torch, the CUDA card (its name and power limit through NVML) and
 the build of the port's kernels. ``serve`` runs the HTTP generation
 server over ``TorchEngine`` on the card (``--backend torch``, the
-default) or the fake backend; the options of the layers not ported yet
-(the JAX engines, tensor parallelism, the replica router and the
-multi-model fleet) exit with code 2 naming their ROADMAP item, as
+default), over ``parallel/tp.py``'s ``TensorParallelEngine`` on a mesh of
+the visible GPUs (``--backend torch-tp --tp N [--dp M]``) or over the fake
+backend; the options of the layers not ported yet (the replica router and
+the multi-model fleet) exit with code 2 naming their ROADMAP item, as
 ``serve-fleet`` does.
 """
 
@@ -200,9 +201,13 @@ commands:
                        recently used model's weights before a load that
                        would pass the card's memory (TPU_ALLOC_BUDGET_BYTES
                        sets the budget). Without a card it exits 2 (no CPU
-                       fallback). Not ported, exit 2 with their ROADMAP
-                       item: --backend jax|jax-tp, --tp, --dp (14),
-                       --replicas > 1, --route-policy, --probe-interval-ms,
+                       fallback). --backend torch-tp --tp N [--dp M]: the
+                       tensor-parallel engine over a mesh of the visible
+                       GPUs (dp x tp of them; -1 on one axis takes the
+                       rest); a mesh larger than the GPU count exits 2.
+                       --backend jax|jax-tp are the JAX package's engines:
+                       exit 2. Not ported, exit 2 with their ROADMAP
+                       item: --replicas > 1, --route-policy, --probe-interval-ms,
                        --roles, --model-policy, --escalate-max-tokens
                        (15)
   serve-fleet          the replica router: not ported (ROADMAP item 15), exit 2
@@ -457,6 +462,19 @@ def _parse_speculative(spec: str):
     return name, (draft, k)
 
 
+def _serve_mesh(tp: int, dp: int):
+    """``MeshSpec.dp_tp(dp, tp)`` (``tp_only(tp)`` without --dp) over the
+    visible GPUs, as the JAX package's ``serve --backend jax-tp`` builds
+    its mesh: a mesh the GPUs cannot hold raises ``resolve``'s error, and
+    a host without a GPU has none to build it over."""
+    from ..parallel.mesh import MeshSpec, build_mesh, visible_devices
+
+    devices = visible_devices()
+    if not devices:
+        raise RuntimeError("--backend torch-tp builds its mesh over the visible GPUs and this host has none")
+    return build_mesh(MeshSpec.dp_tp(dp, tp) if dp > 1 else MeshSpec.tp_only(tp), devices)
+
+
 def serve_command(args: List[str]) -> None:
     """Run the generation server, the side of the study that owns the
     card (the reference's Ollama server, README.md:29-31). The option
@@ -477,6 +495,7 @@ def serve_command(args: List[str]) -> None:
     prefix_kwargs: dict = {}  # the shared prefix store's, both backends
     speculative: dict = {}
     paged_kv = False
+    mesh_axes: dict = {}  # --tp / --dp of the torch-tp backend
     it = iter(args)
 
     def value(flag: str) -> str:
@@ -504,13 +523,17 @@ def serve_command(args: List[str]) -> None:
             if backend_kind in ("jax", "jax-tp"):
                 raise CommandError(
                     f"serve: --backend {backend_kind} is the JAX package's engine; the port "
-                    "serves TorchEngine (--backend torch) and its tensor-parallel engine is "
-                    "not ported yet (ROADMAP item 14)"
+                    "serves TorchEngine (--backend torch) and its tensor-parallel engine "
+                    "(--backend torch-tp)"
                 )
-            if backend_kind not in ("torch", "fake"):
-                raise CommandError(f"serve: unknown backend {backend_kind!r} (torch|fake)")
-        elif arg in ("--tp", "--dp"):
-            raise _not_ported(f"{arg} (tensor and data parallelism)", "14")
+            if backend_kind not in ("torch", "torch-tp", "fake"):
+                raise CommandError(f"serve: unknown backend {backend_kind!r} (torch|torch-tp|fake)")
+        elif arg == "--tp":
+            mesh_axes["tp"] = number(arg, int)
+            if mesh_axes["tp"] < 1 and mesh_axes["tp"] != -1:
+                raise CommandError("serve: --tp expects a positive integer or -1")
+        elif arg == "--dp":
+            mesh_axes["dp"] = number(arg, int, 1)
         elif arg == "--replicas":
             if number(arg, int, 1) > 1:
                 raise _not_ported("--replicas > 1 (the replica router)", "15")
@@ -621,6 +644,8 @@ def serve_command(args: List[str]) -> None:
         else:
             raise CommandError(f"serve: unrecognised option {arg!r}")
 
+    if mesh_axes and backend_kind != "torch-tp":
+        raise CommandError("serve: --tp and --dp shape the mesh of --backend torch-tp")
     if backend_kind == "fake":
         from ..engine.fake import FakeBackend
 
@@ -631,8 +656,13 @@ def serve_command(args: List[str]) -> None:
 
         if models is None:
             models = sorted(MODEL_REGISTRY)
+        engine_cls = TorchEngine
         try:
-            backend = TorchEngine(
+            if backend_kind == "torch-tp":
+                from ..parallel.tp import TensorParallelEngine as engine_cls
+
+                engine_kwargs["mesh"] = _serve_mesh(mesh_axes.get("tp", -1), mesh_axes.get("dp", 1))
+            backend = engine_cls(
                 paged_kv=paged_kv, speculative=speculative or None, **engine_kwargs, **prefix_kwargs
             )
         except (RuntimeError, ValueError) as exc:

@@ -115,6 +115,22 @@ dispatch against an independent routed loop), ``engine_mixtral_int8``
 fresh int4 engine, ``engine_mixtral_int4`` (B9 on the attention
 weights); each request's tokens replayed teacher-forced through the plain
 forward under the served routing.
+Between the two, tensor, data and expert parallelism
+(``parallel/tp.py``'s ``TensorParallelEngine`` over meshes whose shards
+all live on the one card, each against the unsharded engine on the same
+weights; one card shows sharding's parity and launch cost, never TP
+speed): ``tp_generate`` (qwen2:1.5b, int8 weights, tp 2, 28 layers: B1/B2
+exactly twice the unsharded launches, the tokens replayed teacher-forced
+through the unsharded model) with ``_int8_kv`` (B3) and ``_int4`` (B9 on
+every shard's 7 matmuls, ``w_down`` and ``wo`` repacked by rows) at 7
+layers; ``tp_session_paged`` (3 rows and a mid-flight joiner over the
+bf16 pool, 28 layers, B4 twice) and ``_ngram`` (the same session
+speculating with an n-gram draft: B7); ``dp_tp_session`` (dp 2 × tp 2, 7
+layers: B4 four times, each row's pages in its dp shard's range); and,
+inside the mixtral phases, ``ep_tp_mixtral`` (the first 4 of mixtral's 32
+layers at full width under tp 2 × ep 4, f32 activations: logits within
+2e-3 of the unsharded forward's, the same tokens). The kernel rows hold
+B1–B9 at the shard shapes too.
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -170,6 +186,19 @@ WIDE_LAYOUTS = (
     ("gemma:7b", 16, 16, 256),
 )
 WIDE_MODELS = ("qwen2:7b", "mistral:7b", "gemma:7b")
+# The sharded engine's shard shapes for B1-B3 (tp 2: qwen2:1.5b's 6
+# query heads and 1 KV head a shard, mixtral's 16 and 4), after the main
+# path's rows: (label, hq, hkv, d, lengths, T) and (label, B, hq, hkv, d,
+# S, T, offset).
+TP_DECODE_SHAPES = [
+    ("qwen2:1.5b tp-2 shard", 6, 1, 128, [331], 352),
+    ("qwen2:1.5b tp-2 shard session 4 rows", 6, 1, 128, [60, 400, 700, 1100], 1152),
+    ("mixtral:8x7b tp-2 shard", 16, 4, 128, [300], 320),
+]
+TP_PREFILL_SHAPES = [
+    ("qwen2:1.5b tp-2 shard", 1, 6, 1, 128, 512, 512, 0),
+    ("mixtral:8x7b tp-2 shard", 1, 16, 4, 128, 64, 128, 0),
+]
 # Dense matmuls of a layer (wq, wk, wv, wo, w_gate, w_up, w_down): each is
 # one int4 kernel launch per decode forward of at most 8 rows.
 MATMULS_PER_LAYER = 7
@@ -185,6 +214,13 @@ INT4_SHAPES = (
     ("llama3.1:8b w_down", 14336, 4096),
     ("llama3.1:8b wq/wo", 4096, 4096),
     ("llama3.1:8b wk/wv", 4096, 1024),
+    # a tp-2 shard of qwen2:1.5b: F/2 columns of w_gate/w_up, F/2 rows of
+    # w_down (repacked as halves of its own), 6 heads of wq and of wo
+    ("qwen2:1.5b w_gate/w_up tp-2 shard", 1536, 4480),
+    ("qwen2:1.5b w_down tp-2 shard", 4480, 1536),
+    ("qwen2:1.5b wq tp-2 shard", 1536, 768),
+    ("qwen2:1.5b wo tp-2 shard", 768, 1536),
+    ("qwen2:1.5b wk/wv tp-2 shard", 1536, 128),
 )
 INT4_ODD_SHAPE = ("odd", 3, 96, 200)  # (label, M, IN, OUT)
 # (label, IN, OUT) of the w4a8 kernel rows, at the probe's M 8.
@@ -427,6 +463,7 @@ def kernel_phase(torch, ca, plain, timer):
     for label, hq, hkv, d in WIDE_LAYOUTS:
         decode_shapes += [(label, hq, hkv, d, [200], 320), (label, hq, hkv, d, [1400], 2112)]
     decode_shapes += [(label, 12, 2, 128, lens, t) for label, lens, t in SESSION_DECODE_SHAPES]
+    decode_shapes += TP_DECODE_SHAPES
     # (label, batch, hq, hkv, d, S, capacity T, offset)
     prefill_shapes = [
         ("qwen2:1.5b", 1, 12, 2, 128, 64, 320, 0),
@@ -438,6 +475,7 @@ def kernel_phase(torch, ca, plain, timer):
     ]
     for label, hq, hkv, d in WIDE_LAYOUTS:
         prefill_shapes += [(label, 1, hq, hkv, d, 64, 320, 0), (label, 1, hq, hkv, d, 128, 2176, 0)]
+    prefill_shapes += TP_PREFILL_SHAPES
     for label, b, hq, hkv, d, s, t, offset in prefill_shapes:
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -694,6 +732,10 @@ def paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, control):
         ("qwen2:1.5b", 64, 12, 2, 128, mixed(64), PAGE),
         ("phi3:3.8b", 8, 32, 32, 96, mixed(8), PAGE),
         ("gemma:2b", 8, 8, 1, 256, mixed(8), PAGE),
+        # a tp-2 shard of qwen2:1.5b's session (6 query heads, 1 KV head
+        # of the folded pool) and of mixtral's (16 / 4)
+        ("qwen2:1.5b tp-2 shard", 4, 6, 1, 128, mixed(4), PAGE),
+        ("mixtral:8x7b tp-2 shard", 4, 16, 4, 128, mixed(4), PAGE),
     ]
     summary = {}
     for label, b, hq, hkv, d, lengths, page in shapes:
@@ -846,6 +888,7 @@ def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, kernels,
         ("qwen2:1.5b", 4, 12, 2, 128, [0, 1, 300, 1100], [0, -1, 297, 1100], SPEC_K + 1),
         ("phi3:3.8b", 4, 32, 32, 96, [62, 300, 700, 1100], [62, 290, 700, 1000], SPEC_K + 1),
         ("gemma:2b", 4, 8, 1, 256, [62, 300, 700, 1100], [62, 290, 700, 1000], SPEC_K + 1),
+        ("qwen2:1.5b tp-2 shard", 4, 6, 1, 128, [62, 300, 700, 1100], [62, 290, 700, 1000], SPEC_K + 1),
     ]
     mq = {
         "cuda_paged_decode_attention_mq_parts": (
@@ -3550,6 +3593,7 @@ def same_leaves(torch, got, want):
 
 
 HF_SEED = 21
+HF_NEW_TOKENS = 32  # the checkpoint engine's greedy request against the install path's
 HF_SERVE_PROMPT_TOKENS = 1024
 HF_SERVE_NEW_TOKENS = 64
 
@@ -3612,7 +3656,7 @@ def hf_checkpoint_phases(torch, root, eng_mod, kernels, GenerationRequest, smi):
                    for t in (leaf.values() if isinstance(leaf, dict) else [leaf])} == {engine.device.type}
         del engines
         cache_files = sorted(cache_dir.glob("*.safetensors"))
-        req = study_requests(GenerationRequest)[0]
+        req = dataclasses.replace(study_requests(GenerationRequest)[0], max_new_tokens=HF_NEW_TOKENS)
         engine.warmup(req)
         res, counts = count_launches(kernels, lambda: engine.generate(req))
         want = installed.generate(req)
@@ -4695,7 +4739,7 @@ def moe_batch_phase(torch, engine, tfm, ca, eng_mod, kernels, GenerationRequest,
     return counts
 
 
-def mixtral_phases(torch, eng_mod, tfm, qmod, ca, kernels, GenerationRequest, smi):
+def mixtral_phases(torch, root, eng_mod, tfm, qmod, ca, kernels, GenerationRequest, smi):
     """mixtral:8x7b at its published width and depth (32 layers, 8 experts
     of d_ff 14336, top-2), random weights from the engine's seed, after
     every earlier engine has let go of its memory: the bf16 load refused
@@ -4703,8 +4747,10 @@ def mixtral_phases(torch, eng_mod, tfm, qmod, ca, kernels, GenerationRequest, sm
     holds the dense dispatch against a routed loop (``moe_layer``), then
     the study's ``generate`` over a bf16 KV cache and over an int8 one,
     and ``generate_batch`` over the paged bf16 pool (engines that install
-    the int8 engine's weights, no copy); last a fresh int4 engine (B9 on
-    wq/wk/wv/wo, the experts dequantized). Returns the launches."""
+    the int8 engine's weights, no copy) and ``ep_tp_mixtral`` (the first
+    EP_TP_LAYERS layers of those weights under tp 2 × ep 4); last a fresh
+    int4 engine (B9 on wq/wk/wv/wo, the experts dequantized). Returns the
+    launches."""
     import gc
     from importlib import import_module
 
@@ -4762,6 +4808,7 @@ def mixtral_phases(torch, eng_mod, tfm, qmod, ca, kernels, GenerationRequest, sm
         else:
             add(moe_batch_phase(torch, engine, tfm, ca, eng_mod, kernels, GenerationRequest, solo, smi))
         del engine
+    add(ep_tp_mixtral_phase(torch, root, tfm, ca, qmod, eng_mod, kernels, cfg, params, GenerationRequest, smi))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4777,6 +4824,372 @@ def mixtral_phases(torch, eng_mod, tfm, qmod, ca, kernels, GenerationRequest, sm
     gc.collect()
     torch.cuda.empty_cache()
     return totals
+
+
+# Tensor, data and expert parallelism: the sharded engine
+# (``parallel/tp.py``) over meshes of shards that all live on the one
+# card, each against the unsharded engine on the same weights. One card
+# shows sharding's parity and its launch cost, never TP speed.
+TP_DEVICE = "cuda:0"
+TP_PROMPT_TOKENS = 300
+TP_NEW_TOKENS = 32
+TP_SESSION_PROMPTS = (300, 700, 150)  # the opening rows; a fourth joins mid-flight
+TP_JOINER_PROMPT = 500
+TP_TRACE_TOKENS = 8  # the traced call that counts device kernels
+EP_TP_LAYERS = 4  # of mixtral:8x7b's 32
+EP_TP_PROMPT_TOKENS = 64
+EP_TP_STEPS = 8
+# ep_tp_mixtral compares f32 activations (int8 weights): a bf16 sum in
+# another order can swap two experts at a routing near-tie (``moe_replay``
+# above), f32 sums differ by ~1e-6 of a logit.
+EP_TP_ATOL = 2e-3
+
+
+def tp_mesh(mesh_mod, spec):
+    """``spec``'s mesh with every shard on the one card."""
+    return mesh_mod.build_mesh(spec, [TP_DEVICE] * math.prod(n for _, n in spec.axes))
+
+
+def csrc_kernel_names(root):
+    """The ``__global__`` functions of the port's CUDA sources."""
+    import re
+
+    names = set()
+    for path in sorted((root / PKG / "csrc").glob("*.cu*")):
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                                path.read_text()))
+    return names
+
+
+def tp_trace(torch, root, fn):
+    """A ``torch.profiler`` trace of ``fn``: the card's busy share over it
+    (``trace_busy_share``) and how many times each of the port's device
+    kernels ran; (None, {}) when the trace lost its device records."""
+    import re
+    import tempfile
+
+    from torch.profiler import ProfilerActivity
+
+    ours = csrc_kernel_names(root)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_trace_") as out:
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = Path(out) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        with open(path) as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        if not names:
+            return None, {}
+        busy = trace_busy_share(path)[0]
+    counts = {}
+    for name in names:
+        for word in re.findall(r"\w+", name):
+            if word in ours:
+                counts[word] = counts.get(word, 0) + 1
+                break
+    return busy, counts
+
+
+def shard_shapes(sp):
+    """Per group, one shard's leaf shapes (codes for quantized leaves):
+    what each kernel of a shard is launched at."""
+
+    def shapes(tree):
+        return {n: list((next(v[k] for k in ("q", "q4", "q32") if k in v) if isinstance(v, dict) else v).shape)
+                for n, v in tree.items()}
+
+    t = sp.trees
+    return {"attn": shapes(t.attn[0]), "mlp": shapes(t.mlp[(0, 0, 0)]), "vocab": shapes(t.vocab[(0, 0)])}
+
+
+def shard_bytes(qmod, sp):
+    """Weight bytes of one shard of each group (attention, MLP, vocab)."""
+    t = sp.trees
+    return {"attn": qmod.params_nbytes(t.attn[0]), "mlp": qmod.params_nbytes(t.mlp[(0, 0, 0)]),
+            "vocab": qmod.params_nbytes(t.vocab[(0, 0)]), "shared": qmod.params_nbytes(t.shared)}
+
+
+def forced_logits(torch, engine, tfm, ca, eng_mod, request, tokens):
+    """``tokens`` teacher-forced after the request's prompt through the
+    engine's model (sharded or not) and B1: f32 logits [N, V] of the
+    positions that chose them."""
+    tf = engine._models[request.model]
+    tok = engine._tokenizer_for(request.model)
+    prompt = tok.encode(request.prompt)
+    ids = prompt + tokens[:-1]
+    bucket = eng_mod._prompt_alloc(len(ids))
+    k_cache, v_cache = tf.init_cache(1, bucket, dtype=engine.dtype)
+    x = torch.tensor([ids + [tok.pad_id] * (bucket - len(ids))], device=engine.device)
+    with torch.no_grad():
+        hidden, _, _ = tfm.forward(tf.params, tf.cfg, x, 0, k_cache, v_cache, None,
+                                   ca.cuda_prefill_attention, layers=tf.layers)
+        return tfm.logits_for(tf.params, tf.cfg, hidden[0, len(prompt) - 1 : len(ids)]).float()
+
+
+def tp_hold(torch, base, engine, tfm, ca, eng_mod, request, tokens):
+    """Hold a sharded row against the unsharded model: its tokens replayed
+    teacher-forced through the unsharded engine (each within LOGIT_ATOL of
+    its position's maximum, the gate) and the two models' forced logits
+    side by side (the largest difference and the share of positions whose
+    maxima agree, printed)."""
+    gap = replay_gap(torch, base, tfm, ca, eng_mod, request, tokens)
+    a = forced_logits(torch, base, tfm, ca, eng_mod, request, tokens)
+    b = forced_logits(torch, engine, tfm, ca, eng_mod, request, tokens)
+    return gap, float((a - b).abs().max()), float((a.argmax(1) == b.argmax(1)).float().mean())
+
+
+def tp_generate_phase(torch, root, phase, base, engine, tfm, ca, eng_mod, qmod, kernels, request, smi):
+    """One request through ``generate`` on the unsharded engine and on the
+    sharded one (the same weights): the sharded launches twice the
+    unsharded ones, kernel by kernel (each of the two attention shards runs
+    B1 once a layer a prefill chunk and the decode kernel of the cache's
+    kind once a layer a step; at int4 each shard runs B9 on its 7 dense
+    matmuls, ``w_down`` and ``wo`` repacked by rows); the sharded tokens
+    held by ``tp_hold``; ms a step of both; a traced TP_TRACE_TOKENS-token
+    call's busy share and device kernels; the shard shapes and bytes."""
+    engine.warmup(request)
+    base.warmup(request)
+    (want,), base_counts = count_launches(kernels, lambda: [base.generate(request)])
+    (got,), counts = count_launches(kernels, lambda: [engine.generate(request)])
+    check_results(engine, [request], [got])
+    gap, diff, agree = tp_hold(torch, base, engine, tfm, ca, eng_mod, request, got.tokens)
+    busy, traced = tp_trace(torch, root, lambda: engine.generate(
+        dataclasses.replace(request, max_new_tokens=TP_TRACE_TOKENS)))
+    sp = engine._models[request.model].params
+    steps = len(got.tokens) - 1
+    expected = {k: 2 * v for k, v in base_counts.items()}
+    emit({"phase": phase, "mesh": engine.mesh_info(), "weights": engine._quant_mode(request.model),
+          "kv": engine.kv_quantize or "bf16", "n_layers": engine._models[request.model].cfg.n_layers,
+          "shard_heads": [sp.plan.hq, sp.plan.hkv], "shard_shapes": shard_shapes(sp),
+          "shard_bytes": shard_bytes(qmod, sp), "prompt_tokens": got.prompt_tokens,
+          "generated_tokens": got.generated_tokens, "ms_per_step": got.decode_s / steps * 1e3,
+          "unsharded_ms_per_step": want.decode_s / steps * 1e3, "prefill_s": got.prefill_s,
+          "unsharded_prefill_s": want.prefill_s,
+          "token_share": sum(a == b for a, b in zip(got.tokens, want.tokens)) / len(want.tokens),
+          "max_logit_gap": gap, "logit_atol": LOGIT_ATOL, "forced_logit_max_diff": diff,
+          "forced_argmax_agreement": agree, "counts": counts, "unsharded_counts": base_counts,
+          "expected": expected, "trace_busy_share": busy, "trace_kernels": traced,
+          "memory_allocated_bytes": torch.cuda.memory_allocated(), "nvidia_smi": smi})
+    assert counts == expected and any(counts.values()), (counts, expected)
+    assert gap <= LOGIT_ATOL, gap
+    return counts
+
+
+def tp_session_requests(GenerationRequest):
+    return ([GenerationRequest(MODEL, context_prompt(n), TP_NEW_TOKENS, stop_at_eos=False)
+             for n in TP_SESSION_PROMPTS],
+            GenerationRequest(MODEL, context_prompt(TP_JOINER_PROMPT), TP_NEW_TOKENS, stop_at_eos=False))
+
+
+def tp_session(engine, requests, joiner):
+    """A stepped session (what the continuous scheduler drives) of the
+    opening rows with room for 4, one slice, then the joiner mid-flight:
+    (results by prompt, the debug state before close, whether every live
+    row's pages were in its dp shard's range after the join)."""
+    sess = engine.decode_open(requests, reserve_rows=4)
+    out = sess.step()
+    sess.join(joiner)
+    local = all(sess.pool.shard_of(p) == sess._row_shard(r)
+                for r, row in enumerate(sess.rows) if row is not None for p in row.pages)
+    out += drain(sess)
+    state = sess.debug_state()
+    state["dp_shards_engaged"] = sess.dp_shards
+    sess.close()
+    return {res.request.prompt: res for res in out}, state, local
+
+
+def tp_session_phase(torch, phase, base, engine, tfm, ca, eng_mod, kernels, GenerationRequest, smi,
+                     decode_name, factor=None):
+    """The same session on the unsharded and the sharded engine: every
+    sharded row held by ``tp_hold``'s replay gate; with ``factor`` the
+    decode kernel's launches are that many times the unsharded session's
+    (rows and steps are the same: greedy rows at fixed lengths), else (a
+    speculating session, whose rounds follow its tokens) a whole number of
+    rounds over both attention shards; under dp each row's pages in its
+    shard's range."""
+    requests, joiner = tp_session_requests(GenerationRequest)
+    (want, _, _), base_counts = count_launches(kernels, lambda: tp_session(base, requests, joiner))
+    t0 = time.perf_counter()
+    (got, state, local), counts = count_launches(kernels, lambda: tp_session(engine, requests, joiner))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_layers = engine._models[MODEL].cfg.n_layers
+    holds = [tp_hold(torch, base, engine, tfm, ca, eng_mod, r, got[r.prompt].tokens)
+             for r in requests + [joiner]]
+    rounds = [(got[r.prompt].extras or {}).get("spec", {}).get("rounds") for r in requests + [joiner]]
+    same = sum(a == b for r in requests + [joiner] for a, b in zip(got[r.prompt].tokens, want[r.prompt].tokens))
+    emit({"phase": phase, "mesh": engine.mesh_info(), "n_layers": n_layers,
+          "rows": len(requests) + 1, "generated_tokens": [got[r.prompt].generated_tokens for r in requests + [joiner]],
+          "wall_s": wall, "spec_rounds": rounds, "dp_shards": state["dp_shards_engaged"],
+          "pages_in_row_shard": local, "pool": state.get("pool"), "mesh_state": state.get("mesh"),
+          "token_share": same / sum(len(want[r.prompt].tokens) for r in requests + [joiner]),
+          "max_logit_gap": max(h[0] for h in holds), "logit_atol": LOGIT_ATOL,
+          "forced_logit_max_diff": max(h[1] for h in holds),
+          "forced_argmax_agreement": min(h[2] for h in holds),
+          "counts": counts, "unsharded_counts": base_counts, "nvidia_smi": smi})
+    assert max(h[0] for h in holds) <= LOGIT_ATOL, holds
+    assert local, state.get("pool")
+    used = {k for k, v in counts.items() if v}
+    assert decode_name in used and "cuda_prefill_attention" in used, counts
+    if factor is not None:
+        assert used == {k for k, v in base_counts.items() if v}, (counts, base_counts)
+        assert counts[decode_name] == factor * base_counts[decode_name], (counts, base_counts)
+    else:
+        assert counts[decode_name] % (2 * n_layers) == 0 and all(rounds), (counts, rounds)
+    return counts
+
+
+def tp_phases(torch, root, eng_mod, tfm, qmod, ca, kernels, GenerationRequest, smi):
+    """qwen2:1.5b at full width on meshes of shards on the one card, each
+    against the unsharded engine on the same weights: ``tp_generate``
+    (int8 weights, bf16 KV, 28 layers, tp 2: 6 query heads and 1 KV head a
+    shard, F/2 FFN columns, V/2 vocabulary rows) with ``_int8_kv`` (B3)
+    and ``_int4`` (B9 at the shard widths) at 7 layers;
+    ``tp_session_paged`` (tp 2, the bf16 pool, 28 layers: 3 rows and a
+    joiner) and ``tp_session_paged_ngram`` (the same with an n-gram draft
+    of k 4: B7); ``dp_tp_session`` (dp 2 × tp 2, four shards, 7 layers:
+    the rows in two dp blocks, each row's pages in its block's range).
+    Returns the launches."""
+    import gc
+    from importlib import import_module
+
+    mesh_mod = import_module(f"{PKG}.parallel.mesh")
+    tp_mod = import_module(f"{PKG}.parallel.tp")
+    totals = {fn.__name__: 0 for fn in kernels}
+
+    def add(counts):
+        for name, n in counts.items():
+            totals[name] += n
+
+    request = GenerationRequest(MODEL, context_prompt(TP_PROMPT_TOKENS), TP_NEW_TOKENS, stop_at_eos=False)
+    MeshSpec = mesh_mod.MeshSpec
+    full = {MODEL: eng_mod.get_model_config(MODEL)}
+    # (phase, weights, kv, registry)
+    for phase, weights, kv, registry in (
+        ("tp_generate", "int8", None, full),
+        ("tp_generate_int8_kv", "int8", "int8", cut_registry()),
+        ("tp_generate_int4", "int4", None, cut_registry()),
+    ):
+        base = eng_mod.TorchEngine(quantize=weights, kv_quantize=kv, registry=registry)
+        base.load_model(MODEL)
+        engine = tp_mod.TensorParallelEngine(mesh=tp_mesh(mesh_mod, MeshSpec.tp_only(2)), quantize=weights,
+                                             kv_quantize=kv, registry=registry)
+        engine.install_model(MODEL, registry[MODEL], base._models[MODEL].params)
+        add(tp_generate_phase(torch, root, phase, base, engine, tfm, ca, eng_mod, qmod, kernels, request, smi))
+        del base, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (phase, mesh, engine options, the session's decode kernel, its
+    # launches over the unsharded session's, registry)
+    for phase, spec, kw, decode, factor, registry in (
+        ("tp_session_paged", MeshSpec.tp_only(2), {}, "cuda_paged_decode_attention_parts", 2, full),
+        ("tp_session_paged_ngram", MeshSpec.tp_only(2), dict(speculative={MODEL: ("ngram", SPEC_K)}),
+         "cuda_paged_decode_attention_mq_parts", None, full),
+        ("dp_tp_session", MeshSpec.dp_tp(2, 2), {}, "cuda_paged_decode_attention_parts", 4, cut_registry()),
+    ):
+        base = eng_mod.TorchEngine(quantize="int8", paged_kv=True, registry=registry, **kw)
+        base.load_model(MODEL)
+        engine = tp_mod.TensorParallelEngine(mesh=tp_mesh(mesh_mod, spec), quantize="int8", paged_kv=True,
+                                             registry=registry, **kw)
+        engine.install_model(MODEL, registry[MODEL], base._models[MODEL].params)
+        add(tp_session_phase(torch, phase, base, engine, tfm, ca, eng_mod, kernels, GenerationRequest, smi,
+                             decode, factor))
+        del base, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
+def ep_tp_mixtral_phase(torch, root, tfm, ca, qmod, eng_mod, kernels, cfg, params, GenerationRequest, smi):
+    """mixtral:8x7b at full width cut to EP_TP_LAYERS of its 32 layers
+    (views of the loaded int8 weights' first layers, the other leaves in
+    f32) under ``MeshSpec.tp_ep(2, 4)``: eight shards on the card, each
+    with 2 of the 8 experts at F/2 columns and, on the two attention
+    shards, 16 query and 4 KV heads. A 64-token prefill and EP_TP_STEPS
+    greedy steps, the unsharded model's tokens teacher-forced into the
+    sharded one: every step's f32 logits within EP_TP_ATOL; B1 and B2
+    twice the unsharded launches. Then ``generate`` on the sharded engine
+    gives the unsharded engine's tokens. Returns the generate's
+    launches."""
+    import gc
+    from importlib import import_module
+
+    mesh_mod = import_module(f"{PKG}.parallel.mesh")
+    tp_mod = import_module(f"{PKG}.parallel.tp")
+    cut_cfg = dataclasses.replace(cfg, n_layers=EP_TP_LAYERS)
+    cut = {}
+    for name, leaf in params.items():
+        if name in tfm.NON_LAYER_LEAVES:
+            cut[name] = leaf if qmod.is_quantized(leaf) else leaf.float()
+        elif qmod.is_quantized(leaf):
+            cut[name] = {k: v[:EP_TP_LAYERS] for k, v in leaf.items()}
+        else:
+            cut[name] = leaf[:EP_TP_LAYERS].float()
+    t0 = time.perf_counter()
+    mesh = tp_mesh(mesh_mod, mesh_mod.MeshSpec.tp_ep(2, 4))
+    engine = tp_mod.TensorParallelEngine(mesh=mesh, quantize="int8", dtype=torch.float32,
+                                         registry={MOE_MODEL: cut_cfg})
+    engine.install_model(MOE_MODEL, cut_cfg, cut)
+    base = eng_mod.TorchEngine(quantize="int8", dtype=torch.float32, registry={MOE_MODEL: cut_cfg})
+    base.install_model(MOE_MODEL, cut_cfg, cut)
+    sp = engine._models[MOE_MODEL].params
+    shard_s = time.perf_counter() - t0
+    tf = base._models[MOE_MODEL]
+    tok = base._tokenizer_for(MOE_MODEL)
+    ids = tok.encode(context_prompt(EP_TP_PROMPT_TOKENS))
+    t_len = eng_mod._prompt_alloc(len(ids) + EP_TP_STEPS)
+
+    def run(model, tokens_in=None):
+        kc, vc = model.init_cache(1, t_len, dtype=torch.float32)
+        x = torch.tensor([ids], device=engine.device)
+        out, logits = [], []
+        with torch.no_grad():
+            hidden, _, _ = tfm.forward(model.params, cut_cfg, x, 0, kc, vc, None, ca.cuda_prefill_attention,
+                                       layers=model.layers)
+            for step in range(EP_TP_STEPS + 1):
+                lg = tfm.logits_for(model.params, cut_cfg, hidden[:, -1]).float()
+                logits.append(lg[0])
+                nxt = int(lg[0].argmax()) if tokens_in is None else tokens_in[step]
+                out.append(nxt)
+                if step == EP_TP_STEPS:
+                    break
+                hidden, _, _ = tfm.forward(model.params, cut_cfg, torch.tensor([[nxt]], device=engine.device),
+                                           len(ids) + step, kc, vc, ca.cuda_decode_attention,
+                                           layers=model.layers)
+        torch.cuda.synchronize()
+        return out, torch.stack(logits)
+
+    (want, want_logits), base_counts = count_launches(kernels, lambda: run(tf))
+    t1 = time.perf_counter()
+    (got, got_logits), counts = count_launches(kernels, lambda: run(engine._models[MOE_MODEL], want))
+    sharded_s = time.perf_counter() - t1
+    diff = float((got_logits - want_logits).abs().max())
+    request = GenerationRequest(MOE_MODEL, context_prompt(EP_TP_PROMPT_TOKENS), EP_TP_STEPS + 1,
+                                stop_at_eos=False)
+    want_gen = base.generate(request)
+    (got_gen,), gen_counts = count_launches(kernels, lambda: [engine.generate(request)])
+    busy, traced = tp_trace(torch, root, lambda: engine.generate(
+        dataclasses.replace(request, max_new_tokens=TP_TRACE_TOKENS // 2)))
+    emit({"phase": "ep_tp_mixtral", "mesh": engine.mesh_info(), "n_layers": EP_TP_LAYERS,
+          "layers_of": cfg.n_layers, "activations": "f32", "weights": "int8",
+          "shard_heads": [sp.plan.hq, sp.plan.hkv], "experts_a_shard": cfg.n_experts // sp.plan.e_ep,
+          "shard_shapes": shard_shapes(sp), "shard_bytes": shard_bytes(qmod, sp), "shard_s": shard_s,
+          "prompt_tokens": len(ids), "steps": EP_TP_STEPS, "max_logit_diff": diff, "atol": EP_TP_ATOL,
+          "tokens_equal": got == want, "generate_tokens_equal": got_gen.tokens == want_gen.tokens,
+          "sharded_forward_s": sharded_s, "ms_per_step": got_gen.decode_s / EP_TP_STEPS * 1e3,
+          "unsharded_ms_per_step": want_gen.decode_s / EP_TP_STEPS * 1e3,
+          "counts": counts, "unsharded_counts": base_counts, "generate_counts": gen_counts,
+          "trace_busy_share": busy, "trace_kernels": traced,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "nvidia_smi": smi})
+    assert diff <= EP_TP_ATOL, diff
+    assert got_gen.tokens == want_gen.tokens, (got_gen.tokens, want_gen.tokens)
+    assert counts == {k: 2 * v for k, v in base_counts.items()} and any(counts.values()), (counts, base_counts)
+    del engine, base, sp, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gen_counts
 
 
 def main() -> int:
@@ -4853,20 +5266,23 @@ def main() -> int:
     chunks_of = lambda n: len(eng_mod._prompt_chunks(n))  # noqa: E731
     attention = (ca.cuda_prefill_attention, ca.cuda_decode_attention)
     # (phase, weights, kv, int4 kernel, its plain version, layers: None for
-    # the model's own depth)
+    # the model's own depth). The 500-word request (667 tokens) runs in the
+    # first phase only: the others take the 100-word and the long-prompt
+    # requests (cut to keep the script within its time limit).
     cut = cut_registry()[MODEL]
+    short = [r for r in requests if r.max_new_tokens != math.ceil(STUDY_WORDS[1] * TOKENS_PER_WORD)]
     solo_phases = (
-        ("engine_bf16_kv", "int8", None, None, None, cut),
-        ("engine_int8_kv", "int8", "int8", None, None, cut),
-        ("engine_int4", "int4", None, cq.cuda_int4_matmul, qplain.int4_matmul_reference, cut),
-        ("engine_int4_i32", "int4-i32", None, cq.cuda_int4_matmul_i32, None, cut),
+        ("engine_bf16_kv", "int8", None, None, None, cut, requests),
+        ("engine_int8_kv", "int8", "int8", None, None, cut, short),
+        ("engine_int4", "int4", None, cq.cuda_int4_matmul, qplain.int4_matmul_reference, cut, short),
+        ("engine_int4_i32", "int4-i32", None, cq.cuda_int4_matmul_i32, None, cut, short),
     )
-    for phase, weights, kv, matmul, matmul_plain, cfg in solo_phases:
+    for phase, weights, kv, matmul, matmul_plain, cfg, phase_requests in solo_phases:
         engine = eng_mod.TorchEngine(quantize=weights, kv_quantize=kv,
                                      registry=None if cfg is None else {MODEL: cfg})
         engine.load_model(MODEL)
         n_layers = engine._models[MODEL].cfg.n_layers
-        add(engine_phase(phase, engine, requests, all_kernels, n_layers, chunks_of,
+        add(engine_phase(phase, engine, phase_requests, all_kernels, n_layers, chunks_of,
                          matmul.__name__ if matmul else None))
         if phase == "engine_bf16_kv":
             integration_phase(torch, engine, "integration", {
@@ -4993,8 +5409,10 @@ def main() -> int:
     add(prefix_share_spill_phase(torch, eng_mod, all_kernels, backend.GenerationRequest, smi))
     add(serve_migrate_phase(torch, eng_mod, all_kernels, smi))
     serve_cli_prefix_share_phase(torch, root, smi)
+    # Tensor and data parallelism: meshes of shards on the one card.
+    add(tp_phases(torch, root, eng_mod, tfm, qmod, ca, all_kernels, backend.GenerationRequest, smi))
     # The mixture-of-experts MLP: mixtral:8x7b at full width and depth.
-    add(mixtral_phases(torch, eng_mod, tfm, qmod, ca, all_kernels, backend.GenerationRequest, smi))
+    add(mixtral_phases(torch, root, eng_mod, tfm, qmod, ca, all_kernels, backend.GenerationRequest, smi))
     assert all(launches.values()), launches
 
     rows = []

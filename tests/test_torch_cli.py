@@ -5,7 +5,9 @@ port's ``runner/cli.py`` (the file's source with the package name
 swapped): the scaffold, the two config-class lookups, a config file run
 end to end, help and an unknown command, and ``prepare``'s cooldown
 promise, whose device channel is the port's NVML one. Then the port's own
-cases: ``serve --backend jax`` and ``serve-fleet`` exit 2, ``analyze`` and
+cases: ``serve --backend jax`` and ``serve-fleet`` exit 2, ``serve
+--backend torch-tp --tp N [--dp M]`` lays its mesh over the visible GPUs
+(exit 2 without one, or with fewer than the mesh needs), ``analyze`` and
 ``recompute-energy`` run over a study table the port wrote, and ``python
 -m cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch help`` runs in a
 fresh interpreter with jax blocked.
@@ -41,11 +43,59 @@ def test_jax_cli_case_on_the_port(name, request):
 @pytest.mark.parametrize("command", ["serve", "serve-fleet"])
 def test_serve_commands_exit_2_until_serving_is_ported(command, capsys):
     """``serve-fleet`` (the router) is not ported; ``serve`` is, but not
-    over the JAX package's engines."""
+    over the JAX package's engines: it names the port's own."""
     extra = ["--backend", "jax"] if command == "serve" else []
     assert cli.main([command, "--port", "0", *extra]) == 2
     out = capsys.readouterr().out
-    assert ("ROADMAP item 14" if command == "serve" else "ROADMAP item 15") in out
+    assert ("--backend torch-tp" if command == "serve" else "ROADMAP item 15") in out
+
+
+def test_serve_torch_tp_without_a_gpu_exits_2_and_builds_nothing(monkeypatch, capsys):
+    """On a host without a GPU ``--backend torch-tp`` has no devices to
+    lay its mesh over: exit 2, and no engine on the CPU."""
+    import torch
+
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.parallel import tp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tp, "TensorParallelEngine", lambda **kw: pytest.fail("built an engine"))
+    assert cli.main(["serve", "--port", "0", "--backend", "torch-tp", "--tp", "2"]) == 2
+    assert "has none" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize(
+    "args,gpus,axes",
+    [
+        (["--tp", "2"], 2, {"tp": 2}),
+        (["--tp", "2", "--dp", "2"], 4, {"dp": 2, "tp": 2}),
+        ([], 4, {"tp": 4}),
+        (["--tp", "4"], 2, None),
+    ],
+)
+def test_serve_torch_tp_builds_the_mesh_over_the_visible_gpus(args, gpus, axes, monkeypatch, capsys):
+    """``--tp N [--dp M]`` lays MeshSpec.dp_tp(M, N) (tp_only(N) without
+    --dp; every GPU on tp without --tp) over the visible GPUs; a mesh
+    larger than the GPU count exits 2 with resolve's message."""
+    import torch
+
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.engine.fake import FakeBackend
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.parallel import mesh, tp
+
+    built, served = [], []
+    monkeypatch.setattr(mesh, "visible_devices", lambda: [torch.device("cuda", i) for i in range(gpus)])
+    monkeypatch.setattr(tp, "TensorParallelEngine", lambda **kw: built.append(kw) or FakeBackend())
+    monkeypatch.setattr(cli, "_serve_until_signalled", served.append)
+    argv = ["serve", "--port", "0", "--backend", "torch-tp", "--paged-kv", "--scheduler", "continuous", *args]
+    if axes is None:
+        assert cli.main(argv) == 2
+        assert f"needs 4 devices, have {gpus}" in capsys.readouterr().out
+        assert not built
+        return
+    assert cli.main(argv) == 0
+    (kw,) = built
+    assert kw["mesh"].shape == axes
+    assert list(kw["mesh"].devices) == [torch.device("cuda", i) for i in range(gpus)]
+    assert kw["paged_kv"] is True and len(served) == 1
 
 
 def test_prepare_without_a_card_says_so_and_runs_nothing(monkeypatch, capsys):

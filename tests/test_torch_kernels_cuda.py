@@ -6,7 +6,10 @@ conftest.py imports jax, so on such a machine run it as
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: float32 1e-4 (f32 math summed in another order over up to a
+The sharded engine's shard shapes (``SHARD_HEADS``, ``SHARD_MATMULS``)
+run in the parametrizations beside the unsharded ones, and a row-sharded
+int4 ``w_down`` (each shard's rows repacked) sums to the whole leaf's
+product. Tolerances: float32 1e-4 (f32 math summed in another order over up to a
 few hundred keys); bfloat16 2e-2 (both round one f32 result to bf16, so
 they differ by about one bf16 ulp of |out| <= 4); the multi-query
 tensor-core kernel (B7/B8 with a bf16 q) 5e-3 (it rounds each p, the V
@@ -32,6 +35,12 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import quant as po
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 MQ_MMA_TOL = dict(atol=5e-3, rtol=5e-3)
+# The sharded engine's shapes (parallel/tp.py at tp 2): a shard of
+# qwen2:1.5b runs 6 query heads over 1 KV head and mixtral:8x7b's 16 over
+# 4; qwen2's int4 shard matmuls (M 1) are F/2 columns of w_gate, F/2 rows
+# of w_down (repacked), 6 heads of wq and wo, 1 of wk.
+SHARD_HEADS = [(6, 1, 128), (16, 4, 128)]
+SHARD_MATMULS = [(1, 1536, 4480), (1, 4480, 1536), (1, 1536, 768), (1, 768, 1536), (1, 1536, 128)]
 
 
 def _to_torch(a, dtype):
@@ -67,7 +76,7 @@ def _page_constant(pool):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
-@pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64)])
+@pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64), *SHARD_HEADS])
 def test_kernels_match_plain_versions_on_the_card(dtype, tol, hq, hkv, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -129,7 +138,7 @@ def _assert_parts_close(got, want, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
-@pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64)])
+@pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64), *SHARD_HEADS])
 def test_paged_parts_kernels_match_plain_versions_on_the_card(dtype, tol, hq, hkv, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -154,7 +163,7 @@ def test_paged_parts_kernels_match_plain_versions_on_the_card(dtype, tol, hq, hk
 @pytest.mark.parametrize(
     "m,in_dim,out_dim",
     [(1, 1536, 256), (8, 1536, 8960), (5, 8960, 1536), (1, 4096, 1024), (8, 4096, 4096),
-     (8, 96, 200), (3, 64, 7), (2, 16, 128)],
+     (8, 96, 200), (3, 64, 7), (2, 16, 128), *SHARD_MATMULS],
 )
 def test_int4_kernels_match_plain_versions_on_the_card(dtype, tol, m, in_dim, out_dim):
     """B9 and B10 against their plain versions; weights at the model's
@@ -183,7 +192,9 @@ def test_int4_kernels_match_plain_versions_on_the_card(dtype, tol, m, in_dim, ou
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, MQ_MMA_TOL)])
 @pytest.mark.parametrize(
-    "q_len,hq,hkv,d", [(5, 12, 2, 128), (3, 32, 32, 96), (5, 8, 1, 256), (9, 4, 1, 64), (9, 8, 1, 256)]
+    "q_len,hq,hkv,d",
+    [(5, 12, 2, 128), (3, 32, 32, 96), (5, 8, 1, 256), (9, 4, 1, 64), (9, 8, 1, 256),
+     *[(5, *heads) for heads in SHARD_HEADS]],
 )
 def test_paged_mq_parts_kernels_match_plain_versions_on_the_card(dtype, tol, q_len, hq, hkv, d):
     """B7 and B8 against their plain versions, with offsets that cut inside
@@ -227,7 +238,7 @@ def test_paged_mq_parts_kernels_match_plain_versions_on_the_card(dtype, tol, q_l
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
-@pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64)])
+@pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64), *SHARD_HEADS])
 def test_paged_decode_kernel_matches_plain_version_on_the_card(dtype, tol, hq, hkv, d):
     """B6 against its plain version, rows at, before and after a page edge
     and over several pages, with junk table entries (outside the pool)
@@ -341,7 +352,7 @@ def test_prefill_kernel_matches_plain_version_on_the_card(dtype, tol, d, group):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
-@pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64)])
+@pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64), *SHARD_HEADS])
 def test_decode_kernels_at_split_edges_match_plain_versions_on_the_card(dtype, tol, hq, hkv, d):
     """B2 and B3 against their plain versions at lengths 1, 63, 64, 65, 2100
     and the capacity T (one row each, so the kernel sizes one, one, one,
@@ -683,22 +694,31 @@ def test_mq_tensor_core_kernel_in_one_launch_on_the_card(page, hq, hkv, d):
 def test_redesigned_kernels_run_on_the_tensor_cores():
     """The built libraries' SASS: B10's kernel (bf16 and f32 x, vector and
     byte-wise loads) and the multi-query kernel of B7/B8 (bf16 and int8
-    pools, D 64, 96, 128 and 256) issue HMMA (mma.sync) instructions in
-    every instantiation."""
+    pools, D 64, 96, 128 and 256, over the page table and over contiguous
+    rows) issue HMMA (mma.sync) instructions in every instantiation."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     import subprocess
     from pathlib import Path
 
     cuobjdump = Path(_kernels._nvcc()).parent / "cuobjdump"
-    for lib, kernel, count in (("int4_matmul", "int4_i32_mma_kernel", 4), ("paged_attention", "mq_mma_kernel", 8)):
+    # instantiations by a substring of their name: the multi-query kernel
+    # under each address policy (the page table, and since the contiguous
+    # verify the contiguous rows)
+    for lib, kernel, counts in (
+        ("int4_matmul", "int4_i32_mma_kernel", {"": 4}),
+        ("paged_attention", "mq_mma_kernel", {"PagedRows": 8, "ContiguousRows": 8}),
+    ):
         _kernels.library(lib)
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(_kernels.library_path(lib))],
             capture_output=True, text=True, check=True,
         ).stdout
         functions = [f for f in sass.split("Function : ")[1:] if kernel in f.splitlines()[0]]
-        assert len(functions) == count, (kernel, [f.splitlines()[0] for f in functions])
+        names = [f.splitlines()[0] for f in functions]
+        assert len(functions) == sum(counts.values()), (kernel, names)
+        for policy, count in counts.items():
+            assert sum(policy in name for name in names) == count, (kernel, policy, names)
         for body in functions:
             assert "HMMA" in body, body.splitlines()[0]
 
@@ -851,3 +871,36 @@ def test_contiguous_mq_kernels_on_the_card(hq, hkv, d):
                 assert torch.equal(got, fn(q, *cache, lengths, offsets)), q_len
     torch.cuda.synchronize()
     assert not torch.any(_kernels._TICKETS[q.device]).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_row_sharded_int4_leaf_sums_to_the_whole_product_on_the_card(tp):
+    """qwen2:1.5b's ``w_down`` (8960 → 1536) cut by rows over tp shards the
+    way ``shard_model`` cuts it (each shard's rows repacked as halves of
+    its own): B9 on every shard's slice of x, summed in f32, equals B9's
+    plain version on the whole leaf within the bf16 tolerance, and each
+    shard equals its own plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.quantize import slice_leaf
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_quant
+
+    rng = np.random.default_rng(12)
+    in_dim, out_dim = 8960, 1536
+    w = _to_torch(_normal(rng, (in_dim, out_dim)) / np.sqrt(in_dim), torch.float32).cuda()
+    x = _to_torch(_normal(rng, (1, in_dim)), torch.bfloat16).cuda()
+    leaf = quantize_tensor_int4(w)
+    whole = port_quant.int4_matmul_reference(x, leaf["q4"], leaf["s"]).float()
+    rows = in_dim // tp
+    total = torch.zeros_like(whole)
+    for t in range(tp):
+        part = slice_leaf(leaf, -2, t * rows, (t + 1) * rows)
+        xs = x[:, t * rows : (t + 1) * rows].contiguous()
+        out = cuda_quant.cuda_int4_matmul(xs, part["q4"], part["s"])
+        torch.testing.assert_close(
+            out.float(), port_quant.int4_matmul_reference(xs, part["q4"], part["s"]).float(), **BF16_TOL
+        )
+        total += out.float()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(total, whole, **BF16_TOL)

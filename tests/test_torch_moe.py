@@ -56,6 +56,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops.cuda_attention imp
     cuda_prefill_attention,
 )
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.utils import memory
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 F32_TOL = dict(atol=1e-5, rtol=2e-5)
 LOGIT_TOL = dict(atol=1e-4, rtol=0)
@@ -650,3 +651,86 @@ def test_server_answers_with_the_solo_tokens(moe_np, solo):
         assert [client.generate(r).tokens for r in _reqs()] == solo
     finally:
         server.stop()
+
+
+# -- expert parallelism ----------------------------------------------------------
+
+
+def _ep_tp_params(mode):
+    """tests/test_moe.py::test_ep_tp_sharded_forward_matches_unsharded's
+    model (4 experts, d_ff 128, seed 1) and tokens, and the JAX
+    package's logits of its tp 2 × ep 4 GSPMD-sharded forward."""
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu.parallel import mesh as jmesh
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu.parallel import sharding as jsharding
+
+    jcfg, tcfg = _cfgs(d_ff=128)
+    params = jtf.Transformer.initialise(jcfg, seed=1, dtype=jnp.float32).params
+    if mode is not None:
+        params = jquant.quantize_params(params, mode=mode)
+    tokens = jax.random.randint(jax.random.PRNGKey(2), (2, 6), 0, jcfg.vocab_size)
+    jmesh_ = jmesh.build_mesh(jmesh.MeshSpec.tp_ep(2, 4), jax.devices())
+    sharded = jsharding.shard_model(params, jcfg, jmesh_)
+
+    def run(p):
+        shape = (jcfg.n_layers, 2, jcfg.n_kv_heads, 6, jcfg.d_head)
+        hidden, _, _ = jtf.forward(p, jcfg, tokens, jnp.int32(0), jnp.zeros(shape), jnp.zeros(shape), None)
+        return jtf.logits_for(p, jcfg, hidden)
+
+    want = np.asarray(jax.jit(run)(sharded))
+    return tcfg, jax.tree.map(np.asarray, params), np.asarray(tokens), want
+
+
+@pytest.mark.parametrize("mode", [None, "int8"])
+def test_ep_tp_sharded_forward_matches_unsharded(mode):
+    """tp 2 × ep 4 over 8 CPU shards: each shard runs 1 of the 4 experts
+    at F/2 columns, the combine adds up over ep and tp, and the logits
+    equal the JAX package's sharded forward's and the port's unsharded
+    forward's within the JAX case's tolerance (2e-4)."""
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.parallel.sharding import param_specs, shard_model
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.parallel.tp import (
+        ShardedParams,
+        ShardedTransformer,
+    )
+
+    tcfg, np_params, tokens, want = _ep_tp_params(mode)
+    params = params_from_numpy(np_params)
+    mesh = build_mesh(MeshSpec.tp_ep(2, 4), ["cpu"] * 8)
+    assert param_specs(tcfg, mesh)["w_gate"] == (None, "ep", None, "tp")
+    trees = shard_model(params, tcfg, mesh)
+    w_down = trees.mlp[(0, 1, 3)]["w_down"]  # [L, E/ep, F/tp, D]: 1 expert, 64 of 128 rows
+    assert tuple((tquant.codes(w_down) if mode else w_down).shape[1:]) == (1, 64, 64)
+    sharded = ShardedTransformer(cfg=tcfg, params=ShardedParams(trees, mesh))
+    tok = torch.tensor(tokens, dtype=torch.long)
+
+    def logits(p, cache):
+        hidden, _, _ = ttf.forward(p, tcfg, tok, 0, *cache)
+        return ttf.logits_for(p, tcfg, hidden).numpy()
+
+    shape = (tcfg.n_layers, 2, tcfg.n_kv_heads, 6, tcfg.d_head)
+    base = logits(params, (torch.zeros(shape), torch.zeros(shape)))
+    got = logits(sharded.params, sharded.init_cache(2, 6, torch.float32))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, base, rtol=2e-4, atol=2e-4)
+
+
+def test_ep_tp_engine_generates_the_unsharded_tokens(moe_np, solo):
+    """The sharded engine over tp 2 × ep 4: solo, batched and a stepped
+    session give the unsharded engine's greedy tokens."""
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.parallel.tp import TensorParallelEngine
+
+    _, tcfg, np_params = moe_np
+    eng = TensorParallelEngine(
+        mesh=build_mesh(MeshSpec.tp_ep(2, 4), ["cpu"] * 8), registry={}, dtype=torch.float32, paged_kv=True,
+    )
+    eng.install_model(NAME, tcfg, params_from_numpy(np_params))
+    assert [eng.generate(r).tokens for r in _reqs()] == solo
+    assert [r.tokens for r in eng.generate_batch(_reqs())] == solo
+    reqs = _reqs()
+    sess = eng.decode_open([reqs[0], reqs[2]], reserve_rows=3)
+    sess.step(3)
+    sess.join(reqs[1])
+    got = _drain(sess)
+    sess.close()
+    assert [got[r.prompt] for r in reqs] == solo

@@ -46,10 +46,27 @@ def test_debug_state_and_payload_bytes_match_jax(quantized):
     for pool in (jp, tp):
         pool.free(pool.alloc(5)[1:3])
         pool.alloc(1)
-    j = jp.debug_state()
-    j.pop("dp_shards")  # dp sharding is not ported
-    assert tp.debug_state() == j
+    assert tp.debug_state() == jp.debug_state()
     assert tp.payload_nbytes() == jp.payload_nbytes()
+
+
+@pytest.mark.parametrize("dp_shards", [2, 4])
+def test_dp_shard_allocation_matches_jax(dp_shards):
+    """``PagePool(dp_shards=)``: the same shard of each page, and the same
+    pages for shard-tagged allocations (a shard's own range first, then a
+    spill into any free page) through frees and re-allocations."""
+    kw = dict(n_layers=1, n_pages=16, n_kv_heads=1, d_head=16, page_size=128, dp_shards=dp_shards)
+    jp = jpk.PagePool.create(**kw, dtype=jnp.bfloat16)
+    tp = tpk.PagePool.create(**kw, dtype=torch.bfloat16)
+    assert [tp.shard_of(p) for p in range(16)] == [jp.shard_of(p) for p in range(16)]
+    got, want = [], []
+    for pool, out in ((jp, want), (tp, got)):
+        a = pool.alloc(3, shard=1)
+        b = pool.alloc(2, shard=dp_shards - 1)
+        pool.free(a[:2])
+        c = pool.alloc(16 // dp_shards + 2, shard=1)  # more than the range: spills
+        out.append((a, b, c, pool.free_pages, pool.debug_state()))
+    assert got == want
 
 
 def test_page_slot_matches_jax():

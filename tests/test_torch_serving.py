@@ -414,10 +414,10 @@ def test_serve_fake_backend_answers_generate_and_a_stream_then_stops_on_sigterm(
 
 
 REFUSED = {
-    "--backend jax": ("ROADMAP item 14", ["--backend", "jax"]),
-    "--backend jax-tp": ("ROADMAP item 14", ["--backend", "jax-tp"]),
-    "--tp": ("ROADMAP item 14", ["--backend", "fake", "--tp", "2"]),
-    "--dp": ("ROADMAP item 14", ["--backend", "fake", "--dp", "2"]),
+    "--backend jax": ("the JAX package's engine", ["--backend", "jax"]),
+    "--backend jax-tp": ("--backend torch-tp", ["--backend", "jax-tp"]),
+    "--tp": ("shape the mesh of --backend torch-tp", ["--backend", "fake", "--tp", "2"]),
+    "--dp": ("shape the mesh of --backend torch-tp", ["--backend", "fake", "--dp", "2"]),
     "--replicas": ("ROADMAP item 15", ["--backend", "fake", "--replicas", "2"]),
     "--model-policy": ("ROADMAP item 15", ["--backend", "fake", "--model-policy", "small-first"]),
     "--roles": ("ROADMAP item 15", ["--backend", "fake", "--roles", "prefill,decode"]),

@@ -15,8 +15,9 @@ routes sampled requests through a one-row session.
 layout a file, so that each file stays short.
 
 Left out: ``test_tp_sampled_spec_carry_leaves_stable``, the tensor-parallel
-session on 2 and 8 devices (ROADMAP item 14: the port has no tensor
-parallelism yet)."""
+session on 2 and 8 devices, which reads the JAX carry's shardings: its
+counterpart on the port's sharded engine is in
+``tests/test_torch_stepped_tp.py``."""
 
 from test_torch_runner import load_cases, one_torch_thread  # noqa: F401
 
