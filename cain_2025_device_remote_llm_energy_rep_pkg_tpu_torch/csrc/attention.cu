@@ -7,7 +7,7 @@
 // scales [B,Hkv,T] f32; lengths [B] int32. Element types: float32 or
 // bfloat16 for q/k/v/out, int8 codes for the quantized cache. Scores,
 // softmax and accumulators are f32; the output is cast to the input type
-// once, at the end. Head dims 64, 96, 128 and 256 are supported natively
+// once, at the end. Head dims 32, 64, 96, 128 and 256 are supported natively
 // (no padding to 128 lanes); the softmax scale is 1/sqrt(D). G = Hq / Hkv
 // query heads share a kv head; the wrappers cut a larger G into
 // sub-groups, so a kernel's cap on G never reaches a caller.
@@ -605,6 +605,7 @@ cudaError_t dispatch_prefill(int dtype, int d_head, const void* q, const void* k
     return launch_prefill<float, DH>(q, k, v, out, batch, seq, hq, hkv, t_cap, offset,     \
                                      scale, stream);
   switch (d_head) {
+    ATTN_PREFILL_CASE(32)
     ATTN_PREFILL_CASE(64)
     ATTN_PREFILL_CASE(96)
     ATTN_PREFILL_CASE(128)

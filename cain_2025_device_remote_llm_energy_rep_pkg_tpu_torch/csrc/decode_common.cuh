@@ -250,12 +250,15 @@ struct DcSmem {
   static constexpr int kStage = kDcTile * (kKStride + kRow);
   static constexpr int kRing = 2 * kStage;
   static constexpr int kRed = static_cast<int>(sizeof(float)) * kDcWarps * kGroupMax * D;
-  static constexpr int kUnion = kRing > kRed ? kRing : kRed;
+  // the merge's (m, l) per split and head: larger than the ring only for
+  // int8 at D 32 (at every other width the ring holds it, as before)
+  static constexpr int kMerge = static_cast<int>(sizeof(float)) * 2 * kGroupMax * kDcMaxSplits;
+  static constexpr int kRingRed = kRing > kRed ? kRing : kRed;
+  static constexpr int kUnion = kRingRed > kMerge ? kRingRed : kMerge;
   static constexpr int kBytes =
       kUnion + static_cast<int>(sizeof(float)) *
                    (kGroupMax * D + kDcTile * kGroupMax + 3 * kGroupMax + 4 * kDcTile);
-  static_assert(kUnion >= static_cast<int>(sizeof(float)) * 2 * kGroupMax * kDcMaxSplits,
-                "the merge's (m, l) must fit the ring");
+  static_assert(kUnion >= kMerge, "the merge's (m, l) must fit the ring");
 };
 
 // grid (n_grid, B·Hkv), block kDcThreads. part_acc [B·Hkv, n_grid, G, D]
@@ -595,6 +598,7 @@ cudaError_t dispatch_decode_tile(int d_head, const void* q, const void* k, const
                                                             batch, hq, hkv, rows, n_grid,       \
                                                             stream, m_out, l_out);
   switch (d_head) {
+    DECODE_TILE_CASE(32)
     DECODE_TILE_CASE(64)
     DECODE_TILE_CASE(96)
     DECODE_TILE_CASE(128)

@@ -507,6 +507,11 @@ def attention_block(
     else:
         kf = dequant_cache(k_cache) if isinstance(k_cache, dict) else k_cache
         vf = dequant_cache(v_cache) if isinstance(v_cache, dict) else v_cache
+        if k.requires_grad:
+            # Under autograd (training) attend f32 copies: an f32 cache's
+            # layer is a view of the stacked cache, which the next layer's
+            # write bumps before backward reads what attention saved.
+            kf, vf = kf.to(torch.float32, copy=True), vf.to(torch.float32, copy=True)
         out = prefill_attention_cached(q, kf, vf, offset)
     out = out.to(x.dtype).reshape(b, s, hq * dh)
     return dense_dot(out, layer["wo"])

@@ -24,7 +24,7 @@ with a bf16 and an int8 pool (7 layers), whose verify runs the multi-query kerne
 B7/B8, ``generate_speculative`` and ``generate``'s routing, an n-gram
 session at k 12 (its 13-position verify block runs B7 in one launch a
 layer: two q-tiles of the tensor-core kernel), and a self-draft whose
-draft steps run B2. The kernel rows also hold the stacked ``layer=`` form
+draft steps run B2 (both at 7 layers). The kernel rows also hold the stacked ``layer=`` form
 of B4/B5/B7/B8 bit for bit against the per-layer call, and
 ``torch.profiler`` traces show that one call of B4/B5 (the paged parts,
 at the batch's rows), of B6 (write-through decode), of B9 and B10 (int4
@@ -119,18 +119,34 @@ Between the two, tensor, data and expert parallelism
 (``parallel/tp.py``'s ``TensorParallelEngine`` over meshes whose shards
 all live on the one card, each against the unsharded engine on the same
 weights; one card shows sharding's parity and launch cost, never TP
-speed): ``tp_generate`` (qwen2:1.5b, int8 weights, tp 2, 28 layers: B1/B2
-exactly twice the unsharded launches, the tokens replayed teacher-forced
-through the unsharded model) with ``_int8_kv`` (B3) and ``_int4`` (B9 on
-every shard's 7 matmuls, ``w_down`` and ``wo`` repacked by rows) at 7
-layers; ``tp_session_paged`` (3 rows and a mid-flight joiner over the
-bf16 pool, 28 layers, B4 twice) and ``_ngram`` (the same session
-speculating with an n-gram draft: B7); ``dp_tp_session`` (dp 2 × tp 2, 7
-layers: B4 four times, each row's pages in its dp shard's range); and,
+speed; all at 7 of 28 layers): ``tp_generate`` (qwen2:1.5b, int8
+weights, tp 2: B1/B2 exactly twice the unsharded launches, the tokens
+replayed teacher-forced through the unsharded model) with ``_int8_kv``
+(B3) and ``_int4`` (B9 on every shard's 7 matmuls, ``w_down`` and ``wo``
+repacked by rows); ``tp_session_paged`` (3 rows and a mid-flight joiner
+over the bf16 pool, B4 twice) and ``_ngram`` (the same session
+speculating with an n-gram draft: B7); ``dp_tp_session`` (dp 2 × tp 2: B4
+four times, each row's pages in its dp shard's range); and,
 inside the mixtral phases, ``ep_tp_mixtral`` (the first 4 of mixtral's 32
 layers at full width under tp 2 × ep 4, f32 activations: logits within
 2e-3 of the unsharded forward's, the same tokens). The kernel rows hold
 B1–B9 at the shard shapes too.
+Last, training and learned weights. The ``kernels_d32`` rows hold B1–B8
+at head width 32 (the trained tiny LM's: 4 query heads over 2 KV heads)
+against their plain versions. ``train_step`` runs
+``parallel/train.py``'s step on qwen2:1.5b at full width and depth (f32,
+4 × 256 tokens, remat; 3 steps on one batch: the loss falls; its first
+step's loss and gradients against remat off), ``pp_train`` the GPipe
+pipeline over 4 stages and 4 microbatches on the one card (loss and
+every gradient against the unpipelined ones; then two steps) and
+``dp_tp_train`` dp 2 × tp 2 shards on the card (3 losses against
+``train_step``'s); no kernel runs in training. ``tiny_lm`` trains the
+tiny LM on the card to its loss target, ``engine_tiny_lm`` (+ ``_greedy``,
+``_int8_kv``, ``_paged``, ``_paged_int8``) serves it through B1–B5 at D
+32 (every row stops on EOS below its 134-token budget; the solo greedy
+tokens are the plain forward's), and ``study_real_weights`` runs
+``examples/torch_llm_energy_real_weights.py`` through the CLI on that
+checkpoint (3 rows on_device at 100 words, NVML Joules a token).
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -145,6 +161,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -430,10 +447,11 @@ def bound(bytes_moved: float, flops: float, peak: float = BF16_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(torch, ca, plain, timer):
+def kernel_phase(torch, ca, plain, timer, prefill_shapes=None, decode_shapes=None, phase="kernel"):
     """Every kernel against its plain version at the main path's shapes
     (and phi3/gemma head dims), in bf16 with timings and in f32 for a
-    tight check. Returns the first row of each kernel for the summary."""
+    tight check; or at the shapes given, as ``phase`` rows. Returns the
+    first row of each kernel for the summary."""
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -446,11 +464,12 @@ def kernel_phase(torch, ca, plain, timer):
     summary = {}
 
     def record(row):
-        emit({"phase": "kernel", **row})
+        emit({"phase": phase, **row})
         summary.setdefault(row["name"], row)
 
+    given = prefill_shapes is not None
     # (label, hq, hkv, d, the rows' lengths, capacity T)
-    decode_shapes = [
+    default_decode = [
         ("qwen2:1.5b", 12, 2, 128, [200], 320),
         ("qwen2:1.5b", 12, 2, 128, [2100], 3104),
         ("qwen2:1.5b self-draft batch", 12, 2, 128, SELFDRAFT_LENGTHS, 1280),
@@ -461,11 +480,11 @@ def kernel_phase(torch, ca, plain, timer):
     # decode over ~200 positions of a 320-slot cache, 1,000 words over
     # ~1,400 of 2,112; prompts of 53-73 tokens prefill at S 64 or 128.
     for label, hq, hkv, d in WIDE_LAYOUTS:
-        decode_shapes += [(label, hq, hkv, d, [200], 320), (label, hq, hkv, d, [1400], 2112)]
-    decode_shapes += [(label, 12, 2, 128, lens, t) for label, lens, t in SESSION_DECODE_SHAPES]
-    decode_shapes += TP_DECODE_SHAPES
+        default_decode += [(label, hq, hkv, d, [200], 320), (label, hq, hkv, d, [1400], 2112)]
+    default_decode += [(label, 12, 2, 128, lens, t) for label, lens, t in SESSION_DECODE_SHAPES]
+    default_decode += TP_DECODE_SHAPES
     # (label, batch, hq, hkv, d, S, capacity T, offset)
-    prefill_shapes = [
+    default_prefill = [
         ("qwen2:1.5b", 1, 12, 2, 128, 64, 320, 0),
         ("qwen2:1.5b", 1, 12, 2, 128, 2048, 3104, 0),
         ("qwen2:1.5b", 1, 12, 2, 128, 32, 3104, 2048),  # chunked-prefill tail
@@ -474,8 +493,10 @@ def kernel_phase(torch, ca, plain, timer):
         ("qwen2:1.5b", 16, 12, 2, 128, 512, 512, 0),  # a grouped batch prefill
     ]
     for label, hq, hkv, d in WIDE_LAYOUTS:
-        prefill_shapes += [(label, 1, hq, hkv, d, 64, 320, 0), (label, 1, hq, hkv, d, 128, 2176, 0)]
-    prefill_shapes += TP_PREFILL_SHAPES
+        default_prefill += [(label, 1, hq, hkv, d, 64, 320, 0), (label, 1, hq, hkv, d, 128, 2176, 0)]
+    default_prefill += TP_PREFILL_SHAPES
+    if not given:
+        prefill_shapes, decode_shapes = default_prefill, default_decode
     for label, b, hq, hkv, d, s, t, offset in prefill_shapes:
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -698,7 +719,7 @@ def parts_errors(torch, got, want, tol):
     return errs, ok, empty_exact
 
 
-def paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, control):
+def paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, control, shapes=None, phase="kernel"):
     """The paged parts kernels against their plain versions: at the paged
     engine phase's own batch (17 rows of the 62–2,112-token prompts, pad
     rows to 32), once more in pages of 48 positions (not a multiple of
@@ -711,7 +732,8 @@ def paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, control):
     the engine batch a ``torch.profiler`` trace shows one device kernel a
     call (``control`` shows two). Timed in bf16 beside SDPA with a length
     mask over the rows gathered (B5: and dequantized) into a contiguous
-    bf16 cache, the gather untimed: it computes acc / l only. Returns the
+    bf16 cache, the gather untimed: it computes acc / l only. ``shapes``
+    replaces the list below, its rows emitted as ``phase``. Returns the
     engine-batch row of each kernel for the summary."""
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -724,7 +746,7 @@ def paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, control):
         return lens
 
     # (label, batch, hq, hkv, d, lengths of the real rows, page)
-    shapes = [
+    shapes = shapes or [
         ("qwen2:1.5b engine batch", 32, 12, 2, 128, batch_prompt_lengths(), PAGE),
         ("qwen2:1.5b engine batch, page 48", 32, 12, 2, 128, batch_prompt_lengths(), 48),
         ("qwen2:1.5b", 1, 12, 2, 128, mixed(1), PAGE),
@@ -803,7 +825,7 @@ def paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, control):
                 "library_ms": library_ms,
                 "bound_ms": b_ms, "bound_by": b_by,
             }
-            emit({"phase": "kernel", **row})
+            emit({"phase": phase, **row})
             summary.setdefault(name, row)
     return summary
 
@@ -848,7 +870,8 @@ def mq_limits_mask(torch, lens, offsets, q_len, t):
     return (torch.arange(t, device="cuda")[None, None, :] < lim[:, :, None])[:, None]
 
 
-def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, kernels, control):
+def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, kernels, control, shapes=None,
+                          phase="kernel"):
     """B7/B8 against their plain versions: at the speculative sessions' own
     batch (8 rows of 62–1,100 tokens, qwen2:1.5b widths, a session's table
     width) at Q 5 (k = 4) and Q 1, with offsets that cut inside the cached
@@ -868,7 +891,8 @@ def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, kernels,
     where a tile read from a wrong page moves acc/l by about its weight.
     The library yardstick is SDPA with each query's limit as a boolean mask
     over the rows gathered (B8: and dequantized) into a contiguous bf16
-    cache, the gather untimed: it computes acc / l only. Returns the
+    cache, the gather untimed: it computes acc / l only. ``shapes``
+    replaces the list below, its rows emitted as ``phase``. Returns the
     engine-batch Q 5 row of each kernel for the summary."""
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -878,7 +902,7 @@ def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, kernels,
     eng = spec_prompt_lengths()
     eng_cut = [n - 40 if i % 2 else n + 7 for i, n in enumerate(eng)]
     # (label, batch, hq, hkv, d, lengths, offsets, Q)
-    shapes = [
+    shapes = shapes or [
         ("qwen2:1.5b engine batch", 8, 12, 2, 128, eng, eng_cut, SPEC_K + 1),
         ("qwen2:1.5b engine batch", 8, 12, 2, 128, eng, eng_cut, 1),
         ("qwen2:1.5b engine batch", 8, 12, 2, 128, eng, eng_cut, 10),
@@ -980,7 +1004,7 @@ def paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, kernels,
                 "library_ms": library_ms,
                 "bound_ms": b_ms, "bound_by": b_by,
             }
-            emit({"phase": "kernel", **row})
+            emit({"phase": phase, **row})
             summary.setdefault(name, row)
     return summary
 
@@ -1239,7 +1263,7 @@ def one_kernel_per_call(torch, name, fn, control):
             "device_us": ours[0][1], "control_device_kernels_per_call": len(theirs)}
 
 
-def paged_decode_kernel_phase(torch, cpa, ca, plain, timer, control):
+def paged_decode_kernel_phase(torch, cpa, ca, plain, timer, control, shapes=None, phase="kernel"):
     """B6 against its plain version: at the write-through phase's 8 rows,
     at qwen2:1.5b widths for B 1, 16 and 64 (62–1,100 tokens), at the
     phi3/gemma head dims, and at the write-through rows in pages of 48
@@ -1248,7 +1272,8 @@ def paged_decode_kernel_phase(torch, cpa, ca, plain, timer, control):
     2e-2 (max abs error of the normalised output), timed in bf16 beside
     B4 on the same rows and SDPA on the rows gathered into a contiguous
     cache (the gather untimed). One call runs one device kernel
-    (``control`` shows two). Returns the first row."""
+    (``control`` shows two). ``shapes`` replaces the list below, its rows
+    emitted as ``phase``. Returns the first row."""
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(5)
 
@@ -1256,7 +1281,7 @@ def paged_decode_kernel_phase(torch, cpa, ca, plain, timer, control):
         return torch.randint(62, 1101, (n,), generator=gen, device="cuda").tolist()
 
     # (label, batch, hq, hkv, d, lengths, page)
-    shapes = [
+    shapes = shapes or [
         ("qwen2:1.5b write-through rows", 8, 12, 2, 128, write_through_lengths(), PAGE),
         ("qwen2:1.5b", 1, 12, 2, 128, mixed(1), PAGE),
         ("qwen2:1.5b", 16, 12, 2, 128, mixed(16), PAGE),
@@ -1309,7 +1334,7 @@ def paged_decode_kernel_phase(torch, cpa, ca, plain, timer, control):
             # SDPA with a length mask on the rows gathered into [B,Hkv,Jmax·page,D]
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
         }
-        emit({"phase": "kernel", **row})
+        emit({"phase": phase, **row})
         summary.setdefault(name, row)
     return summary
 
@@ -5042,15 +5067,16 @@ def tp_session_phase(torch, phase, base, engine, tfm, ca, eng_mod, kernels, Gene
 
 def tp_phases(torch, root, eng_mod, tfm, qmod, ca, kernels, GenerationRequest, smi):
     """qwen2:1.5b at full width on meshes of shards on the one card, each
-    against the unsharded engine on the same weights: ``tp_generate``
-    (int8 weights, bf16 KV, 28 layers, tp 2: 6 query heads and 1 KV head a
-    shard, F/2 FFN columns, V/2 vocabulary rows) with ``_int8_kv`` (B3)
-    and ``_int4`` (B9 at the shard widths) at 7 layers;
-    ``tp_session_paged`` (tp 2, the bf16 pool, 28 layers: 3 rows and a
-    joiner) and ``tp_session_paged_ngram`` (the same with an n-gram draft
-    of k 4: B7); ``dp_tp_session`` (dp 2 × tp 2, four shards, 7 layers:
-    the rows in two dp blocks, each row's pages in its block's range).
-    Returns the launches."""
+    against the unsharded engine on the same weights, at SOLO_CUT_LAYERS
+    layers (28 until the training phases came: the script then took
+    1,040 s on a host 1.2x slower than PR 19's): ``tp_generate`` (int8
+    weights, bf16 KV, tp 2: 6 query heads and 1 KV head a shard, F/2 FFN
+    columns, V/2 vocabulary rows) with ``_int8_kv`` (B3) and ``_int4``
+    (B9 at the shard widths); ``tp_session_paged`` (tp 2, the bf16 pool:
+    3 rows and a joiner) and ``tp_session_paged_ngram`` (the same with an
+    n-gram draft of k 4: B7); ``dp_tp_session`` (dp 2 × tp 2, four
+    shards: the rows in two dp blocks, each row's pages in its block's
+    range). Returns the launches."""
     import gc
     from importlib import import_module
 
@@ -5064,10 +5090,9 @@ def tp_phases(torch, root, eng_mod, tfm, qmod, ca, kernels, GenerationRequest, s
 
     request = GenerationRequest(MODEL, context_prompt(TP_PROMPT_TOKENS), TP_NEW_TOKENS, stop_at_eos=False)
     MeshSpec = mesh_mod.MeshSpec
-    full = {MODEL: eng_mod.get_model_config(MODEL)}
     # (phase, weights, kv, registry)
     for phase, weights, kv, registry in (
-        ("tp_generate", "int8", None, full),
+        ("tp_generate", "int8", None, cut_registry()),
         ("tp_generate_int8_kv", "int8", "int8", cut_registry()),
         ("tp_generate_int4", "int4", None, cut_registry()),
     ):
@@ -5084,9 +5109,9 @@ def tp_phases(torch, root, eng_mod, tfm, qmod, ca, kernels, GenerationRequest, s
     # (phase, mesh, engine options, the session's decode kernel, its
     # launches over the unsharded session's, registry)
     for phase, spec, kw, decode, factor, registry in (
-        ("tp_session_paged", MeshSpec.tp_only(2), {}, "cuda_paged_decode_attention_parts", 2, full),
+        ("tp_session_paged", MeshSpec.tp_only(2), {}, "cuda_paged_decode_attention_parts", 2, cut_registry()),
         ("tp_session_paged_ngram", MeshSpec.tp_only(2), dict(speculative={MODEL: ("ngram", SPEC_K)}),
-         "cuda_paged_decode_attention_mq_parts", None, full),
+         "cuda_paged_decode_attention_mq_parts", None, cut_registry()),
         ("dp_tp_session", MeshSpec.dp_tp(2, 2), {}, "cuda_paged_decode_attention_parts", 4, cut_registry()),
     ):
         base = eng_mod.TorchEngine(quantize="int8", paged_kv=True, registry=registry, **kw)
@@ -5192,6 +5217,358 @@ def ep_tp_mixtral_phase(torch, root, tfm, ca, qmod, eng_mod, kernels, cfg, param
     return gen_counts
 
 
+# The trained tiny LM's attention (models/tiny_lm.py: 4 query heads over 2
+# KV heads of width 32) at the shapes it is served with: a prompt of up to
+# 96 tokens prefilled at once (one row, and the 4 rows of a batch), decode
+# over 1 and 16 rows of a cache that its prompts and a 134-token budget
+# fill, and the verify block of 5 queries (k = 4).
+TINY_LM_HEADS = (4, 2, 32)
+TINY_LM_DECODE_LENGTHS = ([150], [40 + 12 * i for i in range(16)])
+TINY_LM_BUDGET = 134  # tests/test_tiny_lm.py's budget, 100 words' tokens
+TINY_LM_PROMPT_ROWS = (0, 4, 8, 12)  # corpus sentences of the first template
+
+
+def d32_kernel_phase(torch, ca, cpa, plain, timer, quantize_kv_vector, kernels, control):
+    """B1-B8 at head width 32 (the tiny LM's heads) against their plain
+    versions, with the tolerances and timings of the rows at the other
+    widths (the same phase functions, these shapes, ``kernels_d32``
+    rows). Returns the first row of each kernel."""
+    hq, hkv, d = TINY_LM_HEADS
+    one, rows16 = TINY_LM_DECODE_LENGTHS
+    label = "tiny-lm d32"
+    summary = kernel_phase(
+        torch, ca, plain, timer,
+        prefill_shapes=[(label, 1, hq, hkv, d, 96, 96, 0), (label + " batch", 4, hq, hkv, d, 96, 256, 0)],
+        decode_shapes=[(label, hq, hkv, d, one, 256), (label + " 16 rows", hq, hkv, d, rows16, 256)],
+        phase="kernels_d32",
+    )
+    paged = [(label, 1, hq, hkv, d, one, PAGE), (label + " 16 rows", 16, hq, hkv, d, rows16, PAGE)]
+    summary.update(paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, control, shapes=paged,
+                                      phase="kernels_d32"))
+    cut16 = [n if i % 2 == 0 else n - 3 for i, n in enumerate(rows16)]
+    mq = [(label, 1, hq, hkv, d, one, one, SPEC_K + 1),
+          (label + " 16 rows", 16, hq, hkv, d, rows16, cut16, SPEC_K + 1)]
+    summary.update(paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, kernels, control,
+                                         shapes=mq, phase="kernels_d32"))
+    summary.update(paged_decode_kernel_phase(torch, cpa, ca, plain, timer, control, shapes=paged,
+                                             phase="kernels_d32"))
+    return summary
+
+
+# Training (parallel/train.py, parallel/pp.py): qwen2:1.5b at full width
+# and depth, f32 params, a batch of 4 rows of 256 tokens from a seeded
+# numpy draw, Adam at make_train_step's learning rate. The pipeline runs 4
+# stages of 7 layers over 4 microbatches, dp × tp 2 × 2 shards, all on the
+# one card: parity and launch cost, never training speed.
+TRAIN_BATCH = (4, 256)
+TRAIN_STEPS = 3
+TRAIN_SEED = 0
+TRAIN_PP, TRAIN_MICROBATCHES = 4, 4
+REMAT_LOSS_RTOL = 1e-5
+PP_LOSS_RTOL = 2e-5  # tests/test_pp.py's tolerances
+GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-3
+DP_TP_LOSS_RTOL = 1e-4
+
+
+def grads_close(torch, got, want):
+    """The largest absolute difference over the leaves, and whether every
+    element is within GRAD_ATOL + GRAD_RTOL·|want| (leaf by leaf on the
+    card)."""
+    worst, ok = 0.0, True
+    for name, w in want.items():
+        g = got[name].to(w.device)
+        diff = (g - w).abs()
+        worst = max(worst, float(diff.max()))
+        ok = ok and bool(torch.all(diff <= GRAD_ATOL + GRAD_RTOL * w.abs()))
+    return worst, ok
+
+
+def train_phases(torch, kernels, smi):
+    """``train_step``: the dp × tp step on a one-device mesh, remat on, 3
+    steps on one batch (the loss falls; ms a step and the allocator's peak
+    over steps 2-3), its first step's loss and gradients against a step
+    with remat off (same init); ``pp_train``: the GPipe loss and gradients
+    against the unpipelined ones (f32 zero caches, as the pipeline's),
+    then two steps of ``make_pp_train_step``; ``dp_tp_train``: dp 2 × tp 2
+    shards on the card, 3 steps whose losses match ``train_step``'s. No
+    kernel runs: training takes the plain attention under autograd."""
+    import numpy as np
+    from importlib import import_module
+
+    cfg = import_module(f"{PKG}.models.config").get_model_config(MODEL)
+    tfm = import_module(f"{PKG}.models.transformer")
+    train = import_module(f"{PKG}.parallel.train")
+    pp = import_module(f"{PKG}.parallel.pp")
+    mesh_mod = import_module(f"{PKG}.parallel.mesh")
+    tokens = np.random.default_rng(TRAIN_SEED).integers(0, cfg.vocab_size, size=TRAIN_BATCH)
+    n_tokens = TRAIN_BATCH[0] * (TRAIN_BATCH[1] - 1)
+
+    def fresh():
+        return tfm.init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(TRAIN_SEED), torch.float32)
+
+    def steps(step, params, opt, n):
+        losses, seconds = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, tokens)
+            losses.append(float(loss))  # waits for the step
+            seconds.append(time.perf_counter() - t0)
+        return params, opt, losses, seconds
+
+    for fn in kernels:
+        fn.launches = 0
+    mesh1 = mesh_mod.build_mesh(mesh_mod.MeshSpec.dp_tp(1, 1), [TP_DEVICE])
+    init_fn, step = train.make_train_step(cfg, mesh1, remat=True)
+    params, opt = init_fn(fresh())
+    params, opt, first, first_s = steps(step, params, opt, 1)
+    grads_remat = {k: v.cpu() for k, v in train.gather_params(params, grads=True).items()}
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, rest, rest_s = steps(step, params, opt, TRAIN_STEPS - 1)
+    losses, peak = first + rest, torch.cuda.max_memory_allocated()
+    del params, opt
+    init_fn, step = train.make_train_step(cfg, mesh1, remat=False)
+    params, opt = init_fn(fresh())
+    params, opt, plain_loss, plain_s = steps(step, params, opt, 1)
+    worst, ok = grads_close(torch, grads_remat, train.gather_params(params, grads=True))
+    del params, opt, grads_remat
+    ms = 1e3 * sum(rest_s) / len(rest_s)
+    emit({"phase": "train_step", "model": MODEL, "n_layers": cfg.n_layers, "batch": list(TRAIN_BATCH),
+          "remat": True, "losses": losses, "first_step_ms": 1e3 * first_s[0], "ms_per_step": ms,
+          "tokens_per_s": n_tokens / (ms / 1e3), "peak_allocated_bytes": peak,
+          "remat_off_first_loss": plain_loss[0], "remat_off_first_step_ms": 1e3 * plain_s[0],
+          "remat_vs_off_max_grad_diff": worst, "nvidia_smi": smi})
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+    assert abs(plain_loss[0] - losses[0]) <= REMAT_LOSS_RTOL * abs(plain_loss[0]), (losses[0], plain_loss)
+    assert ok, ("remat against none: gradients", worst)
+    torch.cuda.empty_cache()
+
+    params = fresh()
+    tok = torch.as_tensor(tokens, device=TP_DEVICE)
+
+    def ref_loss(p):
+        k0, v0 = train.zero_caches(p, cfg, tok.shape[0], tok.shape[1] - 1, torch.float32)
+        return train.next_token_loss(p, cfg, tok, k0, v0)
+
+    ref, ref_grads = train.value_and_grad(ref_loss, params)
+    pp_mesh = mesh_mod.build_mesh(mesh_mod.MeshSpec(axes=(("pp", TRAIN_PP),)), [TP_DEVICE] * TRAIN_PP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pp_value, pp_grads = pp.make_pp_grad(cfg, pp_mesh, TRAIN_MICROBATCHES)(params, tokens)
+    pp_value = float(pp_value)
+    grad_s = time.perf_counter() - t0
+    worst, ok = grads_close(torch, pp_grads, ref_grads)
+    del ref_grads, pp_grads
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step = pp.make_pp_train_step(cfg, pp_mesh, TRAIN_MICROBATCHES)
+    stages, opt = init_fn(params)
+    stages, opt, pp_losses, pp_s = steps(step, stages, opt, 2)
+    pp_peak = torch.cuda.max_memory_allocated()
+    del stages, opt, params
+    emit({"phase": "pp_train", "model": MODEL, "stages": TRAIN_PP, "microbatches": TRAIN_MICROBATCHES,
+          "loss": pp_value, "unpipelined_loss": float(ref), "max_grad_diff": worst,
+          "grad_ms": 1e3 * grad_s, "step_losses": pp_losses, "first_step_ms": 1e3 * pp_s[0],
+          "ms_per_step": 1e3 * pp_s[1], "tokens_per_s": n_tokens / pp_s[1], "peak_allocated_bytes": pp_peak,
+          "train_step_ms_per_step": ms, "nvidia_smi": smi})
+    assert abs(pp_value - float(ref)) <= PP_LOSS_RTOL * abs(float(ref)), (pp_value, float(ref))
+    assert ok, ("pipelined gradients", worst)
+    torch.cuda.empty_cache()
+
+    mesh = mesh_mod.build_mesh(mesh_mod.MeshSpec.dp_tp(2, 2), [TP_DEVICE] * 4)
+    init_fn, step = train.make_train_step(cfg, mesh, remat=True)
+    params, opt = init_fn(fresh())
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, dp_losses, dp_s = steps(step, params, opt, TRAIN_STEPS)
+    dp_peak = torch.cuda.max_memory_allocated()
+    del params, opt
+    dp_ms = 1e3 * sum(dp_s[1:]) / len(dp_s[1:])
+    emit({"phase": "dp_tp_train", "model": MODEL, "mesh": {"dp": 2, "tp": 2}, "losses": dp_losses,
+          "unsharded_losses": losses, "ms_per_step": dp_ms, "tokens_per_s": n_tokens / (dp_ms / 1e3),
+          "peak_allocated_bytes": dp_peak, "train_step_ms_per_step": ms, "nvidia_smi": smi})
+    for a, b in zip(dp_losses, losses):
+        assert abs(a - b) <= DP_TP_LOSS_RTOL * abs(b), (dp_losses, losses)
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    assert not any(counts.values()), ("training launched a kernel", counts)
+    torch.cuda.empty_cache()
+
+
+def tiny_lm_generate_phase(torch, phase, engine, requests, kernels, eng_mod, eos):
+    """Each request's ``generate`` on the trained model, counted: B1 once a
+    layer per prefill chunk, the decode kernel of the engine's cache once
+    a layer per decode forward (one per token after the first, EOS's
+    included), nothing else; every row stops on EOS below its budget with
+    printable text."""
+    n_layers = engine._models[requests[0].model].cfg.n_layers
+    results, counts = count_launches(kernels, lambda: [engine.generate(r) for r in requests])
+    decode = "cuda_decode_attention_int8" if engine.kv_quantize else "cuda_decode_attention"
+    expected = {fn.__name__: 0 for fn in kernels}
+    expected["cuda_prefill_attention"] = n_layers * sum(len(eng_mod._prompt_chunks(r.prompt_tokens))
+                                                        for r in results)
+    expected[decode] = n_layers * sum(min(r.generated_tokens, r.request.max_new_tokens - 1) for r in results)
+    for r in results:
+        emit({"phase": phase, "prompt_tokens": r.prompt_tokens, "generated_tokens": r.generated_tokens,
+              "text": r.text, "decode_s": r.decode_s, "tokens_per_s": r.tokens_per_s})
+        assert 0 < r.generated_tokens < r.request.max_new_tokens and r.tokens[-1] != eos, r.generated_tokens
+        assert r.text and all(32 <= ord(c) < 127 or c.isspace() for c in r.text), r.text
+    emit({"phase": phase + "_launches", "counts": counts, "expected": expected})
+    assert counts == expected, (counts, expected)
+    return results, counts
+
+
+def tiny_lm_phases(torch, root, eng_mod, tfm, ca, kernels, GenerationRequest, smi, ckpt_root):
+    """``tiny_lm``: ``train_tiny_lm`` on the card to its loss target (no
+    kernel runs), saved where the real-weights example looks for it under
+    ``ckpt_root``; then served from an f32 ``TorchEngine`` on the card:
+    ``engine_tiny_lm`` (solo ``generate`` of 4 prompts through B1/B2 at D
+    32, each greedy token the plain forward's, teacher-forced; a
+    ``torch.profiler`` trace of one short call counts the device kernels
+    by name), ``engine_tiny_lm_int8_kv`` (B3) and
+    ``engine_tiny_lm_paged`` / ``_int8`` (one ``generate_batch`` of the 4
+    over the paged pool: B4 / B5). Every row stops on EOS below its
+    budget. Returns the launch counts."""
+    from importlib import import_module
+
+    tl = import_module(f"{PKG}.models.tiny_lm")
+    counts_all = {fn.__name__: 0 for fn in kernels}
+
+    def add(counts):
+        for k, n in counts.items():
+            counts_all[k] += n
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (params, losses), counts = count_launches(kernels, lambda: tl.train_tiny_lm(device=TP_DEVICE))
+    seconds = time.perf_counter() - t0
+    cfg = tl.tiny_lm_config()
+    emit({"phase": "tiny_lm", "steps": len(losses), "seconds": seconds, "ms_per_step": 1e3 * seconds / len(losses),
+          "first_loss": losses[0], "final_loss": losses[-1], "last5_mean": sum(losses[-5:]) / 5,
+          "d_model": cfg.d_model, "n_layers": cfg.n_layers, "d_head": cfg.d_head, "nvidia_smi": smi})
+    assert not any(counts.values()), counts
+    assert losses[0] > 3.0 and sum(losses[-5:]) / 5 < 0.1, losses[-5:]
+    tl.save_tiny_lm(params, ckpt_root / "experiments_output" / "tiny_lm_weights" / "tiny_lm")
+
+    corpus = tl.build_corpus()
+    prompts = [corpus[i][: corpus[i].index(".") + 1] for i in TINY_LM_PROMPT_ROWS]
+    requests = [GenerationRequest(tl.TINY_LM_NAME, p, max_new_tokens=TINY_LM_BUDGET) for p in prompts]
+    engine = eng_mod.TorchEngine(registry={}, dtype=torch.float32)
+    engine.install_model(tl.TINY_LM_NAME, cfg, params)
+    eos = engine._tokenizer_for(tl.TINY_LM_NAME).eos_id
+    engine.warmup(requests[0])
+    results, counts = tiny_lm_generate_phase(torch, "engine_tiny_lm", engine, requests, kernels, eng_mod, eos)
+    add(counts)
+    gaps = [replay_gap(torch, engine, tfm, ca, eng_mod, q, r.tokens, plain=True)
+            for q, r in zip(requests, results)]
+    # One short call (one decode forward, ~350 device kernels) traced
+    # between the profiler's markers: the port's device kernels it ran, by
+    # name. A trace of ~700 kernels lost its first marker on every retake
+    # once; if every retake loses one, the trace is reported as lost and
+    # the launch counts above stand alone, as in contiguous_spec_phase.
+    import re
+
+    short = dataclasses.replace(requests[0], max_new_tokens=2)
+    ours = csrc_kernel_names(root)
+    try:
+        traced = device_kernels(torch, lambda: engine.generate(short))
+    except AssertionError:
+        traced = None
+    by_name = {}
+    for name, _ in traced or ():
+        word = next((w for w in re.findall(r"\w+", name) if w in ours), None)
+        if word is not None:
+            by_name[word] = by_name.get(word, 0) + 1
+    emit({"phase": "engine_tiny_lm_greedy", "plain_forward_max_logit_gap": max(gaps),
+          "profiled_device_kernels": by_name if traced is not None else "trace lost"})
+    assert max(gaps) == 0.0, gaps  # every served token is the plain forward's argmax
+    assert traced is None or by_name == {"prefill_kernel": cfg.n_layers, "decode_tile_kernel": cfg.n_layers}, by_name
+    del engine
+
+    engine = eng_mod.TorchEngine(registry={}, dtype=torch.float32, kv_quantize="int8")
+    engine.install_model(tl.TINY_LM_NAME, cfg, params)
+    engine.warmup(requests[0])
+    add(tiny_lm_generate_phase(torch, "engine_tiny_lm_int8_kv", engine, requests, kernels, eng_mod, eos)[1])
+    del engine
+    for phase, kv in (("engine_tiny_lm_paged", None), ("engine_tiny_lm_paged_int8", "int8")):
+        engine = eng_mod.TorchEngine(registry={}, dtype=torch.float32, paged_kv=True, kv_quantize=kv)
+        engine.install_model(tl.TINY_LM_NAME, cfg, params)
+        engine.generate_batch([dataclasses.replace(r, max_new_tokens=4) for r in requests])
+        results, counts = count_launches(kernels, lambda: engine.generate_batch(requests))
+        parts = "cuda_paged_decode_attention_parts_int8" if kv else "cuda_paged_decode_attention_parts"
+        for r in results:
+            emit({"phase": phase, "prompt_tokens": r.prompt_tokens, "generated_tokens": r.generated_tokens,
+                  "text": r.text})
+            assert 0 < r.generated_tokens < TINY_LM_BUDGET and r.tokens[-1] != eos, r.generated_tokens
+            assert r.text and all(32 <= ord(c) < 127 or c.isspace() for c in r.text), r.text
+        longest = max(r.generated_tokens for r in results)
+        others = {k: n for k, n in counts.items() if k not in (parts, "cuda_prefill_attention")}
+        emit({"phase": phase + "_launches", "counts": counts})
+        assert counts[parts] % cfg.n_layers == 0 and counts[parts] >= cfg.n_layers * (longest - 1), counts
+        assert counts["cuda_prefill_attention"] >= cfg.n_layers and not any(others.values()), counts
+        add(counts)
+        del engine
+    torch.cuda.empty_cache()
+    return counts_all
+
+
+REAL_WEIGHTS_CONFIG = """import importlib.util
+
+_spec = importlib.util.spec_from_file_location("torch_llm_energy_real_weights", {example!r})
+_example = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_example)
+
+
+class RunnerConfig(_example.RunnerConfig):
+    def __init__(self):
+        super().__init__(locations=["on_device"], repetitions={reps}, cooldown_ms=500)
+"""
+# Rows of the real-weights cell: on_device at 100 words (the tiny LM's
+# max_seq_len of 512 holds the 100-word budget, not the 500-word one).
+REAL_WEIGHTS_ROWS = 3
+
+
+def study_real_weights_phase(torch, root, kernels, smi, ckpt_root):
+    """``examples/torch_llm_energy_real_weights.py`` through
+    ``runner.cli.main``, run from ``ckpt_root`` so that it loads the
+    checkpoint the ``tiny_lm`` phase saved (nothing trains twice): its
+    config on_device at 100 words, REAL_WEIGHTS_ROWS repetitions.
+    Each row is done, stops below its budget with NVML Joules, and B1/B2
+    ran; nothing else did."""
+    import csv
+    import os
+    from importlib import import_module
+
+    cli = import_module(f"{PKG}.runner.cli")
+    path = ckpt_root / "real_weights.py"
+    path.write_text(REAL_WEIGHTS_CONFIG.format(example=str(root / "examples" / "torch_llm_energy_real_weights.py"),
+                                               reps=REAL_WEIGHTS_ROWS))
+    cwd = os.getcwd()
+    os.chdir(ckpt_root)
+    t0 = time.perf_counter()
+    try:
+        rc, counts = count_launches(kernels, lambda: cli.main([str(path)]))
+    finally:
+        os.chdir(cwd)
+    seconds = time.perf_counter() - t0
+    assert rc == 0, rc
+    tables = list((ckpt_root / "experiments_output").glob("*/run_table.csv"))
+    assert len(tables) == 1, tables
+    with tables[0].open() as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == REAL_WEIGHTS_ROWS and all(r["__done"] == "DONE" for r in rows), rows
+    for r in rows:
+        tokens, budget = int(r["generated_tokens"]), math.ceil(int(r["length"]) * TOKENS_PER_WORD)
+        joules = float(r["gpu_energy_J"])
+        emit({"phase": "study_real_weights_row", "length": int(r["length"]), "budget": budget,
+              "generated_tokens": tokens, "execution_time_s": float(r["execution_time_s"]),
+              "nvml_J": joules, "nvml_J_per_token": joules / tokens,
+              "gpu_avg_power_W": float(r["gpu_avg_power_W"]), "nvidia_smi": smi})
+        assert 0 < tokens < budget and joules > 0, r
+    others = {k: n for k, n in counts.items() if k not in ("cuda_prefill_attention", "cuda_decode_attention")}
+    emit({"phase": "study_real_weights", "rows": len(rows), "seconds": seconds, "counts": counts})
+    assert counts["cuda_prefill_attention"] > 0 and counts["cuda_decode_attention"] > 0, counts
+    assert not any(others.values()), counts
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -5250,6 +5627,7 @@ def main() -> int:
     summary.update(int4_kernel_phase(torch, cq, qplain, qmod, timer, control))
     summary.update(paged_decode_kernel_phase(torch, cpa, ca, plain, timer, control))
     summary.update(w4a8_kernel_phase(torch, cq, qplain, qmod, timer, control))
+    d32 = d32_kernel_phase(torch, ca, cpa, plain, timer, qmod.quantize_kv_vector, kernels, control)
     del timer
     torch.cuda.empty_cache()
 
@@ -5344,7 +5722,9 @@ def main() -> int:
         del engine, results
         torch.cuda.empty_cache()
     # k = 12: the verify block of 13 positions runs B7 in one launch a layer.
-    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True,
+    # This and the self-draft run at SOLO_CUT_LAYERS since the training
+    # phases came (the script took 1,043 s on a host 1.2x slower than PR 19's).
+    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, registry=cut_registry(),
                                  speculative={MODEL: ("ngram", LONG_SPEC_K)})
     engine.load_model(MODEL)
     n_layers = engine._models[MODEL].cfg.n_layers
@@ -5356,7 +5736,8 @@ def main() -> int:
     add(counts)
     del engine
     torch.cuda.empty_cache()
-    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, speculative={MODEL: (MODEL, SPEC_K)})
+    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, registry=cut_registry(),
+                                 speculative={MODEL: (MODEL, SPEC_K)})
     engine.load_model(MODEL)
     n_layers = engine._models[MODEL].cfg.n_layers
     counts, _ = spec_engine_phase("engine_spec_selfdraft", engine, selfdraft_requests(backend.GenerationRequest),
@@ -5413,6 +5794,15 @@ def main() -> int:
     add(tp_phases(torch, root, eng_mod, tfm, qmod, ca, all_kernels, backend.GenerationRequest, smi))
     # The mixture-of-experts MLP: mixtral:8x7b at full width and depth.
     add(mixtral_phases(torch, root, eng_mod, tfm, qmod, ca, all_kernels, backend.GenerationRequest, smi))
+    # Training on the card; then the trained tiny LM, served through B1-B5
+    # at head width 32, and its study cell.
+    train_phases(torch, all_kernels, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiny_lm_") as tmp:
+        tiny = tiny_lm_phases(torch, root, eng_mod, tfm, ca, all_kernels, backend.GenerationRequest, smi,
+                              Path(tmp))
+        study_rw = study_real_weights_phase(torch, root, all_kernels, smi, Path(tmp))
+    add(tiny)
+    add(study_rw)
     assert all(launches.values()), launches
 
     rows = []
@@ -5425,6 +5815,13 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+        if fn.__name__ in d32:  # the same kernel at head width 32 (the tiny LM's)
+            r = d32[fn.__name__]
+            rows[-1]["d32"] = {
+                "shape": r["shape"], "launches": tiny[fn.__name__] + study_rw[fn.__name__],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            }
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     emit({

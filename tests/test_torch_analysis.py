@@ -27,6 +27,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner.persistence imp
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner.progress import RunProgress
 from test_torch_runner import TESTS, port_module, run_case
 from test_torch_study import tpu_constants
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 COLUMN_RENAMES = (
     ("tpu_energy_J", "gpu_energy_J"),

@@ -24,6 +24,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu.ops.pallas_attention import 
 )
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import attention as port_attn
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_attention
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)

@@ -47,6 +47,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.bridge import p
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.config import (
     get_model_config as port_config,
 )
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 CHUNK = 256  # PREFILL_CHUNK shrunk: the 450-token prompt prefills in 2 chunks
 # (prompt, max_new_tokens, sampling kwargs); the byte tokenizer adds a BOS

@@ -41,6 +41,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.bridge import p
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.config import get_model_config
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.quantize import quantize_params
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.transformer import init_params
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 
 def _params(dtype=torch.float32, mode=None, seed=3):

@@ -22,6 +22,7 @@ import pytest
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner import cli
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner.persistence import RunTableStore
 from test_torch_runner import PORT, TESTS, port_module, run_case
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 CLI_CASES = (
     "test_config_create_scaffold_is_loadable",

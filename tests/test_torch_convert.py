@@ -53,6 +53,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.transformer imp
     logits_for,
 )
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner import cli
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 transformers = pytest.importorskip("transformers")
 

@@ -37,6 +37,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.bridge import p
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.config import (
     get_model_config as port_config,
 )
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 # vocab 259 = the byte tokenizer's, so every generated id decodes to text
 JAX_CFG = get_model_config("qwen2:1.5b").tiny(vocab_size=259)

@@ -60,6 +60,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.config import (
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.obs.metrics import MODEL_EVICT_DEFERRED_C
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.utils import memory
 from test_torch_runner import TESTS, load_cases
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 _SPY = re.search(r"def _spy_prefill_calls\(.*?\n\n\n", (TESTS / "test_engine.py").read_text(), re.S)
 ENGINE_RENAMES = (

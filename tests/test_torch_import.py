@@ -31,6 +31,7 @@ SCRIPTS = [
     REPO / "examples" / "torch_llm_energy_study.py",
     REPO / "examples" / "torch_llm_energy_sweep.py",
     REPO / "examples" / "torch_llm_energy_capstone.py",
+    REPO / "examples" / "torch_llm_energy_real_weights.py",
 ]
 SCANNED = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 

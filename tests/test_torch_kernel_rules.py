@@ -62,6 +62,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops.quant import (
     quantize_activations_rowwise,
     w4a8_matmul_reference,
 )
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 MAGIC = 0x43084308  # bf16x2 {136.0, 136.0}; 0x4300 is 128.0, whose ulp is 1
 

@@ -34,6 +34,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu.ops import pallas_paged_atte
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import attention as tpa
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_attention as ca
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 PAGE = 128

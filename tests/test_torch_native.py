@@ -15,6 +15,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu.native import build as jax_b
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.native import build
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.profilers import native_host
 from test_torch_runner import PORT, port_module, run_case
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 NATIVE = port_module("test_native.py")
 CASES = sorted(n for n in vars(NATIVE) if n.startswith("test_") and callable(getattr(NATIVE, n)))

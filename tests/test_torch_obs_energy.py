@@ -36,6 +36,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.obs import energy
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.profilers import nvml
 from test_torch_runner import port_module, run_case
 from test_torch_study import V5eModel
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 FLIGHT_CASES = (
     "test_ring_records_schema_and_order",

@@ -16,6 +16,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models import quantize
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import norms as tnorms
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import rope as trope
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import sampling as tsampling
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 # float32 elementwise math; the two frameworks' transcendental functions
 # differ in the last bits only.

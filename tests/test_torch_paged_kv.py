@@ -10,6 +10,7 @@ import torch
 
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu.engine import paged_kv as jpk
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.engine import paged_kv as tpk
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 
 def _normal(rng, shape):

@@ -46,6 +46,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.config import (
 )
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner import cli
 from test_torch_runner import load_cases
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 TO_CPU = ("dtype=jnp.float32", 'dtype=torch.float32, device="cpu"')
 ENGINE_RENAMES = (

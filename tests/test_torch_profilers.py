@@ -34,6 +34,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.profilers.energy_probe
 )
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner.context import RunContext
 from test_torch_runner import port_module
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 # The framework-free cases of tests/test_profilers.py (integration,
 # synthetic, host, RAPL, the probe report, sysfs power).

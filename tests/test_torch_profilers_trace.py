@@ -33,6 +33,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.profilers.torch_trace 
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner.context import RunContext
 from test_torch_profilers import BUS_ID, fake_nvml  # noqa: F401 — the fixture
 from test_torch_runner import load_cases, port_module, run_case
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 DUTY = port_module("test_profilers.py", renames=(
     ("TpuDutyCycleProfiler", "NvmlDutyCycleProfiler"),

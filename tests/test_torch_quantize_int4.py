@@ -35,6 +35,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.config import (
 )
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_quant
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import quant as tq
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 MODES = {  # mode -> (code key, JAX quantizer, port quantizer)

@@ -12,6 +12,7 @@ held against the JAX engine token for token in
 ``tests/test_torch_batch_engine.py``)."""
 
 from test_torch_runner import load_cases
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 RENAMES = (
     ("engine.jax_engine", "engine.torch_engine"),

@@ -7,6 +7,7 @@ that the port's paged session keeps them too.
 contiguous session, as the JAX file runs it."""
 
 from test_torch_runner import load_cases
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 RENAMES = (
     ("engine.jax_engine", "engine.torch_engine"),

@@ -2,6 +2,7 @@
 every case, loaded with the package name swapped (no case left out)."""
 
 from test_torch_runner import load_cases
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 CASES = load_cases(globals(), "test_slo.py")
 

@@ -13,6 +13,7 @@ paged one as well in ``tests/test_torch_serve_stepped_paged.py``. No
 case is left out."""
 
 from test_torch_runner import load_cases
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 RENAMES = (
     ("engine.jax_engine", "engine.torch_engine"),

@@ -8,6 +8,7 @@ chunked join against the one-shot join, and the open's input checks.
 layouts."""
 
 from test_torch_runner import load_cases
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 RENAMES = (
     ("engine.jax_engine", "engine.torch_engine"),

@@ -9,6 +9,7 @@ buffered ones on all four layouts (contiguous and paged, bf16 and int8).
 No case is left out."""
 
 from test_torch_runner import load_cases
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 RENAMES = (
     ("engine.jax_engine", "engine.torch_engine"),

@@ -10,6 +10,7 @@ one, and a preempt and resume by swap (paged) and by recompute
 (contiguous). No case is left out."""
 
 from test_torch_runner import load_cases
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 RENAMES = (
     ("engine.jax_engine", "engine.torch_engine"),

@@ -7,6 +7,7 @@ paged session keeps them too. ``tests/test_torch_serve_tenants.py``
 loads the whole file with its own layouts."""
 
 from test_torch_runner import load_cases
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 RENAMES = (
     ("engine.jax_engine", "engine.torch_engine"),

@@ -56,6 +56,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.obs import energy
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner import cli
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.serve.client import RemoteHTTPBackend
 from test_torch_runner import PORT, TESTS
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 POOLS = {"bf16-pool": {}, "int8-pool": dict(kv_quantize="int8")}
 MAX_SEQ = 512

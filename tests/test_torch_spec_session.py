@@ -49,6 +49,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.config import (
     get_model_config as port_config,
 )
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_paged_attention as cpa
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 MODELS = {"qwen2": "qwen2:1.5b", "phi3": "phi3:3.8b"}  # GQA, MHA
 SOURCES = {"ngram": ("ngram", 3), "model": ("tiny-d", 3)}

@@ -52,6 +52,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.transformer imp
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops.attention import (
     decode_attention_reference,
 )
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 
 def test_constants_and_spec_forms_match_the_jax_package():

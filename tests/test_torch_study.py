@@ -56,6 +56,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner.controller impo
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner.context import RunContext
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.utils import memory
 from test_torch_runner import port_module, run_case
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 QUANT = [None, "int8", "int4", "int4-i32"]
 CONTEXTS = (1, 57, 190, 2111)

@@ -27,6 +27,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops.cuda_attention imp
     cuda_decode_attention_int8,
     cuda_prefill_attention,
 )
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 MODELS = ["qwen2:1.5b", "gemma:2b", "phi3:3.8b", "llama3.1:8b"]

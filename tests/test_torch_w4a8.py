@@ -31,6 +31,7 @@ from cain_2025_device_remote_llm_energy_rep_pkg_tpu.models.quantize import (
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.models.quantize import quantize_tensor_int4
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import cuda_quant
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.ops import quant as tq
+from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 M = 8  # the probe's rows
