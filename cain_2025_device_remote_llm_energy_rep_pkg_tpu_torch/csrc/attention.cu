@@ -7,8 +7,8 @@
 // scales [B,Hkv,T] f32; lengths [B] int32. Element types: float32 or
 // bfloat16 for q/k/v/out, int8 codes for the quantized cache. Scores,
 // softmax and accumulators are f32; the output is cast to the input type
-// once, at the end. Head dims 32, 64, 96, 128 and 256 are supported natively
-// (no padding to 128 lanes); the softmax scale is 1/sqrt(D). G = Hq / Hkv
+// once, at the end. Head dims 16, 32, 64, 96, 128 and 256 are supported
+// natively (no padding to 128 lanes); the softmax scale is 1/sqrt(D). G = Hq / Hkv
 // query heads share a kv head; the wrappers cut a larger G into
 // sub-groups, so a kernel's cap on G never reaches a caller.
 //
@@ -70,7 +70,8 @@
 //    scores [G, tile] are computed at once (lane = position, warp = two
 //    heads of the group) and each head's online softmax is updated once a
 //    tile, by the warp that scored it. P·V: warp w takes positions
-//    w, w+4, ..., lane the D/32 columns. The last split of a (b, kv head)
+//    w, w+4, ..., lane the D/32 columns (at D 16 a half-warp a position,
+//    lane % 16 its column, the halves summed by a shuffle). The last split of a (b, kv head)
 //    to finish (an atomic ticket) merges the partials and writes the
 //    normalised output: one launch per call.
 
@@ -605,6 +606,7 @@ cudaError_t dispatch_prefill(int dtype, int d_head, const void* q, const void* k
     return launch_prefill<float, DH>(q, k, v, out, batch, seq, hq, hkv, t_cap, offset,     \
                                      scale, stream);
   switch (d_head) {
+    ATTN_PREFILL_CASE(16)
     ATTN_PREFILL_CASE(32)
     ATTN_PREFILL_CASE(64)
     ATTN_PREFILL_CASE(96)

@@ -251,7 +251,8 @@ struct DcSmem {
   static constexpr int kRing = 2 * kStage;
   static constexpr int kRed = static_cast<int>(sizeof(float)) * kDcWarps * kGroupMax * D;
   // the merge's (m, l) per split and head: larger than the ring only for
-  // int8 at D 32 (at every other width the ring holds it, as before)
+  // int8 at D 32 and bf16 or int8 at D 16 (at every other width the ring
+  // holds it, as before)
   static constexpr int kMerge = static_cast<int>(sizeof(float)) * 2 * kGroupMax * kDcMaxSplits;
   static constexpr int kRingRed = kRing > kRed ? kRing : kRed;
   static constexpr int kUnion = kRingRed > kMerge ? kRingRed : kMerge;
@@ -285,7 +286,9 @@ __global__ void __launch_bounds__(kDcThreads)
                        int group, Rows rows, float scale, float* __restrict__ m_out,
                        float* __restrict__ l_out) {
   using L = DcSmem<KV, D>;
-  constexpr int V = D / 32;                   // P·V columns per lane
+  // P·V columns per lane: D / 32, or at D 16 one column of one of the
+  // warp's two positions (a half-warp a position)
+  constexpr int V = D >= 32 ? D / 32 : 1;
   constexpr int E = Widen<KV>::E;             // K elements per 16-byte chunk
   constexpr int C = L::kRow / 16;             // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char dc_smem[];
@@ -433,19 +436,34 @@ __global__ void __launch_bounds__(kDcThreads)
         for (int i = 0; i < V; ++i) acc[g][i] *= a;
       }
     }
-    for (int p = warp; p < n_valid; p += kDcWarps) {
-      const KV* vrow = reinterpret_cast<const KV*>(vd + p * L::kRow) + lane * V;
-      float vv[V];
+    if constexpr (D >= 32) {
+      for (int p = warp; p < n_valid; p += kDcWarps) {
+        const KV* vrow = reinterpret_cast<const KV*>(vd + p * L::kRow) + lane * V;
+        float vv[V];
 #pragma unroll
-      for (int i = 0; i < V; ++i) vv[i] = to_f(vrow[i]);
-      const float4 p0 = *reinterpret_cast<const float4*>(pt + p * kGroupMax);
-      const float4 p1 = *reinterpret_cast<const float4*>(pt + p * kGroupMax + 4);
-      const float pp[kGroupMax] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+        for (int i = 0; i < V; ++i) vv[i] = to_f(vrow[i]);
+        const float4 p0 = *reinterpret_cast<const float4*>(pt + p * kGroupMax);
+        const float4 p1 = *reinterpret_cast<const float4*>(pt + p * kGroupMax + 4);
+        const float pp[kGroupMax] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
-      for (int g = 0; g < kGroupMax; ++g) {
-        if (g < group) {
+        for (int g = 0; g < kGroupMax; ++g) {
+          if (g < group) {
 #pragma unroll
-          for (int i = 0; i < V; ++i) acc[g][i] += pp[g] * vv[i];
+            for (int i = 0; i < V; ++i) acc[g][i] += pp[g] * vv[i];
+          }
+        }
+      }
+    } else {
+      // D 16: half-warp lane / 16 of warp w takes positions
+      // w + 4·(2·i + lane / 16), lane % 16 its column.
+      for (int p = warp + kDcWarps * (lane / D); p < n_valid; p += 2 * kDcWarps) {
+        const float vv = to_f(reinterpret_cast<const KV*>(vd + p * L::kRow)[lane % D]);
+        const float4 p0 = *reinterpret_cast<const float4*>(pt + p * kGroupMax);
+        const float4 p1 = *reinterpret_cast<const float4*>(pt + p * kGroupMax + 4);
+        const float pp[kGroupMax] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+        for (int g = 0; g < kGroupMax; ++g) {
+          if (g < group) acc[g][0] += pp[g] * vv;
         }
       }
     }
@@ -455,11 +473,22 @@ __global__ void __launch_bounds__(kDcThreads)
   __syncthreads();
 
   // The warps share m and l per head; their accumulators simply add.
+  if constexpr (D >= 32) {
 #pragma unroll
-  for (int g = 0; g < kGroupMax; ++g) {
-    if (g < group) {
+    for (int g = 0; g < kGroupMax; ++g) {
+      if (g < group) {
 #pragma unroll
-      for (int i = 0; i < V; ++i) red[(warp * kGroupMax + g) * D + lane * V + i] = acc[g][i];
+        for (int i = 0; i < V; ++i) red[(warp * kGroupMax + g) * D + lane * V + i] = acc[g][i];
+      }
+    }
+  } else {
+    // D 16: the upper half-warp's sums join the lower's (group is uniform)
+#pragma unroll
+    for (int g = 0; g < kGroupMax; ++g) {
+      if (g < group) {
+        const float a = acc[g][0] + __shfl_down_sync(0xffffffffu, acc[g][0], D);
+        if (lane < D) red[(warp * kGroupMax + g) * D + lane] = a;
+      }
     }
   }
 #pragma unroll
@@ -598,6 +627,7 @@ cudaError_t dispatch_decode_tile(int d_head, const void* q, const void* k, const
                                                             batch, hq, hkv, rows, n_grid,       \
                                                             stream, m_out, l_out);
   switch (d_head) {
+    DECODE_TILE_CASE(16)
     DECODE_TILE_CASE(32)
     DECODE_TILE_CASE(64)
     DECODE_TILE_CASE(96)

@@ -44,8 +44,8 @@
 // of a (row, kv head) to finish merges the splits through an atomic
 // ticket into (acc, m, l) without normalising. A row with no position
 // runs one block that reads no tile and writes (0, -inf, 0). The int8
-// scales are read through the same row index as the codes. D ∈ {32, 64, 96,
-// 128, 256} natively (no padding to 128 lanes), scales [P,Hkv,page] with
+// scales are read through the same row index as the codes. D ∈ {16, 32, 64,
+// 96, 128, 256} natively (no padding to 128 lanes), scales [P,Hkv,page] with
 // no trailing lane.
 //
 // Normalised contract (6): the same reads, but the output is attention
@@ -381,6 +381,7 @@ cudaError_t dispatch_mq_parts(int d_head, const void* q, const void* k, const vo
                                                     batch, q_len, hq, hkv, n_split, split_len, \
                                                     stream);
   switch (d_head) {
+    PAGED_MQ_CASE(16)
     PAGED_MQ_CASE(32)
     PAGED_MQ_CASE(64)
     PAGED_MQ_CASE(96)
@@ -416,11 +417,13 @@ struct MqMma {
   static constexpr int kTileBytes = 2 * kN * kStride;  // one bf16 K or V tile
   static constexpr int kCodeBytes = kQuant ? 2 * 2 * kN * D : 0;
   static constexpr int kScaleBytes = kQuant ? 4 * 2 * 2 * kN : 0;
-  static constexpr int kBytes = kQBytes + 2 * kBf16Stages * kTileBytes + kCodeBytes + kScaleBytes;
+  static constexpr int kLoop = kQBytes + 2 * kBf16Stages * kTileBytes + kCodeBytes + kScaleBytes;
   // After the loop the merge's (m, l) reuse the front of the dynamic
-  // shared memory, the int8 codes' ring included (at D 32 it reaches it).
-  static_assert(kBytes >= 4 * (2 * kMqMaxSplits * kMqMmaRows + 2 * kMqMmaRows),
-                "the merge's (m, l) of every split must fit");
+  // shared memory, the int8 codes' ring included (at D 32 it reaches it;
+  // at D 16 it outgrows the loop's bytes, which are raised to it).
+  static constexpr int kMerge = 4 * (2 * kMqMaxSplits * kMqMmaRows + 2 * kMqMmaRows);
+  static constexpr int kBytes = kLoop > kMerge ? kLoop : kMerge;
+  static_assert(kBytes >= kMerge, "the merge's (m, l) of every split must fit");
   static_assert(kMqMaxSplits * kMqMmaRows % kMqMmaThreads == 0, "the merge stages (m, l) evenly");
 };
 
@@ -843,6 +846,7 @@ cudaError_t dispatch_mq_mma(int d_head, const void* q, const void* k, const void
                                        part_acc, part_ml, tickets, acc, m, l, batch, q_len, hq, \
                                        hkv, n_grid, stream);
   switch (d_head) {
+    PAGED_MQ_MMA_CASE(16)
     PAGED_MQ_MMA_CASE(32)
     PAGED_MQ_MMA_CASE(64)
     PAGED_MQ_MMA_CASE(96)

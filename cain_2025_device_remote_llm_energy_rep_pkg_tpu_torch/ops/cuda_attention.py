@@ -21,7 +21,7 @@ from .attention import (
     prefill_attention_cached,
 )
 
-HEAD_DIMS = (32, 64, 96, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The split kernels size their grids so that the blocks cover the card's
 # 132 SMs about twice.

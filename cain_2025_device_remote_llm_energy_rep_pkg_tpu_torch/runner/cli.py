@@ -15,9 +15,12 @@ the build of the port's kernels. ``serve`` runs the HTTP generation
 server over ``TorchEngine`` on the card (``--backend torch``, the
 default), over ``parallel/tp.py``'s ``TensorParallelEngine`` on a mesh of
 the visible GPUs (``--backend torch-tp --tp N [--dp M]``) or over the fake
-backend; the options of the layers not ported yet (the replica router and
-the multi-model fleet) exit with code 2 naming their ROADMAP item, as
-``serve-fleet`` does.
+backend. ``serve --replicas N`` puts N replicas, each with its own engine,
+behind the replica router (``serve/router.py``; ``--route-policy``,
+``--probe-interval-ms``, ``--roles prefill,decode``), ``serve
+--model-policy small-first|cheapest-joules`` hosts the multi-model fleet
+(``serve/model_fleet.py``) over one engine, and ``serve-fleet --targets``
+runs the router over ``serve`` processes already running.
 """
 
 from __future__ import annotations
@@ -206,11 +209,42 @@ commands:
                        GPUs (dp x tp of them; -1 on one axis takes the
                        rest); a mesh larger than the GPU count exits 2.
                        --backend jax|jax-tp are the JAX package's engines:
-                       exit 2. Not ported, exit 2 with their ROADMAP
-                       item: --replicas > 1, --route-policy, --probe-interval-ms,
-                       --roles, --model-policy, --escalate-max-tokens
-                       (15)
-  serve-fleet          the replica router: not ported (ROADMAP item 15), exit 2
+                       exit 2.
+                       Replica fleets: --replicas N runs N independent
+                       engine + scheduler replicas in this process behind
+                       the front-door router (serve/router.py: the same
+                       wire protocol, SSE included); --route-policy
+                       least-queue|least-pages|least-joules|round-robin|
+                       affinity picks the dispatch policy (default
+                       least-queue) fed by probes every
+                       --probe-interval-ms (default 1000); a ticket whose
+                       replica refuses it or dies before its first token
+                       retries once on another replica. --roles
+                       prefill,decode assigns per-replica roles (cycling):
+                       a prefill replica primes the row, the router ships
+                       it to a decode replica over the migration path and
+                       charges the transfer once to
+                       llm_request_wasted_joules_total{cause="migration"};
+                       a receiver that cannot seat it falls back to
+                       another seat or to decode on the prefill replica.
+                       Multi-model serving: --model-policy small-first|
+                       cheapest-joules hosts one continuous lane per
+                       --models entry over one engine and resolves
+                       model:"auto" by the policy: cheapest-joules takes
+                       the lowest live J/token, small-first runs the
+                       smallest model and escalates to the biggest when
+                       the answer is length-cut after at least
+                       --escalate-max-tokens tokens (default 32; the
+                       abandoned tokens charge {cause="escalation"})
+  serve-fleet --targets host:port[,host:port...] [--route-policy P]
+                       [--port N] [--models a,b] [--probe-interval-ms M]
+                       [--slo 'ttft_p99_ms<=250,...'] [--default-priority P]
+                       the front-door router over serve processes already
+                       running (one per card or host): probes each
+                       target's /healthz and /metrics, dispatches by the
+                       same policies, federates their /metrics into
+                       llm_fleet_* rollups and serves the cross-process
+                       /debug/timeline
   help                 show this message
 """
 
@@ -427,10 +461,6 @@ def _parse_recompute(args: List[str]) -> None:
     )
 
 
-def _not_ported(option: str, item: str) -> CommandError:
-    return CommandError(f"serve: {option} is not ported to the PyTorch package yet (ROADMAP item {item})")
-
-
 def _parse_quantize(spec: str):
     """``int8`` (every model), ``none``, or per model
     ``qwen2:1.5b=int8,phi3:3.8b=int4,default=int8``."""
@@ -478,8 +508,8 @@ def _serve_mesh(tp: int, dp: int):
 def serve_command(args: List[str]) -> None:
     """Run the generation server, the side of the study that owns the
     card (the reference's Ollama server, README.md:29-31). The option
-    set is the JAX package's ``serve``; those of layers the port does not
-    have yet refuse with their ROADMAP item."""
+    set is the JAX package's ``serve``: one server over one engine, or
+    ``--replicas N`` engines behind the replica router."""
     from ..serve.protocol import DEFAULT_PORT, SERVER_ROLES, parse_priority
 
     opts = {
@@ -487,7 +517,8 @@ def serve_command(args: List[str]) -> None:
         "max_batch": None, "budget_aware": None, "slice_steps": None,
         "prefill_chunk_tokens": None, "ttft_slo_ms": None, "default_priority": None,
         "preempt_policy": None, "preempt_max_wait_s": None, "slo": None, "role": None,
-        "usage_ledger_dir": None, "access_log": False,
+        "usage_ledger_dir": None, "access_log": False, "model_policy": None,
+        "escalate_max_tokens": None,
     }
     backend_kind = "torch"
     models: Optional[List[str]] = None
@@ -496,6 +527,10 @@ def serve_command(args: List[str]) -> None:
     speculative: dict = {}
     paged_kv = False
     mesh_axes: dict = {}  # --tp / --dp of the torch-tp backend
+    replicas = 1  # >1: a replica fleet behind the front-door router
+    route_policy = None  # the router's default ("least-queue")
+    probe_interval_ms = None  # the router's default (1000 ms)
+    roles: Optional[List[str]] = None  # per-replica roles of a fleet
     it = iter(args)
 
     def value(flag: str) -> str:
@@ -535,12 +570,39 @@ def serve_command(args: List[str]) -> None:
         elif arg == "--dp":
             mesh_axes["dp"] = number(arg, int, 1)
         elif arg == "--replicas":
-            if number(arg, int, 1) > 1:
-                raise _not_ported("--replicas > 1 (the replica router)", "15")
-        elif arg in ("--route-policy", "--probe-interval-ms", "--roles"):
-            raise _not_ported(f"{arg} (the replica router)", "15")
-        elif arg in ("--model-policy", "--escalate-max-tokens"):
-            raise _not_ported(f"{arg} (the multi-model fleet)", "15")
+            # N independent engine + scheduler replicas behind the
+            # front-door router; 1 is the single-engine server
+            replicas = number(arg, int, 1)
+        elif arg == "--route-policy":
+            from ..serve.router import ROUTE_POLICIES
+
+            route_policy = value(arg)
+            if route_policy not in ROUTE_POLICIES:
+                raise CommandError("serve: --route-policy expects one of " + "|".join(ROUTE_POLICIES))
+        elif arg == "--probe-interval-ms":
+            probe_interval_ms = number(arg, float, 0, strict=True)
+        elif arg == "--roles":
+            # per-replica roles of --replicas N (cycling when shorter)
+            roles = [r for r in value(arg).split(",") if r]
+            if not roles or any(r not in SERVER_ROLES for r in roles):
+                raise CommandError("serve: --roles expects a comma list drawn from " + "|".join(SERVER_ROLES))
+        elif arg == "--model-policy":
+            # one continuous lane per --models entry over one engine,
+            # model:"auto" resolved by this policy
+            from ..serve.model_fleet import MODEL_POLICIES
+
+            opts["model_policy"] = value(arg)
+            if opts["model_policy"] not in MODEL_POLICIES:
+                raise CommandError("serve: --model-policy expects one of " + "|".join(MODEL_POLICIES))
+        elif arg == "--escalate-max-tokens":
+            # small-first: a length-cut answer escalates only after at
+            # least this many tokens
+            try:
+                opts["escalate_max_tokens"] = int(value(arg))
+            except ValueError:
+                opts["escalate_max_tokens"] = 0
+            if opts["escalate_max_tokens"] < 1:
+                raise CommandError("serve: --escalate-max-tokens expects a positive integer")
         elif arg == "--prefix-cache":
             # the solo prompt-prefix KV cache: N entries per model (the
             # JAX package's default when N is left out: 4)
@@ -646,31 +708,132 @@ def serve_command(args: List[str]) -> None:
 
     if mesh_axes and backend_kind != "torch-tp":
         raise CommandError("serve: --tp and --dp shape the mesh of --backend torch-tp")
-    if backend_kind == "fake":
-        from ..engine.fake import FakeBackend
-
-        backend = FakeBackend(**{k: v for k, v in prefix_kwargs.items() if k != "prefix_index_entries"})
-    else:
-        from ..engine.torch_engine import TorchEngine
+    if models is None and backend_kind != "fake":
         from ..models.config import MODEL_REGISTRY
 
-        if models is None:
-            models = sorted(MODEL_REGISTRY)
-        engine_cls = TorchEngine
+        models = sorted(MODEL_REGISTRY)
+
+    def build_backend():
+        """One fresh backend: once for the single server, once per
+        replica under ``--replicas N`` (each replica owns its engine and
+        its KV budget)."""
+        if backend_kind == "fake":
+            from ..engine.fake import FakeBackend
+
+            return FakeBackend(**{k: v for k, v in prefix_kwargs.items() if k != "prefix_index_entries"})
+        from ..engine.torch_engine import TorchEngine
+
+        engine_cls, kwargs = TorchEngine, dict(engine_kwargs)
         try:
             if backend_kind == "torch-tp":
                 from ..parallel.tp import TensorParallelEngine as engine_cls
 
-                engine_kwargs["mesh"] = _serve_mesh(mesh_axes.get("tp", -1), mesh_axes.get("dp", 1))
-            backend = engine_cls(
-                paged_kv=paged_kv, speculative=speculative or None, **engine_kwargs, **prefix_kwargs
-            )
+                kwargs["mesh"] = _serve_mesh(mesh_axes.get("tp", -1), mesh_axes.get("dp", 1))
+            return engine_cls(paged_kv=paged_kv, speculative=speculative or None, **kwargs, **prefix_kwargs)
         except (RuntimeError, ValueError) as exc:
             raise CommandError(f"serve: {exc}")
+
+    if replicas > 1:
+        _serve_until_signalled(_replica_fleet(build_backend, replicas, models, roles, route_policy,
+                                              probe_interval_ms, opts))
+        return
     from ..serve.server import GenerationServer
 
-    server = GenerationServer(backend, models=models, **opts)
-    _serve_until_signalled(server)
+    _serve_until_signalled(GenerationServer(build_backend(), models=models, **opts))
+
+
+def _replica_fleet(build_backend, replicas: int, models, roles, route_policy, probe_interval_ms, opts):
+    """``serve --replicas N``: N replicas in this process, each its own
+    backend and scheduler (a multi-model fleet of its own under
+    ``--model-policy``), behind the front-door ``RouterServer``. Replica
+    ``i`` takes ``roles[i % len(roles)]``, else ``--role``."""
+    from ..serve.router import LocalReplica, Router, RouterServer
+
+    sched_kwargs = {
+        k: opts[k]
+        for k in ("max_batch", "budget_aware", "slice_steps", "prefill_chunk_tokens", "ttft_slo_ms",
+                  "spec_accept_floor", "preempt_policy", "preempt_max_wait_s")
+        if opts.get(k) is not None
+    }
+    if opts["batch_window_ms"] > 0:
+        sched_kwargs["window_s"] = opts["batch_window_ms"] / 1e3
+
+    def build_replica(i: int) -> LocalReplica:
+        backend = build_backend()
+        role = roles[i % len(roles)] if roles else opts["role"] or "mixed"
+        if opts["model_policy"] is None:
+            return LocalReplica(f"r{i}", backend, role=role, **sched_kwargs)
+        from ..serve.model_fleet import ModelFleetScheduler
+
+        fleet = ModelFleetScheduler(backend, models=models, model_policy=opts["model_policy"],
+                                    escalate_max_tokens=opts["escalate_max_tokens"], **sched_kwargs)
+        return LocalReplica(f"r{i}", backend, scheduler=fleet, role=role)
+
+    router = Router(
+        [build_replica(i) for i in range(replicas)],
+        policy=route_policy or "least-queue",
+        **({"probe_interval_s": probe_interval_ms / 1e3} if probe_interval_ms is not None else {}),
+    )
+    return RouterServer(router, host=opts["host"], port=opts["port"], models=models,
+                        default_priority=opts["default_priority"], slo=opts["slo"])
+
+
+def serve_fleet_command(args: List[str]) -> None:
+    """The front-door router over ``serve`` processes already running:
+    each ``--targets`` entry is one replica reached over the wire (the
+    multi-card or multi-host shape); ``serve --replicas N`` is its
+    in-process twin."""
+    from ..serve.protocol import DEFAULT_PORT, parse_priority
+    from ..serve.router import ROUTE_POLICIES, RemoteReplica, Router, RouterServer
+
+    port, host = DEFAULT_PORT, "0.0.0.0"
+    targets: List[str] = []
+    models: Optional[List[str]] = None
+    route_policy = None
+    probe_interval_ms = None
+    default_priority = None
+    slo = None
+    it = iter(args)
+    for arg in it:
+        if arg == "--port":
+            port = int(next(it, str(DEFAULT_PORT)))
+        elif arg == "--host":
+            host = next(it, "0.0.0.0")
+        elif arg == "--targets":
+            targets = [t for t in next(it, "").split(",") if t]
+        elif arg == "--slo":
+            from ..obs.slo import parse_slo_spec
+
+            slo = next(it, "")
+            try:
+                parse_slo_spec(slo)
+            except ValueError as exc:
+                raise CommandError(f"serve-fleet: --slo: {exc}")
+        elif arg == "--models":
+            models = [m for m in next(it, "").split(",") if m]
+        elif arg == "--route-policy":
+            route_policy = next(it, "")
+            if route_policy not in ROUTE_POLICIES:
+                raise CommandError("serve-fleet: --route-policy expects one of " + "|".join(ROUTE_POLICIES))
+        elif arg == "--probe-interval-ms":
+            probe_interval_ms = float(next(it, "0")) or None
+        elif arg == "--default-priority":
+            try:
+                default_priority = parse_priority(next(it, ""))
+            except ValueError as exc:
+                raise CommandError(f"serve-fleet: --default-priority: {exc}")
+        else:
+            raise CommandError(f"serve-fleet: unrecognised option {arg!r}")
+    if not targets:
+        raise CommandError("serve-fleet: --targets host:port[,host:port...] is required")
+    fleet = [RemoteReplica(f"r{i}", t if t.startswith("http") else f"http://{t}") for i, t in enumerate(targets)]
+    router = Router(
+        fleet,
+        policy=route_policy or "least-queue",
+        **({"probe_interval_s": probe_interval_ms / 1e3} if probe_interval_ms is not None else {}),
+    )
+    _serve_until_signalled(RouterServer(router, host=host, port=port, models=models,
+                                        default_priority=default_priority, slo=slo))
 
 
 def _serve_until_signalled(server) -> None:
@@ -728,10 +891,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         elif cmd == "serve":
             serve_command(args[1:])
         elif cmd == "serve-fleet":
-            raise CommandError(
-                "serve-fleet (the replica router, serve/router.py) is not "
-                "ported to the PyTorch package yet (ROADMAP item 15)"
-            )
+            serve_fleet_command(args[1:])
         elif cmd.endswith(".py"):
             run_config_file(Path(cmd))
         else:

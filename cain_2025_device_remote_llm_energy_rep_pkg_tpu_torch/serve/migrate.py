@@ -18,9 +18,8 @@ Two kinds, discriminated by ``bundle["kind"]``:
   ``bfloat16`` leaf as its 2-byte words, so neither side needs
   ``ml_dtypes``); int8 slabs are ``{"q","s"}`` dicts of those.
   ``bundle["nbytes"]`` totals the payload bytes, the figure the
-  wasted-energy ledger charges (:func:`charge_transfer`, at the seating
-  server) and the
-  ``llm_migrate_bytes_total`` counters move by.
+  wasted-energy ledger charges (the router, once for each seat it
+  attempts) and the ``llm_migrate_bytes_total`` counters move by.
 - ``"fake"``: the hermetic twin (``engine/fake.py`` preempts rows as
   plain dicts). Only control state crosses: the destination backend
   regenerates the deterministic result stream and the cursor and
@@ -57,8 +56,6 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..obs.energy import charge_wasted
-from ..obs.metrics import MIGRATE_ROWS_C
 from .protocol import request_from_wire, request_to_wire
 
 BUNDLE_VERSION = 1
@@ -75,6 +72,15 @@ _PR_PLAIN = (
 class MigrateRefused(RuntimeError):
     """This row cannot leave its replica (or cannot continue on this
     one); resume it locally instead."""
+
+
+# What a receiving server's error says when it has no open session to
+# seat a migrated row into: the engine shapes a session on its first
+# request, so an idle receiver refuses the seat (as the JAX package's
+# engine does) and the bundle stays untouched. The router reads the
+# message, locally or over the wire, as a refusal of that seat and falls
+# back to another.
+SEAT_REFUSED = "cannot seat a migrated row without an open session"
 
 
 # -- tensor leaf codec ---------------------------------------------------------
@@ -336,14 +342,3 @@ def bundle_nbytes(bundle: Dict[str, Any]) -> int:
     """Serialized payload bytes — what the transfer moved and what the
     ledger charges (2× per migration: once out, once in)."""
     return int(bundle.get("nbytes", 0))
-
-
-def charge_transfer(bundle: Dict[str, Any], reason: str) -> float:
-    """Account one transfer of ``bundle`` between servers, as the JAX
-    package's router does for each seat it attempts: the
-    ``llm_migrate_rows_total{reason=}`` counter, and the wasted-energy
-    ledger's ``cause="migration"`` at 2× the payload bytes (once out,
-    once in). Returns the Joules charged (0.0 with telemetry off). The
-    scheduler's ``submit_migrate`` charges each bundle it seats."""
-    MIGRATE_ROWS_C.labels(reason=reason).inc()
-    return charge_wasted("migration", nbytes=2.0 * bundle_nbytes(bundle))

@@ -1296,7 +1296,7 @@ class ContinuousScheduler(_SchedulerBase):
         Raises when the bundle cannot deserialize; a seating failure
         after that fails the returned stream instead (the router falls
         back to the source, counted ``migrate_failed``)."""
-        from .migrate import bundle_nbytes, charge_transfer, import_bundle
+        from .migrate import bundle_nbytes, import_bundle
 
         pr = import_bundle(bundle, self.backend)
         ticket = _Ticket(_pr_field(pr, "request"))
@@ -1305,12 +1305,6 @@ class ContinuousScheduler(_SchedulerBase):
         ticket.migrated = True
         nbytes = bundle_nbytes(bundle)
         observe_migrate("in", nbytes)
-        # The port has no replica router yet, which charges each transfer
-        # in the JAX package: the seating server charges the bundle it
-        # takes, into the ledger and the ticket's wasted_J.
-        joules = charge_transfer(bundle, str(bundle.get("reason") or "disagg"))
-        if joules:
-            ticket.wasted["migration"] = joules
         FLIGHT.emit(
             EV_ROW_MIGRATED,
             direction="in",
@@ -1639,10 +1633,9 @@ class ContinuousScheduler(_SchedulerBase):
         swap resume), then drive the standard loop. Backends whose
         ``decode_open`` refuses an empty request list (the real engine
         anchors its carry shapes on the first request) fail the ticket
-        here; the JAX package's router counts ``migrate_failed`` and falls
-        back to decoding on the source server. The port has no router
-        yet: the client sees the failure and holds the bundle, which
-        seats on any server with an open session."""
+        here with :data:`~.migrate.SEAT_REFUSED`; the router counts
+        ``migrate_failed`` and falls back to another seat or to decoding
+        on the source — the ticket is never dropped."""
         pr = first.migrate_pr
         open_kwargs = (
             {"spec_accept_floor": self.spec_accept_floor}
@@ -1657,6 +1650,11 @@ class ContinuousScheduler(_SchedulerBase):
                     slice_steps=self.slice_steps,
                     **open_kwargs,
                 )
+        except ValueError as exc:  # the empty open refused: no session to seat into
+            from .migrate import SEAT_REFUSED
+
+            self._fail_ticket(first, RuntimeError(f"{SEAT_REFUSED} ({exc})"))
+            return
         except BaseException as exc:  # noqa: BLE001
             self._fail_ticket(first, exc)
             return

@@ -33,13 +33,6 @@ from ..runner import term
 from . import protocol
 from .stream import DeadlineExceeded, StreamCancelled
 
-# What the path left for later answers: the multi-model fleet refuses at
-# construction.
-FLEET_NOT_PORTED = (
-    "the multi-model fleet (model_policy, serve/model_fleet.py) is not "
-    "ported yet (ROADMAP item 15)"
-)
-
 # HTTP-surface telemetry (obs): request counts by (method, path, status)
 # and a latency histogram by path. Paths are the fixed API surface
 # (query strings stripped), so label cardinality stays bounded.
@@ -100,6 +93,7 @@ class GenerationServer:
         preempt_policy: Optional[str] = None,  # off|swap|recompute
         preempt_max_wait_s: Optional[float] = None,  # victim aging clock
         model_policy: Optional[str] = None,  # fleet: small-first|cheapest-joules
+        escalate_max_tokens: Optional[int] = None,  # cascade length cut
         slo: Optional[str] = None,  # SLO objectives ('ttft_p99_ms<=250,...')
         slo_pairs=None,  # burn-rate window pairs override (tests/smoke)
         ts_interval_s: Optional[float] = None,  # time-series ring cadence
@@ -168,8 +162,16 @@ class GenerationServer:
         starvation clock: a parked victim ages up one tier per full
         wait.
 
-        ``model_policy`` (the multi-model fleet) is not ported: it
-        raises ``NotImplementedError``.
+        Multi-model serving: ``model_policy`` (CLI ``--model-policy``,
+        ``small-first`` or ``cheapest-joules``) replaces the single
+        scheduler with a :class:`~.model_fleet.ModelFleetScheduler` —
+        one continuous lane per served model over this backend, decode
+        slices interleaving under the shared lock, the KV envelope split
+        across lanes — and resolves ``model: "auto"`` requests through
+        the named policy. ``escalate_max_tokens`` tunes the small-first
+        cascade's length-cut confidence proxy (CLI
+        ``--escalate-max-tokens``). Requires a stepped backend; the
+        continuous-only tuning knobs apply to every lane.
 
         Windowed telemetry + SLOs: the server always owns a
         :class:`~..obs.timeseries.TimeSeriesRing`; a background sampler
@@ -210,8 +212,6 @@ class GenerationServer:
         replay never double-bills) with a periodic aggregate snapshot
         on the sampler tick and a final flush at stop(). Inert under
         the telemetry kill switch."""
-        if model_policy is not None:
-            raise NotImplementedError(FLEET_NOT_PORTED)
         self.backend = backend
         if role is None:
             role = "mixed"
@@ -236,7 +236,38 @@ class GenerationServer:
                 f"got {scheduler!r}"
             )
         self.scheduler_mode = "off"
-        if batch_window_ms > 0 or scheduler is not None:
+        if model_policy is not None:
+            # Multi-model fleet: one continuous lane per served model,
+            # model:"auto" resolved by the policy. The fleet subsumes the
+            # single scheduler — the explicit --scheduler knob keeps its
+            # meaning for single-model serving only.
+            from .model_fleet import ModelFleetScheduler
+
+            self._scheduler = ModelFleetScheduler(
+                backend,
+                models=self.models,
+                model_policy=model_policy,
+                escalate_max_tokens=escalate_max_tokens,
+                lock=self._generate_lock,
+                max_batch=max_batch,
+                budget_aware=budget_aware,
+                slice_steps=slice_steps,
+                prefill_chunk_tokens=prefill_chunk_tokens,
+                ttft_slo_ms=ttft_slo_ms,
+                spec_accept_floor=spec_accept_floor,
+                **(
+                    {"preempt_policy": preempt_policy}
+                    if preempt_policy is not None
+                    else {}
+                ),
+                **(
+                    {"preempt_max_wait_s": preempt_max_wait_s}
+                    if preempt_max_wait_s is not None
+                    else {}
+                ),
+            )
+            self.scheduler_mode = "fleet"
+        elif batch_window_ms > 0 or scheduler is not None:
             from .scheduler import BatchScheduler, ContinuousScheduler
 
             mode = scheduler
@@ -701,7 +732,14 @@ class GenerationServer:
                 except ValueError as exc:
                     self._send_json(400, {"error": str(exc)})
                     return
-                if server.models and request.model not in server.models:
+                if (
+                    server.models
+                    and request.model not in server.models
+                    and not (
+                        request.model == protocol.AUTO_MODEL
+                        and server.scheduler_mode == "fleet"
+                    )
+                ):
                     self._send_json(
                         404, {"error": f"model {request.model!r} not found"}
                     )

@@ -101,9 +101,22 @@ bundle; rows primed on a prefill server, seated through
 ``/api/migrate`` on the decode server once a row is live there, and
 four live rows evacuated; every row's tokens equal one server's, the
 counts read around the primes and seats and around the evacuation and
-seats, and each transfer's charge read from the seating server's
-``/metrics``) and
+seats, and no charge at the seating server: the router charges) and
 ``serve_cli_prefix_share`` (``serve --prefix-share`` as a subprocess).
+Then the replica router and the multi-model fleet (qwen2:1.5b at full
+width, 7 of 28 layers, int8 weights, the bf16 pool): ``router_fleet`` (two
+``LocalReplica``s, 8 requests in pairs under ``least-queue`` and
+``round-robin``, each row's tokens those of the request served alone by
+one replica, dispatch counts 4 and 4; ``_sse``: one request through
+``RouterServer``'s SSE and its ``/debug/timeline``), ``router_disagg``
+(prefill and decode roles: an idle decode replica's refusal falls back,
+then the 8 primed and seated with the same tokens and one migration
+charge a transfer; ``_drain``: 4 streaming rows evacuated by ``drain``,
+finishing with their uninterrupted tokens), ``model_fleet`` (one engine
+holding qwen2:1.5b and phi3:3.8b, 7 layers each: small-first's escalation of a capped
+``auto`` request, charged ``cause="escalation"``, and cheapest-joules'
+pick, every row's tokens its model's) and ``serve_cli_fleet``
+(``serve-fleet --targets`` over two ``serve`` processes).
 Last, the mixture-of-experts MLP on mixtral:8x7b at full width and
 depth (32 layers, 8 experts of d_ff 14,336, top-2), after every earlier
 engine has let go: ``mixtral_bf16_refused`` (the bf16 load, 93.4 GB,
@@ -146,7 +159,11 @@ tiny LM on the card to its loss target, ``engine_tiny_lm`` (+ ``_greedy``,
 32 (every row stops on EOS below its 134-token budget; the solo greedy
 tokens are the plain forward's), and ``study_real_weights`` runs
 ``examples/torch_llm_energy_real_weights.py`` through the CLI on that
-checkpoint (3 rows on_device at 100 words, NVML Joules a token).
+checkpoint (3 rows on_device at 100 words, NVML Joules a token). The
+``kernels_d16`` rows hold B1–B8 at head width 16 (every ``.tiny()``
+config's), and ``engine_tiny_d16`` (+ ``_int8_kv``, ``_paged``,
+``_paged_int8``) serves qwen2:1.5b's ``.tiny()`` on the card through
+B1–B5, every f32 row's greedy tokens the plain forward's.
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -2623,7 +2640,9 @@ def study_phase(torch, eng_mod, kernels, smi):
 
 
 # The study through the command line: every study model at 100 words, one
-# repetition, 2 s cooldown. (A 1,000-word row was cut when the whole script
+# repetition, 0.5 s cooldown (2 s until the router and fleet phases came:
+# the three phases that take it wait 11 cooldowns, and the script took
+# 1,150 s of its 1,200). (A 1,000-word row was cut when the whole script
 # took 973.4 s on an H100 80GB HBM3 at 700 W, 81% of its 1,200 s limit; the
 # qwen2:1.5b 500-word row, 76.45 s of the 886.58 s script, was cut when the
 # prefix-cache, checkpoint and duty-cycle phases came. The engine phases
@@ -2632,7 +2651,7 @@ def study_phase(torch, eng_mod, kernels, smi):
 STUDY_CLI_CONFIGS = (
     ("study_cli", None, (100,)),  # None: the study's 7 models
 )
-STUDY_CLI_COOLDOWN_MS = 2000
+STUDY_CLI_COOLDOWN_MS = 500
 # recompute-energy must give back the stored modelled Joules.
 RECOMPUTE_RTOL = 1e-6
 STUDY_CLI_CONFIG = """from {pkg}.experiments.llm_energy import MODELS, LlmEnergyConfig
@@ -3285,33 +3304,44 @@ CLI_CONTIGUOUS_REQUESTS = 3  # concurrent requests to `serve --scheduler continu
 
 
 class ServeProcess:
-    """``python -m …_tpu_torch serve --backend torch`` with ``args`` in a
-    subprocess that owns the card, on a free port of 127.0.0.1, its output
-    in ``log_path``. Entering waits until ``/api/tags`` answers (at most
-    SERVER_START_S); leaving sends SIGTERM and keeps its exit code in
-    ``rc``."""
+    """``python -m …_tpu_torch serve --backend torch`` (or ``command``)
+    with ``args`` in a subprocess that owns the card, on a free port of
+    127.0.0.1, its output in ``log_path``. Entering waits until
+    ``/api/tags`` answers (at most SERVER_START_S); leaving sends SIGTERM
+    and keeps its exit code in ``rc``. ``launch()`` then ``ready()``
+    start several before waiting for any."""
 
-    def __init__(self, root, log_path, args):
+    def __init__(self, root, log_path, args, command=("serve", "--backend", "torch")):
         self.root, self.log_path, self.args = root, log_path, list(args)
-        self.rc = None
+        self.command = list(command)
+        self.proc = self.rc = None
 
-    def __enter__(self):
+    def launch(self):
         import os
         import socket
-        import urllib.request
 
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
         self.url = f"http://127.0.0.1:{port}"
-        t0 = time.perf_counter()
+        self.t0 = time.perf_counter()
         with self.log_path.open("w") as log:
             self.proc = subprocess.Popen(
-                [sys.executable, "-m", PKG, "serve", "--backend", "torch", "--host", "127.0.0.1",
+                [sys.executable, "-m", PKG, *self.command, "--host", "127.0.0.1",
                  "--port", str(port), *self.args],
                 cwd=str(self.root), stdout=log, stderr=subprocess.STDOUT,
                 env={**os.environ, "PYTHONPATH": str(self.root), "PYTHONUNBUFFERED": "1"},
             )
+        return self
+
+    def __enter__(self):
+        if self.proc is None:
+            self.launch()
+        return self.ready()
+
+    def ready(self):
+        import urllib.request
+
         try:
             deadline = time.perf_counter() + SERVER_START_S
             while True:
@@ -3326,7 +3356,7 @@ class ServeProcess:
         except BaseException:
             self.__exit__(None, None, None)
             raise
-        self.started = time.perf_counter() - t0
+        self.started = time.perf_counter() - self.t0
         return self
 
     def __exit__(self, *exc):
@@ -4244,9 +4274,10 @@ def serve_migrate_phase(torch, eng_mod, kernels, smi):
     the server that decodes it. The counts are read around the primes
     and seats (B1 once a layer for each prime's prefill, the paged parts
     kernel, nothing else) and around the evacuation and seats (the
-    paged parts kernel alone: a seated row brings its K/V); the seating
-    server charges each transfer, read from its ``/metrics``. Returns
-    the launches of those two runs."""
+    paged parts kernel alone: a seated row brings its K/V). The seating
+    server charges no transfer (the router charges each seat it attempts:
+    ``router_disagg``), read from its ``/metrics``. Returns the launches
+    of those two runs."""
     import gc
     from importlib import import_module
 
@@ -4254,7 +4285,6 @@ def serve_migrate_phase(torch, eng_mod, kernels, smi):
     client_mod = import_module(f"{PKG}.serve.client")
     migrate = import_module(f"{PKG}.serve.migrate")
     GenerationRequest = import_module(f"{PKG}.engine.backend").GenerationRequest
-    j_per_byte = import_module(f"{PKG}.obs.energy").SWAP_J_PER_BYTE
     obs = import_module(f"{PKG}.obs")
     was = obs.enabled()
     obs.enable()
@@ -4342,10 +4372,10 @@ def serve_migrate_phase(torch, eng_mod, kernels, smi):
             )
         bundle_bytes = sum(row["bundle_bytes"] for row in rows)
         emit({"phase": "serve_migrate", "layers": SOLO_CUT_LAYERS, "rows": rows, "idle_receiver_error": idle_error,
-              "charged_J": joules, "charged_J_expected": 2 * bundle_bytes * j_per_byte,
+              "charged_J": joules, "bundle_bytes": bundle_bytes,
               "anchor_generated": len(streams["anchor"]["tokens"]), "counts": counts, "nvidia_smi": smi})
         assert all(row["tokens_equal_one_server"] and row["migrated"] for row in rows), rows
-        assert abs(joules - 2 * bundle_bytes * j_per_byte) <= 1e-9 * max(1.0, joules), (joules, bundle_bytes)
+        assert joules == 0.0 and bundle_bytes > 0, (joules, bundle_bytes)  # no router: nobody charges
         # one prefill forward a prime (a prompt in one chunk); the seats
         # prefill nothing. The anchor decodes across the count's edges, so
         # B4's count need not be a whole number of steps.
@@ -4405,11 +4435,11 @@ def serve_migrate_phase(torch, eng_mod, kernels, smi):
         evac_bytes = sum(row["bundle_bytes"] for row in evac_rows)
         emit({"phase": "serve_migrate_evacuate", "layers": SOLO_CUT_LAYERS, "evacuated": timing["evacuated"],
               "evacuate_ms": timing["evacuate_ms"], "rows": evac_rows, "charged_J": evac_joules,
-              "charged_J_expected": 2 * evac_bytes * j_per_byte, "counts": evac_counts,
+              "bundle_bytes": evac_bytes, "counts": evac_counts,
               "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
         assert timing["evacuated"] == len(evac), timing
         assert all(row["tokens_equal_uninterrupted"] for row in evac_rows), evac_rows
-        assert abs(evac_joules - 2 * evac_bytes * j_per_byte) <= 1e-9 * max(1.0, evac_joules), evac_joules
+        assert evac_joules == 0.0 and evac_bytes > 0, (evac_joules, evac_bytes)
         # every row was prefilled before the count: nothing prefills again
         # (and the rows decode across the count's edges)
         ran_only(evac_counts, {"cuda_paged_decode_attention_parts": 1})
@@ -5223,36 +5253,550 @@ def ep_tp_mixtral_phase(torch, root, tfm, ca, qmod, eng_mod, kernels, cfg, param
 # over 1 and 16 rows of a cache that its prompts and a 134-token budget
 # fill, and the verify block of 5 queries (k = 4).
 TINY_LM_HEADS = (4, 2, 32)
+TINY_D16_HEADS = (4, 2, 16)  # qwen2:1.5b's .tiny(): 4 query heads over 2 KV heads of width 16
 TINY_LM_DECODE_LENGTHS = ([150], [40 + 12 * i for i in range(16)])
 TINY_LM_BUDGET = 134  # tests/test_tiny_lm.py's budget, 100 words' tokens
 TINY_LM_PROMPT_ROWS = (0, 4, 8, 12)  # corpus sentences of the first template
 
 
-def d32_kernel_phase(torch, ca, cpa, plain, timer, quantize_kv_vector, kernels, control):
-    """B1-B8 at head width 32 (the tiny LM's heads) against their plain
-    versions, with the tolerances and timings of the rows at the other
-    widths (the same phase functions, these shapes, ``kernels_d32``
-    rows). Returns the first row of each kernel."""
-    hq, hkv, d = TINY_LM_HEADS
+def narrow_kernel_phase(torch, ca, cpa, plain, timer, quantize_kv_vector, kernels, control, heads, label,
+                        phase):
+    """B1-B8 at the narrow heads ``heads`` = (hq, hkv, d) against their
+    plain versions, with the tolerances and timings of the rows at the
+    other widths (the same phase functions, these shapes, ``phase``
+    rows): B1 bf16 and f32 at S 96 (B 1 and 4), B2/B3 over one row of
+    150 and 16 rows of 40-220, B4/B5 and B6 over those rows in pages,
+    B7/B8 at Q 5. Returns the first row of each kernel."""
+    hq, hkv, d = heads
     one, rows16 = TINY_LM_DECODE_LENGTHS
-    label = "tiny-lm d32"
     summary = kernel_phase(
         torch, ca, plain, timer,
         prefill_shapes=[(label, 1, hq, hkv, d, 96, 96, 0), (label + " batch", 4, hq, hkv, d, 96, 256, 0)],
         decode_shapes=[(label, hq, hkv, d, one, 256), (label + " 16 rows", hq, hkv, d, rows16, 256)],
-        phase="kernels_d32",
+        phase=phase,
     )
     paged = [(label, 1, hq, hkv, d, one, PAGE), (label + " 16 rows", 16, hq, hkv, d, rows16, PAGE)]
     summary.update(paged_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, control, shapes=paged,
-                                      phase="kernels_d32"))
+                                      phase=phase))
     cut16 = [n if i % 2 == 0 else n - 3 for i, n in enumerate(rows16)]
     mq = [(label, 1, hq, hkv, d, one, one, SPEC_K + 1),
           (label + " 16 rows", 16, hq, hkv, d, rows16, cut16, SPEC_K + 1)]
     summary.update(paged_mq_kernel_phase(torch, cpa, plain, timer, quantize_kv_vector, kernels, control,
-                                         shapes=mq, phase="kernels_d32"))
+                                         shapes=mq, phase=phase))
     summary.update(paged_decode_kernel_phase(torch, cpa, ca, plain, timer, control, shapes=paged,
-                                             phase="kernels_d32"))
+                                             phase=phase))
     return summary
+
+
+def d32_kernel_phase(torch, ca, cpa, plain, timer, quantize_kv_vector, kernels, control):
+    """B1-B8 at head width 32 (the tiny LM's heads): ``kernels_d32`` rows."""
+    return narrow_kernel_phase(torch, ca, cpa, plain, timer, quantize_kv_vector, kernels, control,
+                               TINY_LM_HEADS, "tiny-lm d32", "kernels_d32")
+
+
+def d16_kernel_phase(torch, ca, cpa, plain, timer, quantize_kv_vector, kernels, control):
+    """B1-B8 at head width 16 (every ``.tiny()`` config's heads, which
+    the kernels take natively: at D 16 the decode body gives a half-warp
+    a position): ``kernels_d16`` rows."""
+    return narrow_kernel_phase(torch, ca, cpa, plain, timer, quantize_kv_vector, kernels, control,
+                               TINY_D16_HEADS, "tiny d16", "kernels_d16")
+
+
+# The replica router and the multi-model fleet (serve/router.py,
+# serve/model_fleet.py) on the card. Each request of a routed run is held
+# against the same request served alone by one replica: every replica's
+# continuous scheduler has 4 slots (max_batch 4, no budget admission) and
+# prefills a prompt in one chunk, and every new-token budget lies in one
+# generation bucket, so a row's arithmetic does not depend on the replica
+# or the rows beside it (the paged parts kernel sizes a row's splits from
+# its own length). Slices of 4 steps let a seated row in within 4 steps.
+# The router phases run at SOLO_CUT_LAYERS: at 28 layers two replicas'
+# schedulers in one process took 257.6 s for them (NVIDIA H100 80GB HBM3,
+# 700 W).
+ROUTER_PROMPTS = (50, 86, 122, 158, 194, 230, 266, 300)  # prompt tokens of the 8 requests
+ROUTER_NEW_TOKENS = (40, 33, 48, 36, 44, 34, 46, 38)  # each in (32, 64]: one generation bucket
+ROUTER_SCHED = dict(max_batch=4, budget_aware=False, prefill_chunk_tokens=1024, slice_steps=4)
+ROUTER_ANCHOR_TOKENS = 512  # a decode anchor's prompt: 4 pages size its session's table and pool
+# The drained rows: the 4 requests with the longest budgets, the longest
+# first (each start costs a few slices: on the card the first had 25
+# tokens when the fourth streamed its first).
+DRAIN_ROWS = (2, 6, 4, 0)
+FLEET_SMALL, FLEET_BIG = MODEL, "phi3:3.8b"
+FLEET_ESCALATE_TOKENS = 16  # --escalate-max-tokens: a length cut at or past it escalates
+FLEET_CAPPED_TOKENS = 24  # a capped auto request: cut at its budget past the floor
+FLEET_SHORT_TOKENS = 8  # below the floor: the small answer stands
+TINY_D16_PROMPTS = (20, 45, 70, 95)  # prompt tokens of engine_tiny_d16's requests
+TINY_D16_NEW_TOKENS = 24
+
+
+def engine_tiny_d16_phase(torch, eng_mod, tfm, ca, kernels, GenerationRequest, smi):
+    """``TorchEngine`` on the card over qwen2:1.5b's ``.tiny()`` (2 layers,
+    4 query heads over 2 KV heads of width 16, seeded random weights at
+    f32): ``engine_tiny_d16`` (solo ``generate`` of 4 requests: B1, B2),
+    ``_int8_kv`` (B3), ``_paged`` and ``_paged_int8`` (one
+    ``generate_batch`` of the 4 over the paged pool: B4, B5); a row stops
+    at its 24-token budget or at EOS (random weights over a 512-token
+    vocabulary sample it now and then). Every served
+    token of the f32 caches is the plain forward's argmax, teacher-forced
+    (gap 0); the int8 caches' within LOGIT_ATOL. Solo counts are exact
+    (B1 a layer a prefill chunk, the decode kernel a layer a decode
+    forward); batch counts whole layers of B1 and B4/B5 and nothing else.
+    Returns the launch counts."""
+    from importlib import import_module
+
+    cfg = import_module(f"{PKG}.models.config").get_model_config(MODEL).tiny()
+    name, n_layers = cfg.name, cfg.n_layers
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.d_head) == TINY_D16_HEADS, cfg
+    reqs = [GenerationRequest(name, context_prompt(n), TINY_D16_NEW_TOKENS) for n in TINY_D16_PROMPTS]
+    counts_all = {fn.__name__: 0 for fn in kernels}
+    params = None
+    t0 = time.perf_counter()
+    for phase, kv, paged, decode in (
+        ("engine_tiny_d16", None, False, "cuda_decode_attention"),
+        ("engine_tiny_d16_int8_kv", "int8", False, "cuda_decode_attention_int8"),
+        ("engine_tiny_d16_paged", None, True, "cuda_paged_decode_attention_parts"),
+        ("engine_tiny_d16_paged_int8", "int8", True, "cuda_paged_decode_attention_parts_int8"),
+    ):
+        engine = eng_mod.TorchEngine(registry={name: cfg}, dtype=torch.float32, kv_quantize=kv, paged_kv=paged)
+        if params is None:
+            engine.load_model(name)  # seeded random weights
+            params = engine._models[name].params
+        else:
+            engine.install_model(name, cfg, params)  # the same tensors
+        if paged:
+            engine.generate_batch([dataclasses.replace(r, max_new_tokens=2) for r in reqs])
+            results, counts = count_launches(kernels, lambda: engine.generate_batch(reqs))
+            ran_only(counts, {"cuda_prefill_attention": n_layers, decode: n_layers})
+            assert counts[decode] >= n_layers * (max(r.generated_tokens for r in results) - 1), counts
+        else:
+            engine.generate(dataclasses.replace(reqs[0], max_new_tokens=2))
+            results, counts = count_launches(kernels, lambda: [engine.generate(r) for r in reqs])
+            expected = {fn.__name__: 0 for fn in kernels}
+            expected["cuda_prefill_attention"] = n_layers * sum(len(eng_mod._prompt_chunks(r.prompt_tokens))
+                                                                for r in results)
+            expected[decode] = n_layers * sum(min(r.generated_tokens, r.request.max_new_tokens - 1)
+                                              for r in results)
+            assert counts == expected, (counts, expected)
+        gaps = [replay_gap(torch, engine, tfm, ca, eng_mod, q, r.tokens, plain=True) for q, r in zip(reqs, results)]
+        emit({"phase": phase, "d_head": cfg.d_head, "heads": [cfg.n_heads, cfg.n_kv_heads], "layers": n_layers,
+              "rows": len(results), "generated_tokens": [r.generated_tokens for r in results],
+              "plain_forward_max_logit_gap": max(gaps), "counts": counts,
+              "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+        assert all(0 < r.generated_tokens <= TINY_D16_NEW_TOKENS for r in results), results
+        # f32 caches: every served token is the plain forward's argmax
+        assert max(gaps) == 0.0 if kv is None else max(gaps) <= LOGIT_ATOL, gaps
+        for k, n in counts.items():
+            counts_all[k] += n
+        del engine
+    torch.cuda.empty_cache()
+    return counts_all
+
+
+def router_requests(GenerationRequest, prompts, new_tokens, tag):
+    return [GenerationRequest(MODEL, share_text(n, f"{tag} {i}"), m, stop_at_eos=False)
+            for i, (n, m) in enumerate(zip(prompts, new_tokens))]
+
+
+def router_phases(torch, eng_mod, kernels, smi):
+    """``router_fleet``: a ``Router`` over two ``LocalReplica``s, each its
+    own ``TorchEngine`` (qwen2:1.5b at full width, SOLO_CUT_LAYERS of its
+    28 layers, int8 weights, the bf16 pool; the two share one set of
+    weight tensors) under a continuous scheduler. Each of 8 greedy
+    requests (prompts of 50-300 tokens, 33-48 new) is first served alone
+    by a replica (two at a time, one on each): the
+    reference. Then the 8 go through ``dispatch_stream`` in pairs (the
+    second of a pair sent once the first is dispatched), under
+    ``least-queue`` and under ``round-robin``: each pair lands on both
+    replicas (``llm_router_dispatch_total``), every row's tokens equal the
+    reference's, and the counts read around the two runs are B1 once a
+    layer a request and B4 whole layers, nothing else. Then one request
+    through ``RouterServer``'s SSE ``/api/generate``, its tokens the
+    reference's, and ``/debug/timeline`` reassembles its trace.
+
+    ``router_disagg``: the same engines as a ``prefill`` and a ``decode``
+    replica. A request whose bundle reaches the decode replica while it
+    has no open session falls back (``migrate_failed``) and is served by
+    the prefill replica with the reference's tokens, the decode replica
+    still healthy. Then, with anchor rows holding the decode replica's
+    session open, each of the 8 is primed on the prefill replica and
+    seated on the decode replica: the reference's tokens, ``migrated``,
+    and the ledger's ``cause="migration"`` rises by exactly 2× each
+    bundle's bytes (one charge a transfer: the router's), the same figure
+    on each row's ``x_extras.energy``. Last, 4 rows stream from the decode
+    replica and ``drain`` evacuates them: each finishes on the prefill
+    replica with the tokens of the row served alone, uninterrupted (4 of
+    the 8 requests again).
+    Returns the launch counts of the routed runs."""
+    import gc
+    import threading
+    import urllib.request
+    from importlib import import_module
+
+    router_mod = import_module(f"{PKG}.serve.router")
+    client_mod = import_module(f"{PKG}.serve.client")
+    metrics = import_module(f"{PKG}.obs.metrics")
+    energy = import_module(f"{PKG}.obs.energy")
+    GenerationRequest = import_module(f"{PKG}.engine.backend").GenerationRequest
+    obs = import_module(f"{PKG}.obs")
+    was = obs.enabled()
+    obs.enable()
+    t_phase = time.perf_counter()
+    engines = [eng_mod.TorchEngine(quantize="int8", paged_kv=True, registry=cut_registry()) for _ in range(2)]
+    engines[0].load_model(MODEL)
+    cfg = engines[0]._models[MODEL].cfg
+    engines[1].install_model(MODEL, cfg, engines[0]._models[MODEL].params)  # the same tensors
+    n_layers = cfg.n_layers
+    reqs = router_requests(GenerationRequest, ROUTER_PROMPTS, ROUTER_NEW_TOKENS, "Routed")
+    drain_reqs = [reqs[i] for i in DRAIN_ROWS]
+    counts_all = {fn.__name__: 0 for fn in kernels}
+
+    def add(counts):
+        for k, n in counts.items():
+            counts_all[k] += n
+
+    def dispatched(name, policy):
+        return router_mod._DISPATCH_C.labels(replica=name, policy=policy).value
+
+    replicas = [router_mod.LocalReplica(f"r{i}", eng, **ROUTER_SCHED) for i, eng in enumerate(engines)]
+    try:
+        ref = {}
+        for k in range(0, len(reqs), 2):  # each alone on a replica, two at a time: the reference
+            out = {}
+            joined([stream_thread(lambda rep=rep, r=r: rep.stream(r), out, r.prompt)
+                    for rep, r in zip(replicas, reqs[k:k + 2])], out)
+            for r in reqs[k:k + 2]:
+                toks, final = out[r.prompt]["tokens"], out[r.prompt]["final"]
+                assert final.tokens == toks and 0 < len(toks) <= r.max_new_tokens, (len(toks), r.max_new_tokens)
+                ref[r.prompt] = toks
+        fleet_rows = {}
+        for policy in ("least-queue", "round-robin"):
+            router = router_mod.Router(replicas, policy=policy, probe_interval_s=999)
+            before = {rep.name: dispatched(rep.name, policy) for rep in replicas}
+
+            def run_pairs():
+                out, pairs = {}, []
+                for k in range(0, len(reqs), 2):
+                    threads = []
+                    for r in reqs[k:k + 2]:
+                        threads.append(stream_thread(lambda r=r: router.dispatch_stream(r), out, r.prompt))
+                        wait_until(lambda: sum(rep.outstanding for rep in router.replicas()) >= len(threads)
+                                   or out[r.prompt]["final"] is not None)
+                    joined(threads, {p: out[p] for p in (x.prompt for x in reqs[k:k + 2])})
+                    pairs.append([out[x.prompt]["final"].extras["router"]["replica"] for x in reqs[k:k + 2]])
+                return out, pairs
+
+            (out, pairs), counts = count_launches(kernels, lambda: timed(torch, run_pairs)[0])
+            add(counts)
+            counts_by = {rep.name: dispatched(rep.name, policy) - before[rep.name] for rep in replicas}
+            same = [out[r.prompt]["tokens"] == ref[r.prompt] for r in reqs]
+            fleet_rows[policy] = {r.prompt: out[r.prompt]["tokens"] for r in reqs}
+            emit({"phase": "router_fleet", "policy": policy, "layers": n_layers, "requests": len(reqs),
+                  "pairs": pairs, "dispatch_total": counts_by, "tokens_equal_alone": same, "counts": counts,
+                  "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+            assert all(same), same
+            assert all(sorted(p) == ["r0", "r1"] for p in pairs), pairs
+            assert counts_by == {"r0": len(reqs) // 2, "r1": len(reqs) // 2}, counts_by
+            ran_only(counts, {"cuda_prefill_attention": n_layers, "cuda_paged_decode_attention_parts": n_layers},
+                     exact={"cuda_prefill_attention": n_layers * len(reqs)})
+            assert counts["cuda_paged_decode_attention_parts"] >= n_layers * sum(r.max_new_tokens - 1 for r in reqs)
+            router.stop(close_replicas=False)
+
+        # the front door: one SSE request, then its trace's timeline
+        router = router_mod.Router(replicas, policy="least-queue")
+        server = router_mod.RouterServer(router, host="127.0.0.1", port=0, models=[MODEL], quiet=True)
+        server.start()
+        try:
+            url = f"http://127.0.0.1:{server.port}"
+            toks, final = collect_stream(client_mod.RemoteHTTPBackend(url).generate_stream(reqs[0]))
+            trace = final.extras["router"]["trace"]
+            with urllib.request.urlopen(f"{url}/debug/timeline?trace={trace}", timeout=30) as resp:
+                timeline = json.loads(resp.read())
+        finally:
+            server.stop()  # stops the router and the replicas' schedulers
+        types = [e.get("type") for e in timeline["events"]]
+        emit({"phase": "router_fleet_sse", "tokens_equal_alone": toks == ref[reqs[0].prompt],
+              "replica": final.extras["router"]["replica"], "trace": trace, "timeline_attempts":
+              timeline["attempts"], "timeline_event_types": sorted(set(types)), "timeline_events": len(types)})
+        assert toks == ref[reqs[0].prompt], "the SSE request's tokens"
+        assert timeline["trace"] == trace and timeline["attempts"] == 1, timeline
+        assert types.count("dispatched") == 1 and len(types) > 1, types
+
+        # the disaggregated fleet over the same engines
+        prefill, decode = (router_mod.LocalReplica(n, eng, role=role, **ROUTER_SCHED)
+                           for n, eng, role in zip(("p", "d"), engines, ("prefill", "decode")))
+        router = router_mod.Router([prefill, decode], policy="least-queue", probe_interval_s=999)
+        failed0 = router_mod._RETRIES_C.labels(reason="migrate_failed").value
+        toks, final = collect_stream(router.dispatch_stream(reqs[0]))
+        fallback = {"tokens_equal_alone": toks == ref[reqs[0].prompt], "replica": final.extras["router"]["replica"],
+                    "migrate_failed": router_mod._RETRIES_C.labels(reason="migrate_failed").value - failed0,
+                    "decode_healthy": decode.healthy}
+        emit({"phase": "router_disagg_idle_receiver", **fallback})
+        assert fallback["tokens_equal_alone"] and fallback["replica"] == "p", fallback
+        assert fallback["migrate_failed"] >= 1 and fallback["decode_healthy"], fallback
+
+        stop, anchors = threading.Event(), []
+
+        def anchor(sched, n_new, k):
+            anchors.append(sched.submit_stream(GenerationRequest(
+                MODEL, share_text(ROUTER_ANCHOR_TOKENS, f"Decode anchor {k}"), n_new, stop_at_eos=False)))
+
+        def hold_decode_session():
+            # anchor rows of the requests' generation bucket, a new one
+            # joining whenever fewer than two are live: the decode
+            # replica's session stays open for the seats
+            sched = decode.scheduler
+            while not stop.is_set():
+                state = sched.health_state()
+                if (state.get("inflight_rows") or 0) + state.get("queue_depth", 0) < 2:
+                    anchor(sched, max(ROUTER_NEW_TOKENS), len(anchors))
+                time.sleep(0.005)
+
+        keeper = threading.Thread(target=hold_decode_session, daemon=True)
+        keeper.start()
+        try:
+            wait_until(lambda: decode.scheduler.health_state().get("inflight_rows"))
+            j0 = energy.WASTED_J.labels(cause="migration").value
+            in0 = metrics.MIGRATE_BYTES_C.labels(direction="in").value
+            rows0 = metrics.MIGRATE_ROWS_C.labels(reason="disagg").value
+
+            def run_disagg():
+                return {r.prompt: collect_stream(router.dispatch_stream(r)) for r in reqs}
+
+            out, counts = count_launches(kernels, run_disagg)
+            add(counts)
+            joules = energy.WASTED_J.labels(cause="migration").value - j0
+            moved = metrics.MIGRATE_BYTES_C.labels(direction="in").value - in0
+            rows = [{
+                "tokens_equal_alone": toks == ref[r.prompt], "tokens_equal_fleet": toks == fleet_rows["least-queue"][
+                    r.prompt], "replica": final.extras["router"]["replica"],
+                "migrated": (final.extras.get("sched") or {}).get("migrated") is True,
+                "charged_J": final.extras["energy"]["wasted_J"]["migration"],
+            } for r in reqs for toks, final in [out[r.prompt]]]
+            emit({"phase": "router_disagg", "layers": n_layers, "rows": rows, "charged_J": joules,
+                  "bundle_bytes": moved, "charged_J_expected": 2 * moved * energy.SWAP_J_PER_BYTE,
+                  "transfers": metrics.MIGRATE_ROWS_C.labels(reason="disagg").value - rows0,
+                  "anchors": len(anchors), "counts": counts, "seconds": time.perf_counter() - t_phase,
+                  "nvidia_smi": smi})
+            assert all(x["tokens_equal_alone"] and x["tokens_equal_fleet"] and x["replica"] == "d" and x["migrated"]
+                       for x in rows), rows
+            assert metrics.MIGRATE_ROWS_C.labels(reason="disagg").value - rows0 == len(reqs)
+            # one charge a transfer: 2x the bytes it moved, the router's alone
+            assert moved > 0 and abs(joules - 2 * moved * energy.SWAP_J_PER_BYTE) <= 1e-9 * joules, (joules, moved)
+            assert abs(sum(x["charged_J"] for x in rows) - joules) <= 1e-8 * len(rows), rows
+            # the anchors decode and join across the count's edges: B1 for
+            # the primes at least, B4, and nothing else
+            others = {k: n for k, n in counts.items()
+                      if k not in ("cuda_prefill_attention", "cuda_paged_decode_attention_parts")}
+            assert not any(others.values()), counts
+            assert counts["cuda_prefill_attention"] >= n_layers * len(reqs), counts
+            assert counts["cuda_paged_decode_attention_parts"] > 0, counts
+        finally:
+            stop.set()
+            keeper.join(timeout=30)
+            for a in anchors:
+                a.cancel(cause="disconnect")
+        anchors.clear()
+
+        # drain with migration: 4 rows streaming from the decode replica
+        wait_until(lambda: not decode.scheduler.health_state().get("inflight_rows"))
+        anchor(decode.scheduler, max(ROUTER_NEW_TOKENS), "drain")
+        wait_until(lambda: decode.scheduler.health_state().get("inflight_rows"))
+        drained = {}
+        threads = []
+        for i, r in enumerate(drain_reqs):
+            threads.append(stream_thread(lambda r=r: router.dispatch_stream(r), drained, r.prompt))
+            wait_until(lambda r=r: drained[r.prompt]["tokens"] or drained[r.prompt]["error"])
+            if i == 0:
+                anchors.pop().cancel(cause="disconnect")  # its slot goes to the rows
+        anchor(prefill.scheduler, max(ROUTER_NEW_TOKENS), "target")  # the receiving session
+        wait_until(lambda: prefill.scheduler.health_state().get("inflight_rows"))
+        streamed_before = [len(drained[r.prompt]["tokens"]) for r in drain_reqs]
+        evacuated = router.evacuate_replica("d", timeout_s=60)
+        wait_until(lambda: (prefill.scheduler.health_state().get("inflight_rows") or 0) >= 2)
+        anchors.pop().cancel(cause="disconnect")  # its slot goes to the last evacuee
+        detached = router.drain("d", timeout_s=120)
+        joined(threads, drained)
+        drain_rows = [{
+            "streamed_before": n, "tokens_equal_uninterrupted": drained[r.prompt]["tokens"] == ref[r.prompt],
+            "replica": drained[r.prompt]["final"].extras["router"]["replica"],
+        } for r, n in zip(drain_reqs, streamed_before)]
+        emit({"phase": "router_disagg_drain", "evacuated": evacuated, "detached": detached, "rows": drain_rows,
+              "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+        assert evacuated == len(drain_reqs) and detached, (evacuated, detached)
+        assert all(0 < x["streamed_before"] < len(ref[r.prompt]) and x["tokens_equal_uninterrupted"]
+                   and x["replica"] == "p" for r, x in zip(drain_reqs, drain_rows)), drain_rows
+        router.stop()
+    finally:
+        for rep in replicas:
+            rep.close()
+        (obs.enable if was else obs.disable)()
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts_all
+
+
+def model_fleet_phase(torch, eng_mod, kernels, smi):
+    """``GenerationServer(model_policy=...)``: the multi-model fleet over
+    one ``TorchEngine`` holding qwen2:1.5b and phi3:3.8b (the study's
+    models, int8 weights, full width, SOLO_CUT_LAYERS layers each: at full
+    depth the phase took 21.9 s on an NVIDIA H100 80GB HBM3 at 700 W; the
+    bf16 pool), one
+    continuous lane each. Every request is first served naming its model,
+    alone: the reference. Under ``small-first`` (``escalate_max_tokens``
+    FLEET_ESCALATE_TOKENS) a capped ``model: "auto"`` request cut at its
+    budget escalates to phi3:3.8b, with the abandoned tokens charged
+    ``cause="escalation"`` (> 0, on ``x_extras.energy`` as in the
+    ledger), and answers with phi3's tokens; a request below the floor
+    stays on qwen2:1.5b. Under ``cheapest-joules``, after one request on
+    each model, ``auto`` picks the model with the lower live J/token.
+    Every served row's tokens equal its model's reference. Returns the
+    launch counts."""
+    import gc
+    from importlib import import_module
+
+    server_mod = import_module(f"{PKG}.serve.server")
+    client_mod = import_module(f"{PKG}.serve.client")
+    energy = import_module(f"{PKG}.obs.energy")
+    GenerationRequest = import_module(f"{PKG}.engine.backend").GenerationRequest
+    obs = import_module(f"{PKG}.obs")
+    was = obs.enabled()
+    obs.enable()
+    t0 = time.perf_counter()
+    config = import_module(f"{PKG}.models.config")
+    registry = {m: dataclasses.replace(config.get_model_config(m), n_layers=SOLO_CUT_LAYERS)
+                for m in (FLEET_SMALL, FLEET_BIG)}
+    engine = eng_mod.TorchEngine(quantize="int8", paged_kv=True, registry=registry)
+    for m in (FLEET_SMALL, FLEET_BIG):
+        engine.load_model(m)
+    capped, short = (context_prompt(n) for n in (200, 120))
+
+    def req(model, prompt, n):
+        return GenerationRequest(model, prompt, n)
+
+    def serve(policy, run):
+        server = server_mod.GenerationServer(
+            engine, host="127.0.0.1", port=0, models=[FLEET_SMALL, FLEET_BIG], quiet=True,
+            model_policy=policy, escalate_max_tokens=FLEET_ESCALATE_TOKENS, **ROUTER_SCHED)
+        server.start()
+        try:
+            return run(client_mod.RemoteHTTPBackend(f"http://127.0.0.1:{server.port}"))
+        finally:
+            server.stop()
+
+    def small_first(client):
+        ref = {(m, p): client.generate(req(m, p, n)) for m in (FLEET_SMALL, FLEET_BIG)
+               for p, n in ((capped, FLEET_CAPPED_TOKENS), (short, FLEET_SHORT_TOKENS))}
+        j0 = energy.WASTED_J.labels(cause="escalation").value
+        escalated = client.generate(req("auto", capped, FLEET_CAPPED_TOKENS))
+        joules = energy.WASTED_J.labels(cause="escalation").value - j0
+        stayed = client.generate(req("auto", short, FLEET_SHORT_TOKENS))
+        return ref, escalated, joules, stayed
+
+    (ref, escalated, joules, stayed), counts = count_launches(kernels, lambda: serve("small-first", small_first))
+    small_cut = ref[(FLEET_SMALL, capped)].generated_tokens == FLEET_CAPPED_TOKENS
+    wire_j = escalated.extras.get("energy", {}).get("wasted_J", {}).get("escalation", 0.0)
+    line = {
+        "phase": "model_fleet", "policy": "small-first", "models": [FLEET_SMALL, FLEET_BIG],
+        "small_reference_cut_at_budget": small_cut,
+        "capped": {"fleet": escalated.extras.get("fleet"),
+                   "wasted_escalation_J": wire_j, "ledger_J": joules,
+                   "tokens_equal_reference": escalated.tokens == ref[(FLEET_BIG, capped)].tokens},
+        "short": {"fleet": stayed.extras.get("fleet"),
+                  "tokens_equal_reference": stayed.tokens == ref[(FLEET_SMALL, short)].tokens},
+        "counts": counts, "seconds": time.perf_counter() - t0, "nvidia_smi": smi,
+    }
+    emit(line)
+    assert small_cut, ref[(FLEET_SMALL, capped)].generated_tokens
+    # the wire's result names the request as sent ("auto"); x_extras.fleet the model that answered
+    assert escalated.extras["fleet"]["model"] == FLEET_BIG, escalated.extras
+    assert escalated.extras["fleet"]["escalated_from"] == FLEET_SMALL, escalated.extras
+    assert wire_j > 0 and abs(wire_j - joules) <= 1e-6, (wire_j, joules)
+    assert line["capped"]["tokens_equal_reference"] and line["short"]["tokens_equal_reference"], line
+    assert stayed.extras["fleet"] == {"model": FLEET_SMALL, "policy": "small-first"}, stayed.extras
+    per_layer = SOLO_CUT_LAYERS
+    ran_only(counts, {"cuda_prefill_attention": per_layer, "cuda_paged_decode_attention_parts": per_layer})
+
+    def cheapest(client):
+        ref = {m: client.generate(req(m, capped, FLEET_CAPPED_TOKENS)) for m in (FLEET_SMALL, FLEET_BIG)}
+        jpt = dict(engine.last_joules_per_token_by_model)
+        return ref, jpt, client.generate(req("auto", capped, FLEET_CAPPED_TOKENS))
+
+    (ref, jpt, auto), counts2 = count_launches(kernels, lambda: serve("cheapest-joules", cheapest))
+    want = min((FLEET_SMALL, FLEET_BIG), key=lambda m: jpt[m])
+    emit({"phase": "model_fleet", "policy": "cheapest-joules", "joules_per_token": jpt,
+          "auto_model": auto.extras["fleet"]["model"], "tokens_equal_reference": auto.tokens == ref[want].tokens,
+          "counts": counts2, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    assert auto.extras["fleet"] == {"model": want, "policy": "cheapest-joules"}, auto.extras
+    assert auto.tokens == ref[want].tokens
+    ran_only(counts2, {"cuda_prefill_attention": per_layer, "cuda_paged_decode_attention_parts": per_layer})
+    (obs.enable if was else obs.disable)()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] + counts2[k] for k in counts}
+
+
+def serve_cli_fleet_phase(torch, root, smi):
+    """``python -m …_tpu_torch serve-fleet --targets`` (the
+    ``RemoteReplica`` path) over two ``serve --backend torch`` processes
+    (qwen2:1.5b, int8 weights, the bf16 pool, continuous scheduler), all
+    three subprocesses of the one card: one buffered and one streamed
+    request of the same prompt through the front door (the same tokens:
+    the replicas' weights come from one seed), and its ``/metrics``
+    carries the ``llm_fleet_*`` federation of the replicas' scrapes.
+    SIGTERM ends all three with exit 0. Their launches happen in the
+    subprocesses and are not counted here."""
+    import contextlib
+    import gc
+    import tempfile
+    import urllib.request
+    from importlib import import_module
+
+    client_mod = import_module(f"{PKG}.serve.client")
+    GenerationRequest = import_module(f"{PKG}.engine.backend").GenerationRequest
+    gc.collect()
+    torch.cuda.empty_cache()
+    req = GenerationRequest(MODEL, context_prompt(300), 24, stop_at_eos=False)
+    t0 = time.perf_counter()
+    args = ["--models", MODEL, "--quantize", "int8", "--paged-kv", "--scheduler", "continuous",
+            "--max-batch", "4", "--no-budget-admission", "--prefill-chunk-tokens", "1024"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_fleet_") as out:
+        # all three start at once: the front door attaches its targets
+        # before they answer and its prober finds them up
+        replicas = [ServeProcess(root, Path(out) / f"serve{i}.log", args).launch() for i in range(2)]
+        front = ServeProcess(root, Path(out) / "fleet.log",
+                             ["--targets", ",".join(rep.url for rep in replicas), "--models", MODEL,
+                              "--probe-interval-ms", "200"], command=("serve-fleet",)).launch()
+        with contextlib.ExitStack() as stack:
+            for proc in (*replicas, front):
+                stack.enter_context(proc)
+            client = client_mod.RemoteHTTPBackend(front.url)
+
+            def healthy():
+                try:
+                    with urllib.request.urlopen(f"{front.url}/healthz", timeout=5) as resp:
+                        return json.loads(resp.read()).get("healthy_replicas") == len(replicas)
+                except OSError:  # 503 while no replica answers yet
+                    return False
+
+            wait_until(healthy, timeout=60)
+            buffered = client.generate(req)
+            toks, final = collect_stream(client.generate_stream(req))
+            with urllib.request.urlopen(f"{front.url}/metrics", timeout=30) as resp:
+                exposition = resp.read().decode()
+        logs = {p.name: p.read_text()[-2000:] for p in Path(out).glob("*.log")}
+    fleet_lines = [ln for ln in exposition.splitlines() if ln.startswith("llm_fleet_")]
+    emit({"phase": "serve_cli_fleet", "replica_start_s": [rep.started for rep in replicas],
+          "front_start_s": front.started, "buffered_replica": buffered.extras["router"]["replica"],
+          "streamed_replica": final.extras["router"]["replica"], "generated_tokens": buffered.generated_tokens,
+          "tokens_equal": toks == buffered.tokens, "llm_fleet_lines": len(fleet_lines),
+          "exit_codes": [rep.rc for rep in replicas] + [front.rc], "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    assert [rep.rc for rep in replicas] + [front.rc] == [0, 0, 0], logs
+    assert buffered.generated_tokens == len(buffered.tokens) == req.max_new_tokens, buffered
+    assert toks == buffered.tokens and final.tokens == toks
+    assert fleet_lines, exposition[:2000]
 
 
 # Training (parallel/train.py, parallel/pp.py): qwen2:1.5b at full width
@@ -5628,6 +6172,7 @@ def main() -> int:
     summary.update(paged_decode_kernel_phase(torch, cpa, ca, plain, timer, control))
     summary.update(w4a8_kernel_phase(torch, cq, qplain, qmod, timer, control))
     d32 = d32_kernel_phase(torch, ca, cpa, plain, timer, qmod.quantize_kv_vector, kernels, control)
+    d16 = d16_kernel_phase(torch, ca, cpa, plain, timer, qmod.quantize_kv_vector, kernels, control)
     del timer
     torch.cuda.empty_cache()
 
@@ -5790,6 +6335,10 @@ def main() -> int:
     add(prefix_share_spill_phase(torch, eng_mod, all_kernels, backend.GenerationRequest, smi))
     add(serve_migrate_phase(torch, eng_mod, all_kernels, smi))
     serve_cli_prefix_share_phase(torch, root, smi)
+    # The replica router and the multi-model fleet.
+    add(router_phases(torch, eng_mod, all_kernels, smi))
+    add(model_fleet_phase(torch, eng_mod, all_kernels, smi))
+    serve_cli_fleet_phase(torch, root, smi)
     # Tensor and data parallelism: meshes of shards on the one card.
     add(tp_phases(torch, root, eng_mod, tfm, qmod, ca, all_kernels, backend.GenerationRequest, smi))
     # The mixture-of-experts MLP: mixtral:8x7b at full width and depth.
@@ -5803,6 +6352,9 @@ def main() -> int:
         study_rw = study_real_weights_phase(torch, root, all_kernels, smi, Path(tmp))
     add(tiny)
     add(study_rw)
+    # qwen2:1.5b's .tiny() on the card: B1-B5 at head width 16.
+    tiny16 = engine_tiny_d16_phase(torch, eng_mod, tfm, ca, all_kernels, backend.GenerationRequest, smi)
+    add(tiny16)
     assert all(launches.values()), launches
 
     rows = []
@@ -5815,13 +6367,15 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
-        if fn.__name__ in d32:  # the same kernel at head width 32 (the tiny LM's)
-            r = d32[fn.__name__]
-            rows[-1]["d32"] = {
-                "shape": r["shape"], "launches": tiny[fn.__name__] + study_rw[fn.__name__],
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            }
+        # the same kernel at head width 32 (the tiny LM's) and 16 (.tiny()'s)
+        for key, narrow, path in (("d32", d32, (tiny, study_rw)), ("d16", d16, (tiny16,))):
+            if fn.__name__ in narrow:
+                r = narrow[fn.__name__]
+                rows[-1][key] = {
+                    "shape": r["shape"], "launches": sum(c[fn.__name__] for c in path),
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                }
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     emit({

@@ -4,8 +4,14 @@ The six cases of ``tests/test_cli.py`` that do not serve run on the
 port's ``runner/cli.py`` (the file's source with the package name
 swapped): the scaffold, the two config-class lookups, a config file run
 end to end, help and an unknown command, and ``prepare``'s cooldown
-promise, whose device channel is the port's NVML one. Then the port's own
-cases: ``serve --backend jax`` and ``serve-fleet`` exit 2, ``serve
+promise, whose device channel is the port's NVML one; and its four
+replica-router and multi-model cases (``--replicas`` / ``--route-policy``
+/ ``--probe-interval-ms``, ``--model-policy`` / ``--escalate-max-tokens``,
+both together, ``serve-fleet --targets``), whose stand-in servers gain
+the ``stop()`` that the port's serve loop calls after ``serve_forever``.
+Then the port's own cases: ``serve --backend jax`` and ``serve-fleet``
+without ``--targets`` exit 2, ``--roles`` assigns the replicas' roles,
+``serve
 --backend torch-tp --tp N [--dp M]`` lays its mesh over the visible GPUs
 (exit 2 without one, or with fewer than the mesh needs), ``analyze`` and
 ``recompute-energy`` run over a study table the port wrote, and ``python
@@ -31,8 +37,22 @@ CLI_CASES = (
     "test_run_config_file_end_to_end",
     "test_main_help_and_unknown_command",
     "test_prepare_cooldown_promise_matches_consumed_channels",
+    "test_serve_replica_fleet_knobs",
+    "test_serve_model_policy_knobs",
+    "test_serve_replicas_with_model_policy_builds_fleet_lanes",
+    "test_serve_fleet_command_knobs",
 )
-CLI = port_module("test_cli.py", renames=(('"libtpu_monitoring"', '"nvml"'),))
+CLI = port_module(
+    "test_cli.py",
+    renames=(
+        ('"libtpu_monitoring"', '"nvml"'),
+        (
+            "        def serve_forever(self):\n            return None\n",
+            "        def serve_forever(self):\n            return None\n\n"
+            "        def stop(self):\n            return None\n",
+        ),
+    ),
+)
 
 
 @pytest.mark.parametrize("name", CLI_CASES)
@@ -43,12 +63,43 @@ def test_jax_cli_case_on_the_port(name, request):
 
 @pytest.mark.parametrize("command", ["serve", "serve-fleet"])
 def test_serve_commands_exit_2_until_serving_is_ported(command, capsys):
-    """``serve-fleet`` (the router) is not ported; ``serve`` is, but not
-    over the JAX package's engines: it names the port's own."""
+    """``serve`` does not run over the JAX package's engines: it names the
+    port's own; ``serve-fleet`` needs the servers it routes to."""
     extra = ["--backend", "jax"] if command == "serve" else []
     assert cli.main([command, "--port", "0", *extra]) == 2
     out = capsys.readouterr().out
-    assert ("--backend torch-tp" if command == "serve" else "ROADMAP item 15") in out
+    assert ("--backend torch-tp" if command == "serve" else "--targets host:port") in out
+
+
+def test_serve_roles_assign_each_replica_its_role(monkeypatch):
+    """``--replicas N --roles prefill,decode`` gives replica i the role
+    ``roles[i % len(roles)]`` (the JAX package's cycling rule); without
+    ``--roles`` every replica takes ``--role`` (default mixed); a role
+    outside ``SERVER_ROLES`` fails fast."""
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.serve import router as rt
+
+    captured = {}
+
+    class StandIn:
+        def __init__(self, router, **kw):
+            captured["router"] = router
+
+        def serve_forever(self):
+            return None
+
+        def stop(self):
+            captured["router"].stop()
+
+    monkeypatch.setattr(rt, "RouterServer", StandIn)
+    for extra, roles in (
+        (["--roles", "prefill,decode"], ["prefill", "decode", "prefill"]),
+        (["--role", "decode"], ["decode"] * 3),
+        ([], ["mixed"] * 3),
+    ):
+        cli.serve_command(["--backend", "fake", "--port", "0", "--replicas", "3", *extra])
+        assert [r.role for r in captured["router"].replicas()] == roles
+    with pytest.raises(cli.CommandError, match="--roles"):
+        cli.serve_command(["--replicas", "2", "--roles", "prefill,bogus"])
 
 
 def test_serve_torch_tp_without_a_gpu_exits_2_and_builds_nothing(monkeypatch, capsys):

@@ -38,6 +38,8 @@ The kernels themselves are held against their plain versions on the card
 """
 
 import math
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -640,7 +642,10 @@ def _emulate_b4(q, k_pool, v_pool, table, lengths, k_scale=None, v_scale=None):
     (times the K scale), one max per tile and head, ``alpha = exp(m_old -
     m_new)`` (0 on the first tile), ``l`` from the tile's probabilities,
     the V scale folded into p; warp w accumulates positions w, w + 4, ...
-    of every tile, and the four warps' accumulators add in warp order.
+    of every tile, and the four warps' accumulators add in warp order. At
+    D 16 each half-warp takes a position: half h of warp w accumulates
+    positions w + 4·(2·i + h), and the upper half's sum joins the lower's
+    (the shuffle) before the warps add.
     One split is written as is; several are merged by the last in split
     order into unnormalised parts (m in natural units). A row with no
     position reads nothing: (0, -inf, 0)."""
@@ -664,7 +669,7 @@ def _emulate_b4(q, k_pool, v_pool, table, lengths, k_scale=None, v_scale=None):
                 t_end = min(t_begin + split_len, length)
                 m_run = torch.full((group,), float("-inf"))
                 l_run = torch.zeros(group)
-                warps = torch.zeros(4, group, d)
+                warps = torch.zeros(4, 2, group, d)  # [warp, half-warp] (one half above D 16)
                 for t0 in range(t_begin, t_end, 32):
                     pos = torch.arange(t0, min(t0 + 32, t_end))
                     pages = torch.clamp(table[bi, pos // page].long(), 0, n_pool - 1)
@@ -680,10 +685,16 @@ def _emulate_b4(q, k_pool, v_pool, table, lengths, k_scale=None, v_scale=None):
                     m_run = m_new
                     if v_scale is not None:
                         p = p * v_scale[pages, h, pos % page][None, :]
-                    warps = warps * alpha[None, :, None]
+                    warps = warps * alpha[None, None, :, None]
                     for w in range(4):
-                        warps[w] += p[:, w::4] @ vv[w::4]
-                a = warps[0] + warps[1] + warps[2] + warps[3]
+                        if d >= 32:
+                            warps[w, 0] += p[:, w::4] @ vv[w::4]
+                        else:
+                            for half in range(2):
+                                sl = slice(w + 4 * half, None, 8)
+                                warps[w, half] += p[:, sl] @ vv[sl]
+                w_sum = warps[:, 0] + warps[:, 1]
+                a = w_sum[0] + w_sum[1] + w_sum[2] + w_sum[3]
                 parts.append((a, m_run, l_run))
             if n_used == 1:
                 a, m_fin, l_fin = parts[0]
@@ -696,6 +707,23 @@ def _emulate_b4(q, k_pool, v_pool, table, lengths, k_scale=None, v_scale=None):
                     a = a + c[:, None] * pa
             acc[bi, h], m_out[bi, h], l_out[bi, h] = a, m_fin, l_fin
     return acc, m_out, l_out
+
+
+def test_head_dims_match_every_kernel_switch():
+    """``HEAD_DIMS`` (the wrappers' check) lists exactly the widths of every
+    ``switch (d_head)`` in ``csrc/``: B1's, B2-B6's, B7's and B8's, 16
+    included, so no width passes the check and fails in the kernel."""
+    csrc = pathlib.Path(_kernels.__file__).resolve().parent.parent / "csrc"
+    switches = []
+    for path in sorted(csrc.glob("*.cu*")):
+        text = path.read_text()
+        for m in re.finditer(r"switch \(d_head\) \{(.*?)default:", text, re.S):
+            widths = tuple(int(x) for x in re.findall(r"_CASE\((\d+)\)", m.group(1)))
+            switches.append((path.name, widths))
+    assert len(switches) == 4, switches
+    for name, widths in switches:
+        assert widths == cuda_attention.HEAD_DIMS, (name, widths)
+    assert 16 in cuda_attention.HEAD_DIMS
 
 
 def _lane_pad(x, d):
@@ -717,6 +745,9 @@ B4_CASES = [
     ("phi3 D 96, int8 pool", 32, 32, 96, 128, [0, 1, 65, 300], True),
     ("gemma D 256", 8, 1, 256, 128, [0, 1, 128, 257, 600], False),
     ("gemma D 256, int8 pool", 8, 1, 256, 128, [0, 1, 128, 257, 600], True),
+    ("tiny D 16", 4, 2, 16, 128, [0, 1, 9, 33, 64, 130, 700], False),
+    ("tiny D 16, int8 pool", 4, 2, 16, 128, [0, 1, 9, 33, 64, 130, 700], True),
+    ("tiny D 16, page 48", 4, 2, 16, 48, [0, 1, 47, 48, 71, 200], False),
 ]
 
 

@@ -44,6 +44,9 @@ SHARD_MATMULS = [(1, 1536, 4480), (1, 4480, 1536), (1, 1536, 768), (1, 768, 1536
 # The trained tiny LM's heads (models/tiny_lm.py): 4 query heads over 2 KV
 # heads of width 32, which B1-B8 take natively.
 TINY_LM_HEADS = [(4, 2, 32)]
+# The .tiny() configs' heads (models/config.py): width 16, which B1-B8 take
+# natively too (at D 16 the decode body gives a half-warp a position).
+TINY_D16_HEADS = [(4, 2, 16)]
 
 
 def _to_torch(a, dtype):
@@ -80,7 +83,7 @@ def _page_constant(pool):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
 @pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64), *SHARD_HEADS,
-                                      *TINY_LM_HEADS])
+                                      *TINY_LM_HEADS, *TINY_D16_HEADS])
 def test_kernels_match_plain_versions_on_the_card(dtype, tol, hq, hkv, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -143,7 +146,7 @@ def _assert_parts_close(got, want, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
 @pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64), *SHARD_HEADS,
-                                      *TINY_LM_HEADS])
+                                      *TINY_LM_HEADS, *TINY_D16_HEADS])
 def test_paged_parts_kernels_match_plain_versions_on_the_card(dtype, tol, hq, hkv, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -199,7 +202,7 @@ def test_int4_kernels_match_plain_versions_on_the_card(dtype, tol, m, in_dim, ou
 @pytest.mark.parametrize(
     "q_len,hq,hkv,d",
     [(5, 12, 2, 128), (3, 32, 32, 96), (5, 8, 1, 256), (9, 4, 1, 64), (9, 8, 1, 256),
-     *[(5, *heads) for heads in SHARD_HEADS + TINY_LM_HEADS]],
+     *[(5, *heads) for heads in SHARD_HEADS + TINY_LM_HEADS + TINY_D16_HEADS]],
 )
 def test_paged_mq_parts_kernels_match_plain_versions_on_the_card(dtype, tol, q_len, hq, hkv, d):
     """B7 and B8 against their plain versions, with offsets that cut inside
@@ -244,7 +247,7 @@ def test_paged_mq_parts_kernels_match_plain_versions_on_the_card(dtype, tol, q_l
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
 @pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64), *SHARD_HEADS,
-                                      *TINY_LM_HEADS])
+                                      *TINY_LM_HEADS, *TINY_D16_HEADS])
 def test_paged_decode_kernel_matches_plain_version_on_the_card(dtype, tol, hq, hkv, d):
     """B6 against its plain version, rows at, before and after a page edge
     and over several pages, with junk table entries (outside the pool)
@@ -359,7 +362,7 @@ def test_prefill_kernel_matches_plain_version_on_the_card(dtype, tol, d, group):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
 @pytest.mark.parametrize("hq,hkv,d", [(12, 2, 128), (32, 32, 96), (8, 1, 256), (4, 4, 64), *SHARD_HEADS,
-                                      *TINY_LM_HEADS])
+                                      *TINY_LM_HEADS, *TINY_D16_HEADS])
 def test_decode_kernels_at_split_edges_match_plain_versions_on_the_card(dtype, tol, hq, hkv, d):
     """B2 and B3 against their plain versions at lengths 1, 63, 64, 65, 2100
     and the capacity T (one row each, so the kernel sizes one, one, one,
@@ -503,7 +506,7 @@ def test_prefill_kernel_runs_on_the_tensor_cores():
     ).stdout
     functions = sass.split("Function : ")[1:]
     prefill = [f for f in functions if "prefill_mma_kernel" in f.splitlines()[0]]
-    assert len(prefill) == 5, [f.splitlines()[0] for f in functions]  # D 32, 64, 96, 128, 256
+    assert len(prefill) == 6, [f.splitlines()[0] for f in functions]  # D 16, 32, 64, 96, 128, 256
     for body in prefill:
         assert "HMMA" in body, body.splitlines()[0]
 
@@ -701,8 +704,9 @@ def test_mq_tensor_core_kernel_in_one_launch_on_the_card(page, hq, hkv, d):
 def test_redesigned_kernels_run_on_the_tensor_cores():
     """The built libraries' SASS: B10's kernel (bf16 and f32 x, vector and
     byte-wise loads) and the multi-query kernel of B7/B8 (bf16 and int8
-    pools, D 32, 64, 96, 128 and 256, over the page table and over contiguous
-    rows) issue HMMA (mma.sync) instructions in every instantiation."""
+    pools, D 16, 32, 64, 96, 128 and 256, over the page table and over
+    contiguous rows) issue HMMA (mma.sync) instructions in every
+    instantiation."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     import subprocess
@@ -714,7 +718,7 @@ def test_redesigned_kernels_run_on_the_tensor_cores():
     # verify the contiguous rows)
     for lib, kernel, counts in (
         ("int4_matmul", "int4_i32_mma_kernel", {"": 4}),
-        ("paged_attention", "mq_mma_kernel", {"PagedRows": 10, "ContiguousRows": 10}),
+        ("paged_attention", "mq_mma_kernel", {"PagedRows": 12, "ContiguousRows": 12}),
     ):
         _kernels.library(lib)
         sass = subprocess.run(
@@ -812,9 +816,9 @@ def test_paged_parts_kernels_refuse_a_misaligned_pool_on_the_card():
 def test_one_decode_tile_body_serves_every_single_query_decode():
     """The built libraries' SASS: the parts kernels B4/B5 and the
     write-through decode B6 are instantiations of ``decode_tile_kernel``
-    (bf16 and f32 q; bf16/f32 and int8 pools for the parts; D 32, 64, 96,
-    128 and 256), as B2/B3 are in the attention library; the older split body
-    is gone."""
+    (bf16 and f32 q; bf16/f32 and int8 pools for the parts; D 16, 32, 64,
+    96, 128 and 256), as B2/B3 are in the attention library; the older split
+    body is gone."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     import subprocess
@@ -831,13 +835,13 @@ def test_one_decode_tile_body_serves_every_single_query_decode():
         names = [f.splitlines()[0] for f in sass.split("Function : ")[1:]]
         assert not any("decode_partial_kernel" in n for n in names), lib
         counts[lib] = sum("decode_tile_kernel" in n for n in names)
-    # B2/B3: 2 q dtypes × (cache, int8) × 5 head dims; B6: 2 × 5; B4/B5: 2 × 2 × 5
-    assert counts == {"attention": 20, "paged_attention": 10 + 20}, counts
+    # B2/B3: 2 q dtypes × (cache, int8) × 6 head dims; B6: 2 × 6; B4/B5: 2 × 2 × 6
+    assert counts == {"attention": 24, "paged_attention": 12 + 24}, counts
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hq,hkv,d", [(4, 4, 64), (12, 2, 128), (14, 2, 96), (8, 1, 256), (32, 2, 128),
-                                      *TINY_LM_HEADS])
+                                      *TINY_LM_HEADS, *TINY_D16_HEADS])
 def test_contiguous_mq_kernels_on_the_card(hq, hkv, d):
     """B7/B8's bodies over contiguous rows (the contiguous session's
     verify) against their plain version: bf16 caches with a bf16 q (the

@@ -17,7 +17,9 @@ speculate and preempts nothing by recompute on the pool. From the
 command line, ``serve`` batches without ``--paged-kv`` (the JAX
 package's defaults) and with ``--preempt-policy recompute``, speculates
 without ``--paged-kv`` and takes ``--spec-accept-floor``, and refuses
-what is not ported with exit 2 naming its ROADMAP item.
+with exit 2 the JAX package's engines, a mesh without ``torch-tp`` and
+bad values of the replica router's and the multi-model fleet's options
+(which ``tests/test_torch_cli.py`` shows taken).
 """
 
 import collections
@@ -419,9 +421,12 @@ REFUSED = {
     "--backend jax-tp": ("--backend torch-tp", ["--backend", "jax-tp"]),
     "--tp": ("shape the mesh of --backend torch-tp", ["--backend", "fake", "--tp", "2"]),
     "--dp": ("shape the mesh of --backend torch-tp", ["--backend", "fake", "--dp", "2"]),
-    "--replicas": ("ROADMAP item 15", ["--backend", "fake", "--replicas", "2"]),
-    "--model-policy": ("ROADMAP item 15", ["--backend", "fake", "--model-policy", "small-first"]),
-    "--roles": ("ROADMAP item 15", ["--backend", "fake", "--roles", "prefill,decode"]),
+    "--replicas": ("--replicas expects a number >= 1", ["--backend", "fake", "--replicas", "0"]),
+    "--model-policy": (
+        "--model-policy expects one of small-first|cheapest-joules",
+        ["--backend", "fake", "--model-policy", "biggest-first"],
+    ),
+    "--roles": ("--roles expects a comma list", ["--backend", "fake", "--roles", "prefill,bogus"]),
 }
 
 
