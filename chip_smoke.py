@@ -10,21 +10,21 @@ all started together), holds each kernel against its plain PyTorch version
 on the card and times both (with the library yardstick and the card's bound
 beside them), then drives the port's paths on full-width qwen2:1.5b:
 ``TorchEngine.generate`` (the study's solo path) at int8 weights with a
-bf16 and then an int8 KV cache (7 of 28 layers), ``TorchEngine.generate_batch`` over the
-paged pool (17 requests) with a bf16 and then an int8 pool (at 7 of 28
+bf16 and then an int8 KV cache (4 of 28 layers), ``TorchEngine.generate_batch`` over the
+paged pool (17 requests) with a bf16 and then an int8 pool (at 4 of 28
 layers), ``generate``
 at int4 and at int4-i32 weights, one engine with per-model modes (qwen2 at
-int8, 7 layers, and full-width llama3.1:8b at int4), an int4 paged batch
-of 8 rows (7 layers),
+int8, and llama3.1:8b at int4, both full width at 4 layers), an int4 paged batch
+of 8 rows (4 layers),
 the write-through paged decode (8 rows prefilled, written into a pool
 with ``write_prefill`` and decoded through ``forward`` with the engine's
 paged dispatch, whose attention is B6), and speculative sessions over the
 paged pool (``decode_open`` and ``step``): an n-gram draft over 8 rows
-with a bf16 and an int8 pool (7 layers), whose verify runs the multi-query kernels
+with a bf16 and an int8 pool (4 layers), whose verify runs the multi-query kernels
 B7/B8, ``generate_speculative`` and ``generate``'s routing, an n-gram
 session at k 12 (its 13-position verify block runs B7 in one launch a
 layer: two q-tiles of the tensor-core kernel), and a self-draft whose
-draft steps run B2 (both at 7 layers). The kernel rows also hold the stacked ``layer=`` form
+draft steps run B2 (both at 4 layers). The kernel rows also hold the stacked ``layer=`` form
 of B4/B5/B7/B8 bit for bit against the per-layer call, and
 ``torch.profiler`` traces show that one call of B4/B5 (the paged parts,
 at the batch's rows), of B6 (write-through decode), of B9 and B10 (int4
@@ -36,12 +36,12 @@ measured run: the port's ``ExperimentController`` over ``LlmEnergyConfig``
 (qwen2:1.5b at int8, on_device and the aliased remote, 100 words, two
 repetitions) writes four rows, each with NVML's measured Joules beside
 the modelled ones, after NVML's idle power is read for 2 s; then the study
-from the command line (``runner.cli.main`` over two config files: the
-study's 7 models at 100 words, one repetition, the table analysed, then
-``recompute-energy``).
+from the command line (``runner.cli.main`` over a config file: the
+study's 7 models at 100 words, each at half its depth, one repetition,
+the table analysed, then ``recompute-energy``).
 The serving phases run the port's
 ``GenerationServer`` in this process over HTTP on 127.0.0.1 at int8
-weights (7 of 28 layers): ``serve_continuous`` (the continuous scheduler over the bf16
+weights (4 of 28 layers): ``serve_continuous`` (the continuous scheduler over the bf16
 pool, 16 requests with seeded Poisson arrivals: joins in prefill chunks
 through B1, streams, a cancelled stream, and two high-priority requests
 that preempt rows to host memory and resume them; B4 decodes; every
@@ -50,7 +50,7 @@ LOGIT_ATOL of each position's maximum), ``serve_continuous_int8_kv``
 (B5), ``serve_window`` (``generate_batch``) and ``serve_serial``
 (``generate`` and ``generate_stream`` on B2). Then the contiguous
 layouts, the JAX package's defaults: ``engine_batch_contiguous``
-(``generate_batch`` without ``paged_kv``, 7 layers: the 17 batch rows
+(``generate_batch`` without ``paged_kv``, 4 layers: the 17 batch rows
 over one bf16 cache, 8 over an int8 one; B2/B3 once a layer a step, every greedy
 row replayed teacher-forced), ``serve_continuous_contiguous``
 (``serve_continuous``'s traffic on the contiguous session, the
@@ -64,20 +64,20 @@ the evicted one reloads with the same tokens). Last,
 ``serve_cli_capstone`` starts ``python -m …_tpu_torch serve --backend
 torch`` as a subprocess and runs the study as its HTTP client for both
 locations, then stops the server with SIGTERM. Then the solo engine's
-rest: ``engine_prefix_cache`` (+ ``_int8_kv``; 7 layers: a 2,048-token
+rest: ``engine_prefix_cache`` (+ ``_int8_kv``; 4 layers: a 2,048-token
 turn, then that prompt plus 64 tokens run cold and with a prefix hit:
 equal greedy tokens, B1 two launches a layer cold and one on a hit; then
 a byte cap that evicts), ``engine_hf_checkpoint`` (a full-width checkpoint written under
 HF's names, loaded through ``hf_checkpoints`` and the weight cache: every
 leaf bit-equal to the install path's), ``serve_cli_hf`` (``serve --hf
 ... --prefix-cache 4`` in a subprocess: two prefix hits over three
-requests) and ``study_duty_trace`` (two study rows, 7 layers, with NVML's
+requests) and ``study_duty_trace`` (two study rows, 4 layers, with NVML's
 duty cycle and a ``torch.profiler`` trace naming the port's kernels; every
 study row now carries the duty cycle). Then the rest of speculation: the
 kernel rows of B7/B8's contiguous instantiations (the contiguous
 session's verify, beside SDPA under the same per-query mask),
 ``engine_spec_contiguous_bf16_kv`` / ``_int8_kv`` (the 8 n-gram rows and
-a joiner on the engine's default contiguous layout at 7 layers, B7/B8
+a joiner on the engine's default contiguous layout at 4 layers, B7/B8
 over contiguous rows once a layer a round, the greedy share against the
 plain contiguous session), ``spec_contiguous_entry_points`` (``generate``
 routing a greedy and a sampled request there), ``engine_spec_adaptive``
@@ -88,15 +88,15 @@ before and after), ``engine_spec_join_preempt_paged`` / ``_contiguous``
 tokens equal an uninterrupted run's) and ``serve_cli_speculative_contiguous``
 (``serve --speculative qwen2:1.5b=ngram:4 --spec-accept-floor 0.3``
 without ``--paged-kv``, 8 requests, exit 0). Last, the shared prefix
-store and live row migration: ``engine_prefix_share_paged`` (7 layers,
+store and live row migration: ``engine_prefix_share_paged`` (4 layers,
 bf16 pool: a 2,048-token anchor joined in 256-token chunks, then three
 joiners sharing whole pages, one diverging mid-page and one sharing BOS
 alone; the aligned hits' tokens equal the cold joins', the other two are
 held by their replay, B1 runs only over the tails, the pages the rows
-hold with and without sharing), ``engine_prefix_share_spill`` (7 layers: a
+hold with and without sharing), ``engine_prefix_share_spill`` (4 layers: a
 one-node device budget spills a node that a later joiner restores, int8
 pool; seed-only reuse on the contiguous session), ``serve_migrate`` and
-``serve_migrate_evacuate`` (7 layers: an idle decode server refuses a
+``serve_migrate_evacuate`` (4 layers: an idle decode server refuses a
 bundle; rows primed on a prefill server, seated through
 ``/api/migrate`` on the decode server once a row is live there, and
 four live rows evacuated; every row's tokens equal one server's, the
@@ -104,7 +104,7 @@ counts read around the primes and seats and around the evacuation and
 seats, and no charge at the seating server: the router charges) and
 ``serve_cli_prefix_share`` (``serve --prefix-share`` as a subprocess).
 Then the replica router and the multi-model fleet (qwen2:1.5b at full
-width, 7 of 28 layers, int8 weights, the bf16 pool): ``router_fleet`` (two
+width, 4 of 28 layers, int8 weights, the bf16 pool): ``router_fleet`` (two
 ``LocalReplica``s, 8 requests in pairs under ``least-queue`` and
 ``round-robin``, each row's tokens those of the request served alone by
 one replica, dispatch counts 4 and 4; ``_sse``: one request through
@@ -113,7 +113,7 @@ one replica, dispatch counts 4 and 4; ``_sse``: one request through
 then the 8 primed and seated with the same tokens and one migration
 charge a transfer; ``_drain``: 4 streaming rows evacuated by ``drain``,
 finishing with their uninterrupted tokens), ``model_fleet`` (one engine
-holding qwen2:1.5b and phi3:3.8b, 7 layers each: small-first's escalation of a capped
+holding qwen2:1.5b and phi3:3.8b, 4 layers each: small-first's escalation of a capped
 ``auto`` request, charged ``cause="escalation"``, and cheapest-joules'
 pick, every row's tokens its model's) and ``serve_cli_fleet``
 (``serve-fleet --targets`` over two ``serve`` processes).
@@ -122,7 +122,8 @@ depth (32 layers, 8 experts of d_ff 14,336, top-2), after every earlier
 engine has let go: ``mixtral_bf16_refused`` (the bf16 load, 93.4 GB,
 refused before it allocates), ``mixtral_load_int8`` (46.7 GB, the
 allocator's peak over the weights), ``moe_layer`` (one layer's dense
-dispatch against an independent routed loop), ``engine_mixtral_int8``
+dispatch against an independent routed loop), then on the first
+MOE_CUT_LAYERS (8) layers of those weights ``engine_mixtral_int8``
 (the study's ``generate``, bf16 KV cache), ``engine_mixtral_int8_kv``,
 ``engine_mixtral_paged_batch`` (4 rows over the paged pool) and, on a
 fresh int4 engine, ``engine_mixtral_int4`` (B9 on the attention
@@ -132,7 +133,7 @@ Between the two, tensor, data and expert parallelism
 (``parallel/tp.py``'s ``TensorParallelEngine`` over meshes whose shards
 all live on the one card, each against the unsharded engine on the same
 weights; one card shows sharding's parity and launch cost, never TP
-speed; all at 7 of 28 layers): ``tp_generate`` (qwen2:1.5b, int8
+speed; all at 4 of 28 layers): ``tp_generate`` (qwen2:1.5b, int8
 weights, tp 2: B1/B2 exactly twice the unsharded launches, the tokens
 replayed teacher-forced through the unsharded model) with ``_int8_kv``
 (B3) and ``_int4`` (B9 on every shard's 7 matmuls, ``w_down`` and ``wo``
@@ -147,7 +148,7 @@ B1–B9 at the shard shapes too.
 Last, training and learned weights. The ``kernels_d32`` rows hold B1–B8
 at head width 32 (the trained tiny LM's: 4 query heads over 2 KV heads)
 against their plain versions. ``train_step`` runs
-``parallel/train.py``'s step on qwen2:1.5b at full width and depth (f32,
+``parallel/train.py``'s step on qwen2:1.5b at full width, 8 layers (f32,
 4 × 256 tokens, remat; 3 steps on one batch: the loss falls; its first
 step's loss and gradients against remat off), ``pp_train`` the GPipe
 pipeline over 4 stages and 4 microbatches on the one card (loss and
@@ -163,7 +164,16 @@ checkpoint (3 rows on_device at 100 words, NVML Joules a token). The
 ``kernels_d16`` rows hold B1–B8 at head width 16 (every ``.tiny()``
 config's), and ``engine_tiny_d16`` (+ ``_int8_kv``, ``_paged``,
 ``_paged_int8``) serves qwen2:1.5b's ``.tiny()`` on the card through
-B1–B5, every f32 row's greedy tokens the plain forward's.
+B1–B5, every f32 row's greedy tokens the plain forward's. Last, the two
+examples through the CLI: ``example_smoke``
+(``examples/torch_llm_energy_smoke.py``: qwen2:1.5b's and gemma:2b's
+``.tiny()``, 4/2 and 8/1 heads of width 16, B1/B2 counted per ``generate``
+by head layout, NVML Joules on every row) and ``example_custom``
+(``examples/torch_custom_experiment.py``: ``torch.matmul`` TFLOP/s, no
+kernel of the port). ``kernels_d16`` holds B1–B8 at gemma's 8/1 layout
+too, and ``poisson_load_cli`` runs ``scripts/torch_poisson_load.py``
+against ``serve_cli_contiguous``'s server (8 seeded requests, a quarter
+of the clients hanging up).
 Every launch count is set to 0 just before each path and read just after,
 to check that the path ran through its kernels and no other. Each phase
 prints one JSON line; the last line is the result the caller reads. Any failure raises,
@@ -173,6 +183,7 @@ without the port's package beside it, it exits 2 at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -361,16 +372,44 @@ WRITE_THROUGH_STEPS = 64
 # phases run B9 at full depth) and the qwen2:1.5b half of the mixed-mode
 # engine (the study runs it at full depth). The study's own rows stay at
 # full depth: at 7 layers a row lasts ~1.8 s, too short for NVML's
-# sampled and counted watts to agree within STUDY_POWER_AGREEMENT.
-SOLO_CUT_LAYERS = 7
+# sampled and counted watts to agree within STUDY_POWER_AGREEMENT. With
+# the load generator's and the examples' phases (~60 s) the script took
+# 1,221.9 s on a slow host, and every phase cut to this
+# depth went from 7 layers to 4, ``study_cli``'s seven models to half
+# their depth (its rows at full depth lasted 6.5-12.2 s), mixtral's
+# generating phases to MOE_CUT_LAYERS, training to TRAIN_LAYERS and the
+# mixed-mode engine's llama3.1:8b to this depth.
+SOLO_CUT_LAYERS = 4
+
+
+def cut(cfg, n_layers=SOLO_CUT_LAYERS):
+    """``cfg`` at full width, cut to its first ``n_layers`` layers."""
+    return dataclasses.replace(cfg, n_layers=min(cfg.n_layers, n_layers))
 
 
 def cut_registry():
     """qwen2:1.5b at full width, cut to SOLO_CUT_LAYERS layers."""
     from importlib import import_module
 
-    cfg = import_module(f"{PKG}.models.config").get_model_config(MODEL)
-    return {MODEL: dataclasses.replace(cfg, n_layers=SOLO_CUT_LAYERS)}
+    return {MODEL: cut(import_module(f"{PKG}.models.config").get_model_config(MODEL))}
+
+
+class HalfDepthRegistry:
+    """The port's model registry with every entry cut to half its layers
+    (rounded up), in place, until the block ends: a config that builds its
+    own engine from the registry (the study's default) runs shallower."""
+
+    def __enter__(self):
+        from importlib import import_module
+
+        self.registry = import_module(f"{PKG}.models.config").MODEL_REGISTRY
+        self.full = dict(self.registry)
+        self.registry.update({m: cut(c, -(-c.n_layers // 2)) for m, c in self.full.items()})
+        return self
+
+    def __exit__(self, *exc):
+        self.registry.update(self.full)
+        return False
 # B2/B3 at a contiguous session's widths: the serving session's 4 rows
 # over its cache (a 1,024-token prompt bucket + 128 generated), and 16
 # and 64 rows over the widest cache the study's rows make (a 2,112-token
@@ -2668,10 +2707,49 @@ class RunnerConfig(LlmEnergyConfig):
 """
 
 
+class RecordedGenerates:
+    """While active, every ``TorchEngine.generate`` appends ``(result, its
+    model's config, its own launches)`` to ``calls``: the counts just
+    before and just after it."""
+
+    def __init__(self, eng_mod, kernels, calls):
+        self.cls, self.kernels, self.calls = eng_mod.TorchEngine, kernels, calls
+
+    def __enter__(self):
+        generate, kernels, calls = self.cls.generate, self.kernels, self.calls
+        self.generate = generate
+
+        def recording(engine, request):
+            before = {fn.__name__: fn.launches for fn in kernels}
+            result = generate(engine, request)
+            calls.append((result, engine._models[request.model].cfg,
+                          {fn.__name__: fn.launches - before[fn.__name__] for fn in kernels}))
+            return result
+
+        self.cls.generate = recording
+        return calls
+
+    def __exit__(self, *exc):
+        self.cls.generate = self.generate
+        return False
+
+
+def generate_launches(eng_mod, kernels, result, cfg):
+    """What one solo ``generate`` over a contiguous bf16 or f32 cache
+    launches: B1 once a layer a prefill chunk, B2 once a layer a decode
+    forward (its warm-ups' too: min(generated, max_new_tokens - 1)), and
+    nothing else."""
+    owed = {fn.__name__: 0 for fn in kernels}
+    owed["cuda_prefill_attention"] = cfg.n_layers * len(eng_mod._prompt_chunks(result.prompt_tokens))
+    owed["cuda_decode_attention"] = cfg.n_layers * min(result.generated_tokens, result.request.max_new_tokens - 1)
+    return owed
+
+
 def study_cli_phase(torch, eng_mod, kernels, smi):
     """The study from the command line: ``runner.cli.main([config.py])``
     over the config files of STUDY_CLI_CONFIGS written here (the study's 7
-    models at 100 words), each building its own
+    models at 100 words, at the registry's depths: ``main`` runs it under
+    ``HalfDepthRegistry``), each building its own
     ``TorchEngine(quantize="int8")`` and analysing its table at the end;
     then ``recompute-energy`` over the first table. Every row must be
     done with tokens and NVML Joules, its counter's mean W within
@@ -2704,18 +2782,7 @@ def study_cli_phase(torch, eng_mod, kernels, smi):
     emit({"phase": "study_cli_idle", "nvml_idle_w": idle_w, "samples": len(watts),
           "memory_allocated_bytes": held, "nvidia_smi": smi})
 
-    # Each generate's own launches: the counts just before and just after it.
     calls = []
-    generate = eng_mod.TorchEngine.generate
-
-    def recording_generate(self, request):
-        before = {fn.__name__: fn.launches for fn in kernels}
-        result = generate(self, request)
-        after = {fn.__name__: fn.launches for fn in kernels}
-        n_layers = self._models[request.model].cfg.n_layers
-        calls.append((result, n_layers, {k: after[k] - before[k] for k in after}))
-        return result
-
     totals = {fn.__name__: 0 for fn in kernels}
     rows_by_config = {}
     t0 = time.perf_counter()
@@ -2727,11 +2794,8 @@ def study_cli_phase(torch, eng_mod, kernels, smi):
                 lengths=list(lengths), cooldown=STUDY_CLI_COOLDOWN_MS, out=out))
             n_calls = len(calls)
             t1 = time.perf_counter()
-            eng_mod.TorchEngine.generate = recording_generate
-            try:
+            with RecordedGenerates(eng_mod, kernels, calls):
                 rc, counts = count_launches(kernels, lambda: cli.main([str(path)]))
-            finally:
-                eng_mod.TorchEngine.generate = generate
             seconds = time.perf_counter() - t1
             assert rc == 0, (name, rc)
             gc.collect()  # the config's engine and its models go with it
@@ -2742,13 +2806,9 @@ def study_cli_phase(torch, eng_mod, kernels, smi):
             want = len(study.MODELS if models is None else models) * len(lengths)
             assert len(rows) == want and all(r["__done"] == "DONE" for r in rows), rows
             expected = {fn.__name__: 0 for fn in kernels}
-            for result, n_layers, got in calls[n_calls:]:
+            for result, cfg, got in calls[n_calls:]:
                 assert "energy_model" in (result.extras or {}), result.extras
-                chunks = len(eng_mod._prompt_chunks(result.prompt_tokens))
-                steps = min(result.generated_tokens, result.request.max_new_tokens - 1)
-                owed = {fn.__name__: 0 for fn in kernels}
-                owed["cuda_prefill_attention"] = n_layers * chunks
-                owed["cuda_decode_attention"] = n_layers * steps
+                owed = generate_launches(eng_mod, kernels, result, cfg)
                 assert got == owed, (result.request.model, got, owed)
                 for k, v in owed.items():
                     expected[k] += v
@@ -3481,15 +3541,91 @@ def serve_cli_contiguous_phase(torch, root, smi):
                 t.start()
             for t in threads:
                 t.join(timeout=300)
+            assert sorted(results) == list(range(len(reqs))), (sorted(results), log_path.read_text()[-2000:])
+            seconds = time.perf_counter() - t0
+            poisson_load_cli_phase(root, server.url, smi)
         log_tail = log_path.read_text()[-2000:]
     assert server.rc == 0, (server.rc, log_tail)
-    assert sorted(results) == list(range(len(reqs))), (sorted(results), log_tail)
     for i, res in results.items():
         assert res.generated_tokens == len(res.tokens) >= 1, (i, res)
         assert "sched" in (res.extras or {}), (i, res.extras)
     emit({"phase": "serve_cli_contiguous", "args": args, "server_start_s": server.started,
           "requests": len(reqs), "generated_tokens": [r.generated_tokens for _, r in sorted(results.items())],
-          "server_exit_code": server.rc, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+          "server_exit_code": server.rc, "seconds": seconds, "nvidia_smi": smi})
+
+
+# The load generator's CLI against that server: 8 seeded lognormal prompts
+# (median 48 tokens, at most 512) at 200 ms mean gaps, budgets 16/32/48 in
+# turn, a quarter of the clients streaming and hanging up after a drawn
+# 4-32 tokens (seed 0: requests 2 and 4, at 13 of 48 and 28 of 32; requests
+# 3 and 6 draw 20 and 26 of 16 and run to their end).
+POISSON_LOAD_ARGS = ("--model", MODEL, "-n", "8", "--mean-interarrival-ms", "200", "--budgets", "16,32,48",
+                     "--prompt-len-dist", "lognormal", "--prompt-len-median", "48", "--prompt-len-max", "512",
+                     "--cancel-frac", "0.25", "--seed", "0")
+POISSON_LOAD_REQUESTS = 8
+POISSON_LOAD_TIMEOUT_S = 600
+
+
+def retired_by_reason(url):
+    """The server's ``llm_sched_rows_retired_total`` by reason."""
+    import re
+    import urllib.request
+
+    with urllib.request.urlopen(f"{url}/metrics", timeout=30) as resp:
+        text = resp.read().decode()
+    out = {}
+    pattern = r'^llm_sched_rows_retired_total\{[^}]*reason="([^"]+)"[^}]*\} ([0-9.e+-]+)$'
+    for reason, value in re.findall(pattern, text, re.M):
+        out[reason] = out.get(reason, 0.0) + float(value)
+    return out
+
+
+def poisson_load_cli_phase(root, url, smi, args=POISSON_LOAD_ARGS):
+    """``scripts/torch_poisson_load.py --url <url>`` as its CLI, against a
+    server that serves nothing else meanwhile: exit 0 and one JSON line;
+    every request answered (none failed, completed + cancelled =
+    POISSON_LOAD_REQUESTS, at least one cancelled by its client); the
+    server retired each request once, as cancelled no more often than the
+    clients hung up, and every row it did not retire as cancelled
+    generated tokens (its flight recorder's ``row_retired`` events). A
+    hang-up reaches the server as a failed write of a later slice's
+    tokens, so a row within two 16-token slices of its budget (every row
+    here: budgets of at most 48) may run to its end first: on the card
+    the server retired all 8 rows at their budgets while the clients
+    counted 2 cancels. Returns the summary."""
+    import urllib.request
+
+    before = retired_by_reason(url)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(root / "scripts" / "torch_poisson_load.py"), "--url", url, *args],
+                          capture_output=True, text=True, timeout=POISSON_LOAD_TIMEOUT_S, cwd=str(root))
+    seconds = time.perf_counter() - t0
+    assert proc.returncode == 0, (proc.returncode, proc.stdout[-2000:], proc.stderr[-4000:])
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1, proc.stdout[-4000:]
+    summary = json.loads(lines[0])
+    after = retired_by_reason(url)
+    retired = {k: after[k] - before.get(k, 0.0) for k in after if after[k] > before.get(k, 0.0)}
+    n = POISSON_LOAD_REQUESTS
+    with urllib.request.urlopen(f"{url}/debug/flight?type=row_retired&n={n}", timeout=30) as resp:
+        events = json.loads(resp.read())["events"]
+    cancelled = summary["cancelled"]
+    completed = summary["requests"] - cancelled - summary["errors"] - summary["deadline_exceeded"]
+    emit({"phase": "poisson_load_cli", "args": list(args), "requests": summary["requests"],
+          "completed": completed, "cancelled": cancelled, "errors": summary["errors"],
+          "server_retired": retired, "tokens": summary["tokens"],
+          "ttft_p50_s": summary.get("ttft_p50_s"), "ttft_p95_s": summary.get("ttft_p95_s"),
+          "completion_p50_s": summary["completion_p50_s"], "completion_p95_s": summary["completion_p95_s"],
+          "agg_tokens_per_s": summary["agg_tokens_per_s"],
+          "row_generated_tokens": [[e.get("reason"), e.get("generated_tokens")] for e in events],
+          "seconds": seconds, "nvidia_smi": smi})
+    assert summary["requests"] == n and summary["errors"] == 0 and summary["deadline_exceeded"] == 0, summary
+    assert cancelled >= 1 and completed + cancelled == n, summary
+    assert sum(retired.values()) == n, retired
+    assert retired.get("cancelled", 0) <= cancelled, (retired, cancelled)
+    assert len(events) == n and all(e.get("generated_tokens", 0) > 0 for e in events
+                                    if e.get("reason") != "cancelled"), events
+    return summary
 
 
 # The solo prefix cache: turn 1 is exactly one prefill chunk, turn 2 that
@@ -4510,6 +4646,7 @@ def serve_cli_prefix_share_phase(torch, root, smi):
 
 # -- mixtral:8x7b: the mixture-of-experts MLP at full width --------------------
 MOE_MODEL = "mixtral:8x7b"
+MOE_CUT_LAYERS = 8  # of its 32: the generating phases' depth (the loads run all 32)
 MOE_PROMPT_TOKENS = 256
 MOE_NEW_TOKENS = 24
 MOE_SHORT_TOKENS = 12  # the paged batch's rows and the int4 request
@@ -4532,6 +4669,15 @@ MOE_ATTENTION_MATMULS = 4  # wq, wk, wv, wo: an MoE layer's 2-D leaves (B9 at in
 # under one whole bf16 expert leaf (30.1 GB).
 MOE_LOAD_HEADROOM = 8 * 1024**3
 MOE_PROFILED_TOKENS = 4
+
+
+def first_layers(tfm, params, n_layers):
+    """The first ``n_layers`` layers of stacked ``params``: views of the
+    layer leaves (int8 and int4 codes with their scales), the other leaves
+    as they are."""
+    return {name: leaf if name in tfm.NON_LAYER_LEAVES
+            else {k: v[:n_layers] for k, v in leaf.items()} if isinstance(leaf, dict) else leaf[:n_layers]
+            for name, leaf in params.items()}
 
 
 def moe_request(GenerationRequest, n_tokens=MOE_PROMPT_TOKENS, new_tokens=MOE_NEW_TOKENS):
@@ -4799,11 +4945,12 @@ def mixtral_phases(torch, root, eng_mod, tfm, qmod, ca, kernels, GenerationReque
     of d_ff 14336, top-2), random weights from the engine's seed, after
     every earlier engine has let go of its memory: the bf16 load refused
     before it allocates (93.4 GB); an int8 engine (46.7 GB) whose layer 0
-    holds the dense dispatch against a routed loop (``moe_layer``), then
-    the study's ``generate`` over a bf16 KV cache and over an int8 one,
-    and ``generate_batch`` over the paged bf16 pool (engines that install
-    the int8 engine's weights, no copy) and ``ep_tp_mixtral`` (the first
-    EP_TP_LAYERS layers of those weights under tp 2 × ep 4); last a fresh
+    holds the dense dispatch against a routed loop (``moe_layer``), then,
+    on the first MOE_CUT_LAYERS layers of its weights, the study's
+    ``generate`` over a bf16 KV cache and over an int8 one, and
+    ``generate_batch`` over the paged bf16 pool (engines that install
+    those weights, no copy) and ``ep_tp_mixtral`` (the first
+    EP_TP_LAYERS layers under tp 2 × ep 4); last a fresh
     int4 engine (B9 on wq/wk/wv/wo, the experts dequantized). Returns the
     launches."""
     import gc
@@ -4836,8 +4983,14 @@ def mixtral_phases(torch, root, eng_mod, tfm, qmod, ca, kernels, GenerationReque
     del engine
 
     engine = moe_load(torch, eng_mod, qmod, memory, "mixtral_load_int8", smi, quantize="int8")
-    cfg, params = engine._models[MOE_MODEL].cfg, engine._models[MOE_MODEL].params
+    full_cfg, full_params = engine._models[MOE_MODEL].cfg, engine._models[MOE_MODEL].params
     moe_layer_phase(torch, tfm, engine, smi)
+    del engine
+    # the generating phases run the first MOE_CUT_LAYERS layers of these
+    # weights (views, no copy)
+    cfg, params = cut(full_cfg, MOE_CUT_LAYERS), first_layers(tfm, full_params, MOE_CUT_LAYERS)
+    engine = eng_mod.TorchEngine(quantize="int8")
+    engine.install_model(MOE_MODEL, cfg, params)
     request = moe_request(GenerationRequest)
     counts, solo = moe_generate_phase(torch, "engine_mixtral_int8", engine, tfm, ca, eng_mod, kernels,
                                       request, smi)
@@ -4863,12 +5016,18 @@ def mixtral_phases(torch, root, eng_mod, tfm, qmod, ca, kernels, GenerationReque
         else:
             add(moe_batch_phase(torch, engine, tfm, ca, eng_mod, kernels, GenerationRequest, solo, smi))
         del engine
-    add(ep_tp_mixtral_phase(torch, root, tfm, ca, qmod, eng_mod, kernels, cfg, params, GenerationRequest, smi))
-    del params
+    add(ep_tp_mixtral_phase(torch, root, tfm, ca, qmod, eng_mod, kernels, full_cfg, full_params,
+                            GenerationRequest, smi))
+    del params, full_params
     gc.collect()
     torch.cuda.empty_cache()
 
     engine = moe_load(torch, eng_mod, qmod, memory, "mixtral_load_int4", smi, quantize="int4")
+    params = first_layers(tfm, engine._models[MOE_MODEL].params, MOE_CUT_LAYERS)
+    del engine
+    engine = eng_mod.TorchEngine(quantize="int4")
+    engine.install_model(MOE_MODEL, cfg, params)
+    del params
     counts, res = moe_generate_phase(torch, "engine_mixtral_int4", engine, tfm, ca, eng_mod, kernels,
                                      moe_request(GenerationRequest, new_tokens=MOE_SHORT_TOKENS), smi,
                                      matmul="cuda_int4_matmul")
@@ -5173,22 +5332,16 @@ def ep_tp_mixtral_phase(torch, root, tfm, ca, qmod, eng_mod, kernels, cfg, param
 
     mesh_mod = import_module(f"{PKG}.parallel.mesh")
     tp_mod = import_module(f"{PKG}.parallel.tp")
-    cut_cfg = dataclasses.replace(cfg, n_layers=EP_TP_LAYERS)
-    cut = {}
-    for name, leaf in params.items():
-        if name in tfm.NON_LAYER_LEAVES:
-            cut[name] = leaf if qmod.is_quantized(leaf) else leaf.float()
-        elif qmod.is_quantized(leaf):
-            cut[name] = {k: v[:EP_TP_LAYERS] for k, v in leaf.items()}
-        else:
-            cut[name] = leaf[:EP_TP_LAYERS].float()
+    cut_cfg = cut(cfg, EP_TP_LAYERS)
+    shallow = {name: leaf if qmod.is_quantized(leaf) else leaf.float()
+               for name, leaf in first_layers(tfm, params, EP_TP_LAYERS).items()}
     t0 = time.perf_counter()
     mesh = tp_mesh(mesh_mod, mesh_mod.MeshSpec.tp_ep(2, 4))
     engine = tp_mod.TensorParallelEngine(mesh=mesh, quantize="int8", dtype=torch.float32,
                                          registry={MOE_MODEL: cut_cfg})
-    engine.install_model(MOE_MODEL, cut_cfg, cut)
+    engine.install_model(MOE_MODEL, cut_cfg, shallow)
     base = eng_mod.TorchEngine(quantize="int8", dtype=torch.float32, registry={MOE_MODEL: cut_cfg})
-    base.install_model(MOE_MODEL, cut_cfg, cut)
+    base.install_model(MOE_MODEL, cut_cfg, shallow)
     sp = engine._models[MOE_MODEL].params
     shard_s = time.perf_counter() - t0
     tf = base._models[MOE_MODEL]
@@ -5241,7 +5394,7 @@ def ep_tp_mixtral_phase(torch, root, tfm, ca, qmod, eng_mod, kernels, cfg, param
     assert diff <= EP_TP_ATOL, diff
     assert got_gen.tokens == want_gen.tokens, (got_gen.tokens, want_gen.tokens)
     assert counts == {k: 2 * v for k, v in base_counts.items()} and any(counts.values()), (counts, base_counts)
-    del engine, base, sp, cut
+    del engine, base, sp, shallow
     gc.collect()
     torch.cuda.empty_cache()
     return gen_counts
@@ -5254,6 +5407,7 @@ def ep_tp_mixtral_phase(torch, root, tfm, ca, qmod, eng_mod, kernels, cfg, param
 # fill, and the verify block of 5 queries (k = 4).
 TINY_LM_HEADS = (4, 2, 32)
 TINY_D16_HEADS = (4, 2, 16)  # qwen2:1.5b's .tiny(): 4 query heads over 2 KV heads of width 16
+GEMMA_D16_HEADS = (8, 1, 16)  # gemma:2b's .tiny(): 8 query heads over 1 KV head of width 16
 TINY_LM_DECODE_LENGTHS = ([150], [40 + 12 * i for i in range(16)])
 TINY_LM_BUDGET = 134  # tests/test_tiny_lm.py's budget, 100 words' tokens
 TINY_LM_PROMPT_ROWS = (0, 4, 8, 12)  # corpus sentences of the first template
@@ -5297,9 +5451,11 @@ def d32_kernel_phase(torch, ca, cpa, plain, timer, quantize_kv_vector, kernels, 
 def d16_kernel_phase(torch, ca, cpa, plain, timer, quantize_kv_vector, kernels, control):
     """B1-B8 at head width 16 (every ``.tiny()`` config's heads, which
     the kernels take natively: at D 16 the decode body gives a half-warp
-    a position): ``kernels_d16`` rows."""
-    return narrow_kernel_phase(torch, ca, cpa, plain, timer, quantize_kv_vector, kernels, control,
-                               TINY_D16_HEADS, "tiny d16", "kernels_d16")
+    a position), at qwen2's and gemma's layouts: ``kernels_d16`` rows.
+    Returns the first row of each kernel by layout."""
+    return {heads: narrow_kernel_phase(torch, ca, cpa, plain, timer, quantize_kv_vector, kernels, control,
+                                       heads, label, "kernels_d16")
+            for heads, label in ((TINY_D16_HEADS, "tiny d16"), (GEMMA_D16_HEADS, "gemma tiny d16"))}
 
 
 # The replica router and the multi-model fleet (serve/router.py,
@@ -5390,6 +5546,98 @@ def engine_tiny_d16_phase(torch, eng_mod, tfm, ca, kernels, GenerationRequest, s
         del engine
     torch.cuda.empty_cache()
     return counts_all
+
+
+# The two examples, through the CLI as a user runs them. The smoke study:
+# qwen2:1.5b's and gemma:2b's .tiny(max_seq_len=1024) in f32, 4 and 8
+# query heads over 2 and 1 KV heads of width 16, both locations, 100
+# words, two repetitions. The matmul experiment: 3 sizes × 2 dtypes × 3
+# repetitions.
+EXAMPLE_SMOKE_ROWS = 8
+EXAMPLE_SMOKE_HEADS = {"qwen2:1.5b": TINY_D16_HEADS, "gemma:2b": GEMMA_D16_HEADS}
+EXAMPLE_CUSTOM_ROWS = 18
+
+
+def run_example(torch, root, name, folder, kernels, eng_mod=None):
+    """``runner.cli.main([examples/<name>])`` from a temporary working
+    directory (the examples write ``experiments_output/`` there). With
+    ``eng_mod``, each ``TorchEngine.generate`` is recorded with its own
+    launches (the counts just before and just after it). Returns the
+    exit code, the launches of the whole run, the recorded calls and the
+    rows of ``run_table.csv``."""
+    import csv
+    import gc
+    import os
+    from importlib import import_module
+
+    cli = import_module(f"{PKG}.runner.cli")
+    calls = []
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{Path(name).stem}_") as out:
+        os.chdir(out)
+        try:
+            with RecordedGenerates(eng_mod, kernels, calls) if eng_mod else contextlib.nullcontext():
+                rc, counts = count_launches(kernels, lambda: cli.main([str(root / "examples" / name)]))
+        finally:
+            os.chdir(cwd)
+        table = Path(out) / "experiments_output" / folder / "run_table.csv"
+        rows = []
+        if table.is_file():
+            with table.open() as f:
+                rows = list(csv.DictReader(f))
+    gc.collect()  # the config's engine goes with it
+    torch.cuda.empty_cache()
+    return rc, counts, calls, rows
+
+
+def example_smoke_phase(torch, root, eng_mod, kernels, smi):
+    """``examples/torch_llm_energy_smoke.py`` through ``runner.cli.main``:
+    every row done with tokens and NVML Joules; every ``generate`` (warm-ups
+    too) launched B1 once a layer a prefill chunk and B2 once a layer a
+    decode forward at its model's head layout, and nothing else. Returns
+    the launches by head layout."""
+    t0 = time.perf_counter()
+    rc, counts, calls, rows = run_example(torch, root, "torch_llm_energy_smoke.py", "llm_energy_cuda", kernels,
+                                          eng_mod)
+    assert rc == 0, rc
+    by_heads = {heads: {fn.__name__: 0 for fn in kernels} for heads in EXAMPLE_SMOKE_HEADS.values()}
+    for result, cfg, got in calls:
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+        assert heads == EXAMPLE_SMOKE_HEADS[result.request.model], (result.request.model, heads)
+        owed = generate_launches(eng_mod, kernels, result, cfg)
+        assert got == owed, (result.request.model, got, owed)
+        for k, v in got.items():
+            by_heads[heads][k] += v
+    assert {k: sum(c[k] for c in by_heads.values()) for k in counts} == counts, (counts, by_heads)
+    for r in rows:
+        joules, tokens = float(r.get("gpu_energy_J") or 0), int(r["generated_tokens"])
+        emit({"phase": "example_smoke_row", "model": r["model"], "location": r["location"],
+              "generated_tokens": tokens, "request_s": float(r["execution_time_s"]), "gpu_energy_J": joules,
+              "J_per_token_measured": joules / max(tokens, 1), "nvidia_smi": smi})
+    emit({"phase": "example_smoke", "rows": len(rows), "generates": len(calls),
+          "counts": {"x".join(map(str, h)): c for h, c in by_heads.items()},
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    assert len(rows) == EXAMPLE_SMOKE_ROWS and all(r["__done"] == "DONE" for r in rows), rows
+    assert all(int(r["generated_tokens"]) > 0 and float(r.get("gpu_energy_J") or 0) > 0 for r in rows), rows
+    assert all(c["cuda_prefill_attention"] and c["cuda_decode_attention"] for c in by_heads.values()), by_heads
+    return by_heads
+
+
+def example_custom_phase(torch, root, kernels, smi):
+    """``examples/torch_custom_experiment.py`` through ``runner.cli.main``:
+    18 rows done, each with TFLOP/s > 0; ``torch.matmul`` is its workload,
+    so no kernel of the port launches."""
+    t0 = time.perf_counter()
+    rc, counts, _, rows = run_example(torch, root, "torch_custom_experiment.py", "matmul_throughput", kernels)
+    assert rc == 0, rc
+    tflops = {}
+    for r in rows:
+        tflops.setdefault(f"{r['size']} {r['dtype']}", []).append(float(r["tflops"]))
+    emit({"phase": "example_custom", "rows": len(rows), "tflops": tflops, "counts": counts,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    assert len(rows) == EXAMPLE_CUSTOM_ROWS and all(r["__done"] == "DONE" for r in rows), rows
+    assert all(float(r["tflops"]) > 0 for r in rows), rows
+    assert not any(counts.values()), counts
 
 
 def router_requests(GenerationRequest, prompts, new_tokens, tag):
@@ -5800,11 +6048,13 @@ def serve_cli_fleet_phase(torch, root, smi):
 
 
 # Training (parallel/train.py, parallel/pp.py): qwen2:1.5b at full width
-# and depth, f32 params, a batch of 4 rows of 256 tokens from a seeded
-# numpy draw, Adam at make_train_step's learning rate. The pipeline runs 4
-# stages of 7 layers over 4 microbatches, dp × tp 2 × 2 shards, all on the
-# one card: parity and launch cost, never training speed.
+# and TRAIN_LAYERS of its 28 layers, f32 params, a batch of 4 rows of 256
+# tokens from a seeded numpy draw, Adam at make_train_step's learning
+# rate. The pipeline runs 4 stages of 2 layers over 4 microbatches, dp ×
+# tp 2 × 2 shards, all on the one card: parity and launch cost, never
+# training speed.
 TRAIN_BATCH = (4, 256)
+TRAIN_LAYERS = 8
 TRAIN_STEPS = 3
 TRAIN_SEED = 0
 TRAIN_PP, TRAIN_MICROBATCHES = 4, 4
@@ -5839,7 +6089,7 @@ def train_phases(torch, kernels, smi):
     import numpy as np
     from importlib import import_module
 
-    cfg = import_module(f"{PKG}.models.config").get_model_config(MODEL)
+    cfg = cut(import_module(f"{PKG}.models.config").get_model_config(MODEL), TRAIN_LAYERS)
     tfm = import_module(f"{PKG}.models.transformer")
     train = import_module(f"{PKG}.parallel.train")
     pp = import_module(f"{PKG}.parallel.pp")
@@ -6192,13 +6442,13 @@ def main() -> int:
     # the model's own depth). The 500-word request (667 tokens) runs in the
     # first phase only: the others take the 100-word and the long-prompt
     # requests (cut to keep the script within its time limit).
-    cut = cut_registry()[MODEL]
+    cut_cfg = cut_registry()[MODEL]
     short = [r for r in requests if r.max_new_tokens != math.ceil(STUDY_WORDS[1] * TOKENS_PER_WORD)]
     solo_phases = (
-        ("engine_bf16_kv", "int8", None, None, None, cut, requests),
-        ("engine_int8_kv", "int8", "int8", None, None, cut, short),
-        ("engine_int4", "int4", None, cq.cuda_int4_matmul, qplain.int4_matmul_reference, cut, short),
-        ("engine_int4_i32", "int4-i32", None, cq.cuda_int4_matmul_i32, None, cut, short),
+        ("engine_bf16_kv", "int8", None, None, None, cut_cfg, requests),
+        ("engine_int8_kv", "int8", "int8", None, None, cut_cfg, short),
+        ("engine_int4", "int4", None, cq.cuda_int4_matmul, qplain.int4_matmul_reference, cut_cfg, short),
+        ("engine_int4_i32", "int4-i32", None, cq.cuda_int4_matmul_i32, None, cut_cfg, short),
     )
     for phase, weights, kv, matmul, matmul_plain, cfg, phase_requests in solo_phases:
         engine = eng_mod.TorchEngine(quantize=weights, kv_quantize=kv,
@@ -6220,7 +6470,8 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
 
-    engine = eng_mod.TorchEngine(quantize={MODEL: "int8", "default": "int4"}, registry=cut_registry())
+    registry = {**cut_registry(), LARGE_MODEL: cut(eng_mod.get_model_config(LARGE_MODEL))}
+    engine = eng_mod.TorchEngine(quantize={MODEL: "int8", "default": "int4"}, registry=registry)
     add(mixed_quant_phase(engine, backend.GenerationRequest, all_kernels, chunks_of, qmod.params_nbytes))
     del engine
     torch.cuda.empty_cache()
@@ -6321,7 +6572,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     add(study_phase(torch, eng_mod, all_kernels, smi))
     torch.cuda.empty_cache()
-    add(study_cli_phase(torch, eng_mod, all_kernels, smi))
+    with HalfDepthRegistry():
+        add(study_cli_phase(torch, eng_mod, all_kernels, smi))
     serve_cli_capstone_phase(torch, root, smi)
     serve_cli_contiguous_phase(torch, root, smi)
     serve_cli_speculative_contiguous_phase(torch, root, smi)
@@ -6341,7 +6593,8 @@ def main() -> int:
     serve_cli_fleet_phase(torch, root, smi)
     # Tensor and data parallelism: meshes of shards on the one card.
     add(tp_phases(torch, root, eng_mod, tfm, qmod, ca, all_kernels, backend.GenerationRequest, smi))
-    # The mixture-of-experts MLP: mixtral:8x7b at full width and depth.
+    # The mixture-of-experts MLP: mixtral:8x7b at full width, loaded at full
+    # depth, generating on its first MOE_CUT_LAYERS layers.
     add(mixtral_phases(torch, root, eng_mod, tfm, qmod, ca, all_kernels, backend.GenerationRequest, smi))
     # Training on the card; then the trained tiny LM, served through B1-B5
     # at head width 32, and its study cell.
@@ -6355,6 +6608,13 @@ def main() -> int:
     # qwen2:1.5b's .tiny() on the card: B1-B5 at head width 16.
     tiny16 = engine_tiny_d16_phase(torch, eng_mod, tfm, ca, all_kernels, backend.GenerationRequest, smi)
     add(tiny16)
+    # The two examples as a user runs them: the smoke study over
+    # qwen2:1.5b's and gemma:2b's .tiny() (B1/B2 at D 16, G 2 and G 8),
+    # and the matmul experiment (torch.matmul, no kernel of the port).
+    example16 = example_smoke_phase(torch, root, eng_mod, all_kernels, smi)
+    for counts in example16.values():
+        add(counts)
+    example_custom_phase(torch, root, all_kernels, smi)
     assert all(launches.values()), launches
 
     rows = []
@@ -6367,8 +6627,11 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
-        # the same kernel at head width 32 (the tiny LM's) and 16 (.tiny()'s)
-        for key, narrow, path in (("d32", d32, (tiny, study_rw)), ("d16", d16, (tiny16,))):
+        # the same kernel at head width 32 (the tiny LM's) and 16 (.tiny()'s:
+        # qwen2's 4/2 heads, gemma's 8/1)
+        for key, narrow, path in (("d32", d32, (tiny, study_rw)),
+                                  ("d16", d16[TINY_D16_HEADS], (tiny16, example16[TINY_D16_HEADS])),
+                                  ("d16_g8", d16[GEMMA_D16_HEADS], (example16[GEMMA_D16_HEADS],))):
             if fn.__name__ in narrow:
                 r = narrow[fn.__name__]
                 rows[-1][key] = {

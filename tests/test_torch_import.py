@@ -28,10 +28,14 @@ SCRIPTS = [
     REPO / "scripts" / "torch_kernel_trees.py",
     REPO / "scripts" / "torch_parts_grid_sweep.py",
     REPO / "scripts" / "torch_load_headroom.py",
+    REPO / "scripts" / "torch_poisson_load.py",
+    REPO / "scripts" / "torch_serve_metrics_smoke.py",
     REPO / "examples" / "torch_llm_energy_study.py",
     REPO / "examples" / "torch_llm_energy_sweep.py",
     REPO / "examples" / "torch_llm_energy_capstone.py",
     REPO / "examples" / "torch_llm_energy_real_weights.py",
+    REPO / "examples" / "torch_llm_energy_smoke.py",
+    REPO / "examples" / "torch_custom_experiment.py",
 ]
 SCANNED = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 

@@ -45,8 +45,9 @@ SHARD_MATMULS = [(1, 1536, 4480), (1, 4480, 1536), (1, 1536, 768), (1, 768, 1536
 # heads of width 32, which B1-B8 take natively.
 TINY_LM_HEADS = [(4, 2, 32)]
 # The .tiny() configs' heads (models/config.py): width 16, which B1-B8 take
-# natively too (at D 16 the decode body gives a half-warp a position).
-TINY_D16_HEADS = [(4, 2, 16)]
+# natively too (at D 16 the decode body gives a half-warp a position):
+# qwen2:1.5b's 4 query heads over 2 KV heads, gemma:2b's 8 over 1.
+TINY_D16_HEADS = [(4, 2, 16), (8, 1, 16)]
 
 
 def _to_torch(a, dtype):

@@ -11,8 +11,18 @@ takes ``model: "auto"`` over HTTP (buffered and streamed) although its
 ``--models`` list does not name it, and answers with the fleet's
 attribution.
 
-Left out: ``test_model_mix_draws_seeded_and_summary_splits``, which
-imports ``scripts/poisson_load.py``, whose port is ROADMAP item 18."""
+``test_model_mix_draws_seeded_and_summary_splits`` imports the port's
+``scripts/torch_poisson_load.py`` in place of ``scripts/poisson_load.py``.
+
+Left out: ``test_no_cross_model_head_of_line_blocking``, which decides by
+the wall clock (clients sleeping 0.08 s and 0.12 s against a 0.64 s fake
+decode) and flips under a loaded host. The port's own
+``test_small_lane_retires_while_big_row_decodes`` makes the same claim by
+order: the small requests return while the big row is still live in its
+lane."""
+
+import threading
+import time
 
 from test_torch_runner import load_cases
 from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
@@ -22,13 +32,53 @@ RENAMES = (
     ("JaxEngine", "TorchEngine"),
     ("import jax.numpy as jnp", "import torch"),
     ("dtype=jnp.float32", 'dtype=torch.float32, device="cpu"'),
+    ("from poisson_load import", "from torch_poisson_load import"),
 )
-LEFT_OUT = ("test_model_mix_draws_seeded_and_summary_splits",)
+LEFT_OUT = ("test_no_cross_model_head_of_line_blocking",)
 CASES = load_cases(globals(), "test_model_fleet.py", renames=RENAMES, leave_out=LEFT_OUT)
 
 
 def test_every_model_fleet_case_is_loaded():
     assert len(CASES) == 13
+
+
+def test_small_lane_retires_while_big_row_decodes():
+    """A long big-model decode in flight does not delay small-model
+    requests: both small requests return while the big row is still live
+    in its lane. The big budget (4,096 tokens at 200 tokens/s, 20 s) is
+    far past any small request's time, and the big row is ended by
+    ``fleet.stop()``. The waits poll lane state and join threads; none
+    takes the shared backend lock the lanes step under."""
+    backend = FakeBackend(tokens_per_s=200.0, simulate_delay=True, model_bytes={SMALL: 100, BIG: 1000})
+    _b, fleet = _fleet(backend)
+    outcome = {}
+
+    def client(name, model, n):
+        try:
+            outcome[name] = fleet.submit(_req(model, name, n=n))
+        except Exception as exc:  # noqa: BLE001 — the big row ends at stop()
+            outcome[name] = exc
+
+    big = threading.Thread(target=client, args=("big", BIG, 4096), daemon=True)
+    try:
+        big.start()
+        deadline = time.monotonic() + 30.0
+        while not fleet._lanes[BIG].debug_state().get("inflight"):
+            assert time.monotonic() < deadline, "the big row never went live"
+            time.sleep(0.01)
+        smalls = [threading.Thread(target=client, args=(name, SMALL, 8), daemon=True) for name in ("s1", "s2")]
+        for t in smalls:
+            t.start()
+        for t in smalls:
+            t.join(timeout=30.0)
+            assert not t.is_alive(), "a small request waited on the big decode"
+        assert [len(outcome[name].tokens) for name in ("s1", "s2")] == [8, 8]
+        assert big.is_alive() and "big" not in outcome
+        assert [row["model"] for row in fleet._lanes[BIG].debug_state()["inflight"]] == [BIG]
+    finally:
+        fleet.stop()
+    big.join(timeout=30.0)
+    assert not big.is_alive()
 
 
 def test_fleet_server_takes_auto_over_http():
