@@ -28,6 +28,7 @@ from __future__ import annotations
 import importlib.util
 import inspect
 import multiprocessing
+import os
 import signal
 import sys
 import threading
@@ -165,13 +166,16 @@ commands:
                        --scheduler window|continuous --window-ms W
                        --max-batch B --no-budget-admission
                        --decode-slice-steps N --prefill-chunk-tokens N
-                       --ttft-slo-ms N --default-priority T
+                       --ttft-slo-ms N (0: the scheduler's default, no
+                       SLO) --default-priority T
                        --preempt-policy off|swap
                        --preempt-max-wait-s S, --speculative
                        target=draft[:k] or draft[:k] (draft: a model, ngram
                        or cross:<model>; on either KV layout, the
                        contiguous one included; a speculating session
-                       admits eligible joiners and preempts its rows)
+                       admits eligible joiners and preempts its rows; on
+                       --backend fake the synthetic protocol, acceptance
+                       from env FAKE_SPEC_ACCEPTANCE)
                        --spec-temperature-max T --spec-draft-temperature
                        T, --spec-accept-floor F (a session whose rolling
                        acceptance drops below F halves its draft length,
@@ -518,7 +522,7 @@ def serve_command(args: List[str]) -> None:
         "prefill_chunk_tokens": None, "ttft_slo_ms": None, "default_priority": None,
         "preempt_policy": None, "preempt_max_wait_s": None, "slo": None, "role": None,
         "usage_ledger_dir": None, "access_log": False, "model_policy": None,
-        "escalate_max_tokens": None,
+        "escalate_max_tokens": None, "spec_accept_floor": None,
     }
     backend_kind = "torch"
     models: Optional[List[str]] = None
@@ -644,12 +648,12 @@ def serve_command(args: List[str]) -> None:
             opts["max_batch"] = number(arg, int, 0) or None
         elif arg == "--no-budget-admission":
             opts["budget_aware"] = False
-        elif arg == "--decode-slice-steps":
-            opts["slice_steps"] = number(arg, int, 0, strict=True)
-        elif arg == "--prefill-chunk-tokens":
-            opts["prefill_chunk_tokens"] = number(arg, int, 0, strict=True)
-        elif arg == "--ttft-slo-ms":
-            opts["ttft_slo_ms"] = number(arg, float, 0, strict=True)
+        elif arg == "--decode-slice-steps":  # 0: the scheduler's default
+            opts["slice_steps"] = number(arg, int, 0) or None
+        elif arg == "--prefill-chunk-tokens":  # 0: the scheduler's default
+            opts["prefill_chunk_tokens"] = number(arg, int, 0) or None
+        elif arg == "--ttft-slo-ms":  # 0: no TTFT SLO
+            opts["ttft_slo_ms"] = number(arg, float, 0) or None
         elif arg == "--default-priority":
             try:
                 opts["default_priority"] = parse_priority(value(arg))
@@ -718,9 +722,7 @@ def serve_command(args: List[str]) -> None:
         replica under ``--replicas N`` (each replica owns its engine and
         its KV budget)."""
         if backend_kind == "fake":
-            from ..engine.fake import FakeBackend
-
-            return FakeBackend(**{k: v for k, v in prefix_kwargs.items() if k != "prefix_index_entries"})
+            return _fake_backend(speculative, opts["spec_accept_floor"], prefix_kwargs)
         from ..engine.torch_engine import TorchEngine
 
         engine_cls, kwargs = TorchEngine, dict(engine_kwargs)
@@ -740,6 +742,31 @@ def serve_command(args: List[str]) -> None:
     from ..serve.server import GenerationServer
 
     _serve_until_signalled(GenerationServer(build_backend(), models=models, **opts))
+
+
+def _fake_backend(speculative: dict, spec_accept_floor, prefix_kwargs: dict):
+    """``serve --backend fake``: with ``--speculative`` it speaks the
+    synthetic speculation protocol, its k and draft source from the first
+    entry and its acceptance from ``FAKE_SPEC_ACCEPTANCE`` (default 1.0;
+    ``FAKE_SPEC_SAMPLED_ACCEPTANCE`` for sampled rows), so the serving
+    surface runs with no card; ``FAKE_JOULES_PER_TOKEN`` prices its
+    tokens. As the JAX package's CLI builds it."""
+    from ..engine.fake import FakeBackend
+
+    draft, spec_k = next(iter(speculative.values())) if speculative else ("", 0)
+    source = "ngram" if draft == "ngram" else "cross" if draft.startswith("cross:") else "model"
+    draft = draft.split(":", 1)[1] if source == "cross" else draft
+    sampled = os.environ.get("FAKE_SPEC_SAMPLED_ACCEPTANCE")
+    return FakeBackend(
+        spec_k=spec_k,
+        spec_source=source,
+        **({"spec_draft": draft} if draft and source != "ngram" else {}),
+        spec_acceptance=float(os.environ.get("FAKE_SPEC_ACCEPTANCE", "1.0")),
+        spec_sampled_acceptance=float(sampled) if sampled is not None else None,
+        spec_accept_floor=spec_accept_floor,
+        joules_per_token=float(os.environ.get("FAKE_JOULES_PER_TOKEN", "0.0")),
+        **{k: v for k, v in prefix_kwargs.items() if k != "prefix_index_entries"},
+    )
 
 
 def _replica_fleet(build_backend, replicas: int, models, roles, route_policy, probe_interval_ms, opts):

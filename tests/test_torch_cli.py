@@ -8,7 +8,12 @@ promise, whose device channel is the port's NVML one; and its four
 replica-router and multi-model cases (``--replicas`` / ``--route-policy``
 / ``--probe-interval-ms``, ``--model-policy`` / ``--escalate-max-tokens``,
 both together, ``serve-fleet --targets``), whose stand-in servers gain
-the ``stop()`` that the port's serve loop calls after ``serve_forever``.
+the ``stop()`` that the port's serve loop calls after ``serve_forever``;
+and its ten cases of ``serve``'s knobs (speculation on the engine and on
+the fake backend, per-model ``--quantize``, the scheduler, slice, chunk,
+TTFT-SLO, preemption and prefix-store options, each reaching the engine
+or the server), where ``--backend jax`` reads ``--backend torch`` and the
+engine is built on the CPU (``engines_built_on_the_cpu``).
 Then the port's own cases: ``serve --backend jax`` and ``serve-fleet``
 without ``--targets`` exit 2, ``--roles`` assigns the replicas' roles,
 ``serve
@@ -27,7 +32,7 @@ import pytest
 
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner import cli
 from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.runner.persistence import RunTableStore
-from test_torch_runner import PORT, TESTS, port_module, run_case
+from test_torch_runner import PORT, TESTS, engines_built_on_the_cpu, port_module, run_case
 from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 CLI_CASES = (
@@ -41,6 +46,16 @@ CLI_CASES = (
     "test_serve_model_policy_knobs",
     "test_serve_replicas_with_model_policy_builds_fleet_lanes",
     "test_serve_fleet_command_knobs",
+    "test_speculative_flag_parsing_handles_colon_names",
+    "test_serve_speculative_knobs_reach_engine_and_server",
+    "test_serve_fake_backend_speculative_knobs",
+    "test_serve_quantize_per_model_spec_parses",
+    "test_serve_scheduler_and_window_flags",
+    "test_serve_slice_and_chunk_knobs",
+    "test_serve_ttft_slo_knob",
+    "test_serve_preemption_knobs",
+    "test_serve_prefix_share_knobs",
+    "test_serve_prefix_store_budget_knobs",
 )
 CLI = port_module(
     "test_cli.py",
@@ -51,6 +66,7 @@ CLI = port_module(
             "        def serve_forever(self):\n            return None\n\n"
             "        def stop(self):\n            return None\n",
         ),
+        ('"--backend", "jax"', '"--backend", "torch"'),
     ),
 )
 
@@ -58,7 +74,8 @@ CLI = port_module(
 @pytest.mark.parametrize("name", CLI_CASES)
 def test_jax_cli_case_on_the_port(name, request):
     assert CLI.main is cli.main
-    run_case(getattr(CLI, name), request)
+    with engines_built_on_the_cpu():
+        run_case(getattr(CLI, name), request)
 
 
 @pytest.mark.parametrize("command", ["serve", "serve-fleet"])

@@ -37,7 +37,8 @@ from test_torch_runner import port_module
 from test_torch_runner import one_torch_thread  # noqa: F401  (one intra-op thread a module)
 
 # The framework-free cases of tests/test_profilers.py (integration,
-# synthetic, host, RAPL, the probe report, sysfs power).
+# synthetic, host, RAPL, the probe report, sysfs power, the decode step's
+# unpack-operation count).
 JAX_CASES = (
     "test_integrate_constant_power",
     "test_integrate_handles_missing_and_short",
@@ -54,6 +55,7 @@ JAX_CASES = (
     "test_sysfs_profiler_unavailable_degrades",
     "test_study_wires_sysfs_profiler_when_available",
     "test_hwmon_package_rail_selected_by_numeric_index",
+    "test_vpu_unpack_ops_accounting",
 )
 
 

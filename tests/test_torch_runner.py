@@ -7,6 +7,7 @@ drive the port's ``runner`` modules. Then one small config runs through
 both packages' controllers and their run tables must agree.
 """
 
+import contextlib
 import csv
 import inspect
 import json
@@ -60,14 +61,14 @@ def port_module(file_name: str, keep=(), renames=()) -> types.ModuleType:
     return mod
 
 
-def load_cases(namespace: dict, file_name: str, renames=(), leave_out=(), only=None) -> list:
+def load_cases(namespace: dict, file_name: str, renames=(), leave_out=(), only=None, keep=()) -> list:
     """Load the JAX package's test file ``file_name`` onto the port (see
-    :func:`port_module`) into ``namespace``, a test module's globals, so
-    that pytest collects its cases, fixtures and parametrizations there
-    as its own. The cases named in ``leave_out`` are not loaded, nor,
-    when ``only`` names some, any other. Returns the names of the loaded
-    cases."""
-    mod = port_module(file_name, renames=renames)
+    :func:`port_module`, which takes ``keep`` and ``renames``) into
+    ``namespace``, a test module's globals, so that pytest collects its
+    cases, fixtures and parametrizations there as its own. The cases
+    named in ``leave_out`` are not loaded, nor, when ``only`` names some,
+    any other. Returns the names of the loaded cases."""
+    mod = port_module(file_name, keep=keep, renames=renames)
     cases = [n for n in vars(mod) if n.startswith("test_") and callable(getattr(mod, n))]
     if only is not None:
         assert set(only) <= set(cases), set(only) - set(cases)
@@ -92,6 +93,39 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@contextlib.contextmanager
+def engines_built_on_the_cpu():
+    """``TorchEngine`` built as the loaded JAX cases build ``JaxEngine``:
+    on the CPU unless a case names a device (the port's engine runs on
+    the card unless told otherwise), and a JAX dtype such as
+    ``jnp.float32`` read as its torch twin. Nothing else of the engine
+    changes."""
+    import numpy as np
+    import torch
+
+    from cain_2025_device_remote_llm_energy_rep_pkg_tpu_torch.engine import torch_engine
+
+    init = torch_engine.TorchEngine.__init__
+
+    def on_the_cpu(self, registry=None, dtype=torch.bfloat16, *args, device="cpu", **kwargs):
+        if dtype is not None and not isinstance(dtype, torch.dtype):
+            dtype = getattr(torch, np.dtype(dtype).name)
+        init(self, registry, dtype, *args, device=device, **kwargs)
+
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(torch_engine.TorchEngine, "__init__", on_the_cpu)
+        yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def engines_on_the_cpu():
+    """:func:`engines_built_on_the_cpu` for a whole module, its
+    module-scoped fixtures included. Import it into a test module to
+    apply it there."""
+    with engines_built_on_the_cpu():
+        yield
 
 
 MODULES = {f: port_module(f) for f in FILES}

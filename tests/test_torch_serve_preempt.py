@@ -8,11 +8,11 @@ and the host-swap gauges return exactly to idle, a preempt during a
 pending join and a streaming row's delta cursor survive the park.
 
 Left out:
-- ``test_pagepool_swap_roundtrip_exact``,
-  ``test_pagepool_swap_refuses_shared_and_free_pages`` and
-  ``test_pagepool_swap_in_rejects_layout_mismatch``: they fill the pool
-  with jax arrays (``jnp``, ``jax.device_get``); the port's pool swap is
-  held in ``tests/test_torch_serving.py``.
+- ``test_pagepool_swap_roundtrip_exact``: it fills the pool with jax
+  arrays (``jnp``, ``jax.device_get``); the port's pool swap is held in
+  ``tests/test_torch_serving.py::test_pool_swap_round_trips_pages_exactly``.
+  The pool's two swap refusals (a shared or free page, a layout
+  mismatch) are loaded.
 - the parametrization ``paged-int8-recompute`` of
   ``test_preempt_resume_token_parity``: the port's paged session is the
   stacked one, which refuses ``recompute`` in both packages (the JAX
@@ -53,13 +53,9 @@ RENAMES = (
     ],''',
     ),
 )
-LEFT_OUT = (
-    "test_pagepool_swap_roundtrip_exact",
-    "test_pagepool_swap_refuses_shared_and_free_pages",
-    "test_pagepool_swap_in_rejects_layout_mismatch",
-)
+LEFT_OUT = ("test_pagepool_swap_roundtrip_exact",)
 CASES = load_cases(globals(), "test_preempt.py", renames=RENAMES, leave_out=LEFT_OUT)
 
 
 def test_every_preempt_case_is_loaded():
-    assert len(CASES) == 10
+    assert len(CASES) == 12

@@ -18,14 +18,15 @@ holds the stacked rules (a row pins its prompt's pages, the candidates
 sit in the side caches' k overshoot columns) where the JAX file asserts
 the scratch leaves and prompt-plus-budget pages of its kernel-less mode.
 
-Left out:
-- ``test_spec_stacked_vs_scratch_modes_agree``: the port has no scratch
-  (kernel-less) verify mode; ``tests/test_torch_spec_modes.py`` holds the
-  port's stacked session against the JAX package's scratch session.
-- ``test_spec_disabled_when_draft_cache_cannot_fit``: it fails on the
-  JAX package itself (the plain path retires that row at EOS after 83 of
-  its 128 tokens, though ``stop_at_eos=False``); ``tests/test_torch_spec_modes.py``
-  holds the port's own draft-fit rule against the port's plain path."""
+``test_spec_disabled_when_draft_cache_cannot_fit`` is loaded too: it
+fails on the JAX package itself (its plain path retires that row at EOS
+after 83 of its 128 tokens, though ``stop_at_eos=False``), and the port
+serves the row plain for all 128.
+
+Left out: ``test_spec_stacked_vs_scratch_modes_agree``: the port has no
+scratch (kernel-less) verify mode; ``tests/test_torch_spec_modes.py``
+holds the port's stacked session against the JAX package's scratch
+session."""
 
 from test_torch_runner import load_cases, one_torch_thread  # noqa: F401
 
@@ -50,12 +51,9 @@ RENAMES = (
     ),
     ("== -(-(100 + 40) // 128)", "== -(-100 // 128)"),
 )
-LEFT_OUT = (
-    "test_spec_stacked_vs_scratch_modes_agree",
-    "test_spec_disabled_when_draft_cache_cannot_fit",
-)
+LEFT_OUT = ("test_spec_stacked_vs_scratch_modes_agree",)
 CASES = load_cases(globals(), "test_spec_stepped.py", renames=RENAMES, leave_out=LEFT_OUT)
 
 
 def test_every_spec_stepped_case_is_loaded():
-    assert len(CASES) == 10
+    assert len(CASES) == 11
